@@ -1,26 +1,33 @@
-"""Carry the JAX package's weights into the port.
+"""Carry the JAX package's weights and optimizer state into the port.
 
-The JAX ``TransformerLM`` keeps its parameters as a nested dict whose key
-paths are those of ``paddle_tpu/nn/module.py`` ``Module.init``::
+A JAX model keeps its parameters as a nested dict whose key paths are
+those of ``paddle_tpu/nn/module.py`` ``Module.init``; for
+``TransformerLM``::
 
     embed/w, pos_embed, blocks_{i}/{ln1,ln2}/{gamma,beta},
     blocks_{i}/{qkv,proj,mlp_in,mlp_out}/{w,b}, ln_f/{gamma,beta}
 
-On the JAX side, ``jax.tree_util.tree_map(np.asarray, params)`` turns it
-into numpy arrays. The port stores ``Linear`` weights as [in, out], as
-JAX does, so nothing is transposed: the one layout change is the block
-list, ``blocks_{i}`` -> ``blocks.{i}``.
+and for ``LSTMTextCls``: ``embed/w``, ``w{i}``, ``u{i}``, ``b{i}``,
+``fc/w``, ``fc/b``. On the JAX side, ``jax.tree_util.tree_map(np.asarray,
+params)`` turns it into numpy arrays. The port stores ``Linear`` weights
+as [in, out], as JAX does, so nothing is transposed: the one layout
+change is the transformer's block list, ``blocks_{i}`` -> ``blocks.{i}``.
+
+An optimizer state (``{"step", "slots": {<param path>: {"m", "v"}}}`` for
+Adam) has the same layout in both packages; ``tree_from_numpy`` carries
+it, or any nested dict of arrays, across as it is.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from .core.place import DeviceLike, resolve_device
+from .core.pytree import tree_map
 
 _BLOCK = re.compile(r"^blocks_(\d+)$")
 
@@ -62,3 +69,12 @@ def params_from_numpy(tree: Mapping, model: torch.nn.Module,
     for p in model.parameters():
         p.requires_grad_(False)
     return model
+
+
+def tree_from_numpy(tree: Mapping, device: DeviceLike = None
+                    ) -> Dict[str, Any]:
+    """A nested dict of numpy arrays (a JAX optimizer state or parameter
+    tree) as the same nested dict of tensors on ``device`` (default: the
+    card), dtypes kept (Adam's ``step`` stays an int32 scalar)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)

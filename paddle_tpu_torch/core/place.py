@@ -26,3 +26,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def require_device(device: DeviceLike = None) -> torch.device:
+    """``resolve_device`` that raises at once when the device is the card
+    and there is none (an entry point then fails where it is built)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to run on the "
+                           "CPU")
+    return dev

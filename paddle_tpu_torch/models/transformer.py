@@ -22,8 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.place import DeviceLike, resolve_device
-from ..nn import Embedding, Layer, LayerNorm, Linear, run_initializers
+from ..nn import Embedding, LayerNorm, Linear, Module
 from ..nn.initializer import normal
 from ..ops import cuda_kernels as ck
 
@@ -71,7 +70,7 @@ class TransformerBlock(nn.Module):
         return self.finish(x, self.attend(q, k, v, route=route))
 
 
-class TransformerLM(Layer):
+class TransformerLM(Module):
     """GPT-style LM: token + learned position embeddings, N pre-LN blocks,
     final LN, head tied to the token embedding.
 
@@ -90,15 +89,6 @@ class TransformerLM(Layer):
         self.blocks = nn.ModuleList(TransformerBlock(d_model, n_heads, d_ff)
                                     for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model)
-
-    def init(self, seed: int = 0, device: DeviceLike = None
-             ) -> "TransformerLM":
-        """Random weights drawn from ``torch.Generator().manual_seed(seed)``
-        with the distributions of the JAX model, on ``device`` (default:
-        the card; no card -> this raises)."""
-        self.to_empty(device=resolve_device(device))
-        run_initializers(self, torch.Generator().manual_seed(seed))
-        return self
 
     @property
     def device(self) -> torch.device:

@@ -1,3 +1,4 @@
-from .layers import Embedding, Layer, LayerNorm, Linear, run_initializers
+from .layers import Embedding, LayerNorm, Linear
+from .module import Module, run_initializers
 
-__all__ = ["Embedding", "Layer", "LayerNorm", "Linear", "run_initializers"]
+__all__ = ["Embedding", "LayerNorm", "Linear", "Module", "run_initializers"]

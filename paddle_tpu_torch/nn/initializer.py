@@ -10,6 +10,7 @@ them agreeing — weights cross over through ``convert.params_from_numpy``.)
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -33,4 +34,23 @@ def normal(mean: float = 0.0, std: float = 1.0) -> Initializer:
         draw = torch.randn(p.shape, generator=gen, dtype=torch.float32)
         with torch.no_grad():
             p.copy_(mean + std * draw)
+    return init
+
+
+def uniform(low: float = -1.0, high: float = 1.0) -> Initializer:
+    def init(p: torch.Tensor, gen: torch.Generator) -> None:
+        draw = torch.rand(p.shape, generator=gen, dtype=torch.float32)
+        with torch.no_grad():
+            p.copy_(low + (high - low) * draw)
+    return init
+
+
+def xavier() -> Initializer:
+    """Glorot uniform over (fan_in, fan_out) of a [in, out] matrix, the JAX
+    ``xavier()`` default of ``Linear``."""
+    def init(p: torch.Tensor, gen: torch.Generator) -> None:
+        fan_in, fan_out = (p.shape[0], p.shape[0]) if p.dim() == 1 \
+            else (p.shape[-2], p.shape[-1])
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        uniform(-limit, limit)(p, gen)
     return init

@@ -1,58 +1,36 @@
-"""Core layers — the part of ``paddle_tpu/nn/layers.py`` the transformer
-needs: ``Linear``, ``Embedding`` and ``LayerNorm``.
+"""Core layers — the part of ``paddle_tpu/nn/layers.py`` the ported models
+need: ``Linear``, ``Embedding`` and ``LayerNorm``, with the JAX layers'
+default initializers (``Linear.w`` xavier-uniform, ``Embedding.w``
+normal(0, 0.01)).
 
 Parameters keep the JAX package's names and layouts (``Linear.w`` is
 [in, out] and the layer computes ``x @ w + b``), so a JAX parameter tree
 loads without reshaping (``paddle_tpu_torch/convert.py``). A layer is
 built with its parameters on the ``meta`` device; the owning model's
 ``init`` materializes them on a real device and runs the initializers in
-``_inits``.
+``_inits`` (``nn/module.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
-from torch import nn
 
 from ..ops import activations as A
 from ..ops import norm as norm_ops
 from . import initializer as I
+from .module import Module
 
 
-def _meta(*shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device="meta"),
-                        requires_grad=False)
-
-
-class Layer(nn.Module):
-    """A module whose parameters each carry an initializer."""
-
-    def __init__(self):
-        super().__init__()
-        self._inits: Dict[str, I.Initializer] = {}
-
-    def param(self, name: str, shape, init: I.Initializer) -> None:
-        self.register_parameter(name, _meta(*shape))
-        self._inits[name] = init
-
-
-def run_initializers(root: nn.Module, gen: torch.Generator) -> None:
-    """Run every layer's initializers below ``root`` in module order."""
-    for mod in root.modules():
-        for name, init in getattr(mod, "_inits", {}).items():
-            init(getattr(mod, name), gen)
-
-
-class Linear(Layer):
+class Linear(Module):
     def __init__(self, in_dim: int, out_dim: int, act: Optional[str] = None,
                  bias: bool = True, w_init: Optional[I.Initializer] = None):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.act = None if act is None else A.get(act)
         self.use_bias = bias
-        self.param("w", (in_dim, out_dim), w_init or I.normal(0.0, 0.02))
+        self.param("w", (in_dim, out_dim), w_init or I.xavier())
         if bias:
             self.param("b", (out_dim,), I.zeros)
 
@@ -63,7 +41,7 @@ class Linear(Layer):
         return y if self.act is None else self.act(y)
 
 
-class Embedding(Layer):
+class Embedding(Module):
     def __init__(self, vocab_size: int, dim: int,
                  w_init: Optional[I.Initializer] = None):
         super().__init__()
@@ -74,7 +52,7 @@ class Embedding(Layer):
         return self.w[ids.long()]
 
 
-class LayerNorm(Layer):
+class LayerNorm(Module):
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps

@@ -1,3 +1,5 @@
-from . import activations, cuda_kernels, norm
+from . import (activations, cuda_kernels, loss, norm, rnn, rnn_kernels,
+               sequence)
 
-__all__ = ["activations", "cuda_kernels", "norm"]
+__all__ = ["activations", "cuda_kernels", "loss", "norm", "rnn",
+           "rnn_kernels", "sequence"]

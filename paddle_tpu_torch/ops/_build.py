@@ -46,6 +46,10 @@ SIGNATURES = {
     "paddle_paged_decode_attention": [_p, _p, _p, _p, _p, _p,
                                       _i32, _i32, _i32, _i32, _i32,
                                       _i64, _i64, _f32, _i32, _p],
+    "paddle_lstm_seq": [_p] * 10 + [_i32, _i32, _i32, _f32, _i32, _p],
+    "paddle_lstm_seq_train": [_p] * 11 + [_i32, _i32, _i32, _f32, _i32, _p],
+    "paddle_lstm_seq_bwd": [_p] * 17 + [_i32, _i32, _i32, _f32, _i32, _p],
+    "paddle_lstm_batch_tile": [],
 }
 
 

@@ -35,8 +35,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64,)
 
+#: launches of every kernel of the port, by kernel (the LSTM wrappers of
+#: ops/rnn_kernels.py count here too)
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0,
+                            "lstm_seq": 0, "lstm_seq_train": 0,
+                            "lstm_seq_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,7 +66,8 @@ def _check_float(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: dtype {t.dtype} not taken by the kernel "
                         "(float32 or bfloat16)")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype} differs from q's {dtype}")
+        raise TypeError(f"{name}: dtype {t.dtype} differs from the call's "
+                        f"{dtype}")
 
 
 def _stream(device: torch.device) -> int:

@@ -22,6 +22,7 @@ import torch
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import cuda_kernels as ck
+from paddle_tpu_torch.ops import rnn_kernels as rk
 
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parent.parent
@@ -131,8 +132,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.paged_decode_attention(*arrs, route="plain")
     q = torch.randn(1, 8, 2, 64)
     ck.flash_attention(q, q, q, causal=True)
+    xw, u = torch.randn(2, 3, 32), torch.randn(8, 32)
+    out, _, _, c_seq = rk.lstm_sequence_fused(xw, torch.tensor([3, 1]), u,
+                                              save_cell=True)
+    z = torch.zeros(2, 8)
+    rk.lstm_sequence_fused_bwd(xw, torch.tensor([3, 1]), u, torch.zeros(32),
+                               z, z, out, c_seq, out, z, z)
     assert ck.LAUNCHES == {"flash_attention_fwd": 0,
-                           "paged_decode_attention": 0}
+                           "paged_decode_attention": 0, "lstm_seq": 0,
+                           "lstm_seq_train": 0, "lstm_seq_bwd": 0}
     for route in ("dense", "kernel"):
         with pytest.raises(ValueError, match="unknown route"):
             ck.paged_decode_attention(*arrs, route=route)
@@ -193,5 +201,6 @@ def test_build_hash_tracks_sources_and_flags():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
-    assert {"flash_fwd.cu", "paged_decode.cu", "common.cuh"} <= names
+    assert {"flash_fwd.cu", "paged_decode.cu", "common.cuh", "lstm_seq.cu",
+            "lstm_seq_bwd.cu", "lstm.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
