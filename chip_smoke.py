@@ -27,7 +27,24 @@ Phases:
    ``Trainer.test`` over 2 held batches: one launch of the training
    forward and of the backward kernel per step, the inference kernel in
    the test pass, a falling loss, one f32 step equal to the plain
-   versions' step, and ms per step.
+   versions' step, and ms per step;
+6. flash backward — the dq (#2) and dk/dv (#3) kernels against the plain
+   backward in f32 and bf16 at the LM shape (B=8, T=S=1023, H=12,
+   causal), the NMT shape (B=64, T=S=64, H=8, lengths 32..64 and a 0), a
+   cross-attention shape with S != T and q/k/v as strided views of one
+   fused projection; at the LM shape each kernel's time, the plain
+   version's, the SDPA backward's and the bounds. The forward (#1) is
+   held against its plain version at the same shapes and timed at the
+   LM's;
+7. LM training — GPT-2 small (vocab 32768, d_model 768, 12 heads, 12
+   layers, batch 8 x 1024 tokens; random weights and ids from the seed)
+   trained by ``Trainer.train`` for 12 Adam steps over 2 batches in bf16
+   over f32 master weights: 12 launches of each attention kernel a step,
+   a falling loss on batch 0, one f32 step equal to the plain versions'
+   step, ms per step and a profile;
+8. NMT training — the transformer NMT (vocab 30000/30000, d_model 512, 8
+   heads, 6+6 layers, batch 64, lengths 32..64) likewise for 12 steps
+   over 4 batches: 18 launches of each attention kernel a step.
 
 Prints ``{"kernels": [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -416,10 +433,12 @@ def profile_breakdown(say, what: str, run, wall: float) -> None:
         say(f"profile {what}: the profiler saw no device time (not measured)")
         return
     rows.sort(reverse=True)
+    port_s = sum(r[0] for r in rows if "paddle_tpu_torch" in r[2]) / 1e6
     say(f"profile {what}: device kernel time {dev_s * 1e3:.3f} ms, "
         f"wall {wall * 1e3:.3f} ms unprofiled / {wall_prof * 1e3:.3f} ms "
         f"profiled, device busy share {dev_s / wall:.4f}, "
-        f"{sum(r[1] for r in rows)} kernel launches")
+        f"{sum(r[1] for r in rows)} kernel launches, the port's own "
+        f"kernels {port_s * 1e3:.3f} ms ({100 * port_s / dev_s:.1f}%)")
     for us, n, name in rows[:8]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e6 / dev_s:5.1f}% "
               f"x{n:<6d} {name[:90]}")
@@ -635,18 +654,24 @@ def textcls_batches(seed: int, n: int, device, batch=TEXTCLS_BATCH,
     return out
 
 
+def cast_tree(params, dtype):
+    """The benchmarks' mixed precision: f32 leaves cast to ``dtype`` (the
+    f32 masters stay the optimizer's)."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_map
+    return tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32
+                    else a, params)
+
+
 def bf16_loss(model):
     """The benchmark's loss: params cast to bf16 (f32 master weights stay
     the optimizer's), the forward in bf16, the loss as f32."""
     import torch
     from paddle_tpu_torch.core import SeqBatch
-    from paddle_tpu_torch.core.pytree import tree_map
 
     def loss_fn(params, data, lengths, labels):
-        p16 = tree_map(lambda a: a.to(torch.bfloat16)
-                       if a.dtype == torch.float32 else a, params)
-        return model.call(p16, SeqBatch(data, lengths),
-                          labels).to(torch.float32)
+        return model.call(cast_tree(params, torch.bfloat16),
+                          SeqBatch(data, lengths), labels).to(torch.float32)
     return loss_fn
 
 
@@ -771,6 +796,472 @@ def training_phase(say, seed: int, device="cuda", config=TEXTCLS,
     return launches, steps
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the flash-attention backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_KERNELS = (
+    ("flash_attention_bwd_dq", "paddle_tpu/ops/pallas_kernels.py:123",
+     "_fa_bwd_dq_kernel"),
+    ("flash_attention_bwd_dkv", "paddle_tpu/ops/pallas_kernels.py:168",
+     "_fa_bwd_dkv_kernel"),
+)
+# (name, B, T, S, H, causal, lengths, q/k/v as views of one fused
+# projection): (a) the LM's, T = 1023 as the loss shifts a 1024-token
+# batch; (b) the NMT's self-attention, lengths 32..64 and one 0 (clamped
+# to 1 by the wrapper); (c) a cross-attention shape with S != T; (d) the
+# strided views the models hand over
+BWD_SHAPES = (
+    ("lm", 8, 1023, 1023, 12, True, None, False),
+    ("nmt", 64, 64, 64, 8, False, "nmt", False),
+    ("cross", 16, 100, 77, 8, False, "any", False),
+    ("fused", 4, 300, 300, 12, True, "any", True),
+)
+HEAD_DIM = 64
+
+
+def _bwd_lens(kind, B, S, rs):
+    import numpy as np
+    if kind is None:
+        return None
+    lo = NMT_MIN_LEN if kind == "nmt" else 1
+    lens = rs.randint(lo, S + 1, B).astype(np.int32)
+    lens[1] = 0 if kind == "nmt" else S
+    return lens
+
+
+def _bwd_inputs(B, T, S, H, causal, lens, fused, dtype, gen, device):
+    """(q, k, v, o, lse, do) and kv_lens: o and lse from the plain forward,
+    do a unit-scale cotangent."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    D = HEAD_DIM
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(device, dtype)
+    if fused:
+        q, k, v = _qkv_views(B, T, H, D, dtype, gen, device)
+    else:
+        q, k, v = rnd(B, T, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+    kv = None if lens is None else torch.as_tensor(lens, device=device)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=kv,
+                                    route="plain")
+    return (q, k, v, o, lse, rnd(B, T, H, D)), kv
+
+
+def live_pairs(T, S, causal, lens, B):
+    """(q, k) pairs the kernels compute for these lengths (clamped to
+    [1, S] as the wrapper clamps them), summed over the batch."""
+    total = 0
+    for n in ([S] * B if lens is None else [min(max(int(x), 1), S)
+                                            for x in lens]):
+        if causal:
+            m = min(n, T)
+            total += m * (m + 1) // 2 + (T - m) * n
+        else:
+            total += T * n
+    return total
+
+
+def bwd_close(got, want, what, dtype_name):
+    """Hold an attention output against the plain version's; returns the max
+    abs error. f32: summation order only (rtol 1e-4, atol 2e-5 of the
+    largest magnitude: a dk entry sums up to T products); bf16: the same
+    f32 values rounded once, so one bf16 ulp (rtol 2**-7) on top."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    atol = 2e-5 * w.abs().max().item()
+    rtol = 1e-4 if dtype_name == "float32" else 2.0 ** -7
+    check(torch.allclose(g, w, atol=atol, rtol=rtol),
+          f"{what} {dtype_name} differs from plain: max abs {err} (atol "
+          f"{atol}, rtol {rtol})")
+    return err
+
+
+def flash_bwd_checks(say, seed: int, device="cuda"):
+    """#2 and #3 against the plain backward in f32 and bf16 at the four
+    BWD_SHAPES (masked keys' dk/dv exactly 0); at the LM shape also each
+    kernel's time, the plain version's, the SDPA backward's and the
+    bounds. The forward (#1) is held against its plain version at the
+    same shapes and timed at the LM's. Returns #1's results at these
+    shapes and the two backward kernels' JSON entries (bf16 numbers
+    first: the training paths run bf16)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    rs = np.random.RandomState(seed + 5)
+    gen = torch.Generator().manual_seed(seed + 6)
+    entries = {name: {"name": name, "route": "cuda",
+                      "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+                      "replaces": rep, "replaces_kernel": body}
+               for name, rep, body in FLASH_BWD_KERNELS}
+    fwd = {}
+    for tag, B, T, S, H, causal, kind, fused in BWD_SHAPES:
+        lens = _bwd_lens(kind, B, S, rs)
+        for dt, dname in ((torch.float32, "float32"),
+                          (torch.bfloat16, "bfloat16")):
+            args, kv = _bwd_inputs(B, T, S, H, causal, lens, fused, dt, gen,
+                                   device)
+            if fused:
+                check(not args[0].is_contiguous()
+                      and args[0].stride(1) == 3 * H * HEAD_DIM,
+                      "q is not the strided view the model passes")
+            o, lse = ck.flash_attention_fwd(*args[:3], causal=causal,
+                                            kv_lens=kv)
+            fwd_res = {"max_abs_err": bwd_close(o, args[3], f"flash fwd {tag}",
+                                                dname)}
+            check(torch.allclose(lse, args[4], atol=F32_ATOL, rtol=F32_RTOL),
+                  f"flash fwd {tag} {dname} lse differs from plain")
+            if tag == "lm":
+                fwd_res.update(_fwd_times(B, T, H, dt, dname, gen, device))
+            say(f"flash_attention_fwd {tag} {dname}: {json.dumps(fwd_res)}")
+            fwd[f"{tag}_{dname}"] = fwd_res
+            got = ck.flash_attention_bwd(*args, causal=causal, kv_lens=kv)
+            want = ck.flash_attention_bwd(*args, causal=causal, kv_lens=kv,
+                                          route="plain")
+            torch.cuda.synchronize()
+            errs = [bwd_close(g, w, f"flash bwd {tag} {nm}", dname)
+                    for nm, g, w in zip(("dq", "dk", "dv"), got, want)]
+            if lens is not None:
+                for b, n in enumerate(np.clip(lens, 1, S)):
+                    check(not got[1][b, n:].any() and not got[2][b, n:].any(),
+                          f"flash bwd {tag}: masked keys of sample {b} have "
+                          "nonzero dk/dv")
+            res = {"flash_attention_bwd_dq": {"max_abs_err": errs[0]},
+                   "flash_attention_bwd_dkv": {"max_abs_err": max(errs[1:])}}
+            if tag == "lm":
+                for name, r in _bwd_times(B, T, S, H, causal, lens, dt, dname,
+                                          gen, device).items():
+                    res[name].update(r)
+            say(f"flash_attention_bwd {tag} B={B} T={T} S={S} H={H} "
+                f"{'causal' if causal else 'non-causal'} {dname}: "
+                f"{json.dumps(res)}")
+            for name, r in res.items():
+                e = entries[name]
+                if tag == "lm" and dt == torch.bfloat16:
+                    e.update(r)
+                    e["dtype"] = dname
+                    e["shape"] = (f"B={B} T=S={T} H={H} D={HEAD_DIM} causal "
+                                  "(the LM's)")
+                else:
+                    e[f"{tag}_{dname}"] = r
+    return fwd, [entries[name] for name, _, _ in FLASH_BWD_KERNELS]
+
+
+def _fwd_times(B, T, H, dt, dname, gen, device):
+    """#1 at the LM's training shape (causal, S = T): its time, the plain
+    version's, SDPA's and the bound, as phase 2 takes them."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    D = HEAD_DIM
+    esize = torch.empty((), dtype=dt).element_size()
+    sets = input_sets(lambda i: _qkv_views(B, T, H, D, dt, gen, device),
+                      3 * B * T * H * D * esize)
+    ms = time_ms([lambda s=s: ck.flash_attention_fwd(*s, causal=True)
+                  for s in sets])
+    plain_ms = time_ms([lambda s=s: ck.flash_attention_fwd(
+        *s, causal=True, route="plain") for s in sets], rounds=1, reps=2)
+    lib_ms = time_ms([lambda s=s: F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in s), is_causal=True) for s in sets])
+    del sets
+    b_ms, b_by = bound(4.0 * D * H * live_pairs(T, T, True, None, B),
+                       4 * B * T * H * D * esize + B * T * H * 4, dname)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
+    """Each kernel's time (CUDA graph over input sets larger than L2), the
+    plain backward's and the SDPA backward's (both compute dq, dk and dv:
+    they stand against the pair), and each kernel's bound: its products
+    over the live pairs (6*D operations a pair for dq, 8*D for dk/dv)
+    against each input read and each output written once."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    D = HEAD_DIM
+    esize = torch.empty((), dtype=dt).element_size()
+    q_el, k_el, row = B * T * H * D, B * S * H * D, B * T * H * 4
+    sets = input_sets(lambda i: _bwd_inputs(B, T, S, H, causal, lens, False,
+                                            dt, gen, device)[0],
+                      (3 * q_el + 2 * k_el) * esize)
+    runs = [ck.FlashBwdLaunch(*s, causal, D ** -0.5, None, None)
+            for s in sets]
+    for r in runs:
+        r.dq()                         # delta for the dk/dv timing
+    dq_ms = time_ms([r.dq for r in runs])
+    dkv_ms = time_ms([r.dkv for r in runs])
+    del runs
+    plain_ms = time_ms([lambda s=s: ck.flash_attention_bwd(
+        *s, causal=causal, route="plain") for s in sets], rounds=1, reps=2)
+    lib_ms = sdpa_bwd_ms(sets, causal)
+    del sets
+    pairs = live_pairs(T, S, causal, lens, B) * H
+    dq_bytes = (4 * q_el + 2 * k_el) * esize + 2 * row   # + delta written
+    dkv_bytes = (2 * q_el + 4 * k_el) * esize + 2 * row
+    note = "the whole backward (dq, dk, dv): stands against the pair"
+    out = {}
+    for name, ms, flops, nbytes in (
+            ("flash_attention_bwd_dq", dq_ms, 6.0 * D * pairs, dq_bytes),
+            ("flash_attention_bwd_dkv", dkv_ms, 8.0 * D * pairs, dkv_bytes)):
+        b_ms, b_by = bound(flops, nbytes, dname)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "pair_ms": dq_ms + dkv_ms, "live_pairs": pairs,
+                     "plain_note": "the plain backward: " + note,
+                     "library_note": "F.scaled_dot_product_attention "
+                                     "backward through autograd, eager, "
+                                     "CUDA events; " + note}
+    return out
+
+
+def sdpa_bwd_ms(sets, causal: bool, reps: int = 5) -> float:
+    """Mean time of the backward of ``F.scaled_dot_product_attention`` over
+    the input sets (in its [B, H, T, D] layout), replayed eagerly from one
+    retained autograd graph per set and timed with CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    calls = []
+    for q, k, v, o, lse, do in sets:
+        ins = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+               for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*ins, is_causal=causal)
+        g = do.transpose(1, 2).contiguous()
+        calls.append(lambda out=out, ins=ins, g=g: torch.autograd.grad(
+            out, ins, g, retain_graph=True))
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for c in calls:
+            c()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: training GPT-2 small and the transformer NMT
+# ---------------------------------------------------------------------------
+
+# benchmarks/transformer_lm.py:19-25: GPT-2 small with vocab 32768, batch 8
+# of 1024 tokens, 2 batches (NBUF), Adam 3e-4, bf16 over f32 master weights
+GPT2_TRAIN = dict(vocab=32768, d_model=768, n_heads=12, n_layers=12,
+                  d_ff=3072, max_len=1024)
+LM_BATCH, LM_SEQ, LM_NBUF, LM_PASSES, LM_LR = 8, 1024, 2, 6, 3e-4
+# benchmarks/transformer_nmt.py:22-27: d512, 8 heads, 6+6 layers, vocab
+# 30000/30000, length 64 with lengths 32..64, batch 64, 4 batches, Adam
+# 1e-3, bf16 over f32 master weights
+NMT_TRAIN = dict(src_vocab=30000, trg_vocab=30000, d_model=512, n_heads=8,
+                 n_enc=6, n_dec=6, max_len=64)
+NMT_BATCH, NMT_SEQ, NMT_MIN_LEN, NMT_NBUF, NMT_PASSES, NMT_LR = \
+    64, 64, 32, 4, 3, 1e-3
+ATTENTION_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv")
+
+
+def lm_loss(model, dtype, route=None):
+    def loss_fn(params, ids):
+        return model.call(cast_tree(params, dtype), ids, method="loss",
+                          route=route).float()
+    return loss_fn
+
+
+def nmt_loss(model, dtype, route=None):
+    from paddle_tpu_torch.core import SeqBatch
+
+    def loss_fn(params, src, slen, tin, tout, tlen):
+        return model.call(cast_tree(params, dtype), SeqBatch(src, slen),
+                          SeqBatch(tin, tlen), SeqBatch(tout, tlen),
+                          method="loss", route=route).float()
+    return loss_fn
+
+
+def transformer_step_check(say, what, loss_for_route, params, batch, lr,
+                           per_step, device):
+    """One f32 Adam step through the kernels against the same step with the
+    plain versions, on the card. Tolerances: the loss to rtol 1e-6; each
+    gradient (read as Adam's first moment m = 0.1 g) to 1e-4 of its L2
+    norm (an entry is a sum of many terms whose size, not the entry's,
+    sets its rounding); the parameters to 1e-5 plus what the first Adam
+    step lr*g/(|g|+eps) makes of a gradient difference of 1e-4 of the
+    entry and of the tensor's rms (where g is rounding noise, as for the
+    key bias whose gradient is zero analytically, the step divides it by
+    eps). Each attention kernel launches ``per_step`` times on the kernel
+    route and never on the plain one."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_get, tree_items
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    res = {}
+    for route in (None, "plain"):
+        tr = Trainer(loss_for_route(route), Adam(lr), device=device)
+        before = dict(ck.LAUNCHES)
+        res[route] = tr.step(params, tr.opt.init(params), *batch)
+        torch.cuda.synchronize()
+        launched = {n: ck.LAUNCHES[n] - before[n] for n in ATTENTION_KERNELS}
+        want = {n: per_step if route is None else 0 for n in ATTENTION_KERNELS}
+        check(launched == want, f"{what} f32 step, route {route}: launches "
+              f"{launched} != {want}")
+    (pk, sk, lk), (pp, sp, lp) = res[None], res["plain"]
+    check(abs(lk.item() - lp.item()) <= 1e-6 * abs(lp.item()),
+          f"{what} f32 loss {lk.item()} != plain {lp.item()}")
+    worst_g, worst_p, eps = 0.0, 0.0, 1e-8
+    for path, b in tree_items(pp):
+        name = "/".join(path)
+        mk = tree_get(sk["slots"], path)["m"]
+        mp = tree_get(sp["slots"], path)["m"]
+        rel = (torch.linalg.vector_norm(mk - mp)
+               / torch.linalg.vector_norm(mp).clamp_min(1e-30)).item()
+        check(rel <= 1e-4, f"{what} f32 step: gradient {name} differs from "
+              f"plain: relative L2 {rel}")
+        g = mp.abs() / 0.1
+        dg = 1e-4 * (g + g.square().mean().sqrt())
+        allowed = 1e-5 + lr * dg * eps / (g + eps) ** 2
+        diff = (tree_get(pk, path) - b).abs()
+        check(bool((diff <= allowed).all()), f"{what} f32 step: param {name} "
+              f"differs from plain by {diff.max().item()}")
+        worst_g, worst_p = max(worst_g, rel), max(worst_p,
+                                                  diff.max().item())
+    say(f"{what} f32 training step, kernels vs plain on the card: loss "
+        f"{lk.item():.6f} vs {lp.item():.6f}; worst gradient relative L2 "
+        f"{worst_g:.3e}; worst parameter difference {worst_p:.3e}")
+
+
+def train_and_time(say, what, trainer, params, batches, passes, per_step,
+                   device, warmup=2):
+    """``Trainer.train`` over ``batches`` for ``passes`` passes with the
+    launch counts set to 0 just before and read just after; checks the
+    counts (``per_step`` of each attention kernel a step), finite costs
+    and a falling loss on batch 0; prints ms per step and a profile.
+    Returns the counts and the number of steps."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.trainer import event
+    before = trainer.test(lambda: batches[:1], params)["cost"]
+    stamps, costs = [], []
+
+    def on_event(e):
+        if isinstance(e, event.EndIteration):
+            stamps.append(time.perf_counter())
+            costs.append(e.cost)
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state = trainer.train(lambda: batches, params,
+                                  num_passes=passes, event_handler=on_event)
+    launches = dict(ck.LAUNCHES)
+    after = trainer.test(lambda: batches[:1], params)["cost"]
+    steps = passes * len(batches)
+    say(f"{what} training: {steps} steps, costs {json.dumps(costs)}; batch "
+        f"0 cost before {before} after {after}; launches {launches}")
+    check(len(costs) == steps and int(state["step"]) == steps,
+          f"{what}: {len(costs)} steps ran, want {steps}")
+    check(all(np.isfinite(costs)), f"{what}: a non-finite cost")
+    check(after < before, f"{what}: batch 0 cost did not fall: {before} -> "
+          f"{after}")
+    for n in ATTENTION_KERNELS:
+        check(launches[n] == per_step * steps,
+              f"{what}: {n} launched {launches[n]} times, want {per_step} "
+              f"x {steps} steps")
+    step_ms = np.diff([t0] + stamps)[warmup:] * 1e3
+    fig = {"steps_timed": len(step_ms),
+           "ms_per_step_median": float(np.median(step_ms)),
+           "ms_per_step_p10": float(np.percentile(step_ms, 10)),
+           "ms_per_step_p90": float(np.percentile(step_ms, 90)),
+           "ms_per_step_min": float(step_ms.min()),
+           "ms_per_step_max": float(step_ms.max()),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_step": {n: launches[n] / steps
+                                 for n in ATTENTION_KERNELS}}
+    say(f"{what} training smoke figures (not a benchmark): "
+        f"{json.dumps(fig)}")
+    run = lambda: trainer.train(lambda: batches[:2], params)
+    walls = []
+    for _ in range(2):       # the faster of two: the host's load varies
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    profile_breakdown(say, f"bf16 {what} training (2 steps)", run,
+                      min(walls))
+    return launches, steps
+
+
+def lm_training_phase(say, seed: int, device="cuda", config=GPT2_TRAIN,
+                      batch=LM_BATCH, seq=LM_SEQ, passes=LM_PASSES):
+    """GPT-2 small trained by ``Trainer.train`` (bf16 over f32 masters,
+    Adam) over the benchmark's 2 batches of random token ids; before
+    that, one f32 step against the plain route's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    model = TransformerLM(**config).init(seed=seed, device=device)
+    rs = np.random.RandomState(seed)
+    batches = [(torch.as_tensor(rs.randint(0, config["vocab"], (batch, seq))
+                                .astype(np.int32), device=device),)
+               for _ in range(LM_NBUF)]
+    per_step = config["n_layers"]
+    transformer_step_check(say, "LM", lambda r: lm_loss(model, torch.float32,
+                                                         r),
+                           model.tree(), batches[0], LM_LR, per_step, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(lm_loss(model, torch.bfloat16), Adam(LM_LR),
+                      device=device)
+    return train_and_time(say, "LM", trainer, model.tree(), batches, passes,
+                          per_step, device)
+
+
+def nmt_batches(seed: int, n: int, device, batch=NMT_BATCH, seq=NMT_SEQ,
+                vocab=NMT_TRAIN["src_vocab"]):
+    """``n`` batches (src, src_lens, trg_in, trg_out, trg_lens) as the
+    benchmark draws them: ids in 3..vocab, lengths in 32..64."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = [rs.randint(3, vocab, (batch, seq)) for _ in range(3)]
+        lens = [rs.randint(NMT_MIN_LEN, seq + 1, batch) for _ in range(2)]
+        src, tin, tout = ids
+        out.append(tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                         for a in (src, lens[0], tin, tout, lens[1])))
+    return out
+
+
+def nmt_training_phase(say, seed: int, device="cuda", config=NMT_TRAIN,
+                       passes=NMT_PASSES):
+    """The transformer NMT trained by ``Trainer.train`` (bf16 over f32
+    masters, Adam) over the benchmark's 4 batches; before that, one f32
+    step against the plain route's."""
+    import torch
+    from paddle_tpu_torch.models import TransformerSeq2Seq
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    model = TransformerSeq2Seq(**config).init(seed=seed, device=device)
+    batches = nmt_batches(seed, NMT_NBUF, device)
+    # encoder self-, decoder self- and cross-attention in every layer pair
+    per_step = config["n_enc"] + 2 * config["n_dec"]
+    transformer_step_check(say, "NMT", lambda r: nmt_loss(model,
+                                                          torch.float32, r),
+                           model.tree(), batches[0], NMT_LR, per_step,
+                           device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(nmt_loss(model, torch.bfloat16), Adam(NMT_LR),
+                      device=device)
+    return train_and_time(say, "NMT", trainer, model.tree(), batches, passes,
+                          per_step, device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -810,7 +1301,20 @@ def main(argv=None) -> int:
         entry["launches"] = launches[entry["name"]]
         entry["launches_note"] = (f"{steps} training steps, then a test "
                                   "pass over 2 batches")
-    print(json.dumps({"kernels": [flash, paged] + lstm, "card": card}))
+    flash["training_shapes"], bwd = flash_bwd_checks(say, args.seed)
+    lm_launches, lm_steps = lm_training_phase(say, args.seed)
+    nmt_launches, nmt_steps = nmt_training_phase(say, args.seed)
+    for entry in bwd:
+        name = entry["name"]
+        entry["launches"] = lm_launches[name] + nmt_launches[name]
+        entry["launches_note"] = (
+            f"{lm_launches[name]} in {lm_steps} LM training steps + "
+            f"{nmt_launches[name]} in {nmt_steps} NMT training steps")
+    flash["launches_training"] = {
+        "lm": lm_launches["flash_attention_fwd"],
+        "nmt": nmt_launches["flash_attention_fwd"]}
+    print(json.dumps({"kernels": [flash] + bwd + [paged] + lstm,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,15 @@ and for ``LSTMTextCls``: ``embed/w``, ``w{i}``, ``u{i}``, ``b{i}``,
 ``fc/w``, ``fc/b``. On the JAX side, ``jax.tree_util.tree_map(np.asarray,
 params)`` turns it into numpy arrays. The port stores ``Linear`` weights
 as [in, out], as JAX does, so nothing is transposed: the one layout
-change is the transformer's block list, ``blocks_{i}`` -> ``blocks.{i}``.
+change is a block list, which JAX names ``blocks_{i}`` (``enc_blocks_{i}``,
+``dec_blocks_{i}`` in the NMT model) and the port keeps in a
+``ModuleList`` (``blocks.{i}``; ``Module.tree()`` gives ``blocks/{i}``).
 
 An optimizer state (``{"step", "slots": {<param path>: {"m", "v"}}}`` for
-Adam) has the same layout in both packages; ``tree_from_numpy`` carries
-it, or any nested dict of arrays, across as it is.
+Adam) has the params' layout under ``slots``; ``tree_from_numpy`` carries
+it, or any nested dict of arrays, across with the same renaming, so a
+JAX Adam state of a transformer matches the port's
+``Adam.init(model.tree())``.
 """
 
 from __future__ import annotations
@@ -27,21 +31,24 @@ import numpy as np
 import torch
 
 from .core.place import DeviceLike, resolve_device
-from .core.pytree import tree_map
+from .core.pytree import tree_items, tree_map
 
-_BLOCK = re.compile(r"^blocks_(\d+)$")
+# the JAX name of item i of a block list of the port's models
+_LIST_ITEM = re.compile(r"^(blocks|enc_blocks|dec_blocks)_(\d+)$")
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
+def port_tree(tree: Mapping) -> Dict[str, Any]:
+    """A JAX nested dict in the port's layout: at any depth, the block-list
+    items ``blocks_{i}`` become ``blocks/{i}`` (the leaves are kept)."""
+    out: Dict[str, Any] = {}
     for key, val in tree.items():
-        m = _BLOCK.match(key) if not prefix else None
-        name = f"blocks.{m.group(1)}" if m else key
-        path = f"{prefix}{name}"
         if isinstance(val, Mapping):
-            out.update(_flatten(val, path + "."))
+            val = port_tree(val)
+        m = _LIST_ITEM.match(key)
+        if m:
+            out.setdefault(m.group(1), {})[m.group(2)] = val
         else:
-            out[path] = np.asarray(val)
+            out[key] = val
     return out
 
 
@@ -52,7 +59,8 @@ def params_from_numpy(tree: Mapping, model: torch.nn.Module,
     ``KeyError`` on a missing or extra key and ``ValueError`` on a shape
     that differs from the model's."""
     dev = resolve_device(device)
-    flat = _flatten(tree)
+    flat = {".".join(path): np.asarray(leaf)
+            for path, leaf in tree_items(port_tree(tree))}
     want = dict(model.named_parameters())
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
@@ -74,7 +82,9 @@ def params_from_numpy(tree: Mapping, model: torch.nn.Module,
 def tree_from_numpy(tree: Mapping, device: DeviceLike = None
                     ) -> Dict[str, Any]:
     """A nested dict of numpy arrays (a JAX optimizer state or parameter
-    tree) as the same nested dict of tensors on ``device`` (default: the
-    card), dtypes kept (Adam's ``step`` stays an int32 scalar)."""
+    tree) as a nested dict of tensors on ``device`` (default: the card) in
+    the port's layout (:func:`port_tree`), dtypes kept (Adam's ``step``
+    stays an int32 scalar)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
+                    port_tree(tree))

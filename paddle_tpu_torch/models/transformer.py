@@ -1,9 +1,14 @@
 """Decoder-only Transformer LM — the counterpart of
-``paddle_tpu/models/transformer.py`` for the serving path.
+``paddle_tpu/models/transformer.py`` for the serving and training paths.
 
 Pre-LN blocks, one fused qkv matmul per block, attention as [B, T, H, Dh]
-through :func:`ops.cuda_kernels.flash_attention` (causal), learned
-position embeddings, and a head tied to the token embedding. The model
+through :func:`ops.cuda_kernels.flash_attention` (causal; differentiable
+through the flash backward kernels), learned position embeddings, and a
+head tied to the token embedding. ``forward``, ``loss`` and
+``shifted_loss`` are the training entries (``model.call(params, ids,
+method="loss")`` is what ``Trainer`` differentiates); the serving methods
+run without autograd. Not ported: ``tie_head=False``, ``remat`` and
+sequence sharding (``positions``, ``seq_axis``). The model
 carries its own parameters (JAX passes a parameter tree beside it); they
 keep the JAX names and layouts so a JAX tree loads through
 ``paddle_tpu_torch.convert.params_from_numpy``.
@@ -29,6 +34,20 @@ from ..ops import cuda_kernels as ck
 Cell = Dict[str, torch.Tensor]
 
 
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean of lse - gold over f32 logits [..., V]: the per-token
+    cross-entropy of the JAX models, averaged over ``mask`` (all ones when
+    None) with the denominator held at >= 1."""
+    l32 = logits.float()
+    nll = torch.logsumexp(l32, dim=-1) - torch.gather(
+        l32, -1, targets.long()[..., None])[..., 0]
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 class TransformerBlock(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  init_std: float = 0.02, causal: bool = True):
@@ -47,8 +66,10 @@ class TransformerBlock(nn.Module):
                              w_init=normal(0.0, init_std))
         self.mlp_out = Linear(d_ff, d_model, w_init=normal(0.0, init_std))
 
-    def attend(self, q, k, v, *, route: Optional[str] = None):
-        return ck.flash_attention(q, k, v, causal=self.causal, route=route)
+    def attend(self, q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
+               route: Optional[str] = None):
+        return ck.flash_attention(q, k, v, causal=self.causal,
+                                  kv_lens=kv_lens, route=route)
 
     def heads(self, x: torch.Tensor):
         """q, k, v as [B, T, H, Dh] views of one fused qkv matmul (no copy:
@@ -65,9 +86,11 @@ class TransformerBlock(nn.Module):
         x = x + self.proj(o.reshape(B, T, D).to(x.dtype))
         return x + self.mlp_out(self.mlp_in(self.ln2(x)))
 
-    def forward(self, x, *, route: Optional[str] = None):
+    def forward(self, x, *, kv_lens: Optional[torch.Tensor] = None,
+                route: Optional[str] = None):
         q, k, v = self.heads(x)
-        return self.finish(x, self.attend(q, k, v, route=route))
+        return self.finish(x, self.attend(q, k, v, kv_lens=kv_lens,
+                                          route=route))
 
 
 class TransformerLM(Module):
@@ -104,16 +127,47 @@ class TransformerLM(Module):
         """The head tied to the token embedding."""
         return x @ self.embed.w.t().to(x.dtype)
 
-    @torch.no_grad()
     def forward(self, ids: torch.Tensor, *,
                 route: Optional[str] = None) -> torch.Tensor:
-        """ids [B, T] -> logits [B, T, V]."""
+        """ids [B, T] -> logits [B, T, V]; differentiable (the training
+        forward), where the serving methods below run without autograd."""
         T = ids.shape[1]
         x = self.embed(ids)
         x = x + self.pos_embed[:T].to(x.dtype)
         for blk in self.blocks:
             x = blk(x, route=route)
         return self._logits(self.ln_f(x))
+
+    def shifted_loss(self, ids_in: torch.Tensor, targets: torch.Tensor, *,
+                     mask: Optional[torch.Tensor] = None, positions=None,
+                     seq_axis: Optional[str] = None,
+                     route: Optional[str] = None) -> torch.Tensor:
+        """Mean next-token CE over already-shifted (inputs, targets) pairs;
+        ``mask`` (targets' shape) weights positions. ``positions`` and
+        ``seq_axis`` belong to sequence sharding (ring attention), which
+        the port does not have yet: they raise."""
+        if positions is not None or seq_axis is not None:
+            raise ValueError("positions / seq_axis (sequence sharding over "
+                             "ring attention) are not ported")
+        return token_cross_entropy(self(ids_in, route=route), targets, mask)
+
+    def loss(self, ids: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+             *, seq_axis: Optional[str] = None,
+             route: Optional[str] = None) -> torch.Tensor:
+        """Next-token CE of ids [B, T] over positions < length - 1 (all
+        T - 1 without ``lengths``)."""
+        if seq_axis is not None:
+            raise ValueError("loss() shifts ids itself, which is wrong per "
+                             "shard under sequence sharding; sequence "
+                             "sharding is not ported")
+        targets = ids[:, 1:]
+        mask = None
+        if lengths is not None:
+            T = targets.shape[1]
+            mask = (torch.arange(T, device=ids.device)[None, :]
+                    < (lengths.to(ids.device) - 1)[:, None])
+        return self.shifted_loss(ids[:, :-1], targets, mask=mask,
+                                 route=route)
 
     @torch.no_grad()
     def generate_greedy(self, prompt: torch.Tensor, steps: int, *,

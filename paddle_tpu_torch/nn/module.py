@@ -5,8 +5,9 @@ children, and ``init(rng)`` builds the nested parameter dict. Here a
 module is a ``torch.nn.Module`` that holds its parameters itself, under
 the same names: ``tree()`` gives them as the JAX package's nested dict
 (``{"embed": {"w": ...}, "w0": ..., "fc": {"w": ..., "b": ...}}``), and
-``call(params, ...)`` runs the forward with the leaves of such a tree in
-place of the module's own parameters, so a functional trainer can
+``call(params, ...)`` runs the forward (``method="loss"``: another
+method) with the leaves of such a tree in place of the module's own
+parameters, so a functional trainer can
 differentiate with respect to a tree as ``jax.value_and_grad`` does.
 
 A module is built with its parameters on the ``meta`` device; ``init``
@@ -52,12 +53,27 @@ class Module(nn.Module):
         return tree_from_items((tuple(name.split(".")), p)
                                for name, p in self.named_parameters())
 
-    def call(self, params: Mapping, *args, **kwargs):
-        """``forward(*args, **kwargs)`` with the leaves of the tree
-        ``params`` in place of the module's parameters (autograd flows to
-        those leaves)."""
-        flat = {".".join(path): leaf for path, leaf in tree_items(params)}
-        return torch.func.functional_call(self, flat, args, kwargs)
+    def call(self, params: Mapping, *args, method: str = "forward",
+             **kwargs):
+        """``self.<method>(*args, **kwargs)`` (``forward`` by default) with
+        the leaves of the tree ``params`` in place of the module's
+        parameters (autograd flows to those leaves)."""
+        flat = {"module." + ".".join(path): leaf
+                for path, leaf in tree_items(params)}
+        return torch.func.functional_call(_Method(self, method), flat, args,
+                                          kwargs)
+
+
+class _Method(nn.Module):
+    """``module.<name>`` as the forward of a wrapper: ``functional_call``
+    runs only ``forward``, and a model's loss is another method."""
+
+    def __init__(self, module: nn.Module, name: str):
+        super().__init__()
+        self.module, self.name = module, name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.module, self.name)(*args, **kwargs)
 
 
 def run_initializers(root: nn.Module, gen: torch.Generator) -> None:

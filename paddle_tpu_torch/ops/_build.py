@@ -43,6 +43,10 @@ SIGNATURES = {
                                    _i64, _i64, _i64, _i64, _i64, _i64,
                                    _i64, _i64, _i64,
                                    _f32, _i32, _i32, _p],
+    "paddle_flash_attention_bwd_dq": [_p] * 9 + [_i32] * 5 + [_i64] * 9
+                                     + [_f32, _i32, _i32, _i32, _p],
+    "paddle_flash_attention_bwd_dkv": [_p] * 9 + [_i32] * 5 + [_i64] * 9
+                                      + [_f32, _i32, _i32, _p],
     "paddle_paged_decode_attention": [_p, _p, _p, _p, _p, _p,
                                       _i32, _i32, _i32, _i32, _i32,
                                       _i64, _i64, _f32, _i32, _p],

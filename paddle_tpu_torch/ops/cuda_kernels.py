@@ -1,8 +1,12 @@
-"""Attention kernels of the serving path — the counterpart of
-``paddle_tpu/ops/pallas_kernels.py`` for the two TPU kernels this path
-runs:
+"""Attention kernels — the counterpart of
+``paddle_tpu/ops/pallas_kernels.py`` for the TPU attention kernels the
+serving and transformer-training paths run:
 
-* :func:`flash_attention_fwd` replaces ``_fa_fwd_kernel`` (prefill);
+* :func:`flash_attention_fwd` replaces ``_fa_fwd_kernel`` (prefill and
+  every training forward);
+* :func:`flash_attention_bwd` replaces ``_fa_bwd_dq_kernel`` and
+  ``_fa_bwd_dkv_kernel`` (the training backward), bound to autograd by
+  :class:`_FlashAttention` in place of the JAX custom VJP ``_flash``;
 * :func:`paged_decode_attention` replaces ``_paged_attn_kernel`` (decode).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``, built
@@ -38,6 +42,8 @@ KERNEL_HEAD_DIMS = (64,)
 #: launches of every kernel of the port, by kernel (the LSTM wrappers of
 #: ops/rnn_kernels.py count here too)
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                            "flash_attention_bwd_dq": 0,
+                            "flash_attention_bwd_dkv": 0,
                             "paged_decode_attention": 0,
                             "lstm_seq": 0, "lstm_seq_train": 0,
                             "lstm_seq_bwd": 0}
@@ -93,62 +99,88 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool, scale: float,
     ``_dense_attention``: f32 einsum, * scale, kv_lens mask, causal mask,
     softmax, einsum, cast. ``kv_lens`` arrives clamped to [1, S] by
     :func:`flash_attention_fwd`."""
-    T, S = q.shape[1], k.shape[1]
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
-    if kv_lens is not None:
-        lens = kv_lens.to(device=s.device)
-        ok =(torch.arange(S, device=s.device)[None, :]
-              < lens[:, None])[:, None, None, :]
-        s = torch.where(ok, s, _NEG)
-    if causal:
-        mask = torch.ones((T, S), dtype=torch.bool, device=s.device).tril()
-        s = torch.where(mask[None, None], s, _NEG)
+    s = torch.where(_live(q.shape[1], k.shape[1], causal, kv_lens, s.device),
+                    s, _NEG)
     lse = torch.logsumexp(s, dim=-1).transpose(1, 2).contiguous()
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
     return o, lse
 
 
-def _flash_attention_fwd_kernel(q, k, v, causal, scale, kv_lens):
+def _live(T: int, S: int, causal: bool, kv_lens: Optional[torch.Tensor],
+          device) -> torch.Tensor:
+    """The (q, k) pairs that enter the softmax, broadcastable to the
+    [B, H, T, S] scores: keys below each sample's kv_len and, with
+    ``causal``, keys j <= i."""
+    ok = torch.ones((1, 1, T, S), dtype=torch.bool, device=device)
+    if kv_lens is not None:
+        lens = kv_lens.to(device=device)
+        ok = ok & (torch.arange(S, device=device)[None, :]
+                   < lens[:, None])[:, None, None, :]
+    if causal:
+        ok = ok & torch.ones((T, S), dtype=torch.bool, device=device).tril()
+    return ok
+
+
+def _attention_shapes(what: str, q, k, v, causal: bool):
+    """(B, T, S, H, D) of q [B,T,H,D], k/v [B,S,H,D] in one dtype with an
+    innermost stride of 1, as the attention kernels take them; raises on
+    anything else."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[2:] != (H, D):
-        raise ValueError(f"flash_attention_fwd: k/v {tuple(k.shape)}/"
-                         f"{tuple(v.shape)} do not match q {tuple(q.shape)} "
-                         "as [B, S, H, D]")
+        raise ValueError(f"{what}: k/v {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)} as [B, S, H, D]")
     if causal and S != T:
-        raise ValueError("flash_attention_fwd: causal needs S == T")
+        raise ValueError(f"{what}: causal needs S == T")
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head width {D} not taken by "
-                         f"the kernel (built for {KERNEL_HEAD_DIMS})")
+        raise ValueError(f"{what}: head width {D} not taken by the kernel "
+                         f"(built for {KERNEL_HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_float(name, t, q.dtype)
         if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_fwd: {name} needs an "
-                             "innermost stride of 1")
+            raise ValueError(f"{what}: {name} needs an innermost stride of 1")
+    return B, T, S, H, D
+
+
+def _kernel_lens(what: str, kv_lens: Optional[torch.Tensor], B: int,
+                 device) -> Optional[torch.Tensor]:
+    if kv_lens is None:
+        return None
+    if kv_lens.shape != (B,):
+        raise ValueError(f"{what}: kv_lens shape {tuple(kv_lens.shape)} != "
+                         f"({B},)")
+    return kv_lens.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _strides(*ts: torch.Tensor):
+    """The batch, sequence and head strides of each [B, L, H, D] tensor."""
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def _flash_attention_fwd_kernel(q, k, v, causal, scale, kv_lens):
+    what = "flash_attention_fwd"
+    B, T, S, H, D = _attention_shapes(what, q, k, v, causal)
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
     if B == 0 or T == 0:
         return o, lse
-    lens = None
-    if kv_lens is not None:
-        if kv_lens.shape != (B,):
-            raise ValueError(f"flash_attention_fwd: kv_lens shape "
-                             f"{tuple(kv_lens.shape)} != ({B},)")
-        lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = _kernel_lens(what, kv_lens, B, q.device)
     lib = _build.load().lib
     with torch.cuda.device(q.device):
         err = lib.paddle_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if lens is None else lens.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, T, S, H, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(causal), _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(err, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens),
+            o.data_ptr(), lse.data_ptr(), B, T, S, H, D,
+            *_strides(q, k, v), float(scale), int(causal),
+            _DTYPE_CODE[q.dtype], _stream(q.device))
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
     return o, lse
 
 
@@ -174,18 +206,196 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_attention_fwd_kernel(q, k, v, causal, scale_v, kv_lens)
 
 
+# ---------------------------------------------------------------------------
+# flash attention backward (replaces _fa_bwd_dq_kernel, _fa_bwd_dkv_kernel)
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool,
+                              scale: float,
+                              kv_lens: Optional[torch.Tensor] = None,
+                              delta: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The ``_fa_bwd_call`` arithmetic written out: delta = rowsum(dO·O) in
+    f32 (when not given), P recomputed from ``lse``, dS = P·(dP − delta),
+    dQ = scale·dS·K, dK = dSᵀ·(scale·Q), dV = Pᵀ·dO. Masked pairs (keys at
+    or past kv_len; with ``causal``, keys j > i) have P == 0 exactly, so
+    masked keys get exactly zero dk and dv. Returns (dq in q's dtype, dk
+    in k's, dv in v's)."""
+    qs = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), do.float()
+    if delta is None:
+        delta = torch.sum(dof * o.float(), dim=-1)
+    s = torch.einsum("bthd,bshd->bhts", qs, kf)
+    s = torch.where(_live(q.shape[1], k.shape[1], causal, kv_lens, s.device),
+                    s, _NEG)
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - delta.float().transpose(1, 2)[..., None])
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, qs)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashBwdLaunch:
+    """The checked arguments and the outputs of one kernel backward, with
+    one method per kernel: :meth:`dq` (#2) then :meth:`dkv` (#3), each one
+    launch on the current stream. ``flash_attention_bwd`` runs both;
+    chip_smoke.py times each alone."""
+
+    def __init__(self, q, k, v, o, lse, do, causal: bool, scale: float,
+                 kv_lens: Optional[torch.Tensor],
+                 delta: Optional[torch.Tensor]):
+        what = "flash_attention_bwd"
+        B, T, S, H, D = _attention_shapes(what, q, k, v, causal)
+        for name, t in (("o", o), ("do", do)):
+            if t.shape != q.shape:
+                raise ValueError(f"{what}: {name} {tuple(t.shape)} != q "
+                                 f"{tuple(q.shape)}")
+            _check_float(name, t, q.dtype)
+        for name, t in (("lse", lse), ("delta", delta)):
+            if t is not None and (t.shape != (B, T, H)
+                                  or t.dtype != torch.float32):
+                raise ValueError(f"{what}: {name} must be float32 [{B}, "
+                                 f"{T}, {H}], got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+        # o and dO are read as contiguous [B, T, H, D]: autograd's
+        # cotangent of the forward's contiguous output already is, so
+        # nothing is copied
+        self.q, self.k, self.v = q, k, v
+        self.o, self.do, self.lse = (o.contiguous(), do.contiguous(),
+                                     lse.contiguous())
+        self.compute_delta = delta is None
+        self.delta = (torch.empty((B, T, H), dtype=torch.float32,
+                                  device=q.device)
+                      if delta is None else delta.contiguous())
+        self.lens = _kernel_lens(what, kv_lens, B, q.device)
+        self.dq_out = torch.empty((B, T, H, D), dtype=q.dtype,
+                                  device=q.device)
+        self.dk_out = torch.empty((B, S, H, D), dtype=k.dtype,
+                                  device=q.device)
+        self.dv_out = torch.empty((B, S, H, D), dtype=v.dtype,
+                                  device=q.device)
+        self.shape = (B, T, S, H, D)
+        self.causal, self.scale = int(causal), float(scale)
+
+    def _args(self):
+        return (*self.shape, *_strides(self.q, self.k, self.v), self.scale,
+                self.causal)
+
+    def dq(self) -> None:
+        """Kernel #2: dq, and delta when none was given (dk/dv reads it)."""
+        with torch.cuda.device(self.q.device):
+            err = _build.load().lib.paddle_flash_attention_bwd_dq(
+                self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
+                self.o.data_ptr(), self.do.data_ptr(), self.lse.data_ptr(),
+                self.delta.data_ptr(), _ptr(self.lens),
+                self.dq_out.data_ptr(), *self._args(),
+                int(self.compute_delta), _DTYPE_CODE[self.q.dtype],
+                _stream(self.q.device))
+        _raise_on(err, "flash_attention_bwd (dq)")
+        LAUNCHES["flash_attention_bwd_dq"] += 1
+
+    def dkv(self) -> None:
+        """Kernel #3: dk and dv (after :meth:`dq` when it computes delta)."""
+        with torch.cuda.device(self.q.device):
+            err = _build.load().lib.paddle_flash_attention_bwd_dkv(
+                self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
+                self.do.data_ptr(), self.lse.data_ptr(),
+                self.delta.data_ptr(), _ptr(self.lens),
+                self.dk_out.data_ptr(), self.dv_out.data_ptr(),
+                *self._args(), _DTYPE_CODE[self.q.dtype],
+                _stream(self.q.device))
+        _raise_on(err, "flash_attention_bwd (dk/dv)")
+        LAUNCHES["flash_attention_bwd_dkv"] += 1
+
+
+def _flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, scale, kv_lens,
+                                delta):
+    run = FlashBwdLaunch(q, k, v, o, lse, do, causal, scale, kv_lens, delta)
+    B, T, S = run.shape[:3]
+    if B == 0 or T == 0 or S == 0:
+        return run.dq_out, run.dk_out.zero_(), run.dv_out.zero_()
+    run.dq()
+    run.dkv()
+    return run.dq_out, run.dk_out, run.dv_out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = False,
+                        scale: Optional[float] = None,
+                        kv_lens: Optional[torch.Tensor] = None,
+                        delta: Optional[torch.Tensor] = None,
+                        route: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention from the forward's (o, lse) and the
+    cotangent ``do`` — the ``_fa_bwd_call`` contract: q/o/do [B,T,H,D],
+    k/v [B,S,H,D] in one dtype (f32 or bf16), lse [B,T,H] f32, optional
+    ``delta`` = rowsum(dO·O) [B,T,H] f32. ``kv_lens`` is clamped to [1, S]
+    as :func:`flash_attention_fwd` clamps it, so the two agree on which
+    keys are live.
+
+    For CUDA tensors two kernels run on the current stream: dq (#2), which
+    also computes delta when none is given, then dk/dv (#3)."""
+    scale_v = scale if scale is not None else q.shape[-1] ** -0.5
+    if kv_lens is not None:
+        kv_lens = kv_lens.clamp(1, k.shape[1])
+    extra = () if delta is None else (delta,)
+    if _route(route, q, k, v, o, lse, do, *extra) == "plain":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale_v, kv_lens=kv_lens,
+                                         delta=delta)
+    return _flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, scale_v,
+                                       kv_lens, delta)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention under autograd — the counterpart of the JAX custom VJP
+    ``_flash``: the forward runs :func:`flash_attention_fwd` (kernel #1)
+    and saves o and lse; the backward runs :func:`flash_attention_bwd`
+    (kernels #2 and #3) with the same lengths, which it clamps as the
+    forward does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, scale, route):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     kv_lens=kv_lens, route=route)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
+        ctx.causal, ctx.scale, ctx.route = causal, scale, route
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         kv_lens=kv_lens, route=ctx.route)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
                     kv_lens: Optional[torch.Tensor] = None,
                     route: Optional[str] = None) -> torch.Tensor:
-    """Fused attention, the counterpart of ``pallas_kernels.flash_attention``
-    (forward only): q [B,T,H,D], k/v [B,S,H,D] -> o [B,T,H,D].
+    """Fused attention, the counterpart of ``pallas_kernels.flash_attention``:
+    q [B,T,H,D], k/v [B,S,H,D] -> o [B,T,H,D]. Differentiable: with grad
+    enabled and q, k or v requiring grad it runs through
+    :class:`_FlashAttention` (the backward kernels); otherwise the forward
+    alone.
 
     A sample with ``kv_lens == 0`` has no softmax support: it attends key 0
-    and its output is then zeroed, as in the JAX entry."""
+    and its output is then zeroed, as in the JAX entry. The zeroing stays
+    outside the autograd Function, so it also zeroes that sample's
+    cotangent and no gradient reaches its keys."""
     valid = None if kv_lens is None else kv_lens > 0
-    o, _ =flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                               kv_lens=kv_lens, route=route)
+    scale_v = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o = _FlashAttention.apply(q, k, v, kv_lens, causal, scale_v, route)
+    else:
+        o, _ = flash_attention_fwd(q, k, v, causal=causal, scale=scale_v,
+                                   kv_lens=kv_lens, route=route)
     if valid is not None:
         o = o * valid.to(device=o.device, dtype=o.dtype)[:, None, None, None]
     return o

@@ -230,3 +230,165 @@ def test_textcls_training_step_matches_plain_on_card(cuda):
     for (path, a), (_, b) in zip(tree_items(pk), tree_items(pp)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5,
                                    msg="/".join(path))
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward kernels (#2 dq, #3 dk/dv) and transformer
+# training steps
+# ---------------------------------------------------------------------------
+
+def _bwd_close(got, want, dtype):
+    """f32: summation order only (rtol 1e-4, atol 2e-5 of the largest
+    magnitude: dk sums up to T products); bf16: the same f32 values
+    rounded once, so one bf16 ulp (rtol 2**-7) on top."""
+    atol = 2e-5 * want.float().abs().max().item()
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+# chip_smoke.py's phase-6 shapes: (B, T, S, H, causal, lengths, q/k/v as
+# views of one fused projection)
+_BWD_SHAPES = {
+    "lm": (8, 1023, 1023, 12, True, None, False),
+    "nmt": (64, 64, 64, 8, False, "32..64 and a 0", False),
+    "cross": (16, 100, 77, 8, False, "1..S", False),
+    "fused": (4, 300, 300, 12, True, "1..S", True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(_BWD_SHAPES))
+def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
+    B, T, S, H, causal, lens, fused = _BWD_SHAPES[shape]
+    gen = torch.Generator().manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda, dtype)
+    if fused:
+        qkv = rnd(B, T, 3 * H * 64)
+        q, k, v = (t.unflatten(-1, (H, 64)) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = rnd(B, T, H, 64), rnd(B, S, H, 64), rnd(B, S, H, 64)
+    kv_lens = None
+    if lens is not None:
+        lo = 32 if shape == "nmt" else 1
+        kv_lens = torch.randint(lo, S + 1, (B,), generator=gen)
+        kv_lens[1] = 0 if shape == "nmt" else S
+        kv_lens = kv_lens.to(cuda)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=kv_lens,
+                                    route="plain")
+    do = rnd(B, T, H, 64)
+    before = dict(ck.LAUNCHES)
+    got = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 kv_lens=kv_lens)
+    want = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  kv_lens=kv_lens, route="plain")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert ck.LAUNCHES[name] == before[name] + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _bwd_close(g, w, dtype)
+    if kv_lens is not None:            # masked keys: exactly zero dk, dv
+        for b, n in enumerate(kv_lens.clamp(1, S).tolist()):
+            assert not got[1][b, n:].any() and not got[2][b, n:].any()
+    # with delta given, the dq kernel reads it instead of computing it
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    given = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   kv_lens=kv_lens, delta=delta)
+    for g, w in zip(given, want):
+        _bwd_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 8, 2, 32, device=cuda)
+    o, lse = ck.flash_attention_fwd(q, q, q, route="plain")
+    with pytest.raises(ValueError, match="head width"):
+        ck.flash_attention_bwd(q, q, q, o, lse, o)
+    q = torch.randn(1, 8, 2, 64, device=cuda)
+    o, lse = ck.flash_attention_fwd(q, q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        ck.flash_attention_bwd(q, q.to(torch.bfloat16), q, o, lse, o)
+    with pytest.raises(TypeError, match="dtype"):
+        ck.flash_attention_bwd(q, q, q, o, lse, o.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="several devices"):
+        ck.flash_attention_bwd(q, q, q, o, lse, o.cpu())
+    with pytest.raises(ValueError, match="lse"):
+        ck.flash_attention_bwd(q, q, q, o, lse.to(torch.bfloat16), o)
+
+
+def _step_matches_plain(cuda, model, loss_for_route, batch, lr, per_step):
+    """One f32 Adam step through the kernels against the same step with the
+    plain versions, on the card. The loss to rtol 1e-6. Each gradient
+    (read as Adam's first moment m = 0.1 g) to 1e-4 of its L2 norm: an
+    entry is a sum of many terms whose size, not the entry's, sets its
+    rounding, and the two routes sum in other orders. The parameters to
+    1e-5 plus what the first Adam step lr*g/(|g|+eps) makes of a gradient
+    difference of 1e-4 of the entry and of the tensor's rms: where g is
+    rounding noise (the key bias's gradient is zero analytically), the
+    step divides it by eps and moves by up to lr*dg/eps. Each attention
+    kernel launches ``per_step`` times on the kernel route and never on
+    the plain one."""
+    from paddle_tpu_torch.core.pytree import tree_get, tree_items
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    res = {}
+    for route in (None, "plain"):
+        opt = Adam(lr)
+        tr = Trainer(loss_for_route(route), opt, device=cuda)
+        before = dict(ck.LAUNCHES)
+        res[route] = tr.step(model.tree(), opt.init(model.tree()), *batch)
+        torch.cuda.synchronize()
+        launched = {n: ck.LAUNCHES[n] - before[n] for n in names}
+        assert launched == {n: per_step if route is None else 0
+                            for n in names}
+    (pk, sk, lk), (pp, sp, lp) = res[None], res["plain"]
+    assert abs(lk.item() - lp.item()) <= 1e-6 * abs(lp.item())
+    eps = 1e-8
+    for path, b in tree_items(pp):
+        mk = tree_get(sk["slots"], path)["m"]
+        mp = tree_get(sp["slots"], path)["m"]
+        err = torch.linalg.vector_norm(mk - mp).item()
+        assert err <= 1e-4 * torch.linalg.vector_norm(mp).item(), path
+        g = mp.abs() / 0.1
+        dg = 1e-4 * (g + g.square().mean().sqrt())
+        allowed = 1e-5 + lr * dg * eps / (g + eps) ** 2
+        diff = (tree_get(pk, path) - b).abs()
+        assert bool((diff <= allowed).all()), (path, diff.max().item())
+
+
+@pytest.mark.gpu
+def test_lm_training_step_matches_plain_on_card(cuda):
+    from paddle_tpu_torch.models import TransformerLM
+    model = TransformerLM(300, d_model=128, n_heads=2, n_layers=2,
+                          max_len=160).init(seed=2, device=cuda)
+    gen = torch.Generator().manual_seed(8)
+    ids = torch.randint(0, 300, (3, 131), generator=gen)
+    loss = lambda r: lambda p, x: model.call(p, x, method="loss", route=r)
+    _step_matches_plain(cuda, model, loss, (ids,), 3e-4, per_step=2)
+
+
+@pytest.mark.gpu
+def test_nmt_training_step_matches_plain_on_card(cuda):
+    from paddle_tpu_torch.core import SeqBatch
+    from paddle_tpu_torch.models import TransformerSeq2Seq
+    model = TransformerSeq2Seq(200, 210, d_model=128, n_heads=2, n_enc=2,
+                               n_dec=2, max_len=80).init(seed=3, device=cuda)
+    gen = torch.Generator().manual_seed(9)
+    B, S, T = 5, 70, 50
+    slen = torch.randint(1, S + 1, (B,), generator=gen)
+    slen[:3] = torch.tensor([1, S, 0])       # 0: attention zeroed
+    batch = (torch.randint(3, 200, (B, S), generator=gen), slen,
+             torch.randint(3, 210, (B, T), generator=gen),
+             torch.randint(3, 210, (B, T), generator=gen),
+             torch.randint(1, T + 1, (B,), generator=gen))
+
+    def loss(route):
+        def fn(p, src, sl, tin, tout, tl):
+            return model.call(p, SeqBatch(src, sl), SeqBatch(tin, tl),
+                              SeqBatch(tout, tl), method="loss", route=route)
+        return fn
+    # per step: 2 encoder, 2 decoder self- and 2 cross-attentions
+    _step_matches_plain(cuda, model, loss, batch, 1e-3, per_step=6)

@@ -138,7 +138,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     z = torch.zeros(2, 8)
     rk.lstm_sequence_fused_bwd(xw, torch.tensor([3, 1]), u, torch.zeros(32),
                                z, z, out, c_seq, out, z, z)
+    q.requires_grad_(True)
+    ck.flash_attention(q, q, q, causal=True).sum().backward()
     assert ck.LAUNCHES == {"flash_attention_fwd": 0,
+                           "flash_attention_bwd_dq": 0,
+                           "flash_attention_bwd_dkv": 0,
                            "paged_decode_attention": 0, "lstm_seq": 0,
                            "lstm_seq_train": 0, "lstm_seq_bwd": 0}
     for route in ("dense", "kernel"):
@@ -201,6 +205,6 @@ def test_build_hash_tracks_sources_and_flags():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
-    assert {"flash_fwd.cu", "paged_decode.cu", "common.cuh", "lstm_seq.cu",
-            "lstm_seq_bwd.cu", "lstm.cuh"} <= names
+    assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu", "common.cuh",
+            "lstm_seq.cu", "lstm_seq_bwd.cu", "lstm.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
