@@ -44,7 +44,24 @@ Phases:
    step, ms per step and a profile;
 8. NMT training — the transformer NMT (vocab 30000/30000, d_model 512, 8
    heads, 6+6 layers, batch 64, lengths 32..64) likewise for 12 steps
-   over 4 batches: 18 launches of each attention kernel a step.
+   over 4 batches: 18 launches of each attention kernel a step;
+9. decode kernels — the dense read (#4), the int8 dense read (#5) and the
+   int8 paged read (#7) against their plain versions in f32 and bf16 (an
+   int8 cache under an f32 or bf16 query): #4 and #5 at B=8, H=12, D=64
+   over [:, :L] views of a [8, 1024, 12, 64] cache, L 256/512/1024, pos
+   with 0, L-1 and a drained value past L; #7 at NB 4/8/16 with null-page
+   table tails; each timed with the plain version's time, SDPA with a
+   boolean mask beside #4, and the byte bound;
+10. dense decode — GPT-2 small (random weights from the seed):
+   ``generate_fused`` of 8 prompts of 200 tokens, 100 new, bucket 256, in
+   f32 and at ``kv_dtype="int8"``, equal to the same loop on the plain
+   route; ``ContinuousBatcher`` and ``ServingEngine`` at int8 over the
+   phase-3 traffic, equal to each request's solo int8 plain decode;
+   ``SpeculativeDecoder`` on 2 prompts with the int8 self-draft and with a
+   GPT-2 small from another seed as the draft (rounds reject proposals),
+   each equal to the greedy decode; launch counts 12 x the decode steps of
+   each run;
+   then the engine's bf16 figures at int8 and bf16 KV.
 
 Prints ``{"kernels": [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -54,6 +71,7 @@ card, or without the ``paddle_tpu_torch`` package beside this file.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -306,13 +324,13 @@ def workload(seed: int, vocab: int):
     return [rs.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def serve(model, prompts, device):
+def serve(model, prompts, device, kv_dtype=None):
     """Submit every prompt at once through start()/submit()/poll() (one
     burst, no arrival schedule); returns (tokens per request, (ttft, tpot)
     seconds per request, wall seconds, engine)."""
     import torch
     from paddle_tpu_torch.serving import ServingEngine
-    eng = ServingEngine(model, device=device, **ENGINE)
+    eng = ServingEngine(model, device=device, kv_dtype=kv_dtype, **ENGINE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.start()
@@ -394,9 +412,11 @@ def serving_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     say(f"serving f32: {N_REQUESTS} requests x {NEW_TOKENS} tokens equal "
         "to the solo plain-attention greedy decode")
     f32 = latency_figures(lat, wall)
+    del eng, pool                # its f32 pool is not part of the bf16 peak
 
     model.to(torch.bfloat16)
     serve(model, prompts, device)                     # warm the bf16 path
+    gc.collect()                       # the engines' pools are freed
     torch.cuda.reset_peak_memory_stats()
     _, lat16, wall16, _ = serve(model, prompts, device)
     bf16 = latency_figures(lat16, wall16)
@@ -1262,6 +1282,344 @@ def nmt_training_phase(say, seed: int, device="cuda", config=NMT_TRAIN,
                           per_step, device)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the decode kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+DECODE_KERNELS = (
+    ("decode_attention", "paddle_tpu_torch/csrc/decode.cu",
+     "paddle_tpu/ops/pallas_kernels.py:561", "_decode_attn_kernel"),
+    ("decode_attention_q", "paddle_tpu_torch/csrc/decode.cu",
+     "paddle_tpu/ops/pallas_kernels.py:571", "_decode_attn_q_kernel"),
+    ("paged_decode_attention_q", "paddle_tpu_torch/csrc/paged_decode.cu",
+     "paddle_tpu/ops/pallas_kernels.py:727", "_paged_attn_q_kernel"),
+)
+# GPT-2 small's decode reads: B=8 slots, 12 heads of 64, a max_len-1024
+# cache read through [:, :L] at the bucketed bounds 256/512/1024 (#4, #5)
+# and 4/8/16 pages of 64 rows (#7)
+DECODE_B, DECODE_H, DECODE_MAX = 8, 12, 1024
+DECODE_READS, PAGED_READS, PAGE_ROWS = (256, 512, 1024), (4, 8, 16), 64
+# (query dtype, cache): #4 reads a cache of the query's dtype, #5 an int8
+# cache under either query dtype
+DECODE_CASES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+                ("float32", "int8"), ("bfloat16", "int8"))
+
+
+def _decode_query(B, H, D, dtype, gen, device):
+    """q as decode_step hands it over: ``q[:, 0]`` of the [B, 1, H, D]
+    view of one fused [B, 1, 3*H*D] projection."""
+    import torch
+    qkv = torch.randn((B, 1, 3 * H * D), generator=gen, device=gen.device)
+    return qkv.to(device, dtype).chunk(3, dim=-1)[0].unflatten(
+        -1, (H, D))[:, 0]
+
+
+def _dense_decode_inputs(L, qname, kind, gen, device, full: bool):
+    """(q, k[:, :L], v[:, :L], pos) over a [8, 1024, 12, 64] cache and the
+    scales' [:, :L] views (None unless int8). pos: L - 1 everywhere for a
+    full read, else spread over [0, L) with 0, L - 1 and a drained slot
+    past the read bound."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    B, H, D = DECODE_B, DECODE_H, HEAD_DIM
+    q = _decode_query(B, H, D, getattr(torch, qname), gen, device)
+    k, v = (torch.randn((B, DECODE_MAX, H, D), generator=gen, device=device)
+            for _ in range(2))
+    if kind == "int8":
+        (k, ks), (v, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+        scales = (ks[:, :L], vs[:, :L])
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+        scales = (None, None)
+    if full:
+        pos = torch.full((B,), L - 1, dtype=torch.int32)
+    else:
+        pos = torch.linspace(0, L - 1, B).round().to(torch.int32)
+        pos[-1] = L + 37
+    return (q, k[:, :L], v[:, :L], pos.to(device)), scales
+
+
+def _paged_q_inputs(NB, qname, gen, device, full: bool):
+    """int8 pools quantized from phase 2's f32 pools (a null page 0, tables
+    with null tails unless ``full``), their scale pools, and a query of
+    ``qname``."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    B, H, D = DECODE_B, DECODE_H, HEAD_DIM
+    _, kp, vp, tables, pos = _paged_inputs(B, H, D, PAGE_ROWS, NB,
+                                           torch.float32, gen, device, full)
+    (kp, ks), (vp, vs) = ck.quantize_kv(kp), ck.quantize_kv(vp)
+    q = _decode_query(B, H, D, getattr(torch, qname), gen, device)
+    return (q, kp, vp, tables, pos), (ks, vs)
+
+
+def decode_bound(rows: int, q_size: int, kv_size: int, int8: bool,
+                 tables: int = 0):
+    """The byte bound of one read of ``rows`` live rows a sample (each
+    input read once, the f32 output written once) against its operations
+    (a dot product and an axpy per element, in f32)."""
+    B, H, D = DECODE_B, DECODE_H, HEAD_DIM
+    nbytes = (B * H * D * q_size + 2 * B * rows * H * D * kv_size
+              + (2 * B * rows * H * 4 if int8 else 0) + B * 4 + tables * 4
+              + B * H * D * 4)
+    return bound(4.0 * B * rows * H * D, nbytes, "float32")
+
+
+def _decode_times(run, make, nbytes, sdpa: bool):
+    """Kernel and plain times over input sets larger than L2 (CUDA graph,
+    as phase 2), and SDPA with a boolean mask [B, 1, 1, L] over the same
+    cache views when ``sdpa``."""
+    import torch
+    import torch.nn.functional as F
+    sets = input_sets(make, nbytes)
+    out = {"ms": time_ms([lambda s=s: run(s) for s in sets]),
+           "plain_ms": time_ms([lambda s=s: run(s, route="plain")
+                                for s in sets], rounds=1)}
+    if sdpa:
+        calls = []
+        for (q, k, v, pos), _ in sets:
+            live = (torch.arange(k.shape[1], device=pos.device)[None, :]
+                    <= pos[:, None])[:, None, None, :]
+            calls.append(lambda q=q, k=k, v=v, m=live:
+                         F.scaled_dot_product_attention(
+                             q[:, :, None], k.transpose(1, 2),
+                             v.transpose(1, 2), attn_mask=m))
+        out["library_ms"] = time_ms(calls)
+    del sets
+    return out
+
+
+def decode_checks(say, seed: int, device="cuda"):
+    """#4 and #5 over [:, :L] cache views and #7 over int8 pools against
+    their plain versions, f32 and bf16 queries; each timed at its full
+    read. Returns the three kernels' JSON entries (the f32 query at the
+    shortest read first: the main path's f32 decode at a 256-row bucket)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    cpu_gen = torch.Generator().manual_seed(seed + 10)
+    entries = {name: {"name": name, "route": "cuda", "source": src,
+                      "replaces": rep, "replaces_kernel": body,
+                      "library_ms": None}
+               for name, src, rep, body in DECODE_KERNELS}
+    entries["decode_attention_q"]["library_note"] = \
+        entries["paged_decode_attention_q"]["library_note"] = \
+        "no single PyTorch call reads an int8 cache with per-row scales"
+
+    def dense(s, route=None):
+        return ck.decode_attention(*s[0], k_scale=s[1][0], v_scale=s[1][1],
+                                   route=route)
+
+    def paged(s, route=None):
+        return ck.paged_decode_attention(*s[0], k_scale=s[1][0],
+                                         v_scale=s[1][1], route=route)
+
+    cases = [("decode_attention_q" if kind == "int8" else "decode_attention",
+              L, qname, kind) for qname, kind in DECODE_CASES
+             for L in DECODE_READS]
+    cases += [("paged_decode_attention_q", NB, qname, "int8")
+              for qname in ("float32", "bfloat16") for NB in PAGED_READS]
+    for name, n, qname, kind in cases:
+        is_paged = name.startswith("paged")
+        if is_paged:
+            make = lambda i, full=True: _paged_q_inputs(
+                n, qname, cpu_gen, device, full)
+            run, rows, shape = paged, n * PAGE_ROWS, f"NB={n} bs={PAGE_ROWS}"
+        else:
+            make = lambda i, full=True: _dense_decode_inputs(
+                n, qname, kind, gen, device, full)
+            run, rows, shape = dense, n, f"L={n} of a {DECODE_MAX}-row cache"
+        s = make(0, full=False)
+        if not is_paged:
+            check(s[0][1].stride()[:2] == (DECODE_MAX * DECODE_H * HEAD_DIM,
+                                           DECODE_H * HEAD_DIM),
+                  "the cache is not the [:, :L] view decode_step passes")
+        got, want = run(s), run(s, route="plain")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, atol=F32_ATOL, rtol=F32_RTOL),
+              f"{name} {shape} q {qname} differs from plain: max {err}")
+        q_size = torch.empty((), dtype=getattr(torch, qname)).element_size()
+        kv_size = 1 if kind == "int8" else q_size
+        b_ms, b_by = decode_bound(rows, q_size, kv_size, kind == "int8",
+                                  tables=DECODE_B * n if is_paged else 0)
+        res = {"max_abs_err": err}
+        res.update(_decode_times(
+            run, make, 2 * DECODE_B * rows * DECODE_H
+            * (HEAD_DIM * kv_size + (4 if kind == "int8" else 0)),
+            sdpa=name == "decode_attention"))
+        res.update(bound_ms=b_ms, bound_by=b_by)
+        say(f"{name} {shape} q {qname}: {json.dumps(res)}")
+        e = entries[name]
+        if n in (DECODE_READS[0], PAGED_READS[0]) and qname == "float32":
+            e.update(res)
+            e["dtype"] = f"q {qname}, {kind} cache"
+            e["shape"] = (f"B={DECODE_B} H={DECODE_H} D={HEAD_DIM} {shape}, "
+                          "timed with every row live")
+        else:
+            e[f"{'NB' if is_paged else 'L'}{n}_q{qname}"] = res
+    return [entries[name] for name, _, _, _ in DECODE_KERNELS]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: dense decode at GPT-2-small width
+# ---------------------------------------------------------------------------
+
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, GEN_BUCKET = 8, 200, 100, 256
+SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW, SPEC_K = 2, 100, 48, 4
+
+
+def same_tokens(got, want, what: str) -> None:
+    """Each row of ``got`` equals ``want``'s, or a failure naming the first
+    difference."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        g, w = [int(t) for t in g], [int(t) for t in w]
+        if g != w:
+            j = next((n for n, (x, y) in enumerate(zip(g, w)) if x != y),
+                     min(len(g), len(w)))
+            raise SmokeFailure(f"{what}: sequence {b} differs at token {j}: "
+                               f"{g[j:j + 3]} vs {w[j:j + 3]} (lengths "
+                               f"{len(g)} / {len(w)})")
+
+
+def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
+    """generate_fused, ContinuousBatcher, ServingEngine and
+    SpeculativeDecoder on GPT-2 small, each against its plain-route
+    reference and its launch counts; returns {run: launches}."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import (ContinuousBatcher, Request,
+                                          SpeculativeDecoder)
+    model = TransformerLM(**config).init(seed=seed, device=device)
+    n_layers, vocab = config["n_layers"], config["vocab"]
+    rs = np.random.RandomState(seed + 11)
+    runs = {}
+
+    def launched(run, fn):
+        """fn() with the counts set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[run] = {k: n for k, n in ck.LAUNCHES.items() if n}
+        return out, time.perf_counter() - t0
+
+    ids = torch.as_tensor(rs.randint(0, vocab, (GEN_PROMPTS, GEN_PROMPT_LEN)),
+                          device=device)
+    steps = GEN_NEW - 1
+    walls = {}
+    for kv in (None, "int8"):
+        run = f"generate_fused {kv or 'float32'} KV"
+        name = "decode_attention_q" if kv else "decode_attention"
+        got, walls[kv] = launched(run, lambda: model.generate_fused(
+            ids, GEN_NEW, bucket=GEN_BUCKET, kv_dtype=kv))
+        check(runs[run].get(name) == n_layers * steps
+              and runs[run].get("flash_attention_fwd") == n_layers,
+              f"{run}: launches {runs[run]}, want {n_layers} x {steps} "
+              f"{name} and {n_layers} flash_attention_fwd")
+        want = model.generate_fused(ids, GEN_NEW, bucket=GEN_BUCKET,
+                                    kv_dtype=kv, route="plain")
+        same_tokens(got[:, GEN_PROMPT_LEN:].cpu(),
+                    want[:, GEN_PROMPT_LEN:].cpu(), run)
+        say(f"{run}: {GEN_PROMPTS} x {GEN_NEW} tokens equal to the same "
+            f"loop on the plain route; {steps} decode steps "
+            f"reading 256 then 512 rows; launches {runs[run]}; "
+            f"{walls[kv]:.3f} s eager "
+            f"({GEN_PROMPTS * GEN_NEW / walls[kv]:.1f} tokens/s, smoke "
+            "figure)")
+    profile_breakdown(say, "generate_fused int8 KV",
+                      lambda: model.generate_fused(
+                          ids, GEN_NEW, bucket=GEN_BUCKET, kv_dtype="int8"),
+                      walls["int8"])
+
+    prompts = workload(seed, vocab)
+    solo = [model.generate_fused(
+        torch.as_tensor(p[None].astype(np.int64), device=device), NEW_TOKENS,
+        kv_dtype="int8", route="plain")[0, len(p):].cpu().tolist()
+        for p in prompts]
+    batcher = ContinuousBatcher(model, kv_dtype="int8", device=device,
+                                slots=ENGINE["slots"],
+                                segment=ENGINE["segment"],
+                                cache_bucket=ENGINE["cache_bucket"])
+    run = "ContinuousBatcher int8 KV"
+    got, wall = launched(run, lambda: batcher.serve(
+        [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]))
+    steps = batcher.segments_total * batcher.segment
+    check(runs[run].get("decode_attention_q") == n_layers * steps,
+          f"{run}: launches {runs[run]}, want {n_layers} x {steps} "
+          "decode_attention_q")
+    same_tokens([got[i] for i in range(len(prompts))], solo, run)
+    say(f"{run}: {len(prompts)} requests x {NEW_TOKENS} tokens equal to "
+        f"each request's solo int8 plain decode; segments by read rows "
+        f"{batcher.segments_by_len}; launches {runs[run]}; {wall:.3f} s")
+    profile_breakdown(say, run, lambda: batcher.serve(
+        [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]), wall)
+
+    run = "ServingEngine int8 KV"
+    (toks, _, wall, eng), _ = launched(run, lambda: serve(
+        model, prompts, device, kv_dtype="int8"))
+    steps = eng.pool.segments_total * eng.pool.segment
+    check(runs[run].get("paged_decode_attention_q") == n_layers * steps,
+          f"{run}: launches {runs[run]}, want {n_layers} x {steps} "
+          "paged_decode_attention_q")
+    same_tokens(toks, solo, run)
+    say(f"{run}: {len(prompts)} requests equal to the solo int8 plain "
+        f"decode; segments by read pages {eng.pool.segments_by_pages}; "
+        f"launches {runs[run]}; {wall:.3f} s")
+    del eng                 # its pool is not part of the figures' peaks
+
+    sids = rs.randint(0, vocab, (SPEC_PROMPTS, SPEC_PROMPT_LEN))
+    sd = SpeculativeDecoder(model, model, k=SPEC_K, draft_kv_dtype="int8")
+    run = "SpeculativeDecoder int8 self-draft"
+    (toks, stats), wall = launched(run, lambda: sd.generate(sids, SPEC_NEW))
+    steps = stats["rounds"] * SPEC_K
+    check(runs[run].get("decode_attention_q") == n_layers * steps,
+          f"{run}: launches {runs[run]}, want {n_layers} x {steps} draft "
+          "steps of decode_attention_q")
+    want = model.generate_fused(torch.as_tensor(sids, device=device),
+                                SPEC_NEW, route="plain")
+    same_tokens(toks, want[:, SPEC_PROMPT_LEN:].cpu(), run)
+    say(f"{run}: {SPEC_PROMPTS} x {SPEC_NEW} tokens equal to the greedy "
+        f"plain decode; {json.dumps(stats)}; launches {runs[run]}; "
+        f"{wall:.3f} s")
+
+    # a draft that disagrees: GPT-2 small from another seed, at f32 KV, so
+    # rounds reject proposals, rewind pos and overwrite rejected rows
+    draft = TransformerLM(**config).init(seed=seed + 1, device=device)
+    sd = SpeculativeDecoder(model, draft, k=SPEC_K)
+    run = "SpeculativeDecoder other-seed draft"
+    (toks, stats), wall = launched(run, lambda: sd.generate(sids, SPEC_NEW))
+    steps = stats["rounds"] * SPEC_K
+    check(runs[run].get("decode_attention") == n_layers * steps,
+          f"{run}: launches {runs[run]}, want {n_layers} x {steps} draft "
+          "steps of decode_attention")
+    check(stats["accepted"] < stats["proposed"],
+          f"{run}: every proposal was accepted ({stats}), so no round "
+          "rejected one")
+    same_tokens(toks, want[:, SPEC_PROMPT_LEN:].cpu(), run)
+    say(f"{run}: {SPEC_PROMPTS} x {SPEC_NEW} tokens equal to the greedy "
+        f"plain decode; {json.dumps(stats)}; launches {runs[run]}; "
+        f"{wall:.3f} s")
+    del draft, sd
+
+    model.to(torch.bfloat16)
+    figures = {}
+    for kv in ("int8", None):
+        serve(model, prompts, device, kv_dtype=kv)     # warm this path
+        gc.collect()    # only the engine measured next will hold a pool
+        torch.cuda.reset_peak_memory_stats()
+        lat, wall = serve(model, prompts, device, kv_dtype=kv)[1:3]
+        fig = latency_figures(lat, wall)
+        fig["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        figures[f"{kv or 'bf16'} KV"] = fig
+    say("serving bf16 weights, int8 against bf16 KV (smoke figures, not a "
+        f"benchmark): {json.dumps(figures)}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1313,7 +1671,16 @@ def main(argv=None) -> int:
     flash["launches_training"] = {
         "lm": lm_launches["flash_attention_fwd"],
         "nmt": nmt_launches["flash_attention_fwd"]}
-    print(json.dumps({"kernels": [flash] + bwd + [paged] + lstm,
+    decode = decode_checks(say, args.seed)
+    runs = dense_decode_phase(say, args.seed)
+    for entry in decode:
+        per_run = {run: n[entry["name"]] for run, n in runs.items()
+                   if entry["name"] in n}
+        entry["launches"] = sum(per_run.values())
+        entry["launches_note"] = per_run
+    flash["launches_decode"] = {run: n.get("flash_attention_fwd", 0)
+                                for run, n in runs.items()}
+    print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

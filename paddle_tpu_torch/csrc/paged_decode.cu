@@ -1,119 +1,61 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a): kernels #6 and #7.
 //
-// Replaces the TPU kernel _paged_attn_kernel (paddle_tpu/ops/
-// pallas_kernels.py, called by paged_decode_attention): one query token
-// per sample reads its KV cache through a block table — pools
-// [P, bs, H, D], tables [B, NB] (entries past the live pages name the
-// null page 0), rows j <= pos[b] live — with an f32 softmax and an f32
-// output [B, H, D].
+// Replaces the TPU kernels _paged_attn_kernel (#6) and _paged_attn_q_kernel
+// (#7) of paddle_tpu/ops/pallas_kernels.py (called by
+// paged_decode_attention): one query token per sample reads its KV cache
+// through a block table — pools [P, bs, H, D] (f32 or bf16; for #7 int8
+// with f32 scale pools [P, bs, H]), tables [B, NB] (entries past the live
+// pages name the null page 0), rows j <= pos[b] live — with an f32 softmax
+// and an f32 output [B, H, D].
 //
-// What bounds it on the H100: bytes. Each live cache row is read once
-// and used for one dot product and one axpy (2 operations per element
-// read), far below the ~20 operations per byte where the f32 units take
-// over, so the kernel's job is to stream each sample's live rows once.
-//
-// Design: the TPU kernel assembles every page of a sample in VMEM and
-// then runs one softmax; here nothing is assembled. One 128-thread block
-// per (h, b) reads its own table entries and walks only the live rows
-// (j <= pos[b]) with an online softmax in f32. A row is handled by a
-// group of 8 lanes, each holding 8 of the D = 64 elements (one 16-byte
-// load for bf16), so a warp reads 4 rows at once and a dot product is 3
-// shuffles. The 16 row groups of the block each keep (m, l, acc) and are
-// merged through shared memory at the end. Rows past pos — including
-// every row of the null page — are never read.
-#include "common.cuh"
+// Bound by bytes, like every decode read (decode_attn.cuh). The TPU kernels
+// assemble every page of a sample in VMEM (dequantized, for #7) and then
+// run one softmax; here nothing is assembled: one block per (h, b) reads
+// its own table entries and walks only the live rows with the shared row
+// walk of decode_attn.cuh, dequantizing an int8 row as it loads it. Rows
+// past pos — including every row of the null page — are never read.
+#include "decode_attn.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kLanesPerRow = 8;
-constexpr int kGroups = kThreads / kLanesPerRow;  // rows in flight per block
+using namespace decode;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, float* __restrict__ o,
                     int H, int bs, int NB, int64_t q_sb, int64_t q_sh,
                     float scale) {
-  static_assert(D == kLanesPerRow * 8, "8 lanes x 8 elements per row");
-  constexpr int E = D / kLanesPerRow;
-  __shared__ float sm_m[kGroups];
-  __shared__ float sm_l[kGroups];
-  __shared__ float sm_acc[kGroups][D];
-
   const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int g = tid / kLanesPerRow, li = tid % kLanesPerRow;
+  const int lane = (threadIdx.x % kLanesPerRow) * kE;
+  const PagedRows<T> rows{k_pool, v_pool,
+                          tables + static_cast<int64_t>(b) * NB, bs, H, h,
+                          lane};
+  row_walk(q + b * q_sb + h * q_sh + lane, scale, min(pos[b] + 1, NB * bs),
+           rows, o + (static_cast<int64_t>(b) * H + h) * kD);
+}
 
-  float qv[E];
-  const T* qb = q + b * q_sb + h * q_sh + li * E;
-#pragma unroll
-  for (int e = 0; e < E; ++e) qv[e] = to_f32(qb[e]) * scale;
-
-  const int n_live = min(pos[b] + 1, NB * bs);
-  const int* tbl = tables + static_cast<int64_t>(b) * NB;
-
-  float m = kNeg, l = 0.f, acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
-
-  // the loop bound is uniform across the warp (its 4 groups start at
-  // j0 = 4*warp), so every lane reaches the shuffles; group g reads rows
-  // j = g, g + 16, ...
-  constexpr int kGroupsPerWarp = 32 / kLanesPerRow;
-  for (int j0 = (tid / 32) * kGroupsPerWarp; j0 < n_live; j0 += kGroups) {
-    const int j = j0 + g % kGroupsPerWarp;
-    const bool live = j < n_live;
-    float kr[E], vr[E];
-    float s = 0.f;
-    if (live) {
-      const int page = tbl[j / bs];
-      const int64_t off =
-          ((static_cast<int64_t>(page) * bs + j % bs) * H + h) * D + li * E;
-      load8(k_pool + off, kr);
-      load8(v_pool + off, vr);
-#pragma unroll
-      for (int e = 0; e < E; ++e) s = fmaf(qv[e], kr[e], s);
-    }
-#pragma unroll
-    for (int w = kLanesPerRow / 2; w > 0; w >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, w);
-    if (live) {
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * corr + p;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vr[e], acc[e] * corr);
-      m = m_new;
-    }
-  }
-
-  // merge the row groups: a group that saw no live row has m = kNeg and
-  // l = 0, so its weight exp(m - M) is exactly 0
-  if (li == 0) {
-    sm_m[g] = m;
-    sm_l[g] = l;
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) sm_acc[g][li * E + e] = acc[e];
-  __syncthreads();
-  if (tid < D) {
-    float M = kNeg;
-#pragma unroll
-    for (int i = 0; i < kGroups; ++i) M = fmaxf(M, sm_m[i]);
-    float L = 0.f, out = 0.f;
-#pragma unroll
-    for (int i = 0; i < kGroups; ++i) {
-      const float w = expf(sm_m[i] - M);
-      L = fmaf(sm_l[i], w, L);
-      out = fmaf(sm_acc[i][tid], w, out);
-    }
-    o[(static_cast<int64_t>(b) * H + h) * D + tid] = out / L;
-  }
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+paged_decode_q_kernel(const TQ* __restrict__ q,
+                      const int8_t* __restrict__ k_pool,
+                      const float* __restrict__ k_scale,
+                      const int8_t* __restrict__ v_pool,
+                      const float* __restrict__ v_scale,
+                      const int* __restrict__ tables,
+                      const int* __restrict__ pos, float* __restrict__ o,
+                      int H, int bs, int NB, int64_t q_sb, int64_t q_sh,
+                      float scale) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int lane = (threadIdx.x % kLanesPerRow) * kE;
+  const PagedRowsQ rows{k_pool, v_pool, k_scale, v_scale,
+                        tables + static_cast<int64_t>(b) * NB, bs, H, h,
+                        lane};
+  row_walk(q + b * q_sb + h * q_sh + lane, scale, min(pos[b] + 1, NB * bs),
+           rows, o + (static_cast<int64_t>(b) * H + h) * kD);
 }
 
 template <typename T>
@@ -122,26 +64,39 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            int NB, int64_t q_sb, int64_t q_sh, float scale,
            cudaStream_t stream) {
   const dim3 grid(H, B);
-  paged_decode_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
+  paged_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), tables, pos, o, H, bs, NB, q_sb, q_sh,
       scale);
   return (int)cudaGetLastError();
 }
 
+template <typename TQ>
+int launch_q(const void* q, const int8_t* k_pool, const float* k_scale,
+             const int8_t* v_pool, const float* v_scale, const int* tables,
+             const int* pos, float* o, int B, int H, int bs, int NB,
+             int64_t q_sb, int64_t q_sh, float scale, cudaStream_t stream) {
+  const dim3 grid(H, B);
+  paged_decode_q_kernel<TQ><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TQ*>(q), k_pool, k_scale, v_pool, v_scale, tables,
+      pos, o, H, bs, NB, q_sb, q_sh, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// q [B, H, D] with element strides (innermost 1); k_pool/v_pool
+// #6. q [B, H, D] with element strides (innermost 1); k_pool/v_pool
 // [P, bs, H, D] contiguous and 16-byte aligned; tables [B, NB] int32
-// contiguous, every entry in [0, P); pos [B] int32 in [0, NB*bs); o
-// [B, H, D] contiguous f32. Returns the launch's cudaError_t.
+// contiguous, every entry in [0, P); pos [B] int32 >= 0 (rows past NB*bs
+// are not read); o [B, H, D] contiguous f32. Returns the launch's
+// cudaError_t.
 extern "C" int paddle_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const int* tables,
     const int* pos, float* o, int B, int H, int D, int bs, int NB,
     int64_t q_sb, int64_t q_sh, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (D != 64) return (int)cudaErrorInvalidValue;
+  if (D != decode::kD) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return launch<float>(q, k_pool, v_pool, tables, pos, o, B, H, bs, NB,
@@ -149,5 +104,25 @@ extern "C" int paddle_paged_decode_attention(
   if (dtype == kBF16)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, pos, o, B, H, bs,
                                  NB, q_sb, q_sh, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// #7. As #6 over int8 pools [P, bs, H, D] (contiguous, 16-byte aligned)
+// with f32 scale pools [P, bs, H] (contiguous); q f32 or bf16 (``q_dtype``).
+extern "C" int paddle_paged_decode_attention_q(
+    const void* q, const int8_t* k_pool, const float* k_scale,
+    const int8_t* v_pool, const float* v_scale, const int* tables,
+    const int* pos, float* o, int B, int H, int D, int bs, int NB,
+    int64_t q_sb, int64_t q_sh, float scale, int q_dtype, void* stream) {
+  using namespace paddle_tpu_torch;
+  if (D != decode::kD) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == kF32)
+    return launch_q<float>(q, k_pool, k_scale, v_pool, v_scale, tables, pos,
+                           o, B, H, bs, NB, q_sb, q_sh, scale, st);
+  if (q_dtype == kBF16)
+    return launch_q<__nv_bfloat16>(q, k_pool, k_scale, v_pool, v_scale,
+                                   tables, pos, o, B, H, bs, NB, q_sb, q_sh,
+                                   scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,12 @@ through :func:`ops.cuda_kernels.flash_attention` (causal; differentiable
 through the flash backward kernels), learned position embeddings, and a
 head tied to the token embedding. ``forward``, ``loss`` and
 ``shifted_loss`` are the training entries (``model.call(params, ids,
-method="loss")`` is what ``Trainer`` differentiates); the serving methods
-run without autograd. Not ported: ``tie_head=False``, ``remat`` and
-sequence sharding (``positions``, ``seq_axis``). The model
+method="loss")`` is what ``Trainer`` differentiates); the decode methods
+(``prefill``, ``decode_step``, ``decode_step_paged``, ``verify_step``,
+``generate_fused`` and its alias ``generate_cached``) run without
+autograd and write their caches in place. Not ported: ``tie_head=False``, ``remat``,
+``prefill_paged`` (the prefix cache) and sequence sharding
+(``positions``, ``seq_axis``). The model
 carries its own parameters (JAX passes a parameter tree beside it); they
 keep the JAX names and layouts so a JAX tree loads through
 ``paddle_tpu_torch.convert.params_from_numpy``.
@@ -186,6 +189,7 @@ class TransformerLM(Module):
     @torch.no_grad()
     def prefill(self, prompt: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None, *,
+                kv_dtype: Optional[str] = None,
                 pad_to: Optional[int] = None,
                 route: Optional[str] = None) -> Tuple[Cell, torch.Tensor]:
         """Run the prompt once; return (cell, last logits [B, V]). The cell
@@ -195,7 +199,17 @@ class TransformerLM(Module):
         ``lengths`` [B] makes the batch ragged: prompts are right-padded,
         attention stays causal with no kv_lens (a padded tail row is never
         read by a live query), and each sample's logits are taken at
-        ``lengths - 1``."""
+        ``lengths - 1``.
+
+        ``kv_dtype="int8"`` stores the caches as symmetric int8 rows
+        (:func:`ops.cuda_kernels.quantize_kv`) with per-(position, head) f32
+        scales ``k{i}_scale``/``v{i}_scale`` [B, pad, H], padded with 1.0 so
+        that a dequantized padding row stays finite. The prompt's own
+        attention runs at full precision: only later cache reads see the
+        quantization."""
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
+                             "(None or 'int8')")
         B, T0 = prompt.shape
         limit = self.max_len if pad_to is None else min(pad_to, self.max_len)
         if limit < T0:
@@ -212,8 +226,14 @@ class TransformerLM(Module):
         for i, blk in enumerate(self.blocks):
             q, k, v = blk.heads(x)
             x = blk.finish(x, blk.attend(q, k, v, route=route))
-            cell[f"k{i}"] = F.pad(k, pad)
-            cell[f"v{i}"] = F.pad(v, pad)
+            if kv_dtype == "int8":
+                for nm, t in ((f"k{i}", k), (f"v{i}", v)):
+                    codes, scale = ck.quantize_kv(t)
+                    cell[nm] = F.pad(codes, pad)
+                    cell[nm + "_scale"] = F.pad(scale, pad[2:], value=1.0)
+            else:
+                cell[f"k{i}"] = F.pad(k, pad)
+                cell[f"v{i}"] = F.pad(v, pad)
         x = self.ln_f(x)
         # only the rows whose logits are returned go through the head
         if lengths is None:
@@ -221,6 +241,76 @@ class TransformerLM(Module):
         else:
             last = x[torch.arange(B, device=x.device), pos.long() - 1]
         return cell, self._logits(last)
+
+    def _append_rows(self, cell: Cell, i: int, k: torch.Tensor,
+                     v: torch.Tensor, at) -> Tuple[torch.Tensor, ...]:
+        """Write this step's k/v rows ([B, S, H, Dh]) of layer ``i`` into
+        the cell's dense caches IN PLACE at the rows ``at`` (from
+        :meth:`_rows_at`), quantizing them when the cell is int8; returns
+        the caches (kc, vc, k_scale, v_scale), the scales None when not
+        int8. Where JAX returns updated caches, the returned cell holds the
+        same tensors: no copy of the cache per step."""
+        kc, vc = cell[f"k{i}"], cell[f"v{i}"]
+        ksc = cell.get(f"k{i}_scale")
+        vsc = cell.get(f"v{i}_scale")
+        if ksc is not None:
+            k, ks = ck.quantize_kv(k)
+            v, vs = ck.quantize_kv(v)
+            ksc[at] = ks
+            vsc[at] = vs
+        kc[at] = k.to(kc.dtype)
+        vc[at] = v.to(vc.dtype)
+        return kc, vc, ksc, vsc
+
+    @staticmethod
+    def _rows_at(pos: torch.Tensor, S: int, rows: int):
+        """The (batch, row) index of a write of S rows at pos..pos+S-1 into
+        a cache of ``rows`` rows, its start clamped to [0, rows - S] as
+        ``jax.lax.dynamic_update_slice`` clamps it (a finished request's
+        overshoot past max_len rewrites the last rows, as in JAX)."""
+        start = torch.clamp(pos.long(), 0, rows - S)
+        r = start[:, None] + torch.arange(S, device=pos.device)
+        return torch.arange(pos.shape[0], device=pos.device)[:, None], r
+
+    def _embed_at(self, tokens: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+        """Token + position embeddings of tokens [B, S] at positions
+        [B, S], the positions clamped to max_len - 1 as JAX's gather
+        clamps them."""
+        x = self.embed(tokens)
+        pe = self.pos_embed[torch.clamp(positions.long(), max=self.max_len - 1)]
+        return x + pe.to(x.dtype)
+
+    @torch.no_grad()
+    def decode_step(self, cell: Cell, tokens: torch.Tensor, *,
+                    cache_len: Optional[int] = None,
+                    route: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, Cell]:
+        """One incremental step against the dense caches of a
+        :meth:`prefill` cell: tokens [B] -> (logits [B, V], new cell). The
+        step's k/v row is written at ``pos`` (in place, :meth:`_append_rows`)
+        and the read goes through :func:`ops.cuda_kernels.decode_attention`
+        over the first ``cache_len`` rows (default max_len): the bucketed
+        read bound, which callers keep above every live position. An int8
+        cell quantizes the appended row and dequantizes in the read."""
+        pos = cell["pos"]
+        L = self.max_len if cache_len is None else min(cache_len,
+                                                       self.max_len)
+        x = self._embed_at(tokens[:, None], pos[:, None])   # [B, 1, D]
+        at = self._rows_at(pos, 1, cell["k0"].shape[1])
+        for i, blk in enumerate(self.blocks):
+            q, k, v = blk.heads(x)                          # [B, 1, H, Dh]
+            kc, vc, ksc, vsc = self._append_rows(cell, i, k, v, at)
+            o = ck.decode_attention(
+                q[:, 0], kc[:, :L], vc[:, :L], pos,
+                scale=blk.d_head ** -0.5,
+                k_scale=None if ksc is None else ksc[:, :L],
+                v_scale=None if vsc is None else vsc[:, :L], route=route)
+            x = blk.finish(x, o[:, None])
+        logits = self._logits(self.ln_f(x))
+        new_cell = dict(cell)
+        new_cell["pos"] = pos + 1
+        return logits[:, 0], new_cell
 
     @torch.no_grad()
     def decode_step_paged(self, cell: Cell, tokens: torch.Tensor,
@@ -239,26 +329,132 @@ class TransformerLM(Module):
         of the pool per step. Drained slots' tables point at the null page
         0, which absorbs their writes. Positions past the table or past
         max_len (a finished request's discarded overshoot) are clamped as
-        JAX clamps its gathers."""
+        JAX clamps its gathers. int8 pools (with ``k{i}_scale``/
+        ``v{i}_scale`` [P, bs, H] scale pools) quantize the appended row and
+        dequantize in the read."""
         pos = cell["pos"]
         bs = cell["k0"].shape[1]
         NB = tables.shape[1]
         blk_idx = torch.clamp(pos.long() // bs, max=NB - 1)
         page = tables.long().gather(1, blk_idx[:, None])[:, 0]
-        row = pos.long() % bs
-        x = self.embed(tokens[:, None])                     # [B, 1, D]
-        pe = self.pos_embed[torch.clamp(pos.long(), max=self.max_len - 1)]
-        x = x + pe[:, None, :].to(x.dtype)
+        at = (page, pos.long() % bs)
+        x = self._embed_at(tokens[:, None], pos[:, None])   # [B, 1, D]
         for i, blk in enumerate(self.blocks):
             q, k, v = blk.heads(x)                          # [B, 1, H, Dh]
-            kp, vp = cell[f"k{i}"], cell[f"v{i}"]
-            kp[page, row] = k[:, 0].to(kp.dtype)
-            vp[page, row] = v[:, 0].to(vp.dtype)
+            kp, vp, ksp, vsp = self._append_rows(cell, i, k[:, 0], v[:, 0],
+                                                 at)
             o = ck.paged_decode_attention(q[:, 0], kp, vp, tables, pos,
                                           scale=blk.d_head ** -0.5,
+                                          k_scale=ksp, v_scale=vsp,
                                           route=route)
             x = blk.finish(x, o[:, None])
         logits = self._logits(self.ln_f(x))
         new_cell = dict(cell)
         new_cell["pos"] = pos + 1
         return logits[:, 0], new_cell
+
+    @torch.no_grad()
+    def verify_step(self, cell: Cell, tokens: torch.Tensor, *,
+                    cache_len: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Cell]:
+        """Multi-token incremental step — the speculative-decoding verify:
+        tokens [B, S] are appended to the dense caches (rows
+        pos..pos+S-1, in place) and scored in one pass, returning (logits
+        [B, S, V], new cell) where logits[:, i] is the next-token
+        distribution after tokens[:, :i+1]. Query i attends rows
+        j <= pos+i. Plain PyTorch math, as the JAX method is plain einsums
+        outside any kernel; int8 cells quantize the span on append and
+        dequantize the read."""
+        B, S = tokens.shape
+        pos = cell["pos"]
+        L = self.max_len if cache_len is None else min(cache_len,
+                                                       self.max_len)
+        positions = pos.long()[:, None] + torch.arange(S, device=pos.device)
+        x = self._embed_at(tokens, positions)               # [B, S, D]
+        at = self._rows_at(pos, S, cell["k0"].shape[1])
+        valid = (torch.arange(L, device=pos.device)[None, None, None, :]
+                 <= positions[:, None, :, None])            # [B, 1, S, L]
+        for i, blk in enumerate(self.blocks):
+            q, k, v = blk.heads(x)                          # [B, S, H, Dh]
+            kc, vc, ksc, vsc = self._append_rows(cell, i, k, v, at)
+            kr, vr = kc[:, :L].float(), vc[:, :L].float()
+            if ksc is not None:
+                kr = kr * ksc[:, :L, :, None]
+                vr = vr * vsc[:, :L, :, None]
+            s = torch.einsum("bihd,bjhd->bhij",
+                             q.float() * blk.d_head ** -0.5, kr)
+            s = torch.where(valid, s, ck._NEG)
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            p = p / p.sum(dim=-1, keepdim=True)
+            x = blk.finish(x, torch.einsum("bhij,bjhd->bihd", p, vr))
+        logits = self._logits(self.ln_f(x))
+        new_cell = dict(cell)
+        new_cell["pos"] = pos + S
+        return logits, new_cell
+
+    @torch.no_grad()
+    def generate_fused(self, prompt: torch.Tensor, steps: int, *,
+                       bucket: Optional[int] = None,
+                       kv_dtype: Optional[str] = None,
+                       sample: str = "greedy", top_k: Optional[int] = None,
+                       temperature: float = 1.0,
+                       generator: Optional[torch.Generator] = None,
+                       route: Optional[str] = None) -> torch.Tensor:
+        """The decode loop: :meth:`prefill` emits the first token, each of
+        the ``steps - 1`` later ones is one :meth:`decode_step` (cache
+        append, the read through kernel #4 or #5, MLP, logits) and one
+        sample. prompt [B, T0] -> [B, T0+steps]. The greedy tokens are
+        :meth:`generate_greedy`'s, token for token (up to the kernels'
+        summation order, and int8's quantization).
+
+        ``bucket`` bounds each step's cache read to the next multiple of
+        ``bucket`` past its position instead of max_len (a 200-token decode
+        at max_len 1024 with bucket 256 reads 256-row slices, not 1024).
+
+        ``sample="topk"`` draws from the ``top_k`` largest logits at
+        ``temperature`` with ``generator`` (a ``torch.Generator`` on the
+        model's device, in place of JAX's PRNG key); greedy ignores both.
+        The JAX method compiles each step into one dispatch; here a step
+        runs eagerly (one CUDA graph per step is still to do)."""
+        B, T0 = prompt.shape
+        if T0 + steps > self.max_len:
+            raise ValueError(f"prompt_len ({T0}) + steps ({steps}) exceeds "
+                             f"max_len ({self.max_len})")
+        if sample not in ("greedy", "topk"):
+            raise ValueError(f"unknown sample mode {sample!r}")
+        if sample == "topk" and (top_k is None or generator is None):
+            raise ValueError("sample='topk' needs top_k and generator")
+        if steps == 0:
+            return prompt
+
+        def draw(logits):
+            return _sample_token(logits, sample, top_k, temperature,
+                                 generator).to(prompt.dtype)
+        cell, last = self.prefill(prompt, kv_dtype=kv_dtype, route=route)
+        toks = [draw(last)]
+        for j in range(1, steps):
+            pos = T0 + j                       # max live position + 1
+            cache_len = None if bucket is None else min(
+                -(-pos // bucket) * bucket, self.max_len)
+            logits, cell = self.decode_step(cell, toks[-1],
+                                            cache_len=cache_len, route=route)
+            toks.append(draw(logits))
+        return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+    #: the JAX package's name for the greedy dense-cache loop, kept for its
+    #: callers: one loop, :meth:`generate_fused` (the JAX scans run one step
+    #: more than they emit; this loop does not)
+    generate_cached = generate_fused
+
+
+def _sample_token(logits: torch.Tensor, sample: str, top_k: Optional[int],
+                  temperature: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy argmax, or a draw from the softmax of the ``top_k`` largest
+    logits over ``temperature`` (JAX's categorical over the same set)."""
+    if sample == "greedy":
+        return torch.argmax(logits, dim=-1)
+    v, idx = torch.topk(logits.float(), top_k, dim=-1)
+    choice = torch.multinomial(torch.softmax(v / temperature, dim=-1), 1,
+                               generator=generator)
+    return idx.gather(1, choice)[:, 0]

@@ -50,6 +50,12 @@ SIGNATURES = {
     "paddle_paged_decode_attention": [_p, _p, _p, _p, _p, _p,
                                       _i32, _i32, _i32, _i32, _i32,
                                       _i64, _i64, _f32, _i32, _p],
+    "paddle_paged_decode_attention_q": [_p] * 8 + [_i32] * 5 + [_i64] * 2
+                                       + [_f32, _i32, _p],
+    "paddle_decode_attention": [_p] * 5 + [_i32] * 4 + [_i64] * 5
+                               + [_f32, _i32, _p],
+    "paddle_decode_attention_q": [_p] * 7 + [_i32] * 4 + [_i64] * 8
+                                 + [_f32, _i32, _p],
     "paddle_lstm_seq": [_p] * 10 + [_i32, _i32, _i32, _f32, _i32, _p],
     "paddle_lstm_seq_train": [_p] * 11 + [_i32, _i32, _i32, _f32, _i32, _p],
     "paddle_lstm_seq_bwd": [_p] * 17 + [_i32, _i32, _i32, _f32, _i32, _p],

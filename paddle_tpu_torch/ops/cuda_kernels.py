@@ -1,13 +1,18 @@
 """Attention kernels — the counterpart of
 ``paddle_tpu/ops/pallas_kernels.py`` for the TPU attention kernels the
-serving and transformer-training paths run:
+serving, decode and transformer-training paths run:
 
 * :func:`flash_attention_fwd` replaces ``_fa_fwd_kernel`` (prefill and
   every training forward);
 * :func:`flash_attention_bwd` replaces ``_fa_bwd_dq_kernel`` and
   ``_fa_bwd_dkv_kernel`` (the training backward), bound to autograd by
   :class:`_FlashAttention` in place of the JAX custom VJP ``_flash``;
-* :func:`paged_decode_attention` replaces ``_paged_attn_kernel`` (decode).
+* :func:`decode_attention` replaces ``_decode_attn_kernel`` and, over an
+  int8 cache, ``_decode_attn_q_kernel`` (the dense decode step);
+* :func:`paged_decode_attention` replaces ``_paged_attn_kernel`` and, over
+  int8 pools, ``_paged_attn_q_kernel`` (the paged decode step).
+
+:func:`quantize_kv` is the int8 KV codebook those reads dequantize.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``, built
 by ``ops/_build.py``) for tensors on the card, and takes the plain PyTorch
@@ -18,8 +23,9 @@ counterpart of the JAX entries' ``route=``), which the solo reference
 decode uses on the card.
 
 The plain versions follow the op order of ``_dense_attention`` and
-``_dense_decode_attention``. ``SHORT_SEQ_DENSE`` and ``_default_blocks``
-of the JAX package are TPU routing constants and set nothing here.
+``_dense_decode_attention``. ``SHORT_SEQ_DENSE``, ``decode_route`` and
+``_default_blocks`` of the JAX package are TPU routing and set nothing
+here.
 
 ``LAUNCHES`` counts kernel launches per wrapper: a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
@@ -44,7 +50,10 @@ KERNEL_HEAD_DIMS = (64,)
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkv": 0,
+                            "decode_attention": 0,
+                            "decode_attention_q": 0,
                             "paged_decode_attention": 0,
+                            "paged_decode_attention_q": 0,
                             "lstm_seq": 0, "lstm_seq_train": 0,
                             "lstm_seq_bwd": 0}
 
@@ -402,24 +411,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# paged decode attention (replaces _paged_attn_kernel)
+# decode reads (replace _decode_attn_kernel, _decode_attn_q_kernel,
+# _paged_attn_kernel and _paged_attn_q_kernel)
 # ---------------------------------------------------------------------------
 
-def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """Dense per-sample view of a page pool: pool [P, bs, ...] gathered by
-    tables [B, NB] -> [B, NB*bs, ...]. The plain version reads through
-    this; the kernel never materializes it."""
-    B, NB = tables.shape
-    g = pool[tables.long()]
-    return g.reshape((B, NB * pool.shape[1]) + tuple(pool.shape[2:]))
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 rows for the KV cache — ``pallas_kernels.quantize_kv``:
+    x [..., D] -> (q int8 [..., D], scale f32 [...]) with x ~= q * scale
+    per row, scale = amax/127 (1.0 for an all-zero row). In f32 (bf16 is
+    cast first), dividing by the scale and rounding half to even as
+    ``jnp.round`` does, so the codes are the JAX codebook's bit for bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, *,
-                                 scale: float) -> torch.Tensor:
-    """``gather_pages`` + the op order of ``_dense_decode_attention``:
-    rows j <= pos[b] live, f32 softmax, o [B, H, D] f32."""
-    k = gather_pages(k_pool, tables)
-    v = gather_pages(v_pool, tables)
+def decode_attention_plain(q, k, v, pos, *, scale: float,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The op order of ``_dense_decode_attention``: an int8 cache
+    dequantizes up front (float(code) * scale), then f32 scores of
+    q * scale against every row, rows j <= pos[b] live, an f32 softmax,
+    o [B, H, D] f32."""
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
     L = k.shape[1]
     s = torch.einsum("bhd,bjhd->bhj", q.float() * scale, k.float())
     valid = (torch.arange(L, device=s.device)[None, :]
@@ -431,49 +450,188 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, *,
     return torch.einsum("bhj,bjhd->bhd", p / l, v.float())
 
 
-def _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos, scale):
+def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Dense per-sample view of a page pool: pool [P, bs, ...] gathered by
+    tables [B, NB] -> [B, NB*bs, ...]. The plain version reads through
+    this; the kernels never materialize it."""
+    B, NB = tables.shape
+    g = pool[tables.long()]
+    return g.reshape((B, NB * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, *,
+                                 scale: float,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """``gather_pages`` (of the scale pools too, for int8) + the op order
+    of ``_dense_decode_attention`` (:func:`decode_attention_plain`)."""
+    ks = None if k_scale is None else gather_pages(k_scale, tables)
+    vs = None if v_scale is None else gather_pages(v_scale, tables)
+    return decode_attention_plain(q, gather_pages(k_pool, tables),
+                                  gather_pages(v_pool, tables), pos,
+                                  scale=scale, k_scale=ks, v_scale=vs)
+
+
+def _decode_query(what: str, q: torch.Tensor, pos: torch.Tensor):
+    """(B, H, D, pos as contiguous int32) of a decode read's query
+    q [B, H, D] (f32 or bf16, innermost stride 1); raises on anything the
+    kernels do not take."""
+    if q.dim() != 3:
+        raise ValueError(f"{what}: q {tuple(q.shape)} is not [B, H, D]")
     B, H, D = q.shape
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
-            or k_pool.shape[2:] != (H, D):
-        raise ValueError(f"paged_decode_attention: pools {tuple(k_pool.shape)}"
-                         f"/{tuple(v_pool.shape)} do not match q "
-                         f"{tuple(q.shape)} as [P, bs, H, D]")
-    P, bs = k_pool.shape[:2]
-    if tables.dim() != 2 or tables.shape[0] != B:
-        raise ValueError(f"paged_decode_attention: tables "
-                         f"{tuple(tables.shape)} is not [{B}, NB]")
-    if pos.shape != (B,):
-        raise ValueError(f"paged_decode_attention: pos {tuple(pos.shape)} "
-                         f"!= ({B},)")
-    NB = tables.shape[1]
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head width {D} not taken "
-                         f"by the kernel (built for {KERNEL_HEAD_DIMS})")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        _check_float(name, t, q.dtype)
+        raise ValueError(f"{what}: head width {D} not taken by the kernel "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    _check_float("q", q, q.dtype)
     if q.stride(-1) != 1:
-        raise ValueError("paged_decode_attention: q needs an innermost "
-                         "stride of 1")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"paged_decode_attention: {name} must be "
-                             "contiguous and 16-byte aligned")
-    if tables.dtype != torch.int32 or not tables.is_contiguous():
-        raise TypeError("paged_decode_attention: tables must be contiguous "
-                        "int32")
-    pos32 = pos.to(dtype=torch.int32).contiguous()
+        raise ValueError(f"{what}: q needs an innermost stride of 1")
+    if pos.shape != (B,):
+        raise ValueError(f"{what}: pos {tuple(pos.shape)} != ({B},)")
+    return B, H, D, pos.to(dtype=torch.int32).contiguous()
+
+
+def _check_cache(what: str, q, k, v, k_scale, v_scale, scale_shape):
+    """k/v in q's dtype, or int8 with f32 scales of ``scale_shape``."""
+    if k_scale is None:
+        for name, t in (("k", k), ("v", v)):
+            _check_float(name, t, q.dtype)
+        return
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{what}: {name} dtype {t.dtype} with scales "
+                            "(the quantized kernel reads int8)")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or tuple(t.shape) != scale_shape:
+            raise ValueError(f"{what}: {name} must be float32 "
+                             f"{list(scale_shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _check_rows(what: str, *named) -> None:
+    """The kernels read a cache row as 8-element vectors (16 bytes of bf16,
+    8 of int8): innermost stride 1, the other strides multiples of 8, a
+    16-byte-aligned start."""
+    for name, t in named:
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} needs an innermost stride of "
+                             "1, other strides that are multiples of 8 and "
+                             "a 16-byte-aligned start")
+
+
+def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale):
+    what = "decode_attention"
+    B, H, D, pos32 = _decode_query(what, q, pos)
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[2:] != (H, D):
+        raise ValueError(f"{what}: k/v {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)} as [B, L, H, D]")
+    L = k.shape[1]
+    if L == 0:
+        raise ValueError(f"{what}: an empty cache read (L = 0)")
+    _check_cache(what, q, k, v, k_scale, v_scale, (B, L, H))
+    if k.stride() != v.stride():
+        raise ValueError(f"{what}: k and v must share strides")
+    _check_rows(what, ("k", k), ("v", v))
+    if k_scale is not None and k_scale.stride() != v_scale.stride():
+        raise ValueError(f"{what}: k_scale and v_scale must share strides")
     o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return o
     lib = _build.load().lib
+    shape = (B, H, D, L, q.stride(0), q.stride(1), *k.stride()[:3])
     with torch.cuda.device(q.device):
-        err = lib.paddle_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), pos32.data_ptr(), o.data_ptr(),
-            B, H, D, bs, NB, q.stride(0), q.stride(1), float(scale),
+        if k_scale is None:
+            name = "decode_attention"
+            err = lib.paddle_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos32.data_ptr(),
+                o.data_ptr(), *shape, float(scale), _DTYPE_CODE[q.dtype],
+                _stream(q.device))
+        else:
+            name = "decode_attention_q"
+            err = lib.paddle_decode_attention_q(
+                q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+                v_scale.data_ptr(), pos32.data_ptr(), o.data_ptr(), *shape,
+                *k_scale.stride(), float(scale), _DTYPE_CODE[q.dtype],
+                _stream(q.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return o
+
+
+def _scales(k_scale, v_scale) -> tuple:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    return () if k_scale is None else (k_scale, v_scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, *, scale: Optional[float] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     route: Optional[str] = None) -> torch.Tensor:
+    """Single-token KV-cache attention read — the
+    ``pallas_kernels.decode_attention`` contract: q [B, H, D] (this step's
+    query); k/v [B, L, H, D] cache views already bounded to the read length
+    L (the decode step passes ``[:, :L]`` of its cache, read in place
+    through the strides); pos [B] int32, rows j <= pos[b] live (a pos at or
+    past L reads all L rows). With ``k_scale``/``v_scale`` [B, L, H] f32
+    the cache is int8 (:func:`quantize_kv`) and dequantizes on load.
+    Returns o [B, H, D] f32.
+
+    For CUDA tensors it launches kernel #4, or #5 with scales."""
+    scale_v = scale if scale is not None else q.shape[-1] ** -0.5
+    extra = _scales(k_scale, v_scale)
+    if _route(route, q, k, v, pos, *extra) == "plain":
+        return decode_attention_plain(q, k, v, pos, scale=scale_v,
+                                      k_scale=k_scale, v_scale=v_scale)
+    return _decode_attention_kernel(q, k, v, pos, scale_v, k_scale, v_scale)
+
+
+def _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos, scale,
+                                   k_scale, v_scale):
+    what = "paged_decode_attention"
+    B, H, D, pos32 = _decode_query(what, q, pos)
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
+            or k_pool.shape[2:] != (H, D):
+        raise ValueError(f"{what}: pools {tuple(k_pool.shape)}"
+                         f"/{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)} as [P, bs, H, D]")
+    P, bs = k_pool.shape[:2]
+    if tables.dim() != 2 or tables.shape[0] != B:
+        raise ValueError(f"{what}: tables {tuple(tables.shape)} is not "
+                         f"[{B}, NB]")
+    NB = tables.shape[1]
+    _check_cache(what, q, k_pool, v_pool, k_scale, v_scale, (P, bs, H))
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)) + (
+            () if k_scale is None else (("k_scale", k_scale),
+                                        ("v_scale", v_scale))):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and "
+                             "16-byte aligned")
+    if tables.dtype != torch.int32 or not tables.is_contiguous():
+        raise TypeError(f"{what}: tables must be contiguous int32")
+    o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return o
+    lib = _build.load().lib
+    tail = (B, H, D, bs, NB, q.stride(0), q.stride(1), float(scale),
             _DTYPE_CODE[q.dtype], _stream(q.device))
-    _raise_on(err, "paged_decode_attention")
-    LAUNCHES["paged_decode_attention"] += 1
+    with torch.cuda.device(q.device):
+        if k_scale is None:
+            name = "paged_decode_attention"
+            err = lib.paddle_paged_decode_attention(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), pos32.data_ptr(), o.data_ptr(), *tail)
+        else:
+            name = "paged_decode_attention_q"
+            err = lib.paddle_paged_decode_attention_q(
+                q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
+                v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+                pos32.data_ptr(), o.data_ptr(), *tail)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return o
 
 
@@ -481,15 +639,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            pos: torch.Tensor, *,
                            scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
                            route: Optional[str] = None) -> torch.Tensor:
     """Single-token attention read through a block table — the
     ``pallas_kernels.paged_decode_attention`` contract: q [B, H, D]; pools
-    [P, bs, H, D] f32/bf16; tables [B, NB] int32 whose entries past a
-    request's live pages name the null page 0; pos [B] int32 with rows
-    j <= pos[b] live and pos[b] < NB*bs. Returns o [B, H, D] f32."""
+    [P, bs, H, D] f32/bf16, or int8 with ``k_scale``/``v_scale`` [P, bs, H]
+    f32 scale pools; tables [B, NB] int32 whose entries past a request's
+    live pages name the null page 0; pos [B] int32 with rows j <= pos[b]
+    live (at most NB*bs rows are read). Returns o [B, H, D] f32.
+
+    For CUDA tensors it launches kernel #6, or #7 with scales."""
     scale_v = scale if scale is not None else q.shape[-1] ** -0.5
-    if _route(route, q, k_pool, v_pool, tables, pos) == "plain":
+    extra = _scales(k_scale, v_scale)
+    if _route(route, q, k_pool, v_pool, tables, pos, *extra) == "plain":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
-                                            scale=scale_v)
+                                            scale=scale_v, k_scale=k_scale,
+                                            v_scale=v_scale)
     return _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos,
-                                          scale_v)
+                                          scale_v, k_scale, v_scale)

@@ -1,18 +1,29 @@
-"""Request records and the checks every serving loop shares — the
-framework-free part of ``paddle_tpu/serving/batcher.py``.
+"""Continuous batching over a pinned slot pool, speculative decoding, and
+the request records and checks every serving loop shares — the
+counterpart of ``paddle_tpu/serving/batcher.py``.
 
-(The pinned-pool ``ContinuousBatcher`` and ``SpeculativeDecoder`` are
-not ported yet; the paged pool, ``serving/paged.py``, is the serving
-path.)
+``ContinuousBatcher`` decodes a fixed pool of ``slots`` dense KV caches
+(``TransformerLM.prefill``/``decode_step``, so the reads go through kernel
+#4, or #5 at ``kv_dtype="int8"``): slots at different positions decode in
+one batched step, and the host only acts at segment boundaries. Where the
+JAX batcher runs a jitted ``lax.scan`` of ``segment`` steps and a jitted
+masked merge, the port runs ``segment`` eager steps and copies the admitted
+slots' rows into the pool in place. ``SpeculativeDecoder`` verifies a
+draft's proposals with ``TransformerLM.verify_step``. The paged pool
+(``serving/paged.py``) is the engine's.
 """
 
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..core.lod import bucket_length
+from ..core.place import DeviceLike, resolve_device
 
 #: SLO classes a request may declare — the weighted-fair scheduler's queue
 #: key (serving/engine.py). "interactive" is the latency class; "batch"
@@ -101,3 +112,240 @@ def clip_emission(row, left: int, eos_id: Optional[int]):
         if hits.size:
             take, done, reason = take[:hits[0]], True, "eos"
     return take, done, reason
+
+
+DEFAULT_PROMPT_BUCKETS = (32, 64, 128, 256, 512)
+
+
+@dataclass
+class _Slot:
+    req: Optional[Request] = None
+    left: int = 0
+    out: List[int] = field(default_factory=list)
+
+
+def _model_device(model, device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"the model's weights are on {model.device} but the "
+                         f"batcher is for {dev}; move the model or pass "
+                         "device=")
+    return dev
+
+
+class ContinuousBatcher:
+    """Continuous batching over a pinned pool of ``slots`` dense KV caches
+    padded to max_len: each request's greedy continuation equals its solo
+    decode at the same ``kv_dtype``.
+
+    Requests are admitted longest effective budget first (the JAX
+    batcher's default schedule, as ``PagedBatcher``'s). ``cache_bucket``
+    bounds each segment's cache read to the next bucket multiple past the
+    live slots' positions. ``kv_dtype="int8"`` holds the pool quantized:
+    tokens then equal the solo int8 decode."""
+
+    def __init__(self, model, *, slots: int = 8, segment: int = 32,
+                 cache_bucket: int = 256,
+                 prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 kv_dtype: Optional[str] = None,
+                 device: DeviceLike = None):
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        self.device = _model_device(model, device)
+        self.model = model
+        self.n_slots, self.segment = slots, segment
+        self.cache_bucket = cache_bucket
+        self.prompt_buckets = tuple(prompt_buckets)
+        self.kv_dtype = kv_dtype
+        self.segments_total = 0
+        self.segments_by_len: Dict[int, int] = {}    # cache_len -> count
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _budget(self, r: Request) -> int:
+        return min(r.max_new, self.model.max_len - r.prompt.size)
+
+    @torch.no_grad()
+    def serve(self, requests: Sequence[Request]) -> Dict[int, np.ndarray]:
+        """Run every request to completion; returns {rid: generated ids}."""
+        model, n = self.model, self.n_slots
+        queue = list(requests)
+        for r in queue:
+            validate_request(r, model)
+        queue.sort(key=lambda r: -self._budget(r))
+        slots = [_Slot() for _ in range(n)]
+        results: Dict[int, np.ndarray] = {}
+
+        # the pool: a dummy full-width prefill at the smallest prompt
+        # bucket, padded to max_len
+        tpad0 = min(bucket_length(1, self.prompt_buckets), model.max_len - 1)
+        cell, _ = model.prefill(self._tensor(np.zeros((n, tpad0), np.int32)),
+                                self._tensor(np.zeros((n,), np.int32)),
+                                kv_dtype=self.kv_dtype)
+        cur = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        pos_host = np.zeros((n,), np.int64)
+
+        def admit():
+            free = [i for i, s in enumerate(slots) if s.req is None]
+            group = [(i, queue.pop(0)) for i in free[:len(queue)]]
+            if not group:
+                return
+            tpad = min(bucket_length(max(r.prompt.size for _, r in group),
+                                     self.prompt_buckets),
+                       model.max_len - 1)
+            prompts = np.zeros((n, tpad), np.int32)
+            lens = np.zeros((n,), np.int32)
+            for i, r in group:
+                prompts[i, :r.prompt.size] = r.prompt
+                lens[i] = r.prompt.size
+            # a pool-width prefill of the prompt bucket, copied into the
+            # admitted slots' rows in place (rows past tpad keep what they
+            # held: they lie past pos, are never read, and are written
+            # before pos reaches them)
+            new_cell, last = model.prefill(self._tensor(prompts),
+                                           self._tensor(lens),
+                                           kv_dtype=self.kv_dtype,
+                                           pad_to=tpad)
+            idx = self._tensor(np.asarray([i for i, _ in group], np.int64))
+            for nm, t in cell.items():
+                if nm == "pos":
+                    t[idx] = new_cell[nm][idx]
+                else:
+                    t[idx, :tpad] = new_cell[nm][idx]
+            cur[idx] = torch.argmax(last, dim=-1).to(torch.int32)[idx]
+            for i, r in group:
+                slots[i] = _Slot(r, self._budget(r), [])
+                pos_host[i] = r.prompt.size
+
+        def park_idle():
+            # drained slots decode on; reset them before a segment could
+            # carry their position to max_len
+            idle = [i for i, s in enumerate(slots) if s.req is None
+                    and pos_host[i] + 2 * self.segment >= model.max_len]
+            if idle:
+                cell["pos"][self._tensor(np.asarray(idle, np.int64))] = 0
+                pos_host[idle] = 0
+
+        admit()
+        while any(s.req is not None for s in slots):
+            park_idle()
+            # reads sized to the live slots only: a drained slot at a high
+            # position reads at most cache_len rows of garbage
+            max_pos = max(int(pos_host[i]) for i, s in enumerate(slots)
+                          if s.req is not None)
+            cache_len = min(-(-(max_pos + self.segment + 1)
+                              // self.cache_bucket) * self.cache_bucket,
+                            model.max_len)
+            toks = []
+            for _ in range(self.segment):      # the JAX segment's scan
+                logits, cell = model.decode_step(cell, cur,
+                                                 cache_len=cache_len)
+                toks.append(cur)
+                cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            block = torch.stack(toks, dim=1).cpu().numpy()
+            self.segments_total += 1
+            self.segments_by_len[cache_len] = \
+                self.segments_by_len.get(cache_len, 0) + 1
+            pos_host += self.segment
+            for i, s in enumerate(slots):
+                if s.req is None:
+                    continue
+                take, done, _ = clip_emission(block[i], s.left, s.req.eos_id)
+                s.out.extend(int(t) for t in take)
+                s.left -= len(take)
+                if done:
+                    results[s.req.rid] = np.asarray(s.out, np.int32)
+                    slots[i] = _Slot()
+            admit()
+        return results
+
+
+class SpeculativeDecoder:
+    """Speculative greedy decoding: a draft proposes ``k - 1`` tokens a
+    round, the target scores the whole span in one ``verify_step`` and
+    emits the longest agreeing prefix plus its own next token. Every
+    emitted token is the target's greedy choice, so the output is the
+    target's greedy decode for any draft; the draft only sets how many
+    tokens a round yields. Rejected rows lie past the reset position and
+    are overwritten before they are read.
+
+    ``draft`` is any model with ``prefill(prompt[, kv_dtype=])`` and
+    ``decode_step(cell, tokens)``; the target itself reading an int8 cache
+    (``draft_kv_dtype="int8"``) is the self-speculation draft. The target
+    holds its cache at full precision."""
+
+    def __init__(self, model, draft, *, k: int = 4,
+                 draft_kv_dtype: Optional[str] = None):
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.model, self.draft, self.k = model, draft, k
+        self.draft_kv_dtype = draft_kv_dtype
+
+    @torch.no_grad()
+    def generate(self, prompt, steps: int) -> Tuple[np.ndarray, Dict]:
+        """prompt [B, T0] (or [T0]) -> (tokens [B, steps] int32, stats:
+        rounds / proposed / accepted / acceptance_rate)."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        B, T0 = prompt.shape
+        if T0 == 0:
+            raise ValueError("empty prompt (prefill needs >= 1 token)")
+        # frozen samples re-write up to k span rows past their last
+        # position and a final round can overshoot by k - 1: 2k of margin
+        need = T0 + steps + 2 * self.k
+        for name, m in (("model", self.model), ("draft", self.draft)):
+            if need > m.max_len:
+                raise ValueError(
+                    f"prompt ({T0}) + steps ({steps}) + 2k ({2 * self.k}) "
+                    f"exceeds {name} max_len ({m.max_len})")
+        dev = self.model.device
+        ids = torch.from_numpy(prompt).to(dev)
+        cell, last = self.model.prefill(ids)
+        cur = torch.argmax(last, dim=-1).to(torch.int32)
+        dcell, _ = (self.draft.prefill(ids, kv_dtype=self.draft_kv_dtype)
+                    if self.draft_kv_dtype is not None
+                    else self.draft.prefill(ids))
+
+        pos = np.full((B,), T0, np.int64)
+        emitted: List[List[int]] = [[int(t)] for t in cur.cpu().numpy()]
+        rounds = proposed = accepted = 0
+        while min(len(e) for e in emitted) < steps:
+            # the draft proposes k - 1 tokens from cur at the target's
+            # accepted positions, then one more step writes the last
+            # proposal's row (on a fully accepted round it becomes live)
+            dcell = dict(dcell, pos=torch.from_numpy(
+                pos.astype(np.int32)).to(dev))
+            d_cur, props = cur, []
+            for i in range(self.k if self.k > 1 else 0):
+                logits, dcell = self.draft.decode_step(dcell, d_cur)
+                d_cur = torch.argmax(logits, dim=-1).to(torch.int32)
+                if i < self.k - 1:
+                    props.append(d_cur)     # the k-th output is discarded
+            span = torch.stack([cur] + props, dim=1)          # [B, k]
+            logits, cell = self.model.verify_step(cell, span)
+            t_np = torch.argmax(logits, dim=-1).cpu().numpy()
+            props_np = (np.stack([p.cpu().numpy() for p in props], axis=1)
+                        if props else t_np[:, :0])
+            next_cur = cur.cpu().numpy().copy()
+            for b in range(B):
+                if len(emitted[b]) >= steps:
+                    continue                # frozen: pos and cur hold
+                m = 0
+                while m < self.k - 1 and props_np[b, m] == t_np[b, m]:
+                    m += 1
+                emitted[b].extend(int(x) for x in t_np[b, :m + 1])
+                next_cur[b] = t_np[b, m]
+                pos[b] += m + 1
+                proposed += self.k - 1
+                accepted += m
+            cell = dict(cell, pos=torch.from_numpy(
+                pos.astype(np.int32)).to(dev))
+            cur = torch.from_numpy(next_cur.astype(np.int32)).to(dev)
+            rounds += 1
+        out = np.asarray([e[:steps] for e in emitted], np.int32)
+        return out, {"rounds": rounds, "proposed": proposed,
+                     "accepted": accepted,
+                     "acceptance_rate": (accepted / proposed if proposed
+                                         else 1.0)}

@@ -64,13 +64,13 @@ class ServingEngine:
     """Continuous-batching scheduler over the paged pool. ``start()``
     spawns the scheduler thread; tests may drive :meth:`step` directly.
     The pool lives on ``device`` (default: the card), which must hold the
-    model's weights."""
+    model's weights; ``kv_dtype="int8"`` holds it quantized (PagePool)."""
 
     def __init__(self, model, *, slots: int = 8, segment: int = 32,
                  page_block: int = 64, pages: Optional[int] = None,
                  cache_bucket: int = 256,
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
-                 queue_cap: int = 64,
+                 kv_dtype: Optional[str] = None, queue_cap: int = 64,
                  default_timeout_s: Optional[float] = None,
                  class_weights: Optional[Dict[str, float]] = None,
                  max_tenants: int = 32, device: DeviceLike = None,
@@ -78,7 +78,8 @@ class ServingEngine:
         self.pool = PagePool(model, slots=slots, segment=segment,
                              page_block=page_block, pages=pages,
                              cache_bucket=cache_bucket,
-                             prompt_buckets=prompt_buckets, device=device)
+                             prompt_buckets=prompt_buckets,
+                             kv_dtype=kv_dtype, device=device)
         self.model = model
         self.queue_cap = queue_cap
         self.default_timeout_s = default_timeout_s

@@ -20,6 +20,10 @@ the port writes into the pool tensors in place (admission scatters with
 index assignment, each decode step writes its row in place), and the
 segment's ``lax.scan`` is a Python loop of ``segment`` steps.
 
+``kv_dtype="int8"`` holds the pools as int8 rows with f32 scale pools
+[P, bs, H] (initialised to 1.0); the admission scatters the prompt's
+scales with its rows, and the decode reads dequantize on load.
+
 The ``tune`` consults of the JAX pool are not ported: page_block 64,
 cache_bucket 256 and prompt buckets (32, 64, 128, 256, 512) are the
 heuristic defaults the JAX pool falls back to.
@@ -34,9 +38,8 @@ import torch
 
 from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
-from .batcher import Request, clip_emission, validate_request
-
-DEFAULT_PROMPT_BUCKETS = (32, 64, 128, 256, 512)
+from .batcher import (DEFAULT_PROMPT_BUCKETS, Request, clip_emission,
+                      validate_request)
 
 
 class _AdmitPlan:
@@ -60,6 +63,7 @@ class PagePool:
                  page_block: int = 64, pages: Optional[int] = None,
                  cache_bucket: int = 256,
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 kv_dtype: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -72,7 +76,10 @@ class PagePool:
         if cache_bucket % page_block:
             raise ValueError(f"cache_bucket {cache_bucket} must be a "
                              f"multiple of page_block {page_block}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         self.model = model
+        self.kv_dtype = kv_dtype
         self.n_slots, self.segment = slots, segment
         self.bs = page_block
         self.cache_bucket = cache_bucket
@@ -86,14 +93,23 @@ class PagePool:
 
         H = model.blocks[0].n_heads
         Dh = model.blocks[0].d_head
-        dt = model.dtype
+        dt = torch.int8 if kv_dtype == "int8" else model.dtype
         self.pools: Dict[str, torch.Tensor] = {}
         for i in range(len(model.blocks)):
             for nm in (f"k{i}", f"v{i}"):
                 self.pools[nm] = torch.zeros((self.pages, self.bs, H, Dh),
                                              dtype=dt, device=self.device)
-        self._H, self._Dh = H, Dh
-        self._itemsize = torch.empty((), dtype=dt).element_size()
+                if kv_dtype == "int8":
+                    # scale 1.0 everywhere, the null page included, so that
+                    # a dequantized (never read) padding row stays finite
+                    self.pools[nm + "_scale"] = torch.ones(
+                        (self.pages, self.bs, H), dtype=torch.float32,
+                        device=self.device)
+        # the bytes of one cache row of one layer's k or v: an int8 row
+        # carries one f32 scale per head (JAX's _decode_attention_bytes)
+        itemsize = torch.empty((), dtype=dt).element_size()
+        self._row_bytes = H * (Dh + 4 if kv_dtype == "int8"
+                               else Dh * itemsize)
 
         # host accounting
         self.free: List[int] = list(range(self.pages - 1, 0, -1))
@@ -228,7 +244,8 @@ class PagePool:
             n = min(nbp, len(self.slot_pages[slot]))
             pages[slot, :n] = self.slot_pages[slot][:n]
         cell, last = self.model.prefill(self._to_device(prompts),
-                                        self._to_device(lens), pad_to=tpp)
+                                        self._to_device(lens),
+                                        kv_dtype=self.kv_dtype, pad_to=tpp)
         pages_d = self._to_device(pages)
         for nm, pool in self.pools.items():
             rows = cell[nm][:, :tpp].reshape(
@@ -266,9 +283,9 @@ class PagePool:
         self.segments_total += 1
         self.segments_by_pages[nb] = self.segments_by_pages.get(nb, 0) + 1
         # k + v live-table rows streamed per step, every layer
-        self.read_bytes_total += (2.0 * self.n_slots * nb * self.bs * self._H
-                                  * self._Dh * self._itemsize
-                                  * len(self.model.blocks) * self.segment)
+        self.read_bytes_total += (2.0 * self.n_slots * nb * self.bs
+                                  * self._row_bytes * len(self.model.blocks)
+                                  * self.segment)
         self.occupancy_num += self.live_tokens(live)
         self.occupancy_den += max(self.pages_used, 1) * self.bs
         self.pos += self.segment
@@ -290,12 +307,14 @@ class PagedBatcher:
                  page_block: int = 64, pages: Optional[int] = None,
                  cache_bucket: int = 256,
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 kv_dtype: Optional[str] = None,
                  device: DeviceLike = None):
         self.model = model
         self.pool = PagePool(model, slots=slots, segment=segment,
                              page_block=page_block, pages=pages,
                              cache_bucket=cache_bucket,
-                             prompt_buckets=prompt_buckets, device=device)
+                             prompt_buckets=prompt_buckets,
+                             kv_dtype=kv_dtype, device=device)
 
     def _effective_budget(self, r: Request) -> int:
         return self.pool.effective_budget(r.prompt.size, r.max_new)

@@ -80,6 +80,148 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype):
     torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
 
 
+def _decode_cache(cuda, dtype, gen, B=4, Lmax=96, H=3):
+    """q as decode_step passes it (``q[:, 0]`` of a fused projection's
+    view) and a [B, Lmax, H, 64] cache, int8 with its scales when ``dtype``
+    is a (query dtype, "int8") pair."""
+    qdt, kv = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    qkv = torch.randn(B, 1, 3 * H * 64, generator=gen).to(cuda, qdt)
+    q = qkv.chunk(3, dim=-1)[0].unflatten(-1, (H, 64))[:, 0]
+    k, v = (torch.randn(B, Lmax, H, 64, generator=gen).to(cuda)
+            for _ in range(2))
+    if kv == "int8":
+        (k, ks), (v, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+        return q, k, v, ks, vs
+    return q, k.to(qdt), v.to(qdt), None, None
+
+
+_DECODE_DTYPES = [torch.float32, torch.bfloat16,
+                  (torch.float32, "int8"), (torch.bfloat16, "int8")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DECODE_DTYPES)
+def test_decode_kernels_match_plain_on_card(cuda, dtype):
+    """#4 (and #5 over int8) through a [:, :L] view of the cache, pos with
+    0, L-1 and a drained value past L: f32 summation order only (atol
+    1e-5, rtol 1e-4; the output is f32 in every dtype)."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, ks, vs = _decode_cache(cuda, dtype, gen)
+    Lr = 70
+    k, v = k[:, :Lr], v[:, :Lr]
+    ks, vs = (None, None) if ks is None else (ks[:, :Lr], vs[:, :Lr])
+    assert not k.is_contiguous()
+    pos = torch.tensor([0, Lr - 1, 33, Lr + 20], dtype=torch.int32,
+                       device=cuda)
+    name = "decode_attention" if ks is None else "decode_attention_q"
+    before = ck.LAUNCHES[name]
+    o = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+    po = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
+                             route="plain")
+    assert ck.LAUNCHES[name] == before + 1
+    torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_paged_int8_kernel_matches_plain_on_card(cuda, qdtype):
+    """#7 over int8 pools with null-page table tails."""
+    gen = torch.Generator().manual_seed(4)
+    B, H, bs, NB, P = 5, 3, 16, 6, 40
+    (kp, ksp), (vp, vsp) = (ck.quantize_kv(
+        torch.randn(P, bs, H, 64, generator=gen).to(cuda)) for _ in range(2))
+    q = torch.randn(B, H, 64, generator=gen).to(cuda, qdtype)
+    tables = (torch.randperm(P - 1, generator=gen)[:B * NB] + 1).reshape(
+        B, NB).to(torch.int32)
+    pos = torch.tensor([0, 15, 16, 50, NB * bs - 1], dtype=torch.int32)
+    for b in range(B):
+        tables[b, int(pos[b]) // bs + 1:] = 0
+    args = (q, kp, vp, tables.to(cuda), pos.to(cuda))
+    before = ck.LAUNCHES["paged_decode_attention_q"]
+    o = ck.paged_decode_attention(*args, k_scale=ksp, v_scale=vsp)
+    po = ck.paged_decode_attention(*args, k_scale=ksp, v_scale=vsp,
+                                   route="plain")
+    assert ck.LAUNCHES["paged_decode_attention_q"] == before + 1
+    torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_decode_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, _, _ = _decode_cache(cuda, torch.float32, gen)
+    pos = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ck.decode_attention(q, k.to(torch.bfloat16), v, pos)
+    with pytest.raises(TypeError, match="dtype"):
+        ck.decode_attention(q.half(), k.half(), v.half(), pos)
+    with pytest.raises(ValueError, match="head width"):
+        ck.decode_attention(q[..., :32], k[..., :32], v[..., :32], pos)
+    # a cache 8 bytes off a 16-byte boundary, and one with odd strides
+    off = torch.empty(4 * 96 * 3 * 64 + 2, device=cuda)[2:].view(4, 96, 3,
+                                                                 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ck.decode_attention(q, off, off, pos)
+    big = torch.empty(4, 96, 3, 65, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="multiples of 8|aligned"):
+        ck.decode_attention(q, big, big, pos)
+    k8, ks = ck.quantize_kv(k)
+    with pytest.raises(TypeError, match="int8"):
+        ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=ks)
+    with pytest.raises(ValueError, match="k_scale"):
+        ck.decode_attention(q, k8, k8, pos, k_scale=ks[:, :5],
+                            v_scale=ks[:, :5])
+    pool = torch.empty(10 * 16 * 3 * 64 + 2, device=cuda)[2:].view(
+        10, 16, 3, 64)
+    tables = torch.zeros(4, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        ck.paged_decode_attention(q, pool, pool, tables, pos)
+    with pytest.raises(TypeError, match="int32"):
+        ck.paged_decode_attention(q, pool.clone(), pool.clone(),
+                                  tables.long(), pos)
+
+
+@pytest.mark.gpu
+def test_dense_decode_paths_on_card_match_plain_decode(cuda):
+    """A small model with 64-wide heads on the card: generate_fused (f32
+    and int8 KV, bucketed reads crossing 64 -> 128 rows) and the int8
+    ContinuousBatcher and ServingEngine give the tokens of the same loop on
+    the plain route, each
+    decode kernel launched 2 x its decode steps."""
+    from paddle_tpu_torch.serving import ContinuousBatcher, Request
+    model = TransformerLM(101, d_model=128, n_heads=2, n_layers=2,
+                          max_len=256).init(seed=4, device=cuda)
+    rs = np.random.RandomState(6)
+    ids = torch.as_tensor(rs.randint(0, 101, (3, 50)), device=cuda)
+    for kv, name in ((None, "decode_attention"),
+                     ("int8", "decode_attention_q")):
+        ck.reset_launch_counts()
+        got = model.generate_fused(ids, 30, bucket=64, kv_dtype=kv)
+        assert ck.LAUNCHES[name] == 2 * 29
+        want = model.generate_fused(ids, 30, bucket=64, kv_dtype=kv,
+                                    route="plain")
+        assert torch.equal(got, want)
+    work = [(rs.randint(0, 101, int(n)), int(m))
+            for n, m in ((70, 20), (5, 9), (33, 30), (120, 12))]
+    solo = [model.generate_fused(
+        torch.as_tensor(p[None], device=cuda), n, kv_dtype="int8",
+        route="plain")[0, len(p):].cpu().tolist() for p, n in work]
+    ck.reset_launch_counts()
+    b = ContinuousBatcher(model, slots=3, segment=8, cache_bucket=64,
+                          kv_dtype="int8", device=cuda)
+    got = b.serve([Request(i, p, n) for i, (p, n) in enumerate(work)])
+    assert ck.LAUNCHES["decode_attention_q"] == 2 * 8 * b.segments_total
+    assert [got[i].tolist() for i in range(len(work))] == solo
+    ck.reset_launch_counts()
+    eng = ServingEngine(model, slots=3, segment=8, page_block=16,
+                        cache_bucket=64, kv_dtype="int8", device=cuda)
+    rids = [eng.submit(p, n) for p, n in work]
+    while not all(eng.poll(r)[1] for r in rids):
+        eng.step()
+    assert ck.LAUNCHES["paged_decode_attention_q"] == \
+        2 * eng.pool.segments_total * eng.pool.segment
+    assert [eng.poll(r)[0] for r in rids] == solo
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 8, 2, 32, device=cuda)

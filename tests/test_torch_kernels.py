@@ -140,14 +140,37 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                z, z, out, c_seq, out, z, z)
     q.requires_grad_(True)
     ck.flash_attention(q, q, q, causal=True).sum().backward()
+    q8, k8, v8, ks, vs, pos = _int8_cache_inputs(4)
+    ck.decode_attention(q8, k8, v8, pos)
+    ck.decode_attention(q8, k8, v8, pos, k_scale=ks, v_scale=vs)
+    tables = torch.tensor([[1, 0], [2, 1], [0, 0]], dtype=torch.int32)
+    ck.paged_decode_attention(q8, k8, v8, tables, pos, k_scale=ks,
+                              v_scale=vs)
     assert ck.LAUNCHES == {"flash_attention_fwd": 0,
                            "flash_attention_bwd_dq": 0,
                            "flash_attention_bwd_dkv": 0,
-                           "paged_decode_attention": 0, "lstm_seq": 0,
+                           "decode_attention": 0, "decode_attention_q": 0,
+                           "paged_decode_attention": 0,
+                           "paged_decode_attention_q": 0, "lstm_seq": 0,
                            "lstm_seq_train": 0, "lstm_seq_bwd": 0}
     for route in ("dense", "kernel"):
         with pytest.raises(ValueError, match="unknown route"):
             ck.paged_decode_attention(*arrs, route=route)
+        with pytest.raises(ValueError, match="unknown route"):
+            ck.decode_attention(q8, k8, v8, pos, route=route)
+    with pytest.raises(ValueError, match="go together"):
+        ck.decode_attention(q8, k8, v8, pos, k_scale=ks)
+
+
+def _int8_cache_inputs(seed):
+    """q [3, 2, 16] f32, an int8 cache [3, 4, 2, 16] with its scales, pos."""
+    rs = np.random.RandomState(seed)
+    q = torch.from_numpy(rs.randn(3, 2, 16).astype(np.float32))
+    k8, ks = ck.quantize_kv(torch.from_numpy(
+        rs.randn(3, 4, 2, 16).astype(np.float32)))
+    v8, vs = ck.quantize_kv(torch.from_numpy(
+        rs.randn(3, 4, 2, 16).astype(np.float32)))
+    return q, k8, v8, ks, vs, torch.tensor([0, 2, 3], dtype=torch.int32)
 
 
 def test_flash_fwd_attends_key_zero_for_an_empty_sample():
@@ -206,5 +229,6 @@ def test_build_hash_tracks_sources_and_flags():
     assert len(h) == 16 and h == _build.source_hash()
     names = {p.name for p in _build.sources()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu", "common.cuh",
-            "lstm_seq.cu", "lstm_seq_bwd.cu", "lstm.cuh"} <= names
+            "lstm_seq.cu", "lstm_seq_bwd.cu", "lstm.cuh", "decode.cu",
+            "decode_attn.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
