@@ -7,8 +7,11 @@ those of ``paddle_tpu/nn/module.py`` ``Module.init``; for
     embed/w, pos_embed, blocks_{i}/{ln1,ln2}/{gamma,beta},
     blocks_{i}/{qkv,proj,mlp_in,mlp_out}/{w,b}, ln_f/{gamma,beta}
 
-and for ``LSTMTextCls``: ``embed/w``, ``w{i}``, ``u{i}``, ``b{i}``,
-``fc/w``, ``fc/b``. On the JAX side, ``jax.tree_util.tree_map(np.asarray,
+for ``LSTMTextCls``: ``embed/w``, ``w{i}``, ``u{i}``, ``b{i}``,
+``fc/w``, ``fc/b``; and for ``AttentionSeq2Seq``: ``src_embed/w``,
+``trg_embed/w``, ``enc_{w,u,b}_{f,b}``, ``init_fc/{w,b}``, ``att_enc/w``,
+``att_dec/w``, ``att_v``, ``dec_w``, ``dec_u``, ``dec_b``, ``out/{w,b}``
+(no block list: it loads with no renaming). On the JAX side, ``jax.tree_util.tree_map(np.asarray,
 params)`` turns it into numpy arrays. The port stores ``Linear`` weights
 as [in, out], as JAX does, so nothing is transposed: the one layout
 change is a block list, which JAX names ``blocks_{i}`` (``enc_blocks_{i}``,

@@ -1,5 +1,6 @@
 """Activations — the part of ``paddle_tpu/ops/activations.py`` the
-transformer needs.
+ported models need (``gelu`` for the transformers, ``tanh`` for the
+seq2seq decoder's ``init_fc``).
 
 ``jax.nn.gelu`` defaults to the tanh approximation, so the port's ``gelu``
 is ``approximate="tanh"``, not PyTorch's exact default."""
@@ -14,7 +15,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-ACTIVATIONS = {"gelu": gelu}
+ACTIVATIONS = {"gelu": gelu, "tanh": torch.tanh}
 
 
 def get(name: str):

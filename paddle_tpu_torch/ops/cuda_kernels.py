@@ -45,8 +45,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the CUDA kernels are compiled for
 KERNEL_HEAD_DIMS = (64,)
 
-#: launches of every kernel of the port, by kernel (the LSTM wrappers of
-#: ops/rnn_kernels.py count here too)
+#: launches of every kernel of the port, by kernel (the LSTM and GRU
+#: wrappers of ops/rnn_kernels.py count here too)
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkv": 0,
@@ -55,7 +55,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "paged_decode_attention": 0,
                             "paged_decode_attention_q": 0,
                             "lstm_seq": 0, "lstm_seq_train": 0,
-                            "lstm_seq_bwd": 0}
+                            "lstm_seq_bwd": 0, "gru_seq": 0,
+                            "gru_seq_bwd": 0}
 
 
 def reset_launch_counts() -> None:

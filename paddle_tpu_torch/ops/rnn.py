@@ -1,17 +1,22 @@
-"""Recurrent ops — the LSTM part of ``paddle_tpu/ops/rnn.py``.
+"""Recurrent ops — the counterpart of ``paddle_tpu/ops/rnn.py``: the
+LSTM, the GRU, ``bidirectional`` and ``simple_rnn``.
 
-The input projection x@W of all steps is one [B*T, D] x [D, 4H] product
+The input projection x@W of all steps is one [B*T, D] x [D, G] product
 before the recurrence; only h@U runs step by step. Every step is masked:
 for t >= length the state carries through unchanged and the output is 0.
-Gate order i, f, g (candidate), o.
+LSTM gate order i, f, g (candidate), o; GRU gate order z (update), r
+(reset), candidate, with U packed [u_z | u_r | u_c].
 
-``lstm`` runs the recurrence through the whole-sequence kernels of
-``ops/rnn_kernels.py`` (``fused=True``, the default): in training the
-forward saves the cell sequence and the backward is the hand-written
-reverse recurrence, bound by :class:`_LSTMFused` in place of the JAX
-custom VJP ``_lstm_fused``; with gradients off it runs the inference
-kernel. ``fused=False`` runs :func:`_lstm_scan`, the step-by-step loop
-that autograd differentiates, as the reference.
+``lstm`` and ``gru`` run the recurrence through the whole-sequence
+kernels of ``ops/rnn_kernels.py`` (``fused=True``, the default): under
+autograd the backward is the hand-written reverse recurrence, bound by
+:class:`_LSTMFused` / :class:`_GRUFused` in place of the JAX custom VJPs
+``_lstm_fused`` / ``_gru_fused`` (the LSTM's training forward also saves
+the cell sequence); with gradients off they run the forward kernel only.
+``fused=False`` runs the step-by-step masked loop that autograd
+differentiates, as the reference. The fused GRU adds the bias to x@W
+before the kernel and the loop adds it after the product (as in JAX), so
+the two round differently in the last bits.
 
 The JAX routing by a VMEM plan (``_fused_plan``, ``plan_is_legal``,
 ``chunk_t``, the 15.5 MB VMEM model) sets nothing on the card: the CUDA
@@ -21,12 +26,13 @@ to the kernels, and tensors on the CPU to the kernels' plain versions.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.lod import sequence_mask
-from .rnn_kernels import lstm_sequence_fused, lstm_sequence_fused_bwd
+from .rnn_kernels import (gru_sequence_fused, gru_sequence_fused_bwd,
+                          lstm_sequence_fused, lstm_sequence_fused_bwd)
 
 
 class LSTMState(NamedTuple):
@@ -49,6 +55,22 @@ def lstm_cell(xw: torch.Tensor, state: LSTMState, u: torch.Tensor,
     o = torch.sigmoid(o)
     c_new = f * c + i * g
     return LSTMState(o * torch.tanh(c_new), c_new)
+
+
+def gru_cell(xw: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
+             b: Optional[torch.Tensor]) -> torch.Tensor:
+    """One GRU step (gate order z, r, candidate). xw: x@W [B, 3H];
+    u: [H, 3H] packed [u_z | u_r | u_c]; the bias added after the
+    products."""
+    xz, xr, xc = xw.chunk(3, dim=-1)
+    uz, ur, uc = u.chunk(3, dim=-1)
+    bz = br = bc = 0.0
+    if b is not None:
+        bz, br, bc = b.chunk(3, dim=-1)
+    z = torch.sigmoid(xz + torch.matmul(h, uz) + bz)
+    r = torch.sigmoid(xr + torch.matmul(h, ur) + br)
+    c = torch.tanh(xc + torch.matmul(r * h, uc) + bc)
+    return (1.0 - z) * h + z * c
 
 
 def _xw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -76,14 +98,19 @@ def _reverse_within_length(x: torch.Tensor, lengths: torch.Tensor
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _mask(lengths, B, T, x):
+    """[B, T] step masks of ``lengths`` (all ones when None)."""
+    return (sequence_mask(lengths.to(x.device), T, x.dtype)
+            if lengths is not None
+            else torch.ones((B, T), dtype=x.dtype, device=x.device))
+
+
 def _lstm_scan(x, lengths, w, u, b, h0, c0, reverse, forget_bias):
     """The step-by-step masked LSTM (``lax.scan`` in JAX, a loop here)."""
     B, T, _ = x.shape
     H = u.shape[0]
     xw = _xw(x, w)
-    mask = (sequence_mask(lengths.to(x.device), T, x.dtype)
-            if lengths is not None
-            else torch.ones((B, T), dtype=x.dtype, device=x.device))
+    mask = _mask(lengths, B, T, x)
     h = h0 if h0 is not None else x.new_zeros((B, H))
     c = c0 if c0 is not None else x.new_zeros((B, H))
     ys = [None] * T
@@ -162,3 +189,112 @@ def lstm(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
     if reverse:
         out = _reverse_within_length(out, lens)
     return out, LSTMState(h_t, c_t)
+
+
+def _masked_scan(step, xw, mask, h, reverse):
+    """``h_t = m * step(xw_t, h) + (1 - m) * h``, output ``m * h_t``, over
+    the steps of xw [B, T, ...] (``lax.scan`` with the step masks in JAX,
+    a loop here). Returns (outputs [B, T, H], final h)."""
+    T = xw.shape[1]
+    ys = [None] * T
+    for t in (reversed(range(T)) if reverse else range(T)):
+        m = mask[:, t, None]
+        h = m * step(xw[:, t], h) + (1.0 - m) * h
+        ys[t] = m * h
+    return torch.stack(ys, dim=1), h
+
+
+class _GRUFused(torch.autograd.Function):
+    """The whole-sequence GRU under autograd — the counterpart of the JAX
+    custom VJP ``_gru_fused``: the forward computes xw = x@W + b and runs
+    the forward kernel; the backward runs the reverse-recurrence kernel
+    over the whole sequence, then dx, dW and db as f32 products outside it
+    (rnn.py:512-519 of the JAX package; db is the sum of dxw, since the
+    bias rides in xw)."""
+
+    @staticmethod
+    def forward(ctx, x, lens, w, u, b, h0, route):
+        xw = _xw(x, w) + b
+        out, h_t = gru_sequence_fused(xw, lens, u, None, h0, route=route)
+        ctx.save_for_backward(x, lens, w, u, b, h0, xw, out)
+        ctx.route = route
+        return out, h_t
+
+    @staticmethod
+    def backward(ctx, g_out, g_ht):
+        x, lens, w, u, b, h0, xw, out = ctx.saved_tensors
+        dxw, dh0, du = gru_sequence_fused_bwd(
+            xw, lens, u, h0, out, g_out.contiguous(), g_ht.contiguous(),
+            route=ctx.route)
+        B, T, D = x.shape
+        dxw2 = dxw.reshape(B * T, -1).to(torch.float32)
+        dx = torch.matmul(dxw2, w.t().to(torch.float32)).reshape(x.shape)
+        dw = torch.matmul(x.reshape(B * T, D).t().to(torch.float32), dxw2)
+        db = dxw2.sum(0)
+        return (dx.to(x.dtype), None, dw.to(w.dtype), du.to(u.dtype),
+                db.to(b.dtype), dh0.to(h0.dtype), None)
+
+
+def gru(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
+        u: torch.Tensor, b: Optional[torch.Tensor] = None,
+        h0: Optional[torch.Tensor] = None, reverse: bool = False,
+        fused: bool = True, route: Optional[str] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence GRU. x: [B, T, D]; w: [D, 3H]; u: [H, 3H].
+
+    Returns (outputs [B, T, H], final h [B, H]); for t >= length the state
+    carries through and the output is zero. ``fused=True`` runs the
+    whole-sequence kernels (``route="plain"`` asks for their plain
+    versions on any device), ``reverse=True`` through the forward kernel
+    on the within-length flipped input; ``fused=False`` the step-by-step
+    loop."""
+    B, T, _ = x.shape
+    H = u.shape[0]
+    if not fused:
+        h = h0 if h0 is not None else x.new_zeros((B, H))
+        return _masked_scan(lambda xw_t, h_: gru_cell(xw_t, h_, u, b),
+                            _xw(x, w), _mask(lengths, B, T, x), h, reverse)
+    lens = (lengths.to(x.device) if lengths is not None
+            else torch.full((B,), T, dtype=torch.int32, device=x.device))
+    b = b if b is not None else x.new_zeros((3 * H,))
+    h0 = h0 if h0 is not None else x.new_zeros((B, H))
+    xk = _reverse_within_length(x, lens) if reverse else x
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xk, w, u, b, h0)):
+        out, h_t = _GRUFused.apply(xk, lens, w, u, b, h0, route)
+    else:
+        out, h_t = gru_sequence_fused(_xw(xk, w), lens, u, b, h0,
+                                      route=route)
+    if reverse:
+        out = _reverse_within_length(out, lens)
+    return out, h_t
+
+
+def bidirectional(rnn_fn: Callable, x, lengths, fwd_params: dict,
+                  bwd_params: dict, merge: str = "concat"):
+    """Run ``rnn_fn`` forward and with ``reverse=True`` and merge the two
+    output sequences ("concat" on the last axis, or "sum")."""
+    out_f, _ = rnn_fn(x, lengths, reverse=False, **fwd_params)
+    out_b, _ = rnn_fn(x, lengths, reverse=True, **bwd_params)
+    if merge == "concat":
+        return torch.cat([out_f, out_b], dim=-1)
+    if merge == "sum":
+        return out_f + out_b
+    raise ValueError(f"unknown merge '{merge}'")
+
+
+def simple_rnn(x: torch.Tensor, lengths: Optional[torch.Tensor],
+               w: Optional[torch.Tensor], u: torch.Tensor,
+               b: Optional[torch.Tensor] = None, act: Callable = torch.tanh,
+               h0: Optional[torch.Tensor] = None, reverse: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vanilla masked RNN, h' = act(x@W + h@U + b). ``w=None``: x is
+    already projected to the hidden width and only U applies."""
+    B, T, _ = x.shape
+    H = u.shape[0]
+    xw = x if w is None else _xw(x, w)
+    h = h0 if h0 is not None else x.new_zeros((B, H))
+    return _masked_scan(
+        lambda xw_t, h_: act(xw_t + torch.matmul(h_, u)
+                             + (b if b is not None else 0.0)),
+        xw, _mask(lengths, B, T, x), h, reverse)

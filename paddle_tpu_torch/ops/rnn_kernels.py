@@ -1,14 +1,19 @@
-"""LSTM sequence kernels of the text-classification training path — the
-counterpart of the three LSTM bodies of ``paddle_tpu/ops/pallas_kernels.py``:
+"""Recurrent sequence kernels — the counterpart of the LSTM and GRU bodies
+of ``paddle_tpu/ops/pallas_kernels.py``:
 
 * :func:`lstm_sequence_fused` replaces ``_lstm_seq_kernel`` (inference
   forward) and, with ``save_cell=True``, ``_lstm_seq_train_kernel`` (the
   training forward, which also saves the cell sequence);
 * :func:`lstm_sequence_fused_bwd` replaces ``_lstm_seq_bwd_kernel`` (the
-  reverse recurrence of the backward).
+  reverse recurrence of the backward);
+* :func:`gru_sequence_fused` replaces ``_gru_seq_kernel`` (the GRU
+  forward, in training and inference alike: its backward needs only the
+  outputs);
+* :func:`gru_sequence_fused_bwd` replaces ``_gru_seq_bwd_kernel``.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/lstm_seq.cu``,
-``csrc/lstm_seq_bwd.cu``) for tensors on the card and takes the plain
+``csrc/lstm_seq_bwd.cu``, ``csrc/gru_seq.cu``, ``csrc/gru_seq_bwd.cu``)
+for tensors on the card and takes the plain
 PyTorch version beside it for tensors on the CPU, or when a caller asks
 with ``route="plain"``. A kernel runs the whole sequence in one launch
 and carries h and c in f32 from the first step to the last; the JAX
@@ -17,11 +22,18 @@ counterpart here (in bf16, ``chunk_t`` rounds h and c to bf16 at each
 chunk boundary, which the port never does).
 
 The plain versions follow the op order of the JAX kernel bodies: all
-arithmetic in f32, stores in the input dtype; gates i, f, g, o with
-``forget_bias`` added to f before the sigmoid; step t of sample b is live
-when ``t < lengths[b]``, and a dead step freezes the state and outputs 0.
-Launches are counted in ``cuda_kernels.LAUNCHES`` under ``lstm_seq``,
-``lstm_seq_train`` and ``lstm_seq_bwd``.
+arithmetic in f32, stores in the input dtype; LSTM gates i, f, g, o with
+``forget_bias`` added to f before the sigmoid; GRU gates z, r, candidate
+with U packed [u_z | u_r | u_c] and the bias added to xw before the
+recurrence; step t of sample b is live when ``t < lengths[b]``, and a dead
+step freezes the state and outputs 0. Launches are counted in
+``cuda_kernels.LAUNCHES`` under ``lstm_seq``, ``lstm_seq_train``,
+``lstm_seq_bwd``, ``gru_seq`` and ``gru_seq_bwd``.
+
+The kernels share one grid partition (4 hidden units x 32 batch rows a
+block, every block resident for the grid barriers): a shape whose grid
+does not fit the card at once raises ``ValueError`` ("split the batch"),
+as does a hidden width that is not a multiple of 4.
 """
 
 from __future__ import annotations
@@ -96,16 +108,24 @@ def lstm_sequence_fused_plain(xw, lengths, u, b, h0, c0, *,
 
 
 def _check_lstm_args(name, xw, lengths, u, b, h0, c0, extra=()):
-    """What the kernels take: contiguous f32 or bf16 tensors of one dtype,
-    H a multiple of KERNEL_HIDDEN_MULTIPLE, lengths [B]."""
+    """What the LSTM kernels take (see :func:`_check_args`)."""
     B, T, G = xw.shape
     H = G // 4
+    return _check_args(name, xw, lengths, H, [
+        ("u", u, (H, G)), ("b", b, (G,)), ("h0", h0, (B, H)),
+        ("c0", c0, (B, H))] + list(extra))
+
+
+def _check_args(name, xw, lengths, H, shapes):
+    """What the kernels take: contiguous, 16-byte aligned f32 or bf16
+    tensors of xw's dtype with the (name, tensor, shape) ``shapes``, H a
+    multiple of KERNEL_HIDDEN_MULTIPLE, lengths [B]. Returns the lengths
+    as contiguous int32."""
+    B, T, G = xw.shape
     if H % KERNEL_HIDDEN_MULTIPLE:
         raise ValueError(f"{name}: hidden width {H} not taken by the kernel "
                          f"(a multiple of {KERNEL_HIDDEN_MULTIPLE})")
-    shapes = [("u", u, (H, G)), ("b", b, (G,)), ("h0", h0, (B, H)),
-              ("c0", c0, (B, H))] + list(extra)
-    for arg, t, shape in [("xw", xw, (B, T, G))] + shapes:
+    for arg, t, shape in [("xw", xw, (B, T, G))] + list(shapes):
         _check_float(f"{name} {arg}", t, xw.dtype)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not "
@@ -278,3 +298,188 @@ def lstm_sequence_fused_bwd(xw, lengths, u, b, h0, c0, out_seq, c_seq, g_out,
     return _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0, out_seq,
                                            c_seq, g_out, g_ht, g_ct,
                                            forget_bias)
+
+
+# ---------------------------------------------------------------------------
+# GRU forward (replaces _gru_seq_kernel)
+# ---------------------------------------------------------------------------
+
+def _gru_gates(xw_t, h, u32, H):
+    """z, r, r*h and c of one step in the JAX kernel body's op order (f32;
+    u32 packed [u_z | u_r | u_c], the bias already in xw_t)."""
+    z = torch.sigmoid(xw_t[:, :H] + h @ u32[:, :H])
+    r = torch.sigmoid(xw_t[:, H:2 * H] + h @ u32[:, H:2 * H])
+    rh = r * h
+    c = torch.tanh(xw_t[:, 2 * H:] + rh @ u32[:, 2 * H:])
+    return z, r, rh, c
+
+
+def gru_sequence_fused_plain(xw, lengths, u, h0):
+    """The op order of ``_gru_seq_kernel`` over [B, T, 3H] tensors (the
+    bias already added to xw): (out [B, T, H], hT [B, H]) in xw's dtype,
+    h carried in f32."""
+    B, T, G = xw.shape
+    H = G // 3
+    dt = xw.dtype
+    u32 = _f32(u)
+    lens = _f32(lengths)[:, None]
+    h = _f32(h0)
+    outs = []
+    for t in range(T):
+        z, _, _, c = _gru_gates(_f32(xw[:, t]), h, u32, H)
+        h_new = (1.0 - z) * h + z * c
+        m = (t < lens).to(torch.float32)
+        h = m * h_new + (1.0 - m) * h
+        outs.append((m * h).to(dt))
+    return torch.stack(outs, dim=1), h.to(dt)
+
+
+def _gru_shapes(xw, u):
+    B, T, G = xw.shape
+    if G % 3:
+        raise ValueError(f"xw last dim {G} must be 3*H (z/r/candidate gates)")
+    H = G // 3
+    if tuple(u.shape) != (H, G):
+        raise ValueError(f"u {tuple(u.shape)} is not [{H}, {G}]")
+    return B, T, H
+
+
+def _gru_sequence_fused_kernel(xw, lengths, u, h0):
+    B, T, H = _gru_shapes(xw, u)
+    lens = _check_args("gru_sequence_fused", xw, lengths, H,
+                       [("u", u, (H, 3 * H)), ("h0", h0, (B, H))])
+    out = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
+    h_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    if B == 0 or T == 0:
+        h_t.copy_(h0)
+        return out, h_t
+    # the two f32 exchanges of the grid: h and r*h of every unit
+    h_x = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    rh_x = torch.empty((B, H), dtype=torch.float32, device=xw.device)
+    lib = _build.load().lib
+    with torch.cuda.device(xw.device):
+        err = lib.paddle_gru_seq(
+            xw.data_ptr(), lens.data_ptr(), u.data_ptr(), h0.data_ptr(),
+            out.data_ptr(), h_t.data_ptr(), h_x.data_ptr(), rh_x.data_ptr(),
+            B, T, H, _DTYPE_CODE[xw.dtype], _stream(xw.device))
+    _raise_launch(err, "gru_seq", B, H)
+    LAUNCHES["gru_seq"] += 1
+    return out, h_t
+
+
+def gru_sequence_fused(xw: torch.Tensor, lengths: torch.Tensor,
+                       u: torch.Tensor, b: Optional[torch.Tensor] = None,
+                       h0: Optional[torch.Tensor] = None, *,
+                       route: Optional[str] = None):
+    """Masked GRU over a whole sequence — the
+    ``pallas_kernels.gru_sequence_fused`` contract: xw = x@W [B, T, 3H],
+    lengths [B] int, u [H, 3H] packed [u_z | u_r | u_c], b [3H] (added to
+    xw in xw's dtype before the recurrence, as the JAX wrapper does), h0
+    [B, H] (zeros when None) -> (out [B, T, H], hT [B, H]) in xw's dtype.
+
+    The kernel runs all T steps in one launch (the JAX ``block_b`` and
+    ``chunk_t`` tile VMEM and have no counterpart; ``chunk_t`` rounds h to
+    bf16 at chunk boundaries, which the port never does) and saves nothing
+    beyond this contract: :func:`gru_sequence_fused_bwd` recomputes the
+    gates from xw and ``out``."""
+    _gru_shapes(xw, u)
+    if b is not None:
+        xw = xw + b
+    if h0 is None:
+        h0 = torch.zeros((xw.shape[0], u.shape[0]), dtype=xw.dtype,
+                         device=xw.device)
+    lengths = lengths.to(xw.device)
+    if _route(route, xw, lengths, u, h0) == "plain":
+        return gru_sequence_fused_plain(xw, lengths, u, h0)
+    return _gru_sequence_fused_kernel(xw, lengths, u, h0)
+
+
+# ---------------------------------------------------------------------------
+# GRU backward (replaces _gru_seq_bwd_kernel)
+# ---------------------------------------------------------------------------
+
+def gru_sequence_fused_bwd_plain(xw, lengths, u, h0, out_seq, g_out, g_ht):
+    """The op order of ``_gru_seq_bwd_kernel``: gates recomputed from xw
+    and h_{t-1} = the saved masked output (h0 at t = 0) in f32, the
+    adjoints in f32, dU summed over steps in f32. -> (dxw [B, T, 3H],
+    dh0 [B, H]) in xw's dtype and du [H, 3H] f32."""
+    B, T, G = xw.shape
+    H = G // 3
+    dt = xw.dtype
+    u32 = _f32(u)
+    uz, ur, uc = u32[:, :H], u32[:, H:2 * H], u32[:, 2 * H:]
+    lens = _f32(lengths)[:, None]
+    h0 = _f32(h0)
+    dh = _f32(g_ht)
+    du = torch.zeros((H, G), dtype=torch.float32, device=xw.device)
+    dxw = torch.empty_like(xw)
+    for t in reversed(range(T)):
+        h_prev = _f32(out_seq[:, t - 1]) if t > 0 else h0
+        z, r, rh, c = _gru_gates(_f32(xw[:, t]), h_prev, u32, H)
+        m = (t < lens).to(torch.float32)
+        dh_t = dh + m * _f32(g_out[:, t])
+        dhp = m * dh_t
+        dgz = (dhp * (c - h_prev)) * z * (1.0 - z)
+        dgc = (dhp * z) * (1.0 - c * c)
+        drh = dgc @ uc.t()
+        dgr = (drh * h_prev) * r * (1.0 - r)
+        dh = ((1.0 - m) * dh_t + dhp * (1.0 - z) + drh * r + dgz @ uz.t()
+              + dgr @ ur.t())
+        dxw[:, t] = torch.cat([dgz, dgr, dgc], dim=1).to(dt)
+        du = du + torch.cat([h_prev.t() @ dgz, h_prev.t() @ dgr,
+                             rh.t() @ dgc], dim=1)
+    return dxw, dh.to(dt), du
+
+
+def _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out, g_ht):
+    B, T, H = _gru_shapes(xw, u)
+    G = 3 * H
+    seq, vec = (B, T, H), (B, H)
+    lens = _check_args(
+        "gru_sequence_fused_bwd", xw, lengths, H,
+        [("u", u, (H, G)), ("h0", h0, vec), ("out_seq", out_seq, seq),
+         ("g_out", g_out, seq), ("g_ht", g_ht, vec)])
+    dxw = torch.empty_like(xw)
+    dh0 = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    du = torch.empty((H, G), dtype=torch.float32, device=xw.device)
+    if B == 0 or T == 0:
+        dh0.copy_(g_ht)
+        du.zero_()
+        return dxw, dh0, du
+    lib = _build.load().lib
+    # the GRU kernels share the LSTM kernels' batch tile
+    tiles = -(-B // lib.paddle_lstm_batch_tile())
+    f32 = dict(dtype=torch.float32, device=xw.device)
+    gates = torch.empty((B, T, G), **f32)     # z, r, c of every step
+    rh_seq = torch.empty((B, T, H), **f32)    # r*h_{t-1} of every step
+    dg_seq = torch.empty((B, T, G), **f32)    # dgz, dgr, dgc in f32
+    du_part = torch.empty((tiles, H, G), **f32) if tiles > 1 else None
+    with torch.cuda.device(xw.device):
+        err = lib.paddle_gru_seq_bwd(
+            xw.data_ptr(), lens.data_ptr(), u.data_ptr(), h0.data_ptr(),
+            out_seq.data_ptr(), g_out.data_ptr(), g_ht.data_ptr(),
+            dxw.data_ptr(), dh0.data_ptr(), du.data_ptr(), gates.data_ptr(),
+            rh_seq.data_ptr(), dg_seq.data_ptr(),
+            None if du_part is None else du_part.data_ptr(), B, T, H,
+            _DTYPE_CODE[xw.dtype], _stream(xw.device))
+    _raise_launch(err, "gru_seq_bwd", B, H)
+    LAUNCHES["gru_seq_bwd"] += 1
+    return dxw, dh0, du
+
+
+def gru_sequence_fused_bwd(xw, lengths, u, h0, out_seq, g_out, g_ht, *,
+                           route: Optional[str] = None):
+    """Backward of :func:`gru_sequence_fused` — the
+    ``pallas_kernels.gru_sequence_fused_bwd`` contract: xw with the bias
+    added (its gradient is also the bias's, summed outside), the saved
+    out_seq and the cotangents g_out [B, T, H], g_ht [B, H] ->
+    (dxw [B, T, 3H], dh0 [B, H]) in xw's dtype and du [H, 3H] f32. The
+    kernel keeps its recomputed gates and f32 cotangents in scratch it
+    allocates per call; nothing is read from the forward but ``out_seq``."""
+    _gru_shapes(xw, u)
+    lengths = lengths.to(xw.device)
+    if _route(route, xw, lengths, u, h0, out_seq, g_out, g_ht) == "plain":
+        return gru_sequence_fused_bwd_plain(xw, lengths, u, h0, out_seq,
+                                            g_out, g_ht)
+    return _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out,
+                                          g_ht)

@@ -146,13 +146,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     tables = torch.tensor([[1, 0], [2, 1], [0, 0]], dtype=torch.int32)
     ck.paged_decode_attention(q8, k8, v8, tables, pos, k_scale=ks,
                               v_scale=vs)
+    gxw, gu, gl = torch.randn(2, 3, 24), torch.randn(8, 24), torch.tensor(
+        [3, 1])
+    gout, _ = rk.gru_sequence_fused(gxw, gl, gu)
+    rk.gru_sequence_fused_bwd(gxw, gl, gu, z, gout, gout, z)
     assert ck.LAUNCHES == {"flash_attention_fwd": 0,
                            "flash_attention_bwd_dq": 0,
                            "flash_attention_bwd_dkv": 0,
                            "decode_attention": 0, "decode_attention_q": 0,
                            "paged_decode_attention": 0,
                            "paged_decode_attention_q": 0, "lstm_seq": 0,
-                           "lstm_seq_train": 0, "lstm_seq_bwd": 0}
+                           "lstm_seq_train": 0, "lstm_seq_bwd": 0,
+                           "gru_seq": 0, "gru_seq_bwd": 0}
     for route in ("dense", "kernel"):
         with pytest.raises(ValueError, match="unknown route"):
             ck.paged_decode_attention(*arrs, route=route)
@@ -230,5 +235,6 @@ def test_build_hash_tracks_sources_and_flags():
     names = {p.name for p in _build.sources()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu", "common.cuh",
             "lstm_seq.cu", "lstm_seq_bwd.cu", "lstm.cuh", "decode.cu",
-            "decode_attn.cuh"} <= names
+            "decode_attn.cuh", "gru.cuh", "gru_seq.cu",
+            "gru_seq_bwd.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
