@@ -6,7 +6,9 @@
 Phases:
 
 1. build  — compile the CUDA kernels (``paddle_tpu_torch/csrc``) with nvcc
-   for sm_90a and print ptxas' register / shared-memory lines;
+   for sm_90a, print ptxas' register / shared-memory lines, and count the
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of the
+   bf16 tensor-core bodies of #1 and #3 (``cuobjdump -sass``; none fails);
 2. kernels — hold each kernel against its plain PyTorch version at the
    serving shapes (f32 and bf16) and time kernel, plain version, the
    PyTorch library call where one exists, and the roofline bound;
@@ -41,7 +43,8 @@ Phases:
    trained by ``Trainer.train`` for 12 Adam steps over 2 batches in bf16
    over f32 master weights: 12 launches of each attention kernel a step,
    a falling loss on batch 0, one f32 step equal to the plain versions'
-   step, ms per step and a profile;
+   step, one bf16 loss and gradient within the stated tolerance of the
+   plain route's, ms per step and a profile;
 8. NMT training — the transformer NMT (vocab 30000/30000, d_model 512, 8
    heads, 6+6 layers, batch 64, lengths 32..64) likewise for 12 steps
    over 4 batches: 18 launches of each attention kernel a step;
@@ -107,9 +110,21 @@ PEAK_BYTES = 3.35e12
 # tolerances, with the reason: the kernels sum in another order than the
 # plain versions (tiles, online softmax), nothing else differs
 F32_ATOL, F32_RTOL = 1e-5, 1e-4
-# bf16 flash output is rounded to bf16 once (|o| <= ~1: half an ulp is
-# ~4e-3), compared with the plain version run in f32 on the same inputs
-BF16_FLASH_ATOL = 2e-2
+# the bf16 tensor-core bodies (#1 o, #3 dk and dv): see bf16_tc_close
+BF16_TC_RTOL = 2.0 ** -7
+# the one bf16 LM step through the kernels against the plain route's
+# (phase 7): see bf16_step_check
+BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_REL_L2 = 2.0 ** -9, 2.0 ** -5
+# which body each attention kernel runs, by dtype
+_TC, _CC = "tensor cores: wgmma on TMA-fed tiles", "CUDA cores: f32 FMAs"
+DESIGN = {
+    "flash_attention_fwd": {"bfloat16": _TC, "float32": _CC},
+    "flash_attention_bwd_dq": {"bfloat16": _CC, "float32": _CC},
+    "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _CC},
+}
+# the wgmma+TMA bodies of this port: kernel name in the SASS -> JSON entry
+TENSOR_CORE_BODIES = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
+                      "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
 
 
 class SmokeFailure(RuntimeError):
@@ -119,6 +134,63 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def bf16_tc_close(got, want, what: str) -> float:
+    """Hold an output of a bf16 tensor-core body (#1's o, #3's dk and dv)
+    against the plain version's; returns the max abs error.
+
+    The bodies round P (and #3's dS^T) to bf16 before their second
+    product, the usual flash choice (the plain versions and JAX keep them
+    in f32). Each term of an output entry then carries a relative error of
+    at most 2**-9, so the entry is off by at most 2**-9 of the sum of its
+    terms' magnitudes; the terms have mixed signs, so that error stays
+    under one bf16 ulp of the tensor's largest magnitude (atol, between
+    2**-8 and 2**-7 of it), also at entries near zero where the sum
+    cancels. The output's own rounding to bf16 adds one ulp of the entry
+    on either side (rtol 2**-7), as the CUDA-core bodies' check allows."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    atol = bf16_ulp(w.abs().max().item())
+    check(torch.allclose(g, w, atol=atol, rtol=BF16_TC_RTOL),
+          f"{what} bfloat16 differs from plain: max abs {err} (atol {atol}, "
+          f"rtol {BF16_TC_RTOL})")
+    return err
+
+
+def sass_counts(lib_path) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of each
+    tensor-core body of the built library, from ``cuobjdump -sass``; fails
+    when a body has none of either."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((k for k in TENSOR_CORE_BODIES if k in m.group(1)),
+                       None)
+            if cur:
+                counts[cur] = {"HGMMA": 0, "UTMALDG": 0}
+        elif cur:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[cur][op] += op in line
+    for body in TENSOR_CORE_BODIES:
+        c = counts.get(body, {})
+        check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+              f"{body}: no HGMMA or UTMALDG in its SASS ({c})")
+    return counts
 
 
 def card_line() -> str:
@@ -196,6 +268,7 @@ def flash_checks(say, device="cuda"):
              "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
              "replaces": "paddle_tpu/ops/pallas_kernels.py:69",
              "replaces_kernel": "_fa_fwd_kernel",
+             "design": DESIGN["flash_attention_fwd"],
              "shape": f"B={B} T=S={T} H={H} D={D} causal"}
     pairs = T * (T + 1) // 2                    # causal (i, j) pairs j <= i
     flops = 4.0 * B * H * D * pairs
@@ -211,8 +284,7 @@ def flash_checks(say, device="cuda"):
             check(torch.allclose(o, po, atol=F32_ATOL, rtol=F32_RTOL),
                   f"flash f32 output differs from plain: max {err}")
         else:
-            check(err <= BF16_FLASH_ATOL,
-                  f"flash bf16 output differs from plain f32: max {err}")
+            err = bf16_tc_close(o, po, "flash fwd (phase 2)")
         check(torch.allclose(lse, plse, atol=F32_ATOL, rtol=F32_RTOL),
               f"flash {tag} lse differs from plain: max {lse_err}")
         sets = input_sets(lambda i: _qkv_views(B, T, H, D, dt, gen, device),
@@ -898,8 +970,10 @@ def live_pairs(T, S, causal, lens, B):
 def bwd_close(got, want, what, dtype_name):
     """Hold an attention output against the plain version's; returns the max
     abs error. f32: summation order only (rtol 1e-4, atol 2e-5 of the
-    largest magnitude: a dk entry sums up to T products); bf16: the same
-    f32 values rounded once, so one bf16 ulp (rtol 2**-7) on top."""
+    largest magnitude: a dk entry sums up to T products); bf16 (dq, whose
+    CUDA-core body keeps P in f32): the same f32 values rounded once, so
+    one bf16 ulp (rtol 2**-7) on top. The bf16 tensor-core bodies are held
+    by bf16_tc_close."""
     import torch
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item()
@@ -926,7 +1000,8 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
     gen = torch.Generator().manual_seed(seed + 6)
     entries = {name: {"name": name, "route": "cuda",
                       "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
-                      "replaces": rep, "replaces_kernel": body}
+                      "replaces": rep, "replaces_kernel": body,
+                      "design": DESIGN[name]}
                for name, rep, body in FLASH_BWD_KERNELS}
     fwd = {}
     for tag, B, T, S, H, causal, kind, fused in BWD_SHAPES:
@@ -941,8 +1016,9 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
                       "q is not the strided view the model passes")
             o, lse = ck.flash_attention_fwd(*args[:3], causal=causal,
                                             kv_lens=kv)
-            fwd_res = {"max_abs_err": bwd_close(o, args[3], f"flash fwd {tag}",
-                                                dname)}
+            close = (bf16_tc_close if dt == torch.bfloat16
+                     else lambda g, w, what: bwd_close(g, w, what, dname))
+            fwd_res = {"max_abs_err": close(o, args[3], f"flash fwd {tag}")}
             check(torch.allclose(lse, args[4], atol=F32_ATOL, rtol=F32_RTOL),
                   f"flash fwd {tag} {dname} lse differs from plain")
             if tag == "lm":
@@ -953,7 +1029,10 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
             want = ck.flash_attention_bwd(*args, causal=causal, kv_lens=kv,
                                           route="plain")
             torch.cuda.synchronize()
-            errs = [bwd_close(g, w, f"flash bwd {tag} {nm}", dname)
+            # dq (#2) keeps its CUDA-core body and its check; dk and dv
+            # come from #3's tensor-core body in bf16
+            errs = [(bwd_close(g, w, f"flash bwd {tag} {nm}", dname)
+                     if nm == "dq" else close(g, w, f"flash bwd {tag} {nm}"))
                     for nm, g, w in zip(("dq", "dk", "dv"), got, want)]
             if lens is not None:
                 for b, n in enumerate(np.clip(lens, 1, S)):
@@ -1181,6 +1260,60 @@ def transformer_step_check(say, what, loss_for_route, params, batch, lr,
         + f"; worst parameter difference {worst_p:.3e}")
 
 
+def bf16_step_check(say, what, loss_for, params, batch, per_step,
+                    names=ATTENTION_KERNELS):
+    """The loss and gradients of one bf16 training step (bf16 compute over
+    f32 masters, the training recipe) through the kernels against the same
+    on the plain route, on the card: this catches a layout fault of the
+    tensor-core bodies that the shape checks could miss.
+    ``loss_for(dtype, route)`` builds the loss.
+
+    The two routes differ by the bodies' bf16 rounding of P and dS^T and
+    by summation order, and every later bf16 op rounds those differences
+    to whole ulps, so they compound through the 12 layers. Tolerances: the
+    f32 loss to rtol 2**-9 (half a bf16 ulp); each gradient to a relative
+    L2 of 2**-5 (four bf16 ulps). For scale, the plain bf16 route's own
+    worst distance from the f32 plain route is printed beside it."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    norm = torch.linalg.vector_norm
+    res = {}
+    for dtype, route in ((torch.bfloat16, None), (torch.bfloat16, "plain"),
+                         (torch.float32, "plain")):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        before = dict(ck.LAUNCHES)
+        loss = loss_for(dtype, route)(leaves, *batch)
+        grads = torch.autograd.grad(loss, [v for _, v in tree_items(leaves)])
+        torch.cuda.synchronize()
+        launched = {n: ck.LAUNCHES[n] - before[n] for n in names}
+        want = {n: per_step if route is None else 0 for n in names}
+        check(launched == want, f"{what} bf16 step check, route {route}: "
+              f"launches {launched} != {want}")
+        res[(dtype, route)] = (loss.item(), [g.float() for g in grads])
+        del leaves, loss, grads
+    (lk, gk), (lp, gp), (l32, g32) = res.values()
+    check(abs(lk - lp) <= BF16_STEP_LOSS_RTOL * abs(lp),
+          f"{what} bf16 loss {lk} through the kernels != plain {lp}")
+    worst, worst_name, bf16_floor = 0.0, "", 0.0
+    for (path, _), a, b, c in zip(tree_items(params), gk, gp, g32):
+        name = "/".join(path)
+        err, ref = norm(a - b).item(), norm(b).item()
+        rel = err / max(ref, 1e-30)
+        check(rel <= BF16_STEP_GRAD_REL_L2, f"{what} bf16 step: gradient "
+              f"{name} through the kernels differs from plain: relative L2 "
+              f"{rel}")
+        bf16_floor = max(bf16_floor, norm(b - c).item() / norm(c).item())
+        if rel > worst:
+            worst, worst_name = rel, name
+    say(f"{what} bf16 step, kernels vs plain on the card: loss {lk:.6f} vs "
+        f"{lp:.6f} (f32 plain {l32:.6f}); worst gradient relative L2 "
+        f"{worst:.3e} ({worst_name}); the plain bf16 route's own worst "
+        f"distance from f32 {bf16_floor:.3e}")
+    return {"loss": lk, "loss_plain": lp, "worst_grad_rel_l2": worst,
+            "bf16_vs_f32_worst_rel_l2": bf16_floor}
+
+
 def train_and_time(say, what, trainer, params, batches, passes, per_step,
                    device, warmup=2, names=ATTENTION_KERNELS):
     """``Trainer.train`` over ``batches`` for ``passes`` passes with the
@@ -1261,6 +1394,8 @@ def lm_training_phase(say, seed: int, device="cuda", config=GPT2_TRAIN,
     transformer_step_check(say, "LM", lambda r: lm_loss(model, torch.float32,
                                                          r),
                            model.tree(), batches[0], LM_LR, per_step, device)
+    bf16_step_check(say, "LM", lambda dt, r: lm_loss(model, dt, r),
+                    model.tree(), batches[0], per_step)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(lm_loss(model, torch.bfloat16), Adam(LM_LR),
@@ -1915,6 +2050,8 @@ def main(argv=None) -> int:
         f" with nvcc for sm_90a) -> {build.path.name}")
     for ln in build.resource_lines():
         print(f"  ptxas: {ln}")
+    sass = sass_counts(build.path / _build.LIB_NAME)
+    say(f"SASS of the tensor-core bodies: {json.dumps(sass)}")
 
     flash = flash_checks(say)
     paged = paged_checks(say)
@@ -1957,6 +2094,10 @@ def main(argv=None) -> int:
             f"{train[name]} in {s2s_steps} seq2seq training steps + "
             + " + ".join(f"{g[name]} in one {what} generate call"
                          for what, g in gen.items()))
+    for entry in [flash] + bwd:
+        for body, name in TENSOR_CORE_BODIES.items():
+            if entry["name"] == name:
+                entry["sass_bfloat16"] = sass[body]
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

@@ -14,13 +14,15 @@
 // three D-long products (S, dP, dQ: 6*D operations) and the dk/dv kernel
 // four (S, dP, dV, dK: 8*D), against O((T + S) * D) elements moved per
 // (b, h): at the models' shapes (T, S >= 64, D = 64) both are bound by
-// operations. This first version runs the products as f32 FMAs on the
-// CUDA cores (67 TF/s peak), as flash_fwd.cu does, not on the tensor
-// cores (989 TF/s bf16); a later change moves them to wgmma.
+// operations. dq in both dtypes, and dk/dv in f32, run the products as
+// f32 FMAs on the CUDA cores (67 TF/s peak), as flash_fwd.cu's f32 body
+// does; dk/dv in bf16 runs them on the tensor cores (wgmma, 989 TF/s),
+// below. dq's move to wgmma is the next change.
 //
-// Design. 256-thread blocks over 64 x 64 tiles; each thread owns a 4 x 4
-// sub-tile (rows r*4..r*4+3, columns c, c+16, c+32, c+48 with r = tid/16,
-// c = tid%16), so a row's 16 owners are 16 neighbouring lanes. Operand
+// Design of the CUDA-core bodies. 256-thread blocks over 64 x 64
+// tiles; each thread owns a 4 x 4 sub-tile (rows r*4..r*4+3, columns c,
+// c+16, c+32, c+48 with r = tid/16, c = tid%16), so a row's 16 owners
+// are 16 neighbouring lanes. Operand
 // tiles are staged in shared memory as f32, rows padded to 65 floats so
 // that column reads hit distinct banks. The TPU kernels' 512/1024 blocks
 // and whole-K/V-in-VMEM layout set nothing here.
@@ -40,11 +42,32 @@
 //    dK += dS^T.Q in registers. A tile wholly at or past kv_len skips the
 //    loop and writes zeros. Every output element has one owner and no
 //    atomics are used, so the result is deterministic.
+//
+// Design of the bf16 dk/dv body. One warpgroup (128 threads) per
+// (64-key tile, b*h); K and V arrive once by TMA. Q and dO tiles
+// [64 x 64] stream through a two-stage ring completed on mbarriers, with
+// the tile's 64 lse and delta values (a head's rows sit H*4 bytes apart,
+// under TMA's 16-byte box minimum, so plain loads, issued before the
+// products and stored behind the stage's barrier). Per q tile: S^T = K.Q^T
+// and dP^T = V.dO^T (wgmma, A and B K-major from shared memory, keys as
+// the rows), P^T = exp(scale*S^T - lse) masked to exactly 0 and dS^T =
+// P^T o (dP^T - delta) on the accumulator fragments, then dV += P^T.dO
+// and dK += dS^T.Q with P^T and dS^T rounded to bf16 in registers as the
+// A operands and dO, Q read MN-major (the transpose bit). dK is scaled
+// once at the end. It keeps the CUDA-core body's causal lower bound, its
+// early exit for a tile at or past kv_len, exact zeros for masked keys
+// and one owner per output element, so the result stays deterministic.
+// Its one stated deviation from the plain version is the bf16 rounding
+// of P^T and dS^T before the second products.
+//
 // q, k and v are read in place through their strides (views of the fused
-// qkv projection; innermost stride 1). o, dO, lse, delta and the outputs
-// are contiguous: the wrapper makes o and dO contiguous, which copies
-// nothing for autograd's cotangent of the forward's contiguous output.
+// qkv projection; innermost stride 1; for the bf16 dk/dv body, a 16-byte
+// aligned base and strides of 16-byte multiples). o, dO, lse, delta and
+// the outputs are contiguous: the wrapper makes o and dO contiguous,
+// which copies nothing for autograd's cotangent of the forward's
+// contiguous output.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
@@ -428,6 +451,205 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv (#3): products on the tensor cores (wgmma), tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;   // one warpgroup: 64 keys
+constexpr int kStages = 2;        // Q/dO ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct DkvSmem {                  // every tile 1024-byte aligned
+  __nv_bfloat16 k[64 * 64];
+  __nv_bfloat16 v[64 * 64];
+  __nv_bfloat16 q[kStages][64 * 64];
+  __nv_bfloat16 dout[kStages][64 * 64];
+  float lse[kStages][64];         // log2(e) * lse of the tile's q rows
+  float delta[kStages][64];
+  uint64_t kv_bar;
+  uint64_t full[kStages];
+};
+constexpr size_t kDkvSmemBytes = sizeof(DkvSmem) + 1024;  // + align1024
+
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ kv_lens,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int T_len, int S,
+                           int H, float scale, int causal) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(align1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kB;
+  const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
+  const int64_t lrow = static_cast<int64_t>(b) * T_len * H + h;  // lse/delta
+  const float scale_log2 = scale * kLog2e;
+  const int row0 = acc_row(tid, 0);   // this thread's keys k0 + row0 (+8)
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (k0 < kv_len) {  // else every key of the tile is masked: zeros
+    // causal: q tiles that end before this tile's first key see none of
+    // its keys (the TPU kernel's lo)
+    const int lo = causal ? k0 / kB : 0;
+    const int n = (T_len + kB - 1) / kB - lo;
+    // this thread's share of a tile's lse (threads 0-63) or delta (64-127)
+    const float* rows = tid < 64 ? lse : delta;
+    const float mul = tid < 64 ? kLog2e : 1.f;
+    float* dst = (tid < 64 ? sm.lse[0] : sm.delta[0]) + (tid & 63);
+
+    if (tid == 0) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&domap);
+      mbar_init(&sm.kv_bar, 1);
+      for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(&sm.kv_bar, 2 * kTileBytes);
+      tma_load_tile(sm.k, &kmap, &sm.kv_bar, h, k0, b);
+      tma_load_tile(sm.v, &vmap, &sm.kv_bar, h, k0, b);
+      for (int s = 0; s < kStages && s < n; ++s) {
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        tma_load_tile(sm.q[s], &qmap, &sm.full[s], h, (lo + s) * kB, b);
+        tma_load_tile(sm.dout[s], &domap, &sm.full[s], h, (lo + s) * kB, b);
+      }
+    }
+    for (int s = 0; s < kStages && s < n; ++s) {
+      const int t = (lo + s) * kB + (tid & 63);
+      dst[s * kB] = t < T_len
+                        ? rows[lrow + static_cast<int64_t>(t) * H] * mul
+                        : 0.f;
+    }
+    __syncthreads();
+    mbar_wait(&sm.kv_bar, 0);
+
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    for (int it = 0; it < n; ++it) {
+      const int st = it % kStages;
+      const int q0 = (lo + it) * kB;
+      // the lse/delta of the tile this stage takes next, loaded early so
+      // that its latency hides under the products
+      const bool refill = it + kStages < n;
+      float next = 0.f;
+      if (refill) {
+        const int t = q0 + kStages * kB + (tid & 63);
+        if (t < T_len) next = rows[lrow + static_cast<int64_t>(t) * H] * mul;
+      }
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+
+      // S^T = K . Q^T and dP^T = V . dO^T: keys are the rows
+      wgmma_fence();
+      gemm_abt(sc, sm.k, sm.q[st]);
+      gemm_abt(dp, sm.v, sm.dout[st]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+
+      // P^T = exp(scale*S^T - lse), masked to exactly 0; dS^T = P^T o
+      // (dP^T - delta). Padded q rows (t >= T) are masked too: their lse
+      // is not real.
+      const bool edge = q0 + kB > T_len || k0 + kB > kv_len ||
+                        (causal && k0 + kB - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = acc_col(tid, i);
+        bool ok = true;
+        if (edge) {
+          const int kp = k0 + row0 + 8 * ((i >> 1) & 1);
+          const int qp = q0 + col;
+          ok = kp < kv_len && qp < T_len && (!causal || qp >= kp);
+        }
+        const float p = ok ? exp2f(sc[i] * scale_log2 - sm.lse[st][col])
+                           : 0.f;
+        sc[i] = p;
+        dp[i] = p * (dp[i] - sm.delta[st][col]);
+      }
+
+      // dV += P^T . dO and dK += dS^T . Q: P^T and dS^T rounded to bf16 in
+      // registers as the A operands, dO and Q [q][d] read MN-major
+      uint32_t pf[16], df[16];
+      acc_to_frag(sc, pf);
+      acc_to_frag(dp, df);
+      wgmma_fence();
+      gemm_pb(dv_acc, pf, sm.dout[st]);
+      gemm_pb(dk_acc, df, sm.q[st]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv_acc);
+      fence_acc(dk_acc);
+
+      // every warp is done with stage st: refill it with tile it + kStages
+      __syncthreads();
+      if (refill) {
+        dst[st * kB] = next;
+        if (tid == 0) {
+          const int qn = q0 + kStages * kB;
+          mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
+          tma_load_tile(sm.q[st], &qmap, &sm.full[st], h, qn, b);
+          tma_load_tile(sm.dout[st], &domap, &sm.full[st], h, qn, b);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = k0 + row0 + 8 * r;
+    if (s >= S) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      const int col = acc_col(tid, i);
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
+          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    const int* kv_lens, void* dk, void* dv, int B, int T_len,
+                    int S, int H, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                    int64_t v_ss, int64_t v_sh, float scale, int causal,
+                    cudaStream_t stream) {
+  const int64_t row_st = static_cast<int64_t>(H) * 64;   // dout contiguous
+  CUtensorMap qm, km, vm, dom;
+  if (!sm90::make_tile_map(&qm, q, B, T_len, H, q_sb, q_st, q_sh) ||
+      !sm90::make_tile_map(&km, k, B, S, H, k_sb, k_ss, k_sh) ||
+      !sm90::make_tile_map(&vm, v, B, S, H, v_sb, v_ss, v_sh) ||
+      !sm90::make_tile_map(&dom, dout, B, T_len, H, T_len * row_st, row_st,
+                           64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kB - 1) / kB, B * H);
+  flash_bwd_dkv_wgmma_kernel<<<grid, kWgThreads, kDkvSmemBytes, stream>>>(
+      qm, km, vm, dom, lse, delta, kv_lens, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), T_len, S, H, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace paddle_tpu_torch
 
@@ -479,9 +701,8 @@ extern "C" int paddle_flash_attention_bwd_dkv(
                              T, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                              v_sb, v_ss, v_sh, scale, causal, st);
   if (dtype == kBF16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, kv_lens, dk,
-                                     dv, B, T, S, H, q_sb, q_st, q_sh, k_sb,
-                                     k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                                     causal, st);
+    return launch_dkv_bf16(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T,
+                           S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
+                           v_ss, v_sh, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

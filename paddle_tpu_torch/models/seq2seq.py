@@ -33,7 +33,6 @@ from ..nn import Embedding, Linear, Module
 from ..nn.initializer import uniform, zeros
 from ..ops import beam_search as BS
 from ..ops import rnn as R
-from .transformer import token_cross_entropy
 
 
 class DecoderState(NamedTuple):
@@ -126,9 +125,13 @@ class AttentionSeq2Seq(Module):
     def loss(self, src: SeqBatch, trg_in: SeqBatch, trg_out: SeqBatch, *,
              route: Optional[str] = None) -> torch.Tensor:
         """Mean token cross-entropy over the target positions below each
-        length."""
-        return token_cross_entropy(self(src, trg_in, route=route),
-                                   trg_out.data, trg_out.mask())
+        length. ``log_softmax`` runs in the logits' dtype (bf16 under a
+        bf16 recipe), as the JAX loss takes it; the masked mean then
+        promotes to the mask's f32."""
+        logp = torch.log_softmax(self(src, trg_in, route=route), dim=-1)
+        nll = -torch.gather(logp, -1, trg_out.data.long()[..., None])[..., 0]
+        mask = trg_out.mask()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
     # -- inference ---------------------------------------------------------
     def _step_fn(self):

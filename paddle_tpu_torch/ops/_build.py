@@ -3,7 +3,10 @@
 ``nvcc`` compiles each ``.cu`` to an object for ``sm_90a`` — one process
 per source, all started together — and links them into one shared
 library with a plain C interface, loaded through ``ctypes``. No PyTorch
-header is compiled, so a build takes seconds.
+header is compiled, so a build takes seconds. The link names no
+``libcuda``: the tensor maps of the TMA loads are encoded through
+``cuTensorMapEncodeTiled``, looked up at run time with
+``cudaGetDriverEntryPointByVersion`` (``csrc/hopper.cuh``).
 
 The library lands in ``paddle_tpu_torch/_build/<hash>/`` (listed in
 ``.gitignore``), keyed by a hash of the sources and flags: the first call

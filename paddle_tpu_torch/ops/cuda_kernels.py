@@ -22,6 +22,13 @@ may also ask for the plain version explicitly with ``route="plain"`` (the
 counterpart of the JAX entries' ``route=``), which the solo reference
 decode uses on the card.
 
+In bf16 the forward (#1) and the dk/dv kernel (#3) run tensor-core
+bodies (wgmma on TMA-fed tiles); they round P (and dSᵀ) to bf16 before
+the second product, where the plain versions keep f32, and they need q,
+k and v at a 16-byte-aligned base with strides of 16-byte multiples,
+which the wrappers check (they raise otherwise). f32 runs the CUDA-core
+bodies, as dq (#2) does in both dtypes.
+
 The plain versions follow the op order of ``_dense_attention`` and
 ``_dense_decode_attention``. ``SHORT_SEQ_DENSE``, ``decode_route`` and
 ``_default_blocks`` of the JAX package are TPU routing and set nothing
@@ -155,6 +162,23 @@ def _attention_shapes(what: str, q, k, v, causal: bool):
     return B, T, S, H, D
 
 
+def _check_tma(what: str, **tensors: torch.Tensor) -> None:
+    """The bf16 attention kernels load [B, L, H, 64] operands by TMA, which
+    needs a 16-byte-aligned base and batch, position and head strides that
+    are multiples of 16 bytes (a dimension of size 1 is never stepped).
+    Raises on anything else: no copy, no other route."""
+    for name, t in tensors.items():
+        esize = t.element_size()
+        bad = [d for d, (n, st) in enumerate(zip(t.shape[:3], t.stride()[:3]))
+               if n > 1 and (st * esize) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{what}: {name} (strides {tuple(t.stride())}, base "
+                f"{t.data_ptr() % 16} bytes past 16) breaks the TMA rule of "
+                "the bf16 kernels: a 16-byte-aligned base and strides of "
+                "16-byte multiples")
+
+
 def _kernel_lens(what: str, kv_lens: Optional[torch.Tensor], B: int,
                  device) -> Optional[torch.Tensor]:
     if kv_lens is None:
@@ -181,6 +205,8 @@ def _flash_attention_fwd_kernel(q, k, v, causal, scale, kv_lens):
     lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
     if B == 0 or T == 0:
         return o, lse
+    if q.dtype == torch.bfloat16:
+        _check_tma(what, q=q, k=k, v=v)
     lens = _kernel_lens(what, kv_lens, B, q.device)
     lib = _build.load().lib
     with torch.cuda.device(q.device):
@@ -270,6 +296,8 @@ class FlashBwdLaunch:
                 raise ValueError(f"{what}: {name} must be float32 [{B}, "
                                  f"{T}, {H}], got {t.dtype} "
                                  f"{tuple(t.shape)}")
+        if q.dtype == torch.bfloat16:
+            _check_tma(what, q=q, k=k, v=v)
         # o and dO are read as contiguous [B, T, H, D]: autograd's
         # cotangent of the forward's contiguous output already is, so
         # nothing is copied

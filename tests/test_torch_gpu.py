@@ -16,6 +16,25 @@ from paddle_tpu_torch.models import TransformerLM
 from paddle_tpu_torch.ops import cuda_kernels as ck
 from paddle_tpu_torch.serving import ServingEngine
 
+def _bf16_ulp(x):
+    """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _bf16_tc_close(got, want):
+    """The bf16 tensor-core bodies (#1's o, #3's dk and dv) against the plain
+    version. They round P (and #3's dS^T) to bf16 before the second
+    product, where the plain version keeps f32: each term of an entry's sum
+    is off by at most 2**-9 of itself, and with terms of mixed sign that
+    stays under one bf16 ulp of the tensor's largest magnitude (atol), also
+    at entries near zero where the sum cancels; the output's own rounding
+    adds one ulp of the entry (rtol 2**-7)."""
+    w = want.float()
+    torch.testing.assert_close(got.float(), w,
+                               atol=_bf16_ulp(w.abs().max().item()),
+                               rtol=2.0 ** -7)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -39,9 +58,11 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, causal, T, S):
                                       causal=causal, kv_lens=lens,
                                       route="plain")
     assert ck.LAUNCHES["flash_attention_fwd"] == before + 1
-    # f32: summation order only; bf16: one rounding of the output
-    atol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(o.float(), po, atol=atol, rtol=1e-4)
+    # f32: summation order only; bf16: the tensor-core body's tolerance
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    else:
+        _bf16_tc_close(o, po)
     torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-4)
 
 
@@ -390,12 +411,15 @@ def _bwd_close(got, want, dtype):
 
 
 # chip_smoke.py's phase-6 shapes: (B, T, S, H, causal, lengths, q/k/v as
-# views of one fused projection)
+# views of one fused projection); "ring" has more k tiles (#1) and q
+# tiles (#3) than the bf16 bodies' two ring stages at every block, ragged
+# at both ends
 _BWD_SHAPES = {
     "lm": (8, 1023, 1023, 12, True, None, False),
     "nmt": (64, 64, 64, 8, False, "32..64 and a 0", False),
     "cross": (16, 100, 77, 8, False, "1..S", False),
     "fused": (4, 300, 300, 12, True, "1..S", True),
+    "ring": (3, 330, 330, 2, False, "1..S", False),
 }
 
 
@@ -419,6 +443,14 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
         kv_lens = kv_lens.to(cuda)
     o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=kv_lens,
                                     route="plain")
+    # the forward (#1) at the same shape; in bf16 its tensor-core body
+    ko, klse = ck.flash_attention_fwd(q, k, v, causal=causal,
+                                      kv_lens=kv_lens)
+    if dtype == torch.float32:
+        torch.testing.assert_close(ko, o, atol=1e-5, rtol=1e-4)
+    else:
+        _bf16_tc_close(ko, o)
+    torch.testing.assert_close(klse, lse, atol=1e-5, rtol=1e-4)
     do = rnd(B, T, H, 64)
     before = dict(ck.LAUNCHES)
     got = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
@@ -427,9 +459,14 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
                                   kv_lens=kv_lens, route="plain")
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert ck.LAUNCHES[name] == before[name] + 1
-    for g, w in zip(got, want):
+    # dq (#2) keeps its CUDA-core body in both dtypes; in bf16, dk and dv
+    # come from #3's tensor-core body
+    close = lambda i, g, w: (_bf16_tc_close(g, w) if i and
+                             dtype == torch.bfloat16 else
+                             _bwd_close(g, w, dtype))
+    for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == dtype and g.shape == w.shape
-        _bwd_close(g, w, dtype)
+        close(i, g, w)
     if kv_lens is not None:            # masked keys: exactly zero dk, dv
         for b, n in enumerate(kv_lens.clamp(1, S).tolist()):
             assert not got[1][b, n:].any() and not got[2][b, n:].any()
@@ -437,8 +474,32 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
     delta = torch.sum(do.float() * o.float(), dim=-1)
     given = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                    kv_lens=kv_lens, delta=delta)
-    for g, w in zip(given, want):
-        _bwd_close(g, w, dtype)
+    for i, (g, w) in enumerate(zip(given, want)):
+        close(i, g, w)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_refuses_views_that_break_the_tma_rule(cuda):
+    """The bf16 bodies load q, k and v by TMA: a base that is not 16-byte
+    aligned, or a stride that is not a multiple of 16 bytes, raises (no
+    copy, no other route). The f32 bodies read such views in place."""
+    good = torch.randn(2, 40, 3, 64, device=cuda, dtype=torch.bfloat16)
+    wide = torch.randn(2, 40, 3, 68, device=cuda)
+    flat = torch.randn(2 * 40 * 3 * 64 + 1, device=cuda)
+    bad = [wide.to(torch.bfloat16)[..., :64],              # 136-byte heads
+           flat.to(torch.bfloat16)[1:].view(2, 40, 3, 64)]  # base 2 bytes off
+    o, lse = ck.flash_attention_fwd(good, good, good)
+    for x in bad:
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_fwd(x, good, good)
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_fwd(good, good, x)
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_bwd(good, x, good, o, lse, o)
+    x = wide[..., :64]
+    o32, lse32 = ck.flash_attention_fwd(x, x, x)
+    po, plse = ck.flash_attention_fwd(x, x, x, route="plain")
+    torch.testing.assert_close(o32, po, atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.gpu

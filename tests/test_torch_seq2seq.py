@@ -311,3 +311,31 @@ def test_trainer_adam_steps_match_jax(s2s):
     assert int(state["step"]) == int(js["step"]) == 3
     _assert_trees(params, jp, ATOL)
     _assert_trees(state["slots"], js["slots"], GRAD_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_loss_matches_jax(s2s, seed):
+    """The benchmark's bf16 recipe (benchmarks/seq2seq_nmt.py: float
+    params cast to bf16): JAX takes ``log_softmax`` and the masked mean in
+    the logits' dtype, and so does the port. Tolerance atol 1e-5: the two
+    sides' bf16 logits agree to ~1e-5, far below the bf16 ulp of the
+    per-token nll (2**-6 near log(40)), so every nll rounds to the same
+    bf16 value and only the f32 mean's summation order is left. Taking
+    the loss in f32 from the same bf16 logits (``token_cross_entropy``,
+    which the transformer models use) lands over 1e-3 away, so the
+    tolerance tells the two apart."""
+    from paddle_tpu_torch.models.transformer import token_cross_entropy
+    jmodel, jparams, model = s2s
+    batch = _batch(20 + seed)
+    j16 = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a,
+        jparams)
+    jl = float(jmodel.loss(j16, *_jargs(batch)).astype(jnp.float32))
+    p16 = tree_map(lambda p: p.to(torch.bfloat16), model.tree())
+    src, tin, tout = _targs(batch)
+    loss = model.call(p16, src, tin, tout, method="loss")
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.item(), jl, atol=1e-5, rtol=0)
+    f32_way = token_cross_entropy(model.call(p16, src, tin), tout.data,
+                                  tout.mask()).item()
+    assert abs(f32_way - jl) > 1e-4
