@@ -8,7 +8,8 @@ Phases:
 1. build  — compile the CUDA kernels (``paddle_tpu_torch/csrc``) with nvcc
    for sm_90a, print ptxas' register / shared-memory lines, and count the
    HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of the
-   bf16 tensor-core bodies of #1 and #3 (``cuobjdump -sass``; none fails);
+   bf16 tensor-core bodies of #1, #2 and #3 (``cuobjdump -sass``; none
+   fails);
 2. kernels — hold each kernel against its plain PyTorch version at the
    serving shapes (f32 and bf16) and time kernel, plain version, the
    PyTorch library call where one exists, and the roofline bound;
@@ -44,7 +45,8 @@ Phases:
    over f32 master weights: 12 launches of each attention kernel a step,
    a falling loss on batch 0, one f32 step equal to the plain versions'
    step, one bf16 loss and gradient within the stated tolerance of the
-   plain route's, ms per step and a profile;
+   plain route's, ms per step and a profile with the step's device time
+   and #2's share of it;
 8. NMT training — the transformer NMT (vocab 30000/30000, d_model 512, 8
    heads, 6+6 layers, batch 64, lengths 32..64) likewise for 12 steps
    over 4 batches: 18 launches of each attention kernel a step;
@@ -54,7 +56,12 @@ Phases:
    over [:, :L] views of a [8, 1024, 12, 64] cache, L 256/512/1024, pos
    with 0, L-1 and a drained value past L; #7 at NB 4/8/16 with null-page
    table tails; each timed with the plain version's time, SDPA with a
-   boolean mask beside #4, and the byte bound;
+   boolean mask beside #4, and the byte bound, #4 with the split count
+   it used; then #4 split across blocks against plain on reads that end
+   inside, on and past chunk boundaries and at pos 0 (B 1/2/8, chosen
+   and forced counts), and its time over forced split counts at the
+   decode paths' B 2 and 8 and each L (with ``--split-sweep`` also at
+   B 1 and 32: the sweep decode_splits' thresholds come from);
 10. dense decode — GPT-2 small (random weights from the seed):
    ``generate_fused`` of 8 prompts of 200 tokens, 100 new, bucket 256, in
    f32 and at ``kv_dtype="int8"``, equal to the same loop on the plain
@@ -110,7 +117,8 @@ PEAK_BYTES = 3.35e12
 # tolerances, with the reason: the kernels sum in another order than the
 # plain versions (tiles, online softmax), nothing else differs
 F32_ATOL, F32_RTOL = 1e-5, 1e-4
-# the bf16 tensor-core bodies (#1 o, #3 dk and dv): see bf16_tc_close
+# the bf16 tensor-core bodies (#1 o, #2 dq, #3 dk and dv): see
+# bf16_tc_close
 BF16_TC_RTOL = 2.0 ** -7
 # the one bf16 LM step through the kernels against the plain route's
 # (phase 7): see bf16_step_check
@@ -119,11 +127,17 @@ BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_REL_L2 = 2.0 ** -9, 2.0 ** -5
 _TC, _CC = "tensor cores: wgmma on TMA-fed tiles", "CUDA cores: f32 FMAs"
 DESIGN = {
     "flash_attention_fwd": {"bfloat16": _TC, "float32": _CC},
-    "flash_attention_bwd_dq": {"bfloat16": _CC, "float32": _CC},
+    "flash_attention_bwd_dq": {"bfloat16": _TC, "float32": _CC},
     "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _CC},
 }
+# #4's design (both dtypes)
+SPLIT_DESIGN = ("one block per (head, sample) where B*H fills the card or "
+                "the read is short; else the read split into chunks of "
+                "rows, one block each, merged in chunk order by the last "
+                "block to finish (ops/cuda_kernels.py decode_splits)")
 # the wgmma+TMA bodies of this port: kernel name in the SASS -> JSON entry
 TENSOR_CORE_BODIES = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
+                      "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
                       "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
 
 
@@ -143,15 +157,15 @@ def bf16_ulp(x: float) -> float:
 
 
 def bf16_tc_close(got, want, what: str) -> float:
-    """Hold an output of a bf16 tensor-core body (#1's o, #3's dk and dv)
-    against the plain version's; returns the max abs error.
+    """Hold an output of a bf16 tensor-core body (#1's o, #2's dq, #3's dk
+    and dv) against the plain version's; returns the max abs error.
 
-    The bodies round P (and #3's dS^T) to bf16 before their second
-    product, the usual flash choice (the plain versions and JAX keep them
-    in f32). Each term of an output entry then carries a relative error of
-    at most 2**-9, so the entry is off by at most 2**-9 of the sum of its
-    terms' magnitudes; the terms have mixed signs, so that error stays
-    under one bf16 ulp of the tensor's largest magnitude (atol, between
+    The bodies round P (#1), dS (#2) and P^T, dS^T (#3) to bf16 before
+    their second product, the usual flash choice (the plain versions and
+    JAX keep them in f32). Each term of an output entry then carries a
+    relative error of at most 2**-9, so the entry is off by at most 2**-9
+    of the sum of its terms' magnitudes; the terms have mixed signs, so
+    that error stays under one bf16 ulp of the tensor's largest magnitude (atol, between
     2**-8 and 2**-7 of it), also at entries near zero where the sum
     cancels. The output's own rounding to bf16 adds one ulp of the entry
     on either side (rtol 2**-7), as the CUDA-core bodies' check allows."""
@@ -207,7 +221,9 @@ def time_ms(calls, rounds: int = 4, reps: int = 5) -> float:
     ``calls`` are closures of one function over distinct input sets, whose
     total is larger than the 50 MB L2 cache, so that each call finds its
     inputs cold as a layer of the model does. ``rounds`` passes over them
-    are captured in one CUDA graph; CUDA events time ``reps`` replays."""
+    are captured in one CUDA graph; CUDA events time ``reps`` replays. The
+    warm-up runs eagerly on the capture stream, so what a call keeps per
+    stream (#4's tickets) exists before the capture."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -216,7 +232,7 @@ def time_ms(calls, rounds: int = 4, reps: int = 5) -> float:
             c()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(rounds):
             for c in calls:
                 c()
@@ -514,10 +530,13 @@ def serving_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     return launches
 
 
-def profile_breakdown(say, what: str, run, wall: float) -> None:
+def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
+                      share_of=None) -> None:
     """Device busy share of ``run()`` and its top kernels, from one run
     under torch.profiler. The share divides device kernel time by the wall
-    time ``wall`` of the same work run unprofiled."""
+    time ``wall`` of the same work run unprofiled. ``run()`` takes
+    ``steps`` steps; ``share_of`` {label: kernel-name substring} prints
+    each such kernel's device time a step and share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -548,6 +567,11 @@ def profile_breakdown(say, what: str, run, wall: float) -> None:
     for us, n, name in rows[:8]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e6 / dev_s:5.1f}% "
               f"x{n:<6d} {name[:90]}")
+    for label, key in (share_of or {}).items():
+        k_s = sum(r[0] for r in rows if key in r[2]) / 1e6
+        say(f"profile {what}: device time a step {dev_s * 1e3 / steps:.3f} "
+            f"ms; {label} {k_s * 1e3 / steps:.3f} ms a step, "
+            f"{100 * k_s / dev_s:.1f}% of it")
 
 
 # ---------------------------------------------------------------------------
@@ -970,10 +994,9 @@ def live_pairs(T, S, causal, lens, B):
 def bwd_close(got, want, what, dtype_name):
     """Hold an attention output against the plain version's; returns the max
     abs error. f32: summation order only (rtol 1e-4, atol 2e-5 of the
-    largest magnitude: a dk entry sums up to T products); bf16 (dq, whose
-    CUDA-core body keeps P in f32): the same f32 values rounded once, so
-    one bf16 ulp (rtol 2**-7) on top. The bf16 tensor-core bodies are held
-    by bf16_tc_close."""
+    largest magnitude: a dk entry sums up to T products); bf16: the same
+    f32 values rounded once, so one bf16 ulp (rtol 2**-7) on top. The bf16
+    tensor-core bodies are held by bf16_tc_close."""
     import torch
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item()
@@ -1029,10 +1052,7 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
             want = ck.flash_attention_bwd(*args, causal=causal, kv_lens=kv,
                                           route="plain")
             torch.cuda.synchronize()
-            # dq (#2) keeps its CUDA-core body and its check; dk and dv
-            # come from #3's tensor-core body in bf16
-            errs = [(bwd_close(g, w, f"flash bwd {tag} {nm}", dname)
-                     if nm == "dq" else close(g, w, f"flash bwd {tag} {nm}"))
+            errs = [close(g, w, f"flash bwd {tag} {nm}")
                     for nm, g, w in zip(("dq", "dk", "dv"), got, want)]
             if lens is not None:
                 for b, n in enumerate(np.clip(lens, 1, S)):
@@ -1315,7 +1335,7 @@ def bf16_step_check(say, what, loss_for, params, batch, per_step,
 
 
 def train_and_time(say, what, trainer, params, batches, passes, per_step,
-                   device, warmup=2, names=ATTENTION_KERNELS):
+                   device, warmup=2, names=ATTENTION_KERNELS, share_of=None):
     """``Trainer.train`` over ``batches`` for ``passes`` passes with the
     launch counts set to 0 just before and read just after; checks the
     counts (``per_step`` of each kernel of ``names`` a step), finite costs
@@ -1371,7 +1391,7 @@ def train_and_time(say, what, trainer, params, batches, passes, per_step,
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     profile_breakdown(say, f"bf16 {what} training (2 steps)", run,
-                      min(walls))
+                      min(walls), steps=2, share_of=share_of)
     return launches, steps
 
 
@@ -1401,7 +1421,8 @@ def lm_training_phase(say, seed: int, device="cuda", config=GPT2_TRAIN,
     trainer = Trainer(lm_loss(model, torch.bfloat16), Adam(LM_LR),
                       device=device)
     return train_and_time(say, "LM", trainer, model.tree(), batches, passes,
-                          per_step, device)
+                          per_step, device,
+                          share_of={"#2 (dq)": "flash_bwd_dq"})
 
 
 def nmt_batches(seed: int, n: int, device, batch=NMT_BATCH, seq=NMT_SEQ,
@@ -1479,14 +1500,15 @@ def _decode_query(B, H, D, dtype, gen, device):
         -1, (H, D))[:, 0]
 
 
-def _dense_decode_inputs(L, qname, kind, gen, device, full: bool):
-    """(q, k[:, :L], v[:, :L], pos) over a [8, 1024, 12, 64] cache and the
+def _dense_decode_inputs(L, qname, kind, gen, device, full: bool,
+                         B=DECODE_B):
+    """(q, k[:, :L], v[:, :L], pos) over a [B, 1024, 12, 64] cache and the
     scales' [:, :L] views (None unless int8). pos: L - 1 everywhere for a
     full read, else spread over [0, L) with 0, L - 1 and a drained slot
     past the read bound."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    B, H, D = DECODE_B, DECODE_H, HEAD_DIM
+    H, D = DECODE_H, HEAD_DIM
     q = _decode_query(B, H, D, getattr(torch, qname), gen, device)
     k, v = (torch.randn((B, DECODE_MAX, H, D), generator=gen, device=device)
             for _ in range(2))
@@ -1519,11 +1541,11 @@ def _paged_q_inputs(NB, qname, gen, device, full: bool):
 
 
 def decode_bound(rows: int, q_size: int, kv_size: int, int8: bool,
-                 tables: int = 0):
+                 tables: int = 0, B: int = DECODE_B):
     """The byte bound of one read of ``rows`` live rows a sample (each
     input read once, the f32 output written once) against its operations
     (a dot product and an axpy per element, in f32)."""
-    B, H, D = DECODE_B, DECODE_H, HEAD_DIM
+    H, D = DECODE_H, HEAD_DIM
     nbytes = (B * H * D * q_size + 2 * B * rows * H * D * kv_size
               + (2 * B * rows * H * 4 if int8 else 0) + B * 4 + tables * 4
               + B * H * D * 4)
@@ -1554,7 +1576,7 @@ def _decode_times(run, make, nbytes, sdpa: bool):
     return out
 
 
-def decode_checks(say, seed: int, device="cuda"):
+def decode_checks(say, seed: int, sweep_batches, device="cuda"):
     """#4 and #5 over [:, :L] cache views and #7 over int8 pools against
     their plain versions, f32 and bf16 queries; each timed at its full
     read. Returns the three kernels' JSON entries (the f32 query at the
@@ -1570,6 +1592,7 @@ def decode_checks(say, seed: int, device="cuda"):
     entries["decode_attention_q"]["library_note"] = \
         entries["paged_decode_attention_q"]["library_note"] = \
         "no single PyTorch call reads an int8 cache with per-row scales"
+    entries["decode_attention"]["design"] = SPLIT_DESIGN
 
     def dense(s, route=None):
         return ck.decode_attention(*s[0], k_scale=s[1][0], v_scale=s[1][1],
@@ -1614,6 +1637,9 @@ def decode_checks(say, seed: int, device="cuda"):
             * (HEAD_DIM * kv_size + (4 if kind == "int8" else 0)),
             sdpa=name == "decode_attention"))
         res.update(bound_ms=b_ms, bound_by=b_by)
+        if name == "decode_attention":       # the split count timed
+            res["splits"], res["chunk"] = ck.decode_splits(
+                DECODE_B * DECODE_H, n)
         say(f"{name} {shape} q {qname}: {json.dumps(res)}")
         e = entries[name]
         if n in (DECODE_READS[0], PAGED_READS[0]) and qname == "float32":
@@ -1623,7 +1649,97 @@ def decode_checks(say, seed: int, device="cuda"):
                           "timed with every row live")
         else:
             e[f"{'NB' if is_paged else 'L'}{n}_q{qname}"] = res
+    split_edge_checks(say, gen, device)
+    entries["decode_attention"]["split_sweep"] = split_sweep(
+        say, gen, sweep_batches, device)
     return [entries[name] for name, _, _, _ in DECODE_KERNELS]
+
+
+# B of the split checks and sweep: 1 (12 pairs: many splits), the
+# speculative draft's 2, the decode paths' 8, and 32 (384 pairs: past the
+# target, one split); each run sweeps the paths' B, --split-sweep all four
+SPLIT_BATCHES = (1, 2, 8, 32)
+PATH_BATCHES = (2, 8)
+SWEEP_SPLITS = (1, 2, 4, 8, 16)
+
+
+def split_edge_checks(say, gen, device="cuda"):
+    """#4 against plain, f32 and bf16, at every L of DECODE_READS, with the
+    chosen split and forced counts, on reads whose live rows end inside a
+    chunk, exactly on a chunk's last row, one row into the next chunk, at
+    pos = 0 (every later chunk empty) and past L (drained); one launch a
+    read."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    worst, n_reads = 0.0, 0
+    for qname in ("float32", "bfloat16"):
+        for B in SPLIT_BATCHES[:3]:
+            for L in DECODE_READS:
+                for asked in (None, 3, 8):
+                    (q, k, v, _), _ = _dense_decode_inputs(
+                        L, qname, qname, gen, device, True, B=B)
+                    n, chunk = ck.decode_splits(B * DECODE_H, L, asked)
+                    ends = [0, chunk - 1, chunk, chunk // 2, L - 1,
+                            min(2 * chunk - 1, L - 1), L + 37,
+                            min(chunk + chunk // 2, L - 1)]
+                    for b0 in range(0, len(ends), B):
+                        pos = torch.tensor((ends[b0:] + ends)[:B],
+                                           dtype=torch.int32, device=device)
+                        before = ck.LAUNCHES["decode_attention"]
+                        got = ck._decode_attention_kernel(
+                            q, k, v, pos, HEAD_DIM ** -0.5, None, None,
+                            asked)
+                        want = ck.decode_attention(q, k, v, pos,
+                                                   route="plain")
+                        torch.cuda.synchronize()
+                        err = (got - want).abs().max().item()
+                        check(ck.LAUNCHES["decode_attention"] == before + 1,
+                              "decode_attention: not one launch a read")
+                        check(torch.isfinite(got).all().item() and
+                              torch.allclose(got, want, atol=F32_ATOL,
+                                             rtol=F32_RTOL),
+                              f"decode_attention split B={B} L={L} "
+                              f"splits={n} chunk={chunk} pos "
+                              f"{pos.tolist()} q {qname} differs from "
+                              f"plain: max {err}")
+                        worst, n_reads = max(worst, err), n_reads + 1
+    say(f"decode_attention split reads (ends inside, on and past chunk "
+        f"boundaries, pos 0, drained): {n_reads} reads equal to plain, max "
+        f"abs {worst}")
+
+
+def split_sweep(say, gen, batches, device="cuda"):
+    """#4's time over forced split counts against the chosen one, every
+    row live, f32 and bf16, at each B of ``batches`` and each L of
+    DECODE_READS: at SPLIT_BATCHES, the measurement decode_splits'
+    thresholds come from."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    out = {}
+    for qname in ("float32", "bfloat16"):
+        esize = torch.empty((), dtype=getattr(torch, qname)).element_size()
+        for B in batches:
+            for L in DECODE_READS:
+                sets = input_sets(lambda i: _dense_decode_inputs(
+                    L, qname, qname, gen, device, True, B=B)[0],
+                    2 * B * L * DECODE_H * HEAD_DIM * esize)
+                # the chosen count (None) and the forced ones, by the
+                # count each launch uses
+                by = {ck.decode_splits(B * DECODE_H, L, n)[0]: n
+                      for n in SWEEP_SPLITS + (None,)}
+                ms = {n: time_ms([
+                    lambda s=s, a=a: ck._decode_attention_kernel(
+                        *s, HEAD_DIM ** -0.5, None, None, a) for s in sets])
+                    for n, a in by.items()}
+                del sets
+                chosen = ck.decode_splits(B * DECODE_H, L)
+                b_ms, _ = decode_bound(L, esize, esize, False, B=B)
+                res = {"chosen": chosen, "ms_by_splits": ms,
+                       "bound_ms": b_ms}
+                say(f"decode_attention sweep B={B} H={DECODE_H} L={L} "
+                    f"{qname}: {json.dumps(res)}")
+                out[f"B{B}_L{L}_{qname}"] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2026,6 +2142,9 @@ def s2s_phase(say, seed: int, device="cuda", config=S2S,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--split-sweep", action="store_true",
+                    help="time #4's split counts at B 1/2/8/32, not only "
+                         "at the decode paths' B")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
@@ -2076,7 +2195,8 @@ def main(argv=None) -> int:
     flash["launches_training"] = {
         "lm": lm_launches["flash_attention_fwd"],
         "nmt": nmt_launches["flash_attention_fwd"]}
-    decode = decode_checks(say, args.seed)
+    decode = decode_checks(
+        say, args.seed, SPLIT_BATCHES if args.split_sweep else PATH_BATCHES)
     runs = dense_decode_phase(say, args.seed)
     for entry in decode:
         per_run = {run: n[entry["name"]] for run, n in runs.items()

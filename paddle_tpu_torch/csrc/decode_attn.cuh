@@ -13,13 +13,15 @@
 // for one dot product and one axpy (2 operations per element), far below
 // the ~20 operations per byte where the f32 units would take over.
 //
-// Design: one 128-thread block per (h, b) walks only the live rows with an
-// online softmax in f32. A row is handled by a group of 8 lanes, each
-// holding 8 of the D = 64 elements (one 16-byte load for bf16, two for
-// f32, one 8-byte load for int8), so a warp reads 4 rows at once and a dot
-// product is 3 shuffles. The 16 row groups of the block each keep
-// (m, l, acc) and are merged through shared memory at the end. Rows past
-// the live count are never read.
+// Design: a 128-thread block walks live rows with an online softmax in
+// f32. A row is handled by a group of 8 lanes, each holding 8 of the D =
+// 64 elements (one 16-byte load for bf16, two for f32, one 8-byte load for
+// int8), so a warp reads 4 rows at once and a dot product is 3 shuffles.
+// The 16 row groups of the block each keep (m, l, acc) and are merged
+// through shared memory at the end. Rows past the live count are never
+// read. #5-#7 run one block per (h, b) over all live rows (row_walk); #4
+// may split a read into chunks of rows, one block each (walk_rows gives a
+// chunk's partial, decode.cu merges them).
 #pragma once
 
 #include "common.cuh"
@@ -125,14 +127,20 @@ struct PagedRowsQ {
   }
 };
 
-// The walk: ``qb`` is this lane's 8 query elements, ``n_live`` the rows
-// 0 .. n_live - 1 that enter the softmax (the caller clamps it to the rows
-// the cache has), ``ob`` the block's D outputs.
+// A block's partial softmax sums over its rows: the running max m, the
+// sum l of exp(s - m) and, for output element tid (threads tid < kD), the
+// unnormalized sum acc of exp(s - m) * v. No row: m = kNeg, l = 0, acc = 0.
+struct Partial {
+  float m, l, acc;
+};
+
+// The walk over rows j_lo .. j_hi - 1 (the caller clamps j_hi to the live
+// rows the cache has): ``qb`` is this lane's 8 query elements. Returns
+// the block's partial (threads tid < kD hold it).
 template <typename TQ, typename Rows>
-__device__ __forceinline__ void row_walk(const TQ* __restrict__ qb,
-                                         float scale, int n_live,
-                                         const Rows& rows,
-                                         float* __restrict__ ob) {
+__device__ __forceinline__ Partial walk_rows(const TQ* __restrict__ qb,
+                                             float scale, int j_lo,
+                                             int j_hi, const Rows& rows) {
   __shared__ float sm_m[kGroups];
   __shared__ float sm_l[kGroups];
   __shared__ float sm_acc[kGroups][kD];
@@ -149,11 +157,12 @@ __device__ __forceinline__ void row_walk(const TQ* __restrict__ qb,
   for (int e = 0; e < kE; ++e) acc[e] = 0.f;
 
   // the loop bound is uniform across the warp (its 4 groups start at
-  // j0 = 4*warp), so every lane reaches the shuffles; group g reads rows
-  // j = g, g + 16, ...
-  for (int j0 = (tid / 32) * kGroupsPerWarp; j0 < n_live; j0 += kGroups) {
+  // j0 = j_lo + 4*warp), so every lane reaches the shuffles; group g reads
+  // rows j = j_lo + g, j_lo + g + 16, ...
+  for (int j0 = j_lo + (tid / 32) * kGroupsPerWarp; j0 < j_hi;
+       j0 += kGroups) {
     const int j = j0 + g % kGroupsPerWarp;
-    const bool live = j < n_live;
+    const bool live = j < j_hi;
     float kr[kE], vr[kE];
     float s = 0.f;
     if (live) {
@@ -176,7 +185,8 @@ __device__ __forceinline__ void row_walk(const TQ* __restrict__ qb,
   }
 
   // merge the row groups: a group that saw no live row has m = kNeg and
-  // l = 0, so its weight exp(m - M) is exactly 0
+  // l = 0, so its weight exp(m - M) is exactly 0 (when every group saw
+  // none, M = kNeg and the weights are 1 on l = 0, acc = 0)
   if (li == 0) {
     sm_m[g] = m;
     sm_l[g] = l;
@@ -184,19 +194,29 @@ __device__ __forceinline__ void row_walk(const TQ* __restrict__ qb,
 #pragma unroll
   for (int e = 0; e < kE; ++e) sm_acc[g][li * kE + e] = acc[e];
   __syncthreads();
+  Partial out{kNeg, 0.f, 0.f};
   if (tid < kD) {
-    float M = kNeg;
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i) M = fmaxf(M, sm_m[i]);
-    float L = 0.f, out = 0.f;
+    for (int i = 0; i < kGroups; ++i) out.m = fmaxf(out.m, sm_m[i]);
 #pragma unroll
     for (int i = 0; i < kGroups; ++i) {
-      const float w = expf(sm_m[i] - M);
-      L = fmaf(sm_l[i], w, L);
-      out = fmaf(sm_acc[i][tid], w, out);
+      const float w = expf(sm_m[i] - out.m);
+      out.l = fmaf(sm_l[i], w, out.l);
+      out.acc = fmaf(sm_acc[i][tid], w, out.acc);
     }
-    ob[tid] = out / L;
   }
+  return out;
+}
+
+// The whole read of one block: rows 0 .. n_live - 1 (the caller clamps
+// n_live to the rows the cache has), ``ob`` the block's D outputs.
+template <typename TQ, typename Rows>
+__device__ __forceinline__ void row_walk(const TQ* __restrict__ qb,
+                                         float scale, int n_live,
+                                         const Rows& rows,
+                                         float* __restrict__ ob) {
+  const Partial p = walk_rows(qb, scale, 0, n_live, rows);
+  if (threadIdx.x < kD) ob[threadIdx.x] = p.acc / p.l;
 }
 
 }  // namespace decode

@@ -14,10 +14,9 @@
 // three D-long products (S, dP, dQ: 6*D operations) and the dk/dv kernel
 // four (S, dP, dV, dK: 8*D), against O((T + S) * D) elements moved per
 // (b, h): at the models' shapes (T, S >= 64, D = 64) both are bound by
-// operations. dq in both dtypes, and dk/dv in f32, run the products as
-// f32 FMAs on the CUDA cores (67 TF/s peak), as flash_fwd.cu's f32 body
-// does; dk/dv in bf16 runs them on the tensor cores (wgmma, 989 TF/s),
-// below. dq's move to wgmma is the next change.
+// operations. In f32 both run the products as f32 FMAs on the CUDA
+// cores (67 TF/s peak), as flash_fwd.cu's f32 body does; in bf16 both
+// run them on the tensor cores (wgmma, 989 TF/s), below.
 //
 // Design of the CUDA-core bodies. 256-thread blocks over 64 x 64
 // tiles; each thread owns a 4 x 4 sub-tile (rows r*4..r*4+3, columns c,
@@ -43,6 +42,23 @@
 //    loop and writes zeros. Every output element has one owner and no
 //    atomics are used, so the result is deterministic.
 //
+// Design of the bf16 dq body. One warpgroup (128 threads) per (64-row q
+// tile, b*h); Q and dO arrive once by TMA, K and V tiles stream through a
+// two-stage ring completed on mbarriers (a third stage was measured slower
+// on the H100). A thread's two q rows are fixed for the block,
+// so their lse and delta sit in registers (delta, when the caller gives
+// none, is
+// rowsum(dO * O) in f32 over 16-byte global loads, a quad of lanes a row,
+// written out for the dk/dv kernel). Per k tile, up to the same bound as
+// the CUDA-core body: S = Q.K^T and dP = dO.V^T (wgmma, both operands
+// K-major), P = exp(scale*S - lse) and dS = P o (dP - delta) on the
+// accumulator fragments, masked to exactly 0 on edge tiles only (the
+// causal diagonal, kv_len, rows past T), then dQ += dS.K with dS rounded
+// to bf16 in registers as the A operand and K read MN-major, as dk/dv's
+// dV += P^T.dO. The stage is refilled once every warp is done with it.
+// dQ is scaled once and stored as bf16 pairs; its one stated deviation
+// from the plain version is the bf16 rounding of dS.
+//
 // Design of the bf16 dk/dv body. One warpgroup (128 threads) per
 // (64-key tile, b*h); K and V arrive once by TMA. Q and dO tiles
 // [64 x 64] stream through a two-stage ring completed on mbarriers, with
@@ -61,7 +77,7 @@
 // of P^T and dS^T before the second products.
 //
 // q, k and v are read in place through their strides (views of the fused
-// qkv projection; innermost stride 1; for the bf16 dk/dv body, a 16-byte
+// qkv projection; innermost stride 1; for the bf16 bodies, a 16-byte
 // aligned base and strides of 16-byte multiples). o, dO, lse, delta and
 // the outputs are contiguous: the wrapper makes o and dO contiguous,
 // which copies nothing for autograd's cotangent of the forward's
@@ -650,6 +666,219 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dq (#2): products on the tensor cores (wgmma), tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kDqStages = 2;      // the K/V ring's depth
+
+struct DqSmem {                   // every tile 1024-byte aligned
+  __nv_bfloat16 q[64 * 64];
+  __nv_bfloat16 dout[64 * 64];
+  __nv_bfloat16 k[kDqStages][64 * 64];
+  __nv_bfloat16 v[kDqStages][64 * 64];
+  uint64_t qdo_bar;
+  uint64_t full[kDqStages];
+};
+constexpr size_t kDqSmemBytes = sizeof(DqSmem) + 1024;   // + align1024
+
+__global__ void __launch_bounds__(kWgThreads)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          float* __restrict__ delta,
+                          const int* __restrict__ kv_lens,
+                          __nv_bfloat16* __restrict__ dq, int T_len, int S,
+                          int H, float scale, int causal,
+                          int compute_delta) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(align1024(smem_raw));
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kB;
+  const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
+  const float scale_log2 = scale * kLog2e;
+  const int row0 = acc_row(tid, 0);   // this thread's q rows q0 + row0 (+8)
+  // o, dO and dq are contiguous [B, T, H, 64]; lse and delta [B, T, H]
+  const int64_t row_st = static_cast<int64_t>(H) * 64;
+  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * 64;
+
+  // the forward's k-tile bound: tiles wholly past the causal diagonal or
+  // past kv_len have P == 0 exactly and add nothing to dq
+  int hi = (S + kB - 1) / kB;
+  if (causal) hi = min(hi, (q0 + kB + kB - 1) / kB);
+  hi = min(hi, (kv_len + kB - 1) / kB);
+
+  if (tid == 0) {
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    mbar_init(&sm.qdo_bar, 1);
+    for (int s = 0; s < kDqStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && hi > 0) {
+    mbar_expect_tx(&sm.qdo_bar, 2 * kTileBytes);
+    tma_load_tile(sm.q, &qmap, &sm.qdo_bar, h, q0, b);
+    tma_load_tile(sm.dout, &domap, &sm.qdo_bar, h, q0, b);
+    for (int s = 0; s < kDqStages && s < hi; ++s) {
+      mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      tma_load_tile(sm.k[s], &kmap, &sm.full[s], h, s * kB, b);
+      tma_load_tile(sm.v[s], &vmap, &sm.full[s], h, s * kB, b);
+    }
+  }
+
+  // lse (in log2 units) and delta of this thread's two rows, while the
+  // tiles load; a row past T gets 0 for both (its dq is never written).
+  // delta = rowsum(dO * O) comes from global memory, not from the
+  // swizzled dO tile: the row's quad of lanes reads 16 elements each.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + row0 + 8 * r;
+    const bool in = t < T_len;
+    const int64_t ri = (static_cast<int64_t>(b) * T_len + t) * H + h;
+    lse2[r] = in ? lse[ri] * kLog2e : 0.f;
+    if (compute_delta) {
+      float part = 0.f;
+      if (in) {
+        const int64_t at = base + t * row_st + 16 * (tid & 3);
+        const uint4* op = reinterpret_cast<const uint4*>(o + at);
+        const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const uint4 ov = op[u], dv = dp[u];
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 =
+              reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 df = __bfloat1622float2(d2[e]);
+            part = fmaf(df.x, of.x, part);
+            part = fmaf(df.y, of.y, part);
+          }
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      dl[r] = part;
+      if ((tid & 3) == 0 && in) delta[ri] = part;
+    } else {
+      dl[r] = in ? delta[ri] : 0.f;
+    }
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  if (hi > 0) {
+    mbar_wait(&sm.qdo_bar, 0);
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    for (int kt = 0; kt < hi; ++kt) {
+      const int st = kt % kDqStages;
+      const int k0 = kt * kB;
+      mbar_wait(&sm.full[st], (kt / kDqStages) & 1);
+
+      // S = Q . K^T and dP = dO . V^T: q rows are the rows
+      wgmma_fence();
+      gemm_abt(sc, sm.q, sm.k[st]);
+      gemm_abt(dp, sm.dout, sm.v[st]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+
+      // P = exp(scale*S - lse), masked to exactly 0 on edge tiles; dS =
+      // P o (dP - delta)
+      const bool edge = q0 + kB > T_len || k0 + kB > kv_len ||
+                        (causal && k0 + kB - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        bool ok = true;
+        if (edge) {
+          const int qp = q0 + row0 + 8 * r;
+          const int kp = k0 + acc_col(tid, i);
+          ok = kp < kv_len && qp < T_len && (!causal || qp >= kp);
+        }
+        const float p = ok ? exp2f(sc[i] * scale_log2 - lse2[r]) : 0.f;
+        dp[i] = p * (dp[i] - dl[r]);
+      }
+
+      // dQ += dS . K: dS rounded to bf16 in registers as the A operand,
+      // K [keys][d] read MN-major
+      uint32_t df[16];
+      acc_to_frag(dp, df);
+      wgmma_fence();
+      gemm_pb(acc, df, sm.k[st]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+
+      // every warp is done with stage st: refill it with tile kt + kDqStages
+      __syncthreads();
+      if (tid == 0 && kt + kDqStages < hi) {
+        const int kn = k0 + kDqStages * kB;
+        mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
+        tma_load_tile(sm.k[st], &kmap, &sm.full[st], h, kn, b);
+        tma_load_tile(sm.v[st], &vmap, &sm.full[st], h, kn, b);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + row0 + 8 * r;
+    if (t >= T_len) continue;
+    __nv_bfloat16* row = dq + base + t * row_st;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(row + acc_col(tid, i)) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, const int* kv_lens, void* dq, int B,
+                   int T_len, int S, int H, int64_t q_sb, int64_t q_st,
+                   int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                   int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
+                   int causal, int compute_delta, cudaStream_t stream) {
+  const int64_t row_st = static_cast<int64_t>(H) * 64;   // dout contiguous
+  CUtensorMap qm, km, vm, dom;
+  if (!sm90::make_tile_map(&qm, q, B, T_len, H, q_sb, q_st, q_sh) ||
+      !sm90::make_tile_map(&km, k, B, S, H, k_sb, k_ss, k_sh) ||
+      !sm90::make_tile_map(&vm, v, B, S, H, v_sb, v_ss, v_sh) ||
+      !sm90::make_tile_map(&dom, dout, B, T_len, H, T_len * row_st, row_st,
+                           64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kDqSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T_len + kB - 1) / kB, B * H);
+  flash_bwd_dq_wgmma_kernel<<<grid, kWgThreads, kDqSmemBytes, stream>>>(
+      qm, km, vm, dom, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, kv_lens,
+      static_cast<__nv_bfloat16*>(dq), T_len, S, H, scale, causal,
+      compute_delta);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace paddle_tpu_torch
 
@@ -674,10 +903,9 @@ extern "C" int paddle_flash_attention_bwd_dq(
                             S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
                             v_ss, v_sh, scale, causal, compute_delta, st);
   if (dtype == kBF16)
-    return launch_dq<__nv_bfloat16>(q, k, v, o, dout, lse, delta, kv_lens,
-                                    dq, B, T, S, H, q_sb, q_st, q_sh, k_sb,
-                                    k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                                    causal, compute_delta, st);
+    return launch_dq_bf16(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
+                          S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
+                          v_ss, v_sh, scale, causal, compute_delta, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -55,7 +55,7 @@ SIGNATURES = {
                                       _i64, _i64, _f32, _i32, _p],
     "paddle_paged_decode_attention_q": [_p] * 8 + [_i32] * 5 + [_i64] * 2
                                        + [_f32, _i32, _p],
-    "paddle_decode_attention": [_p] * 5 + [_i32] * 4 + [_i64] * 5
+    "paddle_decode_attention": [_p] * 7 + [_i32] * 6 + [_i64] * 5
                                + [_f32, _i32, _p],
     "paddle_decode_attention_q": [_p] * 7 + [_i32] * 4 + [_i64] * 8
                                  + [_f32, _i32, _p],

@@ -22,12 +22,18 @@ may also ask for the plain version explicitly with ``route="plain"`` (the
 counterpart of the JAX entries' ``route=``), which the solo reference
 decode uses on the card.
 
-In bf16 the forward (#1) and the dk/dv kernel (#3) run tensor-core
-bodies (wgmma on TMA-fed tiles); they round P (and dSᵀ) to bf16 before
-the second product, where the plain versions keep f32, and they need q,
-k and v at a 16-byte-aligned base with strides of 16-byte multiples,
+In bf16 the forward (#1) and both backward kernels (#2 dq, #3 dk/dv)
+run tensor-core bodies (wgmma on TMA-fed tiles); they round P (#1), dS
+(#2) and Pᵀ, dSᵀ (#3) to bf16 before the second product, where the plain
+versions keep f32, and they need q, k and v (and, for the backward, o
+and dO) at a 16-byte-aligned base with strides of 16-byte multiples,
 which the wrappers check (they raise otherwise). f32 runs the CUDA-core
-bodies, as dq (#2) does in both dtypes.
+bodies.
+
+The dense decode read (#4) splits each (sample, head) read across
+blocks when the card would otherwise sit half empty (:func:`decode_splits`):
+each block walks one chunk of rows, and the last block of a read to
+finish merges the chunks' partial softmax sums in chunk order.
 
 The plain versions follow the op order of ``_dense_attention`` and
 ``_dense_decode_attention``. ``SHORT_SEQ_DENSE``, ``decode_route`` and
@@ -296,14 +302,14 @@ class FlashBwdLaunch:
                 raise ValueError(f"{what}: {name} must be float32 [{B}, "
                                  f"{T}, {H}], got {t.dtype} "
                                  f"{tuple(t.shape)}")
-        if q.dtype == torch.bfloat16:
-            _check_tma(what, q=q, k=k, v=v)
         # o and dO are read as contiguous [B, T, H, D]: autograd's
         # cotangent of the forward's contiguous output already is, so
         # nothing is copied
         self.q, self.k, self.v = q, k, v
         self.o, self.do, self.lse = (o.contiguous(), do.contiguous(),
                                      lse.contiguous())
+        if q.dtype == torch.bfloat16:
+            _check_tma(what, q=q, k=k, v=v, o=self.o, do=self.do)
         self.compute_delta = delta is None
         self.delta = (torch.empty((B, T, H), dtype=torch.float32,
                                   device=q.device)
@@ -549,7 +555,70 @@ def _check_rows(what: str, *named) -> None:
                              "a 16-byte-aligned start")
 
 
-def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale):
+#: the split rule of #4 (:func:`decode_splits`), from chip_smoke.py's
+#: phase-9 sweep on the H100 (PERF.md): split while the read has fewer than
+#: DECODE_TARGET_BLOCKS blocks (about 6 blocks of 128 threads an SM: the time
+#: kept falling to ~8 splits at 96 pairs and to 2-3 at 384), into chunks of at
+#: least DECODE_MIN_CHUNK rows (shorter ones gained little or lost)
+DECODE_TARGET_BLOCKS = 768
+DECODE_MIN_CHUNK = 64
+#: rows a block's row groups take in one step (csrc/decode_attn.cuh kGroups)
+_DECODE_ROW_STEP = 16
+#: #4's per-(b, h) tickets, one buffer per (card, stream) and zero between
+#: launches (the last block of a read resets its own): the reads that share
+#: a buffer run in their stream's order. A CUDA graph captured on a stream
+#: uses that stream's buffer, so its replays must not overlap reads issued
+#: on that stream.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def decode_splits(bh: int, L: int, splits: Optional[int] = None
+                  ) -> Tuple[int, int]:
+    """(splits, chunk) of #4's read of ``L`` rows for ``bh`` = B*H (sample,
+    head) pairs: ``splits`` chunks of ``chunk`` rows tile [0, L), the last
+    one not empty. One split where ``bh`` blocks already fill the card or
+    the read is short; more while the grid has fewer than
+    ``DECODE_TARGET_BLOCKS`` blocks, each chunk at least ``DECODE_MIN_CHUNK``
+    rows. ``splits`` asks for a count instead (then rounded as below).
+    A chunk is a whole number of the walk's 16-row steps."""
+    if L < 1 or bh < 1:
+        raise ValueError(f"decode_splits: bh {bh} and L {L} must be >= 1")
+    if splits is None:
+        splits = min(-(-DECODE_TARGET_BLOCKS // bh), L // DECODE_MIN_CHUNK)
+    splits = max(1, min(int(splits), L))
+    if splits == 1:
+        return 1, L
+    chunk = -(-L // splits)
+    chunk = -(-chunk // _DECODE_ROW_STEP) * _DECODE_ROW_STEP
+    splits = -(-L // chunk)
+    return (1, L) if splits == 1 else (splits, chunk)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The current stream's ticket buffer of at least ``n`` entries. It is
+    made and zeroed outside any graph capture: one made inside a capture
+    would be zeroed only when the graph replays, so a capture that needs a
+    new buffer raises."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"decode_attention: a split read of {n} (sample, head) "
+                "pairs is the first on this stream to need its tickets "
+                "inside a CUDA graph capture; run one such read on the "
+                "capture stream before capturing")
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale,
+                             splits=None):
+    """#4 (#5 with scales) on the card. ``splits`` asks #4 for a split
+    count other than :func:`decode_splits`' choice (the card tests and
+    chip_smoke.py's sweep use it)."""
     what = "decode_attention"
     B, H, D, pos32 = _decode_query(what, q, pos)
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
@@ -565,18 +634,28 @@ def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale):
     _check_rows(what, ("k", k), ("v", v))
     if k_scale is not None and k_scale.stride() != v_scale.stride():
         raise ValueError(f"{what}: k_scale and v_scale must share strides")
+    if splits is not None and k_scale is not None:
+        raise ValueError(f"{what}: the int8 read (#5) takes no splits")
     o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return o
     lib = _build.load().lib
-    shape = (B, H, D, L, q.stride(0), q.stride(1), *k.stride()[:3])
+    strides = (q.stride(0), q.stride(1), *k.stride()[:3])
+    shape = (B, H, D, L) + strides
     with torch.cuda.device(q.device):
         if k_scale is None:
             name = "decode_attention"
+            n_split, chunk = decode_splits(B * H, L, splits)
+            part = tickets = None
+            if n_split > 1:
+                part = torch.empty(B * H * n_split * (D + 2),
+                                   dtype=torch.float32, device=q.device)
+                tickets = _tickets(q.device, B * H)
             err = lib.paddle_decode_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pos32.data_ptr(),
-                o.data_ptr(), *shape, float(scale), _DTYPE_CODE[q.dtype],
-                _stream(q.device))
+                o.data_ptr(), _ptr(part), _ptr(tickets), B, H, D, L,
+                n_split, chunk, *strides, float(scale),
+                _DTYPE_CODE[q.dtype], _stream(q.device))
         else:
             name = "decode_attention_q"
             err = lib.paddle_decode_attention_q(
@@ -609,7 +688,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cache is int8 (:func:`quantize_kv`) and dequantizes on load.
     Returns o [B, H, D] f32.
 
-    For CUDA tensors it launches kernel #4, or #5 with scales."""
+    For CUDA tensors it launches kernel #4, or #5 with scales. #4 splits
+    the read into :func:`decode_splits`'s chunks."""
     scale_v = scale if scale is not None else q.shape[-1] ** -0.5
     extra = _scales(k_scale, v_scale)
     if _route(route, q, k, v, pos, *extra) == "plain":

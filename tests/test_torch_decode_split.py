@@ -1,0 +1,134 @@
+"""The split dense decode read (#4, ``csrc/decode.cu``) on the CPU: its
+arithmetic, as a plain PyTorch model, against ``decode_attention_plain``,
+and the split rule ``decode_splits``.
+
+The kernel splits each (sample, head) read into chunks of rows; each
+chunk gives a partial (m, l, acc) — the max of its live scores, the sum
+of exp(s - m) and the unnormalized sum of exp(s - m) * v — and the last
+block to finish merges the partials in chunk order. ``_split_read`` below
+is that computation written out over whole chunks; it lives here, for
+the tests alone. The kernel itself runs only on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 9).
+
+Tolerance: atol 1e-5, rtol 1e-4 — f32 on both sides on the same inputs,
+summation order only (the file's f32 decode tolerance,
+``tests/test_torch_decode.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import cuda_kernels as ck
+
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _split_read(q, k, v, pos, scale, splits, chunk):
+    """The split kernel's arithmetic: per chunk of ``chunk`` rows the live
+    rows' (m, l, acc) in f32 (a chunk with no live row: m = -1e30, l = 0,
+    acc = 0), merged in chunk order with weights exp(m_i - M)."""
+    B, L, H, D = k.shape
+    n_live = torch.clamp(pos.long() + 1, max=L)                 # [B]
+    s = torch.einsum("bhd,bjhd->bhj", q.float() * scale, k.float())
+    parts = []
+    for i in range(splits):
+        lo, hi = i * chunk, min((i + 1) * chunk, L)
+        rows = torch.arange(lo, hi)
+        live = (rows[None, :] < n_live[:, None])[:, None, :]   # [B, 1, n]
+        si = torch.where(live, s[..., lo:hi], ck._NEG)
+        m = si.amax(dim=-1)                                     # [B, H]
+        p = torch.where(live, torch.exp(si - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bhj,bjhd->bhd", p, v[:, lo:hi].float())))
+    M = torch.full(parts[0][0].shape, ck._NEG)
+    for m, _, _ in parts:
+        M = torch.maximum(M, m)
+    l_sum, acc = torch.zeros_like(M), torch.zeros(B, H, D)
+    for m, l_i, acc_i in parts:
+        w = torch.exp(m - M)
+        l_sum = l_sum + l_i * w
+        acc = acc + acc_i * w[..., None]
+    return acc / l_sum[..., None]
+
+
+def _read(seed, B, L, H=3, D=16, dtype=torch.float32):
+    rs = np.random.RandomState(seed)
+    q = torch.from_numpy(rs.randn(B, H, D).astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy((rs.randn(B, L, H, D) * 2).astype(np.float32))
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("L", [1, 16, 70, 256, 1000])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+def test_split_read_model_matches_plain(L, splits):
+    """Reads whose live rows end inside a chunk, on a chunk boundary, at
+    pos = 0 (every chunk past the first empty) and past L (a drained slot):
+    the merged partials equal the plain read, with no NaN."""
+    n_split, chunk = ck.decode_splits(1, L, splits)
+    ends = {0, L - 1, L + 5, chunk - 1, min(chunk, L - 1), L // 2}
+    pos = torch.tensor(sorted(ends), dtype=torch.int32)
+    q, k, v = _read(L * 31 + splits, len(pos), L)
+    scale = q.shape[-1] ** -0.5
+    want = ck.decode_attention_plain(q, k, v, pos, scale=scale)
+    got = _split_read(q, k, v, pos, scale, n_split, chunk)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_read_model_matches_plain_in_each_cache_dtype(dtype):
+    """A bf16 cache is read as f32 on both sides, as the kernel reads it."""
+    q, k, v = _read(5, 4, 300, dtype=dtype)
+    pos = torch.tensor([0, 64, 150, 299], dtype=torch.int32)
+    want = ck.decode_attention_plain(q, k, v, pos, scale=0.25)
+    got = _split_read(q, k, v, pos, 0.25, *ck.decode_splits(1, 300, 5))
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+# B*H of the smoke paths' dense reads (generate_fused and the benchmark's
+# reads: 8 x 12; the speculative draft: 2 x 12), a full card, and one pair
+SMOKE_BH = (96, 24, 12, 1, ck.DECODE_TARGET_BLOCKS, 8 * 96)
+
+
+@pytest.mark.parametrize("bh", SMOKE_BH)
+def test_decode_splits_tile_every_read_exactly(bh):
+    """For every L up to 1024, the chosen chunks (and those of any asked
+    count) tile [0, L): splits * chunk covers L, the last chunk is not
+    empty, a chunk is a whole number of 16-row steps unless there is one."""
+    for L in range(1, 1025):
+        for asked in (None, 2, 5, 64):
+            n, chunk = ck.decode_splits(bh, L, asked)
+            assert n >= 1 and (n - 1) * chunk < L <= n * chunk, (L, asked)
+            if n == 1:
+                assert chunk == L
+            else:
+                assert chunk % 16 == 0
+
+
+def test_decode_splits_rule():
+    """One split where the pairs already fill the target or the read is
+    shorter than two chunks; else about the target's blocks, in chunks of
+    at least the minimum."""
+    target, least = ck.DECODE_TARGET_BLOCKS, ck.DECODE_MIN_CHUNK
+    assert ck.decode_splits(target, 1024) == (1, 1024)
+    assert ck.decode_splits(1, 2 * least - 1) == (1, 2 * least - 1)
+    for bh in (1, 12, 24, 96):
+        for L in (256, 512, 1024):
+            n, chunk = ck.decode_splits(bh, L)
+            assert chunk >= least or n == 1
+            assert n <= max(1, -(-target // bh))
+    with pytest.raises(ValueError):
+        ck.decode_splits(0, 16)
+
+
+def test_cpu_decode_read_takes_the_plain_version():
+    """On the CPU the read is the plain version: no launch, no tickets."""
+    q, k, v = _read(9, 3, 90)
+    pos = torch.tensor([0, 40, 89], dtype=torch.int32)
+    before, tickets = dict(ck.LAUNCHES), dict(ck._TICKETS)
+    want = ck.decode_attention_plain(q, k, v, pos, scale=0.25)
+    got = ck.decode_attention(q, k, v, pos, scale=0.25)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert ck.LAUNCHES == before and ck._TICKETS == tickets

@@ -22,9 +22,10 @@ def _bf16_ulp(x):
 
 
 def _bf16_tc_close(got, want):
-    """The bf16 tensor-core bodies (#1's o, #3's dk and dv) against the plain
-    version. They round P (and #3's dS^T) to bf16 before the second
-    product, where the plain version keeps f32: each term of an entry's sum
+    """The bf16 tensor-core bodies (#1's o, #2's dq, #3's dk and dv) against
+    the plain version. They round P (#1), dS (#2) and P^T, dS^T (#3) to
+    bf16 before the second product, where the plain version keeps f32:
+    each term of an entry's sum
     is off by at most 2**-9 of itself, and with terms of mixed sign that
     stays under one bf16 ulp of the tensor's largest magnitude (atol), also
     at entries near zero where the sum cancels; the output's own rounding
@@ -118,29 +119,117 @@ def _decode_cache(cuda, dtype, gen, B=4, Lmax=96, H=3):
 
 _DECODE_DTYPES = [torch.float32, torch.bfloat16,
                   (torch.float32, "int8"), (torch.bfloat16, "int8")]
+# (rows read of a 300-row cache, #4's split count: None = decode_splits'):
+# a short read (one split at B*H = 12), a long one that the rule splits,
+# and a forced count with a ragged last chunk
+_DECODE_READS = {"short": (70, None), "split": (260, None),
+                 "forced": (260, 7)}
+# every read for #4's dtypes; #5 (int8, one block per (h, b)) takes no
+# split count, so one long read
+_DECODE_CASES = ([(dt, read) for dt in _DECODE_DTYPES[:2]
+                  for read in sorted(_DECODE_READS)]
+                 + [(dt, "split") for dt in _DECODE_DTYPES[2:]])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", _DECODE_DTYPES)
-def test_decode_kernels_match_plain_on_card(cuda, dtype):
-    """#4 (and #5 over int8) through a [:, :L] view of the cache, pos with
-    0, L-1 and a drained value past L: f32 summation order only (atol
-    1e-5, rtol 1e-4; the output is f32 in every dtype)."""
+@pytest.mark.parametrize("dtype, read", _DECODE_CASES)
+def test_decode_kernels_match_plain_on_card(cuda, dtype, read):
+    """#4 (and #5 over int8) through a [:, :L] view of the cache, pos
+    with 0 (every later chunk empty), L-1, a drained value past L and live
+    rows that end on a chunk's last row, one row into the next chunk and
+    inside a chunk: f32 summation order only (atol 1e-5, rtol 1e-4; the
+    output is f32 in every dtype)."""
     gen = torch.Generator().manual_seed(3)
-    q, k, v, ks, vs = _decode_cache(cuda, dtype, gen)
-    Lr = 70
+    B, H = 6, 2
+    q, k, v, ks, vs = _decode_cache(cuda, dtype, gen, B=B, Lmax=300, H=H)
+    Lr, asked = _DECODE_READS[read]
     k, v = k[:, :Lr], v[:, :Lr]
     ks, vs = (None, None) if ks is None else (ks[:, :Lr], vs[:, :Lr])
     assert not k.is_contiguous()
-    pos = torch.tensor([0, Lr - 1, 33, Lr + 20], dtype=torch.int32,
-                       device=cuda)
+    splits, chunk = ck.decode_splits(B * H, Lr, asked)
+    assert (splits > 1) == (read != "short")
+    pos = torch.tensor([0, Lr - 1, Lr + 20, chunk - 1, chunk, chunk // 2],
+                       dtype=torch.int32, device=cuda)
     name = "decode_attention" if ks is None else "decode_attention_q"
+
+    def read_kernel():
+        if asked is None:
+            return ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+        return ck._decode_attention_kernel(q, k, v, pos, 64 ** -0.5, None,
+                                           None, asked)
+
     before = ck.LAUNCHES[name]
-    o = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+    o = read_kernel()
     po = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
                              route="plain")
     assert ck.LAUNCHES[name] == before + 1
     torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    if ks is None:      # the tickets are left zero: a second read agrees
+        torch.testing.assert_close(read_kernel(), o, atol=0, rtol=0)
+
+
+def _split_read_inputs(cuda, seed):
+    """A bf16 read that decode_splits splits (B*H = 4, 512 rows), its
+    pos and the plain version's output."""
+    gen = torch.Generator().manual_seed(seed)
+    B, H, Lr = 2, 2, 512
+    q, k, v, _, _ = _decode_cache(cuda, torch.bfloat16, gen, B=B, Lmax=Lr,
+                                  H=H)
+    assert ck.decode_splits(B * H, Lr)[0] > 1
+    pos = torch.tensor([Lr - 1, 200], dtype=torch.int32, device=cuda)
+    return (q, k, v, pos), ck.decode_attention(q, k, v, pos, route="plain")
+
+
+@pytest.mark.gpu
+def test_split_decode_reads_on_two_streams_on_card(cuda):
+    """Split reads (#4) issued on two streams of one card at once: each
+    stream has its own tickets, so every read equals plain, and a read on
+    the default stream afterwards still does."""
+    args, want = _split_read_inputs(cuda, 5)
+    main = torch.cuda.current_stream(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    outs = []
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(32):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(ck.decode_attention(*args))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize(cuda)
+    for o in outs:
+        torch.testing.assert_close(o, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(ck.decode_attention(*args), want, atol=1e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_split_decode_read_in_a_graph_capture_on_card(cuda):
+    """A capture that would be the first to make its stream's tickets
+    raises; once an eager read on the capture stream has made them, the
+    captured read replays equal to plain, with eager reads on the default
+    stream between the replays."""
+    args, want = _split_read_inputs(cuda, 6)
+    side = torch.cuda.Stream(cuda)
+    ck._TICKETS.pop((side.device_index, side.cuda_stream), None)
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            ck.decode_attention(*args)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        ck.decode_attention(*args)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = ck.decode_attention(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize(cuda)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(ck.decode_attention(*args), want,
+                                   atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.gpu
@@ -459,14 +548,12 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
                                   kv_lens=kv_lens, route="plain")
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert ck.LAUNCHES[name] == before[name] + 1
-    # dq (#2) keeps its CUDA-core body in both dtypes; in bf16, dk and dv
-    # come from #3's tensor-core body
-    close = lambda i, g, w: (_bf16_tc_close(g, w) if i and
-                             dtype == torch.bfloat16 else
-                             _bwd_close(g, w, dtype))
-    for i, (g, w) in enumerate(zip(got, want)):
+    # in bf16, dq, dk and dv come from the tensor-core bodies of #2, #3
+    close = (_bf16_tc_close if dtype == torch.bfloat16
+             else lambda g, w: _bwd_close(g, w, dtype))
+    for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
-        close(i, g, w)
+        close(g, w)
     if kv_lens is not None:            # masked keys: exactly zero dk, dv
         for b, n in enumerate(kv_lens.clamp(1, S).tolist()):
             assert not got[1][b, n:].any() and not got[2][b, n:].any()
@@ -474,8 +561,8 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
     delta = torch.sum(do.float() * o.float(), dim=-1)
     given = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                    kv_lens=kv_lens, delta=delta)
-    for i, (g, w) in enumerate(zip(given, want)):
-        close(i, g, w)
+    for g, w in zip(given, want):
+        close(g, w)
 
 
 @pytest.mark.gpu
