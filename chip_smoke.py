@@ -8,8 +8,9 @@ Phases:
 1. build  — compile the CUDA kernels (``paddle_tpu_torch/csrc``) with nvcc
    for sm_90a, print ptxas' register / shared-memory lines, and count the
    HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of the
-   bf16 tensor-core bodies of #1, #2 and #3 (``cuobjdump -sass``; none
-   fails);
+   bf16 tensor-core bodies of #1, #2 and #3, and the TF32 HMMA (mma.sync),
+   LDSM (ldmatrix) and LDGSTS (cp.async) instructions in the f32 bodies
+   of #2 and #3 (``cuobjdump -sass``; none fails);
 2. kernels — hold each kernel against its plain PyTorch version at the
    serving shapes (f32 and bf16) and time kernel, plain version, the
    PyTorch library call where one exists, and the roofline bound;
@@ -35,8 +36,11 @@ Phases:
    backward in f32 and bf16 at the LM shape (B=8, T=S=1023, H=12,
    causal), the NMT shape (B=64, T=S=64, H=8, lengths 32..64 and a 0), a
    cross-attention shape with S != T and q/k/v as strided views of one
-   fused projection; at the LM shape each kernel's time, the plain
-   version's, the SDPA backward's and the bounds. The forward (#1) is
+   fused projection; in f32 also each output's error against a float64
+   backward beside the plain f32 version's, and two runs bit-equal; at
+   the LM shape each kernel's time, the plain version's, the SDPA
+   backward's and the bounds (f32: three TF32 products a product on the
+   tensor cores, the CUDA cores' bound beside it). The forward (#1) is
    held against its plain version at the same shapes and timed at the
    LM's;
 7. LM training — GPT-2 small (vocab 32768, d_model 768, 12 heads, 12
@@ -44,9 +48,10 @@ Phases:
    trained by ``Trainer.train`` for 12 Adam steps over 2 batches in bf16
    over f32 master weights: 12 launches of each attention kernel a step,
    a falling loss on batch 0, one f32 step equal to the plain versions'
-   step, one bf16 loss and gradient within the stated tolerance of the
-   plain route's, ms per step and a profile with the step's device time
-   and #2's share of it;
+   step and a profile of that f32 step (its device time and the share of
+   the backward pair #2 + #3), one bf16 loss and gradient within the
+   stated tolerance of the plain route's, ms per step and a profile with
+   the bf16 step's device time and #2's share of it;
 8. NMT training — the transformer NMT (vocab 30000/30000, d_model 512, 8
    heads, 6+6 layers, batch 64, lengths 32..64) likewise for 12 steps
    over 4 batches: 18 launches of each attention kernel a step;
@@ -111,8 +116,13 @@ ENGINE = dict(slots=8, segment=32, page_block=64, cache_bucket=256)
 N_REQUESTS, NEW_TOKENS = 8, 48
 
 # the card's published peaks (H100 SXM data sheet, dense)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
+# an f32-accurate product on the tensor cores is three TF32 products
+# (csrc/tf32x3.cuh; PyTorch's f32 SDPA kernels do the same): the f32
+# attention rows (#1-#3) are bound at three times their operations over
+# the TF32 peak
+TF32_PASSES = 3
 
 # tolerances, with the reason: the kernels sum in another order than the
 # plain versions (tiles, online softmax), nothing else differs
@@ -125,10 +135,12 @@ BF16_TC_RTOL = 2.0 ** -7
 BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_REL_L2 = 2.0 ** -9, 2.0 ** -5
 # which body each attention kernel runs, by dtype
 _TC, _CC = "tensor cores: wgmma on TMA-fed tiles", "CUDA cores: f32 FMAs"
+_TF = ("tensor cores: three-pass TF32 mma.sync (m16n8k8, split operands) "
+       "on cp.async-fed tiles")
 DESIGN = {
     "flash_attention_fwd": {"bfloat16": _TC, "float32": _CC},
-    "flash_attention_bwd_dq": {"bfloat16": _TC, "float32": _CC},
-    "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _CC},
+    "flash_attention_bwd_dq": {"bfloat16": _TC, "float32": _TF},
+    "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _TF},
 }
 # #4's design (both dtypes)
 SPLIT_DESIGN = ("one block per (head, sample) where B*H fills the card or "
@@ -139,6 +151,9 @@ SPLIT_DESIGN = ("one block per (head, sample) where B*H fills the card or "
 TENSOR_CORE_BODIES = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
                       "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
                       "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
+# the three-pass TF32 bodies (mma.sync, cp.async): kernel -> JSON entry
+TF32_BODIES = {"flash_bwd_dq_tf32_kernel": "flash_attention_bwd_dq",
+               "flash_bwd_dkv_tf32_kernel": "flash_attention_bwd_dkv"}
 
 
 class SmokeFailure(RuntimeError):
@@ -179,10 +194,18 @@ def bf16_tc_close(got, want, what: str) -> float:
     return err
 
 
+# SASS opcodes counted in each tensor-core body: HGMMA (wgmma) and
+# UTMALDG (TMA load) in the wgmma bodies; the TF32 mma.sync, LDSM
+# (ldmatrix) and LDGSTS (cp.async) in the three-pass bodies
+SASS_OPS = {**{body: ("HGMMA", "UTMALDG") for body in TENSOR_CORE_BODIES},
+            **{body: ("HMMA.1688.F32.TF32", "LDSM", "LDGSTS")
+               for body in TF32_BODIES}}
+
+
 def sass_counts(lib_path) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of each
-    tensor-core body of the built library, from ``cuobjdump -sass``; fails
-    when a body has none of either."""
+    """The SASS_OPS instructions in the SASS of each tensor-core body of the
+    built library, from ``cuobjdump -sass``, and each body's instruction
+    count; fails when a body lacks one of its opcodes."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -193,17 +216,17 @@ def sass_counts(lib_path) -> dict:
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = next((k for k in TENSOR_CORE_BODIES if k in m.group(1)),
-                       None)
+            cur = next((k for k in SASS_OPS if k in m.group(1)), None)
             if cur:
-                counts[cur] = {"HGMMA": 0, "UTMALDG": 0}
-        elif cur:
-            for op in ("HGMMA", "UTMALDG"):
+                counts[cur] = dict.fromkeys(SASS_OPS[cur] + ("all",), 0)
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[cur]["all"] += 1
+            for op in SASS_OPS[cur]:
                 counts[cur][op] += op in line
-    for body in TENSOR_CORE_BODIES:
+    for body, ops in SASS_OPS.items():
         c = counts.get(body, {})
-        check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
-              f"{body}: no HGMMA or UTMALDG in its SASS ({c})")
+        check(all(c.get(op, 0) > 0 for op in ops),
+              f"{body}: not all of {ops} in its SASS ({c})")
     return counts
 
 
@@ -261,6 +284,19 @@ def bound(flops: float, nbytes: float, dtype_name: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_bound(flops: float, nbytes: float, dtype_name: str) -> dict:
+    """The bound of an attention kernel (#1-#3): bf16 as :func:`bound`; in
+    f32 at TF32_PASSES TF32 products a product over the TF32 peak (the
+    least time f32-accurate products take on this card), with the CUDA
+    cores' bound at 67 TF/s beside it as ``bound_cuda_core_ms``."""
+    if dtype_name != "float32":
+        b_ms, b_by = bound(flops, nbytes, dtype_name)
+        return {"bound_ms": b_ms, "bound_by": b_by}
+    b_ms, b_by = bound(TF32_PASSES * flops, nbytes, "tf32")
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_cuda_core_ms": bound(flops, nbytes, dtype_name)[0]}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -313,9 +349,8 @@ def flash_checks(say, device="cuda"):
             *(t.transpose(1, 2) for t in s), is_causal=True) for s in sets])
         del sets
         nbytes = 4 * B * T * H * D * qd.element_size() + B * T * H * 4
-        b_ms, b_by = bound(flops, nbytes, tag)
         res = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": plain_ms, **attention_bound(flops, nbytes, tag),
                "library_ms": lib_ms}
         say(f"flash_attention_fwd {tag}: {json.dumps(res)}")
         if dt == torch.float32:
@@ -535,8 +570,8 @@ def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
     """Device busy share of ``run()`` and its top kernels, from one run
     under torch.profiler. The share divides device kernel time by the wall
     time ``wall`` of the same work run unprofiled. ``run()`` takes
-    ``steps`` steps; ``share_of`` {label: kernel-name substring} prints
-    each such kernel's device time a step and share."""
+    ``steps`` steps; ``share_of`` {label: kernel-name substring, or a
+    tuple of them} prints those kernels' device time a step and share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -568,7 +603,8 @@ def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e6 / dev_s:5.1f}% "
               f"x{n:<6d} {name[:90]}")
     for label, key in (share_of or {}).items():
-        k_s = sum(r[0] for r in rows if key in r[2]) / 1e6
+        keys = (key,) if isinstance(key, str) else key
+        k_s = sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e6
         say(f"profile {what}: device time a step {dev_s * 1e3 / steps:.3f} "
             f"ms; {label} {k_s * 1e3 / steps:.3f} ms a step, "
             f"{100 * k_s / dev_s:.1f}% of it")
@@ -1008,6 +1044,46 @@ def bwd_close(got, want, what, dtype_name):
     return err
 
 
+def bwd_f64(args, causal, kv):
+    """The plain backward's arithmetic (``flash_attention_bwd_plain``) in
+    float64 on the same f32 inputs: the yardstick of the f32 errors."""
+    import torch
+    q, k, v, o, lse, do = (a.double() for a in args)
+    T, S, D = q.shape[1], k.shape[1], q.shape[-1]
+    scale = D ** -0.5
+    qs = q * scale
+    live = torch.ones((1, 1, T, S), dtype=torch.bool, device=q.device)
+    if kv is not None:
+        lens = kv.clamp(1, S)
+        live = live & (torch.arange(S, device=q.device)[None, :]
+                       < lens[:, None])[:, None, None, :]
+    if causal:
+        live = live & torch.ones((T, S), dtype=torch.bool,
+                                 device=q.device).tril()
+    s = torch.einsum("bthd,bshd->bhts", qs, k)
+    p = torch.where(live, torch.exp(s - lse.transpose(1, 2)[..., None]), 0.0)
+    del s
+    dp = torch.einsum("bthd,bshd->bhts", do, v)
+    ds = p * (dp - torch.sum(do * o, dim=-1).transpose(1, 2)[..., None])
+    del dp
+    return (torch.einsum("bhts,bshd->bthd", ds, k) * scale,
+            torch.einsum("bhts,bthd->bshd", ds, qs),
+            torch.einsum("bhts,bthd->bshd", p, do))
+
+
+def f64_errors(got, ref) -> list:
+    """max |got - ref| of dq, dk, dv against the float64 backward."""
+    return [(g.double() - r).abs().max().item() for g, r in zip(got, ref)]
+
+
+def tolerance_used(got, want) -> float:
+    """The largest share of bwd_close's f32 allowance (atol 2e-5 of the
+    largest magnitude + rtol 1e-4) that an entry uses: 1 is the limit."""
+    g, w = got.float(), want.float()
+    allowed = 2e-5 * w.abs().max() + 1e-4 * w.abs()
+    return ((g - w).abs() / allowed).max().item()
+
+
 def flash_bwd_checks(say, seed: int, device="cuda"):
     """#2 and #3 against the plain backward in f32 and bf16 at the four
     BWD_SHAPES (masked keys' dk/dv exactly 0); at the LM shape also each
@@ -1054,6 +1130,19 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
             torch.cuda.synchronize()
             errs = [close(g, w, f"flash bwd {tag} {nm}")
                     for nm, g, w in zip(("dq", "dk", "dv"), got, want)]
+            f64 = None
+            if dt == torch.float32:
+                ref = bwd_f64(args, causal, kv)
+                f64 = {"kernels": f64_errors(got, ref),
+                       "plain_f32": f64_errors(want, ref),
+                       "tolerance_used": [tolerance_used(g, w)
+                                          for g, w in zip(got, want)]}
+                del ref
+                # bit-equal across two runs
+                again = ck.flash_attention_bwd(*args, causal=causal,
+                                               kv_lens=kv)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"flash bwd {tag} float32: two runs differ")
             if lens is not None:
                 for b, n in enumerate(np.clip(lens, 1, S)):
                     check(not got[1][b, n:].any() and not got[2][b, n:].any(),
@@ -1061,6 +1150,11 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
                           "nonzero dk/dv")
             res = {"flash_attention_bwd_dq": {"max_abs_err": errs[0]},
                    "flash_attention_bwd_dkv": {"max_abs_err": max(errs[1:])}}
+            if f64 is not None:       # dq; dk, dv against float64
+                res["flash_attention_bwd_dq"]["max_abs_err_f64"] = {
+                    who: e[0] for who, e in f64.items()}
+                res["flash_attention_bwd_dkv"]["max_abs_err_f64"] = {
+                    who: e[1:] for who, e in f64.items()}
             if tag == "lm":
                 for name, r in _bwd_times(B, T, S, H, causal, lens, dt, dname,
                                           gen, device).items():
@@ -1097,10 +1191,10 @@ def _fwd_times(B, T, H, dt, dname, gen, device):
     lib_ms = time_ms([lambda s=s: F.scaled_dot_product_attention(
         *(t.transpose(1, 2) for t in s), is_causal=True) for s in sets])
     del sets
-    b_ms, b_by = bound(4.0 * D * H * live_pairs(T, T, True, None, B),
-                       4 * B * T * H * D * esize + B * T * H * 4, dname)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            **attention_bound(4.0 * D * H * live_pairs(T, T, True, None, B),
+                              4 * B * T * H * D * esize + B * T * H * 4,
+                              dname)}
 
 
 def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
@@ -1136,9 +1230,9 @@ def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
     for name, ms, flops, nbytes in (
             ("flash_attention_bwd_dq", dq_ms, 6.0 * D * pairs, dq_bytes),
             ("flash_attention_bwd_dkv", dkv_ms, 8.0 * D * pairs, dkv_bytes)):
-        b_ms, b_by = bound(flops, nbytes, dname)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms,
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     **attention_bound(flops, nbytes, dname),
+                     "library_ms": lib_ms,
                      "pair_ms": dq_ms + dkv_ms, "live_pairs": pairs,
                      "plain_note": "the plain backward: " + note,
                      "library_note": "F.scaled_dot_product_attention "
@@ -1280,6 +1374,27 @@ def transformer_step_check(say, what, loss_for_route, params, batch, lr,
         + f"; worst parameter difference {worst_p:.3e}")
 
 
+def f32_step_profile(say, what, loss, params, batch, lr, device,
+                     share_of) -> None:
+    """The device time of one f32 training step through the kernels (the
+    f32 step check's step) and ``share_of``'s share of it, from
+    profile_breakdown; the wall is the faster of two unprofiled steps."""
+    import torch
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    tr = Trainer(loss, Adam(lr), device=device)
+    state = tr.opt.init(params)
+    run = lambda: tr.step(params, state, *batch)
+    walls = []
+    for _ in range(3):                 # a warm-up, then two timed
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    profile_breakdown(say, f"f32 {what} step", run, min(walls[1:]),
+                      share_of=share_of)
+
+
 def bf16_step_check(say, what, loss_for, params, batch, per_step,
                     names=ATTENTION_KERNELS):
     """The loss and gradients of one bf16 training step (bf16 compute over
@@ -1414,6 +1529,10 @@ def lm_training_phase(say, seed: int, device="cuda", config=GPT2_TRAIN,
     transformer_step_check(say, "LM", lambda r: lm_loss(model, torch.float32,
                                                          r),
                            model.tree(), batches[0], LM_LR, per_step, device)
+    f32_step_profile(say, "LM", lm_loss(model, torch.float32), model.tree(),
+                     batches[0], LM_LR, device,
+                     {"the f32 backward pair #2 + #3":
+                      ("flash_bwd_dq", "flash_bwd_dkv")})
     bf16_step_check(say, "LM", lambda dt, r: lm_loss(model, dt, r),
                     model.tree(), batches[0], per_step)
     torch.cuda.empty_cache()
@@ -2215,9 +2334,11 @@ def main(argv=None) -> int:
             + " + ".join(f"{g[name]} in one {what} generate call"
                          for what, g in gen.items()))
     for entry in [flash] + bwd:
-        for body, name in TENSOR_CORE_BODIES.items():
-            if entry["name"] == name:
-                entry["sass_bfloat16"] = sass[body]
+        for bodies, key in ((TENSOR_CORE_BODIES, "sass_bfloat16"),
+                            (TF32_BODIES, "sass_float32")):
+            for body, name in bodies.items():
+                if entry["name"] == name:
+                    entry[key] = sass[body]
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

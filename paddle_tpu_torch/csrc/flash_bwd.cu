@@ -14,33 +14,44 @@
 // three D-long products (S, dP, dQ: 6*D operations) and the dk/dv kernel
 // four (S, dP, dV, dK: 8*D), against O((T + S) * D) elements moved per
 // (b, h): at the models' shapes (T, S >= 64, D = 64) both are bound by
-// operations. In f32 both run the products as f32 FMAs on the CUDA
-// cores (67 TF/s peak), as flash_fwd.cu's f32 body does; in bf16 both
-// run them on the tensor cores (wgmma, 989 TF/s), below.
+// operations. Every body runs its products on the tensor cores: in bf16
+// by wgmma (989 TF/s), rounding P and dS to bf16 (below); in f32 by
+// mma.sync at f32 accuracy, each product as three TF32 products of the
+// operands' big and small parts (tf32x3.cuh: a relative error under
+// 5 * 2^-22 a product, against 2^-24 for an f32 FMA and 2^-11 for one
+// TF32 pass), so their least time is three times their operations over
+// the 495 TF/s TF32 peak.
 //
-// Design of the CUDA-core bodies. 256-thread blocks over 64 x 64
-// tiles; each thread owns a 4 x 4 sub-tile (rows r*4..r*4+3, columns c,
-// c+16, c+32, c+48 with r = tid/16, c = tid%16), so a row's 16 owners
-// are 16 neighbouring lanes. Operand
-// tiles are staged in shared memory as f32, rows padded to 65 floats so
-// that column reads hit distinct banks. The TPU kernels' 512/1024 blocks
-// and whole-K/V-in-VMEM layout set nothing here.
-//  * dq (#2): one block per (64-row q tile, b*h). Q (pre-scaled), dO, lse
-//    and delta of its rows stay resident. It walks the k tiles up to the
-//    forward's bound (_k_block_hi: the causal diagonal, kv_len),
-//    recomputes S and dP in registers, writes dS to shared memory and
-//    accumulates dQ += dS.K in registers; it writes dQ * scale. With no
-//    delta from the caller it computes delta in its prologue (rowsum of
-//    dO * O over its rows, from the staged dO) and writes it out for the
-//    dk/dv kernel, which the wrapper launches after it on the same
-//    stream: no separate reduction pass.
-//  * dk/dv (#3): one block per (64-key tile, b*h). K and V stay resident.
-//    It walks the q tiles from the causal lower bound (the tile holding
-//    its first key's diagonal) to the end, computes S^T and dP^T, keeps
-//    P^T and dS^T in shared memory, and accumulates dV += P^T.dO and
-//    dK += dS^T.Q in registers. A tile wholly at or past kv_len skips the
-//    loop and writes zeros. Every output element has one owner and no
-//    atomics are used, so the result is deterministic.
+// Design of the f32 bodies. Four warps a block, each warp 16 rows of the
+// block's 64-row tile; every operand tile is f32 in shared memory (rows
+// padded to 68 floats), filled by 16-byte cp.async copies (zero-filled
+// past T or S) in groups that form a two-stage ring. Fragments come by
+// ldmatrix where the reduction runs along a row and by scalar loads with
+// a permuted reduction index where it runs down the rows, so P and dS
+// feed the next product straight from the accumulators (tf32x3.cuh).
+//  * dq (#2): one block per (64-row q tile, b*h). Q and dO stay resident;
+//    K and V stream in stages of 64 keys up to the forward's bound
+//    (_k_block_hi: the causal diagonal, kv_len), and a warp skips a stage
+//    wholly past its rows' diagonal. Per stage a warp computes S = Q.K^T
+//    and dP = dO.V^T for its 16 rows, P = exp(scale*S - lse) and dS =
+//    P o (dP - delta) on the accumulators (masked to exactly 0 on edge
+//    stages only), then dQ += dS.K; it writes dQ * scale. With no delta
+//    from the caller it computes delta = rowsum(dO * O) in its prologue
+//    from global memory and writes it out for the dk/dv kernel, which the
+//    wrapper launches after it on the same stream.
+//  * dk/dv (#3): one block per (64-key tile, b*h). K and V stay resident;
+//    Q, dO and their rows' lse and delta stream in stages of 32 q rows
+//    from the causal lower bound (the stage holding the tile's first
+//    key's diagonal) to the end. Per stage a warp computes S^T = K.Q^T
+//    and dP^T = V.dO^T for its 16 keys, P^T and dS^T (padded q rows
+//    masked too: their lse is not real), then dV += P^T.dO and dK +=
+//    dS^T.Q. A tile wholly at or past kv_len skips the walk and writes
+//    zeros, and masked keys get exactly zero dk and dv.
+// Every output element has one owner and no atomics are used, so the
+// result is deterministic. The stage sizes were timed at the LM shape:
+// 64 keys for dq (two blocks an SM, by shared memory) beat 32 (three),
+// 32 q rows for dk/dv (three blocks an SM) beat 64 and 16, and eight
+// warps a block lost to four in both.
 //
 // Design of the bf16 dq body. One warpgroup (128 threads) per (64-row q
 // tile, b*h); Q and dO arrive once by TMA, K and V tiles stream through a
@@ -50,7 +61,7 @@
 // none, is
 // rowsum(dO * O) in f32 over 16-byte global loads, a quad of lanes a row,
 // written out for the dk/dv kernel). Per k tile, up to the same bound as
-// the CUDA-core body: S = Q.K^T and dP = dO.V^T (wgmma, both operands
+// the f32 body: S = Q.K^T and dP = dO.V^T (wgmma, both operands
 // K-major), P = exp(scale*S - lse) and dS = P o (dP - delta) on the
 // accumulator fragments, masked to exactly 0 on edge tiles only (the
 // causal diagonal, kv_len, rows past T), then dQ += dS.K with dS rounded
@@ -70,402 +81,26 @@
 // P^T o (dP^T - delta) on the accumulator fragments, then dV += P^T.dO
 // and dK += dS^T.Q with P^T and dS^T rounded to bf16 in registers as the
 // A operands and dO, Q read MN-major (the transpose bit). dK is scaled
-// once at the end. It keeps the CUDA-core body's causal lower bound, its
+// once at the end. It keeps the f32 body's causal lower bound, its
 // early exit for a tile at or past kv_len, exact zeros for masked keys
 // and one owner per output element, so the result stays deterministic.
 // Its one stated deviation from the plain version is the bf16 rounding
 // of P^T and dS^T before the second products.
 //
 // q, k and v are read in place through their strides (views of the fused
-// qkv projection; innermost stride 1; for the bf16 bodies, a 16-byte
-// aligned base and strides of 16-byte multiples). o, dO, lse, delta and
-// the outputs are contiguous: the wrapper makes o and dO contiguous,
+// qkv projection; innermost stride 1, a 16-byte aligned base and strides
+// of 16-byte multiples: TMA in bf16, cp.async in f32). o, dO, lse, delta
+// and the outputs are contiguous: the wrapper makes o and dO contiguous,
 // which copies nothing for autograd's cotangent of the forward's
 // contiguous output.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
 
 constexpr int kB = 64;        // q rows per q tile and keys per k tile
-constexpr int kThreads = 256;
-
-template <int D>
-constexpr size_t dq_smem_bytes() {   // Qs, dOs, Ks, Vs, dSs
-  return sizeof(float) * (4 * kB * (D + 1) + kB * (kB + 1));
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {  // Ks, Vs, Qs, dOs, Ps, dSs, lse, delta
-  return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    const int* __restrict__ kv_lens, T* __restrict__ dq,
-                    int T_len, int S, int H,
-                    int64_t q_sb, int64_t q_st, int64_t q_sh,
-                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                    float scale, int causal, int compute_delta) {
-  static_assert(D == 64, "the 4x4 thread sub-tile covers 64 columns");
-  constexpr int LD = D + 1;
-  constexpr int LP = kB + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [kB][LD], pre-scaled
-  float* dOs = Qs + kB * LD;      // [kB][LD]
-  float* Ks = dOs + kB * LD;      // [kB][LD]
-  float* Vs = Ks + kB * LD;       // [kB][LD]
-  float* dSs = Vs + kB * LD;      // [kB][LP]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kB;
-  const int tid = threadIdx.x;
-  const int r = tid / 16, c = tid % 16;
-  const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb_ = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  // o, dO and dq are contiguous [B, T, H, D]; lse and delta [B, T, H]
-  const int64_t row_st = static_cast<int64_t>(H) * D;
-  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * D;
-  const T* ob = o + base;
-  const T* dob = dout + base;
-
-  for (int idx = tid; idx < kB * D; idx += kThreads) {
-    const int row = idx / D, d = idx % D;
-    const int t = q0 + row;
-    const bool in = t < T_len;
-    Qs[row * LD + d] = in ? to_f32(qb[t * q_st + d]) * scale : 0.f;
-    dOs[row * LD + d] = in ? to_f32(dob[t * row_st + d]) : 0.f;
-  }
-  __syncthreads();
-
-  // lse and delta of this thread's rows; a padded row (t >= T) gets 0 for
-  // both, so that its dS is 0 (its dq is never written)
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + r * 4 + i;
-    const bool in = t < T_len;
-    const int64_t ri = (static_cast<int64_t>(b) * T_len + t) * H + h;
-    lse_r[i] = in ? lse[ri] : 0.f;
-    if (compute_delta) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = c + 16 * j;
-        part += in ? dOs[(r * 4 + i) * LD + d] * to_f32(ob[t * row_st + d])
-                   : 0.f;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      delta_r[i] = part;
-      if (c == 0 && in) delta[ri] = part;
-    } else {
-      delta_r[i] = in ? delta[ri] : 0.f;
-    }
-  }
-
-  // the forward's k-tile bound: tiles wholly past the causal diagonal or
-  // past kv_len have P == 0 exactly and add nothing to dq
-  int hi = (S + kB - 1) / kB;
-  if (causal) hi = min(hi, (q0 + kB + kB - 1) / kB);
-  hi = min(hi, (kv_len + kB - 1) / kB);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int kt = 0; kt < hi; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // the previous tile's dS.K is done with Ks and dSs
-    for (int idx = tid; idx < kB * D; idx += kThreads) {
-      const int row = idx / D, d = idx % D;
-      const int s = k0 + row;
-      const bool in = s < S;
-      Ks[row * LD + d] = in ? to_f32(kb_[s * k_ss + d]) : 0.f;
-      Vs[row * LD + d] = in ? to_f32(vb[s * v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(r * 4 + i) * LD + d];
-        dov[i] = dOs[(r * 4 + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(c + 16 * j) * LD + d];
-        vv[j] = Vs[(c + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + r * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + c + 16 * j;
-        const bool ok = kp < kv_len && (!causal || qp >= kp);
-        const float p = ok ? expf(sc[i][j] - lse_r[i]) : 0.f;
-        dSs[(r * 4 + i) * LP + c + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kB; ++kk) {
-      float dsv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(r * 4 + i) * LP + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[kk * LD + c + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + r * 4 + i;
-    if (t >= T_len) continue;
-    T* row = dq + base + t * row_st;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) store_f32(acc[i][j] * scale, row + c + 16 * j);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ kv_lens, T* __restrict__ dk,
-                     T* __restrict__ dv, int T_len, int S, int H,
-                     int64_t q_sb, int64_t q_st, int64_t q_sh,
-                     int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                     int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                     float scale, int causal) {
-  static_assert(D == 64, "the 4x4 thread sub-tile covers 64 columns");
-  constexpr int LD = D + 1;
-  constexpr int LP = kB + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;               // [kB][LD]
-  float* Vs = Ks + kB * LD;       // [kB][LD]
-  float* Qs = Vs + kB * LD;       // [kB][LD], pre-scaled
-  float* dOs = Qs + kB * LD;      // [kB][LD]
-  float* Ps = dOs + kB * LD;      // [kB keys][LP queries]: P^T
-  float* dSs = Ps + kB * LP;      // [kB keys][LP queries]: dS^T
-  float* lse_s = dSs + kB * LP;   // [kB]
-  float* delta_s = lse_s + kB;    // [kB]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kB;
-  const int tid = threadIdx.x;
-  const int r = tid / 16, c = tid % 16;   // key rows r*4+i, columns c+16j
-  const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb_ = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  const int64_t row_st = static_cast<int64_t>(H) * D;
-  const T* dob = dout + (static_cast<int64_t>(b) * T_len * H + h) * D;
-  const int64_t lrow = static_cast<int64_t>(b) * T_len * H + h;  // lse/delta
-
-  float dk_acc[4][4], dv_acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  if (k0 < kv_len) {  // else every key of the tile is masked: zeros
-    for (int idx = tid; idx < kB * D; idx += kThreads) {
-      const int row = idx / D, d = idx % D;
-      const int s = k0 + row;
-      const bool in = s < S;
-      Ks[row * LD + d] = in ? to_f32(kb_[s * k_ss + d]) : 0.f;
-      Vs[row * LD + d] = in ? to_f32(vb[s * v_ss + d]) : 0.f;
-    }
-    // causal: q tiles that end before this tile's first key see none of
-    // its keys (the TPU kernel's lo)
-    const int lo = causal ? k0 / kB : 0;
-    const int n_q = (T_len + kB - 1) / kB;
-    for (int qt = lo; qt < n_q; ++qt) {
-      const int q0 = qt * kB;
-      __syncthreads();  // the previous tile's products are done with Qs,
-                        // dOs, Ps and dSs
-      for (int idx = tid; idx < kB * D; idx += kThreads) {
-        const int row = idx / D, d = idx % D;
-        const int t = q0 + row;
-        const bool in = t < T_len;
-        Qs[row * LD + d] = in ? to_f32(qb[t * q_st + d]) * scale : 0.f;
-        dOs[row * LD + d] = in ? to_f32(dob[t * row_st + d]) : 0.f;
-      }
-      if (tid < kB) {
-        const int t = q0 + tid;
-        const bool in = t < T_len;
-        lse_s[tid] = in ? lse[lrow + static_cast<int64_t>(t) * H] : 0.f;
-        delta_s[tid] = in ? delta[lrow + static_cast<int64_t>(t) * H] : 0.f;
-      }
-      __syncthreads();
-
-      float st[4][4], dpt[4][4];   // [key r*4+i][query c+16j]
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(r * 4 + i) * LD + d];
-          vv[i] = Vs[(r * 4 + i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(c + 16 * j) * LD + d];
-          dov[j] = dOs[(c + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
-            dpt[i][j] = fmaf(dov[j], vv[i], dpt[i][j]);
-          }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + r * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = c + 16 * j;
-          const int qp = q0 + col;
-          // padded q rows (t >= T) are masked too: their lse is not real
-          const bool ok = kp < kv_len && qp < T_len && (!causal || qp >= kp);
-          const float p = ok ? expf(st[i][j] - lse_s[col]) : 0.f;
-          Ps[(r * 4 + i) * LP + col] = p;
-          dSs[(r * 4 + i) * LP + col] = p * (dpt[i][j] - delta_s[col]);
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < kB; ++qq) {
-        float pv[4], dsv[4], dov[4], qv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(r * 4 + i) * LP + qq];
-          dsv[i] = dSs[(r * 4 + i) * LP + qq];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dov[j] = dOs[qq * LD + c + 16 * j];
-          qv[j] = Qs[qq * LD + c + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            dv_acc[i][j] = fmaf(pv[i], dov[j], dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + r * 4 + i;
-    if (s >= S) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      store_f32(dk_acc[i][j], dk + row + c + 16 * j);  // scale is in Qs
-      store_f32(dv_acc[i][j], dv + row + c + 16 * j);
-    }
-  }
-}
-
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const float* lse, float* delta,
-              const int* kv_lens, void* dq, int B, int T_len, int S, int H,
-              int64_t q_sb, int64_t q_st, int64_t q_sh,
-              int64_t k_sb, int64_t k_ss, int64_t k_sh,
-              int64_t v_sb, int64_t v_ss, int64_t v_sh,
-              float scale, int causal, int compute_delta,
-              cudaStream_t stream) {
-  constexpr int D = 64;
-  constexpr size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T_len + kB - 1) / kB, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, delta, kv_lens, static_cast<T*>(dq),
-      T_len, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      scale, causal, compute_delta);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, const int* kv_lens,
-               void* dk, void* dv, int B, int T_len, int S, int H,
-               int64_t q_sb, int64_t q_st, int64_t q_sh,
-               int64_t k_sb, int64_t k_ss, int64_t k_sh,
-               int64_t v_sb, int64_t v_ss, int64_t v_sh,
-               float scale, int causal, cudaStream_t stream) {
-  constexpr int D = 64;
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kB - 1) / kB, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      kv_lens, static_cast<T*>(dk), static_cast<T*>(dv), T_len, S, H, q_sb,
-      q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 dk/dv (#3): products on the tensor cores (wgmma), tiles fed by TMA
@@ -879,6 +514,424 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 dq (#2) and dk/dv (#3): three-pass TF32 products on the tensor cores
+// (mma.sync m16n8k8, tf32x3.cuh), tiles fed by cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int kTfLd = tf32x3::kLdt;
+// dq: four warps of 16 q rows each; 64 keys a K/V stage
+constexpr int kDqWarps = 4;
+constexpr int kDqRows = 64;
+constexpr int kDqThreads = 32 * kDqWarps;
+constexpr int kDqTile = 16 * kDqWarps;       // q rows a block
+constexpr int kDqTiles = kDqRows / 8;       // n-tiles of a stage's S, dP
+
+struct DqF32Smem {
+  float q[kDqTile * kTfLd];
+  float dout[kDqTile * kTfLd];
+  float k[2][kDqRows * kTfLd];
+  float v[2][kDqRows * kTfLd];
+};
+
+__global__ void __launch_bounds__(kDqThreads)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ delta,
+                         const int* __restrict__ kv_lens,
+                         float* __restrict__ dq, int T_len, int S, int H,
+                         int64_t q_sb, int64_t q_st, int64_t q_sh,
+                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                         int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                         float scale, int causal, int compute_delta) {
+  using namespace tf32x3;
+  extern __shared__ float4 smem_f4[];
+  DqF32Smem& sm = *reinterpret_cast<DqF32Smem*>(smem_f4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t4 = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kDqTile;
+  const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb_ = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  // o, dO and dq are contiguous [B, T, H, 64]; lse and delta [B, T, H]
+  const int64_t row_st = static_cast<int64_t>(H) * 64;
+  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * 64;
+  const int r0 = 16 * warp;            // the warp's rows of the tile
+  const int qa = q0 + r0 + (lane >> 2);  // this thread's rows qa, qa + 8
+
+  // the forward's k bound, in keys: past the causal diagonal or past
+  // kv_len P == 0 exactly and adds nothing to dq
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q0 + kDqTile);
+  const int n_kt = (k_end + kDqRows - 1) / kDqRows;
+
+  // groups: Q and dO, then the first two K/V stages
+  if (n_kt > 0) {
+    load_tile_async<kDqTile, kDqThreads>(sm.q, qb, q_st, q0, T_len, tid);
+    load_tile_async<kDqTile, kDqThreads>(sm.dout, dout + base, row_st, q0,
+                                         T_len, tid);
+    cp_async_commit();
+    for (int s = 0; s < 2; ++s) {
+      if (s < n_kt) {
+        load_tile_async<kDqRows, kDqThreads>(sm.k[s], kb_, k_ss, s * kDqRows,
+                                             S, tid);
+        load_tile_async<kDqRows, kDqThreads>(sm.v[s], vb, v_ss, s * kDqRows,
+                                             S, tid);
+      }
+      cp_async_commit();
+    }
+  }
+
+  // lse and delta of this thread's two rows, while the tiles load; a row
+  // past T gets 0 for both (its dq is never written). delta = rowsum(dO *
+  // O) from global memory, the row's quad of lanes 16 elements each.
+  float lse_r[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qa + 8 * i;
+    const bool in = tq < T_len;
+    const int64_t ri = (static_cast<int64_t>(b) * T_len + tq) * H + h;
+    lse_r[i] = in ? lse[ri] : 0.f;
+    if (compute_delta) {
+      float part = 0.f;
+      if (in) {
+        const int64_t at = base + tq * row_st + 16 * t4;
+        const float4* op = reinterpret_cast<const float4*>(o + at);
+        const float4* dp = reinterpret_cast<const float4*>(dout + at);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 ov = op[u], dv = dp[u];
+          part = fmaf(dv.x, ov.x, part);
+          part = fmaf(dv.y, ov.y, part);
+          part = fmaf(dv.z, ov.z, part);
+          part = fmaf(dv.w, ov.w, part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      dl[i] = part;
+      if (t4 == 0 && in) delta[ri] = part;
+    } else {
+      dl[i] = in ? delta[ri] : 0.f;
+    }
+  }
+
+  float acc[8][4];                     // dQ: the warp's 16 rows x 64
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    const int k0 = kt * kDqRows;
+    cp_async_wait<1>();                // this thread's copies of stage kt
+    __syncthreads();                   // everyone's
+    // the warp's rows see none of the stage's keys past the diagonal
+    if (!causal || k0 <= q0 + r0 + 15) {
+      // S = Q . K^T and dP = dO . V^T: [16 rows x kDqRows keys]
+      float sc[kDqTiles][4], dp[kDqTiles][4];
+#pragma unroll
+      for (int j = 0; j < kDqTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        FragA fq, fdo;
+        load_a(fq, sm.q, r0, 8 * ks, lane);
+        load_a(fdo, sm.dout, r0, 8 * ks, lane);
+#pragma unroll
+        for (int np = 0; np < kDqTiles / 2; ++np) {
+          FragB fk0, fk1, fv0, fv1;
+          load_b_nk2(fk0, fk1, sm.k[st], 16 * np, 8 * ks, lane);
+          load_b_nk2(fv0, fv1, sm.v[st], 16 * np, 8 * ks, lane);
+          mma3(sc[2 * np], fq, fk0);
+          mma3(sc[2 * np + 1], fq, fk1);
+          mma3(dp[2 * np], fdo, fv0);
+          mma3(dp[2 * np + 1], fdo, fv1);
+        }
+      }
+
+      // P = exp(scale*S - lse), masked to exactly 0 on edge stages
+      // (kv_len, the causal diagonal); dS = P o (dP - delta)
+      const bool edge = k0 + kDqRows > kv_len ||
+                        (causal && k0 + kDqRows - 1 > q0 + r0);
+#pragma unroll
+      for (int j = 0; j < kDqTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          bool ok = true;
+          if (edge) {
+            const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+            ok = kp < kv_len && (!causal || qa + 8 * i >= kp);
+          }
+          const float p =
+              ok ? exp2_approx(fmaf(sc[j][e], scale, -lse_r[i]) * kLog2e)
+                 : 0.f;
+          dp[j][e] = p * (dp[j][e] - dl[i]);
+        }
+
+      // dQ += dS . K over the stage's keys: dS from the accumulators,
+      // K [keys][d] read down its rows
+#pragma unroll
+      for (int j = 0; j < kDqTiles; ++j) {
+        FragA fds;
+        acc_to_a(fds, dp[j]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          FragB fk;
+          load_b_kn(fk, sm.k[st], 8 * j, 8 * n, lane);
+          mma3(acc[n], fds, fk);
+        }
+      }
+    }
+    __syncthreads();                   // every warp is done with stage st
+    if (kt + 2 < n_kt) {
+      const int kn = k0 + 2 * kDqRows;
+      load_tile_async<kDqRows, kDqThreads>(sm.k[st], kb_, k_ss, kn, S, tid);
+      load_tile_async<kDqRows, kDqThreads>(sm.v[st], vb, v_ss, kn, S, tid);
+    }
+    cp_async_commit();                 // (empty past the end: the count stays)
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qa + 8 * i;
+    if (tq >= T_len) continue;
+    float* row = dq + base + tq * row_st + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
+// dk/dv: four warps of 16 keys each; 32 q rows a Q/dO stage
+constexpr int kDkvWarps = 4;
+constexpr int kDkvRows = 32;
+constexpr int kDkvThreads = 32 * kDkvWarps;
+constexpr int kDkvTile = 16 * kDkvWarps;     // keys a block
+constexpr int kDkvTiles = kDkvRows / 8;     // n-tiles of a stage's S^T
+
+struct DkvF32Smem {
+  float k[kDkvTile * kTfLd];
+  float v[kDkvTile * kTfLd];
+  float q[2][kDkvRows * kTfLd];
+  float dout[2][kDkvRows * kTfLd];
+  float lse[2][kDkvRows];
+  float delta[2][kDkvRows];
+};
+
+__global__ void __launch_bounds__(kDkvThreads)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ kv_lens,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int T_len, int S, int H,
+                          int64_t q_sb, int64_t q_st, int64_t q_sh,
+                          int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                          int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                          float scale, int causal) {
+  using namespace tf32x3;
+  extern __shared__ float4 smem_f4[];
+  DkvF32Smem& sm = *reinterpret_cast<DkvF32Smem*>(smem_f4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t4 = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kDkvTile;
+  const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb_ = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const int64_t row_st = static_cast<int64_t>(H) * 64;
+  const float* dob = dout + (static_cast<int64_t>(b) * T_len * H + h) * 64;
+  const int64_t lrow = static_cast<int64_t>(b) * T_len * H + h;  // lse/delta
+  const int r0 = 16 * warp;              // the warp's keys of the tile
+  const int ka = k0 + r0 + (lane >> 2);  // this thread's keys ka, ka + 8
+
+  float dk_acc[8][4], dv_acc[8][4];      // the warp's 16 keys x 64
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  if (k0 < kv_len) {  // else every key of the tile is masked: zeros
+    // causal: q chunks that end before this tile's first key see none of
+    // its keys (the TPU kernel's lo)
+    const int lo = causal ? k0 / kDkvRows : 0;
+    const int n = (T_len + kDkvRows - 1) / kDkvRows - lo;
+    // one stage: the chunk's Q and dO rows, and its lse and delta
+    auto load_stage = [&](int s, int chunk) {
+      const int qn = chunk * kDkvRows;
+      load_tile_async<kDkvRows, kDkvThreads>(sm.q[s], qb, q_st, qn, T_len,
+                                             tid);
+      load_tile_async<kDkvRows, kDkvThreads>(sm.dout[s], dob, row_st, qn,
+                                             T_len, tid);
+      if (tid < 2 * kDkvRows) {
+        const int r = tid % kDkvRows;
+        const bool in = qn + r < T_len;
+        const float* src = (tid < kDkvRows ? lse : delta) + lrow +
+                           (in ? static_cast<int64_t>(qn + r) * H : 0);
+        cp_async4((tid < kDkvRows ? sm.lse[s] : sm.delta[s]) + r, src, in);
+      }
+    };
+    load_tile_async<kDkvTile, kDkvThreads>(sm.k, kb_, k_ss, k0, S, tid);
+    load_tile_async<kDkvTile, kDkvThreads>(sm.v, vb, v_ss, k0, S, tid);
+    cp_async_commit();
+    for (int s = 0; s < 2; ++s) {
+      if (s < n) load_stage(s, lo + s);
+      cp_async_commit();
+    }
+
+    for (int it = 0; it < n; ++it) {
+      const int st = it & 1;
+      const int q0 = (lo + it) * kDkvRows;
+      cp_async_wait<1>();              // this thread's copies of chunk it
+      __syncthreads();                 // everyone's
+      // the warp's keys: none live (past kv_len), or (causal) all past
+      // the chunk's last query
+      if (k0 + r0 < kv_len && (!causal || q0 + kDkvRows - 1 >= k0 + r0)) {
+        // S^T = K . Q^T and dP^T = V . dO^T: [16 keys x kDkvRows queries]
+        float sc[kDkvTiles][4], dp[kDkvTiles][4];
+#pragma unroll
+        for (int j = 0; j < kDkvTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          FragA fk, fv;
+          load_a(fk, sm.k, r0, 8 * ks, lane);
+          load_a(fv, sm.v, r0, 8 * ks, lane);
+#pragma unroll
+          for (int np = 0; np < kDkvTiles / 2; ++np) {
+            FragB fq0, fq1, fo0, fo1;
+            load_b_nk2(fq0, fq1, sm.q[st], 16 * np, 8 * ks, lane);
+            load_b_nk2(fo0, fo1, sm.dout[st], 16 * np, 8 * ks, lane);
+            mma3(sc[2 * np], fk, fq0);
+            mma3(sc[2 * np + 1], fk, fq1);
+            mma3(dp[2 * np], fv, fo0);
+            mma3(dp[2 * np + 1], fv, fo1);
+          }
+        }
+
+        // P^T = exp(scale*S^T - lse), masked to exactly 0 on edge chunks;
+        // dS^T = P^T o (dP^T - delta). Padded q rows (t >= T) are masked
+        // too: their lse is not real.
+        const bool edge = k0 + r0 + 16 > kv_len || q0 + kDkvRows > T_len ||
+                          (causal && k0 + r0 + 15 > q0);
+#pragma unroll
+        for (int j = 0; j < kDkvTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t4 + (e & 1);   // query in chunk
+            bool ok = true;
+            if (edge) {
+              const int kp = ka + 8 * (e >> 1), qp = q0 + col;
+              ok = kp < kv_len && qp < T_len && (!causal || qp >= kp);
+            }
+            const float p = ok ? exp2_approx(fmaf(sc[j][e], scale,
+                                                  -sm.lse[st][col]) * kLog2e)
+                               : 0.f;
+            sc[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - sm.delta[st][col]);
+          }
+
+        // dV += P^T . dO and dK += dS^T . Q over the chunk's queries:
+        // P^T, dS^T from the accumulators, dO and Q read down their rows
+#pragma unroll
+        for (int j = 0; j < kDkvTiles; ++j) {
+          FragA fp, fds;
+          acc_to_a(fp, sc[j]);
+          acc_to_a(fds, dp[j]);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            FragB fo, fq;
+            load_b_kn(fo, sm.dout[st], 8 * j, 8 * c, lane);
+            load_b_kn(fq, sm.q[st], 8 * j, 8 * c, lane);
+            mma3(dv_acc[c], fp, fo);
+            mma3(dk_acc[c], fds, fq);
+          }
+        }
+      }
+      __syncthreads();                 // every warp is done with stage st
+      if (it + 2 < n) load_stage(st, lo + it + 2);
+      cp_async_commit();               // (empty past the end: the count stays)
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = ka + 8 * i;
+    if (s >= S) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * 64
+                        + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      *reinterpret_cast<float2*>(dk + row + 8 * c) = make_float2(
+          dk_acc[c][2 * i] * scale, dk_acc[c][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + row + 8 * c) =
+          make_float2(dv_acc[c][2 * i], dv_acc[c][2 * i + 1]);
+    }
+  }
+}
+
+int launch_dq_tf32(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, const int* kv_lens, void* dq, int B,
+                   int T_len, int S, int H, int64_t q_sb, int64_t q_st,
+                   int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                   int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
+                   int causal, int compute_delta, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(DqF32Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T_len + kDqTile - 1) / kDqTile, B * H);
+  flash_bwd_dq_tf32_kernel<<<grid, kDqThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), lse, delta, kv_lens,
+      static_cast<float*>(dq), T_len, S, H, q_sb, q_st, q_sh, k_sb, k_ss,
+      k_sh, v_sb, v_ss, v_sh, scale, causal, compute_delta);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_tf32(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    const int* kv_lens, void* dk, void* dv, int B, int T_len,
+                    int S, int H, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                    int64_t v_ss, int64_t v_sh, float scale, int causal,
+                    cudaStream_t stream) {
+  constexpr size_t smem = sizeof(DkvF32Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kDkvTile - 1) / kDkvTile, B * H);
+  flash_bwd_dkv_tf32_kernel<<<grid, kDkvThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, kv_lens, static_cast<float*>(dk), static_cast<float*>(dv), T_len,
+      S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace paddle_tpu_torch
 
@@ -899,9 +952,9 @@ extern "C" int paddle_flash_attention_bwd_dq(
   if (D != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_dq<float>(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
-                            S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
-                            v_ss, v_sh, scale, causal, compute_delta, st);
+    return launch_dq_tf32(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
+                          S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
+                          v_ss, v_sh, scale, causal, compute_delta, st);
   if (dtype == kBF16)
     return launch_dq_bf16(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
                           S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
@@ -925,12 +978,13 @@ extern "C" int paddle_flash_attention_bwd_dkv(
   if (D != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_dkv<float>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B,
-                             T, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
-                             v_sb, v_ss, v_sh, scale, causal, st);
+    return launch_dkv_tf32(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T,
+                           S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
+                           v_ss, v_sh, scale, causal, st);
   if (dtype == kBF16)
     return launch_dkv_bf16(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T,
                            S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
                            v_ss, v_sh, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
+

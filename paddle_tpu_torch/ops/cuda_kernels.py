@@ -25,10 +25,13 @@ decode uses on the card.
 In bf16 the forward (#1) and both backward kernels (#2 dq, #3 dk/dv)
 run tensor-core bodies (wgmma on TMA-fed tiles); they round P (#1), dS
 (#2) and Pᵀ, dSᵀ (#3) to bf16 before the second product, where the plain
-versions keep f32, and they need q, k and v (and, for the backward, o
-and dO) at a 16-byte-aligned base with strides of 16-byte multiples,
-which the wrappers check (they raise otherwise). f32 runs the CUDA-core
-bodies.
+versions keep f32. In f32 the backward kernels run on the tensor cores
+too, at f32 accuracy: each product is three TF32 products of split
+operands (``csrc/tf32x3.cuh``), on tiles fed by 16-byte ``cp.async``
+copies; the f32 forward runs on the CUDA cores. The bf16 kernels and
+the f32 backward need q, k and v (and, for the backward, o and dO) at a
+16-byte-aligned base with strides of 16-byte multiples, which the
+wrappers check (they raise otherwise).
 
 The dense decode read (#4) splits each (sample, head) read across
 blocks when the card would otherwise sit half empty (:func:`decode_splits`):
@@ -169,9 +172,10 @@ def _attention_shapes(what: str, q, k, v, causal: bool):
 
 
 def _check_tma(what: str, **tensors: torch.Tensor) -> None:
-    """The bf16 attention kernels load [B, L, H, 64] operands by TMA, which
-    needs a 16-byte-aligned base and batch, position and head strides that
-    are multiples of 16 bytes (a dimension of size 1 is never stepped).
+    """The bf16 attention kernels load [B, L, H, 64] operands by TMA, and
+    the f32 backward (#2, #3) by 16-byte ``cp.async`` copies; both need a
+    16-byte-aligned base and batch, position and head strides that are
+    multiples of 16 bytes (a dimension of size 1 is never stepped).
     Raises on anything else: no copy, no other route."""
     for name, t in tensors.items():
         esize = t.element_size()
@@ -181,8 +185,8 @@ def _check_tma(what: str, **tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"{what}: {name} (strides {tuple(t.stride())}, base "
                 f"{t.data_ptr() % 16} bytes past 16) breaks the TMA rule of "
-                "the bf16 kernels: a 16-byte-aligned base and strides of "
-                "16-byte multiples")
+                "the bf16 kernels and the f32 backward: a 16-byte-aligned "
+                "base and strides of 16-byte multiples")
 
 
 def _kernel_lens(what: str, kv_lens: Optional[torch.Tensor], B: int,
@@ -308,8 +312,7 @@ class FlashBwdLaunch:
         self.q, self.k, self.v = q, k, v
         self.o, self.do, self.lse = (o.contiguous(), do.contiguous(),
                                      lse.contiguous())
-        if q.dtype == torch.bfloat16:
-            _check_tma(what, q=q, k=k, v=v, o=self.o, do=self.do)
+        _check_tma(what, q=q, k=k, v=v, o=self.o, do=self.do)
         self.compute_delta = delta is None
         self.delta = (torch.empty((B, T, H), dtype=torch.float32,
                                   device=q.device)

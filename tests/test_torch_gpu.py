@@ -567,9 +567,10 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
 
 @pytest.mark.gpu
 def test_flash_bf16_refuses_views_that_break_the_tma_rule(cuda):
-    """The bf16 bodies load q, k and v by TMA: a base that is not 16-byte
-    aligned, or a stride that is not a multiple of 16 bytes, raises (no
-    copy, no other route). The f32 bodies read such views in place."""
+    """The bf16 bodies load q, k and v by TMA, and the f32 backward bodies
+    by 16-byte cp.async copies: a base that is not 16-byte aligned, or a
+    stride that is not a multiple of 16 bytes, raises (no copy, no other
+    route). The f32 forward reads such views in place."""
     good = torch.randn(2, 40, 3, 64, device=cuda, dtype=torch.bfloat16)
     wide = torch.randn(2, 40, 3, 68, device=cuda)
     flat = torch.randn(2 * 40 * 3 * 64 + 1, device=cuda)
@@ -583,10 +584,60 @@ def test_flash_bf16_refuses_views_that_break_the_tma_rule(cuda):
             ck.flash_attention_fwd(good, good, x)
         with pytest.raises(ValueError, match="TMA"):
             ck.flash_attention_bwd(good, x, good, o, lse, o)
+    good32 = good.float()
+    o32, lse32 = ck.flash_attention_fwd(good32, good32, good32)
+    bad32 = [torch.randn(2, 40, 3, 66, device=cuda)[..., :64],  # 264-byte heads
+             flat[1:].view(2, 40, 3, 64)]                     # base 4 bytes off
+    for x in bad32:
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_bwd(x, good32, good32, o32, lse32, o32)
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_bwd(good32, good32, x, o32, lse32, o32)
+        po, plse = ck.flash_attention_fwd(x, x, x, route="plain")
+        ko, klse = ck.flash_attention_fwd(x, x, x)
+        torch.testing.assert_close(ko, po, atol=1e-5, rtol=1e-4)
     x = wide[..., :64]
     o32, lse32 = ck.flash_attention_fwd(x, x, x)
     po, plse = ck.flash_attention_fwd(x, x, x, route="plain")
     torch.testing.assert_close(o32, po, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_f32_is_not_one_pass_tf32(cuda, causal):
+    """The f32 bodies of #2 and #3 run three TF32 products a product (big
+    and small parts of each operand, csrc/tf32x3.cuh), so they keep the f32
+    tolerance where one TF32 pass cannot. Here q = 1 + 2**-14 * randn
+    carries all of its variation below TF32's 10-bit mantissa: the plain
+    backward with TF32 matmuls allowed fails ``_bwd_close`` on these
+    inputs, the kernels pass it (both against the plain f32 backward)."""
+    B, T, H = 2, 256, 2
+    gen = torch.Generator().manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    q = 1.0 + 2.0 ** -14 * rnd(B, T, H, 64)
+    k, v, do = rnd(B, T, H, 64), rnd(B, T, H, 64), rnd(B, T, H, 64)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, route="plain")
+    want = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  route="plain")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = ck.flash_attention_bwd(q, k, v, o, lse, do,
+                                          causal=causal, route="plain")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def within(got):
+        try:
+            for g, w in zip(got, want):
+                _bwd_close(g, w, torch.float32)
+        except AssertionError:
+            return False
+        return True
+
+    assert not within(one_pass)
+    got = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        _bwd_close(g, w, torch.float32)
 
 
 @pytest.mark.gpu
