@@ -10,7 +10,9 @@ Phases:
    HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS of the
    bf16 tensor-core bodies of #1, #2 and #3, and the TF32 HMMA (mma.sync),
    LDSM (ldmatrix) and LDGSTS (cp.async) instructions in the f32 bodies
-   of #2 and #3 (``cuobjdump -sass``; none fails);
+   of #1, #2 and #3 (``cuobjdump -sass``; none fails); the LSTM
+   backward's (#10) registers a thread and spills, at most 128 registers
+   (its plan for two blocks an SM);
 2. kernels — hold each kernel against its plain PyTorch version at the
    serving shapes (f32 and bf16) and time kernel, plain version, the
    PyTorch library call where one exists, and the roofline bound;
@@ -23,7 +25,8 @@ Phases:
    training forward, backward) against their plain versions in f32 and
    bf16 at the flagship text-classifier shape (B=64, T=100, H=256) and at
    an edge shape (B=5, lengths 0/1/T, nonzero h0/c0), with times, plain
-   times and bounds at the flagship shape;
+   times and bounds at the flagship shape; the backward also bit-equal
+   across two runs there;
 5. lstm training — the flagship LSTM text classifier (vocab 30000, embed
    128, hidden 256, batch 64, lengths 30..100, last-step pooling; random
    weights from a seed) trained by ``Trainer.train`` for 24 Adam steps
@@ -41,8 +44,9 @@ Phases:
    the LM shape each kernel's time, the plain version's, the SDPA
    backward's and the bounds (f32: three TF32 products a product on the
    tensor cores, the CUDA cores' bound beside it). The forward (#1) is
-   held against its plain version at the same shapes and timed at the
-   LM's;
+   held against its plain version at the same shapes (in f32 also o and
+   lse against a float64 forward, and two runs bit-equal) and timed at
+   the LM's;
 7. LM training — GPT-2 small (vocab 32768, d_model 768, 12 heads, 12
    layers, batch 8 x 1024 tokens; random weights and ids from the seed)
    trained by ``Trainer.train`` for 12 Adam steps over 2 batches in bf16
@@ -119,9 +123,9 @@ N_REQUESTS, NEW_TOKENS = 8, 48
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 # an f32-accurate product on the tensor cores is three TF32 products
-# (csrc/tf32x3.cuh; PyTorch's f32 SDPA kernels do the same): the f32
-# attention rows (#1-#3) are bound at three times their operations over
-# the TF32 peak
+# (csrc/tf32x3.cuh; PyTorch's f32 SDPA kernels do the same): the f32 rows
+# of the kernels whose products run there (#1-#3, #10) are bound at three
+# times their operations over the TF32 peak
 TF32_PASSES = 3
 
 # tolerances, with the reason: the kernels sum in another order than the
@@ -134,11 +138,11 @@ BF16_TC_RTOL = 2.0 ** -7
 # (phase 7): see bf16_step_check
 BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_REL_L2 = 2.0 ** -9, 2.0 ** -5
 # which body each attention kernel runs, by dtype
-_TC, _CC = "tensor cores: wgmma on TMA-fed tiles", "CUDA cores: f32 FMAs"
+_TC = "tensor cores: wgmma on TMA-fed tiles"
 _TF = ("tensor cores: three-pass TF32 mma.sync (m16n8k8, split operands) "
        "on cp.async-fed tiles")
 DESIGN = {
-    "flash_attention_fwd": {"bfloat16": _TC, "float32": _CC},
+    "flash_attention_fwd": {"bfloat16": _TC, "float32": _TF},
     "flash_attention_bwd_dq": {"bfloat16": _TC, "float32": _TF},
     "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _TF},
 }
@@ -152,7 +156,8 @@ TENSOR_CORE_BODIES = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
                       "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
                       "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
 # the three-pass TF32 bodies (mma.sync, cp.async): kernel -> JSON entry
-TF32_BODIES = {"flash_bwd_dq_tf32_kernel": "flash_attention_bwd_dq",
+TF32_BODIES = {"flash_fwd_tf32_kernel": "flash_attention_fwd",
+               "flash_bwd_dq_tf32_kernel": "flash_attention_bwd_dq",
                "flash_bwd_dkv_tf32_kernel": "flash_attention_bwd_dkv"}
 
 
@@ -230,6 +235,31 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
+def ptxas_usage(build, kernel: str) -> dict:
+    """Registers a thread and spilled bytes (stores + loads) of each
+    instantiation of ``kernel``, by its I/O dtype, from ptxas' lines of the
+    build."""
+    import re
+    out, cur = {}, None
+    for ln in build.resource_lines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = None
+            if kernel in m.group(1):
+                cur = ("bfloat16" if "nv_bfloat16" in m.group(1)
+                       else "float32")
+                out[cur] = {"registers": None, "spill_bytes": None}
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if cur and m:
+            out[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if cur and m:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -284,11 +314,12 @@ def bound(flops: float, nbytes: float, dtype_name: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound(flops: float, nbytes: float, dtype_name: str) -> dict:
-    """The bound of an attention kernel (#1-#3): bf16 as :func:`bound`; in
-    f32 at TF32_PASSES TF32 products a product over the TF32 peak (the
-    least time f32-accurate products take on this card), with the CUDA
-    cores' bound at 67 TF/s beside it as ``bound_cuda_core_ms``."""
+def tensor_core_bound(flops: float, nbytes: float, dtype_name: str) -> dict:
+    """The bound of a kernel whose products run on the tensor cores (#1-#3,
+    #10): bf16 as :func:`bound`; in f32 at TF32_PASSES TF32 products a
+    product over the TF32 peak (the least time f32-accurate products take
+    on this card), with the CUDA cores' bound at 67 TF/s beside it as
+    ``bound_cuda_core_ms``."""
     if dtype_name != "float32":
         b_ms, b_by = bound(flops, nbytes, dtype_name)
         return {"bound_ms": b_ms, "bound_by": b_by}
@@ -350,8 +381,8 @@ def flash_checks(say, device="cuda"):
         del sets
         nbytes = 4 * B * T * H * D * qd.element_size() + B * T * H * 4
         res = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
-               "plain_ms": plain_ms, **attention_bound(flops, nbytes, tag),
-               "library_ms": lib_ms}
+               "plain_ms": plain_ms,
+               **tensor_core_bound(flops, nbytes, tag), "library_ms": lib_ms}
         say(f"flash_attention_fwd {tag}: {json.dumps(res)}")
         if dt == torch.float32:
             entry.update(res)
@@ -623,6 +654,14 @@ TEXTCLS_BATCH, TEXTCLS_LEN, TEXTCLS_MIN_LEN = 64, 100, 30
 TEXTCLS_NBUF, TEXTCLS_PASSES, TEXTCLS_LR = 8, 3, 2e-3
 # the edge shape: a batch under one tile, lengths 0, 1 and T, h0/c0 != 0
 LSTM_EDGE_LENS = (0, 1, 7, 3, 5)
+# #10's design (both dtypes)
+LSTM_BWD_DESIGN = ("one cooperative launch in three phases: the gates of "
+                   "every step recomputed in parallel (mma.sync, three TF32 "
+                   "passes in f32, one for bf16 operands); the reverse "
+                   "recurrence with one grid barrier and one product a "
+                   "step (each block's 16-column partial of dgates @ U^T, "
+                   "summed over blocks in a fixed order); dU in parallel "
+                   "over (t, b) on the tensor cores")
 
 LSTM_KERNELS = (
     ("lstm_seq", "paddle_tpu_torch/csrc/lstm_seq.cu",
@@ -717,6 +756,7 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                                       "has no per-sample length mask with "
                                       "a frozen state"}
                for name, src, rep, body in LSTM_KERNELS}
+    entries["lstm_seq_bwd"]["design"] = LSTM_BWD_DESIGN
     fwd_kw = dict(forget_bias=1.0)
 
     def run(name, args, route=None):
@@ -747,6 +787,11 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                             check(torch.equal(got[1][b], fwd[4][b]),
                                   f"{name}: a 0-length sample's hT != h0")
                 res = {"max_abs_err": max(errs)}
+                if name == "lstm_seq_bwd" and tag == "flagship":
+                    again = run(name, args)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{name} flagship {dname}: two runs differ")
+                    res["bit_equal_two_runs"] = True
                 if timed and tag == "flagship":
                     res.update(_lstm_times(name, run, Bs, Ts, H, lens, dt,
                                            dname, gen, device))
@@ -767,7 +812,9 @@ def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device):
     """Kernel and plain times (CUDA graph over input sets larger than L2)
     and the bound: the recurrent products of the live steps (2*H*4H per
     live (sample, step), three of them in the backward) against each
-    input read and each output written once."""
+    input read and each output written once; the backward's products run
+    on the tensor cores (:func:`tensor_core_bound`), the forwards' on the
+    CUDA cores."""
     import torch
     esize = torch.empty((), dtype=dt).element_size()
     G = 4 * H
@@ -791,6 +838,9 @@ def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device):
     plain_ms = time_ms([lambda s=s: run(name, s, route="plain")
                         for s in sets], rounds=1, reps=2)
     del sets
+    if name == "lstm_seq_bwd":
+        return {"ms": ms, "plain_ms": plain_ms,
+                **tensor_core_bound(flops, nbytes, dname)}
     b_ms, b_by = bound(flops, nbytes, dname)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
@@ -1084,6 +1134,46 @@ def tolerance_used(got, want) -> float:
     return ((g - w).abs() / allowed).max().item()
 
 
+def fwd_f32_close(got, want, what: str) -> float:
+    """#1's f32 output against the plain version's: summation order only
+    (F32_ATOL, F32_RTOL, as phase 2); returns the max abs error."""
+    import torch
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=F32_ATOL, rtol=F32_RTOL),
+          f"{what} float32 differs from plain: max abs {err} (atol "
+          f"{F32_ATOL}, rtol {F32_RTOL})")
+    return err
+
+
+def fwd_f64_errors(got, plain, qkv, causal, kv) -> dict:
+    """#1's f32 o and lse, and the plain f32 version's, against the plain
+    version's arithmetic in float64 on the same inputs, and the largest
+    share of the f32 allowance (F32_ATOL + F32_RTOL * |plain|) that the
+    kernel's entries use: 1 is the limit."""
+    import torch
+    q, k, v = (t.double() for t in qkv)
+    T, S, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bthd,bshd->bhts", q, k) * D ** -0.5
+    live = torch.ones((1, 1, T, S), dtype=torch.bool, device=q.device)
+    if kv is not None:
+        lens = kv.clamp(1, S)
+        live = live & (torch.arange(S, device=q.device)[None, :]
+                       < lens[:, None])[:, None, None, :]
+    if causal:
+        live = live & torch.ones((T, S), dtype=torch.bool,
+                                 device=q.device).tril()
+    s = torch.where(live, s, -1e30)
+    ref = (torch.einsum("bhts,bshd->bthd", torch.softmax(s, dim=-1), v),
+           torch.logsumexp(s, dim=-1).transpose(1, 2))
+    del s
+    errs = lambda outs: [(a.double() - r).abs().max().item()
+                         for a, r in zip(outs, ref)]
+    used = [((g - w).abs() / (F32_ATOL + F32_RTOL * w.abs())).max().item()
+            for g, w in zip(got, plain)]
+    return {"kernels": errs(got), "plain_f32": errs(plain),
+            "tolerance_used": used, "outputs": ["o", "lse"]}
+
+
 def flash_bwd_checks(say, seed: int, device="cuda"):
     """#2 and #3 against the plain backward in f32 and bf16 at the four
     BWD_SHAPES (masked keys' dk/dv exactly 0); at the LM shape also each
@@ -1117,7 +1207,18 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
                                             kv_lens=kv)
             close = (bf16_tc_close if dt == torch.bfloat16
                      else lambda g, w, what: bwd_close(g, w, what, dname))
-            fwd_res = {"max_abs_err": close(o, args[3], f"flash fwd {tag}")}
+            if dt == torch.bfloat16:
+                fwd_res = {"max_abs_err": close(o, args[3],
+                                                f"flash fwd {tag}")}
+            else:
+                fwd_res = {"max_abs_err": fwd_f32_close(o, args[3],
+                                                        f"flash fwd {tag}")}
+                fwd_res["max_abs_err_f64"] = fwd_f64_errors(
+                    (o, lse), args[3:5], args[:3], causal, kv)
+                again = ck.flash_attention_fwd(*args[:3], causal=causal,
+                                               kv_lens=kv)
+                check(torch.equal(again[0], o) and torch.equal(again[1], lse),
+                      f"flash fwd {tag} float32: two runs differ")
             check(torch.allclose(lse, args[4], atol=F32_ATOL, rtol=F32_RTOL),
                   f"flash fwd {tag} {dname} lse differs from plain")
             if tag == "lm":
@@ -1192,9 +1293,9 @@ def _fwd_times(B, T, H, dt, dname, gen, device):
         *(t.transpose(1, 2) for t in s), is_causal=True) for s in sets])
     del sets
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            **attention_bound(4.0 * D * H * live_pairs(T, T, True, None, B),
-                              4 * B * T * H * D * esize + B * T * H * 4,
-                              dname)}
+            **tensor_core_bound(
+                4.0 * D * H * live_pairs(T, T, True, None, B),
+                4 * B * T * H * D * esize + B * T * H * 4, dname)}
 
 
 def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
@@ -1231,7 +1332,7 @@ def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
             ("flash_attention_bwd_dq", dq_ms, 6.0 * D * pairs, dq_bytes),
             ("flash_attention_bwd_dkv", dkv_ms, 8.0 * D * pairs, dkv_bytes)):
         out[name] = {"ms": ms, "plain_ms": plain_ms,
-                     **attention_bound(flops, nbytes, dname),
+                     **tensor_core_bound(flops, nbytes, dname),
                      "library_ms": lib_ms,
                      "pair_ms": dq_ms + dkv_ms, "live_pairs": pairs,
                      "plain_note": "the plain backward: " + note,
@@ -2290,6 +2391,14 @@ def main(argv=None) -> int:
         print(f"  ptxas: {ln}")
     sass = sass_counts(build.path / _build.LIB_NAME)
     say(f"SASS of the tensor-core bodies: {json.dumps(sass)}")
+    # #10 plans for two blocks an SM on grids past one wave: its launch
+    # bounds must keep it at 128 registers a thread (256 threads)
+    lstm_regs = ptxas_usage(build, "lstm_seq_bwd_kernel")
+    say(f"lstm_seq_bwd_kernel registers and spills: {json.dumps(lstm_regs)}")
+    check(sorted(lstm_regs) == ["bfloat16", "float32"]
+          and all(0 < (r["registers"] or 0) <= 128
+                  for r in lstm_regs.values()),
+          f"lstm_seq_bwd_kernel: over 128 registers a thread ({lstm_regs})")
 
     flash = flash_checks(say)
     paged = paged_checks(say)
@@ -2302,6 +2411,8 @@ def main(argv=None) -> int:
         entry["launches"] = launches[entry["name"]]
         entry["launches_note"] = (f"{steps} training steps, then a test "
                                   "pass over 2 batches")
+        if entry["name"] == "lstm_seq_bwd":
+            entry["ptxas"] = lstm_regs
     flash["training_shapes"], bwd = flash_bwd_checks(say, args.seed)
     lm_launches, lm_steps = lm_training_phase(say, args.seed)
     nmt_launches, nmt_steps = nmt_training_phase(say, args.seed)

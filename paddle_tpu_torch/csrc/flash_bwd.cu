@@ -681,6 +681,13 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
 
       // dQ += dS . K over the stage's keys: dS from the accumulators,
       // K [keys][d] read down its rows
+      // (the stage's sum in a fresh accumulator, added to dQ in f32:
+      // tf32x3.cuh, "Accumulation")
+      float q_st[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q_st[n][e] = 0.f;
 #pragma unroll
       for (int j = 0; j < kDqTiles; ++j) {
         FragA fds;
@@ -689,9 +696,13 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
         for (int n = 0; n < 8; ++n) {
           FragB fk;
           load_b_kn(fk, sm.k[st], 8 * j, 8 * n, lane);
-          mma3(acc[n], fds, fk);
+          mma3(q_st[n], fds, fk);
         }
       }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += q_st[n][e];
     }
     __syncthreads();                   // every warp is done with stage st
     if (kt + 2 < n_kt) {
@@ -851,6 +862,13 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 
         // dV += P^T . dO and dK += dS^T . Q over the chunk's queries:
         // P^T, dS^T from the accumulators, dO and Q read down their rows
+        // (the chunk's sums in fresh accumulators, added to dV and dK in
+        // f32: tf32x3.cuh, "Accumulation")
+        float v_st[8][4], k_st[8][4];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v_st[c][e] = k_st[c][e] = 0.f;
 #pragma unroll
         for (int j = 0; j < kDkvTiles; ++j) {
           FragA fp, fds;
@@ -861,10 +879,17 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
             FragB fo, fq;
             load_b_kn(fo, sm.dout[st], 8 * j, 8 * c, lane);
             load_b_kn(fq, sm.q[st], 8 * j, 8 * c, lane);
-            mma3(dv_acc[c], fp, fo);
-            mma3(dk_acc[c], fds, fq);
+            mma3(v_st[c], fp, fo);
+            mma3(k_st[c], fds, fq);
           }
         }
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv_acc[c][e] += v_st[c][e];
+            dk_acc[c][e] += k_st[c][e];
+          }
       }
       __syncthreads();                 // every warp is done with stage st
       if (it + 2 < n) load_stage(st, lo + it + 2);

@@ -4,21 +4,29 @@
 // called by _fa_fwd_call): blockwise online-softmax attention with causal
 // and per-sample kv_lens masks, o in q's dtype and lse [B, T, H] in f32.
 //
-// What bounds it on the H100: at the serving shapes (T = S <= 512,
-// d_head 64) attention does ~2*T*S*D multiply-adds per (b, h) against
-// 4*T*D elements moved, so it is bound by operations in f32; in bf16 the
-// tensor cores (989 TF/s) move the bound to the bytes at these shapes.
-// Two bodies, chosen by dtype at the entry point:
+// What bounds it on the H100: at the models' shapes (T, S >= 64, d_head
+// 64) attention does ~4*T*S*D operations per (b, h) against 4*T*D
+// elements moved, so it is bound by operations. Both bodies run their
+// products on the tensor cores; two bodies, chosen by dtype at the entry
+// point:
 //
-// f32: the products as f32 FMAs on the CUDA cores (67 TF/s peak);
-// TF32 stays off, so the tensor cores cannot take them without changing
-// the numbers. One 256-thread block per (64-row q tile, b*h). Q, K and V
-// tiles are staged through shared memory as f32 (rows padded to D+1
-// floats so column reads hit distinct banks); the score tile and the
-// online-softmax state (m, l, acc) stay in registers, so the [T, S]
-// matrix never reaches device memory. Each thread owns a 4x4 sub-tile:
-// rows r*4..r*4+3 and columns c, c+16, c+32, c+48, so a row's 16 owners
-// are 16 neighbouring lanes and row reductions are 4 shuffles.
+// f32: three-pass TF32 mma.sync (m16n8k8), each product three TF32
+// products of the operands' big and small parts (tf32x3.cuh: a relative
+// error under 5 * 2^-22 a product, against 2^-24 for an f32 FMA and
+// 2^-11 for one TF32 pass, which the f32 tolerance does not allow), so
+// its least time is three times its operations over the 495 TF/s TF32
+// peak. Four warps a block, each 16 rows of the block's 64-row q tile
+// (the f32 dq body's layout, flash_bwd.cu). The Q tile arrives once and
+// K/V tiles of 64 keys stream through a two-stage ring, all by 16-byte
+// cp.async into 68-float rows (zero-filled past T or S), so tile kt+1
+// loads during tile kt's products. S = Q.K^T takes both operands by
+// ldmatrix (the reduction over d runs along Q's and K's rows); the masks
+// and the online softmax run on the accumulator fragments, where a row
+// lies in a quad of 4 lanes (2 shuffles for its max; the sum is reduced
+// once at the end), p = exp2((scale*s - m) * log2(e)); P feeds O +=
+// P.V straight from the accumulators as the A operand (the reduction
+// index permuted, no shared-memory round trip) against V [key][d] read
+// down its rows. A warp skips a stage wholly past its rows' diagonal.
 //
 // bf16: both products on the tensor cores. One warpgroup (128
 // threads) per (64-row q tile, b*h): 64 rows is wgmma's M, and the NMT's
@@ -38,185 +46,241 @@
 // In both bodies K tiles past the causal diagonal or past kv_len are
 // never loaded (_k_block_hi), and q, k and v are read in place through
 // their strides (no head transpose in device memory); the innermost
-// stride must be 1, and for bf16 (TMA) the base must be 16-byte aligned
-// and the strides multiples of 16 bytes (the wrapper checks).
+// stride must be 1, the base 16-byte aligned and the strides multiples
+// of 16 bytes (TMA in bf16, cp.async in f32; the wrapper checks).
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
 
-constexpr int kBQ = 64;   // q rows per block
-constexpr int kBK = 64;   // keys per k tile
-constexpr int kThreads = 256;
+constexpr int kBQ = 64;   // q rows per block (bf16 body)
+constexpr int kBK = 64;   // keys per k tile (bf16 body)
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * (kBK + 1));
-}
+// ---------------------------------------------------------------------------
+// f32: three-pass TF32 products on the tensor cores (mma.sync m16n8k8,
+// tf32x3.cuh), tiles fed by cp.async
+// ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_lens,
-                 T* __restrict__ o, float* __restrict__ lse,
-                 int T_len, int S, int H,
-                 int64_t q_sb, int64_t q_st, int64_t q_sh,
-                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                 float scale, int causal) {
-  static_assert(D == 64, "the 4x4 thread sub-tile covers 64 columns");
-  constexpr int LD = D + 1;
-  constexpr int LP = kBK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [kBQ][LD], pre-scaled
-  float* Ks = Qs + kBQ * LD;     // [kBK][LD]
-  float* Vs = Ks + kBK * LD;     // [kBK][LD]
-  float* Ps = Vs + kBK * LD;     // [kBQ][LP]
+constexpr int kTfLd = tf32x3::kLdt;
+// four warps of 16 q rows each; 64 keys a K/V stage (measured against
+// 32 keys and eight warps: tools/flash_fwd_f32_variants.py)
+constexpr int kFwdWarps = 4;
+constexpr int kFwdKeys = 64;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdTile = 16 * kFwdWarps;     // q rows a block
+constexpr int kFwdTiles = kFwdKeys / 8;      // n-tiles of a stage's S
 
+struct FwdF32Smem {
+  float q[kFwdTile * kTfLd];
+  float k[2][kFwdKeys * kTfLd];
+  float v[2][kFwdKeys * kTfLd];
+};
+
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const int* __restrict__ kv_lens,
+                      float* __restrict__ o, float* __restrict__ lse,
+                      int T_len, int S, int H,
+                      int64_t q_sb, int64_t q_st, int64_t q_sh,
+                      int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                      int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                      float scale, int causal) {
+  using namespace tf32x3;
+  extern __shared__ float4 smem_f4[];
+  FwdF32Smem& sm = *reinterpret_cast<FwdF32Smem*>(smem_f4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t4 = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int r = tid / 16, c = tid % 16;
-
+  const int q0 = blockIdx.x * kFwdTile;
   const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb_ = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const int r0 = 16 * warp;              // the warp's rows of the tile
+  const int qa = q0 + r0 + (lane >> 2);  // this thread's rows qa, qa + 8
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb_ = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  // the k bound (_k_block_hi), in keys: tiles wholly past the causal
+  // diagonal or past kv_len hold p == 0 exactly and are never loaded
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q0 + kFwdTile);
+  const int n_kt = (k_end + kFwdKeys - 1) / kFwdKeys;   // >= 1: kv_len >= 1
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int row = idx / D, d = idx % D;
-    const int t = q0 + row;
-    const float x = t < T_len ? to_f32(qb[t * q_st + d]) : 0.f;
-    Qs[row * LD + d] = x * scale;
+  // groups: Q with the first K/V stage, then the second stage
+  load_tile_async<kFwdTile, kFwdThreads>(sm.q, qb, q_st, q0, T_len, tid);
+  for (int s = 0; s < 2; ++s) {
+    if (s < n_kt) {
+      load_tile_async<kFwdKeys, kFwdThreads>(sm.k[s], kb_, k_ss,
+                                             s * kFwdKeys, S, tid);
+      load_tile_async<kFwdKeys, kFwdThreads>(sm.v[s], vb, v_ss,
+                                             s * kFwdKeys, S, tid);
+    }
+    cp_async_commit();
   }
 
-  // upper k-tile bound: tiles wholly past the causal diagonal or past
-  // kv_len contribute p == 0 exactly, so they are never loaded
-  int hi = (S + kBK - 1) / kBK;
-  if (causal) hi = min(hi, (q0 + kBQ + kBK - 1) / kBK);
-  hi = min(hi, (kv_len + kBK - 1) / kBK);
+  // this thread's rows: m the running max of scale*s, l the partial sum
+  // over the thread's columns (the quad's four partials are summed at the
+  // end). p = 2^((scale*s - m) * log2(e)): the difference is taken before
+  // the one inexact factor, as the backward's recompute takes it, so the
+  // rounding of log2(e) scales no more than that difference.
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float acc[8][4];                       // O: the warp's 16 rows x 64
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  float m[4], l[4], acc[4][4];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    const int k0 = kt * kFwdKeys;
+    cp_async_wait<1>();                  // this thread's copies of stage kt
+    __syncthreads();                     // everyone's
+    // the warp's rows see none of the stage's keys past the diagonal
+    // (stage 0 always has key 0 live for every row, so m is real after it)
+    if (!causal || k0 <= q0 + r0 + 15) {
+      // S = Q . K^T: [16 rows x kFwdKeys keys]
+      float sc[kFwdTiles][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
+      for (int j = 0; j < kFwdTiles; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        FragA fq;
+        load_a(fq, sm.q, r0, 8 * ks, lane);
+#pragma unroll
+        for (int np = 0; np < kFwdTiles / 2; ++np) {
+          FragB fk0, fk1;
+          load_b_nk2(fk0, fk1, sm.k[st], 16 * np, 8 * ks, lane);
+          mma3(sc[2 * np], fq, fk0);
+          mma3(sc[2 * np + 1], fq, fk1);
+        }
+      }
 
-  for (int kt = 0; kt < hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's P.V is done with Ks/Vs/Ps
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int row = idx / D, d = idx % D;
-      const int s = k0 + row;
-      const bool in = s < S;
-      Ks[row * LD + d] = in ? to_f32(kb_[s * k_ss + d]) : 0.f;
-      Vs[row * LD + d] = in ? to_f32(vb[s * v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
+      // masks only on edge stages (kv_len, the causal diagonal); then the
+      // online softmax on the fragments: a row lies in a quad of lanes,
+      // so its max takes two shuffles
+      const bool edge = k0 + kFwdKeys > kv_len ||
+                        (causal && k0 + kFwdKeys - 1 > q0 + r0);
+      float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kFwdTiles; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float x = sc[j][e] * scale;
+          if (edge) {
+            const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+            const bool ok = kp < kv_len && (!causal || qa + 8 * i >= kp);
+            x = ok ? x : kNeg;
+          }
+          sc[j][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      float corr[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(r * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(c + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + r * 4 + i;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + c + 16 * j;
-        const bool ok = kp < kv_len && (!causal || qp >= kp);
-        sc[i][j] = ok ? sc[i][j] : kNeg;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2_approx((m[i] - m_new) * kLog2e);
+        m[i] = m_new;
+        l[i] *= corr[i];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
+      for (int j = 0; j < kFwdTiles; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        Ps[(r * 4 + i) * LP + c + 16 * j] = p;
-        rs += p;
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = exp2_approx((sc[j][e] - m[i]) * kLog2e);
+          sc[j][e] = p;
+          l[i] += p;
+        }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+      // O += P . V over the stage's keys: P from the accumulators, V
+      // [keys][d] read down its rows
+      // (the stage's sum in a fresh accumulator, added to O in f32:
+      // tf32x3.cuh, "Accumulation")
+      float o_st[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o_st[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFwdTiles; ++j) {
+        FragA fp;
+        acc_to_a(fp, sc[j]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          FragB fv;
+          load_b_kn(fv, sm.v[st], 8 * j, 8 * n, lane);
+          mma3(o_st[n], fp, fv);
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
+        for (int e = 0; e < 4; ++e) acc[n][e] += o_st[n][e];
     }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(r * 4 + i) * LP + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * LD + c + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    __syncthreads();                     // every warp is done with stage st
+    if (kt + 2 < n_kt) {
+      const int kn = k0 + 2 * kFwdKeys;
+      load_tile_async<kFwdKeys, kFwdThreads>(sm.k[st], kb_, k_ss, kn, S,
+                                             tid);
+      load_tile_async<kFwdKeys, kFwdThreads>(sm.v[st], vb, v_ss, kn, S,
+                                             tid);
     }
+    cp_async_commit();                 // (empty past the end: the count stays)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + r * 4 + i;
-    if (t >= T_len) continue;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  // o and lse are contiguous [B, T, H, 64] and [B, T, H]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tq = qa + 8 * i;
+    if (tq >= T_len) continue;
     // a row with no live key has l == 0 (the l_safe guard of the TPU kernel)
     const float ls = l[i] == 0.f ? 1.f : l[i];
-    const int64_t row = (static_cast<int64_t>(b) * T_len + t) * H + h;
-    T* orow = o + row * D;
+    const int64_t row = (static_cast<int64_t>(b) * T_len + tq) * H + h;
+    float* orow = o + row * 64 + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) store_f32(acc[i][j] / ls, orow + c + 16 * j);
-    if (c == 0) lse[row] = m[i] + logf(ls);
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
+    if (t4 == 0) lse[row] = m[i] + logf(ls);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* kv_lens,
-           void* o, float* lse, int B, int T_len, int S, int H,
-           int64_t q_sb, int64_t q_st, int64_t q_sh,
-           int64_t k_sb, int64_t k_ss, int64_t k_sh,
-           int64_t v_sb, int64_t v_ss, int64_t v_sh,
-           float scale, int causal, cudaStream_t stream) {
-  constexpr int D = 64;
-  constexpr size_t smem = flash_smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+int launch_tf32(const void* q, const void* k, const void* v,
+                const int* kv_lens, void* o, float* lse, int B, int T_len,
+                int S, int H, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                int64_t v_ss, int64_t v_sh, float scale, int causal,
+                cudaStream_t stream) {
+  constexpr size_t smem = sizeof(FwdF32Smem);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T_len + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_lens, static_cast<T*>(o), lse, T_len, S,
-      H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal);
+  const dim3 grid((T_len + kFwdTile - 1) / kFwdTile, B * H);
+  flash_fwd_tf32_kernel<<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_lens, static_cast<float*>(o), lse,
+      T_len, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -226,7 +290,6 @@ int launch(const void* q, const void* k, const void* v, const int* kv_lens,
 
 constexpr int kWgThreads = 128;   // one warpgroup: 64 q rows
 constexpr int kStages = 2;        // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct FwdSmem {                  // every tile 1024-byte aligned
   __nv_bfloat16 q[64 * 64];
@@ -420,9 +483,9 @@ extern "C" int paddle_flash_attention_fwd(
   if (D != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch<float>(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
-                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                         causal, st);
+    return launch_tf32(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
+                       q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                       causal, st);
   if (dtype == kBF16)
     return launch_bf16(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
                        q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,

@@ -1,6 +1,7 @@
 // Three-pass TF32 products on Hopper's tensor cores (sm_90a), for f32
 // operands that must keep f32's accuracy: the f32 bodies of the flash
-// backward (flash_bwd.cu) and, next, of the forward.
+// forward (flash_fwd.cu) and backward (flash_bwd.cu), and the gate
+// recompute and dU products of the LSTM backward (lstm_seq_bwd.cu).
 //
 // The split. Each f32 operand x is split in registers into big, x
 // rounded to TF32 (11 significant bits; round half away from zero: add
@@ -22,6 +23,16 @@
 // over the 495 TF/s dense TF32 peak. (cvt.rna.tf32.f32 compiles to four
 // or five instructions with a NaN/Inf check on sm_90a; two a split keeps
 // the bodies from being bound by instruction issue.) Inputs are finite.
+//
+// Accumulation. The tensor core adds its products into the f32
+// accumulator without rounding to nearest (the addends are aligned and
+// their low bits dropped), so a sum carried across many mma.sync loses
+// more than an FMA chain would. Summed over the 1023 keys or queries of
+// an attention row, that error was 10x the plain f32 route's and failed
+// chip_smoke.py's f32 GPT-2 training-step check on the H100. So a long
+// sum is taken a pipeline stage at a time: each stage's products go into
+// a fresh accumulator, and the stages' sums are added into the running
+// sum with f32 adds (round to nearest). Within a stage the sum is short.
 //
 // The instruction is mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32,
 // one warp a 16 x 8 x 8 product. Fragments (PTX ISA; lane = 4 g + t):
@@ -179,13 +190,19 @@ __device__ __forceinline__ void ldsm_x4(float (&r)[4], const float* p) {
   r[3] = __uint_as_float(u3);
 }
 
-// A = X[row0 .. row0 + 15][k0 .. k0 + 7] of a [rows][kLdt] tile: the four
+// Each loader takes the tile's row pitch ``ld`` in floats (kLdt for the
+// attention tiles); every pitch ld = 4 mod 8 keeps all of them free of
+// bank conflicts, as kLdt does (a row is an odd number of 16-byte groups
+// for ldmatrix; rows 2t lie 8t banks apart for the scalar loads).
+
+// A = X[row0 .. row0 + 15][k0 .. k0 + 7] of a [rows][ld] tile: the four
 // matrices are (rows +0, cols +0), (+8, +0), (+0, +4), (+8, +4)
 __device__ __forceinline__ void load_a(FragA& f, const float* tile,
-                                       int row0, int k0, int lane) {
+                                       int row0, int k0, int lane,
+                                       int ld = kLdt) {
   const int m = lane >> 3;
   float r[4];
-  ldsm_x4(r, tile + (row0 + (lane & 7) + 8 * (m & 1)) * kLdt + k0
+  ldsm_x4(r, tile + (row0 + (lane & 7) + 8 * (m & 1)) * ld + k0
                  + 4 * (m >> 1));
   split_a(f, r[0], r[1], r[2], r[3]);
 }
@@ -195,10 +212,10 @@ __device__ __forceinline__ void load_a(FragA& f, const float* tile,
 // (+0, +4), (+8, +0), (+8, +4)
 __device__ __forceinline__ void load_b_nk2(FragB& f0, FragB& f1,
                                            const float* tile, int n0, int k0,
-                                           int lane) {
+                                           int lane, int ld = kLdt) {
   const int m = lane >> 3;
   float r[4];
-  ldsm_x4(r, tile + (n0 + (lane & 7) + 8 * (m >> 1)) * kLdt + k0
+  ldsm_x4(r, tile + (n0 + (lane & 7) + 8 * (m >> 1)) * ld + k0
                  + 4 * (m & 1));
   split_b(f0, r[0], r[1]);
   split_b(f1, r[2], r[3]);
@@ -207,9 +224,10 @@ __device__ __forceinline__ void load_b_nk2(FragB& f0, FragB& f1,
 // B = X[k0 .. k0 + 7][n0 .. n0 + 7] of an X[k][n] tile, the reduction
 // index permuted (k = t reads row 2t, k = t + 4 row 2t + 1)
 __device__ __forceinline__ void load_b_kn(FragB& f, const float* tile,
-                                          int k0, int n0, int lane) {
-  const float* p = tile + (k0 + 2 * (lane & 3)) * kLdt + n0 + (lane >> 2);
-  split_b(f, p[0], p[kLdt]);
+                                          int k0, int n0, int lane,
+                                          int ld = kLdt) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  split_b(f, p[0], p[ld]);
 }
 
 // The accumulator of one n-tile (columns 8j .. 8j + 7) as the A fragment

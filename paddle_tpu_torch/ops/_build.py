@@ -61,7 +61,7 @@ SIGNATURES = {
                                  + [_f32, _i32, _p],
     "paddle_lstm_seq": [_p] * 10 + [_i32, _i32, _i32, _f32, _i32, _p],
     "paddle_lstm_seq_train": [_p] * 11 + [_i32, _i32, _i32, _f32, _i32, _p],
-    "paddle_lstm_seq_bwd": [_p] * 17 + [_i32, _i32, _i32, _f32, _i32, _p],
+    "paddle_lstm_seq_bwd": [_p] * 18 + [_i32, _i32, _i32, _f32, _i32, _p],
     "paddle_lstm_batch_tile": [],
     "paddle_gru_seq": [_p] * 8 + [_i32, _i32, _i32, _i32, _p],
     "paddle_gru_seq_bwd": [_p] * 14 + [_i32, _i32, _i32, _i32, _p],

@@ -25,13 +25,12 @@ decode uses on the card.
 In bf16 the forward (#1) and both backward kernels (#2 dq, #3 dk/dv)
 run tensor-core bodies (wgmma on TMA-fed tiles); they round P (#1), dS
 (#2) and Pᵀ, dSᵀ (#3) to bf16 before the second product, where the plain
-versions keep f32. In f32 the backward kernels run on the tensor cores
+versions keep f32. In f32 the three kernels run on the tensor cores
 too, at f32 accuracy: each product is three TF32 products of split
 operands (``csrc/tf32x3.cuh``), on tiles fed by 16-byte ``cp.async``
-copies; the f32 forward runs on the CUDA cores. The bf16 kernels and
-the f32 backward need q, k and v (and, for the backward, o and dO) at a
-16-byte-aligned base with strides of 16-byte multiples, which the
-wrappers check (they raise otherwise).
+copies. Every attention kernel needs q, k and v (and, for the backward,
+o and dO) at a 16-byte-aligned base with strides of 16-byte multiples,
+which the wrappers check (they raise otherwise).
 
 The dense decode read (#4) splits each (sample, head) read across
 blocks when the card would otherwise sit half empty (:func:`decode_splits`):
@@ -173,7 +172,7 @@ def _attention_shapes(what: str, q, k, v, causal: bool):
 
 def _check_tma(what: str, **tensors: torch.Tensor) -> None:
     """The bf16 attention kernels load [B, L, H, 64] operands by TMA, and
-    the f32 backward (#2, #3) by 16-byte ``cp.async`` copies; both need a
+    the f32 ones (#1, #2, #3) by 16-byte ``cp.async`` copies; both need a
     16-byte-aligned base and batch, position and head strides that are
     multiples of 16 bytes (a dimension of size 1 is never stepped).
     Raises on anything else: no copy, no other route."""
@@ -185,8 +184,8 @@ def _check_tma(what: str, **tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"{what}: {name} (strides {tuple(t.stride())}, base "
                 f"{t.data_ptr() % 16} bytes past 16) breaks the TMA rule of "
-                "the bf16 kernels and the f32 backward: a 16-byte-aligned "
-                "base and strides of 16-byte multiples")
+                "the attention kernels: a 16-byte-aligned base and strides "
+                "of 16-byte multiples")
 
 
 def _kernel_lens(what: str, kv_lens: Optional[torch.Tensor], B: int,
@@ -215,8 +214,7 @@ def _flash_attention_fwd_kernel(q, k, v, causal, scale, kv_lens):
     lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
     if B == 0 or T == 0:
         return o, lse
-    if q.dtype == torch.bfloat16:
-        _check_tma(what, q=q, k=k, v=v)
+    _check_tma(what, q=q, k=k, v=v)
     lens = _kernel_lens(what, kv_lens, B, q.device)
     lib = _build.load().lib
     with torch.cuda.device(q.device):

@@ -265,16 +265,20 @@ def _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0, out_seq, c_seq,
         return dxw, dh0, dc0, du
     lib = _build.load().lib
     tiles = -(-B // lib.paddle_lstm_batch_tile())
-    dg_x = torch.empty((2, B, G), dtype=torch.float32, device=xw.device)
-    du_part = torch.empty((tiles, H, G), dtype=torch.float32,
-                          device=xw.device) if tiles > 1 else None
+    # f32 scratch: the recomputed gates of every step [T, B, 4H], which the
+    # kernel overwrites with the gate cotangents; the blocks' partials of
+    # dh, two steps' worth [2, H / 4, B, H]; the batch tiles' dU partials
+    f32 = dict(dtype=torch.float32, device=xw.device)
+    gates = torch.empty((T, B, G), **f32)
+    dh_part = torch.empty((2, H // 4, B, H), **f32)
+    du_part = torch.empty((tiles, H, G), **f32) if tiles > 1 else None
     with torch.cuda.device(xw.device):
         err = lib.paddle_lstm_seq_bwd(
             xw.data_ptr(), lens.data_ptr(), u.data_ptr(), b.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), out_seq.data_ptr(),
             c_seq.data_ptr(), g_out.data_ptr(), g_ht.data_ptr(),
             g_ct.data_ptr(), dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            du.data_ptr(), dg_x.data_ptr(),
+            du.data_ptr(), gates.data_ptr(), dh_part.data_ptr(),
             None if du_part is None else du_part.data_ptr(), B, T, H,
             float(forget_bias), _DTYPE_CODE[xw.dtype], _stream(xw.device))
     _raise_launch(err, "lstm_seq_bwd", B, H)

@@ -445,6 +445,64 @@ def test_lstm_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_flagship_shape_is_bit_equal_across_runs(cuda, dtype):
+    """#10 at the flagship text classifier's shape (B=64: two batch tiles,
+    T=100, H=256, lengths 30..100): within the LSTM tolerance of the plain
+    version, and bit-equal across two runs (its dh partials and dU tiles
+    are summed in a fixed order, no atomics)."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    B, T, H = 64, 100, 256
+    gen = torch.Generator().manual_seed(19)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda, dtype)
+    lens = torch.randint(30, T + 1, (B,), generator=gen).to(cuda,
+                                                            torch.int32)
+    fwd = (rnd(B, T, 4 * H, scale=0.5), lens,
+           ((torch.rand((H, 4 * H), generator=gen) - 0.5) * 0.16).to(
+               cuda, dtype), rnd(4 * H, scale=0.1),
+           torch.zeros(B, H, device=cuda, dtype=dtype),
+           torch.zeros(B, H, device=cuda, dtype=dtype))
+    out, _, _, c_seq = rk.lstm_sequence_fused(*fwd, forget_bias=1.0,
+                                              save_cell=True, route="plain")
+    cot = (rnd(B, T, H, scale=0.01), rnd(B, H, scale=0.01),
+           rnd(B, H, scale=0.01))
+    args = fwd + (out, c_seq) + cot
+    got = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0)
+    again = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0)
+    want = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0, route="plain")
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a)
+        _lstm_close(g, w, dtype, du=i == 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H", [(128, 6, 256), (20, 5, 512), (5, 4, 12)])
+def test_lstm_bwd_at_the_grid_limits_on_card(cuda, dtype, B, T, H):
+    """#10 where its grid needs two blocks an SM (B=128, H=256: 256
+    blocks, a smaller shared-memory plan), at H=512 (one block an SM, one
+    step a stage) and at H=12 (bf16 rows of 24 bytes: 8-byte copies;
+    zero-padded hidden columns), against the plain version."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    gen = torch.Generator().manual_seed(23)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda, dtype)
+    lens = torch.randint(0, T + 1, (B,), generator=gen).to(cuda,
+                                                           torch.int32)
+    fwd = (rnd(B, T, 4 * H, scale=0.5), lens, rnd(H, 4 * H, scale=0.05),
+           rnd(4 * H, scale=0.1), rnd(B, H, scale=0.5), rnd(B, H, scale=0.5))
+    out, _, _, c_seq = rk.lstm_sequence_fused(*fwd, forget_bias=1.0,
+                                              save_cell=True, route="plain")
+    args = fwd + (out, c_seq, rnd(B, T, H, scale=0.1), rnd(B, H, scale=0.1),
+                  rnd(B, H, scale=0.1))
+    got = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0)
+    want = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0, route="plain")
+    for i, (g, w) in enumerate(zip(got, want)):
+        _lstm_close(g, w, dtype, du=i == 3)
+
+
+@pytest.mark.gpu
 def test_textcls_training_step_matches_plain_on_card(cuda):
     """One f32 Adam step of the LSTM text classifier through the kernels
     equals the same step with the plain versions (grads read as Adam's
@@ -567,10 +625,11 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
 
 @pytest.mark.gpu
 def test_flash_bf16_refuses_views_that_break_the_tma_rule(cuda):
-    """The bf16 bodies load q, k and v by TMA, and the f32 backward bodies
-    by 16-byte cp.async copies: a base that is not 16-byte aligned, or a
-    stride that is not a multiple of 16 bytes, raises (no copy, no other
-    route). The f32 forward reads such views in place."""
+    """The bf16 bodies load q, k and v by TMA, and the f32 bodies (the
+    forward and the backward) by 16-byte cp.async copies: a base that is
+    not 16-byte aligned, or a stride that is not a multiple of 16 bytes,
+    raises (no copy, no other route); f32 views that keep the rule are
+    read in place."""
     good = torch.randn(2, 40, 3, 64, device=cuda, dtype=torch.bfloat16)
     wide = torch.randn(2, 40, 3, 68, device=cuda)
     flat = torch.randn(2 * 40 * 3 * 64 + 1, device=cuda)
@@ -593,10 +652,11 @@ def test_flash_bf16_refuses_views_that_break_the_tma_rule(cuda):
             ck.flash_attention_bwd(x, good32, good32, o32, lse32, o32)
         with pytest.raises(ValueError, match="TMA"):
             ck.flash_attention_bwd(good32, good32, x, o32, lse32, o32)
-        po, plse = ck.flash_attention_fwd(x, x, x, route="plain")
-        ko, klse = ck.flash_attention_fwd(x, x, x)
-        torch.testing.assert_close(ko, po, atol=1e-5, rtol=1e-4)
-    x = wide[..., :64]
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_fwd(x, good32, good32)
+        with pytest.raises(ValueError, match="TMA"):
+            ck.flash_attention_fwd(good32, good32, x)
+    x = wide[..., :64]                                   # 272-byte heads
     o32, lse32 = ck.flash_attention_fwd(x, x, x)
     po, plse = ck.flash_attention_fwd(x, x, x, route="plain")
     torch.testing.assert_close(o32, po, atol=1e-5, rtol=1e-4)
@@ -638,6 +698,65 @@ def test_flash_bwd_f32_is_not_one_pass_tf32(cuda, causal):
     got = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     for g, w in zip(got, want):
         _bwd_close(g, w, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["lm", "nmt", "cross", "fused"])
+def test_flash_fwd_f32_matches_plain_at_the_model_shapes(cuda, shape):
+    """#1's f32 body (three TF32 products a product on the tensor cores)
+    against the plain version at chip_smoke.py's phase-6 shapes, with the
+    unchanged f32 tolerance (summation order only: atol 1e-5, rtol 1e-4),
+    and bit-equal across two runs."""
+    B, T, S, H, causal, lens, fused = _BWD_SHAPES[shape]
+    gen = torch.Generator().manual_seed(13)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    if fused:
+        qkv = rnd(B, T, 3 * H * 64)
+        q, k, v = (t.unflatten(-1, (H, 64)) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = rnd(B, T, H, 64), rnd(B, S, H, 64), rnd(B, S, H, 64)
+    kv_lens = None
+    if lens is not None:
+        lo = 32 if shape == "nmt" else 1
+        kv_lens = torch.randint(lo, S + 1, (B,), generator=gen)
+        kv_lens[1] = 0 if shape == "nmt" else S
+        kv_lens = kv_lens.to(cuda)
+    before = ck.LAUNCHES["flash_attention_fwd"]
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=kv_lens)
+    assert ck.LAUNCHES["flash_attention_fwd"] == before + 1
+    po, plse = ck.flash_attention_fwd(q, k, v, causal=causal,
+                                      kv_lens=kv_lens, route="plain")
+    torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-4)
+    again = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=kv_lens)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_f32_is_not_one_pass_tf32(cuda, causal):
+    """The forward's twin of test_flash_bwd_f32_is_not_one_pass_tf32: #1's
+    f32 body runs three TF32 products a product, so it keeps the f32
+    tolerance where one TF32 pass cannot. q = 1 + 2**-14 * randn carries
+    its variation below TF32's 10-bit mantissa: the plain forward with
+    TF32 matmuls allowed fails the f32 tolerance on o, the kernel passes
+    it (both against the plain f32 forward)."""
+    B, T, H = 2, 256, 2
+    gen = torch.Generator().manual_seed(17)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    q = 1.0 + 2.0 ** -14 * rnd(B, T, H, 64)
+    k, v = 4.0 * rnd(B, T, H, 64), rnd(B, T, H, 64)
+    want = ck.flash_attention_fwd(q, k, v, causal=causal, route="plain")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = ck.flash_attention_fwd(q, k, v, causal=causal,
+                                          route="plain")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.allclose(one_pass[0], want[0], atol=1e-5, rtol=1e-4)
+    got = ck.flash_attention_fwd(q, k, v, causal=causal)
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.gpu
