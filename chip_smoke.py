@@ -65,12 +65,14 @@ Phases:
    over [:, :L] views of a [8, 1024, 12, 64] cache, L 256/512/1024, pos
    with 0, L-1 and a drained value past L; #7 at NB 4/8/16 with null-page
    table tails; each timed with the plain version's time, SDPA with a
-   boolean mask beside #4, and the byte bound, #4 with the split count
-   it used; then #4 split across blocks against plain on reads that end
-   inside, on and past chunk boundaries and at pos 0 (B 1/2/8, chosen
-   and forced counts), and its time over forced split counts at the
-   decode paths' B 2 and 8 and each L (with ``--split-sweep`` also at
-   B 1 and 32: the sweep decode_splits' thresholds come from);
+   boolean mask beside #4, and the byte bound, #4 and #5 with the split
+   count they used; then #4 and #5 split across blocks against plain on
+   reads that end inside, on and past chunk boundaries and at pos 0 (B
+   1/2/8, chosen and forced counts, every query and cache dtype), and
+   their times over forced split counts, each count first held against
+   plain, at the decode paths' B 2 and 8 and each L (with
+   ``--split-sweep`` also at B 1 and 32: the sweep decode_splits'
+   thresholds come from);
 10. dense decode — GPT-2 small (random weights from the seed):
    ``generate_fused`` of 8 prompts of 200 tokens, 100 new, bucket 256, in
    f32 and at ``kv_dtype="int8"``, equal to the same loop on the plain
@@ -86,7 +88,8 @@ Phases:
    H=512, lengths 16..32 with one 0, nonzero h0), on its within-length
    flipped input (the reverse direction) and at an edge shape (B=37: a
    partial row tile, lengths 0, 1 and T), with times, plain times and
-   bounds at the bench shape;
+   bounds at the bench shape; the backward also bit-equal across two
+   runs at the bench and edge shapes, and its registers and spills;
 12. seq2seq — the attention seq2seq of benchmarks/seq2seq_nmt.py (vocab
    30000/30000, embed 512, hidden 512, batch 64, lengths 16..32; random
    weights and ids from the seed): one f32 step through the kernels equal
@@ -124,8 +127,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 # an f32-accurate product on the tensor cores is three TF32 products
 # (csrc/tf32x3.cuh; PyTorch's f32 SDPA kernels do the same): the f32 rows
-# of the kernels whose products run there (#1-#3, #10) are bound at three
-# times their operations over the TF32 peak
+# of the kernels whose products run there (#1-#3, #10, #12) are bound at
+# three times their operations over the TF32 peak
 TF32_PASSES = 3
 
 # tolerances, with the reason: the kernels sum in another order than the
@@ -146,7 +149,8 @@ DESIGN = {
     "flash_attention_bwd_dq": {"bfloat16": _TC, "float32": _TF},
     "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _TF},
 }
-# #4's design (both dtypes)
+# #4's and #5's design (every dtype): one body, templated over the row
+# loader
 SPLIT_DESIGN = ("one block per (head, sample) where B*H fills the card or "
                 "the read is short; else the read split into chunks of "
                 "rows, one block each, merged in chunk order by the last "
@@ -316,7 +320,7 @@ def bound(flops: float, nbytes: float, dtype_name: str):
 
 def tensor_core_bound(flops: float, nbytes: float, dtype_name: str) -> dict:
     """The bound of a kernel whose products run on the tensor cores (#1-#3,
-    #10): bf16 as :func:`bound`; in f32 at TF32_PASSES TF32 products a
+    #10, #12): bf16 as :func:`bound`; in f32 at TF32_PASSES TF32 products a
     product over the TF32 peak (the least time f32-accurate products take
     on this card), with the CUDA cores' bound at 67 TF/s beside it as
     ``bound_cuda_core_ms``."""
@@ -1812,7 +1816,8 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
     entries["decode_attention_q"]["library_note"] = \
         entries["paged_decode_attention_q"]["library_note"] = \
         "no single PyTorch call reads an int8 cache with per-row scales"
-    entries["decode_attention"]["design"] = SPLIT_DESIGN
+    entries["decode_attention"]["design"] = \
+        entries["decode_attention_q"]["design"] = SPLIT_DESIGN
 
     def dense(s, route=None):
         return ck.decode_attention(*s[0], k_scale=s[1][0], v_scale=s[1][1],
@@ -1857,7 +1862,7 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
             * (HEAD_DIM * kv_size + (4 if kind == "int8" else 0)),
             sdpa=name == "decode_attention"))
         res.update(bound_ms=b_ms, bound_by=b_by)
-        if name == "decode_attention":       # the split count timed
+        if not is_paged:                     # the split count timed
             res["splits"], res["chunk"] = ck.decode_splits(
                 DECODE_B * DECODE_H, n)
         say(f"{name} {shape} q {qname}: {json.dumps(res)}")
@@ -1870,8 +1875,11 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
         else:
             e[f"{'NB' if is_paged else 'L'}{n}_q{qname}"] = res
     split_edge_checks(say, gen, device)
-    entries["decode_attention"]["split_sweep"] = split_sweep(
-        say, gen, sweep_batches, device)
+    sweep = split_sweep(say, gen, sweep_batches, device)
+    for name in ("decode_attention", "decode_attention_q"):
+        entries[name]["split_sweep"] = {
+            key: res for key, res in sweep.items()
+            if key.endswith("int8") == (name == "decode_attention_q")}
     return [entries[name] for name, _, _, _ in DECODE_KERNELS]
 
 
@@ -1883,21 +1891,38 @@ PATH_BATCHES = (2, 8)
 SWEEP_SPLITS = (1, 2, 4, 8, 16)
 
 
+def _split_read(s, asked):
+    """#4 or #5 (with scales) on a ``_dense_decode_inputs`` set, at the
+    split count ``asked`` (None: decode_splits' choice)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    (q, k, v, pos), (ks, vs) = s
+    return ck._decode_attention_kernel(q, k, v, pos, HEAD_DIM ** -0.5, ks,
+                                       vs, asked)
+
+
+def _plain_read(s):
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    (q, k, v, pos), (ks, vs) = s
+    return ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
+                               route="plain")
+
+
 def split_edge_checks(say, gen, device="cuda"):
-    """#4 against plain, f32 and bf16, at every L of DECODE_READS, with the
-    chosen split and forced counts, on reads whose live rows end inside a
-    chunk, exactly on a chunk's last row, one row into the next chunk, at
-    pos = 0 (every later chunk empty) and past L (drained); one launch a
-    read."""
+    """#4 and #5 against plain, every DECODE_CASES dtype, at every L of
+    DECODE_READS, with the chosen split and forced counts, on reads whose
+    live rows end inside a chunk, exactly on a chunk's last row, one row
+    into the next chunk, at pos = 0 (every later chunk empty) and past L
+    (drained); one launch a read."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     worst, n_reads = 0.0, 0
-    for qname in ("float32", "bfloat16"):
+    for qname, kind in DECODE_CASES:
+        name = "decode_attention_q" if kind == "int8" else "decode_attention"
         for B in SPLIT_BATCHES[:3]:
             for L in DECODE_READS:
                 for asked in (None, 3, 8):
-                    (q, k, v, _), _ = _dense_decode_inputs(
-                        L, qname, qname, gen, device, True, B=B)
+                    (q, k, v, _), scales = _dense_decode_inputs(
+                        L, qname, kind, gen, device, True, B=B)
                     n, chunk = ck.decode_splits(B * DECODE_H, L, asked)
                     ends = [0, chunk - 1, chunk, chunk // 2, L - 1,
                             min(2 * chunk - 1, L - 1), L + 37,
@@ -1905,60 +1930,69 @@ def split_edge_checks(say, gen, device="cuda"):
                     for b0 in range(0, len(ends), B):
                         pos = torch.tensor((ends[b0:] + ends)[:B],
                                            dtype=torch.int32, device=device)
-                        before = ck.LAUNCHES["decode_attention"]
-                        got = ck._decode_attention_kernel(
-                            q, k, v, pos, HEAD_DIM ** -0.5, None, None,
-                            asked)
-                        want = ck.decode_attention(q, k, v, pos,
-                                                   route="plain")
+                        s = ((q, k, v, pos), scales)
+                        before = ck.LAUNCHES[name]
+                        got = _split_read(s, asked)
+                        want = _plain_read(s)
                         torch.cuda.synchronize()
                         err = (got - want).abs().max().item()
-                        check(ck.LAUNCHES["decode_attention"] == before + 1,
-                              "decode_attention: not one launch a read")
+                        check(ck.LAUNCHES[name] == before + 1,
+                              f"{name}: not one launch a read")
                         check(torch.isfinite(got).all().item() and
                               torch.allclose(got, want, atol=F32_ATOL,
                                              rtol=F32_RTOL),
-                              f"decode_attention split B={B} L={L} "
-                              f"splits={n} chunk={chunk} pos "
-                              f"{pos.tolist()} q {qname} differs from "
-                              f"plain: max {err}")
+                              f"{name} split B={B} L={L} splits={n} "
+                              f"chunk={chunk} pos {pos.tolist()} q {qname} "
+                              f"{kind} cache differs from plain: max {err}")
                         worst, n_reads = max(worst, err), n_reads + 1
-    say(f"decode_attention split reads (ends inside, on and past chunk "
-        f"boundaries, pos 0, drained): {n_reads} reads equal to plain, max "
-        f"abs {worst}")
+    say(f"decode_attention and decode_attention_q split reads (ends inside, "
+        f"on and past chunk boundaries, pos 0, drained): {n_reads} reads "
+        f"equal to plain, max abs {worst}")
 
 
 def split_sweep(say, gen, batches, device="cuda"):
-    """#4's time over forced split counts against the chosen one, every
-    row live, f32 and bf16, at each B of ``batches`` and each L of
-    DECODE_READS: at SPLIT_BATCHES, the measurement decode_splits'
-    thresholds come from."""
+    """#4's and #5's times over forced split counts against the chosen
+    one, every row live, each DECODE_CASES dtype, at each B of ``batches``
+    and each L of DECODE_READS (at SPLIT_BATCHES: the measurement
+    decode_splits' thresholds come from); each count's read first held
+    against plain."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     out = {}
-    for qname in ("float32", "bfloat16"):
-        esize = torch.empty((), dtype=getattr(torch, qname)).element_size()
+    for qname, kind in DECODE_CASES:
+        q_size = torch.empty((), dtype=getattr(torch, qname)).element_size()
+        int8 = kind == "int8"
+        kv_size = 1 if int8 else q_size
         for B in batches:
             for L in DECODE_READS:
                 sets = input_sets(lambda i: _dense_decode_inputs(
-                    L, qname, qname, gen, device, True, B=B)[0],
-                    2 * B * L * DECODE_H * HEAD_DIM * esize)
+                    L, qname, kind, gen, device, True, B=B),
+                    2 * B * L * DECODE_H * (HEAD_DIM * kv_size
+                                            + (4 if int8 else 0)))
                 # the chosen count (None) and the forced ones, by the
                 # count each launch uses
                 by = {ck.decode_splits(B * DECODE_H, L, n)[0]: n
                       for n in SWEEP_SPLITS + (None,)}
-                ms = {n: time_ms([
-                    lambda s=s, a=a: ck._decode_attention_kernel(
-                        *s, HEAD_DIM ** -0.5, None, None, a) for s in sets])
-                    for n, a in by.items()}
+                want = _plain_read(sets[0])
+                for n, a in by.items():
+                    got = _split_read(sets[0], a)
+                    err = (got - want).abs().max().item()
+                    check(torch.allclose(got, want, atol=F32_ATOL,
+                                         rtol=F32_RTOL),
+                          f"split sweep B={B} L={L} splits={n} q {qname} "
+                          f"{kind} cache differs from plain: max {err}")
+                ms = {n: time_ms([lambda s=s, a=a: _split_read(s, a)
+                                  for s in sets])
+                      for n, a in by.items()}
                 del sets
                 chosen = ck.decode_splits(B * DECODE_H, L)
-                b_ms, _ = decode_bound(L, esize, esize, False, B=B)
+                b_ms, _ = decode_bound(L, q_size, kv_size, int8, B=B)
                 res = {"chosen": chosen, "ms_by_splits": ms,
                        "bound_ms": b_ms}
-                say(f"decode_attention sweep B={B} H={DECODE_H} L={L} "
-                    f"{qname}: {json.dumps(res)}")
-                out[f"B{B}_L{L}_{qname}"] = res
+                what = "decode_attention_q" if int8 else "decode_attention"
+                say(f"{what} sweep B={B} H={DECODE_H} L={L} q {qname} "
+                    f"{kind} cache: {json.dumps(res)}")
+                out[f"B{B}_L{L}_q{qname}_{kind}"] = res
     return out
 
 
@@ -2140,6 +2174,15 @@ GRU_KERNELS = (
 )
 # the edge shape: a partial last row tile (37 = 32 + 5), lengths 0, 1, T
 GRU_EDGE = (37, 9)
+# #12's design (both dtypes)
+GRU_BWD_DESIGN = ("one cooperative launch in three phases over the live "
+                  "(b, t) rows only: the gate recompute as 64 x 64 "
+                  "tensor-core tiles (mma.sync, three TF32 passes where "
+                  "both operands are f32, fewer for bf16 ones); the "
+                  "reverse recurrence with two grid barriers a step, each "
+                  "block 8 units x 32 rows, the live rows' cotangents "
+                  "read from L2 into registers against U in shared memory "
+                  "and reduced over half-warps; dU as tensor-core tiles")
 
 
 def _gru_inputs(B, T, H, lens, dtype, gen, device, reverse=False):
@@ -2205,6 +2248,7 @@ def gru_kernel_checks(say, seed: int, device="cuda"):
                                       "per-sample length mask with a "
                                       "frozen state"}
                for name, src, rep, body in GRU_KERNELS}
+    entries["gru_seq_bwd"]["design"] = GRU_BWD_DESIGN
     for tag, Bs, Ts, lens, reverse in shapes:
         for dt, dname in ((torch.float32, "float32"),
                           (torch.bfloat16, "bfloat16")):
@@ -2227,6 +2271,11 @@ def gru_kernel_checks(say, seed: int, device="cuda"):
                             check(torch.equal(got[1][b], args[name][4][b]),
                                   f"{name}: a 0-length sample's hT != h0")
                 res = {"max_abs_err": max(errs)}
+                if name == "gru_seq_bwd" and tag != "reverse":
+                    again = _gru_run(name, args[name])
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{name} {tag} {dname}: two runs differ")
+                    res["bit_equal_two_runs"] = True
                 if tag == "bench":
                     res.update(_gru_times(name, B, T, H, lens, dt, dname,
                                           gen, device))
@@ -2247,7 +2296,9 @@ def _gru_times(name, B, T, H, lens, dt, dname, gen, device):
     """Kernel and plain times (CUDA graph over input sets larger than L2)
     and the bound: the products of the live steps (2*H*3H per live
     (sample, step) in the forward, three times that in the backward)
-    against each input read and each output written once."""
+    against each input read and each output written once; the backward's
+    at the tensor cores' rate (:func:`tensor_core_bound`), the forward's
+    at the CUDA cores'."""
     import torch
     es = torch.empty((), dtype=dt).element_size()
     G = 3 * H
@@ -2267,6 +2318,9 @@ def _gru_times(name, B, T, H, lens, dt, dname, gen, device):
     plain_ms = time_ms([lambda s=s: _gru_run(name, s, route="plain")
                         for s in sets], rounds=1, reps=2)
     del sets
+    if name == "gru_seq_bwd":
+        return {"ms": ms, "plain_ms": plain_ms,
+                **tensor_core_bound(flops, nbytes, dname)}
     b_ms, b_by = bound(flops, nbytes, dname)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
@@ -2363,8 +2417,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--split-sweep", action="store_true",
-                    help="time #4's split counts at B 1/2/8/32, not only "
-                         "at the decode paths' B")
+                    help="time #4's and #5's split counts at B 1/2/8/32, "
+                         "not only at the decode paths' B")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
@@ -2436,6 +2490,9 @@ def main(argv=None) -> int:
     flash["launches_decode"] = {run: n.get("flash_attention_fwd", 0)
                                 for run, n in runs.items()}
     gru = gru_kernel_checks(say, args.seed)
+    gru[1]["ptxas"] = ptxas_usage(build, "gru_seq_bwd_kernel")
+    say(f"gru_seq_bwd_kernel registers and spills: "
+        f"{json.dumps(gru[1]['ptxas'])}")
     train, s2s_steps, gen = s2s_phase(say, args.seed)
     for entry in gru:
         name = entry["name"]

@@ -16,19 +16,22 @@
 // bound (pos[b] >= L), so the live count is clamped to L: no row >= L is
 // ever read.
 //
-// #4 splits a read across blocks. Each read walks its live rows one
+// Both reads split across blocks. Each read walks its live rows one
 // dependent row group after another, so a block's time grows with L while
 // the bytes it moves do not fill the card: at B = 8, H = 12 one block per
-// (h, b) is 96 blocks on 132 SMs, the same time in f32 and bf16. So the
-// grid is (H, B, splits): block s walks rows [s*chunk, (s+1)*chunk) of the
-// live ones (a chunk wholly past them walks nothing and gives m = kNeg,
-// l = 0, acc = 0) and writes its partial (m, l, acc[64]) in f32 to
-// scratch. The last block of a (b, h) to finish -- found by an atomic
-// ticket, which it resets for the next launch -- merges the partials in
-// chunk order, so the result is deterministic and one read stays one
-// launch. With one split a block owns its whole read and writes o
-// directly, as #5-#7 do (they keep one block per (h, b)). The split count
-// and chunk come from the wrapper (ops/cuda_kernels.py decode_splits).
+// (h, b) is 96 blocks on 132 SMs, the same time in f32 and bf16, and the
+// int8 read (a quarter of f32's bytes) no faster than f32's. So the grid is
+// (H, B, splits): block s walks rows [s*chunk, (s+1)*chunk) of the live
+// ones (a chunk wholly past them walks nothing and gives m = kNeg, l = 0,
+// acc = 0) and writes its partial (m, l, acc[64]) in f32 to scratch. The
+// last block of a (b, h) to finish -- found by an atomic ticket, which it
+// resets for the next launch -- merges the partials in chunk order, so the
+// result is deterministic and one read stays one launch. With one split a
+// block owns its whole read and writes o directly, as #6 and #7 do (they
+// keep one block per (h, b)). #4 and #5 run one body, templated over the
+// cache's row loader (decode_attn.cuh DenseRows, DenseRowsQ); the split
+// count and chunk come from the wrapper (ops/cuda_kernels.py
+// decode_splits).
 #include "decode_attn.cuh"
 
 namespace paddle_tpu_torch {
@@ -36,19 +39,45 @@ namespace {
 
 using namespace decode;
 
-// #4: block (h, b, s) walks chunk s and writes its partial to
+// The dense caches, as a kernel argument: rows(b, h, lane) is the row
+// loader of one (b, h) read, at this lane's first element.
+template <typename T>
+struct DenseCache {                    // #4: k/v [B, L, H, D] of T
+  const T* k;
+  const T* v;
+  int64_t sb, sl, sh;                  // batch, row and head strides
+  __device__ __forceinline__ DenseRows<T> rows(int b, int h,
+                                               int lane) const {
+    const int64_t at = b * sb + h * sh + lane;
+    return DenseRows<T>{k + at, v + at, sl};
+  }
+};
+
+struct DenseCacheQ {                   // #5: int8 k/v, f32 scales [B, L, H]
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  int64_t sb, sl, sh;                  // k/v strides
+  int64_t ssb, ssl, ssh;               // the scales' strides
+  __device__ __forceinline__ DenseRowsQ rows(int b, int h, int lane) const {
+    const int64_t at = b * sb + h * sh + lane;
+    const int64_t sat = b * ssb + h * ssh;
+    return DenseRowsQ{k + at, v + at, ks + sat, vs + sat, sl, ssl};
+  }
+};
+
+// #4 and #5: block (h, b, s) walks chunk s and writes its partial to
 // part[(b*H + h)*splits + s] = (m, l, acc[kD]); the last of the (b, h)
 // blocks to arrive merges them into o. With one split (part and tickets
 // unused) the block writes o itself.
-template <typename T>
+template <typename TQ, typename Cache>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-dense_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
+dense_decode_split_kernel(const TQ* __restrict__ q, const Cache cache,
                           const int* __restrict__ pos,
                           float* __restrict__ o, float* __restrict__ part,
                           int* __restrict__ tickets, int H, int L,
                           int chunk, int64_t q_sb, int64_t q_sh,
-                          int64_t kv_sb, int64_t kv_sl, int64_t kv_sh,
                           float scale) {
   constexpr int kPart = kD + 2;
   __shared__ bool last;
@@ -61,9 +90,8 @@ dense_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   Partial pt{kNeg, 0.f, 0.f};
   if (j_lo < j_hi) {        // else the chunk is past the live rows
     const int lane = (tid % kLanesPerRow) * kE;
-    const int64_t at = b * kv_sb + h * kv_sh + lane;
-    const DenseRows<T> rows{k + at, v + at, kv_sl};
-    pt = walk_rows(q + b * q_sb + h * q_sh + lane, scale, j_lo, j_hi, rows);
+    pt = walk_rows(q + b * q_sb + h * q_sh + lane, scale, j_lo, j_hi,
+                   cache.rows(b, h, lane));
   }
   if (splits == 1) {        // the whole read (row 0 is live, so l > 0)
     if (tid < kD) o[static_cast<int64_t>(bh) * kD + tid] = pt.acc / pt.l;
@@ -103,51 +131,25 @@ dense_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-dense_decode_q_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
-                      const float* __restrict__ k_scale,
-                      const int8_t* __restrict__ v,
-                      const float* __restrict__ v_scale,
-                      const int* __restrict__ pos, float* __restrict__ o,
-                      int H, int L, int64_t q_sb, int64_t q_sh,
-                      int64_t kv_sb, int64_t kv_sl, int64_t kv_sh,
-                      int64_t sc_sb, int64_t sc_sl, int64_t sc_sh,
-                      float scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lane = (threadIdx.x % kLanesPerRow) * kE;
-  const int64_t at = b * kv_sb + h * kv_sh + lane;
-  const int64_t sat = b * sc_sb + h * sc_sh;
-  const DenseRowsQ rows{k + at, v + at, k_scale + sat, v_scale + sat, kv_sl,
-                        sc_sl};
-  row_walk(q + b * q_sb + h * q_sh + lane, scale, min(pos[b] + 1, L), rows,
-           o + (static_cast<int64_t>(b) * H + h) * kD);
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* pos,
-           float* o, float* part, int* tickets, int B, int H, int L,
-           int splits, int chunk, int64_t q_sb, int64_t q_sh, int64_t kv_sb,
-           int64_t kv_sl, int64_t kv_sh, float scale, cudaStream_t stream) {
+template <typename TQ, typename Cache>
+int launch(const void* q, const Cache& cache, const int* pos, float* o,
+           float* part, int* tickets, int B, int H, int L, int splits,
+           int chunk, int64_t q_sb, int64_t q_sh, float scale,
+           cudaStream_t stream) {
   const dim3 grid(H, B, splits);
-  dense_decode_split_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, o, part, tickets, H, L, chunk, q_sb,
-      q_sh, kv_sb, kv_sl, kv_sh, scale);
+  dense_decode_split_kernel<TQ, Cache><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TQ*>(q), cache, pos, o, part, tickets, H, L, chunk,
+      q_sb, q_sh, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ>
-int launch_q(const void* q, const int8_t* k, const float* k_scale,
-             const int8_t* v, const float* v_scale, const int* pos, float* o,
-             int B, int H, int L, int64_t q_sb, int64_t q_sh, int64_t kv_sb,
-             int64_t kv_sl, int64_t kv_sh, int64_t sc_sb, int64_t sc_sl,
-             int64_t sc_sh, float scale, cudaStream_t stream) {
-  const dim3 grid(H, B);
-  dense_decode_q_kernel<TQ><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TQ*>(q), k, k_scale, v, v_scale, pos, o, H, L, q_sb,
-      q_sh, kv_sb, kv_sl, kv_sh, sc_sb, sc_sl, sc_sh, scale);
-  return (int)cudaGetLastError();
+// the split arguments both entries take: 0 when they tile [0, L)
+inline bool bad_split(int D, int L, int splits, int chunk, const float* part,
+                      const int* tickets) {
+  return D != kD || splits < 1 || chunk < 1 ||
+         (splits > 1 && (part == nullptr || tickets == nullptr)) ||
+         static_cast<int64_t>(splits - 1) * chunk >= L ||
+         static_cast<int64_t>(splits) * chunk < L;
 }
 
 }  // namespace
@@ -167,41 +169,47 @@ extern "C" int paddle_decode_attention(
     int chunk, int64_t q_sb, int64_t q_sh, int64_t kv_sb, int64_t kv_sl,
     int64_t kv_sh, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (D != decode::kD || splits < 1 || chunk < 1 ||
-      (splits > 1 && (part == nullptr || tickets == nullptr)) ||
-      static_cast<int64_t>(splits - 1) * chunk >= L ||
-      static_cast<int64_t>(splits) * chunk < L)
+  if (bad_split(D, L, splits, chunk, part, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch<float>(q, k, v, pos, o, part, tickets, B, H, L, splits,
-                         chunk, q_sb, q_sh, kv_sb, kv_sl, kv_sh, scale, st);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16>(q, k, v, pos, o, part, tickets, B, H, L,
-                                 splits, chunk, q_sb, q_sh, kv_sb, kv_sl,
-                                 kv_sh, scale, st);
+  if (dtype == kF32) {
+    const DenseCache<float> c{static_cast<const float*>(k),
+                              static_cast<const float*>(v), kv_sb, kv_sl,
+                              kv_sh};
+    return launch<float>(q, c, pos, o, part, tickets, B, H, L, splits, chunk,
+                         q_sb, q_sh, scale, st);
+  }
+  if (dtype == kBF16) {
+    const DenseCache<__nv_bfloat16> c{
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), kv_sb, kv_sl, kv_sh};
+    return launch<__nv_bfloat16>(q, c, pos, o, part, tickets, B, H, L,
+                                 splits, chunk, q_sb, q_sh, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // #5. As #4 over an int8 cache k/v [B, L, H, D] (strides as #4's) with f32
 // scales k_scale/v_scale [B, L, H] sharing element strides (sc_sb, sc_sl,
-// sc_sh); q f32 or bf16 (``q_dtype``).
+// sc_sh); q f32 or bf16 (``q_dtype``); the same splits, part and tickets.
 extern "C" int paddle_decode_attention_q(
     const void* q, const int8_t* k, const float* k_scale, const int8_t* v,
-    const float* v_scale, const int* pos, float* o, int B, int H, int D,
-    int L, int64_t q_sb, int64_t q_sh, int64_t kv_sb, int64_t kv_sl,
-    int64_t kv_sh, int64_t sc_sb, int64_t sc_sl, int64_t sc_sh, float scale,
-    int q_dtype, void* stream) {
+    const float* v_scale, const int* pos, float* o, float* part,
+    int* tickets, int B, int H, int D, int L, int splits, int chunk,
+    int64_t q_sb, int64_t q_sh, int64_t kv_sb, int64_t kv_sl, int64_t kv_sh,
+    int64_t sc_sb, int64_t sc_sl, int64_t sc_sh, float scale, int q_dtype,
+    void* stream) {
   using namespace paddle_tpu_torch;
-  if (D != decode::kD) return (int)cudaErrorInvalidValue;
+  if (bad_split(D, L, splits, chunk, part, tickets))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DenseCacheQ c{k, v, k_scale, v_scale, kv_sb, kv_sl, kv_sh,
+                      sc_sb, sc_sl, sc_sh};
   if (q_dtype == kF32)
-    return launch_q<float>(q, k, k_scale, v, v_scale, pos, o, B, H, L, q_sb,
-                           q_sh, kv_sb, kv_sl, kv_sh, sc_sb, sc_sl, sc_sh,
-                           scale, st);
+    return launch<float>(q, c, pos, o, part, tickets, B, H, L, splits, chunk,
+                         q_sb, q_sh, scale, st);
   if (q_dtype == kBF16)
-    return launch_q<__nv_bfloat16>(q, k, k_scale, v, v_scale, pos, o, B, H,
-                                   L, q_sb, q_sh, kv_sb, kv_sl, kv_sh, sc_sb,
-                                   sc_sl, sc_sh, scale, st);
+    return launch<__nv_bfloat16>(q, c, pos, o, part, tickets, B, H, L,
+                                 splits, chunk, q_sb, q_sh, scale, st);
   return (int)cudaErrorInvalidValue;
 }

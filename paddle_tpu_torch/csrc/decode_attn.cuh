@@ -19,9 +19,9 @@
 // int8), so a warp reads 4 rows at once and a dot product is 3 shuffles.
 // The 16 row groups of the block each keep (m, l, acc) and are merged
 // through shared memory at the end. Rows past the live count are never
-// read. #5-#7 run one block per (h, b) over all live rows (row_walk); #4
-// may split a read into chunks of rows, one block each (walk_rows gives a
-// chunk's partial, decode.cu merges them).
+// read. #6 and #7 run one block per (h, b) over all live rows (row_walk);
+// #4 and #5 may split a read into chunks of rows, one block each
+// (walk_rows gives a chunk's partial, decode.cu merges them).
 #pragma once
 
 #include "common.cuh"

@@ -1,14 +1,15 @@
 // Shared parts of the GRU sequence kernels (gru_seq.cu, gru_seq_bwd.cu).
 //
-// The GRU kernels take the LSTM kernels' grid partition and helpers
+// The GRU forward takes the LSTM kernels' grid partition and helpers
 // (lstm.cuh): block (x, y) owns hidden units [x*kUnits, (x+1)*kUnits) for
 // batch rows [y*kRows, (y+1)*kRows), 256 threads laid out as Lane says,
 // rows staged as f32 with stage_rows, products split over kSplit lanes
-// and summed with split_sum, a cooperative launch that checks the whole
-// grid is resident, and the kTooLarge answer. What differs is the gate
-// layout (z, r, candidate; U packed [u_z | u_r | u_c]) and that a GRU step
-// needs two exchanges across the grid: the candidate reads (r*h) @ u_c over
-// all H units.
+// and summed with split_sum. Both kernels take the cooperative launch
+// that checks the whole grid is resident, and the kTooLarge answer (the
+// backward gives a block twice the units, gru_seq_bwd.cu). What differs
+// is the gate layout (z, r, candidate; U packed [u_z | u_r | u_c]) and
+// that a GRU step needs two exchanges across the grid: the candidate
+// reads (r*h) @ u_c over all H units.
 #pragma once
 
 #include "lstm.cuh"
@@ -30,8 +31,8 @@ using lstm::sigmoid;
 using lstm::split_sum;
 using lstm::stage_rows;
 
-// Both GRU kernels are compiled for two blocks an SM: at the bench shape
-// (B = 64, H = 512) the grid is 128 x 2 = 256 blocks on 132 SMs.
+// The GRU forward is compiled for two blocks an SM: at the bench shape
+// (B = 64, H = 512) its grid is 128 x 2 = 256 blocks on 132 SMs.
 constexpr int kMinBlocks = 2;
 
 // Gate columns g0 .. g0+NG-1 of U (each H wide) for the block's units, as
@@ -87,30 +88,6 @@ __device__ __forceinline__ Dots<NG> cols_dot(const float* hs, int ld,
       if (i == l.ks) out.v[g] = s;
     }
   return out;
-}
-
-// The owner's sum over k < width of ds[row, k] * urow[k]: a staged row of
-// cotangents against the unit's row of U (the transposed products of the
-// backward). Every thread of the block must call it.
-__device__ __forceinline__ float row_dot(const float* ds, int ld,
-                                         const float* urow, int width,
-                                         const Lane& l) {
-  float acc[kRowsPer];
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) acc[i] = 0.f;
-  const float* d = ds + l.rg * kRowsPer * ld;
-  for (int k = l.ks; k < width; k += kSplit) {
-    const float wv = urow[k];
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) acc[i] = fmaf(d[i * ld + k], wv, acc[i]);
-  }
-  float mine = 0.f;
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    const float s = split_sum(acc[i]);
-    if (i == l.ks) mine = s;
-  }
-  return mine;
 }
 
 }  // namespace gru

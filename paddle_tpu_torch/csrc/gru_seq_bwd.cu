@@ -14,259 +14,603 @@
 // Returns dxw and dh0 in the I/O dtype and dU [H, 3H] in f32; dx, dW and
 // db (= the sum of dxw) are products outside (ops/rnn.py).
 //
-// What bounds it on the H100: the adjoint recurrence. Three product
-// groups of 2*B*H*3H operations each (the gate recompute, the dh products,
-// dU), but only the dh products are serial: the recompute reads only
-// saved outputs, and dU only the step's cotangents. Within the serial
-// part the chain dgc (all units) -> drh -> dgr (all units) -> dh_{t-1}
-// crosses the grid twice a step.
+// What bounds it on the H100: three product groups of 2*B*H*3H operations
+// each (the gate recompute, the dh products, dU), of which only the dh
+// products are serial: the recompute reads only saved outputs, and dU only
+// the cotangents. Within the serial part the chain dgc (all units) -> drh
+// -> dgr (all units) -> dh_{t-1} crosses the grid twice a step, so the
+// recurrence is bound by two grid barriers a step and by the L2 reads of
+// the cotangent rows that each block needs from all the others.
 //
-// Design: the forward's cooperative grid (gru.cuh), block (x, y) owning
-// kUnits hidden units for kRows batch rows, in three phases:
-//  1. recompute, parallel over t: z and r of the block's units from the
-//     staged h_{t-1} rows, r*h_{t-1} to an f32 sequence in global memory;
-//     one grid barrier; c from the staged r*h rows of all units. z, r, c
-//     go to an f32 scratch sequence that only their owner lane reads back.
-//  2. the reverse recurrence: dgz, dgc of the block's units to an f32
-//     cotangent sequence (f32, not the I/O dtype: the products are formed
-//     from f32 cotangents, as in the JAX kernel); a grid barrier; drh and
-//     dgz @ u_z^T from the staged rows of all units against the block's
-//     rows of U; dgr to the sequence; a second barrier; dgr @ u_r^T. dh
-//     stays in the owner lane's registers. Two barriers a step.
-//  3. dU, parallel over t: the block's 3*kUnits columns, summed over its
-//     rows and steps in shared memory (no atomics); with several batch
-//     tiles each tile's sum goes to a partial buffer and, after one more
-//     barrier, the first tile's blocks add the partials in a fixed order
-//     (deterministic).
-// Shared memory holds the staged rows and, in turn, U's columns (phase
-// 1), U's rows (phase 2) and the dU accumulator (phase 3).
+// Design: one cooperative launch, block (x, y) owning kOwnUnits hidden
+// units for kRows batch rows in the recurrence; the parallel phases are
+// products over the live (b, t) rows only, dealt out to all blocks as 64 x
+// 64 output tiles:
+//  0. the live rows: each block takes the rows' prefix sums of the lengths
+//     into shared memory; the grid compacts the live (b, t) rows -- a step
+//     at or past a sample's length adds exactly nothing to any output --
+//     into rowmap (row i -> b*T + t) and hp_seq (h_{t-1} of row i, I/O
+//     dtype). One grid barrier.
+//  1. the gate recompute as products on the tensor cores (mma.sync m16n8k8,
+//     tf32x3.cuh: three TF32 passes where both operands are f32, two where
+//     one is bf16, one where both are: bf16 values are exact in TF32):
+//     [z|r] = sigma(xw_zr + HP @ [u_z|u_r]) with r*h_{t-1} in f32 to
+//     rh_seq; a grid barrier; c = tanh(xw_c + RH @ u_c). z, r, c go to the
+//     f32 scratch `gates` [rows, 3H]. A and B tiles of 64-deep stages by
+//     cp.async, the next stage in flight during each stage's products,
+//     each stage into fresh accumulators added in f32 (tf32x3.cuh,
+//     "Accumulation"). Each A row is read 3H/64 times, not H/4 times as
+//     when every block streamed every row.
+//  2. the reverse recurrence, two grid barriers a step. An owner lane
+//     (row, unit) forms its dgz, dgc, then dgr, and writes them to dxw and,
+//     in f32, over the gates it read (only it reads those entries): the
+//     scratch becomes the cotangent sequence. The products with U^T need
+//     the cotangents of all H units of the block's rows: warp w takes 4
+//     rows, each half-warp 2 of them, and reads their cotangents straight
+//     from L2 into registers, all of a row's at once (each value is used
+//     once in the block, so staging it through shared memory would only
+//     add traffic): lane l the columns 64i + 4l .. +3, multiplied on the
+//     CUDA cores with the block's 8 rows of U held interleaved in shared
+//     memory (2 rows x 8 units x 4 columns a lane per 8 16-byte loads; the
+//     z and r products' loads in flight together). A
+//     reduce-scatter over the half-warp (15 shuffles) leaves lane l with
+//     the sum of (row l / 8, unit l % 8), that lane's own (row, unit). Only
+//     rows live at the step are read; a row past its length keeps dh (its
+//     cotangents are 0). Eight units a block, not four, halve what the grid
+//     reads from L2 a step.
+//  3. dU = [HP^T dgz | HP^T dgr | RH^T dgc] over the live rows, as phase
+//     1's tiles with A read transposed; one owner per output tile and a
+//     fixed order of sums, no atomics.
+// Every output element has one owner and every sum a fixed order, so the
+// result is deterministic.
+#include <type_traits>
+
 #include "gru.cuh"
+#include "tf32x3.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
 
 using namespace gru;
 
-constexpr int kCols = 3 * kUnits;    // gate columns a block owns
-constexpr int kDuLd = kCols + kPad;  // row stride of the dU accumulator
-// row padding of U's rows in shared memory: the 4 units' rows land 8
-// banks apart
-constexpr int kPadU = 8;
+constexpr int kWarps = kThreads / 32;    // 8
+constexpr int kOwnUnits = 8;             // hidden units a block owns
+constexpr int kRowsW = kRows / kWarps;   // 4 rows a warp in the recurrence
+// the output tiles of phases 1 and 3 and the depth of a stage
+constexpr int kTM = 64, kTN = 64, kTK = 64;
+// one stage in shared memory: the A tile ([64][kTK + 4] or [kTK][68] f32
+// at most) and the B tile ([kTK][72] f32 at most)
+constexpr int kTileA =
+    (kTM * (kTK + 4) > kTK * 68 ? kTM * (kTK + 4) : kTK * 68) * 4;
+constexpr int kTileB = kTK * 72 * 4;
+constexpr int kStage = kTileA + kTileB;
+// stages in the ring: the next stage's copies fly while one is multiplied
+// (three or four stages, 32- or 128-deep stages and 128 x 64 tiles
+// measured no faster on the H100)
+constexpr int kStages = 2;
+// the recurrence's products: a lane reads its 2 rows' cotangents in
+// chunks of kChunk 64-column steps, all in flight at once
+constexpr int kChunk = 8;
 
-__host__ __device__ inline size_t region_floats(int H) {
-  const size_t cols = static_cast<size_t>(H) * kUnits * 3;
-  const size_t rows = static_cast<size_t>(kUnits) * (3 * H + kPadU);
-  const size_t acc = static_cast<size_t>(H) * kDuLd + kRows * kCols;
-  size_t m = cols > rows ? cols : rows;
-  return m > acc ? m : acc;
+// Tile pitches, in elements, each keeping its loader free of bank
+// conflicts and rows 16-byte aligned: kRowK for [64][kTK] tiles read along
+// their rows (phase 1's A, by ldmatrix or load_a_rows), kNat for [32][64]
+// tiles read down their columns in the natural k order (phase 1's B,
+// load_b_rows: rows t lie 8t banks apart), kPerm for [32][64] tiles read
+// down their columns with tf32x3.cuh's permuted k order (phase 3's A and
+// B, load_a_km and load_b_kn: rows 2t lie 8t banks apart). The two orders
+// must not meet in one product.
+template <typename T>
+struct Pitch;
+template <>
+struct Pitch<float> {
+  static constexpr int kRowK = kTK + 4, kNat = 72, kPerm = 68;
+};
+template <>
+struct Pitch<__nv_bfloat16> {
+  static constexpr int kRowK = kTK + 8, kNat = 80, kPerm = 72;
+};
+
+// B = X[k0 .. +7][n0 .. +7] of an X[k][n] tile in the natural k order
+// (b0 at k = t, b1 at k = t + 4), to meet load_a_rows' A
+template <typename T>
+__device__ __forceinline__ void load_b_rows(tf32x3::FragB& f, const T* tile,
+                                            int k0, int n0, int lane,
+                                            int ld) {
+  const T* p = tile + (k0 + (lane & 3)) * ld + n0 + (lane >> 2);
+  tf32x3::split_b(f, to_f32(p[0]), to_f32(p[4 * ld]));
 }
 
-__host__ __device__ inline size_t bwd_smem_bytes(int H) {
-  return (static_cast<size_t>(kRows) * (H + kPad) + region_floats(H)) *
-         sizeof(float);
+// A matrix in global memory: element (r, c) at p[r * ld + c], for
+// r < rows and c < cols
+template <typename T>
+struct Mat {
+  const T* p;
+  int64_t ld;
+  int rows, cols;
+};
+
+__host__ __device__ inline size_t head_bytes(int B) {
+  return (static_cast<size_t>(B + 2) * sizeof(int) + 15) / 16 * 16;
 }
 
-// h_{t-1} rows of the block's tile: the saved output at t > 0, h0 at t = 0
+// U's rows of the block's units for the recurrence: 3 gates x nit column
+// steps of 64 x 4 x 2 x 16 float4 (see phase 2)
+__host__ __device__ inline size_t u_bytes(int H) {
+  return static_cast<size_t>(3) * ((H + 63) / 64) * 128 * sizeof(float4);
+}
+
+__host__ __device__ inline size_t bwd_smem_bytes(int B, int H) {
+  const size_t stages = kStages * static_cast<size_t>(kStage);
+  const size_t ub = u_bytes(H);
+  return head_bytes(B) + (stages > ub ? stages : ub);
+}
+
+// a live row's xw row and h_{t-1} row, for phase 1's epilogues
 template <typename DT>
-__device__ __forceinline__ void stage_h_prev(const DT* out, const DT* h0,
-                                             int t, int b0, int B, int T,
-                                             int H, float* buf, int ld) {
-  if (t > 0)
-    stage_rows(out + static_cast<int64_t>(t - 1) * H,
-               static_cast<int64_t>(T) * H, b0, B, H, buf, ld);
-  else
-    stage_rows(h0, H, b0, B, H, buf, ld);
+struct LiveRow {
+  const DT* xw;
+  const DT* hp;
+};
+
+// Rows r0 .. r0+R-1, columns c0 .. c0+C-1 of m into dst[R][pitch] by
+// cp.async, zeros past m's edges. 16-byte copies, or 8-byte ones for bf16
+// rows of 4k + 4 elements (``narrow``); m's column counts are multiples of
+// a copy's elements.
+template <int R, int C, typename T>
+__device__ __forceinline__ void load_tile(T* dst, int pitch, const Mat<T>& m,
+                                          int r0, int c0, bool narrow) {
+  const bool n8 = narrow && sizeof(T) == 2;
+  const int e = (n8 ? 8 : 16) / static_cast<int>(sizeof(T));
+  // copies a row: a power of two, so a shift and a mask split idx
+  const int sh = 31 - __clz(C / e);
+  for (int idx = threadIdx.x; idx < R << sh; idx += kThreads) {
+    const int r = idx >> sh, c = (idx & ((1 << sh) - 1)) * e;
+    const bool in = r0 + r < m.rows && c0 + c < m.cols;
+    const T* src = in ? m.p + (r0 + r) * m.ld + c0 + c : m.p;
+    if (n8)
+      tf32x3::cp_async8(dst + r * pitch + c, src, in);
+    else
+      tf32x3::cp_async16(dst + r * pitch + c, src, in);
+  }
 }
 
+// C = A . B on the tensor cores, C [M][N] in 64 x 64 tiles dealt out to
+// the grid's blocks in turn, K in stages of kTK (a ring of kStages). A is
+// [M][K] (kAT false: rows of h_{t-1} or r*h_{t-1}) or given as its
+// transpose [K][M] (kAT true: the dU products), B is [K][N]. Warp w takes
+// the tile's rows 16 (w % 4) .. +15 and columns 32 (w / 4) .. +31. Each
+// stage sums into fresh accumulators added in f32 (tf32x3.cuh,
+// "Accumulation"). epi(row(m), m, n, v) receives every element with m < M,
+// n < N; row(m) is taken once a row, before its elements.
+template <bool kAT, bool kAExact, bool kBExact, typename TA, typename TB,
+          typename Row, typename Epi>
+__device__ __forceinline__ void gemm(const Mat<TA>& a, const Mat<TB>& b,
+                                     int M, int N, int K, bool narrow,
+                                     uint8_t* region, Row row, Epi epi) {
+  using namespace tf32x3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  constexpr int pa = kAT ? Pitch<TA>::kPerm : Pitch<TA>::kRowK;
+  constexpr int pb = kAT ? Pitch<TB>::kPerm : Pitch<TB>::kNat;
+  auto ta = [&](int s) {
+    return reinterpret_cast<TA*>(region + (s % kStages) * kStage);
+  };
+  auto tb = [&](int s) {
+    return reinterpret_cast<TB*>(region + (s % kStages) * kStage + kTileA);
+  };
+  const int tiles_n = (N + kTN - 1) / kTN;
+  const int tiles = (M + kTM - 1) / kTM * tiles_n;
+  const int n_st = (K + kTK - 1) / kTK;
+  for (int tile = blockIdx.y * gridDim.x + blockIdx.x; tile < tiles;
+       tile += gridDim.x * gridDim.y) {
+    const int m0 = tile / tiles_n * kTM, n0 = tile % tiles_n * kTN;
+    // stage s's copies as one group (an empty one past the last stage,
+    // so that every wait below counts the same groups)
+    auto issue = [&](int s) {
+      if (s < n_st) {
+        const int k0 = s * kTK;
+        if constexpr (kAT)
+          load_tile<kTK, kTM>(ta(s), pa, a, k0, m0, narrow);
+        else
+          load_tile<kTM, kTK>(ta(s), pa, a, m0, k0, narrow);
+        load_tile<kTK, kTN>(tb(s), pb, b, k0, n0, narrow);
+      }
+      cp_async_commit();
+    };
+    float acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    __syncthreads();                   // the last tile's readers are done
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) issue(s);
+    for (int s = 0; s < n_st; ++s) {
+      cp_async_wait<kStages - 2>();    // stage s has landed
+      // ... for every thread, and every warp is done with stage s - 1,
+      // whose buffer the next issue refills
+      __syncthreads();
+      issue(s + kStages - 1);
+      const TA* at = ta(s);
+      const TB* bt = tb(s);
+      float sacc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kTK / 8; ++ks) {
+        // both operands in one k order: permuted (phase 3) or natural
+        FragA fa;
+        if constexpr (kAT)
+          load_a_km(fa, at, 8 * ks, 16 * wm, lane, pa);
+        else
+          load_a_rows(fa, at, 16 * wm, 8 * ks, lane, pa);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          FragB fb;
+          if constexpr (kAT)
+            load_b_kn(fb, bt, 8 * ks, 32 * wn + 8 * n, lane, pb);
+          else
+            load_b_rows(fb, bt, 8 * ks, 32 * wn + 8 * n, lane, pb);
+          mma_passes<kAExact, kBExact>(sacc[n], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += sacc[n][e];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 16 * wm + g4 + 8 * i;
+      if (m >= M) continue;
+      const auto ctx = row(m);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = n0 + 32 * wn + 8 * n + 2 * t4 + c;
+          if (col < N) epi(ctx, m, col, acc[n][2 * i + c]);
+        }
+    }
+  }
+}
+
+// One halving step of reduce_scatter: lanes l and l ^ HALF keep the
+// halves of v[0 .. 2 HALF) that bit HALF of l selects, each adding the
+// other's copy of its half
+template <int HALF, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane) {
+  const bool hi = lane & HALF;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float send = hi ? v[j] : v[j + HALF];
+    const float keep = hi ? v[j + HALF] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+  }
+}
+
+// The sum over the 16 lanes of each half-warp of each of v[0 .. 15], left
+// in lane l for index l % 16: four halving steps, 15 shuffles (a fixed
+// tree, so the sums are deterministic)
+__device__ __forceinline__ float reduce_scatter(float (&v)[16], int lane) {
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0];
+}
+
+// the owner's sums of the recurrence's products, one a gate
+template <int NG>
+struct Sums {
+  float v[NG];
+};
+
+__device__ __forceinline__ float comp(const float4& x, int k) {
+  return k == 0 ? x.x : k == 1 ? x.y : k == 2 ? x.z : x.w;
+}
+
+// One block an SM: with twice the forward's units a block the grid is half
+// the forward's (64 x 2 = 128 blocks at B = 64, H = 512), so the same
+// shapes fit, and 255 registers a thread keep the products free of spills
+// (held to 128 for two blocks an SM they spilled, and the kernel ran 5%
+// and 8% slower in f32 and bf16 on the H100)
 template <typename DT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
 gru_seq_bwd_kernel(const DT* __restrict__ xw, const int* __restrict__ lens,
                    const DT* __restrict__ u, const DT* __restrict__ h0,
                    const DT* __restrict__ out, const DT* __restrict__ g_out,
                    const DT* __restrict__ g_ht, DT* __restrict__ dxw,
                    DT* __restrict__ dh0, float* __restrict__ du,
                    float* __restrict__ gates, float* __restrict__ rh_seq,
-                   float* __restrict__ dg_seq, float* __restrict__ du_part,
-                   int B, int T, int H) {
-  extern __shared__ float4 smem[];
-  const int ld = H + kPad;
-  float* buf = reinterpret_cast<float*>(smem);  // [kRows][ld]
-  float* reg = buf + kRows * ld;                // the phase's region
+                   DT* __restrict__ hp_seq, int* __restrict__ rowmap, int B,
+                   int T, int H) {
+  // bf16 h and U are exact in TF32 (tf32x3.cuh mma_passes)
+  constexpr bool kExact = sizeof(DT) == 2;
+  extern __shared__ float4 smem_f4[];
+  int* pre = reinterpret_cast<int*>(smem_f4);   // [B + 1], then the max
+  uint8_t* region = reinterpret_cast<uint8_t*>(smem_f4) + head_bytes(B);
   const int64_t G = 3 * static_cast<int64_t>(H);
-  const int64_t TH = static_cast<int64_t>(T) * H, TG = T * G;
-  const Lane l;
-  const int j0 = blockIdx.x * kUnits, b0 = blockIdx.y * kRows;
-  const int r = l.row(), b = b0 + r, unit = j0 + l.u;
-  const bool live = l.owner() && b < B;
-  const int64_t bh = static_cast<int64_t>(b) * H + unit;
-  const int len = live ? lens[b] : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool narrow = H % 8 != 0;
   cg::grid_group grid = cg::this_grid();
 
-  // ---- phase 1: recompute z, r, r*h_{t-1} and c of every step ----------
-  float* wzr = reg;                  // [H][kUnits][2]
-  float* wc = reg + H * kUnits * 2;  // [H][kUnits]
-  stage_cols<2>(u, H, j0, 0, wzr);
-  stage_cols<1>(u, H, j0, 2, wc);
-  for (int t = 0; t < T; ++t) {
-    const int64_t bt = static_cast<int64_t>(b) * T + t;
-    float xz = 0.f, xr = 0.f;
-    if (live) {
-      xz = to_f32(xw[bt * G + unit]);
-      xr = to_f32(xw[bt * G + H + unit]);
-    }
-    __syncthreads();  // the previous step's readers of buf are done
-    stage_h_prev(out, h0, t, b0, B, T, H, buf, ld);
-    __syncthreads();
-    const Dots<2> zr = cols_dot<2>(buf, ld, wzr, H, l);
-    if (live) {
-      const float z = sigmoid(xz + zr.v[0]);
-      const float rr = sigmoid(xr + zr.v[1]);
-      gates[bt * G + unit] = z;
-      gates[bt * G + H + unit] = rr;
-      rh_seq[bt * H + unit] = rr * buf[r * ld + unit];
-    }
-  }
-  grid.sync();  // every block's r*h_{t-1} of every step is written
-  for (int t = 0; t < T; ++t) {
-    const int64_t bt = static_cast<int64_t>(b) * T + t;
-    const float xc = live ? to_f32(xw[bt * G + 2 * H + unit]) : 0.f;
-    __syncthreads();
-    stage_rows(rh_seq + static_cast<int64_t>(t) * H, TH, b0, B, H, buf, ld);
-    __syncthreads();
-    const Dots<1> dc = cols_dot<1>(buf, ld, wc, H, l);
-    if (live) gates[bt * G + 2 * H + unit] = tanhf(xc + dc.v[0]);
-  }
-
-  // ---- phase 2: the reverse recurrence ----------------------------------
-  const int ldu = 3 * H + kPadU;
-  float* urows = reg;  // [kUnits][ldu]: U's rows of the block's units
-  __syncthreads();     // phase 1's readers of the region are done
-  for (int idx = threadIdx.x; idx < kUnits * G; idx += blockDim.x) {
-    const int row = idx / G, col = idx % G;
-    urows[row * ldu + col] = to_f32(u[(j0 + row) * G + col]);
-  }
-  const float* urow = urows + l.u * ldu;
-  float dh = live ? to_f32(g_ht[bh]) : 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    const int64_t bt = static_cast<int64_t>(b) * T + t;
-    const float* dg_t = dg_seq + static_cast<int64_t>(t) * G;
-    float z = 0.f, rr = 0.f, h_prev = 0.f, m = 0.f, dh_t = 0.f, dhp = 0.f;
-    float dgz = 0.f, dgc = 0.f;
-    if (live) {
-      z = gates[bt * G + unit];
-      rr = gates[bt * G + H + unit];
-      const float c = gates[bt * G + 2 * H + unit];
-      h_prev = t > 0 ? to_f32(out[bt * H - H + unit]) : to_f32(h0[bh]);
-      m = t < len ? 1.f : 0.f;
-      dh_t = dh + m * to_f32(g_out[bt * H + unit]);
-      dhp = m * dh_t;
-      dgz = (dhp * (c - h_prev)) * z * (1.f - z);
-      dgc = (dhp * z) * (1.f - c * c);
-      dg_seq[bt * G + unit] = dgz;
-      dg_seq[bt * G + 2 * H + unit] = dgc;
-    }
-    // every block's dgz and dgc of step t are written, and every block is
-    // done reading buf
-    grid.sync();
-    stage_rows(dg_t + 2 * H, TG, b0, B, H, buf, ld);
-    __syncthreads();
-    const float drh = row_dot(buf, ld, urow + 2 * H, H, l);
-    __syncthreads();
-    stage_rows(dg_t, TG, b0, B, H, buf, ld);
-    __syncthreads();
-    const float az = row_dot(buf, ld, urow, H, l);
-    if (live) {
-      const float dgr = (drh * h_prev) * rr * (1.f - rr);
-      dg_seq[bt * G + H + unit] = dgr;
-      store_f32(dgz, dxw + bt * G + unit);
-      store_f32(dgr, dxw + bt * G + H + unit);
-      store_f32(dgc, dxw + bt * G + 2 * H + unit);
-    }
-    grid.sync();  // every block's dgr of step t is written
-    stage_rows(dg_t + H, TG, b0, B, H, buf, ld);
-    __syncthreads();
-    const float ar = row_dot(buf, ld, urow + H, H, l);
-    if (live)
-      dh = ((1.f - m) * dh_t + dhp * (1.f - z)) + drh * rr + az + ar;
-  }
-  if (live) store_f32(dh, dh0 + bh);
-
-  // ---- phase 3: dU of the block's columns, summed over rows and steps ---
-  float* acc = reg;                 // [H][kDuLd]
-  float* dgl = reg + H * kDuLd;     // [kRows][kCols]: this step's dgates
-  __syncthreads();                  // phase 2's readers of the region
-  for (int idx = threadIdx.x; idx < H * kDuLd; idx += blockDim.x)
-    acc[idx] = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const int64_t bt = static_cast<int64_t>(b) * T + t;
-    __syncthreads();
-    stage_h_prev(out, h0, t, b0, B, T, H, buf, ld);
-    if (l.owner()) {  // rows past B add zero
+  // ---- 0. the live rows ---------------------------------------------------
+  // pre[b] = live rows of the samples before b (lengths clamped to
+  // [0, T]), pre[B] = all of them, pre[B + 1] = the longest length
+  if (warp == 0) {
+    int carry = 0, longest = 0;
+    for (int base = 0; base < B; base += 32) {
+      const int v = base + lane < B ? min(max(lens[base + lane], 0), T) : 0;
+      int x = v, y = v;
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
-        dgl[r * kCols + g * kUnits + l.u] =
-            b < B ? __ldcg(dg_seq + bt * G + g * H + unit) : 0.f;
-    }
-    __syncthreads();
-    // z and r columns from h_{t-1}, then the c columns from r*h_{t-1};
-    // thread k owns row k of the accumulator
-    for (int pass = 0; pass < 2; ++pass) {
-      if (pass == 1) {
-        __syncthreads();
-        stage_rows(rh_seq + static_cast<int64_t>(t) * H, TH, b0, B, H, buf,
-                   ld);
-        __syncthreads();
+      for (int off = 1; off < 32; off <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += up;
+        y = max(y, __shfl_xor_sync(0xffffffffu, y, off));
       }
-      const int q0 = pass == 0 ? 0 : 2 * kUnits;
-      const int nq = pass == 0 ? 2 * kUnits : kUnits;
-      for (int k = threadIdx.x; k < H; k += blockDim.x) {
-        float a[2 * kUnits];
-        float* arow = acc + k * kDuLd + q0;
+      if (base + lane < B) pre[base + lane] = carry + x - v;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+      longest = max(longest, y);
+    }
+    if (lane == 0) {
+      pre[B] = carry;
+      pre[B + 1] = longest;
+    }
+  }
+  __syncthreads();
+  const int n_live = pre[B], t_max = pre[B + 1];
+  {
+    // row i belongs to the last sample b with pre[b] <= i (samples of
+    // length 0 share their successor's pre), step t = i - pre[b]; a warp a
+    // row, lanes over its 16- (8-) byte pieces
+    const int nw = gridDim.x * gridDim.y * kWarps;
+    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * kWarps + warp;
+         i < n_live; i += nw) {
+      int lo = 0, hi = B;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (pre[mid] <= i)
+          lo = mid;
+        else
+          hi = mid;
+      }
+      const int t = i - pre[lo];
+      const int64_t bt = static_cast<int64_t>(lo) * T + t;
+      if (lane == 0) rowmap[i] = static_cast<int>(bt);
+      const DT* src = t > 0 ? out + (bt - 1) * H
+                            : h0 + static_cast<int64_t>(lo) * H;
+      DT* dst = hp_seq + static_cast<int64_t>(i) * H;
+      if (sizeof(DT) == 4 || !narrow) {
+        constexpr int E = 16 / sizeof(DT);
+        for (int c = E * lane; c < H; c += 32 * E)
+          *reinterpret_cast<uint4*>(dst + c) =
+              *reinterpret_cast<const uint4*>(src + c);
+      } else {
+        for (int c = 4 * lane; c < H; c += 128)
+          *reinterpret_cast<uint2*>(dst + c) =
+              *reinterpret_cast<const uint2*>(src + c);
+      }
+    }
+  }
+  grid.sync();
+
+  // ---- 1. z, r, r*h_{t-1} and c of every live row -------------------------
+  const Mat<DT> hp{hp_seq, H, n_live, H};
+  const Mat<float> rh{rh_seq, H, n_live, H};
+  // the epilogues' row: xw's row and h_{t-1}'s (plain loads: rowmap was
+  // written before the last grid barrier and never read here before it)
+  auto live_row = [&](int i) {
+    const int64_t bt = rowmap[i], t = bt % T;
+    return LiveRow<DT>{xw + bt * G,
+                       t > 0 ? out + (bt - 1) * H : h0 + (bt / T) * H};
+  };
+  gemm<false, kExact, kExact>(
+      hp, Mat<DT>{u, G, H, 2 * H}, n_live, 2 * H, H, narrow, region,
+      live_row, [&](const LiveRow<DT>& r, int i, int n, float v) {
+        const float s = sigmoid(to_f32(r.xw[n]) + v);
+        gates[i * G + n] = s;
+        if (n >= H)
+          rh_seq[static_cast<int64_t>(i) * H + n - H] =
+              s * to_f32(r.hp[n - H]);
+      });
+  grid.sync();                         // r*h_{t-1} of every unit is written
+  gemm<false, false, kExact>(
+      rh, Mat<DT>{u + 2 * H, G, H, H}, n_live, H, H, narrow, region,
+      live_row, [&](const LiveRow<DT>& r, int i, int n, float v) {
+        gates[i * G + 2 * H + n] = tanhf(to_f32(r.xw[2 * H + n]) + v);
+      });
+  grid.sync();                         // every gate is written
+
+  // ---- 2. the reverse recurrence -------------------------------------------
+  const int j0 = blockIdx.x * kOwnUnits, b0 = blockIdx.y * kRows;
+  const int nit = (H + 63) / 64;
+  // us[(((g*nit + it)*4 + kk)*2 + h)*16 + l] = U[j0 + 4h + 0..3, g*H + k]
+  // for k = 64 it + 4 l + kk: a half-warp's 16-byte loads of its columns
+  // are consecutive (free of bank conflicts), the two halves' the same
+  float4* us = reinterpret_cast<float4*>(region);
+  for (int idx = tid; idx < 3 * nit * 128; idx += kThreads) {
+    const int l = idx & 15, h = (idx >> 4) & 1, kk = (idx >> 5) & 3;
+    const int rest = idx >> 7, it = rest % nit, g = rest / nit;
+    const int k = 64 * it + 4 * l + kk;
+    float w[4];
 #pragma unroll
-        for (int q = 0; q < 2 * kUnits; ++q) a[q] = q < nq ? arow[q] : 0.f;
-        for (int rr_ = 0; rr_ < kRows; ++rr_) {
-          const float hv = buf[rr_ * ld + k];
-          const float* d = dgl + rr_ * kCols + q0;
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + 4 * h + q;
+      w[q] = j < H && k < H ? to_f32(u[j * G + g * H + k]) : 0.f;
+    }
+    us[idx] = make_float4(w[0], w[1], w[2], w[3]);
+  }
+  __syncthreads();
+  // the warp's 4 rows' lengths; half-warp h takes rows 2h and 2h + 1, of
+  // which this lane keeps the first live row index
+  const int half = lane >> 4, kl = lane & 15;
+  int wlen[kRowsW], rib[2], rlen[2];
 #pragma unroll
-          for (int q = 0; q < 2 * kUnits; ++q)
-            if (q < nq) a[q] = fmaf(hv, d[q], a[q]);
+  for (int q = 0; q < kRowsW; ++q) {
+    const int bb = b0 + kRowsW * warp + q;
+    wlen[q] = bb < B ? pre[bb + 1] - pre[bb] : 0;
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int bb = b0 + kRowsW * warp + 2 * half + q;
+    rib[q] = bb < B ? pre[bb] : 0;
+    rlen[q] = bb < B ? pre[bb + 1] - pre[bb] : 0;
+  }
+  // this lane owns (row l / 8 of the warp, unit l % 8 of the block): the
+  // index that the reduce-scatter leaves it
+  const int ro = lane >> 3;
+  const int b = b0 + kRowsW * warp + ro, unit = j0 + (lane & 7);
+  const bool own = b < B && unit < H;
+  const int len = own ? pre[b + 1] - pre[b] : 0;
+  const int ib = own ? pre[b] : 0;
+  const int64_t bh = static_cast<int64_t>(b) * H + unit;
+
+  // sums over all H units k of cot[row, g*H + k] * U[unit, g*H + k] for
+  // the gates g = g0 .. g0 + NG - 1 (their loads all in flight at once)
+  // and the warp's rows live at t, as the owner's values (0 for a dead
+  // row): lane (h, l) the columns 64 it + 4 l .. +3 of rows 2h, 2h + 1
+  // against the block's 8 units, 16 sums a gate, reduced over the
+  // half-warp
+  auto dot = [&](auto ng, int g0, int t) {
+    constexpr int NG = decltype(ng)::value;
+    Sums<NG> out;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) out.v[g] = 0.f;
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < kRowsW; ++q) any |= t < wlen[q];
+    if (!any) return out;              // uniform across the warp
+    const bool rl[2] = {t < rlen[0], t < rlen[1]};
+    float acc[NG][16];
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[g][e] = 0.f;
+    for (int it0 = 0; it0 < nit; it0 += kChunk) {
+      float4 d[NG][kChunk][2];
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int s = 0; s < kChunk; ++s) {
+          const int k = 64 * (it0 + s) + 4 * kl;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            d[g][s][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (it0 + s < nit && k < H && rl[q])
+              d[g][s][q] = __ldcg(reinterpret_cast<const float4*>(
+                  gates + (rib[q] + t) * G + (g0 + g) * H + k));
+          }
         }
 #pragma unroll
-        for (int q = 0; q < 2 * kUnits; ++q)
-          if (q < nq) arow[q] = a[q];
-      }
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int s = 0; s < kChunk; ++s) {
+          if (it0 + s >= nit) continue;
+          const float4* ws = us + ((g0 + g) * nit + it0 + s) * 128 + kl;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w0 = ws[kk * 32], w1 = ws[kk * 32 + 16];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const float x = comp(d[g][s][q], kk);
+              const float w[8] = {w0.x, w0.y, w0.z, w0.w,
+                                  w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                acc[g][8 * q + e] = fmaf(x, w[e], acc[g][8 * q + e]);
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < NG; ++g) out.v[g] = reduce_scatter(acc[g], lane);
+    return out;
+  };
+
+  float dh = own ? to_f32(g_ht[bh]) : 0.f;
+  // the owner's inputs of step t, loaded a step ahead (h_{t-1} and g_out
+  // kept in the I/O dtype until used)
+  float z = 0.f, r = 0.f, c = 0.f;
+  DT hp_x = DT(0.f), go_x = DT(0.f);
+  auto fetch = [&](int t) {
+    if (t < 0 || t >= len) return;
+    const float* gr = gates + (ib + t) * G + unit;
+    z = __ldcg(gr);
+    r = __ldcg(gr + H);
+    c = __ldcg(gr + 2 * H);
+    const int64_t bt = static_cast<int64_t>(b) * T + t;
+    hp_x = t > 0 ? out[(bt - 1) * H + unit] : h0[bh];
+    go_x = g_out[bt * H + unit];
+  };
+  fetch(t_max - 1);
+  for (int t = t_max - 1; t >= 0; --t) {
+    const bool live = t < len;          // false for lanes that own nothing
+    float* gr = gates + (ib + t) * G + unit;
+    DT* dx = dxw + (static_cast<int64_t>(b) * T + t) * G + unit;
+    const float zt = z, rt = r, ct = c;
+    const float hpv = to_f32(hp_x);
+    float dh_t = 0.f, dhp = 0.f;
+    if (live) {                         // m = 1
+      dh_t = dh + to_f32(go_x);
+      dhp = dh_t;
+      const float dgz = (dhp * (ct - hpv)) * zt * (1.f - zt);
+      const float dgc = (dhp * zt) * (1.f - ct * ct);
+      gr[0] = dgz;
+      gr[2 * H] = dgc;
+      store_f32(dgz, dx);
+      store_f32(dgc, dx + 2 * H);
+    }
+    fetch(t - 1);
+    grid.sync();                        // every dgz and dgc of step t
+    const float drh = dot(std::integral_constant<int, 1>(), 2, t).v[0];
+    if (live) {
+      const float dgr = (drh * hpv) * rt * (1.f - rt);
+      gr[H] = dgr;
+      store_f32(dgr, dx + H);
+    }
+    grid.sync();                        // every dgr of step t
+    const Sums<2> azr = dot(std::integral_constant<int, 2>(), 0, t);
+    const float az = azr.v[0], ar = azr.v[1];
+    // a dead row keeps dh: its cotangents, and so its terms, are 0
+    if (live) dh = ((dhp * (1.f - zt)) + drh * rt) + az + ar;
+  }
+  if (own) {
+    store_f32(dh, dh0 + bh);
+    for (int t = len; t < T; ++t) {
+      DT* dx = dxw + (static_cast<int64_t>(b) * T + t) * G + unit;
+      store_f32(0.f, dx);
+      store_f32(0.f, dx + H);
+      store_f32(0.f, dx + 2 * H);
     }
   }
+  grid.sync();                          // every cotangent is written
 
-  const int tiles = gridDim.y;
-  float* dst = tiles == 1 ? du : du_part + blockIdx.y * H * G;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < H * kCols; idx += blockDim.x) {
-    const int k = idx / kCols, q = idx % kCols;
-    dst[k * G + (q / kUnits) * H + j0 + q % kUnits] = acc[k * kDuLd + q];
-  }
-  if (tiles == 1) return;
-  grid.sync();
-  if (blockIdx.y != 0) return;
-  for (int idx = threadIdx.x; idx < H * kCols; idx += blockDim.x) {
-    const int k = idx / kCols, q = idx % kCols;
-    const int64_t off = k * G + (q / kUnits) * H + j0 + q % kUnits;
-    float sum = 0.f;
-    for (int y = 0; y < tiles; ++y) sum += __ldcg(du_part + y * H * G + off);
-    du[off] = sum;
-  }
+  // ---- 3. dU over the live rows --------------------------------------------
+  auto no_row = [](int) { return 0; };
+  gemm<true, kExact, false>(
+      hp, Mat<float>{gates, G, n_live, 2 * H}, H, 2 * H, n_live, narrow,
+      region, no_row, [&](int, int j, int q, float v) { du[j * G + q] = v; });
+  gemm<true, false, false>(
+      rh, Mat<float>{gates + 2 * H, G, n_live, H}, H, H, n_live, narrow,
+      region, no_row,
+      [&](int, int j, int q, float v) { du[j * G + 2 * H + q] = v; });
 }
 
 template <typename DT>
 int launch(const void* xw, const int* lens, const void* u, const void* h0,
            const void* out, const void* g_out, const void* g_ht, void* dxw,
-           void* dh0, float* du, float* gates, float* rh_seq, float* dg_seq,
-           float* du_part, int B, int T, int H, cudaStream_t stream) {
-  void* args[] = {&xw,    &lens,  &u,      &h0,     &out,     &g_out,
-                  &g_ht,  &dxw,   &dh0,    &du,     &gates,   &rh_seq,
-                  &dg_seq, &du_part, &B,   &T,      &H};
-  return launch_cooperative(gru_seq_bwd_kernel<DT>, B, H, bwd_smem_bytes(H),
-                            args, stream);
+           void* dh0, float* du, float* gates, float* rh_seq, void* hp_seq,
+           int* rowmap, int B, int T, int H, cudaStream_t stream) {
+  void* args[] = {&xw,  &lens, &u,      &h0,     &out,    &g_out,
+                  &g_ht, &dxw, &dh0,    &du,     &gates,  &rh_seq,
+                  &hp_seq, &rowmap, &B, &T,      &H};
+  return launch_cooperative(gru_seq_bwd_kernel<DT>, B, H,
+                            bwd_smem_bytes(B, H), args, stream, kOwnUnits);
 }
 
 }  // namespace
@@ -275,17 +619,17 @@ int launch(const void* xw, const int* lens, const void* u, const void* h0,
 // The forward's arguments (xw with the bias added, lens, u, h0; see
 // gru_seq.cu), out [B, T, H] saved by paddle_gru_seq, the cotangents g_out
 // [B, T, H] and g_ht [B, H]; outputs dxw [B, T, 3H] and dh0 [B, H] in the
-// I/O dtype and du [H, 3H] f32. Scratch, all f32: gates [B, T, 3H], rh_seq
-// [B, T, H], dg_seq [B, T, 3H], and du_part [ceil(B / 32), H, 3H] (may be
-// null when B <= 32). Returns the launch's cudaError_t, or 720 when the
-// grid does not fit in one wave or a block's shared memory exceeds the
-// limit.
+// I/O dtype and du [H, 3H] f32. Scratch for B*T rows (the live ones are
+// used): gates [B*T, 3H] f32 (the gates, then the gate cotangents), rh_seq
+// [B*T, H] f32, hp_seq [B*T, H] in the I/O dtype and rowmap [B*T] int32.
+// Returns the launch's cudaError_t, or 720 when the grid does not fit in
+// one wave or a block's shared memory exceeds the limit.
 extern "C" int paddle_gru_seq_bwd(const void* xw, const int* lens,
                                   const void* u, const void* h0,
                                   const void* out, const void* g_out,
                                   const void* g_ht, void* dxw, void* dh0,
                                   float* du, float* gates, float* rh_seq,
-                                  float* dg_seq, float* du_part, int B, int T,
+                                  void* hp_seq, int* rowmap, int B, int T,
                                   int H, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
   if (H % gru::kUnits != 0 || B <= 0 || T <= 0)
@@ -293,10 +637,10 @@ extern "C" int paddle_gru_seq_bwd(const void* xw, const int* lens,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return launch<float>(xw, lens, u, h0, out, g_out, g_ht, dxw, dh0, du,
-                         gates, rh_seq, dg_seq, du_part, B, T, H, st);
+                         gates, rh_seq, hp_seq, rowmap, B, T, H, st);
   if (dtype == kBF16)
     return launch<__nv_bfloat16>(xw, lens, u, h0, out, g_out, g_ht, dxw, dh0,
-                                 du, gates, rh_seq, dg_seq, du_part, B, T, H,
+                                 du, gates, rh_seq, hp_seq, rowmap, B, T, H,
                                  st);
   return (int)cudaErrorInvalidValue;
 }

@@ -184,13 +184,14 @@ __device__ __forceinline__ float4 unit_bias(const DT* b, int H, int unit) {
                      to_f32(b[2 * H + unit]), to_f32(b[3 * H + unit]));
 }
 
-// Launch `kernel` cooperatively on grid (H / kUnits, ceil(B / kRows)),
+// Launch `kernel` cooperatively on grid (ceil(H / units), ceil(B / kRows)),
 // after checking that the grid fits in one wave at `smem` bytes of
 // dynamic shared memory. Returns a cudaError_t (kTooLarge if it does not
 // fit).
 template <typename Kernel>
 int launch_cooperative(Kernel kernel, int B, int H, size_t smem,
-                       void** args, cudaStream_t stream) {
+                       void** args, cudaStream_t stream,
+                       int units = kUnits) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -207,7 +208,7 @@ int launch_cooperative(Kernel kernel, int B, int H, size_t smem,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H / kUnits, (B + kRows - 1) / kRows);
+  const dim3 grid((H + units - 1) / units, (B + kRows - 1) / kRows);
   if (static_cast<long>(grid.x) * grid.y > static_cast<long>(per_sm) * sms)
     return kTooLarge;
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),

@@ -117,40 +117,6 @@ __host__ __device__ inline Plan make_plan(int H, int es, size_t budget) {
   return p;
 }
 
-// 8 bytes from global to shared memory by cp.async
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-               :: "r"(tf32x3::smem_addr(dst)), "l"(src) : "memory");
-}
-
-// The A fragment X[row0 .. +15][k0 .. +7] of a [rows][ld] tile of the I/O
-// dtype (phase 1's h rows): ldmatrix for f32; scalar loads for bf16,
-// whose values are exact in TF32 (their small parts are 0)
-__device__ __forceinline__ void load_a_rows(tf32x3::FragA& f,
-                                            const float* tile, int row0,
-                                            int k0, int lane, int ld) {
-  tf32x3::load_a(f, tile, row0, k0, lane, ld);
-}
-__device__ __forceinline__ void load_a_rows(tf32x3::FragA& f,
-                                            const __nv_bfloat16* tile,
-                                            int row0, int k0, int lane,
-                                            int ld) {
-  const __nv_bfloat16* q = tile + (row0 + (lane >> 2)) * ld + k0 + (lane & 3);
-  tf32x3::split_a(f, to_f32(q[0]), to_f32(q[8 * ld]), to_f32(q[4]),
-                  to_f32(q[8 * ld + 4]));
-}
-
-// The A fragment X[k0 .. +7][m0 .. +15]^T of an X[k][m] tile of the I/O
-// dtype (phase 3's h^T: the reduction runs down the rows), the reduction
-// index permuted as tf32x3.cuh's load_b_kn permutes it
-template <typename DT>
-__device__ __forceinline__ void load_a_km(tf32x3::FragA& f, const DT* tile,
-                                          int k0, int m0, int lane, int ld) {
-  const DT* q = tile + (k0 + 2 * (lane & 3)) * ld + m0 + (lane >> 2);
-  tf32x3::split_a(f, to_f32(q[0]), to_f32(q[8]), to_f32(q[ld]),
-                  to_f32(q[ld + 8]));
-}
-
 // h_{t-1} rows of the block's tile for steps t0 .. t0 + nst - 1 (the saved
 // output at t > 0, h0 at t = 0) into dst[s * kRows + r][0 .. H) in the
 // I/O dtype, by cp.async: warp w copies rows w, w + 8, ..., its lanes 16
@@ -176,22 +142,9 @@ __device__ __forceinline__ void stage_h_async(const DT* out, const DT* h0,
         tf32x3::cp_async16(d + c, src + c, true);
     } else {                              // bf16 rows of 4k + 4 elements
       for (int c = 4 * lane; c < H; c += 128)
-        cp_async8(d + c, src + c);
+        tf32x3::cp_async8(d + c, src + c);
     }
   }
-}
-
-// d += a . b at f32 accuracy (tf32x3.cuh): the passes of mma3, less
-// those with a small part that is 0 -- an operand of the bf16 I/O dtype is
-// exact in TF32, so its product with the other's big and small parts is
-// exact as in an f32 FMA
-template <bool kAExact, bool kBExact>
-__device__ __forceinline__ void mma_passes(float (&d)[4],
-                                           const tf32x3::FragA& a,
-                                           const tf32x3::FragB& b) {
-  if (!kAExact) tf32x3::mma_tf32(d, a.small, b.big);
-  if (!kBExact) tf32x3::mma_tf32(d, a.big, b.small);
-  tf32x3::mma_tf32(d, a.big, b.big);
 }
 
 // zero columns H .. hp of ``rows`` rows of a staged tile

@@ -1,7 +1,8 @@
 // Three-pass TF32 products on Hopper's tensor cores (sm_90a), for f32
 // operands that must keep f32's accuracy: the f32 bodies of the flash
 // forward (flash_fwd.cu) and backward (flash_bwd.cu), and the gate
-// recompute and dU products of the LSTM backward (lstm_seq_bwd.cu).
+// recompute and dU products of the LSTM and GRU backwards
+// (lstm_seq_bwd.cu, gru_seq_bwd.cu).
 //
 // The split. Each f32 operand x is split in registers into big, x
 // rounded to TF32 (11 significant bits; round half away from zero: add
@@ -63,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace paddle_tpu_torch {
 namespace tf32x3 {
 
@@ -80,6 +83,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes, likewise (bf16 rows of 4k + 4 elements: 8-byte aligned only)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool in = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 8 : 0)
                : "memory");
 }
 
@@ -167,6 +178,18 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
   mma_tf32(d, a.big, b.big);
 }
 
+// d += a . b at f32 accuracy: the passes of mma3, less those with a small
+// part that is 0 -- an operand of the bf16 I/O dtype is exact in TF32, so
+// its product with the other's big and small parts is exact as in an f32
+// FMA
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ void mma_passes(float (&d)[4], const FragA& a,
+                                           const FragB& b) {
+  if (!kAExact) mma_tf32(d, a.small, b.big);
+  if (!kBExact) mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
 // 2^x by the SFU (ex2.approx.ftz, the approximation exp2f is built on:
 // within 2 ulp; results below 2^-126 flush to 0, far under any f32
 // tolerance of P)
@@ -228,6 +251,34 @@ __device__ __forceinline__ void load_b_kn(FragB& f, const float* tile,
                                           int ld = kLdt) {
   const float* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
   split_b(f, p[0], p[ld]);
+}
+
+// The A fragment X[row0 .. +15][k0 .. +7] of a [rows][ld] tile of f32 or
+// bf16 (an operand whose reduction runs along its rows): ldmatrix for f32;
+// scalar loads for bf16, whose values are exact in TF32 (their small
+// parts are 0)
+__device__ __forceinline__ void load_a_rows(FragA& f, const float* tile,
+                                            int row0, int k0, int lane,
+                                            int ld) {
+  load_a(f, tile, row0, k0, lane, ld);
+}
+__device__ __forceinline__ void load_a_rows(FragA& f,
+                                            const __nv_bfloat16* tile,
+                                            int row0, int k0, int lane,
+                                            int ld) {
+  const __nv_bfloat16* q = tile + (row0 + (lane >> 2)) * ld + k0 + (lane & 3);
+  split_a(f, to_f32(q[0]), to_f32(q[8 * ld]), to_f32(q[4]),
+          to_f32(q[8 * ld + 4]));
+}
+
+// The A fragment X[k0 .. +7][m0 .. +15]^T of an X[k][m] tile of f32 or
+// bf16 (h^T in the dU products: the reduction runs down the rows), the
+// reduction index permuted as load_b_kn permutes it
+template <typename T>
+__device__ __forceinline__ void load_a_km(FragA& f, const T* tile, int k0,
+                                          int m0, int lane, int ld) {
+  const T* q = tile + (k0 + 2 * (lane & 3)) * ld + m0 + (lane >> 2);
+  split_a(f, to_f32(q[0]), to_f32(q[8]), to_f32(q[ld]), to_f32(q[ld + 8]));
 }
 
 // The accumulator of one n-tile (columns 8j .. 8j + 7) as the A fragment

@@ -57,7 +57,7 @@ SIGNATURES = {
                                        + [_f32, _i32, _p],
     "paddle_decode_attention": [_p] * 7 + [_i32] * 6 + [_i64] * 5
                                + [_f32, _i32, _p],
-    "paddle_decode_attention_q": [_p] * 7 + [_i32] * 4 + [_i64] * 8
+    "paddle_decode_attention_q": [_p] * 9 + [_i32] * 6 + [_i64] * 8
                                  + [_f32, _i32, _p],
     "paddle_lstm_seq": [_p] * 10 + [_i32, _i32, _i32, _f32, _i32, _p],
     "paddle_lstm_seq_train": [_p] * 11 + [_i32, _i32, _i32, _f32, _i32, _p],

@@ -32,8 +32,9 @@ copies. Every attention kernel needs q, k and v (and, for the backward,
 o and dO) at a 16-byte-aligned base with strides of 16-byte multiples,
 which the wrappers check (they raise otherwise).
 
-The dense decode read (#4) splits each (sample, head) read across
-blocks when the card would otherwise sit half empty (:func:`decode_splits`):
+The dense decode reads (#4, and #5 over an int8 cache) split each
+(sample, head) read across blocks when the card would otherwise sit half
+empty (:func:`decode_splits`):
 each block walks one chunk of rows, and the last block of a read to
 finish merges the chunks' partial softmax sums in chunk order.
 
@@ -556,16 +557,19 @@ def _check_rows(what: str, *named) -> None:
                              "a 16-byte-aligned start")
 
 
-#: the split rule of #4 (:func:`decode_splits`), from chip_smoke.py's
+#: the split rule of #4 and #5 (:func:`decode_splits`), from chip_smoke.py's
 #: phase-9 sweep on the H100 (PERF.md): split while the read has fewer than
 #: DECODE_TARGET_BLOCKS blocks (about 6 blocks of 128 threads an SM: the time
 #: kept falling to ~8 splits at 96 pairs and to 2-3 at 384), into chunks of at
-#: least DECODE_MIN_CHUNK rows (shorter ones gained little or lost)
+#: least DECODE_MIN_CHUNK rows (shorter ones gained little or lost). The
+#: int8 read's sweep put its best counts where #4's are, so one rule serves
+#: both.
 DECODE_TARGET_BLOCKS = 768
 DECODE_MIN_CHUNK = 64
 #: rows a block's row groups take in one step (csrc/decode_attn.cuh kGroups)
 _DECODE_ROW_STEP = 16
-#: #4's per-(b, h) tickets, one buffer per (card, stream) and zero between
+#: the split reads' per-(b, h) tickets, one buffer per (card, stream), shared
+#: by #4 and #5 and zero between
 #: launches (the last block of a read resets its own): the reads that share
 #: a buffer run in their stream's order. A CUDA graph captured on a stream
 #: uses that stream's buffer, so its replays must not overlap reads issued
@@ -575,13 +579,14 @@ _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 def decode_splits(bh: int, L: int, splits: Optional[int] = None
                   ) -> Tuple[int, int]:
-    """(splits, chunk) of #4's read of ``L`` rows for ``bh`` = B*H (sample,
-    head) pairs: ``splits`` chunks of ``chunk`` rows tile [0, L), the last
-    one not empty. One split where ``bh`` blocks already fill the card or
-    the read is short; more while the grid has fewer than
-    ``DECODE_TARGET_BLOCKS`` blocks, each chunk at least ``DECODE_MIN_CHUNK``
-    rows. ``splits`` asks for a count instead (then rounded as below).
-    A chunk is a whole number of the walk's 16-row steps."""
+    """(splits, chunk) of a dense read (#4, or #5 over int8) of ``L`` rows
+    for ``bh`` = B*H (sample, head) pairs: ``splits`` chunks of ``chunk``
+    rows tile [0, L), the last one not empty. One split where ``bh``
+    blocks already fill the card or the read is short; more while the
+    grid has fewer than ``DECODE_TARGET_BLOCKS`` blocks, each chunk at
+    least ``DECODE_MIN_CHUNK`` rows. ``splits`` asks for a count instead
+    (then rounded as below). A chunk is a whole number of the walk's
+    16-row steps."""
     if L < 1 or bh < 1:
         raise ValueError(f"decode_splits: bh {bh} and L {L} must be >= 1")
     if splits is None:
@@ -617,7 +622,7 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale,
                              splits=None):
-    """#4 (#5 with scales) on the card. ``splits`` asks #4 for a split
+    """#4 (#5 with scales) on the card. ``splits`` asks for a split
     count other than :func:`decode_splits`' choice (the card tests and
     chip_smoke.py's sweep use it)."""
     what = "decode_attention"
@@ -635,35 +640,31 @@ def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale,
     _check_rows(what, ("k", k), ("v", v))
     if k_scale is not None and k_scale.stride() != v_scale.stride():
         raise ValueError(f"{what}: k_scale and v_scale must share strides")
-    if splits is not None and k_scale is not None:
-        raise ValueError(f"{what}: the int8 read (#5) takes no splits")
     o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return o
     lib = _build.load().lib
-    strides = (q.stride(0), q.stride(1), *k.stride()[:3])
-    shape = (B, H, D, L) + strides
+    n_split, chunk = decode_splits(B * H, L, splits)
+    part = tickets = None
     with torch.cuda.device(q.device):
+        if n_split > 1:
+            part = torch.empty(B * H * n_split * (D + 2),
+                               dtype=torch.float32, device=q.device)
+            tickets = _tickets(q.device, B * H)
+        split = (_ptr(part), _ptr(tickets), B, H, D, L, n_split, chunk,
+                 q.stride(0), q.stride(1), *k.stride()[:3])
+        tail = (float(scale), _DTYPE_CODE[q.dtype], _stream(q.device))
         if k_scale is None:
             name = "decode_attention"
-            n_split, chunk = decode_splits(B * H, L, splits)
-            part = tickets = None
-            if n_split > 1:
-                part = torch.empty(B * H * n_split * (D + 2),
-                                   dtype=torch.float32, device=q.device)
-                tickets = _tickets(q.device, B * H)
             err = lib.paddle_decode_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), pos32.data_ptr(),
-                o.data_ptr(), _ptr(part), _ptr(tickets), B, H, D, L,
-                n_split, chunk, *strides, float(scale),
-                _DTYPE_CODE[q.dtype], _stream(q.device))
+                o.data_ptr(), *split, *tail)
         else:
             name = "decode_attention_q"
             err = lib.paddle_decode_attention_q(
                 q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-                v_scale.data_ptr(), pos32.data_ptr(), o.data_ptr(), *shape,
-                *k_scale.stride(), float(scale), _DTYPE_CODE[q.dtype],
-                _stream(q.device))
+                v_scale.data_ptr(), pos32.data_ptr(), o.data_ptr(), *split,
+                *k_scale.stride(), *tail)
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return o
@@ -689,8 +690,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cache is int8 (:func:`quantize_kv`) and dequantizes on load.
     Returns o [B, H, D] f32.
 
-    For CUDA tensors it launches kernel #4, or #5 with scales. #4 splits
-    the read into :func:`decode_splits`'s chunks."""
+    For CUDA tensors it launches kernel #4, or #5 with scales; either
+    splits the read into :func:`decode_splits`'s chunks."""
     scale_v = scale if scale is not None else q.shape[-1] ** -0.5
     extra = _scales(k_scale, v_scale)
     if _route(route, q, k, v, pos, *extra) == "plain":

@@ -451,20 +451,22 @@ def _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out, g_ht):
         du.zero_()
         return dxw, dh0, du
     lib = _build.load().lib
-    # the GRU kernels share the LSTM kernels' batch tile
-    tiles = -(-B // lib.paddle_lstm_batch_tile())
+    # scratch for the B*T (b, t) rows, of which the kernel uses the live
+    # ones, compacted: the gates z, r, c of each (overwritten by their
+    # cotangents) and r*h_{t-1} in f32, h_{t-1} in xw's dtype, and each
+    # row's b*T + t
+    rows = B * T
     f32 = dict(dtype=torch.float32, device=xw.device)
-    gates = torch.empty((B, T, G), **f32)     # z, r, c of every step
-    rh_seq = torch.empty((B, T, H), **f32)    # r*h_{t-1} of every step
-    dg_seq = torch.empty((B, T, G), **f32)    # dgz, dgr, dgc in f32
-    du_part = torch.empty((tiles, H, G), **f32) if tiles > 1 else None
+    gates = torch.empty((rows, G), **f32)
+    rh_seq = torch.empty((rows, H), **f32)
+    hp_seq = torch.empty((rows, H), dtype=xw.dtype, device=xw.device)
+    rowmap = torch.empty(rows, dtype=torch.int32, device=xw.device)
     with torch.cuda.device(xw.device):
         err = lib.paddle_gru_seq_bwd(
             xw.data_ptr(), lens.data_ptr(), u.data_ptr(), h0.data_ptr(),
             out_seq.data_ptr(), g_out.data_ptr(), g_ht.data_ptr(),
             dxw.data_ptr(), dh0.data_ptr(), du.data_ptr(), gates.data_ptr(),
-            rh_seq.data_ptr(), dg_seq.data_ptr(),
-            None if du_part is None else du_part.data_ptr(), B, T, H,
+            rh_seq.data_ptr(), hp_seq.data_ptr(), rowmap.data_ptr(), B, T, H,
             _DTYPE_CODE[xw.dtype], _stream(xw.device))
     _raise_launch(err, "gru_seq_bwd", B, H)
     LAUNCHES["gru_seq_bwd"] += 1
@@ -478,8 +480,9 @@ def gru_sequence_fused_bwd(xw, lengths, u, h0, out_seq, g_out, g_ht, *,
     added (its gradient is also the bias's, summed outside), the saved
     out_seq and the cotangents g_out [B, T, H], g_ht [B, H] ->
     (dxw [B, T, 3H], dh0 [B, H]) in xw's dtype and du [H, 3H] f32. The
-    kernel keeps its recomputed gates and f32 cotangents in scratch it
-    allocates per call; nothing is read from the forward but ``out_seq``."""
+    kernel keeps its recomputed gates and f32 cotangents of the live
+    steps in scratch allocated per call; nothing is read from the forward
+    but ``out_seq``."""
     _gru_shapes(xw, u)
     lengths = lengths.to(xw.device)
     if _route(route, xw, lengths, u, h0, out_seq, g_out, g_ht) == "plain":

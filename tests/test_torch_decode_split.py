@@ -1,14 +1,17 @@
-"""The split dense decode read (#4, ``csrc/decode.cu``) on the CPU: its
-arithmetic, as a plain PyTorch model, against ``decode_attention_plain``,
-and the split rule ``decode_splits``.
+"""The split dense decode reads (#4, and #5 over an int8 cache,
+``csrc/decode.cu``) on the CPU: their arithmetic, as a plain PyTorch
+model, against ``decode_attention_plain``, and the split rule
+``decode_splits``.
 
 The kernel splits each (sample, head) read into chunks of rows; each
 chunk gives a partial (m, l, acc) — the max of its live scores, the sum
 of exp(s - m) and the unnormalized sum of exp(s - m) * v — and the last
-block to finish merges the partials in chunk order. ``_split_read`` below
-is that computation written out over whole chunks; it lives here, for
-the tests alone. The kernel itself runs only on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 9).
+block to finish merges the partials in chunk order. An int8 row is
+dequantized (code times its row's scale) before its dot product, the
+plain version's order. ``_split_read`` below is that computation
+written out over whole chunks; it lives here, for the tests alone. The
+kernel itself runs only on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py`` phase 9).
 
 Tolerance: atol 1e-5, rtol 1e-4 — f32 on both sides on the same inputs,
 summation order only (the file's f32 decode tolerance,
@@ -24,11 +27,16 @@ from paddle_tpu_torch.ops import cuda_kernels as ck
 ATOL, RTOL = 1e-5, 1e-4
 
 
-def _split_read(q, k, v, pos, scale, splits, chunk):
+def _split_read(q, k, v, pos, scale, splits, chunk, k_scale=None,
+                v_scale=None):
     """The split kernel's arithmetic: per chunk of ``chunk`` rows the live
     rows' (m, l, acc) in f32 (a chunk with no live row: m = -1e30, l = 0,
-    acc = 0), merged in chunk order with weights exp(m_i - M)."""
+    acc = 0), merged in chunk order with weights exp(m_i - M). With scales
+    the int8 rows are dequantized first."""
     B, L, H, D = k.shape
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
     n_live = torch.clamp(pos.long() + 1, max=L)                 # [B]
     s = torch.einsum("bhd,bjhd->bhj", q.float() * scale, k.float())
     parts = []
@@ -87,6 +95,27 @@ def test_split_read_model_matches_plain_in_each_cache_dtype(dtype):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("L", [1, 70, 256, 1000])
+@pytest.mark.parametrize("splits", [1, 3, 8, 16])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_split_int8_read_model_matches_plain(L, splits, qdtype):
+    """The int8 read (#5) split likewise, under an f32 or bf16 query: codes
+    and scales from ``quantize_kv``, reads ending inside and on chunk
+    boundaries, at pos 0 and drained past L."""
+    n_split, chunk = ck.decode_splits(1, L, splits)
+    ends = {0, L - 1, L + 5, chunk - 1, min(chunk, L - 1), L // 2}
+    pos = torch.tensor(sorted(ends), dtype=torch.int32)
+    q, k, v = _read(L * 7 + splits, len(pos), L)
+    q = q.to(qdtype)
+    (kq, ks), (vq, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+    scale = q.shape[-1] ** -0.5
+    want = ck.decode_attention_plain(q, kq, vq, pos, scale=scale,
+                                     k_scale=ks, v_scale=vs)
+    got = _split_read(q, kq, vq, pos, scale, n_split, chunk, ks, vs)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
 # B*H of the smoke paths' dense reads (generate_fused and the benchmark's
 # reads: 8 x 12; the speculative draft: 2 x 12), a full card, and one pair
 SMOKE_BH = (96, 24, 12, 1, ck.DECODE_TARGET_BLOCKS, 8 * 96)
@@ -124,11 +153,18 @@ def test_decode_splits_rule():
 
 
 def test_cpu_decode_read_takes_the_plain_version():
-    """On the CPU the read is the plain version: no launch, no tickets."""
+    """On the CPU the read is the plain version, over a cache of the
+    query's dtype or int8: no launch, no tickets."""
     q, k, v = _read(9, 3, 90)
     pos = torch.tensor([0, 40, 89], dtype=torch.int32)
     before, tickets = dict(ck.LAUNCHES), dict(ck._TICKETS)
     want = ck.decode_attention_plain(q, k, v, pos, scale=0.25)
     got = ck.decode_attention(q, k, v, pos, scale=0.25)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    (kq, ks), (vq, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+    want = ck.decode_attention_plain(q, kq, vq, pos, scale=0.25,
+                                     k_scale=ks, v_scale=vs)
+    got = ck.decode_attention(q, kq, vq, pos, scale=0.25, k_scale=ks,
+                              v_scale=vs)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert ck.LAUNCHES == before and ck._TICKETS == tickets

@@ -124,11 +124,9 @@ _DECODE_DTYPES = [torch.float32, torch.bfloat16,
 # and a forced count with a ragged last chunk
 _DECODE_READS = {"short": (70, None), "split": (260, None),
                  "forced": (260, 7)}
-# every read for #4's dtypes; #5 (int8, one block per (h, b)) takes no
-# split count, so one long read
-_DECODE_CASES = ([(dt, read) for dt in _DECODE_DTYPES[:2]
-                  for read in sorted(_DECODE_READS)]
-                 + [(dt, "split") for dt in _DECODE_DTYPES[2:]])
+# every read for every dtype: #5 (int8) splits as #4 does
+_DECODE_CASES = [(dt, read) for dt in _DECODE_DTYPES
+                 for read in sorted(_DECODE_READS)]
 
 
 @pytest.mark.gpu
@@ -155,8 +153,8 @@ def test_decode_kernels_match_plain_on_card(cuda, dtype, read):
     def read_kernel():
         if asked is None:
             return ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
-        return ck._decode_attention_kernel(q, k, v, pos, 64 ** -0.5, None,
-                                           None, asked)
+        return ck._decode_attention_kernel(q, k, v, pos, 64 ** -0.5, ks,
+                                           vs, asked)
 
     before = ck.LAUNCHES[name]
     o = read_kernel()
@@ -164,8 +162,63 @@ def test_decode_kernels_match_plain_on_card(cuda, dtype, read):
                              route="plain")
     assert ck.LAUNCHES[name] == before + 1
     torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
-    if ks is None:      # the tickets are left zero: a second read agrees
-        torch.testing.assert_close(read_kernel(), o, atol=0, rtol=0)
+    # the tickets are left zero: a second read agrees
+    torch.testing.assert_close(read_kernel(), o, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_read_at_every_split_count_on_card(cuda, qdtype):
+    """#5 asked for every split count from 1 to 20 over a 300-row int8
+    cache (B=3, H=4; decode_splits rounds chunks to 16-row steps, so 1, 2,
+    3, 4, 5, 7, 10 and 19 chunks), reads ending at 0, on a chunk's last row
+    and drained: each equal to plain (f32 summation order: atol 1e-5, rtol
+    1e-4), one launch a read."""
+    gen = torch.Generator().manual_seed(21)
+    B, H, L = 3, 4, 300
+    q, k, v, ks, vs = _decode_cache(cuda, (qdtype, "int8"), gen, B=B,
+                                    Lmax=L, H=H)
+    seen = set()
+    for asked in range(1, 21):
+        n, chunk = ck.decode_splits(B * H, L, asked)
+        seen.add(n)
+        pos = torch.tensor([0, chunk - 1, L + 9][:B], dtype=torch.int32,
+                           device=cuda)
+        before = ck.LAUNCHES["decode_attention_q"]
+        o = ck._decode_attention_kernel(q, k, v, pos, 64 ** -0.5, ks, vs,
+                                        asked)
+        po = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
+                                 route="plain")
+        assert ck.LAUNCHES["decode_attention_q"] == before + 1
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    assert seen == {1, 2, 3, 4, 5, 7, 10, 19}
+
+
+@pytest.mark.gpu
+def test_dense_and_int8_split_reads_share_the_tickets_on_card(cuda):
+    """A split #4 read and a split #5 read of the same (sample, head) count
+    back to back on one stream, many times: they share the stream's
+    ticket buffer, each leaves it zero for the next, and every read equals
+    plain."""
+    gen = torch.Generator().manual_seed(22)
+    B, H, L = 2, 3, 512
+    q, k, v, _, _ = _decode_cache(cuda, torch.bfloat16, gen, B=B, Lmax=L,
+                                  H=H)
+    q8, k8, v8, ks, vs = _decode_cache(cuda, (torch.float32, "int8"), gen,
+                                       B=B, Lmax=L, H=H)
+    assert ck.decode_splits(B * H, L)[0] > 1
+    pos = torch.tensor([L - 1, 130], dtype=torch.int32, device=cuda)
+    want = ck.decode_attention(q, k, v, pos, route="plain")
+    want8 = ck.decode_attention(q8, k8, v8, pos, k_scale=ks, v_scale=vs,
+                                route="plain")
+    outs = []
+    for _ in range(16):
+        outs.append((ck.decode_attention(q, k, v, pos), want))
+        outs.append((ck.decode_attention(q8, k8, v8, pos, k_scale=ks,
+                                         v_scale=vs), want8))
+    torch.cuda.synchronize(cuda)
+    for o, w in outs:
+        torch.testing.assert_close(o, w, atol=1e-5, rtol=1e-4)
 
 
 def _split_read_inputs(cuda, seed):
@@ -906,6 +959,31 @@ def test_gru_kernels_match_plain_on_card(cuda, dtype, B, T, H, lens):
         _lstm_close(g, w, dtype, du=i == 2)
     for name in ("gru_seq", "gru_seq_bwd"):
         assert ck.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H", [(64, 32, 512), (37, 9, 512)])
+def test_gru_bwd_is_bit_equal_across_runs_on_card(cuda, dtype, B, T, H):
+    """#12 at the seq2seq bench shape (B=64, T=32, H=512, lengths 16..32
+    with a 0) and the edge shape (B=37: a partial batch tile, lengths 0, 1
+    and T): within the LSTM tolerance of the plain version, and bit-equal
+    across two launches (every sum in a fixed order, no atomics)."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    gen = torch.Generator().manual_seed(23)
+    lens = torch.randint(16 if T == 32 else 0, T + 1, (B,), generator=gen)
+    lens[:3] = torch.tensor([0, 1, T])
+    fwd, (g_out, g_ht) = _gru_case(cuda, dtype, gen, B, T, H, lens.tolist())
+    xw, lengths, u, _, h0 = fwd
+    out, _ = rk.gru_sequence_fused(*fwd, route="plain")
+    bwd = (xw, lengths, u, h0, out, g_out, g_ht)
+    got = rk.gru_sequence_fused_bwd(*bwd)
+    again = rk.gru_sequence_fused_bwd(*bwd)
+    want = rk.gru_sequence_fused_bwd(*bwd, route="plain")
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), i
+        _lstm_close(g, w, dtype, du=i == 2)
 
 
 @pytest.mark.gpu
