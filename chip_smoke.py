@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
+    python3 chip_smoke.py --parent DIR --rnn-sweep
+        # also: the recurrent forwards (#8, #9, #11) timed in turns with
+        # the bodies of the checkout in DIR (the parent commit, unpacked
+        # by git archive), and every plan of theirs timed at the benches
 
 Phases:
 
@@ -25,8 +29,13 @@ Phases:
    training forward, backward) against their plain versions in f32 and
    bf16 at the flagship text-classifier shape (B=64, T=100, H=256) and at
    an edge shape (B=5, lengths 0/1/T, nonzero h0/c0), with times, plain
-   times and bounds at the flagship shape; the backward also bit-equal
-   across two runs there;
+   times and bounds at the flagship shape (the forwards' also a step, and
+   with ``--parent`` beside the parent's bodies, timed in turns), the
+   forwards' plan (``rnn_kernels.forward_plan``) and registers and
+   spills; all three bit-equal across two runs there; with
+   ``--rnn-sweep`` every plan of #8, #9 and #11 held against plain and
+   timed at their bench shapes, the chosen plan printed beside the
+   fastest;
 5. lstm training — the flagship LSTM text classifier (vocab 30000, embed
    128, hidden 256, batch 64, lengths 30..100, last-step pooling; random
    weights from a seed) trained by ``Trainer.train`` for 24 Adam steps
@@ -88,8 +97,10 @@ Phases:
    H=512, lengths 16..32 with one 0, nonzero h0), on its within-length
    flipped input (the reverse direction) and at an edge shape (B=37: a
    partial row tile, lengths 0, 1 and T), with times, plain times and
-   bounds at the bench shape; the backward also bit-equal across two
-   runs at the bench and edge shapes, and its registers and spills;
+   bounds at the bench shape (the forward's also a step, and with
+   ``--parent`` beside the parent's body, timed in turns; its plan); both
+   bit-equal across two runs at the bench and edge shapes, and their
+   registers and spills;
 12. seq2seq — the attention seq2seq of benchmarks/seq2seq_nmt.py (vocab
    30000/30000, embed 512, hidden 512, batch 64, lengths 16..32; random
    weights and ids from the seed): one f32 step through the kernels equal
@@ -239,19 +250,26 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
-def ptxas_usage(build, kernel: str) -> dict:
+def ptxas_usage(build, kernel: str, flags=()) -> dict:
     """Registers a thread and spilled bytes (stores + loads) of each
-    instantiation of ``kernel``, by its I/O dtype, from ptxas' lines of the
-    build."""
+    instantiation of ``kernel``, by its I/O dtype (and, for the forwards'
+    templates, "/u<units>" and "/<flag>" for each of its bool template
+    arguments ``flags`` that is true), from ptxas' lines of the build."""
     import re
     out, cur = {}, None
     for ln in build.resource_lines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             cur = None
-            if kernel in m.group(1):
-                cur = ("bfloat16" if "nv_bfloat16" in m.group(1)
-                       else "float32")
+            name = m.group(1)
+            if re.search(kernel + r"I", name):
+                cur = "bfloat16" if "nv_bfloat16" in name else "float32"
+                units = re.search(r"Li(\d+)E", name)
+                if units:
+                    cur += f"/u{units.group(1)}"
+                bools = re.findall(r"Lb([01])E", name)
+                cur += "".join(f"/{f}" for f, b in zip(flags, bools)
+                               if b == "1")
                 out[cur] = {"registers": None, "spill_bytes": None}
             continue
         m = re.search(r"Used (\d+) registers", ln)
@@ -737,12 +755,14 @@ def _lstm_case(B, T, H, lens, dtype, gen, device, state):
 
 def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                        flagship=(TEXTCLS_BATCH, TEXTCLS_LEN,
-                                 TEXTCLS["hidden"])):
+                                 TEXTCLS["hidden"]), parent=None):
     """#8, #9 and #10 against their plain versions in f32 and bf16 at the
     flagship shape (lengths from the seed in 30..100) and at the edge
     shape; at the flagship shape also their times, the plain versions'
-    and the bound. Returns the kernels' JSON entries (the bf16 flagship
-    numbers first: that is what the training path runs)."""
+    and the bound (and #8's and #9's beside the ``parent`` library's
+    bodies, timed in turns, where one is given). Returns the kernels' JSON
+    entries (the bf16 flagship numbers first: that is what the training
+    path runs)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops import rnn_kernels as rk
@@ -761,6 +781,9 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                                       "a frozen state"}
                for name, src, rep, body in LSTM_KERNELS}
     entries["lstm_seq_bwd"]["design"] = LSTM_BWD_DESIGN
+    for name in ("lstm_seq", "lstm_seq_train"):
+        entries[name]["design"] = RNN_FWD_DESIGN
+        entries[name]["plan"] = forward_plan_entry("lstm", B, H)
     fwd_kw = dict(forget_bias=1.0)
 
     def run(name, args, route=None):
@@ -791,14 +814,14 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                             check(torch.equal(got[1][b], fwd[4][b]),
                                   f"{name}: a 0-length sample's hT != h0")
                 res = {"max_abs_err": max(errs)}
-                if name == "lstm_seq_bwd" and tag == "flagship":
+                if tag == "flagship":
                     again = run(name, args)
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"{name} flagship {dname}: two runs differ")
                     res["bit_equal_two_runs"] = True
                 if timed and tag == "flagship":
                     res.update(_lstm_times(name, run, Bs, Ts, H, lens, dt,
-                                           dname, gen, device))
+                                           dname, gen, device, parent))
                 say(f"{name} {tag} B={Bs} T={Ts} H={H} {dname}: "
                     f"{json.dumps(res)}")
                 e = entries[name]
@@ -812,13 +835,16 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
     return [entries[name] for name, _, _, _ in LSTM_KERNELS]
 
 
-def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device):
+def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device,
+                parent=None):
     """Kernel and plain times (CUDA graph over input sets larger than L2)
     and the bound: the recurrent products of the live steps (2*H*4H per
     live (sample, step), three of them in the backward) against each
     input read and each output written once; the backward's products run
     on the tensor cores (:func:`tensor_core_bound`), the forwards' on the
-    CUDA cores."""
+    CUDA cores. A forward's time is also given a step (over the longest
+    length) and, with a ``parent`` library, beside the parent's body's
+    (:func:`in_turns`)."""
     import torch
     esize = torch.empty((), dtype=dt).element_size()
     G = 4 * H
@@ -838,7 +864,13 @@ def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device):
     sets = input_sets(
         lambda i: _lstm_case(B, T, H, lens, dt, gen, device, False)[
             1 if name == "lstm_seq_bwd" else 0], nbytes)
-    ms = time_ms([lambda s=s: run(name, s) for s in sets])
+    ours = [lambda s=s: run(name, s) for s in sets]
+    extra = {}
+    if name in FWD_NAMES:
+        extra = _parent_turns(name, ours, sets, parent) if parent \
+            else {"ms": time_ms(ours)}
+        extra["us_a_step"] = extra["ms"] * 1e3 / max(lens)
+    ms = extra.get("ms") or time_ms(ours)
     plain_ms = time_ms([lambda s=s: run(name, s, route="plain")
                         for s in sets], rounds=1, reps=2)
     del sets
@@ -846,8 +878,186 @@ def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device):
         return {"ms": ms, "plain_ms": plain_ms,
                 **tensor_core_bound(flops, nbytes, dname)}
     b_ms, b_by = bound(flops, nbytes, dname)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+    return {**extra, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+# ---------------------------------------------------------------------------
+# the recurrent forwards (#8, #9, #11): plans, the parent's bodies, sweep
+# ---------------------------------------------------------------------------
+
+# the forwards' design (both dtypes)
+RNN_FWD_DESIGN = ("one cooperative launch on a planned grid "
+                  "(ops/rnn_kernels.py forward_plan: 8 or 16 units x 8, 16 "
+                  "or 32 rows a block, one wave): each step a row's "
+                  "exchanged state read once a block from L2 into "
+                  "registers, 8 lanes a row against the block's U columns "
+                  "in shared memory (f32, CUDA cores), a reduce-scatter "
+                  "over the 8 lanes to the owner lanes; one grid barrier a "
+                  "step (the GRU two); dead rows not read, the loop ends at "
+                  "the longest length")
+# the bodies these replaced, in the parent commit: 4 units x 32 rows a
+# block, rows staged through shared memory
+FWD_NAMES = ("lstm_seq", "lstm_seq_train", "gru_seq")
+
+
+def load_parent(root: str):
+    """The kernels of another checkout of this repo (``--parent``: the
+    parent commit unpacked by ``git archive``), built from its own sources
+    by its own ``_build.py`` into its own ``_build/``, to time its
+    forward bodies in turns with these. Returns its library."""
+    import importlib.util
+    path = os.path.join(root, "paddle_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load().lib
+
+
+def parent_forward(lib, name: str, args):
+    """One launch of the parent's body of forward ``name`` through its C
+    entry (whose argument lists these are), on the arguments the port's
+    wrapper takes: (xw, lengths, u, b, h0, c0) for the LSTM, (xw, lengths,
+    u, None, h0) for the GRU. Returns the outputs as the wrapper does."""
+    import torch
+    from paddle_tpu_torch.ops.cuda_kernels import _DTYPE_CODE, _stream
+    xw, lens = args[0], args[1].to(torch.int32).contiguous()
+    B, T, G = xw.shape
+    H = G // (3 if name == "gru_seq" else 4)
+    empty = lambda *s: torch.empty(s, dtype=xw.dtype, device=xw.device)
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=xw.device)
+    out, h_t = empty(B, T, H), empty(B, H)
+    code, st = _DTYPE_CODE[xw.dtype], _stream(xw.device)
+    if name == "gru_seq":
+        u, h0 = args[2], args[4]
+        err = lib.paddle_gru_seq(
+            xw.data_ptr(), lens.data_ptr(), u.data_ptr(), h0.data_ptr(),
+            out.data_ptr(), h_t.data_ptr(), f32(B, H).data_ptr(),
+            f32(B, H).data_ptr(), B, T, H, code, st)
+        res = (out, h_t)
+    else:
+        _, _, u, b, h0, c0 = args
+        c_t = empty(B, H)
+        ptrs = [xw.data_ptr(), lens.data_ptr(), u.data_ptr(), b.data_ptr(),
+                h0.data_ptr(), c0.data_ptr(), out.data_ptr(),
+                h_t.data_ptr(), c_t.data_ptr()]
+        res = (out, h_t, c_t)
+        if name == "lstm_seq_train":
+            c_seq = empty(B, T, H)
+            ptrs.append(c_seq.data_ptr())
+            res += (c_seq,)
+        entry = getattr(lib, "paddle_" + name)
+        err = entry(*ptrs, f32(2, B, H).data_ptr(), B, T, H, 1.0, code, st)
+    check(err == 0, f"the parent's {name}: error {err}")
+    return res
+
+
+def in_turns(ours, theirs) -> dict:
+    """Our body's time and the parent's, timed in turns (parent, ours,
+    ours, parent) in one run on one card; each a mean of its two turns."""
+    t = [time_ms(theirs), time_ms(ours), time_ms(ours), time_ms(theirs)]
+    return {"ms": (t[1] + t[2]) / 2, "parent_ms": (t[0] + t[3]) / 2,
+            "turns_ms": t}
+
+
+def forward_plan_entry(kind: str, B: int, H: int) -> dict:
+    """The plan the wrapper launches a forward with on this card."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    p = rk.forward_plan(kind, B, H, *rk.card_limits(0))
+    return {"units": p.units, "rows": p.rows, "parts": p.parts,
+            "grid": list(p.grid), "threads": p.threads,
+            "blocks_an_sm": p.per_sm, "smem_bytes": p.smem}
+
+
+def _forward_run(name, args, plan=None):
+    """The port's forward ``name`` on (xw, lengths, u, b, h0[, c0]), at
+    the wrapper's plan or at ``plan``."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    if name == "gru_seq":
+        if plan is None:
+            return rk.gru_sequence_fused(*args)
+        return rk._gru_sequence_fused_kernel(args[0], args[1], args[2],
+                                             args[4], plan=plan)
+    save = name == "lstm_seq_train"
+    if plan is None:
+        return rk.lstm_sequence_fused(*args, forget_bias=1.0, save_cell=save)
+    return rk._lstm_sequence_fused_kernel(*args, 1.0, save, plan=plan)
+
+
+def _parent_turns(name, ours, sets, parent) -> dict:
+    """Our forward ``name`` timed in turns with the parent's body, whose
+    largest difference from the plain version on the first input set is
+    given beside (a report: the parent is not held to anything here)."""
+    want = _plain_forward(name, sets[0])
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(
+        parent_forward(parent, name, sets[0]), want))
+    return {**in_turns(ours, [lambda s=s: parent_forward(parent, name, s)
+                              for s in sets]), "parent_max_abs_err": err}
+
+
+def rnn_sweep(say, seed: int, device="cuda") -> dict:
+    """Every plan forward_plans lists for #8, #9 (the flagship B=64, T=100,
+    H=256) and #11 (the seq2seq's B=64, T=32, H=512), in f32 and bf16:
+    each held against the plain version, then timed (CUDA graph over input
+    sets larger than L2); prints the chosen plan beside the fastest.
+    Returns {"<name> <dtype>": {"chosen": .., "best": .., ...}}."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    rs = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed + 29)
+    res = {}
+    for name in FWD_NAMES:
+        kind = "gru" if name == "gru_seq" else "lstm"
+        if kind == "gru":
+            B, T, H = S2S_BATCH, S2S_SEQ, S2S["hidden"]
+            lens = rs.randint(S2S_MIN_LEN, T + 1, B)
+        else:
+            B, T, H = TEXTCLS_BATCH, TEXTCLS_LEN, TEXTCLS["hidden"]
+            lens = rs.randint(TEXTCLS_MIN_LEN, T + 1, B)
+        plans = rk.forward_plans(kind, B, H, *rk.card_limits(0))
+        for dt, dname in ((torch.float32, "float32"),
+                          (torch.bfloat16, "bfloat16")):
+            if kind == "gru":
+                make = lambda i: _gru_inputs(B, T, H, lens, dt, gen,
+                                             device)[0]
+                nbytes = B * T * 3 * H * dt.itemsize * 2
+            else:
+                make = lambda i: _lstm_inputs(B, T, H, lens, dt, gen,
+                                              device, False)[0]
+                nbytes = B * T * 4 * H * dt.itemsize * 2
+            sets = input_sets(make, nbytes)
+            want = _plain_forward(name, sets[0])
+            tag = lambda p: f"{p.units}x{p.rows}/{p.parts}"
+            times = []
+            for p in plans:
+                got = _forward_run(name, sets[0], plan=p)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    lstm_close(g, w, f"{name} plan {tag(p)} output {i}",
+                               dname)
+                times.append(time_ms([lambda s=s, p=p: _forward_run(
+                    name, s, plan=p) for s in sets]))
+            del sets
+            best = min(range(len(plans)), key=times.__getitem__)
+            entry = {"chosen": tag(plans[0]), "chosen_ms": times[0],
+                     "best": tag(plans[best]), "best_ms": times[best],
+                     "all_ms": {tag(p): t for p, t in zip(plans, times)}}
+            res[f"{name} {dname}"] = entry
+            say(f"rnn sweep {name} B={B} T={T} H={H} {dname}: chosen "
+                f"{entry['chosen']} {times[0]:.4f} ms, best "
+                f"{entry['best']} {times[best]:.4f} ms "
+                f"({times[0] / times[best]:.3f}x); "
+                f"{json.dumps(entry['all_ms'])}")
+    return res
+
+
+def _plain_forward(name, args):
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    if name == "gru_seq":
+        return rk.gru_sequence_fused(*args, route="plain")
+    return rk.lstm_sequence_fused(*args, forget_bias=1.0,
+                                  save_cell=name == "lstm_seq_train",
+                                  route="plain")
 
 
 # ---------------------------------------------------------------------------
@@ -2218,12 +2428,14 @@ def _gru_run(name, args, route=None):
     return rk.gru_sequence_fused_bwd(*args, route=route)
 
 
-def gru_kernel_checks(say, seed: int, device="cuda"):
+def gru_kernel_checks(say, seed: int, device="cuda", parent=None):
     """#11 and #12 against their plain versions in f32 and bf16 at the
     bench shape (B=64, T=32, H=512, lengths from the seed in 16..32 with
     one 0, nonzero h0), on its within-length flipped input (the reverse
     direction) and at the edge shape; at the bench shape their times, the
-    plain versions' and the bound. Tolerances as phase 4's (lstm_close).
+    plain versions' and the bound (and #11's beside the ``parent``
+    library's body, timed in turns, where one is given). Tolerances as
+    phase 4's (lstm_close).
     Returns the kernels' JSON entries (the bf16 bench numbers first: that
     is what the training path runs)."""
     import numpy as np
@@ -2249,6 +2461,8 @@ def gru_kernel_checks(say, seed: int, device="cuda"):
                                       "frozen state"}
                for name, src, rep, body in GRU_KERNELS}
     entries["gru_seq_bwd"]["design"] = GRU_BWD_DESIGN
+    entries["gru_seq"]["design"] = RNN_FWD_DESIGN
+    entries["gru_seq"]["plan"] = forward_plan_entry("gru", B, H)
     for tag, Bs, Ts, lens, reverse in shapes:
         for dt, dname in ((torch.float32, "float32"),
                           (torch.bfloat16, "bfloat16")):
@@ -2271,14 +2485,14 @@ def gru_kernel_checks(say, seed: int, device="cuda"):
                             check(torch.equal(got[1][b], args[name][4][b]),
                                   f"{name}: a 0-length sample's hT != h0")
                 res = {"max_abs_err": max(errs)}
-                if name == "gru_seq_bwd" and tag != "reverse":
+                if tag != "reverse":
                     again = _gru_run(name, args[name])
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"{name} {tag} {dname}: two runs differ")
                     res["bit_equal_two_runs"] = True
                 if tag == "bench":
                     res.update(_gru_times(name, B, T, H, lens, dt, dname,
-                                          gen, device))
+                                          gen, device, parent))
                 say(f"{name} {tag} B={Bs} T={Ts} H={H} {dname}: "
                     f"{json.dumps(res)}")
                 e = entries[name]
@@ -2292,7 +2506,7 @@ def gru_kernel_checks(say, seed: int, device="cuda"):
     return [entries[name] for name, _, _, _ in GRU_KERNELS]
 
 
-def _gru_times(name, B, T, H, lens, dt, dname, gen, device):
+def _gru_times(name, B, T, H, lens, dt, dname, gen, device, parent=None):
     """Kernel and plain times (CUDA graph over input sets larger than L2)
     and the bound: the products of the live steps (2*H*3H per live
     (sample, step) in the forward, three times that in the backward)
@@ -2314,7 +2528,13 @@ def _gru_times(name, B, T, H, lens, dt, dname, gen, device):
     idx = 0 if name == "gru_seq" else 1
     sets = input_sets(lambda i: _gru_inputs(B, T, H, lens, dt, gen,
                                             device)[idx], nbytes)
-    ms = time_ms([lambda s=s: _gru_run(name, s) for s in sets])
+    ours = [lambda s=s: _gru_run(name, s) for s in sets]
+    extra = {}
+    if name == "gru_seq":
+        extra = _parent_turns(name, ours, sets, parent) if parent \
+            else {"ms": time_ms(ours)}
+        extra["us_a_step"] = extra["ms"] * 1e3 / max(lens)
+    ms = extra.get("ms") or time_ms(ours)
     plain_ms = time_ms([lambda s=s: _gru_run(name, s, route="plain")
                         for s in sets], rounds=1, reps=2)
     del sets
@@ -2322,7 +2542,7 @@ def _gru_times(name, B, T, H, lens, dt, dname, gen, device):
         return {"ms": ms, "plain_ms": plain_ms,
                 **tensor_core_bound(flops, nbytes, dname)}
     b_ms, b_by = bound(flops, nbytes, dname)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+    return {**extra, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
 
 
@@ -2419,6 +2639,14 @@ def main(argv=None) -> int:
     ap.add_argument("--split-sweep", action="store_true",
                     help="time #4's and #5's split counts at B 1/2/8/32, "
                          "not only at the decode paths' B")
+    ap.add_argument("--rnn-sweep", action="store_true",
+                    help="time every plan of the recurrent forwards (#8, "
+                         "#9, #11) at their bench shapes and print the "
+                         "chosen plan beside the fastest")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit (git archive); "
+                         "its forward bodies of #8, #9 and #11 are built "
+                         "there and timed in turns with these")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
@@ -2459,7 +2687,15 @@ def main(argv=None) -> int:
     launches = serving_phase(say, args.seed)
     for entry in (flash, paged):
         entry["launches"] = launches[entry["name"]]
-    lstm = lstm_kernel_checks(say, args.seed)
+    parent = load_parent(args.parent) if args.parent else None
+    fwd_regs = {"lstm_seq_kernel": ptxas_usage(build, "lstm_seq_kernel",
+                                               ("save", "wide")),
+                "gru_seq_kernel": ptxas_usage(build, "gru_seq_kernel",
+                                              ("wide",))}
+    say(f"forward kernels' registers and spills: {json.dumps(fwd_regs)}")
+    lstm = lstm_kernel_checks(say, args.seed, parent=parent)
+    if args.rnn_sweep:
+        sweep = rnn_sweep(say, args.seed)
     launches, steps = training_phase(say, args.seed)
     for entry in lstm:
         entry["launches"] = launches[entry["name"]]
@@ -2467,6 +2703,8 @@ def main(argv=None) -> int:
                                   "pass over 2 batches")
         if entry["name"] == "lstm_seq_bwd":
             entry["ptxas"] = lstm_regs
+        else:
+            entry["ptxas"] = fwd_regs["lstm_seq_kernel"]
     flash["training_shapes"], bwd = flash_bwd_checks(say, args.seed)
     lm_launches, lm_steps = lm_training_phase(say, args.seed)
     nmt_launches, nmt_steps = nmt_training_phase(say, args.seed)
@@ -2489,7 +2727,8 @@ def main(argv=None) -> int:
         entry["launches_note"] = per_run
     flash["launches_decode"] = {run: n.get("flash_attention_fwd", 0)
                                 for run, n in runs.items()}
-    gru = gru_kernel_checks(say, args.seed)
+    gru = gru_kernel_checks(say, args.seed, parent=parent)
+    gru[0]["ptxas"] = fwd_regs["gru_seq_kernel"]
     gru[1]["ptxas"] = ptxas_usage(build, "gru_seq_bwd_kernel")
     say(f"gru_seq_bwd_kernel registers and spills: "
         f"{json.dumps(gru[1]['ptxas'])}")
@@ -2501,6 +2740,11 @@ def main(argv=None) -> int:
             f"{train[name]} in {s2s_steps} seq2seq training steps + "
             + " + ".join(f"{g[name]} in one {what} generate call"
                          for what, g in gen.items()))
+    if args.rnn_sweep:
+        for entry in lstm + gru:
+            for tag, res in sweep.items():
+                if tag.split()[0] == entry["name"]:
+                    entry.setdefault("sweep", {})[tag.split()[1]] = res
     for entry in [flash] + bwd:
         for bodies, key in ((TENSOR_CORE_BODIES, "sass_bfloat16"),
                             (TF32_BODIES, "sass_float32")):

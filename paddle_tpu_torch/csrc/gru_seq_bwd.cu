@@ -65,13 +65,15 @@
 // result is deterministic.
 #include <type_traits>
 
-#include "gru.cuh"
+#include "lstm.cuh"
+#include "recur.cuh"
 #include "tf32x3.cuh"
 
 namespace paddle_tpu_torch {
 namespace {
 
-using namespace gru;
+using namespace lstm;
+using recur::comp;
 
 constexpr int kWarps = kThreads / 32;    // 8
 constexpr int kOwnUnits = 8;             // hidden units a block owns
@@ -279,44 +281,14 @@ __device__ __forceinline__ void gemm(const Mat<TA>& a, const Mat<TB>& b,
   }
 }
 
-// One halving step of reduce_scatter: lanes l and l ^ HALF keep the
-// halves of v[0 .. 2 HALF) that bit HALF of l selects, each adding the
-// other's copy of its half
-template <int HALF, int N>
-__device__ __forceinline__ void halve(float (&v)[N], int lane) {
-  const bool hi = lane & HALF;
-#pragma unroll
-  for (int j = 0; j < HALF; ++j) {
-    const float send = hi ? v[j] : v[j + HALF];
-    const float keep = hi ? v[j + HALF] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
-  }
-}
-
-// The sum over the 16 lanes of each half-warp of each of v[0 .. 15], left
-// in lane l for index l % 16: four halving steps, 15 shuffles (a fixed
-// tree, so the sums are deterministic)
-__device__ __forceinline__ float reduce_scatter(float (&v)[16], int lane) {
-  halve<8>(v, lane);
-  halve<4>(v, lane);
-  halve<2>(v, lane);
-  halve<1>(v, lane);
-  return v[0];
-}
-
 // the owner's sums of the recurrence's products, one a gate
 template <int NG>
 struct Sums {
   float v[NG];
 };
 
-__device__ __forceinline__ float comp(const float4& x, int k) {
-  return k == 0 ? x.x : k == 1 ? x.y : k == 2 ? x.z : x.w;
-}
-
-// One block an SM: with twice the forward's units a block the grid is half
-// the forward's (64 x 2 = 128 blocks at B = 64, H = 512), so the same
-// shapes fit, and 255 registers a thread keep the products free of spills
+// One block an SM, 8 units x 32 rows a block (64 x 2 = 128 blocks at B =
+// 64, H = 512): 255 registers a thread keep the products free of spills
 // (held to 128 for two blocks an SM they spilled, and the kernel ran 5%
 // and 8% slower in f32 and bf16 on the H100)
 template <typename DT>
@@ -528,7 +500,11 @@ gru_seq_bwd_kernel(const DT* __restrict__ xw, const int* __restrict__ lens,
         }
     }
 #pragma unroll
-    for (int g = 0; g < NG; ++g) out.v[g] = reduce_scatter(acc[g], lane);
+    for (int g = 0; g < NG; ++g) {
+      // over the half-warp: lane l keeps index l % 16
+      recur::reduce_scatter<8>(acc[g], lane);
+      out.v[g] = acc[g][0];
+    }
     return out;
   };
 
@@ -632,7 +608,7 @@ extern "C" int paddle_gru_seq_bwd(const void* xw, const int* lens,
                                   void* hp_seq, int* rowmap, int B, int T,
                                   int H, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (H % gru::kUnits != 0 || B <= 0 || T <= 0)
+  if (H % lstm::kUnits != 0 || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)

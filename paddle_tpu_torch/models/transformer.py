@@ -243,23 +243,33 @@ class TransformerLM(Module):
         return cell, self._logits(last)
 
     def _append_rows(self, cell: Cell, i: int, k: torch.Tensor,
-                     v: torch.Tensor, at) -> Tuple[torch.Tensor, ...]:
+                     v: torch.Tensor, at,
+                     keep: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, ...]:
         """Write this step's k/v rows ([B, S, H, Dh]) of layer ``i`` into
         the cell's dense caches IN PLACE at the rows ``at`` (from
         :meth:`_rows_at`), quantizing them when the cell is int8; returns
         the caches (kc, vc, k_scale, v_scale), the scales None when not
         int8. Where JAX returns updated caches, the returned cell holds the
-        same tensors: no copy of the cache per step."""
+        same tensors: no copy of the cache per step. Where ``keep`` [B]
+        is False the write puts back what the place held (a write JAX
+        drops), with no host sync."""
         kc, vc = cell[f"k{i}"], cell[f"v{i}"]
         ksc = cell.get(f"k{i}_scale")
         vsc = cell.get(f"v{i}_scale")
+
+        def put(dst, new):
+            if keep is not None:
+                m = keep.view(-1, *([1] * (new.dim() - 1)))
+                new = torch.where(m, new, dst[at])
+            dst[at] = new
         if ksc is not None:
             k, ks = ck.quantize_kv(k)
             v, vs = ck.quantize_kv(v)
-            ksc[at] = ks
-            vsc[at] = vs
-        kc[at] = k.to(kc.dtype)
-        vc[at] = v.to(vc.dtype)
+            put(ksc, ks)
+            put(vsc, vs)
+        put(kc, k.to(kc.dtype))
+        put(vc, v.to(vc.dtype))
         return kc, vc, ksc, vsc
 
     @staticmethod
@@ -327,22 +337,25 @@ class TransformerLM(Module):
         ``pos % bs``. Where JAX returns new pools, the port writes into the
         pools IN PLACE (the returned cell holds the same tensors): no copy
         of the pool per step. Drained slots' tables point at the null page
-        0, which absorbs their writes. Positions past the table or past
-        max_len (a finished request's discarded overshoot) are clamped as
-        JAX clamps its gathers. int8 pools (with ``k{i}_scale``/
-        ``v{i}_scale`` [P, bs, H] scale pools) quantize the appended row and
-        dequantize in the read."""
+        0, which absorbs their writes. A position past the table
+        (``pos // bs >= NB``: a finished request's discarded overshoot)
+        writes nothing, as JAX's out-of-range scatter drops its write: the
+        pools keep what they held. Its embedding position is clamped to
+        max_len - 1 as JAX clamps its gather. int8 pools (with
+        ``k{i}_scale``/``v{i}_scale`` [P, bs, H] scale pools) quantize the
+        appended row and dequantize in the read."""
         pos = cell["pos"]
         bs = cell["k0"].shape[1]
         NB = tables.shape[1]
-        blk_idx = torch.clamp(pos.long() // bs, max=NB - 1)
-        page = tables.long().gather(1, blk_idx[:, None])[:, 0]
-        at = (page, pos.long() % bs)
+        blk = pos.long() // bs
+        in_table = blk < NB
+        page = tables.long().gather(1, torch.clamp(blk, max=NB - 1)[:, None])
+        at = (page[:, 0], pos.long() % bs)
         x = self._embed_at(tokens[:, None], pos[:, None])   # [B, 1, D]
         for i, blk in enumerate(self.blocks):
             q, k, v = blk.heads(x)                          # [B, 1, H, Dh]
             kp, vp, ksp, vsp = self._append_rows(cell, i, k[:, 0], v[:, 0],
-                                                 at)
+                                                 at, keep=in_table)
             o = ck.paged_decode_attention(q[:, 0], kp, vp, tables, pos,
                                           scale=blk.d_head ** -0.5,
                                           k_scale=ksp, v_scale=vsp,

@@ -59,11 +59,14 @@ SIGNATURES = {
                                + [_f32, _i32, _p],
     "paddle_decode_attention_q": [_p] * 9 + [_i32] * 6 + [_i64] * 8
                                  + [_f32, _i32, _p],
-    "paddle_lstm_seq": [_p] * 10 + [_i32, _i32, _i32, _f32, _i32, _p],
-    "paddle_lstm_seq_train": [_p] * 11 + [_i32, _i32, _i32, _f32, _i32, _p],
+    "paddle_lstm_seq": [_p] * 10 + [_i32, _i32, _i32, _f32] + [_i32] * 4
+                       + [_p],
+    "paddle_lstm_seq_train": [_p] * 11 + [_i32, _i32, _i32, _f32]
+                             + [_i32] * 4 + [_p],
     "paddle_lstm_seq_bwd": [_p] * 18 + [_i32, _i32, _i32, _f32, _i32, _p],
     "paddle_lstm_batch_tile": [],
-    "paddle_gru_seq": [_p] * 8 + [_i32, _i32, _i32, _i32, _p],
+    "paddle_card_limits": [_p, _p],
+    "paddle_gru_seq": [_p] * 8 + [_i32] * 7 + [_p],
     "paddle_gru_seq_bwd": [_p] * 14 + [_i32, _i32, _i32, _i32, _p],
 }
 

@@ -30,15 +30,30 @@ step freezes the state and outputs 0. Launches are counted in
 ``cuda_kernels.LAUNCHES`` under ``lstm_seq``, ``lstm_seq_train``,
 ``lstm_seq_bwd``, ``gru_seq`` and ``gru_seq_bwd``.
 
-The kernels share one grid partition (4 hidden units x 32 batch rows a
-block, every block resident for the grid barriers): a shape whose grid
-does not fit the card at once raises ``ValueError`` ("split the batch"),
-as does a hidden width that is not a multiple of 4.
+Every kernel keeps its whole grid resident (grid barriers every step),
+so each has a batch limit. The backwards take fixed partitions: #10 4
+hidden units x 32 batch rows a block, #12 8 x 32. The forwards (#8, #9,
+#11) take a plan from :func:`forward_plan`: ``units`` (8 or 16) hidden
+units x ``rows`` (8, 16 or 32) batch rows a block, one warp or a pair of
+warps (``parts``) for each 4 rows (2 in the LSTM's 16-unit blocks), the
+plan whose grid fits one wave at the least modelled cost a step on the
+busiest SM; a hidden width that is not a multiple of the units masks the
+tail units.
+On an H100 (132 SMs, 227 KB a block) the LSTM forwards take B <= 256 at
+H = 256, B <= 128 at H = 512 and no B at H = 1280 (no 8-unit block fits
+two an SM); the GRU forward takes B <= 528 at H = 256, B <= 256 at H =
+512 and B <= 64 at H = 1024. That is every (B, H) the 4-unit x 32-row
+forwards they replace took, but the LSTM's at H = 4 past B = 8448 (those
+took 3 blocks of 256 threads an SM; these plan for 2). A shape past its
+kernel's limit raises ``ValueError`` ("split the batch"), as does a
+hidden width that is not a multiple of 4.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import itertools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,12 +61,150 @@ from . import _build
 from .cuda_kernels import (LAUNCHES, _DTYPE_CODE, _check_float, _raise_on,
                            _route, _stream)
 
-#: the kernels give each block this many hidden units: H must be a multiple
+#: the kernels give each block a multiple of this many hidden units: H
+#: must be a multiple
 KERNEL_HIDDEN_MULTIPLE = 4
 #: the C entries' code when the grid does not fit in one wave of the card,
 #: or a block's slice of U does not fit its shared memory
 #: (cudaErrorCooperativeLaunchTooLarge)
 _TOO_LARGE = 720
+
+
+# ---------------------------------------------------------------------------
+# the forwards' plans
+# ---------------------------------------------------------------------------
+
+#: hidden units and batch rows a block of a forward kernel may take, and
+#: the warps that may share a product's k (csrc/recur.cuh KSplit)
+FORWARD_UNITS = (8, 16)
+FORWARD_ROWS = (8, 16, 32)
+FORWARD_PARTS = (1, 2)
+#: an H100 SXM: SMs, and the shared memory a block may opt in to
+H100 = (132, 232448)
+#: the forwards' gates and state exchanges a step
+_FORWARD_KINDS = {"lstm": (4, 1), "gru": (3, 2)}
+
+
+def rows_a_warp(kind: str, units: int) -> int:
+    """Batch rows a warp of a forward kernel takes (csrc/recur.cuh): 4,
+    but 2 for the LSTM's 16-unit blocks (a lane's 64 accumulators)."""
+    return 2 if (kind, units) == ("lstm", 16) else 4
+
+
+class ForwardPlan(NamedTuple):
+    """A forward kernel's launch: ``units`` x ``rows`` a block, ``grid``
+    (ceil(H / units), ceil(B / rows)) blocks of ``threads`` (``parts``
+    warps for each :func:`rows_a_warp` rows, sharing the products' k) with
+    ``smem`` bytes of shared memory (U's gate columns of the block's
+    units, f32, and 512 bytes a pair of warps where parts is 2),
+    ``per_sm`` blocks on the busiest SM."""
+    units: int
+    rows: int
+    parts: int
+    grid: Tuple[int, int]
+    per_sm: int
+    threads: int
+    smem: int
+    cost: float
+
+
+#: the cycles a pair of warps takes to add its sums (KSplit)
+_PAIR = 300
+#: the cycles a step's product waits for L2 each time its ring of row
+#: loads runs dry (the ring holds 16 / rows-a-warp column steps of 64 in
+#: the bodies for one block an SM, 8 / rows-a-warp in those for two or
+#: more)
+_L2_WAIT = 1000
+
+
+def _blocks_an_sm(threads: int, smem: int, smem_optin: int) -> int:
+    """Blocks of one forward kernel an SM holds at once: the bodies a
+    grid of more blocks than SMs launches are compiled for at most 128
+    registers a thread (``__launch_bounds__(256, 2)``), so 512 threads an
+    SM (a grid of at most one block an SM takes the bodies compiled for
+    255); Hopper gives each block 1 KB of shared memory beyond its own,
+    out of ``smem_optin`` + 1 KB an SM; at most 32 blocks."""
+    return min(512 // threads, (smem_optin + 1024) // (smem + 1024), 32)
+
+
+def forward_plans(kind: str, B: int, H: int, sms: int = H100[0],
+                  smem_optin: int = H100[1]) -> List[ForwardPlan]:
+    """Every plan of the ``kind`` ("lstm": #8, #9; "gru": #11) forward
+    whose grid fits the card in one wave, cheapest first.
+
+    The cost counts the busiest SM's work a step, in cycles of an SM:
+    its FMAs (the blocks' rows, at most B, x units x gates x H) at 32 a
+    cycle on each of the 4 schedulers that has a warp with a row, or at
+    32 x rows a warp a cycle where shared memory bounds them (a lane's
+    16-byte load of U feeds 4 x rows-a-warp FMAs, at 8 such loads a
+    cycle), stretched by up to 2x where fewer than 8 warps hide the
+    latencies; _L2_WAIT each time an exchange's ring of row loads runs
+    dry; and the bytes it reads from L2 (rows x H x 4 an exchange; the
+    GRU has two a step) at 64 a cycle. (Weights fitted to the H100
+    sweep of ``chip_smoke.py --rnn-sweep``: the L2 round trips after a
+    grid barrier and the latency-bound products lead; the bytes follow.)
+    Ties go to fewer blocks (fewer at each grid barrier), then to less
+    shared memory and fewer threads. An H that is not a multiple of 4 has
+    no plan."""
+    gates, exchanges = _FORWARD_KINDS[kind]
+    if B <= 0 or H <= 0 or H % KERNEL_HIDDEN_MULTIPLE:
+        return []
+    plans = []
+    steps = -(-H // 64)                         # column steps of 64 k
+    for units, rows, parts in itertools.product(
+            FORWARD_UNITS, FORWARD_ROWS, FORWARD_PARTS):
+        rl = rows_a_warp(kind, units)
+        threads = 32 * parts * rows // rl
+        smem = gates * 64 * steps * units * 4 + (threads // 64 * 512
+                                                 if parts == 2 else 0)
+        if threads > 256 or smem > smem_optin:
+            continue
+        grid = (-(-H // units), -(-B // rows))
+        blocks = grid[0] * grid[1]
+        if blocks > sms * _blocks_an_sm(threads, smem, smem_optin):
+            continue
+        per_sm = -(-blocks // sms)
+        live = per_sm * min(rows, B)
+        fma = live * min(units, H) * gates * H
+        warps = per_sm * parts * -(-min(rows, B) // rl)   # with a live row
+        ring = (16 if per_sm == 1 else 8) // rl * parts
+        issue = max(fma / (32 * min(4, warps)), fma / (32 * rl))
+        cost = (issue * (2 - min(warps, 8) / 8)
+                + exchanges * (-(-steps // ring) * _L2_WAIT
+                               + (_PAIR if parts == 2 else 0))
+                + live * H * 4 * exchanges / 64)
+        plans.append(ForwardPlan(units, rows, parts, grid, per_sm, threads,
+                                 smem, cost))
+    return sorted(plans, key=lambda p: (p.cost, p.grid[0] * p.grid[1],
+                                        p.smem, p.threads))
+
+
+def forward_plan(kind: str, B: int, H: int, sms: int = H100[0],
+                 smem_optin: int = H100[1]) -> Optional[ForwardPlan]:
+    """The plan the ``kind`` forward launches with (:func:`forward_plans`'
+    cheapest), or None where no grid fits: split the batch."""
+    plans = forward_plans(kind, B, H, sms, smem_optin)
+    return plans[0] if plans else None
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt in to) of card ``index``."""
+    import ctypes
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.load().lib.paddle_card_limits(ctypes.byref(sms),
+                                                   ctypes.byref(smem))
+    _raise_on(err, "card_limits")
+    return sms.value, smem.value
+
+
+def _card_plan(kind: str, name: str, xw: torch.Tensor, B: int,
+               H: int) -> ForwardPlan:
+    plan = forward_plan(kind, B, H, *card_limits(xw.device.index or 0))
+    if plan is None:
+        _raise_launch(_TOO_LARGE, name, B, H)
+    return plan
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -148,9 +301,10 @@ def _raise_launch(err: int, name: str, B: int, H: int) -> None:
 
 
 def _lstm_sequence_fused_kernel(xw, lengths, u, b, h0, c0, forget_bias,
-                                save_cell):
+                                save_cell, plan=None):
     B, T, G = xw.shape
     H = G // 4
+    name = "lstm_seq_train" if save_cell else "lstm_seq"
     lens = _check_lstm_args("lstm_sequence_fused", xw, lengths, u, b, h0, c0)
     out = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
     h_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
@@ -161,6 +315,7 @@ def _lstm_sequence_fused_kernel(xw, lengths, u, b, h0, c0, forget_bias,
         h_t.copy_(h0)
         c_t.copy_(c0)
         return res
+    plan = plan or _card_plan("lstm", name, xw, B, H)
     h_x = torch.empty((2, B, H), dtype=torch.float32, device=xw.device)
     lib = _build.load().lib
     entry = lib.paddle_lstm_seq_train if save_cell else lib.paddle_lstm_seq
@@ -171,8 +326,8 @@ def _lstm_sequence_fused_kernel(xw, lengths, u, b, h0, c0, forget_bias,
         args.append(c_seq.data_ptr())
     with torch.cuda.device(xw.device):
         err = entry(*args, h_x.data_ptr(), B, T, H, float(forget_bias),
-                    _DTYPE_CODE[xw.dtype], _stream(xw.device))
-    name = "lstm_seq_train" if save_cell else "lstm_seq"
+                    plan.units, plan.rows, plan.parts, _DTYPE_CODE[xw.dtype],
+                    _stream(xw.device))
     _raise_launch(err, name, B, H)
     LAUNCHES[name] += 1
     return res
@@ -348,7 +503,7 @@ def _gru_shapes(xw, u):
     return B, T, H
 
 
-def _gru_sequence_fused_kernel(xw, lengths, u, h0):
+def _gru_sequence_fused_kernel(xw, lengths, u, h0, plan=None):
     B, T, H = _gru_shapes(xw, u)
     lens = _check_args("gru_sequence_fused", xw, lengths, H,
                        [("u", u, (H, 3 * H)), ("h0", h0, (B, H))])
@@ -357,6 +512,7 @@ def _gru_sequence_fused_kernel(xw, lengths, u, h0):
     if B == 0 or T == 0:
         h_t.copy_(h0)
         return out, h_t
+    plan = plan or _card_plan("gru", "gru_seq", xw, B, H)
     # the two f32 exchanges of the grid: h and r*h of every unit
     h_x = torch.empty((B, H), dtype=torch.float32, device=xw.device)
     rh_x = torch.empty((B, H), dtype=torch.float32, device=xw.device)
@@ -365,7 +521,8 @@ def _gru_sequence_fused_kernel(xw, lengths, u, h0):
         err = lib.paddle_gru_seq(
             xw.data_ptr(), lens.data_ptr(), u.data_ptr(), h0.data_ptr(),
             out.data_ptr(), h_t.data_ptr(), h_x.data_ptr(), rh_x.data_ptr(),
-            B, T, H, _DTYPE_CODE[xw.dtype], _stream(xw.device))
+            B, T, H, plan.units, plan.rows, plan.parts,
+            _DTYPE_CODE[xw.dtype], _stream(xw.device))
     _raise_launch(err, "gru_seq", B, H)
     LAUNCHES["gru_seq"] += 1
     return out, h_t

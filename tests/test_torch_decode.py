@@ -264,6 +264,49 @@ def test_decode_step_clamps_at_the_end_of_the_cache(pair, kv_dtype):
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_decode_step_paged_past_the_table_drops_its_write(pair, kv_dtype):
+    """One paged step at positions past the table the caller sliced (pos =
+    NB*bs and NB*bs + 5, a finished request's discarded overshoot; the
+    second request's last table entry is the null page 0): JAX's scatter
+    drops the out-of-range write, so after the step the pools of both
+    packages, page 0 included, are bit-equal to the pools before it, and
+    the logits agree within LOGIT_ATOL."""
+    jmodel, jparams, model = pair
+    rs = np.random.RandomState(11)
+    P, bs, NB = 9, 8, 3
+    pools = {}
+    for i in range(L):
+        for kv in "kv":
+            rows = rs.randn(P, bs, H, D // H).astype(np.float32)
+            if kv_dtype == "int8":
+                codes, scales = ck.quantize_kv(torch.from_numpy(rows))
+                pools[f"{kv}{i}"] = codes.numpy()
+                pools[f"{kv}{i}_scale"] = scales.numpy()
+            else:
+                pools[f"{kv}{i}"] = rows
+    tables = np.array([[3, 7, 5], [2, 6, 0]], np.int32)
+    pos = np.array([NB * bs, NB * bs + 5], np.int32)
+    toks = rs.randint(0, VOCAB, (2,)).astype(np.int32)
+    jcell = {nm: jnp.asarray(a) for nm, a in pools.items()}
+    jcell["pos"] = jnp.asarray(pos)
+    cell = {nm: torch.from_numpy(a.copy()) for nm, a in pools.items()}
+    cell["pos"] = torch.from_numpy(pos)
+    jlog, jcell = jmodel.decode_step_paged(
+        jparams, jcell, jnp.asarray(toks), jnp.asarray(tables),
+        attn_route="dense")
+    logits, cell = model.decode_step_paged(cell, torch.from_numpy(toks),
+                                           torch.from_numpy(tables))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlog),
+                               atol=LOGIT_ATOL, rtol=0)
+    for nm, before in pools.items():
+        np.testing.assert_array_equal(np.asarray(jcell[nm]), before,
+                                      err_msg=f"JAX {nm}")
+        np.testing.assert_array_equal(cell[nm].numpy(), before,
+                                      err_msg=f"port {nm}")
+    np.testing.assert_array_equal(cell["pos"].numpy(), pos + 1)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
 def test_verify_step_matches_jax(pair, kv_dtype):
     """A 5-token span from a ragged prefill (and sample 0's span crossing
     the end of the cache, its write clamped to the last 5 rows): span

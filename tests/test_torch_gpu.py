@@ -1009,6 +1009,134 @@ def test_gru_kernels_refuse_what_they_do_not_take(cuda):
         rk.gru_sequence_fused_bwd(big, lens, u, h, h[:, None], h[:, None], h)
 
 
+# ---------------------------------------------------------------------------
+# the recurrent forwards (#8, #9, #11) at every plan
+# ---------------------------------------------------------------------------
+
+def _lens(kind, B, T, gen):
+    """Lengths of a forward case: the benches' (30..100 for the LSTM
+    flagship, 16..32 with a 0 for the seq2seq), 0, 1 and T at the edge, or
+    all 0."""
+    if kind == "zero":
+        return [0] * B
+    lo = {"flagship": 30, "bench": 16}.get(kind, 0)
+    lens = torch.randint(lo, T + 1, (B,), generator=gen)
+    if kind == "bench":
+        lens[0] = 0
+    if kind == "edge":
+        lens[:3] = torch.tensor([0, 1, T])
+    return lens.tolist()
+
+
+def _lstm_fwd_case(cuda, dtype, B, T, H, kind, seed):
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda, dtype)
+    return (rnd(B, T, 4 * H, scale=0.5),
+            torch.tensor(_lens(kind, B, T, gen), dtype=torch.int32,
+                         device=cuda),
+            ((torch.rand((H, 4 * H), generator=gen) - 0.5) * 0.16).to(
+                cuda, dtype), rnd(4 * H, scale=0.1), rnd(B, H, scale=0.5),
+            rnd(B, H, scale=0.5))
+
+
+def _gru_fwd_case(cuda, dtype, B, T, H, kind, seed):
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda, dtype)
+    return (rnd(B, T, 3 * H, scale=0.5),
+            torch.tensor(_lens(kind, B, T, gen), dtype=torch.int32,
+                         device=cuda),
+            ((torch.rand((H, 3 * H), generator=gen) - 0.5) * 0.16).to(
+                cuda, dtype), rnd(B, H, scale=0.5))
+
+
+def _card_plans(kind, B, H):
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    plans = rk.forward_plans(kind, B, H, *rk.card_limits(
+        torch.cuda.current_device()))
+    assert plans
+    return plans
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,kind", [
+    (64, 100, 256, "flagship"),          # the text classifier's shape
+    (37, 9, 12, "edge"),                 # a partial row tile, tail units
+    (5, 6, 36, "zero"),                  # every length 0, tail units
+    (128, 6, 256, "edge"),               # SUITE_ROWS (128, 256)
+])
+def test_lstm_forwards_match_plain_at_every_plan_on_card(cuda, dtype, B, T,
+                                                         H, kind):
+    """#8 and #9 at each plan forward_plans lists for the shape (8 and 16
+    units, 8/16/32 rows; H = 12 and 36 leave tail units), and at the plan
+    the wrapper chooses, against the plain version under the LSTM
+    tolerance (_lstm_close)."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    fwd = _lstm_fwd_case(cuda, dtype, B, T, H, kind, 31)
+    for save in (False, True):
+        want = rk.lstm_sequence_fused(*fwd, forget_bias=1.0, save_cell=save,
+                                      route="plain")
+        name = "lstm_seq_train" if save else "lstm_seq"
+        before = ck.LAUNCHES[name]
+        got = rk.lstm_sequence_fused(*fwd, forget_bias=1.0, save_cell=save)
+        assert ck.LAUNCHES[name] == before + 1
+        for g, w in zip(got, want):
+            _lstm_close(g, w, dtype)
+        for plan in _card_plans("lstm", B, H):
+            got = rk._lstm_sequence_fused_kernel(*fwd, 1.0, save, plan=plan)
+            for g, w in zip(got, want):
+                _lstm_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,kind", [
+    (64, 32, 512, "bench"),              # the seq2seq encoder's shape
+    (128, 8, 512, "edge"),               # H = 512 at B = 128
+    (37, 9, 12, "edge"),                 # a partial row tile, tail units
+    (5, 4, 36, "zero"),                  # every length 0, tail units
+])
+def test_gru_forward_matches_plain_at_every_plan_on_card(cuda, dtype, B, T,
+                                                         H, kind):
+    """#11 at each plan forward_plans lists for the shape, and at the
+    wrapper's, against the plain version under the LSTM tolerance."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    xw, lens, u, h0 = _gru_fwd_case(cuda, dtype, B, T, H, kind, 37)
+    want = rk.gru_sequence_fused(xw, lens, u, None, h0, route="plain")
+    before = ck.LAUNCHES["gru_seq"]
+    got = rk.gru_sequence_fused(xw, lens, u, None, h0)
+    assert ck.LAUNCHES["gru_seq"] == before + 1
+    for g, w in zip(got, want):
+        _lstm_close(g, w, dtype)
+    for plan in _card_plans("gru", B, H):
+        got = rk._gru_sequence_fused_kernel(xw, lens, u, h0, plan=plan)
+        for g, w in zip(got, want):
+            _lstm_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["lstm_seq", "lstm_seq_train", "gru_seq"])
+def test_forwards_are_bit_equal_across_runs_on_card(cuda, dtype, which):
+    """#8 and #9 at the flagship shape (B=64, T=100, H=256) and #11 at the
+    seq2seq's (B=64, T=32, H=512): two launches give the same bits (one
+    owner a sum, a fixed order, no atomics)."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    if which == "gru_seq":
+        args = _gru_fwd_case(cuda, dtype, 64, 32, 512, "bench", 41)
+        run = lambda: rk.gru_sequence_fused(args[0], args[1], args[2], None,
+                                            args[3])
+    else:
+        args = _lstm_fwd_case(cuda, dtype, 64, 100, 256, "flagship", 43)
+        run = lambda: rk.lstm_sequence_fused(
+            *args, forget_bias=1.0, save_cell=which == "lstm_seq_train")
+    first, again = run(), run()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
 def _s2s(cuda):
     from paddle_tpu_torch.models import AttentionSeq2Seq
     model = AttentionSeq2Seq(300, 310, embed_dim=32, hidden=64).init(

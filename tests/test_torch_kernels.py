@@ -236,6 +236,6 @@ def test_build_hash_tracks_sources_and_flags():
     names = {p.name for p in _build.sources()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu", "common.cuh",
             "lstm_seq.cu", "lstm_seq_bwd.cu", "lstm.cuh", "decode.cu",
-            "decode_attn.cuh", "gru.cuh", "gru_seq.cu",
+            "decode_attn.cuh", "recur.cuh", "gru_seq.cu",
             "gru_seq_bwd.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
