@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --parent DIR --rnn-sweep
-        # also: the recurrent forwards (#8, #9, #11) timed in turns with
-        # the bodies of the checkout in DIR (the parent commit, unpacked
-        # by git archive), and every plan of theirs timed at the benches
+        # also: the recurrent forwards (#8, #9, #11) and the paged decode
+        # reads (#6, #7) timed in turns with the bodies of the checkout in
+        # DIR (the parent commit, unpacked by git archive), and every plan
+        # of the forwards timed at the benches
 
 Phases:
 
@@ -19,7 +20,10 @@ Phases:
    (its plan for two blocks an SM);
 2. kernels — hold each kernel against its plain PyTorch version at the
    serving shapes (f32 and bf16) and time kernel, plain version, the
-   PyTorch library call where one exists, and the roofline bound;
+   PyTorch library call where one exists, and the roofline bound; the
+   paged read (#6) with its split count, timed in turns with its per-row
+   table lookup (and with ``--parent`` the parent's one-block body), and
+   beside gather_pages + SDPA (two calls, for scale);
 3. serving — a GPT-2-small TransformerLM (random weights from a seed)
    behind ``ServingEngine``: 8 requests through start/submit/poll, every
    greedy continuation equal to the solo full re-forward with plain
@@ -74,14 +78,16 @@ Phases:
    over [:, :L] views of a [8, 1024, 12, 64] cache, L 256/512/1024, pos
    with 0, L-1 and a drained value past L; #7 at NB 4/8/16 with null-page
    table tails; each timed with the plain version's time, SDPA with a
-   boolean mask beside #4, and the byte bound, #4 and #5 with the split
-   count they used; then #4 and #5 split across blocks against plain on
+   boolean mask beside #4, the byte bound and the split count used (#7
+   as #6 in phase 2); then #4 and #5 split across blocks against plain on
    reads that end inside, on and past chunk boundaries and at pos 0 (B
-   1/2/8, chosen and forced counts, every query and cache dtype), and
-   their times over forced split counts, each count first held against
-   plain, at the decode paths' B 2 and 8 and each L (with
-   ``--split-sweep`` also at B 1 and 32: the sweep decode_splits'
-   thresholds come from);
+   1/2/8, chosen and forced counts, every query and cache dtype); #6 and
+   #7 bit-equal to #4 and #5 over ``gather_pages`` of the same pools at
+   the same split count (B 2/8, NB 4/8/16, every count swept, the table
+   carried and looked up a row at a time); and the four reads' times over
+   forced split counts, each count first held against plain, at the
+   decode paths' B 2 and 8, each L and NB (with ``--split-sweep`` #4 and
+   #5 also at B 1 and 32: the sweep decode_splits' thresholds come from);
 10. dense decode — GPT-2 small (random weights from the seed):
    ``generate_fused`` of 8 prompts of 200 tokens, 100 new, bucket 256, in
    f32 and at ``kv_dtype="int8"``, equal to the same loop on the plain
@@ -160,12 +166,18 @@ DESIGN = {
     "flash_attention_bwd_dq": {"bfloat16": _TC, "float32": _TF},
     "flash_attention_bwd_dkv": {"bfloat16": _TC, "float32": _TF},
 }
-# #4's and #5's design (every dtype): one body, templated over the row
-# loader
+# #4's, #5's, #6's and #7's design (every dtype): one body, templated over
+# the row loader
 SPLIT_DESIGN = ("one block per (head, sample) where B*H fills the card or "
                 "the read is short; else the read split into chunks of "
                 "rows, one block each, merged in chunk order by the last "
                 "block to finish (ops/cuda_kernels.py decode_splits)")
+# how #6 and #7 find a row's page
+PAGED_TABLE = ("each row group carries its page's table entry across the "
+               "page's rows and loads the entry of its next page when it "
+               "enters one (csrc/decode_attn.cuh TableRows)")
+PAGED_SOURCES = {"source": "paddle_tpu_torch/csrc/paged_decode.cu",
+                 "body": "paddle_tpu_torch/csrc/decode_attn.cuh"}
 # the wgmma+TMA bodies of this port: kernel name in the SASS -> JSON entry
 TENSOR_CORE_BODIES = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
                       "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
@@ -448,16 +460,24 @@ def _paged_inputs(B, H, D, bs, NB, dtype, gen, device, full: bool):
     return (q, k_pool, v_pool, tables.to(device), pos.to(device))
 
 
-def paged_checks(say, device="cuda"):
+def paged_checks(say, device="cuda", parent=None):
+    """#6 against its plain version at the serving shapes (f32 and bf16),
+    timed at full reads beside its per-row table lookup, the ``parent``
+    library's one-block body, the plain version and gather_pages + SDPA
+    (two calls, for scale). Returns its JSON entry."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     B, H, D, bs = 8, 12, 64, 64
     gen = torch.Generator().manual_seed(2)
     entry = {"name": "paged_decode_attention", "route": "cuda",
-             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+             **PAGED_SOURCES,
              "replaces": "paddle_tpu/ops/pallas_kernels.py:711",
              "replaces_kernel": "_paged_attn_kernel",
-             "library_ms": None}
+             "design": SPLIT_DESIGN, "table": PAGED_TABLE,
+             "library_ms": None,
+             "library_note": "no single PyTorch call reads through a block "
+                             "table; two_calls_ms is gather_pages of k and "
+                             "v then SDPA with a bool mask, for scale"}
     # NB 4 and 8: the 256- and 512-row reads of the serving phase; 16: the
     # 1024-row read a max_len request reaches
     for NB in (4, 8, 16):
@@ -475,19 +495,17 @@ def paged_checks(say, device="cuda"):
             # timed with every row live (pos = NB*bs - 1): a full read
             rows = B * NB * bs
             esize = args[1].element_size()
-            sets = input_sets(lambda i: _paged_inputs(
-                B, H, D, bs, NB, dt, gen, device, full=True),
+            sets = input_sets(lambda i: (_paged_inputs(
+                B, H, D, bs, NB, dt, gen, device, full=True), (None, None)),
                 2 * (B * NB + 1) * bs * H * D * esize)
-            ms = time_ms([lambda s=s: ck.paged_decode_attention(*s)
-                          for s in sets])
-            plain_ms = time_ms([lambda s=s: ck.paged_decode_attention(
-                *s, route="plain") for s in sets], rounds=1)
+            res = {"max_abs_err": err,
+                   **paged_times(sets, parent, two_calls=True)}
             del sets
             nbytes = (2 * rows * H * D + B * H * D) * esize \
                 + B * H * D * 4 + B * NB * 4 + B * 4
             b_ms, b_by = bound(4.0 * rows * H * D, nbytes, tag)
-            res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            res.update(bound_ms=b_ms, bound_by=b_by)
+            res["splits"], res["chunk"] = ck.decode_splits(B * H, NB * bs)
             say(f"paged_decode_attention NB={NB} {tag}: {json.dumps(res)}")
             if NB == 4 and dt == torch.float32:
                 entry.update(res)
@@ -497,6 +515,91 @@ def paged_checks(say, device="cuda"):
             else:
                 entry[f"NB{NB}_{tag}"] = res
     return entry
+
+
+def paged_read(s, splits=None, carry=True):
+    """#6 or #7 (with scales) on ``s`` = ((q, k_pool, v_pool, tables,
+    pos), (k_scale, v_scale)), at the split count ``splits`` (None:
+    decode_splits' choice), the table carried or (``carry=False``) looked
+    up a row at a time."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    (q, kp, vp, tables, pos), (ks, vs) = s
+    return ck._paged_decode_attention_kernel(
+        q, kp, vp, tables, pos, q.shape[-1] ** -0.5, ks, vs, splits=splits,
+        carry=carry)
+
+
+def paged_plain(s):
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    (q, kp, vp, tables, pos), (ks, vs) = s
+    return ck.paged_decode_attention(q, kp, vp, tables, pos, k_scale=ks,
+                                     v_scale=vs, route="plain")
+
+
+def parent_paged(lib, s):
+    """One launch of the parent's one-block #6 (#7 with scales) on ``s``
+    (as :func:`paged_read` takes it) through its C entry, which has no
+    split arguments: (q, k_pool, v_pool, tables, pos, o, B, H, D, bs, NB,
+    q_sb, q_sh, scale, dtype, stream), each scale pool after its pool for
+    #7. Returns o, or None when the parent's entry has another argument
+    list (a parent that already splits these reads)."""
+    import torch
+    from paddle_tpu_torch.ops.cuda_kernels import _DTYPE_CODE, _stream
+    (q, kp, vp, tables, pos), (ks, vs) = s
+    entry = lib.paddle_paged_decode_attention_q if ks is not None \
+        else lib.paddle_paged_decode_attention
+    if len(entry.argtypes) != (18 if ks is not None else 16):
+        return None
+    B, H, D = q.shape
+    o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    tail = (tables.data_ptr(), pos.data_ptr(), o.data_ptr(), B, H, D,
+            kp.shape[1], tables.shape[1], q.stride(0), q.stride(1),
+            D ** -0.5, _DTYPE_CODE[q.dtype], _stream(q.device))
+    pools = (kp.data_ptr(), vp.data_ptr()) if ks is None else \
+        (kp.data_ptr(), ks.data_ptr(), vp.data_ptr(), vs.data_ptr())
+    err = entry(q.data_ptr(), *pools, *tail)
+    check(err == 0, f"the parent's paged read: error {err}")
+    return o
+
+
+def paged_times(sets, parent=None, two_calls=False) -> dict:
+    """#6 or #7 over ``sets`` (as :func:`paged_read` takes them): the
+    kernel timed in turns with its per-row table lookup and, with a
+    ``parent`` library, with the parent's one-block body (its largest
+    difference from plain on the first set beside); the plain version;
+    with ``two_calls``, gather_pages of k and v then SDPA with a bool mask
+    over the same pools."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ours = [lambda s=s: paged_read(s) for s in sets]
+    t = in_turns(ours, [lambda s=s: paged_read(s, carry=False)
+                        for s in sets])
+    out = {"ms": t["ms"], "per_row_lookup_ms": t["parent_ms"],
+           "lookup_turns_ms": t["turns_ms"]}
+    first = None if parent is None else parent_paged(parent, sets[0])
+    if first is not None:
+        err = (first - paged_plain(sets[0])).abs().max().item()
+        t = in_turns(ours, [lambda s=s: parent_paged(parent, s)
+                            for s in sets])
+        out.update(ms_in_parent_turns=t["ms"], parent_ms=t["parent_ms"],
+                   parent_turns_ms=t["turns_ms"], parent_max_abs_err=err)
+    out["plain_ms"] = time_ms([lambda s=s: paged_plain(s) for s in sets],
+                              rounds=1)
+    if two_calls:
+        calls = []
+        for (q, kp, vp, tables, pos), _ in sets:
+            L = tables.shape[1] * kp.shape[1]
+            live = (torch.arange(L, device=pos.device)[None, :]
+                    <= pos[:, None])[:, None, None, :]
+            calls.append(lambda q=q, kp=kp, vp=vp, t=tables, m=live:
+                         F.scaled_dot_product_attention(
+                             q[:, :, None],
+                             ck.gather_pages(kp, t).transpose(1, 2),
+                             ck.gather_pages(vp, t).transpose(1, 2),
+                             attn_mask=m))
+        out["two_calls_ms"] = time_ms(calls)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -867,8 +970,8 @@ def _lstm_times(name, run, B, T, H, lens, dt, dname, gen, device,
     ours = [lambda s=s: run(name, s) for s in sets]
     extra = {}
     if name in FWD_NAMES:
-        extra = _parent_turns(name, ours, sets, parent) if parent \
-            else {"ms": time_ms(ours)}
+        extra = (_parent_turns(name, ours, sets, parent) if parent
+                 else {}) or {"ms": time_ms(ours)}
         extra["us_a_step"] = extra["ms"] * 1e3 / max(lens)
     ms = extra.get("ms") or time_ms(ours)
     plain_ms = time_ms([lambda s=s: run(name, s, route="plain")
@@ -912,6 +1015,11 @@ def load_parent(root: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.load().lib
+
+
+# the argument counts of the forward entries parent_forward calls: those
+# before the planned grids, which take no plan
+PARENT_FORWARD_ARGS = {"lstm_seq": 16, "lstm_seq_train": 17, "gru_seq": 13}
 
 
 def parent_forward(lib, name: str, args):
@@ -987,7 +1095,11 @@ def _forward_run(name, args, plan=None):
 def _parent_turns(name, ours, sets, parent) -> dict:
     """Our forward ``name`` timed in turns with the parent's body, whose
     largest difference from the plain version on the first input set is
-    given beside (a report: the parent is not held to anything here)."""
+    given beside (a report: the parent is not held to anything here).
+    Nothing when the parent's entry takes a plan (its body is this one's)."""
+    if len(getattr(parent, "paddle_" + name).argtypes) \
+            != PARENT_FORWARD_ARGS[name]:
+        return {}
     want = _plain_forward(name, sets[0])
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(
         parent_forward(parent, name, sets[0]), want))
@@ -1911,7 +2023,7 @@ DECODE_KERNELS = (
      "paddle_tpu/ops/pallas_kernels.py:561", "_decode_attn_kernel"),
     ("decode_attention_q", "paddle_tpu_torch/csrc/decode.cu",
      "paddle_tpu/ops/pallas_kernels.py:571", "_decode_attn_q_kernel"),
-    ("paged_decode_attention_q", "paddle_tpu_torch/csrc/paged_decode.cu",
+    ("paged_decode_attention_q", PAGED_SOURCES["source"],
      "paddle_tpu/ops/pallas_kernels.py:727", "_paged_attn_q_kernel"),
 )
 # GPT-2 small's decode reads: B=8 slots, 12 heads of 64, a max_len-1024
@@ -1960,13 +2072,17 @@ def _dense_decode_inputs(L, qname, kind, gen, device, full: bool,
     return (q, k[:, :L], v[:, :L], pos.to(device)), scales
 
 
-def _paged_q_inputs(NB, qname, gen, device, full: bool):
-    """int8 pools quantized from phase 2's f32 pools (a null page 0, tables
-    with null tails unless ``full``), their scale pools, and a query of
-    ``qname``."""
+def _paged_set(NB, qname, kind, gen, device, full: bool, B=DECODE_B):
+    """Phase 2's pools (a null page 0, tables with null tails unless
+    ``full``) of ``NB`` pages of 64 rows in ``kind``: the query's dtype
+    (#6), or int8 quantized from f32 pools with their scale pools (#7)
+    under a query of ``qname``. As :func:`paged_read` takes them."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    B, H, D = DECODE_B, DECODE_H, HEAD_DIM
+    H, D = DECODE_H, HEAD_DIM
+    if kind != "int8":
+        return _paged_inputs(B, H, D, PAGE_ROWS, NB, getattr(torch, kind),
+                             gen, device, full), (None, None)
     _, kp, vp, tables, pos = _paged_inputs(B, H, D, PAGE_ROWS, NB,
                                            torch.float32, gen, device, full)
     (kp, ks), (vp, vs) = ck.quantize_kv(kp), ck.quantize_kv(vp)
@@ -2010,11 +2126,16 @@ def _decode_times(run, make, nbytes, sdpa: bool):
     return out
 
 
-def decode_checks(say, seed: int, sweep_batches, device="cuda"):
+def decode_checks(say, seed: int, sweep_batches, device="cuda", parent=None,
+                  paged_entry=None):
     """#4 and #5 over [:, :L] cache views and #7 over int8 pools against
     their plain versions, f32 and bf16 queries; each timed at its full
-    read. Returns the three kernels' JSON entries (the f32 query at the
-    shortest read first: the main path's f32 decode at a 256-row bucket)."""
+    read (#7 beside its per-row table lookup and the ``parent`` library's
+    one-block body). Then the split edge checks, #6 and #7 bit-equal to
+    #4 and #5 over their gathered pages, and the split sweep, whose #6
+    part goes into phase 2's ``paged_entry``. Returns the three kernels'
+    JSON entries (the f32 query at the shortest read first: the main
+    path's f32 decode at a 256-row bucket)."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator(device=device).manual_seed(seed + 9)
@@ -2026,8 +2147,10 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
     entries["decode_attention_q"]["library_note"] = \
         entries["paged_decode_attention_q"]["library_note"] = \
         "no single PyTorch call reads an int8 cache with per-row scales"
-    entries["decode_attention"]["design"] = \
-        entries["decode_attention_q"]["design"] = SPLIT_DESIGN
+    for name in entries:
+        entries[name]["design"] = SPLIT_DESIGN
+    entries["paged_decode_attention_q"].update(
+        body=PAGED_SOURCES["body"], table=PAGED_TABLE)
 
     def dense(s, route=None):
         return ck.decode_attention(*s[0], k_scale=s[1][0], v_scale=s[1][1],
@@ -2045,8 +2168,8 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
     for name, n, qname, kind in cases:
         is_paged = name.startswith("paged")
         if is_paged:
-            make = lambda i, full=True: _paged_q_inputs(
-                n, qname, cpu_gen, device, full)
+            make = lambda i, full=True: _paged_set(
+                n, qname, kind, cpu_gen, device, full)
             run, rows, shape = paged, n * PAGE_ROWS, f"NB={n} bs={PAGE_ROWS}"
         else:
             make = lambda i, full=True: _dense_decode_inputs(
@@ -2067,14 +2190,19 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
         b_ms, b_by = decode_bound(rows, q_size, kv_size, kind == "int8",
                                   tables=DECODE_B * n if is_paged else 0)
         res = {"max_abs_err": err}
-        res.update(_decode_times(
-            run, make, 2 * DECODE_B * rows * DECODE_H
-            * (HEAD_DIM * kv_size + (4 if kind == "int8" else 0)),
-            sdpa=name == "decode_attention"))
+        nbytes = 2 * DECODE_B * rows * DECODE_H * (
+            HEAD_DIM * kv_size + (4 if kind == "int8" else 0))
+        if is_paged:
+            sets = input_sets(make, nbytes)
+            res.update(paged_times(sets, parent))
+            del sets
+        else:
+            res.update(_decode_times(run, make, nbytes,
+                                     sdpa=name == "decode_attention"))
         res.update(bound_ms=b_ms, bound_by=b_by)
-        if not is_paged:                     # the split count timed
-            res["splits"], res["chunk"] = ck.decode_splits(
-                DECODE_B * DECODE_H, n)
+        # the split count timed
+        res["splits"], res["chunk"] = ck.decode_splits(DECODE_B * DECODE_H,
+                                                       rows)
         say(f"{name} {shape} q {qname}: {json.dumps(res)}")
         e = entries[name]
         if n in (DECODE_READS[0], PAGED_READS[0]) and qname == "float32":
@@ -2085,11 +2213,17 @@ def decode_checks(say, seed: int, sweep_batches, device="cuda"):
         else:
             e[f"{'NB' if is_paged else 'L'}{n}_q{qname}"] = res
     split_edge_checks(say, gen, device)
-    sweep = split_sweep(say, gen, sweep_batches, device)
-    for name in ("decode_attention", "decode_attention_q"):
+    n_equal = paged_equals_dense_checks(say, cpu_gen, device)
+    entries["paged_decode_attention_q"]["bit_equal_to_dense_reads"] = \
+        n_equal
+    sweep = split_sweep(say, gen, cpu_gen, sweep_batches, device)
+    if paged_entry is not None:
+        paged_entry["bit_equal_to_dense_reads"] = n_equal
+        entries["paged_decode_attention"] = paged_entry
+    for name in entries:
         entries[name]["split_sweep"] = {
             key: res for key, res in sweep.items()
-            if key.endswith("int8") == (name == "decode_attention_q")}
+            if key.startswith(name + " ")}
     return [entries[name] for name, _, _, _ in DECODE_KERNELS]
 
 
@@ -2160,49 +2294,107 @@ def split_edge_checks(say, gen, device="cuda"):
         f"equal to plain, max abs {worst}")
 
 
-def split_sweep(say, gen, batches, device="cuda"):
-    """#4's and #5's times over forced split counts against the chosen
-    one, every row live, each DECODE_CASES dtype, at each B of ``batches``
-    and each L of DECODE_READS (at SPLIT_BATCHES: the measurement
-    decode_splits' thresholds come from); each count's read first held
-    against plain."""
+def paged_equals_dense_checks(say, gen, device="cuda"):
+    """#6 and #7 against #4 and #5 over ``gather_pages`` of the same pools
+    at the same split count, bit for bit: every DECODE_CASES dtype, the
+    paths' B, NB 4/8/16, the counts of SWEEP_SPLITS and the chosen one,
+    the table carried and looked up a row at a time; pos at 0, on page
+    boundaries, at NB*bs - 1 and past it. Returns the reads compared."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
+    n_reads = 0
+    for qname, kind in DECODE_CASES:
+        for B in PATH_BATCHES:
+            for NB in PAGED_READS:
+                L = NB * PAGE_ROWS
+                (q, kp, vp, tables, _), (ks, vs) = _paged_set(
+                    NB, qname, kind, gen, device, True, B=B)
+                g = lambda t: None if t is None else ck.gather_pages(
+                    t, tables)
+                ends = [0, L - 1, PAGE_ROWS, L + 37, PAGE_ROWS - 1,
+                        L // 2 + 1, 2 * PAGE_ROWS, 1]
+                for b0 in range(0, len(ends), B):
+                    pos = torch.tensor((ends[b0:] + ends)[:B],
+                                       dtype=torch.int32, device=device)
+                    s = ((q, kp, vp, tables, pos), (ks, vs))
+                    dense = ((q, g(kp), g(vp), pos), (g(ks), g(vs)))
+                    for asked in SWEEP_SPLITS + (None,):
+                        want = _split_read(dense, asked)
+                        for carry in (True, False):
+                            got = paged_read(s, asked, carry)
+                            check(torch.equal(got, want),
+                                  f"paged B={B} NB={NB} splits={asked} "
+                                  f"carry={carry} q {qname} {kind} pools "
+                                  f"is not bit-equal to the dense read of "
+                                  f"its pages: max "
+                                  f"{(got - want).abs().max().item()}")
+                            n_reads += 1
+    say(f"paged_decode_attention and paged_decode_attention_q: {n_reads} "
+        f"reads bit-equal to decode_attention(_q) over gather_pages of the "
+        f"same pools at the same split count (B {PATH_BATCHES}, NB "
+        f"{PAGED_READS}, splits {SWEEP_SPLITS} and the chosen, the table "
+        f"carried and looked up a row at a time)")
+    return n_reads
+
+
+def _sweep_counts(sets, read, plain, bh, L, what) -> dict:
+    """``read(s, asked)`` at the split counts of SWEEP_SPLITS and the
+    chosen one (by the count each launch uses), each first held against
+    ``plain``, then timed over ``sets``; the chosen count's time over the
+    fastest's."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    by = {ck.decode_splits(bh, L, n)[0]: n for n in SWEEP_SPLITS + (None,)}
+    want = plain(sets[0])
+    for n, a in by.items():
+        got = read(sets[0], a)
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, atol=F32_ATOL, rtol=F32_RTOL),
+              f"split sweep {what} splits={n} differs from plain: max {err}")
+    ms = {n: time_ms([lambda s=s, a=a: read(s, a) for s in sets])
+          for n, a in by.items()}
+    chosen = ck.decode_splits(bh, L)
+    fastest = min(ms, key=ms.get)
+    return {"chosen": chosen, "ms_by_splits": ms, "fastest": fastest,
+            "chosen_over_fastest": ms[chosen[0]] / ms[fastest]}
+
+
+def split_sweep(say, gen, cpu_gen, batches, device="cuda"):
+    """The split reads' times over forced split counts against the chosen
+    one, every row live, each DECODE_CASES dtype, at each B of
+    ``batches``: #4 and #5 at each L of DECODE_READS (at SPLIT_BATCHES:
+    the measurement decode_splits' thresholds come from), #6 and #7 at
+    each NB of PAGED_READS; each count's read first held against plain.
+    Keys start with the kernel's name."""
+    import torch
     out = {}
     for qname, kind in DECODE_CASES:
         q_size = torch.empty((), dtype=getattr(torch, qname)).element_size()
         int8 = kind == "int8"
         kv_size = 1 if int8 else q_size
+        row_bytes = DECODE_H * (HEAD_DIM * kv_size + (4 if int8 else 0))
         for B in batches:
-            for L in DECODE_READS:
-                sets = input_sets(lambda i: _dense_decode_inputs(
-                    L, qname, kind, gen, device, True, B=B),
-                    2 * B * L * DECODE_H * (HEAD_DIM * kv_size
-                                            + (4 if int8 else 0)))
-                # the chosen count (None) and the forced ones, by the
-                # count each launch uses
-                by = {ck.decode_splits(B * DECODE_H, L, n)[0]: n
-                      for n in SWEEP_SPLITS + (None,)}
-                want = _plain_read(sets[0])
-                for n, a in by.items():
-                    got = _split_read(sets[0], a)
-                    err = (got - want).abs().max().item()
-                    check(torch.allclose(got, want, atol=F32_ATOL,
-                                         rtol=F32_RTOL),
-                          f"split sweep B={B} L={L} splits={n} q {qname} "
-                          f"{kind} cache differs from plain: max {err}")
-                ms = {n: time_ms([lambda s=s, a=a: _split_read(s, a)
-                                  for s in sets])
-                      for n, a in by.items()}
+            reads = [("decode_attention", L, f"L{L}", lambda i, L=L: (
+                _dense_decode_inputs(L, qname, kind, gen, device, True,
+                                     B=B)), _split_read, _plain_read)
+                     for L in DECODE_READS]
+            if B in PATH_BATCHES:
+                reads += [("paged_decode_attention", NB * PAGE_ROWS,
+                           f"NB{NB}", lambda i, NB=NB: _paged_set(
+                               NB, qname, kind, cpu_gen, device, True, B=B),
+                           paged_read, paged_plain) for NB in PAGED_READS]
+            for name, L, shape, make, read, plain in reads:
+                name += "_q" if int8 else ""
+                what = f"{name} B={B} H={DECODE_H} {shape} q {qname} " \
+                    f"{kind} cache"
+                sets = input_sets(make, 2 * B * L * row_bytes)
+                res = _sweep_counts(sets, read, plain, B * DECODE_H, L, what)
                 del sets
-                chosen = ck.decode_splits(B * DECODE_H, L)
-                b_ms, _ = decode_bound(L, q_size, kv_size, int8, B=B)
-                res = {"chosen": chosen, "ms_by_splits": ms,
-                       "bound_ms": b_ms}
-                what = "decode_attention_q" if int8 else "decode_attention"
-                say(f"{what} sweep B={B} H={DECODE_H} L={L} q {qname} "
-                    f"{kind} cache: {json.dumps(res)}")
-                out[f"B{B}_L{L}_q{qname}_{kind}"] = res
+                res["bound_ms"] = decode_bound(
+                    L, q_size, kv_size, int8, B=B,
+                    tables=B * L // PAGE_ROWS if "paged" in name else 0)[0]
+                say(f"{what} sweep: {json.dumps(res)}")
+                out[f"{name} B{B}_{shape}_q{qname}_{kind}"] = res
     return out
 
 
@@ -2531,8 +2723,8 @@ def _gru_times(name, B, T, H, lens, dt, dname, gen, device, parent=None):
     ours = [lambda s=s: _gru_run(name, s) for s in sets]
     extra = {}
     if name == "gru_seq":
-        extra = _parent_turns(name, ours, sets, parent) if parent \
-            else {"ms": time_ms(ours)}
+        extra = (_parent_turns(name, ours, sets, parent) if parent
+                 else {}) or {"ms": time_ms(ours)}
         extra["us_a_step"] = extra["ms"] * 1e3 / max(lens)
     ms = extra.get("ms") or time_ms(ours)
     plain_ms = time_ms([lambda s=s: _gru_run(name, s, route="plain")
@@ -2638,15 +2830,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--split-sweep", action="store_true",
                     help="time #4's and #5's split counts at B 1/2/8/32, "
-                         "not only at the decode paths' B")
+                         "not only at the decode paths' B (2 and 8, where "
+                         "#6 and #7 are swept too)")
     ap.add_argument("--rnn-sweep", action="store_true",
                     help="time every plan of the recurrent forwards (#8, "
                          "#9, #11) at their bench shapes and print the "
                          "chosen plan beside the fastest")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit (git archive); "
-                         "its forward bodies of #8, #9 and #11 are built "
-                         "there and timed in turns with these")
+                         "its forward bodies of #8, #9 and #11 and its "
+                         "one-block paged reads #6 and #7 are built there "
+                         "and timed in turns with these")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
@@ -2682,12 +2876,12 @@ def main(argv=None) -> int:
                   for r in lstm_regs.values()),
           f"lstm_seq_bwd_kernel: over 128 registers a thread ({lstm_regs})")
 
+    parent = load_parent(args.parent) if args.parent else None
     flash = flash_checks(say)
-    paged = paged_checks(say)
+    paged = paged_checks(say, parent=parent)
     launches = serving_phase(say, args.seed)
     for entry in (flash, paged):
         entry["launches"] = launches[entry["name"]]
-    parent = load_parent(args.parent) if args.parent else None
     fwd_regs = {"lstm_seq_kernel": ptxas_usage(build, "lstm_seq_kernel",
                                                ("save", "wide")),
                 "gru_seq_kernel": ptxas_usage(build, "gru_seq_kernel",
@@ -2718,7 +2912,8 @@ def main(argv=None) -> int:
         "lm": lm_launches["flash_attention_fwd"],
         "nmt": nmt_launches["flash_attention_fwd"]}
     decode = decode_checks(
-        say, args.seed, SPLIT_BATCHES if args.split_sweep else PATH_BATCHES)
+        say, args.seed, SPLIT_BATCHES if args.split_sweep else PATH_BATCHES,
+        parent=parent, paged_entry=paged)
     runs = dense_decode_phase(say, args.seed)
     for entry in decode:
         per_run = {run: n[entry["name"]] for run, n in runs.items()

@@ -16,21 +16,10 @@
 // bound (pos[b] >= L), so the live count is clamped to L: no row >= L is
 // ever read.
 //
-// Both reads split across blocks. Each read walks its live rows one
-// dependent row group after another, so a block's time grows with L while
-// the bytes it moves do not fill the card: at B = 8, H = 12 one block per
-// (h, b) is 96 blocks on 132 SMs, the same time in f32 and bf16, and the
-// int8 read (a quarter of f32's bytes) no faster than f32's. So the grid is
-// (H, B, splits): block s walks rows [s*chunk, (s+1)*chunk) of the live
-// ones (a chunk wholly past them walks nothing and gives m = kNeg, l = 0,
-// acc = 0) and writes its partial (m, l, acc[64]) in f32 to scratch. The
-// last block of a (b, h) to finish -- found by an atomic ticket, which it
-// resets for the next launch -- merges the partials in chunk order, so the
-// result is deterministic and one read stays one launch. With one split a
-// block owns its whole read and writes o directly, as #6 and #7 do (they
-// keep one block per (h, b)). #4 and #5 run one body, templated over the
-// cache's row loader (decode_attn.cuh DenseRows, DenseRowsQ); the split
-// count and chunk come from the wrapper (ops/cuda_kernels.py
+// Both reads run the split body of decode_attn.cuh (decode_split_kernel)
+// on the grid (H, B, splits), over the caches' row loaders (DenseRows,
+// DenseRowsQ), as the paged reads #6 and #7 do (paged_decode.cu); the
+// split count and chunk come from the wrapper (ops/cuda_kernels.py
 // decode_splits).
 #include "decode_attn.cuh"
 
@@ -67,91 +56,6 @@ struct DenseCacheQ {                   // #5: int8 k/v, f32 scales [B, L, H]
   }
 };
 
-// #4 and #5: block (h, b, s) walks chunk s and writes its partial to
-// part[(b*H + h)*splits + s] = (m, l, acc[kD]); the last of the (b, h)
-// blocks to arrive merges them into o. With one split (part and tickets
-// unused) the block writes o itself.
-template <typename TQ, typename Cache>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-dense_decode_split_kernel(const TQ* __restrict__ q, const Cache cache,
-                          const int* __restrict__ pos,
-                          float* __restrict__ o, float* __restrict__ part,
-                          int* __restrict__ tickets, int H, int L,
-                          int chunk, int64_t q_sb, int64_t q_sh,
-                          float scale) {
-  constexpr int kPart = kD + 2;
-  __shared__ bool last;
-  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
-  const int splits = gridDim.z;
-  const int tid = threadIdx.x;
-  const int bh = b * H + h;
-  const int j_lo = s * chunk;
-  const int j_hi = min(j_lo + chunk, min(pos[b] + 1, L));
-  Partial pt{kNeg, 0.f, 0.f};
-  if (j_lo < j_hi) {        // else the chunk is past the live rows
-    const int lane = (tid % kLanesPerRow) * kE;
-    pt = walk_rows(q + b * q_sb + h * q_sh + lane, scale, j_lo, j_hi,
-                   cache.rows(b, h, lane));
-  }
-  if (splits == 1) {        // the whole read (row 0 is live, so l > 0)
-    if (tid < kD) o[static_cast<int64_t>(bh) * kD + tid] = pt.acc / pt.l;
-    return;
-  }
-  float* mine = part + (static_cast<int64_t>(bh) * splits + s) * kPart;
-  if (tid < kD) mine[2 + tid] = pt.acc;
-  if (tid == 0) {
-    mine[0] = pt.m;
-    mine[1] = pt.l;
-  }
-  // publish the partial, then take a ticket: the block that draws the
-  // last one sees every other partial
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    last = atomicAdd(&tickets[bh], 1) == splits - 1;
-    if (last) tickets[bh] = 0;      // ready for the next launch
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (tid < kD) {
-    // chunk 0 holds row 0, which is always live, so M is a real score
-    // and an empty chunk's weight exp(kNeg - M) is exactly 0
-    const float* all = part + static_cast<int64_t>(bh) * splits * kPart;
-    float M = kNeg;
-    for (int i = 0; i < splits; ++i) M = fmaxf(M, __ldcg(all + i * kPart));
-    float l = 0.f, acc = 0.f;
-    for (int i = 0; i < splits; ++i) {
-      const float* pi = all + i * kPart;
-      const float w = expf(__ldcg(pi) - M);
-      l = fmaf(__ldcg(pi + 1), w, l);
-      acc = fmaf(__ldcg(pi + 2 + tid), w, acc);
-    }
-    o[static_cast<int64_t>(bh) * kD + tid] = acc / l;
-  }
-}
-
-template <typename TQ, typename Cache>
-int launch(const void* q, const Cache& cache, const int* pos, float* o,
-           float* part, int* tickets, int B, int H, int L, int splits,
-           int chunk, int64_t q_sb, int64_t q_sh, float scale,
-           cudaStream_t stream) {
-  const dim3 grid(H, B, splits);
-  dense_decode_split_kernel<TQ, Cache><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TQ*>(q), cache, pos, o, part, tickets, H, L, chunk,
-      q_sb, q_sh, scale);
-  return (int)cudaGetLastError();
-}
-
-// the split arguments both entries take: 0 when they tile [0, L)
-inline bool bad_split(int D, int L, int splits, int chunk, const float* part,
-                      const int* tickets) {
-  return D != kD || splits < 1 || chunk < 1 ||
-         (splits > 1 && (part == nullptr || tickets == nullptr)) ||
-         static_cast<int64_t>(splits - 1) * chunk >= L ||
-         static_cast<int64_t>(splits) * chunk < L;
-}
-
 }  // namespace
 }  // namespace paddle_tpu_torch
 
@@ -169,6 +73,7 @@ extern "C" int paddle_decode_attention(
     int chunk, int64_t q_sb, int64_t q_sh, int64_t kv_sb, int64_t kv_sl,
     int64_t kv_sh, float scale, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
+  using namespace paddle_tpu_torch::decode;
   if (bad_split(D, L, splits, chunk, part, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -200,6 +105,7 @@ extern "C" int paddle_decode_attention_q(
     int64_t sc_sb, int64_t sc_sl, int64_t sc_sh, float scale, int q_dtype,
     void* stream) {
   using namespace paddle_tpu_torch;
+  using namespace paddle_tpu_torch::decode;
   if (bad_split(D, L, splits, chunk, part, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,4 @@
-// The row walk every single-token decode read shares, for Hopper (sm_90a).
+// The split body every single-token decode read runs, for Hopper (sm_90a).
 //
 // Kernels #4-#7 of the TPU package (paddle_tpu/ops/pallas_kernels.py
 // _decode_attn_kernel, _decode_attn_q_kernel, _paged_attn_kernel,
@@ -7,21 +7,25 @@
 // f32 output [B, H, D]. They differ only in how a row is found (a strided
 // dense cache or a block table over a page pool) and stored (f32, bf16, or
 // int8 with one f32 scale per (row, head)). Here that difference is a row
-// loader, and the walk below is the one body all four kernels run.
+// loader, and the kernel below is the one body all four reads launch
+// (decode.cu: the dense caches, paged_decode.cu: the paged ones).
 //
 // What bounds them on the H100: bytes. Each live row is read once and used
 // for one dot product and one axpy (2 operations per element), far below
 // the ~20 operations per byte where the f32 units would take over.
 //
-// Design: a 128-thread block walks live rows with an online softmax in
-// f32. A row is handled by a group of 8 lanes, each holding 8 of the D =
-// 64 elements (one 16-byte load for bf16, two for f32, one 8-byte load for
+// Design: a 128-thread block walks rows with an online softmax in f32. A
+// row is handled by a group of 8 lanes, each holding 8 of the D = 64
+// elements (one 16-byte load for bf16, two for f32, one 8-byte load for
 // int8), so a warp reads 4 rows at once and a dot product is 3 shuffles.
 // The 16 row groups of the block each keep (m, l, acc) and are merged
 // through shared memory at the end. Rows past the live count are never
-// read. #6 and #7 run one block per (h, b) over all live rows (row_walk);
-// #4 and #5 may split a read into chunks of rows, one block each
-// (walk_rows gives a chunk's partial, decode.cu merges them).
+// read. A read walks its live rows one dependent row group step after
+// another, so one block per (h, b) takes time in step with the rows while
+// its bytes do not fill the card (at B = 8, H = 12: 96 blocks on 132 SMs).
+// So a read splits into chunks of rows, one block each, on the grid
+// (H, B, splits), and the last block of an (h, b) merges the chunks'
+// partials (decode_split_kernel).
 #pragma once
 
 #include "common.cuh"
@@ -91,37 +95,72 @@ struct DenseRowsQ {
 };
 
 // Pools [P, bs, H, D] read through the sample's block table: row j lies
-// in page tbl[j / bs], row j % bs. The (row, head) index is computed as
-// the TPU kernel's index map gives it, with D a compile-time constant.
-template <typename T>
+// in page tbl[j / bs], row j % bs, so its (row, head) index is
+// (tbl[j / bs] * bs + j % bs) * H + h, the TPU kernel's index map with D a
+// compile-time constant. TableRows gives that index.
+//
+// kCarry = false looks the table up for every row, as the earlier
+// one-block body did: each row's address then waits on an L1 load of its
+// entry. kCarry = true keeps it off the row's critical path. A row group
+// walks its rows in rising order, kGroups apart, so it carries its page's
+// base (tbl[p] - p) * bs * H + h in a register across the page's rows
+// (row j's index is then base + j * H, as in a dense cache) and looks the
+// table up once a page. When it enters a page it also loads the entry of
+// the page its first row past this one falls in, which is in flight until
+// the group gets there.
+template <bool kCarry>
+struct TableRows {
+  const int* tbl;       // the sample's table row [NB]
+  int bs, NB, H, h;
+  int hi = 0;           // the first row past the carried page
+  int64_t base = 0;     // the carried page's base
+  int next_p = -1;      // the page whose entry next_e holds
+  int next_e = 0;
+
+  __device__ __forceinline__ int64_t index(int j) {
+    if (!kCarry) {
+      const int p = j / bs;
+      return (static_cast<int64_t>(tbl[p]) * bs + (j - p * bs)) * H + h;
+    }
+    if (j >= hi) {
+      const int p = j / bs;
+      const int e = p == next_p ? next_e : tbl[p];
+      base = (static_cast<int64_t>(e) - p) * bs * H + h;
+      hi = (p + 1) * bs;
+      // the group's first row at or past hi
+      next_p = (j + (hi - j + kGroups - 1) / kGroups * kGroups) / bs;
+      if (next_p < NB) next_e = tbl[next_p];
+    }
+    return base + static_cast<int64_t>(j) * H;
+  }
+};
+
+template <typename T, bool kCarry>
 struct PagedRows {
   const T* k_pool;
   const T* v_pool;
-  const int* tbl;       // the sample's table row [NB]
-  int bs, H, h;
+  TableRows<kCarry> at;
   int lane;             // the first of the lane's 8 elements
   __device__ __forceinline__ void operator()(int j, float kr[kE],
-                                             float vr[kE]) const {
-    const int64_t s =
-        (static_cast<int64_t>(tbl[j / bs]) * bs + j % bs) * H + h;
+                                             float vr[kE]) {
+    const int64_t s = at.index(j);
     load8(k_pool + s * kD + lane, kr);
     load8(v_pool + s * kD + lane, vr);
   }
 };
 
 // int8 pools with f32 scale pools [P, bs, H], indexed by (row, head).
+template <bool kCarry>
 struct PagedRowsQ {
   const int8_t* k_pool;
   const int8_t* v_pool;
   const float* ks_pool;
   const float* vs_pool;
-  const int* tbl;
-  int bs, H, h;
+  TableRows<kCarry> at;
   int lane;
   __device__ __forceinline__ void operator()(int j, float kr[kE],
-                                             float vr[kE]) const {
-    const int64_t s =
-        (static_cast<int64_t>(tbl[j / bs]) * bs + j % bs) * H + h;
+                                             float vr[kE]) {
+    const int64_t s = at.index(j);
     load8_q(k_pool + s * kD + lane, ks_pool[s], kr);
     load8_q(v_pool + s * kD + lane, vs_pool[s], vr);
   }
@@ -135,12 +174,16 @@ struct Partial {
 };
 
 // The walk over rows j_lo .. j_hi - 1 (the caller clamps j_hi to the live
-// rows the cache has): ``qb`` is this lane's 8 query elements. Returns
-// the block's partial (threads tid < kD hold it).
+// rows the cache has): ``qb`` is this lane's 8 query elements, ``rows``
+// this lane's loader (a copy: a paged loader carries its page). Returns
+// the block's partial (threads tid < kD hold it). Every loader gives the
+// same f32 values for the same row contents, and the arithmetic does not
+// depend on the loader, so a paged read equals the dense read of its
+// gathered pages bit for bit at the same chunks.
 template <typename TQ, typename Rows>
 __device__ __forceinline__ Partial walk_rows(const TQ* __restrict__ qb,
                                              float scale, int j_lo,
-                                             int j_hi, const Rows& rows) {
+                                             int j_hi, Rows rows) {
   __shared__ float sm_m[kGroups];
   __shared__ float sm_l[kGroups];
   __shared__ float sm_acc[kGroups][kD];
@@ -177,7 +220,7 @@ __device__ __forceinline__ Partial walk_rows(const TQ* __restrict__ qb,
       const float m_new = fmaxf(m, s);
       const float corr = expf(m - m_new);
       const float p = expf(s - m_new);
-      l = l * corr + p;
+      l = fmaf(l, corr, p);
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] = fmaf(p, vr[e], acc[e] * corr);
       m = m_new;
@@ -208,15 +251,97 @@ __device__ __forceinline__ Partial walk_rows(const TQ* __restrict__ qb,
   return out;
 }
 
-// The whole read of one block: rows 0 .. n_live - 1 (the caller clamps
-// n_live to the rows the cache has), ``ob`` the block's D outputs.
-template <typename TQ, typename Rows>
-__device__ __forceinline__ void row_walk(const TQ* __restrict__ qb,
-                                         float scale, int n_live,
-                                         const Rows& rows,
-                                         float* __restrict__ ob) {
-  const Partial p = walk_rows(qb, scale, 0, n_live, rows);
-  if (threadIdx.x < kD) ob[threadIdx.x] = p.acc / p.l;
+// The one kernel of #4-#7: block (h, b, s) walks chunk s, rows
+// [s*chunk, (s+1)*chunk) of the live ones [0, min(pos[b] + 1, L)) (a chunk
+// wholly past them walks nothing and gives m = kNeg, l = 0, acc = 0), and
+// writes its partial to part[(b*H + h)*splits + s] = (m, l, acc[kD]) in
+// f32. The last block of a (b, h) to finish -- found by an atomic ticket,
+// which it resets for the next launch -- merges the partials in chunk
+// order, so the result is deterministic (no atomics in any sum) and one
+// read stays one launch. With one split (part and tickets unused) the
+// block owns its whole read and writes o itself. ``Cache`` gives each
+// (b, h) its row loader: rows(b, h, lane); L is the rows it has.
+template <typename TQ, typename Cache>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+decode_split_kernel(const TQ* __restrict__ q, const Cache cache,
+                    const int* __restrict__ pos, float* __restrict__ o,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int H, int L, int chunk, int64_t q_sb, int64_t q_sh,
+                    float scale) {
+  constexpr int kPart = kD + 2;
+  __shared__ bool last;
+  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  const int splits = gridDim.z;
+  const int tid = threadIdx.x;
+  const int bh = b * H + h;
+  const int j_lo = s * chunk;
+  const int j_hi = min(j_lo + chunk, min(pos[b] + 1, L));
+  Partial pt{kNeg, 0.f, 0.f};
+  if (j_lo < j_hi) {        // else the chunk is past the live rows
+    const int lane = (tid % kLanesPerRow) * kE;
+    pt = walk_rows(q + b * q_sb + h * q_sh + lane, scale, j_lo, j_hi,
+                   cache.rows(b, h, lane));
+  }
+  if (splits == 1) {        // the whole read (row 0 is live, so l > 0)
+    if (tid < kD) o[static_cast<int64_t>(bh) * kD + tid] = pt.acc / pt.l;
+    return;
+  }
+  float* mine = part + (static_cast<int64_t>(bh) * splits + s) * kPart;
+  if (tid < kD) mine[2 + tid] = pt.acc;
+  if (tid == 0) {
+    mine[0] = pt.m;
+    mine[1] = pt.l;
+  }
+  // publish the partial, then take a ticket: the block that draws the
+  // last one sees every other partial
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(&tickets[bh], 1) == splits - 1;
+    if (last) tickets[bh] = 0;      // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < kD) {
+    // chunk 0 holds row 0, which is always live, so M is a real score
+    // and an empty chunk's weight exp(kNeg - M) is exactly 0
+    const float* all = part + static_cast<int64_t>(bh) * splits * kPart;
+    float M = kNeg;
+    for (int i = 0; i < splits; ++i) M = fmaxf(M, __ldcg(all + i * kPart));
+    float l = 0.f, acc = 0.f;
+    for (int i = 0; i < splits; ++i) {
+      const float* pi = all + i * kPart;
+      const float w = expf(__ldcg(pi) - M);
+      l = fmaf(__ldcg(pi + 1), w, l);
+      acc = fmaf(__ldcg(pi + 2 + tid), w, acc);
+    }
+    o[static_cast<int64_t>(bh) * kD + tid] = acc / l;
+  }
+}
+
+// One read on the (H, B, splits) grid; returns the launch's cudaError_t.
+template <typename TQ, typename Cache>
+int launch(const void* q, const Cache& cache, const int* pos, float* o,
+           float* part, int* tickets, int B, int H, int L, int splits,
+           int chunk, int64_t q_sb, int64_t q_sh, float scale,
+           cudaStream_t stream) {
+  const dim3 grid(H, B, splits);
+  decode_split_kernel<TQ, Cache><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TQ*>(q), cache, pos, o, part, tickets, H, L, chunk,
+      q_sb, q_sh, scale);
+  return (int)cudaGetLastError();
+}
+
+// The split arguments every entry takes: false when ``splits`` chunks of
+// ``chunk`` rows tile [0, L) with the last one not empty, and a split read
+// has its scratch.
+inline bool bad_split(int D, int64_t L, int splits, int chunk,
+                      const float* part, const int* tickets) {
+  return D != kD || L < 1 || L > INT32_MAX || splits < 1 || chunk < 1 ||
+         (splits > 1 && (part == nullptr || tickets == nullptr)) ||
+         static_cast<int64_t>(splits - 1) * chunk >= L ||
+         static_cast<int64_t>(splits) * chunk < L;
 }
 
 }  // namespace decode

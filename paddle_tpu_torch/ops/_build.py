@@ -50,10 +50,9 @@ SIGNATURES = {
                                      + [_f32, _i32, _i32, _i32, _p],
     "paddle_flash_attention_bwd_dkv": [_p] * 9 + [_i32] * 5 + [_i64] * 9
                                       + [_f32, _i32, _i32, _p],
-    "paddle_paged_decode_attention": [_p, _p, _p, _p, _p, _p,
-                                      _i32, _i32, _i32, _i32, _i32,
-                                      _i64, _i64, _f32, _i32, _p],
-    "paddle_paged_decode_attention_q": [_p] * 8 + [_i32] * 5 + [_i64] * 2
+    "paddle_paged_decode_attention": [_p] * 8 + [_i32] * 8 + [_i64] * 2
+                                     + [_f32, _i32, _p],
+    "paddle_paged_decode_attention_q": [_p] * 10 + [_i32] * 8 + [_i64] * 2
                                        + [_f32, _i32, _p],
     "paddle_decode_attention": [_p] * 7 + [_i32] * 6 + [_i64] * 5
                                + [_f32, _i32, _p],

@@ -32,11 +32,12 @@ copies. Every attention kernel needs q, k and v (and, for the backward,
 o and dO) at a 16-byte-aligned base with strides of 16-byte multiples,
 which the wrappers check (they raise otherwise).
 
-The dense decode reads (#4, and #5 over an int8 cache) split each
-(sample, head) read across blocks when the card would otherwise sit half
-empty (:func:`decode_splits`):
-each block walks one chunk of rows, and the last block of a read to
-finish merges the chunks' partial softmax sums in chunk order.
+The decode reads (#4 and #6, and #5 and #7 over int8) run one split
+body: each (sample, head) read is split across blocks when the card
+would otherwise sit half empty (:func:`decode_splits`), each block walks
+one chunk of rows, and the last block of a read to finish merges the
+chunks' partial softmax sums in chunk order. A paged read equals the
+dense read of its gathered pages bit for bit at the same split count.
 
 The plain versions follow the op order of ``_dense_attention`` and
 ``_dense_decode_attention``. ``SHORT_SEQ_DENSE``, ``decode_route`` and
@@ -557,7 +558,7 @@ def _check_rows(what: str, *named) -> None:
                              "a 16-byte-aligned start")
 
 
-#: the split rule of #4 and #5 (:func:`decode_splits`), from chip_smoke.py's
+#: the split rule of #4-#7 (:func:`decode_splits`), from chip_smoke.py's
 #: phase-9 sweep on the H100 (PERF.md): split while the read has fewer than
 #: DECODE_TARGET_BLOCKS blocks (about 6 blocks of 128 threads an SM: the time
 #: kept falling to ~8 splits at 96 pairs and to 2-3 at 384), into chunks of at
@@ -569,19 +570,18 @@ DECODE_MIN_CHUNK = 64
 #: rows a block's row groups take in one step (csrc/decode_attn.cuh kGroups)
 _DECODE_ROW_STEP = 16
 #: the split reads' per-(b, h) tickets, one buffer per (card, stream), shared
-#: by #4 and #5 and zero between
-#: launches (the last block of a read resets its own): the reads that share
-#: a buffer run in their stream's order. A CUDA graph captured on a stream
-#: uses that stream's buffer, so its replays must not overlap reads issued
-#: on that stream.
+#: by #4-#7 and zero between launches (the last block of a read resets its
+#: own): the reads that share a buffer run in their stream's order. A CUDA
+#: graph captured on a stream uses that stream's buffer, so its replays
+#: must not overlap reads issued on that stream.
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def decode_splits(bh: int, L: int, splits: Optional[int] = None
                   ) -> Tuple[int, int]:
-    """(splits, chunk) of a dense read (#4, or #5 over int8) of ``L`` rows
-    for ``bh`` = B*H (sample, head) pairs: ``splits`` chunks of ``chunk``
-    rows tile [0, L), the last one not empty. One split where ``bh``
+    """(splits, chunk) of a decode read (#4-#7) of ``L`` rows (a paged
+    read's NB*bs) for ``bh`` = B*H (sample, head) pairs: ``splits``
+    chunks of ``chunk`` rows tile [0, L), the last one not empty. One split where ``bh``
     blocks already fill the card or the read is short; more while the
     grid has fewer than ``DECODE_TARGET_BLOCKS`` blocks, each chunk at
     least ``DECODE_MIN_CHUNK`` rows. ``splits`` asks for a count instead
@@ -620,6 +620,17 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
+def _split_scratch(device: torch.device, bh: int, D: int, n_split: int):
+    """(part, tickets) of a read split ``n_split`` ways: the chunks'
+    partials (m, l, acc[D]) in f32 and the stream's tickets; (None, None)
+    for one split."""
+    if n_split == 1:
+        return None, None
+    part = torch.empty(bh * n_split * (D + 2), dtype=torch.float32,
+                       device=device)
+    return part, _tickets(device, bh)
+
+
 def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale,
                              splits=None):
     """#4 (#5 with scales) on the card. ``splits`` asks for a split
@@ -645,12 +656,8 @@ def _decode_attention_kernel(q, k, v, pos, scale, k_scale, v_scale,
         return o
     lib = _build.load().lib
     n_split, chunk = decode_splits(B * H, L, splits)
-    part = tickets = None
     with torch.cuda.device(q.device):
-        if n_split > 1:
-            part = torch.empty(B * H * n_split * (D + 2),
-                               dtype=torch.float32, device=q.device)
-            tickets = _tickets(q.device, B * H)
+        part, tickets = _split_scratch(q.device, B * H, D, n_split)
         split = (_ptr(part), _ptr(tickets), B, H, D, L, n_split, chunk,
                  q.stride(0), q.stride(1), *k.stride()[:3])
         tail = (float(scale), _DTYPE_CODE[q.dtype], _stream(q.device))
@@ -701,7 +708,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos, scale,
-                                   k_scale, v_scale):
+                                   k_scale, v_scale, splits=None,
+                                   carry=True):
+    """#6 (#7 with scales) on the card, split as :func:`decode_splits`
+    splits NB*bs rows. ``splits`` asks for another count (the card tests
+    and chip_smoke.py's sweep use it); ``carry=False`` looks up every
+    row's table entry instead of carrying each page's (chip_smoke.py times
+    the two)."""
     what = "paged_decode_attention"
     B, H, D, pos32 = _decode_query(what, q, pos)
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
@@ -714,6 +727,8 @@ def _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos, scale,
         raise ValueError(f"{what}: tables {tuple(tables.shape)} is not "
                          f"[{B}, NB]")
     NB = tables.shape[1]
+    if NB * bs == 0:
+        raise ValueError(f"{what}: an empty read (NB = {NB}, bs = {bs})")
     _check_cache(what, q, k_pool, v_pool, k_scale, v_scale, (P, bs, H))
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)) + (
             () if k_scale is None else (("k_scale", k_scale),
@@ -727,20 +742,22 @@ def _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos, scale,
     if B == 0:
         return o
     lib = _build.load().lib
-    tail = (B, H, D, bs, NB, q.stride(0), q.stride(1), float(scale),
-            _DTYPE_CODE[q.dtype], _stream(q.device))
+    n_split, chunk = decode_splits(B * H, NB * bs, splits)
     with torch.cuda.device(q.device):
+        part, tickets = _split_scratch(q.device, B * H, D, n_split)
+        tail = (tables.data_ptr(), pos32.data_ptr(), o.data_ptr(),
+                _ptr(part), _ptr(tickets), B, H, D, bs, NB, n_split, chunk,
+                int(carry), q.stride(0), q.stride(1), float(scale),
+                _DTYPE_CODE[q.dtype], _stream(q.device))
         if k_scale is None:
             name = "paged_decode_attention"
             err = lib.paddle_paged_decode_attention(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                tables.data_ptr(), pos32.data_ptr(), o.data_ptr(), *tail)
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *tail)
         else:
             name = "paged_decode_attention_q"
             err = lib.paddle_paged_decode_attention_q(
                 q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
-                v_pool.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-                pos32.data_ptr(), o.data_ptr(), *tail)
+                v_pool.data_ptr(), v_scale.data_ptr(), *tail)
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return o
@@ -760,7 +777,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     live pages name the null page 0; pos [B] int32 with rows j <= pos[b]
     live (at most NB*bs rows are read). Returns o [B, H, D] f32.
 
-    For CUDA tensors it launches kernel #6, or #7 with scales."""
+    For CUDA tensors it launches kernel #6, or #7 with scales: the split
+    body of #4 and #5 over the pools' row loaders, the NB*bs rows split
+    into :func:`decode_splits`' chunks; it equals :func:`decode_attention`
+    over ``gather_pages`` of the same pools bit for bit."""
     scale_v = scale if scale is not None else q.shape[-1] ** -0.5
     extra = _scales(k_scale, v_scale)
     if _route(route, q, k_pool, v_pool, tables, pos, *extra) == "plain":

@@ -8,6 +8,8 @@ so there it runs without the JAX-importing conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -308,6 +310,185 @@ def test_paged_int8_kernel_matches_plain_on_card(cuda, qdtype):
     torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
 
 
+# ---------------------------------------------------------------------------
+# the paged reads (#6, #7) on the split body of #4 and #5
+# ---------------------------------------------------------------------------
+
+def _paged_read(cuda, dtype, gen, pos, B=3, H=4, bs=20, NB=15):
+    """q [B, H, 64], pools over a null page 0 (int8 with scales when
+    ``dtype`` is a (query dtype, "int8") pair), tables whose live pages are
+    drawn from the rest with the null page past them, and pos: the
+    arguments of paged_decode_attention and the scales."""
+    qdt, kv = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    P = B * NB + 1
+    k, v = (torch.randn(P, bs, H, 64, generator=gen).to(cuda)
+            for _ in range(2))
+    q = torch.randn(B, H, 64, generator=gen).to(cuda, qdt)
+    perm = torch.randperm(P - 1, generator=gen) + 1
+    tables = torch.zeros(B, NB, dtype=torch.int32)
+    for b in range(B):
+        live = min(int(pos[b]) // bs + 1, NB)
+        tables[b, :live] = perm[b * NB:b * NB + live]
+    if kv == "int8":
+        (k, ks), (v, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+    else:
+        k, v, ks, vs = k.to(qdt), v.to(qdt), None, None
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    return (q, k, v, tables.to(cuda), pos), (ks, vs)
+
+
+def _paged_kernel(args, scales, splits=None, carry=True):
+    return ck._paged_decode_attention_kernel(*args, 64 ** -0.5, *scales,
+                                             splits=splits, carry=carry)
+
+
+def _paged_name(scales):
+    return "paged_decode_attention" + ("" if scales[0] is None else "_q")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DECODE_DTYPES)
+def test_paged_reads_at_every_split_count_on_card(cuda, dtype):
+    """#6 (and #7 over int8) asked for every split count from 1 to 16 over
+    15 pages of 20 rows (chunks of 16-row steps cut pages; 1, 2, 3, 4, 5,
+    7 and 10 chunks, the last ragged but for one), reads ending at 0, on a
+    chunk's last row and past NB*bs: each equal to plain (f32 summation
+    order: atol 1e-5, rtol 1e-4), one launch a read, and the per-row
+    table lookup bit-equal to the carried one."""
+    gen = torch.Generator().manual_seed(31)
+    L, seen = 300, set()
+    for asked in range(1, 17):
+        n, chunk = ck.decode_splits(3 * 4, L, asked)
+        seen.add(n)
+        args, scales = _paged_read(cuda, dtype, gen, [0, chunk - 1, L + 9])
+        name = _paged_name(scales)
+        before = ck.LAUNCHES[name]
+        o = _paged_kernel(args, scales, asked)
+        assert ck.LAUNCHES[name] == before + 1
+        po = ck.paged_decode_attention(*args, k_scale=scales[0],
+                                       v_scale=scales[1], route="plain")
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+        assert torch.equal(_paged_kernel(args, scales, asked, carry=False),
+                           o)
+    assert seen == {1, 2, 3, 4, 5, 7, 10}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DECODE_DTYPES)
+@pytest.mark.parametrize("bs,NB", [(6, 40), (20, 13), (64, 4)])
+def test_paged_reads_equal_dense_reads_of_their_pages_on_card(cuda, dtype,
+                                                              bs, NB):
+    """At the same split count the paged read equals the dense read (#4,
+    #5) of ``gather_pages`` of the same pools bit for bit, with the table
+    carried or looked up a row at a time, and two runs are bit-equal:
+    pages smaller than a row group's step (6 rows), cut by it (20) and
+    whole (64); pos at 0, on a page boundary, at NB*bs - 1 and past it."""
+    gen = torch.Generator().manual_seed(32 + bs)
+    L = NB * bs
+    args, scales = _paged_read(cuda, dtype, gen, [0, bs, L - 1, L + 3],
+                               B=4, H=3, bs=bs, NB=NB)
+    q, kp, vp, tables, pos = args
+    gather = lambda t: None if t is None else ck.gather_pages(t, tables)
+    for asked in (1, 2, 3, 7, None):
+        dense = ck._decode_attention_kernel(
+            q, gather(kp), gather(vp), pos, 64 ** -0.5, gather(scales[0]),
+            gather(scales[1]), asked)
+        paged = _paged_kernel(args, scales, asked)
+        assert torch.equal(paged, dense), asked
+        assert torch.equal(_paged_kernel(args, scales, asked, carry=False),
+                           dense), asked
+        assert torch.equal(_paged_kernel(args, scales, asked), paged), asked
+
+
+@pytest.mark.gpu
+def test_paged_and_dense_split_reads_share_the_tickets_on_card(cuda):
+    """Split reads of all four kinds (#4, #5, #6, #7) on the same (sample,
+    head) pairs back to back on one stream, many times: they share the
+    stream's ticket buffer, each leaves it zero for the next, and every
+    read equals plain."""
+    gen = torch.Generator().manual_seed(33)
+    B, H, bs, NB = 2, 3, 64, 8
+    assert ck.decode_splits(B * H, NB * bs)[0] > 1
+    pos = [NB * bs - 1, 130]
+    reads = []
+    for dtype in (torch.bfloat16, (torch.float32, "int8")):
+        args, (ks, vs) = _paged_read(cuda, dtype, gen, pos, B=B, H=H, bs=bs,
+                                     NB=NB)
+        q, kp, vp, tables, p32 = args
+        g = lambda t: None if t is None else ck.gather_pages(t, tables)
+        reads.append(functools.partial(ck.paged_decode_attention, *args,
+                                       k_scale=ks, v_scale=vs))
+        reads.append(functools.partial(ck.decode_attention, q, g(kp), g(vp),
+                                       p32, k_scale=g(ks), v_scale=g(vs)))
+    want = [read(route="plain") for read in reads]
+    outs = []
+    for _ in range(16):
+        outs += [(read(), w) for read, w in zip(reads, want)]
+    torch.cuda.synchronize(cuda)
+    for o, w in outs:
+        torch.testing.assert_close(o, w, atol=1e-5, rtol=1e-4)
+
+
+def _paged_split_inputs(cuda, seed):
+    """A bf16 paged read that decode_splits splits (B*H = 4, 8 pages of
+    64 rows) and the plain version's output."""
+    gen = torch.Generator().manual_seed(seed)
+    args, _ = _paged_read(cuda, torch.bfloat16, gen, [511, 200], B=2, H=2,
+                          bs=64, NB=8)
+    assert ck.decode_splits(4, 512)[0] > 1
+    return args, ck.paged_decode_attention(*args, route="plain")
+
+
+@pytest.mark.gpu
+def test_split_paged_reads_on_two_streams_on_card(cuda):
+    """Split paged reads (#6) issued on two streams of one card at once:
+    each stream has its own tickets, so every read equals plain, and a
+    read on the default stream afterwards still does."""
+    args, want = _paged_split_inputs(cuda, 34)
+    main = torch.cuda.current_stream(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(32):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(ck.paged_decode_attention(*args))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize(cuda)
+    for o in outs:
+        torch.testing.assert_close(o, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(ck.paged_decode_attention(*args), want,
+                               atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_split_paged_read_in_a_graph_capture_on_card(cuda):
+    """A capture that would be the first to make its stream's tickets
+    raises; after an eager paged read on the capture stream, the captured
+    read replays equal to plain, with eager reads between the replays."""
+    args, want = _paged_split_inputs(cuda, 35)
+    side = torch.cuda.Stream(cuda)
+    ck._TICKETS.pop((side.device_index, side.cuda_stream), None)
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            ck.paged_decode_attention(*args)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        ck.paged_decode_attention(*args)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = ck.paged_decode_attention(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize(cuda)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(ck.paged_decode_attention(*args), want,
+                                   atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.gpu
 def test_decode_kernels_refuse_what_they_do_not_take(cuda):
     gen = torch.Generator().manual_seed(5)
@@ -341,6 +522,48 @@ def test_decode_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="int32"):
         ck.paged_decode_attention(q, pool.clone(), pool.clone(),
                                   tables.long(), pos)
+    with pytest.raises(ValueError, match="empty"):
+        ck.paged_decode_attention(q, pool.clone(), pool.clone(),
+                                  tables[:, :0], pos)
+    # the C entries check the split arguments they are handed (the
+    # wrappers' decode_splits always tiles): chunks that leave rows out,
+    # an empty last chunk, no count, a chunk of 0 and a split read without
+    # its scratch each return cudaErrorInvalidValue (1) and launch nothing
+    lib = ck._build.load().lib
+    pool, o = torch.zeros(9, 16, 3, 64, device=cuda), torch.empty_like(q)
+    pool8, sc = torch.zeros(9, 16, 3, 64, dtype=torch.int8,
+                            device=cuda), torch.ones(9, 16, 3, device=cuda)
+    tables = torch.ones(4, 4, dtype=torch.int32, device=cuda)
+    part = torch.empty(4 * 3 * 8 * 66, device=cuda)
+    tk = torch.zeros(4 * 3, dtype=torch.int32, device=cuda)
+    st = torch.cuda.current_stream(cuda).cuda_stream
+    k64, k8, ks64 = k[:, :64], ck.quantize_kv(k[:, :64])[0], ks[:, :64]
+    for splits, chunk, scratch in ((2, 16, True), (5, 16, True),
+                                   (0, 64, True), (1, 0, True),
+                                   (2, 32, False)):
+        p, t = (part.data_ptr(), tk.data_ptr()) if scratch else (None, None)
+        split = (p, t, 4, 3, 64)
+        common = (q.stride(0), q.stride(1), 0.125, 0, st)
+        errs = [
+            lib.paddle_paged_decode_attention(
+                q.data_ptr(), pool.data_ptr(), pool.data_ptr(),
+                tables.data_ptr(), pos.data_ptr(), o.data_ptr(), *split, 16,
+                4, splits, chunk, 1, *common),
+            lib.paddle_paged_decode_attention_q(
+                q.data_ptr(), pool8.data_ptr(), sc.data_ptr(),
+                pool8.data_ptr(), sc.data_ptr(), tables.data_ptr(),
+                pos.data_ptr(), o.data_ptr(), *split, 16, 4, splits, chunk,
+                1, *common),
+            lib.paddle_decode_attention(
+                q.data_ptr(), k64.data_ptr(), k64.data_ptr(), pos.data_ptr(),
+                o.data_ptr(), *split, 64, splits, chunk, q.stride(0),
+                q.stride(1), *k64.stride()[:3], 0.125, 0, st),
+            lib.paddle_decode_attention_q(
+                q.data_ptr(), k8.data_ptr(), ks64.data_ptr(), k8.data_ptr(),
+                ks64.data_ptr(), pos.data_ptr(), o.data_ptr(), *split, 64,
+                splits, chunk, q.stride(0), q.stride(1), *k8.stride()[:3],
+                *ks64.stride(), 0.125, 0, st)]
+        assert errs == [1, 1, 1, 1], (splits, chunk, scratch, errs)
 
 
 @pytest.mark.gpu
