@@ -116,7 +116,25 @@ Phases:
    ``generate`` (beam 4) and ``greedy_generate`` (max_len 32) in f32, 2
    launches of #11 a call, tokens equal to the plain route's.
 
-Prints ``{"kernels": [...]}``, the card's name and power limit, and last
+Phases 3, 5, 7, 8, 10 and 12 also run each path twice, on the eager
+route (``core.graphs.disabled()``: every body run directly) and through
+its CUDA graphs (``core/graphs.py``), each warmed once, then measured
+with the counts set to 0 just before and read just after, then
+profiled: tokens, search results and training costs compared (an f32
+trainer step replayed through its graph against the eager step, bit-equal
+or within GRAPH_STEP_LOSS_RTOL / GRAPH_STEP_PARAM_ATOL), the same kernel
+launches, one graph replay a decode token, segment, speculative round,
+trainer step or search call; each prints the wall a step, the device
+time a step and the busy share, the graph dispatches and the kernel
+launches a step of both routes. In each profiled run the port's kernel
+launches that the profiler saw, by body, must equal what ``LAUNCHES``
+counted (through the graphs: what the replays recorded at capture).
+Phase 10 also calls ``generate_fused`` at six new prompt lengths with a
+fresh generator each: one capture a length and no growth of the memory
+allocated beyond an eighth of a KV cell.
+
+Prints ``{"graph_paths": [...]}`` (those figures), ``{"kernels":
+[...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
 card, or without the ``paddle_tpu_torch`` package beside this file.
 """
@@ -617,23 +635,30 @@ def workload(seed: int, vocab: int):
     return [rs.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def serve(model, prompts, device, kv_dtype=None):
+def serve(model, prompts, device, kv_dtype=None, eng=None):
     """Submit every prompt at once through start()/submit()/poll() (one
     burst, no arrival schedule); returns (tokens per request, (ttft, tpot)
-    seconds per request, wall seconds, engine)."""
+    seconds per request, wall seconds, engine). ``eng``: a started engine
+    to submit to (left running; its graphs stay warm), in place of a new
+    one that is stopped at the end."""
     import torch
     from paddle_tpu_torch.serving import ServingEngine
-    eng = ServingEngine(model, device=device, kv_dtype=kv_dtype, **ENGINE)
+    own = eng is None
+    if own:
+        eng = ServingEngine(model, device=device, kv_dtype=kv_dtype,
+                            **ENGINE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.start()
+    if own:
+        eng.start()
     try:
         rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
         while not all(eng.poll(r)[1] for r in rids):
             time.sleep(0.002)
         wall = time.perf_counter() - t0
     finally:
-        eng.stop()
+        if own:
+            eng.stop()
     check(eng.failed is None, f"engine failed: {eng.failed}")
     toks, lat = [], []
     for r in rids:
@@ -645,6 +670,65 @@ def serve(model, prompts, device, kv_dtype=None):
         lat.append((t["t_first"] - t["t_submit"],
                     (t["t_done"] - t["t_first"]) / (len(out) - 1)))
     return toks, lat, wall, eng
+
+
+def engine_pair(say, what, model, prompts, device, kv_dtype=None):
+    """The engine's traffic on the eager route and through the graphs,
+    each on one started engine (warmed by one burst, then one measured
+    burst and one profiled): tokens equal, one graph replay a segment,
+    latency figures and peak memory of the measured burst. Returns
+    {route: figures}."""
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+    figs = {}
+
+    def run_on(eng):
+        seg0 = eng.pool.segments_total
+        toks, lat, wall, _ = serve(model, prompts, device, eng=eng)
+        return toks, lat, wall, eng.pool.segments_total - seg0
+
+    res = {}
+    for route in ("eager", "graphed"):
+        eng = ServingEngine(model, device=device, kv_dtype=kv_dtype,
+                            **ENGINE).start()
+        try:
+            with _route(route):
+                run_on(eng)
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                out = counted(lambda: run_on(eng))
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                prof = profile_breakdown(say, f"{what} ({route})",
+                                         lambda: run_on(eng), out[1],
+                                         steps=out[0][3])
+                if route == "graphed":
+                    graph_launch_check(say, what)
+        finally:
+            eng.stop()
+        res[route] = (out, peak, prof)
+        del eng
+        gc.collect()        # this engine's pool is not part of the next peak
+    for route, (out, peak, prof) in res.items():
+        (toks, lat, wall, segs), _, launches, disp = out
+        f = latency_figures(lat, wall)
+        f["peak_mem_gib"] = peak
+        figs[route] = {"steps": segs, "wall_ms_per_step": wall * 1e3 / segs,
+                       "launches_per_step": {k: v / segs for k, v in
+                                             launches.items()},
+                       "graph_dispatches": disp, "profile": prof,
+                       "latency": f, "toks": toks}
+    eager, graphed = figs["eager"], figs["graphed"]
+    check(eager["toks"] == graphed["toks"],
+          f"{what}: the graphed engine's tokens differ from the eager one's")
+    check(eager["launches_per_step"] == graphed["launches_per_step"],
+          f"{what}: kernel launches a segment eager "
+          f"{eager['launches_per_step']} != graphed "
+          f"{graphed['launches_per_step']}")
+    mine = step_dispatches(graphed["graph_dispatches"], "segment")
+    check(mine == {"captures": 0, "replays": graphed["steps"]},
+          f"{what}: segment graphs {mine} in {graphed['steps']} segments")
+    record_pair(say, what, "segment", figs)
+    return {r: f["latency"] for r, f in figs.items()}
 
 
 def latency_figures(lat, wall):
@@ -706,28 +790,110 @@ def serving_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
         "to the solo plain-attention greedy decode")
     f32 = latency_figures(lat, wall)
     del eng, pool                # its f32 pool is not part of the bf16 peak
+    with _route("eager"):
+        eager = serve(model, prompts, device)[0]
+    check(eager == toks, "serving f32: the eager route's tokens differ "
+          "from the graphed route's")
+    say("serving f32: the eager route's tokens equal the graphed route's")
 
     model.to(torch.bfloat16)
-    serve(model, prompts, device)                     # warm the bf16 path
-    gc.collect()                       # the engines' pools are freed
-    torch.cuda.reset_peak_memory_stats()
-    _, lat16, wall16, _ = serve(model, prompts, device)
-    bf16 = latency_figures(lat16, wall16)
-    bf16["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    bf16 = engine_pair(say, "ServingEngine bf16", model, prompts, device)
     say(f"serving smoke figures (not a benchmark): f32 first traffic of the "
-        f"process {json.dumps(f32)}; bf16 warm {json.dumps(bf16)}")
-    profile_breakdown(say, "bf16 serving",
-                      lambda: serve(model, prompts, device), wall16)
+        f"process (graph captures included) {json.dumps(f32)}; bf16 warm "
+        f"{json.dumps(bf16)}")
     return launches
 
 
+#: the kernels that each count of ``LAUNCHES`` launches, by parts of their
+#: names as a captured graph (mangled) or the profiler (demangled) gives
+#: them (#8 and #9 are one body, ``lstm_seq_kernel``)
+PORT_KERNEL_BODIES = (
+    (("flash_attention_fwd",), ("flash_fwd_wgmma_kernel",
+                                "flash_fwd_tf32_kernel")),
+    (("flash_attention_bwd_dq",), ("flash_bwd_dq_wgmma_kernel",
+                                   "flash_bwd_dq_tf32_kernel")),
+    (("flash_attention_bwd_dkv",), ("flash_bwd_dkv_wgmma_kernel",
+                                    "flash_bwd_dkv_tf32_kernel")),
+    (("decode_attention",), ("DenseCacheI", "DenseCache<")),
+    (("decode_attention_q",), ("DenseCacheQ",)),
+    (("paged_decode_attention",), ("PagedCacheI", "PagedCache<")),
+    (("paged_decode_attention_q",), ("PagedCacheQ",)),
+    (("lstm_seq", "lstm_seq_train"), ("lstm_seq_kernel",)),
+    (("lstm_seq_bwd",), ("lstm_seq_bwd_kernel",)),
+    (("gru_seq",), ("gru_seq_kernel",)),
+    (("gru_seq_bwd",), ("gru_seq_bwd_kernel",)),
+)
+
+#: the port's kernel nodes of each graph already read, by id (with the
+#: graph, so that an id reused after a graph is freed is not mistaken)
+_GRAPH_NODES = {}
+
+
+def graph_kernel_nodes(graph) -> dict:
+    """{body: kernel nodes} of the port's kernels in a captured graph, read
+    from the graph itself: ``cuGraphDebugDotPrint`` of its cudaGraph_t
+    (the cache keeps it, ``raw_cuda_graph``) names every kernel node."""
+    import ctypes
+    import re
+    import tempfile
+    hit = _GRAPH_NODES.get(id(graph))
+    if hit is not None and hit[0] is graph:
+        return hit[1]
+    cuda = ctypes.CDLL("libcuda.so.1")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        err = cuda.cuGraphDebugDotPrint(
+            ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(), 1)
+        check(err == 0, f"cuGraphDebugDotPrint failed with CUresult {err}")
+        with open(path) as f:
+            names = re.findall(r"topoId: \d+\) \| (\w+)", f.read())
+    port = [n for n in names if "paddle_tpu_torch" in n]
+    nodes, mapped = {}, 0
+    for keys, bodies in PORT_KERNEL_BODIES:
+        n = sum(1 for name in port if any(b in name for b in bodies))
+        if n:
+            nodes["+".join(keys)] = n
+        mapped += n
+    check(names and mapped == len(port), f"a graph of {len(names)} kernel "
+          f"nodes holds {len(port)} of the port's, {mapped} of a counted "
+          "body")
+    _GRAPH_NODES[id(graph)] = (graph, nodes)
+    return nodes
+
+
+def graph_launch_check(say, what: str) -> None:
+    """Every graph the caches hold launches, a replay, the port's kernels
+    that its capture recorded in ``LAUNCHES``, counted from its kernel
+    nodes: so the launches that replays add are measured, not inferred."""
+    from paddle_tpu_torch.core import graphs
+    total, n = {}, 0
+    for owner, label, recorded, graph in graphs.captured():
+        want = {}
+        for keys, _ in PORT_KERNEL_BODIES:
+            k = sum(recorded.get(x, 0) for x in keys)
+            if k:
+                want["+".join(keys)] = k
+        nodes = graph_kernel_nodes(graph)
+        check(nodes == want, f"{what}: graph {owner}.{label} holds kernel "
+              f"nodes {nodes}, its capture recorded {want}")
+        for k, v in nodes.items():
+            total[k] = total.get(k, 0) + v
+        n += 1
+    say(f"{what}: the kernel nodes of the {n} graphs held equal the "
+        f"launches their captures recorded (port kernel nodes in all: "
+        f"{json.dumps(total)})")
+
+
 def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
-                      share_of=None) -> None:
+                      share_of=None):
     """Device busy share of ``run()`` and its top kernels, from one run
     under torch.profiler. The share divides device kernel time by the wall
     time ``wall`` of the same work run unprofiled. ``run()`` takes
     ``steps`` steps; ``share_of`` {label: kernel-name substring, or a
-    tuple of them} prints those kernels' device time a step and share."""
+    tuple of them} prints those kernels' device time a step and share.
+    Returns {"device_ms_per_step", "busy_share", "kernels_per_step"}, or
+    None when the profiler saw no device time. The kernels inside a CUDA
+    graph's replay count one by one, as eager launches do."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -747,13 +913,14 @@ def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
     dev_s = sum(r[0] for r in rows) / 1e6
     if dev_s == 0.0:
         say(f"profile {what}: the profiler saw no device time (not measured)")
-        return
+        return None
     rows.sort(reverse=True)
     port_s = sum(r[0] for r in rows if "paddle_tpu_torch" in r[2]) / 1e6
+    kernels = sum(r[1] for r in rows)
     say(f"profile {what}: device kernel time {dev_s * 1e3:.3f} ms, "
         f"wall {wall * 1e3:.3f} ms unprofiled / {wall_prof * 1e3:.3f} ms "
         f"profiled, device busy share {dev_s / wall:.4f}, "
-        f"{sum(r[1] for r in rows)} kernel launches, the port's own "
+        f"{kernels} kernel launches, the port's own "
         f"kernels {port_s * 1e3:.3f} ms ({100 * port_s / dev_s:.1f}%)")
     for us, n, name in rows[:8]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e6 / dev_s:5.1f}% "
@@ -764,6 +931,124 @@ def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
         say(f"profile {what}: device time a step {dev_s * 1e3 / steps:.3f} "
             f"ms; {label} {k_s * 1e3 / steps:.3f} ms a step, "
             f"{100 * k_s / dev_s:.1f}% of it")
+    return {"device_ms_per_step": dev_s * 1e3 / steps,
+            "busy_share": dev_s / wall, "kernels_per_step": kernels / steps}
+
+
+# ---------------------------------------------------------------------------
+# every phase's path twice: eager and through the CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: one entry per path: its eager and graphed figures (the summary line)
+GRAPH_PATHS = []
+#: an f32 trainer step through its graph against the eager step, where a
+#: GEMM's bits differ under capture: the loss to rtol 1e-6, each parameter
+#: to 1e-5 (the f32 step checks' parameter bound)
+GRAPH_STEP_LOSS_RTOL, GRAPH_STEP_PARAM_ATOL = 1e-6, 1e-5
+
+
+def _route(route: str):
+    """The eager route (every graph cache runs its bodies directly, as
+    ``jax.disable_jit``) or the graphed one."""
+    import contextlib
+    from paddle_tpu_torch.core import graphs
+    return graphs.disabled() if route == "eager" else contextlib.nullcontext()
+
+
+def counted(fn):
+    """fn() with the launch and dispatch counts set to 0 just before and
+    read just after: (out, wall seconds, launches, dispatches)."""
+    import torch
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    graphs.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, {k: n for k, n in ck.LAUNCHES.items() if n},
+            json.loads(json.dumps(graphs.DISPATCHES)))
+
+
+def step_dispatches(dispatches, kind: str) -> dict:
+    """Captures and replays of the keys whose label starts with ``kind``
+    (``decode``, ``segment``, ``round``, ``step``, ...)."""
+    out = {"captures": 0, "replays": 0}
+    for keys in dispatches.values():
+        for label, n in keys.items():
+            if label.startswith(kind + "("):
+                out["captures"] += n["captures"]
+                out["replays"] += n["replays"]
+    return out
+
+
+def route_pair(say, what, run, steps, same, kind, per_step=1,
+               share_of=None):
+    """``run()`` on the eager route and through the graphs. Each route
+    runs once to warm (the graphed one captures), once measured with the
+    counts set to 0 just before and read just after, and once under the
+    profiler. ``steps(out)`` counts the measured run's steps (tokens after
+    the prefill, segments, rounds, trainer steps, calls); ``same(eager,
+    graphed)`` must hold; the graphed run must launch every kernel as
+    often as the eager one and replay its ``kind`` graphs ``per_step``
+    times a step with no capture. Returns the graphed run's output."""
+    figs, outs = {}, {}
+    for route in ("eager", "graphed"):
+        with _route(route):
+            run()
+            out, wall, launches, disp = counted(run)
+            n = steps(out)
+            prof = profile_breakdown(say, f"{what} ({route})", run, wall,
+                                     steps=n, share_of=share_of)
+            if route == "graphed":
+                graph_launch_check(say, what)
+        outs[route] = out
+        figs[route] = {
+            "steps": n, "wall_ms_per_step": wall * 1e3 / n,
+            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "graph_dispatches": disp, "profile": prof}
+    eager, graphed = figs["eager"], figs["graphed"]
+    check(same(outs["eager"], outs["graphed"]),
+          f"{what}: the graphed route's output differs from the eager "
+          "route's")
+    check(eager["steps"] == graphed["steps"],
+          f"{what}: {eager['steps']} eager steps, {graphed['steps']} graphed")
+    check(eager["launches_per_step"] == graphed["launches_per_step"]
+          and graphed["launches_per_step"],
+          f"{what}: kernel launches eager {eager['launches_per_step']} != "
+          f"graphed {graphed['launches_per_step']}")
+    check(not eager["graph_dispatches"],
+          f"{what}: the eager route dispatched graphs "
+          f"{eager['graph_dispatches']}")
+    mine = step_dispatches(graphed["graph_dispatches"], kind)
+    check(mine == {"captures": 0, "replays": per_step * graphed["steps"]},
+          f"{what}: {kind} graphs {mine} in {graphed['steps']} steps, want "
+          f"{per_step} replay a step and no capture")
+    record_pair(say, what, kind, figs)
+    return outs["graphed"]
+
+
+def record_pair(say, what, kind, figs) -> None:
+    """Print a path's before (eager) and after (graphed) figures a step and
+    keep them for the summary line."""
+    row = {"path": what, "step": kind}
+    for route, f in figs.items():
+        prof = f["profile"] or {}
+        row[route] = {
+            "wall_ms_per_step": f["wall_ms_per_step"],
+            "device_ms_per_step": prof.get("device_ms_per_step"),
+            "busy_share": prof.get("busy_share"),
+            "device_kernels_per_step": prof.get("kernels_per_step"),
+            "graph_dispatches_per_step": sum(
+                n["captures"] + n["replays"]
+                for keys in f["graph_dispatches"].values()
+                for n in keys.values()) / f["steps"],
+            "port_launches_per_step": f["launches_per_step"]}
+    GRAPH_PATHS.append(row)
+    say(f"graphs {what}: eager -> graphed a {kind} step: "
+        f"{json.dumps(row)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1237,11 +1522,10 @@ def f32_step_check(say, model, batch, device):
     from paddle_tpu_torch.core.pytree import tree_get, tree_items
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.trainer import Trainer
-    params = model.tree()
     res = {}
     for route in (None, "plain"):
         tr = Trainer(f32_loss(model, route), Adam(TEXTCLS_LR), device=device)
-        res[route] = tr.step(params, tr.opt.init(params), *batch)
+        res[route] = tr.step(model.tree(), tr.opt.init(model.tree()), *batch)
     (pk, sk, lk), (pp, sp, lp) = res[None], res["plain"]
     check(abs(lk.item() - lp.item()) <= 1e-5, f"f32 loss {lk.item()} != "
           f"plain {lp.item()}")
@@ -1267,74 +1551,30 @@ def training_phase(say, seed: int, device="cuda", config=TEXTCLS,
                    batch=TEXTCLS_BATCH, seq_len=TEXTCLS_LEN,
                    passes=TEXTCLS_PASSES, warmup=4):
     """Trainer.train over 8 batches for ``passes`` passes (bf16 compute,
-    f32 master, Adam), then Trainer.test over two held batches; launch
-    counts, a falling loss and ms per step. Returns the counts."""
-    import numpy as np
-    import torch
+    f32 master, Adam), then Trainer.test over two held batches, on the
+    eager route and through the graphs; launch counts, a falling loss and
+    ms per step; before that, one f32 step against the plain route's and
+    one through its graph against the eager step. Returns the counts."""
     from paddle_tpu_torch.models import LSTMTextCls
-    from paddle_tpu_torch.ops import cuda_kernels as ck
     from paddle_tpu_torch.optimizer import Adam
-    from paddle_tpu_torch.trainer import Trainer, event
+    from paddle_tpu_torch.trainer import Trainer
     model = LSTMTextCls(config["vocab"], config["embed"], config["hidden"],
                         config["classes"], pool="last").init(seed, device)
     data = textcls_batches(seed, TEXTCLS_NBUF + 2, device, batch, seq_len,
                            config["vocab"])
     batches, held = data[:TEXTCLS_NBUF], data[TEXTCLS_NBUF:]
     f32_step_check(say, model, batches[0], device)
-
-    trainer = Trainer(bf16_loss(model), Adam(TEXTCLS_LR), device=device)
-    params = model.tree()
-    before = trainer.test(lambda: batches[:1], params)["cost"]
-    stamps, costs = [], []
-
-    def on_event(e):
-        if isinstance(e, event.EndIteration):
-            stamps.append(time.perf_counter())
-            costs.append(e.cost)
-
-    if device != "cpu":
-        torch.cuda.synchronize()
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    params, state = trainer.train(lambda: batches, params,
-                                  num_passes=passes, event_handler=on_event)
-    test = trainer.test(lambda: held, params)
-    launches = dict(ck.LAUNCHES)
-    after = trainer.test(lambda: batches[:1], params)["cost"]
-    steps = passes * len(batches)
-    say(f"textcls training: {steps} steps, costs {json.dumps(costs)}; "
-        f"held-out test cost {test['cost']}; batch 0 cost before "
-        f"{before} after {after}; launches {launches}")
-    check(len(costs) == steps and int(state["step"]) == steps,
-          f"{len(costs)} steps ran, want {steps}")
-    check(all(np.isfinite(costs)) and np.isfinite(test["cost"]),
-          "a non-finite cost")
-    check(after < before, f"batch 0 cost did not fall: {before} -> {after}")
-    check(launches["lstm_seq_train"] == steps
-          and launches["lstm_seq_bwd"] == steps,
-          f"LSTM training launches {launches} != one each per step "
-          f"({steps})")
-    check(launches["lstm_seq"] == len(held),
-          f"LSTM inference launches {launches['lstm_seq']} != one per "
+    graph_step_check(say, "textcls", f32_loss(model), model.tree(),
+                     batches[0], TEXTCLS_LR, device)
+    names = ("lstm_seq_train", "lstm_seq_bwd")
+    launches, steps = train_and_time(
+        say, "textcls", lambda: Trainer(bf16_loss(model), Adam(TEXTCLS_LR),
+                                        device=device),
+        model.tree(), batches, passes, 1, device, warmup=warmup,
+        names=names, held=held)
+    check(launches.get("lstm_seq") == len(held),
+          f"LSTM inference launches {launches.get('lstm_seq')} != one per "
           f"held batch ({len(held)})")
-    step_ms = np.diff([t0] + stamps)[warmup:] * 1e3
-    fig = {"steps_timed": len(step_ms),
-           "ms_per_step_median": float(np.median(step_ms)),
-           "ms_per_step_min": float(step_ms.min()),
-           "ms_per_step_max": float(step_ms.max()),
-           "ms_per_step_p10": float(np.percentile(step_ms, 10)),
-           "ms_per_step_p90": float(np.percentile(step_ms, 90)),
-           "launches_per_step": {k: launches[k] / steps for k in
-                                 ("lstm_seq_train", "lstm_seq_bwd")}}
-    say(f"textcls training smoke figures (not a benchmark): "
-        f"{json.dumps(fig)}")
-    if device != "cpu":
-        run = lambda: trainer.train(lambda: batches[:4], params)
-        t1 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        profile_breakdown(say, "bf16 textcls training (4 steps)", run,
-                          time.perf_counter() - t1)
     return launches, steps
 
 
@@ -1805,13 +2045,16 @@ def f32_step_profile(say, what, loss, params, batch, lr, device,
                      share_of) -> None:
     """The device time of one f32 training step through the kernels (the
     f32 step check's step) and ``share_of``'s share of it, from
-    profile_breakdown; the wall is the faster of two unprofiled steps."""
+    profile_breakdown; the wall is the faster of two unprofiled steps (the
+    step's graph replayed)."""
     import torch
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.trainer import Trainer
     tr = Trainer(loss, Adam(lr), device=device)
-    state = tr.opt.init(params)
-    run = lambda: tr.step(params, state, *batch)
+    trees = [params, tr.opt.init(params)]
+
+    def run():          # the step's own trees passed back: nothing copied in
+        trees[0], trees[1], _ = tr.step(*trees, *batch)
     walls = []
     for _ in range(3):                 # a warm-up, then two timed
         t0 = time.perf_counter()
@@ -1876,72 +2119,171 @@ def bf16_step_check(say, what, loss_for, params, batch, per_step,
             "bf16_vs_f32_worst_rel_l2": bf16_floor}
 
 
-def train_and_time(say, what, trainer, params, batches, passes, per_step,
-                   device, warmup=2, names=ATTENTION_KERNELS, share_of=None):
-    """``Trainer.train`` over ``batches`` for ``passes`` passes with the
-    launch counts set to 0 just before and read just after; checks the
-    counts (``per_step`` of each kernel of ``names`` a step), finite costs
-    and a falling loss on batch 0; prints ms per step and a profile.
-    Returns the counts and the number of steps."""
+def graph_step_check(say, what, loss, params, batch, lr, device):
+    """One f32 Adam step replayed through the trainer's graph against the
+    same step on the eager route, from copies of the same params and a
+    fresh state: the loss and every parameter bit-equal, or, where a
+    GEMM's bits differ under capture, within GRAPH_STEP_LOSS_RTOL and
+    GRAPH_STEP_PARAM_ATOL; the same kernel launches, and the graphed step
+    one replay."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    res = {}
+    for route in ("eager", "graphed"):
+        tr = Trainer(loss, Adam(lr), device=device)
+        with _route(route):
+            if route == "graphed":              # the capture
+                p = tree_map(torch.clone, params)
+                tr.step(p, tr.opt.init(p), *batch)
+            p = tree_map(torch.clone, params)
+            state = tr.opt.init(p)
+            (new, _, cost), _, launches, disp = counted(
+                lambda: tr.step(p, state, *batch))
+        res[route] = (tree_map(torch.clone, new), cost.item(), launches,
+                      step_dispatches(disp, "step"))
+        del tr, p, state, new
+    (pe, le, ne, de), (pg, lg, ng, dg) = res["eager"], res["graphed"]
+    check(de == {"captures": 0, "replays": 0}
+          and dg == {"captures": 0, "replays": 1},
+          f"{what} graph step: dispatches eager {de}, graphed {dg}")
+    check(ne == ng and ne, f"{what} graph step: launches eager {ne} != "
+          f"graphed {ng}")
+    worst, equal = 0.0, le == lg
+    for (path, a), (_, b) in zip(tree_items(pe), tree_items(pg)):
+        equal = equal and torch.equal(a, b)
+        worst = max(worst, (a - b).abs().max().item())
+    check(abs(le - lg) <= GRAPH_STEP_LOSS_RTOL * abs(le)
+          and worst <= GRAPH_STEP_PARAM_ATOL,
+          f"{what} graph step: loss {lg!r} vs eager {le!r}, worst parameter "
+          f"difference {worst!r}")
+    say(f"{what} f32 step through its graph against the eager step: "
+        f"{'bit-equal' if equal else 'not bit-equal'}; loss {lg!r} vs "
+        f"{le!r}; worst parameter difference {worst!r}; launches {ng}")
+
+
+def train_and_time(say, what, make_trainer, params, batches, passes,
+                   per_step, device, warmup=2, names=ATTENTION_KERNELS,
+                   share_of=None, held=None):
+    """``Trainer.train`` over ``batches`` for ``passes`` passes on the
+    eager route and through the graphs, each from a copy of ``params``
+    with a fresh trainer (``make_trainer()``), the launch and dispatch
+    counts set to 0 just before and read just after; checks the counts
+    (``per_step`` of each kernel of ``names`` a step, the same on both
+    routes, and through the graphs one capture of the one batch signature
+    and a replay every later step), finite costs and a falling loss on
+    batch 0; prints ms per step and a profile of two warm steps. With
+    ``held`` also ``Trainer.test`` over it (one replay a batch). Returns
+    the graphed route's counts (the held test's included) and the number
+    of steps."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.core.pytree import tree_map
     from paddle_tpu_torch.trainer import event
-    before = trainer.test(lambda: batches[:1], params)["cost"]
-    stamps, costs = [], []
-
-    def on_event(e):
-        if isinstance(e, event.EndIteration):
-            stamps.append(time.perf_counter())
-            costs.append(e.cost)
-
-    torch.cuda.synchronize()
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    params, state = trainer.train(lambda: batches, params,
-                                  num_passes=passes, event_handler=on_event)
-    launches = dict(ck.LAUNCHES)
-    after = trainer.test(lambda: batches[:1], params)["cost"]
     steps = passes * len(batches)
-    say(f"{what} training: {steps} steps, costs {json.dumps(costs)}; batch "
-        f"0 cost before {before} after {after}; launches {launches}")
-    check(len(costs) == steps and int(state["step"]) == steps,
-          f"{what}: {len(costs)} steps ran, want {steps}")
-    check(all(np.isfinite(costs)), f"{what}: a non-finite cost")
-    check(after < before, f"{what}: batch 0 cost did not fall: {before} -> "
-          f"{after}")
-    for n in names:
-        check(launches[n] == per_step * steps,
-              f"{what}: {n} launched {launches[n]} times, want {per_step} "
-              f"x {steps} steps")
-    step_ms = np.diff([t0] + stamps)[warmup:] * 1e3
-    fig = {"steps_timed": len(step_ms),
-           "ms_per_step_median": float(np.median(step_ms)),
-           "ms_per_step_p10": float(np.percentile(step_ms, 10)),
-           "ms_per_step_p90": float(np.percentile(step_ms, 90)),
-           "ms_per_step_min": float(step_ms.min()),
-           "ms_per_step_max": float(step_ms.max()),
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches_per_step": {n: launches[n] / steps for n in names}}
-    say(f"{what} training smoke figures (not a benchmark): "
-        f"{json.dumps(fig)}")
-    run = lambda: trainer.train(lambda: batches[:2], params)
-    walls = []
-    for _ in range(2):       # the faster of two: the host's load varies
-        t1 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
-    profile_breakdown(say, f"bf16 {what} training (2 steps)", run,
-                      min(walls), steps=2, share_of=share_of)
-    return launches, steps
+    figs, costs_by = {}, {}
+    for route in ("eager", "graphed"):
+        trainer = make_trainer()
+        params0 = tree_map(torch.clone, params)
+        stamps, costs = [], []
+
+        def on_event(e):
+            if isinstance(e, event.EndIteration):
+                stamps.append(time.perf_counter())
+                costs.append(e.cost)
+
+        with _route(route):
+            before = trainer.test(lambda: batches[:1], params0)["cost"]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (p, state), _, launches, disp = counted(
+                lambda: trainer.train(lambda: batches, params0,
+                                      num_passes=passes,
+                                      event_handler=on_event))
+            if held is not None:
+                test, _, test_launches, test_disp = counted(
+                    lambda: trainer.test(lambda: held, p))
+                say(f"{what} ({route}): held-out test cost "
+                    f"{test['cost']}, launches {test_launches}")
+                check(np.isfinite(test["cost"]), f"{what}: a non-finite "
+                      "test cost")
+                check(step_dispatches(test_disp, "loss")["replays"]
+                      == (len(held) if route == "graphed" else 0),
+                      f"{what} ({route}): test dispatches {test_disp}")
+                if route == "graphed":
+                    for k, n in test_launches.items():
+                        launches[k] = launches.get(k, 0) + n
+            after = trainer.test(lambda: batches[:1], p)["cost"]
+            say(f"{what} training ({route}): {steps} steps, costs "
+                f"{json.dumps(costs)}; batch 0 cost before {before} after "
+                f"{after}; launches {launches}")
+            check(len(costs) == steps and int(state["step"]) == steps,
+                  f"{what}: {len(costs)} steps ran, want {steps}")
+            check(all(np.isfinite(costs)), f"{what}: a non-finite cost")
+            check(after < before, f"{what} ({route}): batch 0 cost did not "
+                  f"fall: {before} -> {after}")
+            for n in names:
+                check(launches.get(n, 0) == per_step * steps,
+                      f"{what}: {n} launched {launches.get(n, 0)} times, "
+                      f"want {per_step} x {steps} steps")
+            step_ms = np.diff([t0] + stamps)[warmup:] * 1e3
+            fig = {"steps_timed": len(step_ms),
+                   "ms_per_step_median": float(np.median(step_ms)),
+                   "ms_per_step_p10": float(np.percentile(step_ms, 10)),
+                   "ms_per_step_p90": float(np.percentile(step_ms, 90)),
+                   "ms_per_step_min": float(step_ms.min()),
+                   "ms_per_step_max": float(step_ms.max()),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated()
+                   / 2 ** 30,
+                   "launches_per_step": {n: launches[n] / steps
+                                         for n in names}}
+            say(f"{what} training smoke figures ({route}; not a benchmark):"
+                f" {json.dumps(fig)}")
+            run = lambda: trainer.train(lambda: batches[:2], p)
+            walls = []
+            for _ in range(2):   # the faster of two: the host's load varies
+                t1 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            prof = profile_breakdown(say, f"bf16 {what} training (2 steps, "
+                                     f"{route})", run, min(walls), steps=2,
+                                     share_of=share_of)
+            if route == "graphed":
+                graph_launch_check(say, f"{what} training")
+        train_launches = {k: v for k, v in launches.items()
+                          if held is None or k in names}
+        figs[route] = {"steps": steps,
+                       "wall_ms_per_step": fig["ms_per_step_median"],
+                       "launches_per_step": {k: v / steps for k, v in
+                                             train_launches.items()},
+                       "graph_dispatches": disp, "profile": prof,
+                       "launches": launches}
+        costs_by[route] = costs
+        del trainer, params0, p, state
+    eager, graphed = figs["eager"], figs["graphed"]
+    check(eager["launches_per_step"] == graphed["launches_per_step"],
+          f"{what}: kernel launches a step eager {eager['launches_per_step']}"
+          f" != graphed {graphed['launches_per_step']}")
+    mine = step_dispatches(graphed["graph_dispatches"], "step")
+    check(mine == {"captures": 1, "replays": steps - 1},
+          f"{what}: step graphs {mine} in {steps} steps, want one capture "
+          "and a replay a step after it")
+    diff = max(abs(a - b) for a, b in zip(costs_by["eager"],
+                                          costs_by["graphed"]))
+    say(f"{what} training: graphed costs against eager, max difference "
+        f"{diff!r} ({'bit-equal' if diff == 0.0 else 'not bit-equal'})")
+    record_pair(say, f"{what} training", "step", figs)
+    return graphed["launches"], steps
 
 
 def lm_training_phase(say, seed: int, device="cuda", config=GPT2_TRAIN,
                       batch=LM_BATCH, seq=LM_SEQ, passes=LM_PASSES):
     """GPT-2 small trained by ``Trainer.train`` (bf16 over f32 masters,
-    Adam) over the benchmark's 2 batches of random token ids; before
-    that, one f32 step against the plain route's."""
+    Adam) over the benchmark's 2 batches of random token ids, on the eager
+    route and through the graphs; before that, one f32 step against the
+    plain route's and one through its graph against the eager step."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models import TransformerLM
@@ -1964,11 +2306,13 @@ def lm_training_phase(say, seed: int, device="cuda", config=GPT2_TRAIN,
                     model.tree(), batches[0], per_step)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(lm_loss(model, torch.bfloat16), Adam(LM_LR),
-                      device=device)
-    return train_and_time(say, "LM", trainer, model.tree(), batches, passes,
-                          per_step, device,
-                          share_of={"#2 (dq)": "flash_bwd_dq"})
+    graph_step_check(say, "LM", lm_loss(model, torch.float32), model.tree(),
+                     batches[0], LM_LR, device)
+    torch.cuda.empty_cache()
+    return train_and_time(say, "LM", lambda: Trainer(
+        lm_loss(model, torch.bfloat16), Adam(LM_LR), device=device),
+        model.tree(), batches, passes, per_step, device,
+        share_of={"#2 (dq)": "flash_bwd_dq"})
 
 
 def nmt_batches(seed: int, n: int, device, batch=NMT_BATCH, seq=NMT_SEQ,
@@ -2006,12 +2350,12 @@ def nmt_training_phase(say, seed: int, device="cuda", config=NMT_TRAIN,
                                                           torch.float32, r),
                            model.tree(), batches[0], NMT_LR, per_step,
                            device)
+    graph_step_check(say, "NMT", nmt_loss(model, torch.float32),
+                     model.tree(), batches[0], NMT_LR, device)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(nmt_loss(model, torch.bfloat16), Adam(NMT_LR),
-                      device=device)
-    return train_and_time(say, "NMT", trainer, model.tree(), batches, passes,
-                          per_step, device)
+    return train_and_time(say, "NMT", lambda: Trainer(
+        nmt_loss(model, torch.bfloat16), Adam(NMT_LR), device=device),
+        model.tree(), batches, passes, per_step, device)
 
 
 # ---------------------------------------------------------------------------
@@ -2402,7 +2746,8 @@ def split_sweep(say, gen, cpu_gen, batches, device="cuda"):
 # phase 10: dense decode at GPT-2-small width
 # ---------------------------------------------------------------------------
 
-GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, GEN_BUCKET = 8, 200, 100, 256
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, GEN_BUCKET, GEN_TOP_K = \
+    8, 200, 100, 256, 40
 SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW, SPEC_K = 2, 100, 48, 4
 
 
@@ -2419,6 +2764,35 @@ def same_tokens(got, want, what: str) -> None:
                                f"{len(g)} / {len(w)})")
 
 
+def generate_memory_check(say, model, ids, device):
+    """generate_fused at six new prompt lengths, a fresh generator each
+    call: one prefill capture a length and no decode capture (the cache
+    buckets are warm), and the memory allocated grows by less than an
+    eighth of the one KV cell the model keeps for this batch."""
+    import torch
+    B = ids.shape[0]
+    cell = sum(t.numel() * t.element_size()
+               for t in model.empty_cell(B).values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    lengths = (37, 64, 101, 150, 180, 199)
+    _, wall, _, disp = counted(lambda: [model.generate_fused(
+        ids[:, :T], GEN_NEW, bucket=GEN_BUCKET, sample="topk",
+        top_k=GEN_TOP_K, temperature=0.8,
+        generator=torch.Generator(device=device).manual_seed(T))
+        for T in lengths])
+    grown = torch.cuda.memory_allocated() - base
+    caps = {k: step_dispatches(disp, k)["captures"]
+            for k in ("prefill", "decode")}
+    check(caps == {"prefill": len(lengths), "decode": 0},
+          f"generate_fused at new prompt lengths: captures {caps}")
+    check(grown < cell / 8, f"generate_fused at {len(lengths)} new prompt "
+          f"lengths: memory allocated grew {grown} bytes, a cell is {cell}")
+    say(f"generate_fused at {len(lengths)} new prompt lengths with a fresh "
+        f"generator each: captures {caps}, memory allocated grew {grown} "
+        f"bytes (one KV cell of B={B}: {cell} bytes), {wall:.3f} s")
+
+
 def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     """generate_fused, ContinuousBatcher, ServingEngine and
     SpeculativeDecoder on GPT-2 small, each against its plain-route
@@ -2426,7 +2800,6 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     import numpy as np
     import torch
     from paddle_tpu_torch.models import TransformerLM
-    from paddle_tpu_torch.ops import cuda_kernels as ck
     from paddle_tpu_torch.serving import (ContinuousBatcher, Request,
                                           SpeculativeDecoder)
     model = TransformerLM(**config).init(seed=seed, device=device)
@@ -2436,13 +2809,8 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
 
     def launched(run, fn):
         """fn() with the counts set to 0 just before and read just after."""
-        torch.cuda.synchronize()
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        runs[run] = {k: n for k, n in ck.LAUNCHES.items() if n}
-        return out, time.perf_counter() - t0
+        out, wall, runs[run], _ = counted(fn)
+        return out, wall
 
     ids = torch.as_tensor(rs.randint(0, vocab, (GEN_PROMPTS, GEN_PROMPT_LEN)),
                           device=device)
@@ -2464,13 +2832,23 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
         say(f"{run}: {GEN_PROMPTS} x {GEN_NEW} tokens equal to the same "
             f"loop on the plain route; {steps} decode steps "
             f"reading 256 then 512 rows; launches {runs[run]}; "
-            f"{walls[kv]:.3f} s eager "
+            f"{walls[kv]:.3f} s with the graphs' captures "
             f"({GEN_PROMPTS * GEN_NEW / walls[kv]:.1f} tokens/s, smoke "
             "figure)")
-    profile_breakdown(say, "generate_fused int8 KV",
-                      lambda: model.generate_fused(
-                          ids, GEN_NEW, bucket=GEN_BUCKET, kv_dtype="int8"),
-                      walls["int8"])
+        route_pair(say, run, lambda: model.generate_fused(
+            ids, GEN_NEW, bucket=GEN_BUCKET, kv_dtype=kv),
+            lambda out: steps, torch.equal, "decode")
+    # top-k sampling: the graphs draw with the caller's generator, the
+    # same tokens as the eager loop under the same seed; the generator is
+    # no part of a key, so a fresh one each call replays the same graphs
+    route_pair(say, "generate_fused top-k float32 KV",
+               lambda: model.generate_fused(
+                   ids, GEN_NEW, bucket=GEN_BUCKET, sample="topk",
+                   top_k=GEN_TOP_K, temperature=0.8,
+                   generator=torch.Generator(device=device).manual_seed(
+                       seed)),
+               lambda out: steps, torch.equal, "decode")
+    generate_memory_check(say, model, ids, device)
 
     prompts = workload(seed, vocab)
     solo = [model.generate_fused(
@@ -2492,8 +2870,16 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     say(f"{run}: {len(prompts)} requests x {NEW_TOKENS} tokens equal to "
         f"each request's solo int8 plain decode; segments by read rows "
         f"{batcher.segments_by_len}; launches {runs[run]}; {wall:.3f} s")
-    profile_breakdown(say, run, lambda: batcher.serve(
-        [Request(i, p, NEW_TOKENS) for i, p in enumerate(prompts)]), wall)
+
+    def batcher_run():
+        seg0 = batcher.segments_total
+        out = batcher.serve([Request(i, p, NEW_TOKENS)
+                             for i, p in enumerate(prompts)])
+        return out, batcher.segments_total - seg0
+    route_pair(say, run, batcher_run, lambda out: out[1],
+               lambda a, b: a[1] == b[1] and all(
+                   np.array_equal(a[0][k], b[0][k]) for k in a[0]),
+               "segment")
 
     run = "ServingEngine int8 KV"
     (toks, _, wall, eng), _ = launched(run, lambda: serve(
@@ -2522,6 +2908,9 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     say(f"{run}: {SPEC_PROMPTS} x {SPEC_NEW} tokens equal to the greedy "
         f"plain decode; {json.dumps(stats)}; launches {runs[run]}; "
         f"{wall:.3f} s")
+    same_spec = lambda a, b: np.array_equal(a[0], b[0]) and a[1] == b[1]
+    route_pair(say, run, lambda: sd.generate(sids, SPEC_NEW),
+               lambda out: out[1]["rounds"], same_spec, "round")
 
     # a draft that disagrees: GPT-2 small from another seed, at f32 KV, so
     # rounds reject proposals, rewind pos and overwrite rejected rows
@@ -2540,20 +2929,16 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     say(f"{run}: {SPEC_PROMPTS} x {SPEC_NEW} tokens equal to the greedy "
         f"plain decode; {json.dumps(stats)}; launches {runs[run]}; "
         f"{wall:.3f} s")
+    route_pair(say, run, lambda: sd.generate(sids, SPEC_NEW),
+               lambda out: out[1]["rounds"], same_spec, "round")
     del draft, sd
 
     model.to(torch.bfloat16)
-    figures = {}
-    for kv in ("int8", None):
-        serve(model, prompts, device, kv_dtype=kv)     # warm this path
-        gc.collect()    # only the engine measured next will hold a pool
-        torch.cuda.reset_peak_memory_stats()
-        lat, wall = serve(model, prompts, device, kv_dtype=kv)[1:3]
-        fig = latency_figures(lat, wall)
-        fig["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        figures[f"{kv or 'bf16'} KV"] = fig
-    say("serving bf16 weights, int8 against bf16 KV (smoke figures, not a "
-        f"benchmark): {json.dumps(figures)}")
+    figures = engine_pair(say, "ServingEngine bf16 int8 KV", model, prompts,
+                          device, kv_dtype="int8")
+    say("serving bf16 weights at int8 KV, eager and graphed (smoke "
+        f"figures, not a benchmark; bf16 KV is phase 3's): "
+        f"{json.dumps(figures)}")
     return runs
 
 
@@ -2748,8 +3133,9 @@ def s2s_generation(say, model, batch, device):
     after: two launches of #11 a call (the encoder's directions), none of
     #12; tokens equal to the same call on the plain route; scores allclose
     (rtol 1e-5, atol 1e-4: a score sums 32 log-probabilities of ~-10, and
-    the routes' encoders differ in summation order) and sorted best-first.
-    Returns the counts of each call."""
+    the routes' encoders differ in summation order) and sorted best-first;
+    then each call on the eager route and through its graph, tokens and
+    scores equal. Returns the counts of each call."""
     import torch
     from paddle_tpu_torch.core import SeqBatch
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -2789,6 +3175,9 @@ def s2s_generation(say, model, batch, device):
             f"tokens equal to the plain route's, max score difference "
             f"{err:.3e}, {wall * 1e3:.3f} ms a call, share of sequences "
             f"with an EOS {eos:.3f}, launches {launches}")
+        route_pair(say, f"seq2seq {what}", lambda: call(None),
+                   lambda out: 1, lambda a, b: torch.equal(a[0], b[0])
+                   and torch.equal(a[1], b[1]), what)
         runs[what] = launches
     return runs
 
@@ -2797,8 +3186,10 @@ def s2s_phase(say, seed: int, device="cuda", config=S2S,
               passes=S2S_PASSES):
     """The attention seq2seq (random weights from the seed) trained by
     ``Trainer.train`` (bf16 over f32 masters, Adam) over the benchmark's 4
-    batches, after one f32 step against the plain route's; then beam and
-    greedy generation. Returns the training and generation counts."""
+    batches on the eager route and through the graphs, after one f32 step
+    against the plain route's and one through its graph against the eager
+    step; then beam and greedy generation. Returns the training and
+    generation counts."""
     import torch
     from paddle_tpu_torch.models import AttentionSeq2Seq
     from paddle_tpu_torch.optimizer import Adam
@@ -2816,12 +3207,13 @@ def s2s_phase(say, seed: int, device="cuda", config=S2S,
                            lambda r: nmt_loss(model, torch.float32, r),
                            model.tree(), batches[0], S2S_LR, 2, device,
                            names=names, floor=1e-7)
+    graph_step_check(say, "seq2seq", nmt_loss(model, torch.float32),
+                     model.tree(), batches[0], S2S_LR, device)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(nmt_loss(model, torch.bfloat16), Adam(S2S_LR),
-                      device=device)
-    train, steps = train_and_time(say, "seq2seq", trainer, model.tree(),
-                                  batches, passes, 2, device, names=names)
+    train, steps = train_and_time(
+        say, "seq2seq", lambda: Trainer(nmt_loss(model, torch.bfloat16),
+                                        Adam(S2S_LR), device=device),
+        model.tree(), batches, passes, 2, device, names=names)
     return train, steps, s2s_generation(say, model, batches[0], device)
 
 
@@ -2946,6 +3338,7 @@ def main(argv=None) -> int:
             for body, name in bodies.items():
                 if entry["name"] == name:
                     entry[key] = sass[body]
+    print(json.dumps({"graph_paths": GRAPH_PATHS, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

@@ -9,9 +9,11 @@ Wd d)) and a GRU decoder cell whose input is [target embedding | context].
 Training is teacher-forced: the embedding half of the decoder's input
 projection for all steps is one product before the loop, the output
 projection one product after it; only the [B, H] state runs step by step
-(a Python loop of eager steps, where JAX runs a ``lax.scan``). Generation
-is the beam search or the greedy search of ``ops/beam_search.py`` over
-:meth:`AttentionSeq2Seq.decode_step`. The decoder cell and the attention
+(a Python loop, where JAX runs a ``lax.scan``; on the card it falls
+inside the trainer's step graph). Generation is the beam search or the
+greedy search of ``ops/beam_search.py`` over
+:meth:`AttentionSeq2Seq.decode_step`, the encoder and the search one CUDA
+graph a call on the card. The decoder cell and the attention
 are plain PyTorch, as they are plain math outside any Pallas kernel in
 JAX.
 
@@ -146,20 +148,43 @@ class AttentionSeq2Seq(Module):
                  length_penalty: float = 0.0, route: Optional[str] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Beam-search decode: (tokens [B, K, max_len], scores [B, K])
-        sorted best-first."""
+        sorted best-first. The encoder and the whole search (JAX's
+        ``lax.scan``) are one CUDA graph per (B, S, K, max_len) on the
+        card (:meth:`_beam_body`)."""
+        return self.graph_cache().run(
+            "beam", self._beam_body,
+            {"data": src.data, "lengths": src.lengths},
+            static=dict(beam_size=beam_size, max_len=max_len, bos_id=bos_id,
+                        eos_id=eos_id, length_penalty=length_penalty,
+                        route=route))
+
+    @torch.no_grad()
+    def _beam_body(self, data, lengths, *, beam_size, max_len, bos_id,
+                   eos_id, length_penalty, route):
         return BS.beam_search(
-            self.encode(src, route=route), self._step_fn(),
-            batch_size=src.batch_size, beam_size=beam_size, max_len=max_len,
-            vocab_size=self.out.w.shape[1], bos_id=bos_id, eos_id=eos_id,
-            length_penalty=length_penalty)
+            self.encode(SeqBatch(data, lengths), route=route),
+            self._step_fn(), batch_size=data.shape[0], beam_size=beam_size,
+            max_len=max_len, vocab_size=self.out.w.shape[1], bos_id=bos_id,
+            eos_id=eos_id, length_penalty=length_penalty)
 
     @torch.no_grad()
     def greedy_generate(self, src: SeqBatch, *, max_len: int = 32,
                         bos_id: int = 0, eos_id: int = 1,
                         route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Greedy decode: (tokens [B, max_len], scores [B])."""
-        return BS.greedy_search(self.encode(src, route=route),
-                                self._step_fn(), batch_size=src.batch_size,
-                                max_len=max_len, bos_id=bos_id,
-                                eos_id=eos_id)
+        """Greedy decode: (tokens [B, max_len], scores [B]); the encoder
+        and the search are one CUDA graph per (B, S, max_len) on the card
+        (:meth:`_greedy_body`)."""
+        return self.graph_cache().run(
+            "greedy", self._greedy_body,
+            {"data": src.data, "lengths": src.lengths},
+            static=dict(max_len=max_len, bos_id=bos_id, eos_id=eos_id,
+                        route=route))
+
+    @torch.no_grad()
+    def _greedy_body(self, data, lengths, *, max_len, bos_id, eos_id,
+                     route):
+        return BS.greedy_search(
+            self.encode(SeqBatch(data, lengths), route=route),
+            self._step_fn(), batch_size=data.shape[0], max_len=max_len,
+            bos_id=bos_id, eos_id=eos_id)

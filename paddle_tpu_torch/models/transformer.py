@@ -9,9 +9,10 @@ head tied to the token embedding. ``forward``, ``loss`` and
 method="loss")`` is what ``Trainer`` differentiates); the decode methods
 (``prefill``, ``decode_step``, ``decode_step_paged``, ``verify_step``,
 ``generate_fused`` and its alias ``generate_cached``) run without
-autograd and write their caches in place. Not ported: ``tie_head=False``, ``remat``,
-``prefill_paged`` (the prefix cache) and sequence sharding
-(``positions``, ``seq_axis``). The model
+autograd and write their caches in place; ``generate_fused`` runs each
+step as one CUDA graph on the card (``core/graphs.py``). Not ported:
+``tie_head=False``, ``remat``, ``prefill_paged`` (the prefix cache) and
+sequence sharding (``positions``, ``seq_axis``). The model
 carries its own parameters (JAX passes a parameter tree beside it); they
 keep the JAX names and layouts so a JAX tree loads through
 ``paddle_tpu_torch.convert.params_from_numpy``.
@@ -191,10 +192,13 @@ class TransformerLM(Module):
                 lengths: Optional[torch.Tensor] = None, *,
                 kv_dtype: Optional[str] = None,
                 pad_to: Optional[int] = None,
-                route: Optional[str] = None) -> Tuple[Cell, torch.Tensor]:
+                route: Optional[str] = None,
+                into: Optional[Cell] = None) -> Tuple[Cell, torch.Tensor]:
         """Run the prompt once; return (cell, last logits [B, V]). The cell
         holds per-layer caches ``k{i}``/``v{i}`` [B, pad, H, Dh] padded to
         ``pad_to`` (default max_len) and the write position ``pos`` [B].
+        ``into``: a cell of :meth:`empty_cell` whose tensors take all of it
+        in place (the padding rewritten too), in place of new tensors.
 
         ``lengths`` [B] makes the batch ragged: prompts are right-padded,
         attention stays causal with no kv_lens (a padded tail row is never
@@ -223,17 +227,31 @@ class TransformerLM(Module):
             pos = lengths.to(device=x.device, dtype=torch.int32)
         cell: Cell = {"pos": pos}
         pad = (0, 0, 0, 0, 0, limit - T0)          # dim 1 of [B, T, H, Dh]
+
+        def put(nm, t, value=0.0):
+            if into is None:
+                cell[nm] = F.pad(t, pad[8 - 2 * t.dim():], value=value)
+                return
+            dst = cell[nm] = into[nm]
+            dst[:, :T0] = t
+            dst[:, T0:].fill_(value)
+        if into is not None:
+            if into["k0"].shape[:2] != (B, limit):
+                raise ValueError(f"the cell holds {tuple(into['k0'].shape[:2])}"
+                                 f" rows, the prefill makes ({B}, {limit})")
+            cell["pos"] = into["pos"]
+            cell["pos"].copy_(pos)
         for i, blk in enumerate(self.blocks):
             q, k, v = blk.heads(x)
             x = blk.finish(x, blk.attend(q, k, v, route=route))
             if kv_dtype == "int8":
                 for nm, t in ((f"k{i}", k), (f"v{i}", v)):
                     codes, scale = ck.quantize_kv(t)
-                    cell[nm] = F.pad(codes, pad)
-                    cell[nm + "_scale"] = F.pad(scale, pad[2:], value=1.0)
+                    put(nm, codes)
+                    put(nm + "_scale", scale, value=1.0)
             else:
-                cell[f"k{i}"] = F.pad(k, pad)
-                cell[f"v{i}"] = F.pad(v, pad)
+                put(f"k{i}", k)
+                put(f"v{i}", v)
         x = self.ln_f(x)
         # only the rows whose logits are returned go through the head
         if lengths is None:
@@ -241,6 +259,23 @@ class TransformerLM(Module):
         else:
             last = x[torch.arange(B, device=x.device), pos.long() - 1]
         return cell, self._logits(last)
+
+    def empty_cell(self, B: int, kv_dtype: Optional[str] = None) -> Cell:
+        """A cell of B rows of max_len positions with the tensors
+        :meth:`prefill` makes (zeroed; int8 scales 1.0), for its ``into``."""
+        blk = self.blocks[0]
+        shape = (B, self.max_len, blk.n_heads, blk.d_head)
+        dev = self.device
+        cell: Cell = {"pos": torch.zeros((B,), dtype=torch.int32, device=dev)}
+        for i in range(len(self.blocks)):
+            for nm in (f"k{i}", f"v{i}"):
+                if kv_dtype == "int8":
+                    cell[nm] = torch.zeros(shape, dtype=torch.int8, device=dev)
+                    cell[nm + "_scale"] = torch.ones(
+                        shape[:3], dtype=torch.float32, device=dev)
+                else:
+                    cell[nm] = torch.zeros(shape, dtype=self.dtype, device=dev)
+        return cell
 
     def _append_rows(self, cell: Cell, i: int, k: torch.Tensor,
                      v: torch.Tensor, at,
@@ -377,7 +412,8 @@ class TransformerLM(Module):
         distribution after tokens[:, :i+1]. Query i attends rows
         j <= pos+i. Plain PyTorch math, as the JAX method is plain einsums
         outside any kernel; int8 cells quantize the span on append and
-        dequantize the read."""
+        dequantize the read. On the card it runs inside the speculative
+        round's CUDA graph (``SpeculativeDecoder._round_body``)."""
         B, S = tokens.shape
         pos = cell["pos"]
         L = self.max_len if cache_len is None else min(cache_len,
@@ -427,32 +463,73 @@ class TransformerLM(Module):
         ``sample="topk"`` draws from the ``top_k`` largest logits at
         ``temperature`` with ``generator`` (a ``torch.Generator`` on the
         model's device, in place of JAX's PRNG key); greedy ignores both.
-        The JAX method compiles each step into one dispatch; here a step
-        runs eagerly (one CUDA graph per step is still to do)."""
+
+        As the JAX method compiles each step into one dispatch, each step
+        here is one CUDA graph on the card (:meth:`graph_cache`): the
+        prefill and its sample (:meth:`_prefill_body`) per (B, T0,
+        kv_dtype, sample, top_k), the decode step and its sample
+        (:meth:`_decode_body`) per (B, cache_len, kv_dtype, sample,
+        top_k). The caches and the position live in one cell per (B,
+        kv_dtype) that the cache keeps (:meth:`empty_cell`): the prefill
+        writes it in place and the steps carry it, with the token, from
+        step to step. The generator is no part of a key: a fresh one for
+        each call replays the same graphs."""
         B, T0 = prompt.shape
         if T0 + steps > self.max_len:
             raise ValueError(f"prompt_len ({T0}) + steps ({steps}) exceeds "
                              f"max_len ({self.max_len})")
         if sample not in ("greedy", "topk"):
-            raise ValueError(f"unknown sample mode {sample!r}")
+            raise ValueError(f"unknown sample {sample!r}")
         if sample == "topk" and (top_k is None or generator is None):
             raise ValueError("sample='topk' needs top_k and generator")
         if steps == 0:
             return prompt
-
-        def draw(logits):
-            return _sample_token(logits, sample, top_k, temperature,
-                                 generator).to(prompt.dtype)
-        cell, last = self.prefill(prompt, kv_dtype=kv_dtype, route=route)
-        toks = [draw(last)]
+        graphs = self.graph_cache()
+        cell = graphs.buffer(("cell", B, kv_dtype, self.dtype),
+                             lambda: self.empty_cell(B, kv_dtype))
+        draw = dict(sample=sample, top_k=top_k, temperature=temperature,
+                    generator=generator, route=route)
+        cur, tok = graphs.run("prefill", self._prefill_body,
+                              {"cell": cell, "prompt": prompt},
+                              static=dict(kv_dtype=kv_dtype, **draw),
+                              donate=("cell",))
+        toks = [tok]
         for j in range(1, steps):
             pos = T0 + j                       # max live position + 1
             cache_len = None if bucket is None else min(
                 -(-pos // bucket) * bucket, self.max_len)
-            logits, cell = self.decode_step(cell, toks[-1],
-                                            cache_len=cache_len, route=route)
-            toks.append(draw(logits))
+            cur, tok = graphs.run(
+                "decode", self._decode_body, {"cell": cell, "cur": cur},
+                static=dict(cache_len=cache_len, kv_dtype=kv_dtype, **draw),
+                donate=("cell", "cur"))
+            toks.append(tok)
         return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+    @torch.no_grad()
+    def _prefill_body(self, cell, prompt, *, kv_dtype, sample, top_k,
+                      temperature, generator, route):
+        """The prefill into ``cell`` in place and its sample: (the token as
+        the decode loop's carried input, the token as an output)."""
+        _, last = self.prefill(prompt, kv_dtype=kv_dtype, route=route,
+                               into=cell)
+        tok = _sample_token(last, sample, top_k, temperature,
+                            generator).to(prompt.dtype)
+        return tok.clone(), tok
+
+    @torch.no_grad()
+    def _decode_body(self, cell, cur, *, cache_len, kv_dtype, sample, top_k,
+                     temperature, generator, route):
+        """One step of the decode loop: :meth:`decode_step` on token ``cur``
+        and its sample, written back into the carried ``cell["pos"]`` and
+        ``cur`` in place (the caches are written in place by the step).
+        Returns (cur, the token). ``kv_dtype`` only keys the graph."""
+        logits, new = self.decode_step(cell, cur, cache_len=cache_len,
+                                       route=route)
+        tok = _sample_token(logits, sample, top_k, temperature,
+                            generator).to(cur.dtype)
+        cell["pos"].copy_(new["pos"])
+        cur.copy_(tok)
+        return cur, tok
 
     #: the JAX package's name for the greedy dense-cache loop, kept for its
     #: callers: one loop, :meth:`generate_fused` (the JAX scans run one step
@@ -464,10 +541,14 @@ def _sample_token(logits: torch.Tensor, sample: str, top_k: Optional[int],
                   temperature: float,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     """Greedy argmax, or a draw from the softmax of the ``top_k`` largest
-    logits over ``temperature`` (JAX's categorical over the same set)."""
+    logits over ``temperature`` (JAX's categorical over the same set).
+
+    The draw is ``torch.multinomial``'s own for one sample, argmax(p / q)
+    with q ~ Exp(1), without its host-side checks of p (which read the
+    card and so cannot run inside a CUDA graph)."""
     if sample == "greedy":
         return torch.argmax(logits, dim=-1)
     v, idx = torch.topk(logits.float(), top_k, dim=-1)
-    choice = torch.multinomial(torch.softmax(v / temperature, dim=-1), 1,
-                               generator=generator)
-    return idx.gather(1, choice)[:, 0]
+    p = torch.softmax(v / temperature, dim=-1)
+    q = torch.empty_like(p).exponential_(1.0, generator=generator)
+    return idx.gather(1, torch.argmax(p / q, dim=-1)[:, None])[:, 0]

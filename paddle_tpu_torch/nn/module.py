@@ -17,11 +17,12 @@ from the JAX package) puts them on a device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
+from ..core.graphs import GraphCache
 from ..core.place import DeviceLike, require_device
 from ..core.pytree import tree_from_items, tree_items
 from . import initializer as I
@@ -33,6 +34,7 @@ class Module(nn.Module):
     def __init__(self):
         super().__init__()
         self._inits: Dict[str, I.Initializer] = {}
+        self._graphs: Optional[GraphCache] = None
 
     def param(self, name: str, shape, init: I.Initializer) -> None:
         self.register_parameter(name, nn.Parameter(
@@ -52,6 +54,17 @@ class Module(nn.Module):
         own tensors, not copies)."""
         return tree_from_items((tuple(name.split(".")), p)
                                for name, p in self.named_parameters())
+
+    def graph_cache(self) -> GraphCache:
+        """The model's CUDA graphs (``core/graphs.py``) on the device of its
+        weights, which the graphs read in place: a cache made anew when the
+        weights moved, whose graphs and buffers are dropped when one was
+        reallocated (``model.to(torch.bfloat16)``)."""
+        dev = next(self.parameters()).device
+        if self._graphs is None or self._graphs.device != dev:
+            self._graphs = GraphCache(type(self).__name__, dev)
+        self._graphs.watch(self.parameters())
+        return self._graphs
 
     def call(self, params: Mapping, *args, method: str = "forward",
              **kwargs):

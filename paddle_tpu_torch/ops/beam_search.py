@@ -4,8 +4,9 @@
 The beam is a fixed-capacity masked top-k loop: all candidates live in
 [B, K] tensors, finished beams are frozen (only EOS, at no cost), and a
 ``constraint_fn`` hook masks the step's log-probabilities. JAX runs the
-loop as one ``lax.scan``; here it is a Python loop on the host, one eager
-decoder step after another.
+loop as one ``lax.scan``; here it is a Python loop of decoder steps that
+reads nothing back to the host, so a caller can capture the whole search
+in one CUDA graph (``AttentionSeq2Seq.generate`` does).
 
 The decoder cell is any nest of tensors (a NamedTuple such as the
 seq2seq ``DecoderState``, tuples, lists, dicts) whose leaves are
@@ -102,8 +103,10 @@ def beam_search(init_cell, step_fn: Callable, *, batch_size: int,
         [torch.zeros((B, 1), device=dev),
          torch.full((B, K - 1), neg_inf, device=dev)], dim=1)
     finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
-    eos_only = torch.full((V,), neg_inf, device=dev)
-    eos_only[eos_id] = 0.0
+    # log-probability 0 at EOS, -inf elsewhere (made on the card, with no
+    # host-to-card copy, so that the search can be captured in a graph)
+    eos_only = torch.where(torch.arange(V, device=dev) == eos_id, 0.0,
+                           neg_inf)
 
     for t in range(max_len):
         flat_cell = tree_map(lambda x: x.reshape((B * K,) + x.shape[2:]),

@@ -575,6 +575,8 @@ _DECODE_ROW_STEP = 16
 #: graph captured on a stream uses that stream's buffer, so its replays
 #: must not overlap reads issued on that stream.
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+#: buffers a larger one replaced: a graph captured over one still reads it
+_RETIRED_TICKETS: list = []
 
 
 def decode_splits(bh: int, L: int, splits: Optional[int] = None
@@ -615,6 +617,8 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
                 "pairs is the first on this stream to need its tickets "
                 "inside a CUDA graph capture; run one such read on the "
                 "capture stream before capturing")
+        if t is not None:
+            _RETIRED_TICKETS.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[key] = t
     return t

@@ -6,9 +6,11 @@ Functional, as in JAX: ``init(params) -> state`` and
 dicts of tensors (``core/pytree.py``). The state is
 ``{"step": int32 scalar, "slots": <the params tree with a slot dict at
 each leaf>}``, the JAX layout, so JAX state carries across through
-``convert.tree_from_numpy``. The update runs without autograd and makes
-new tensors; nothing is updated in place. Leaves under a ``"stats"`` key
-(non-trainable running state) pass through untouched.
+``convert.tree_from_numpy``. ``update`` runs without autograd and makes
+new tensors; ``apply_`` runs the same ops and writes their results into
+the params and the state in place (the trainer's step graph on the card,
+where JAX donates both to one fused computation). Leaves under a
+``"stats"`` key (non-trainable running state) pass through untouched.
 """
 
 from __future__ import annotations
@@ -53,26 +55,45 @@ class Optimizer:
         return {"step": torch.zeros((), dtype=torch.int32, device=device),
                 "slots": tree_map(self.init_slot, params)}
 
-    @torch.no_grad()
-    def update(self, grads: Mapping, state: State, params: Mapping
-               ) -> Tuple[Params, State]:
+    def _steps(self, grads: Mapping, state: State, params: Mapping):
+        """The new step and, for every trainable leaf, (path, p, slot, new
+        p, new slot): ``apply_one`` on the weight-decayed gradient."""
         step = state["step"] + 1
         lr = self.lr(step.to(torch.float32))
-        new_p, new_s = [], []
+        out = []
         for path, p in tree_items(params):
-            slot = tree_get(state["slots"], path)
             if "stats" in path:
-                new_p.append((path, p))
-                new_s.append((path, slot))
                 continue
+            slot = tree_get(state["slots"], path)
             g = tree_get(grads, path)
             if self.weight_decay:
                 g = g + self.weight_decay * p
-            np_, ns_ = self.apply_one(p, g, slot, lr, step)
-            new_p.append((path, np_))
-            new_s.append((path, ns_))
-        return tree_from_items(new_p), {"step": step,
-                                        "slots": tree_from_items(new_s)}
+            out.append((path, p, slot) + self.apply_one(p, g, slot, lr,
+                                                        step))
+        return step, out
+
+    @torch.no_grad()
+    def update(self, grads: Mapping, state: State, params: Mapping
+               ) -> Tuple[Params, State]:
+        step, leaves = self._steps(grads, state, params)
+        new_p = dict((path, p) for path, p in tree_items(params))
+        new_s = {path: tree_get(state["slots"], path) for path in new_p}
+        for path, _, _, np_, ns_ in leaves:
+            new_p[path], new_s[path] = np_, ns_
+        return tree_from_items(new_p.items()), {
+            "step": step, "slots": tree_from_items(new_s.items())}
+
+    @torch.no_grad()
+    def apply_(self, grads: Mapping, state: State, params: Mapping) -> None:
+        """:meth:`update` written into ``params`` and ``state`` in place:
+        the same ops, each result then copied over the tensor it
+        replaces."""
+        step, leaves = self._steps(grads, state, params)
+        for _, p, slot, np_, ns_ in leaves:
+            for k, v in ns_.items():
+                slot[k].copy_(v)
+            p.copy_(np_)
+        state["step"].copy_(step)
 
 
 class SGD(Optimizer):

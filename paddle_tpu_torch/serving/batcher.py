@@ -6,10 +6,12 @@ counterpart of ``paddle_tpu/serving/batcher.py``.
 (``TransformerLM.prefill``/``decode_step``, so the reads go through kernel
 #4, or #5 at ``kv_dtype="int8"``): slots at different positions decode in
 one batched step, and the host only acts at segment boundaries. Where the
-JAX batcher runs a jitted ``lax.scan`` of ``segment`` steps and a jitted
-masked merge, the port runs ``segment`` eager steps and copies the admitted
-slots' rows into the pool in place. ``SpeculativeDecoder`` verifies a
-draft's proposals with ``TransformerLM.verify_step``. The paged pool
+JAX batcher jits a ``lax.scan`` of ``segment`` steps per read bound and
+the admission prefill with its masked merge per prompt bucket, the port
+runs each as one CUDA graph on the card (``core/graphs.py``), the pool
+donated to both and merged in place. ``SpeculativeDecoder`` verifies a
+draft's proposals with ``TransformerLM.verify_step``; a round's device
+work (the draft steps and the verify) is one graph. The paged pool
 (``serving/paged.py``) is the engine's.
 """
 
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.graphs import GraphCache
 from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
 
@@ -159,6 +162,7 @@ class ContinuousBatcher:
         self.kv_dtype = kv_dtype
         self.segments_total = 0
         self.segments_by_len: Dict[int, int] = {}    # cache_len -> count
+        self.graphs = GraphCache("ContinuousBatcher", self.device)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -176,6 +180,7 @@ class ContinuousBatcher:
         queue.sort(key=lambda r: -self._budget(r))
         slots = [_Slot() for _ in range(n)]
         results: Dict[int, np.ndarray] = {}
+        self.graphs.watch(model.parameters())
 
         # the pool: a dummy full-width prefill at the smallest prompt
         # bucket, padded to max_len
@@ -187,6 +192,7 @@ class ContinuousBatcher:
         pos_host = np.zeros((n,), np.int64)
 
         def admit():
+            nonlocal cell, cur
             free = [i for i, s in enumerate(slots) if s.req is None]
             group = [(i, queue.pop(0)) for i in free[:len(queue)]]
             if not group:
@@ -196,24 +202,17 @@ class ContinuousBatcher:
                        model.max_len - 1)
             prompts = np.zeros((n, tpad), np.int32)
             lens = np.zeros((n,), np.int32)
+            mask = np.zeros((n,), bool)
             for i, r in group:
                 prompts[i, :r.prompt.size] = r.prompt
                 lens[i] = r.prompt.size
-            # a pool-width prefill of the prompt bucket, copied into the
-            # admitted slots' rows in place (rows past tpad keep what they
-            # held: they lie past pos, are never read, and are written
-            # before pos reaches them)
-            new_cell, last = model.prefill(self._tensor(prompts),
-                                           self._tensor(lens),
-                                           kv_dtype=self.kv_dtype,
-                                           pad_to=tpad)
-            idx = self._tensor(np.asarray([i for i, _ in group], np.int64))
-            for nm, t in cell.items():
-                if nm == "pos":
-                    t[idx] = new_cell[nm][idx]
-                else:
-                    t[idx, :tpad] = new_cell[nm][idx]
-            cur[idx] = torch.argmax(last, dim=-1).to(torch.int32)[idx]
+                mask[i] = True
+            cell, cur = self.graphs.run(
+                "admit", self._admit_body,
+                {"cell": cell, "cur": cur, "prompts": torch.from_numpy(prompts),
+                 "lens": torch.from_numpy(lens),
+                 "mask": torch.from_numpy(mask)},
+                donate=("cell", "cur"))
             for i, r in group:
                 slots[i] = _Slot(r, self._budget(r), [])
                 pos_host[i] = r.prompt.size
@@ -237,13 +236,10 @@ class ContinuousBatcher:
             cache_len = min(-(-(max_pos + self.segment + 1)
                               // self.cache_bucket) * self.cache_bucket,
                             model.max_len)
-            toks = []
-            for _ in range(self.segment):      # the JAX segment's scan
-                logits, cell = model.decode_step(cell, cur,
-                                                 cache_len=cache_len)
-                toks.append(cur)
-                cur = torch.argmax(logits, dim=-1).to(torch.int32)
-            block = torch.stack(toks, dim=1).cpu().numpy()
+            cell, cur, block = self.graphs.run(
+                "segment", self._segment_body, {"cell": cell, "cur": cur},
+                static={"cache_len": cache_len}, donate=("cell", "cur"))
+            block = block.cpu().numpy()
             self.segments_total += 1
             self.segments_by_len[cache_len] = \
                 self.segments_by_len.get(cache_len, 0) + 1
@@ -259,6 +255,42 @@ class ContinuousBatcher:
                     slots[i] = _Slot()
             admit()
         return results
+
+    @torch.no_grad()
+    def _admit_body(self, cell, cur, prompts, lens, mask):
+        """The admission program: a pool-width prefill of prompts [slots,
+        tpad], merged into the rows of the slots in ``mask`` in place
+        (cache rows past tpad keep what they held: they lie past pos, are
+        never read, and are written before pos reaches them), with each
+        admitted slot's first token into ``cur``. Returns (cell, cur)."""
+        tpad = prompts.shape[1]
+        new, last = self.model.prefill(prompts, lens, kv_dtype=self.kv_dtype,
+                                       pad_to=tpad)
+        for nm, t in cell.items():
+            if nm == "pos":
+                t.copy_(torch.where(mask, new[nm], t))
+            else:
+                m = mask.view((-1,) + (1,) * (t.dim() - 1))
+                t[:, :tpad] = torch.where(m, new[nm], t[:, :tpad])
+        cur.copy_(torch.where(mask, torch.argmax(last, dim=-1).to(cur.dtype),
+                              cur))
+        return cell, cur
+
+    @torch.no_grad()
+    def _segment_body(self, cell, cur, *, cache_len):
+        """The segment program: ``segment`` decode steps over the first
+        ``cache_len`` cache rows, the position and token carried into
+        ``cell["pos"]`` and ``cur`` in place. Returns (cell, cur, the
+        tokens fed to each step [slots, segment])."""
+        c, tok, toks = cell, cur, []
+        for _ in range(self.segment):
+            logits, c = self.model.decode_step(c, tok, cache_len=cache_len)
+            toks.append(tok)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        cell["pos"].copy_(c["pos"])
+        block = torch.stack(toks, dim=1)
+        cur.copy_(tok)
+        return cell, cur, block
 
 
 class SpeculativeDecoder:
@@ -281,11 +313,15 @@ class SpeculativeDecoder:
             raise ValueError(f"k must be >= 1, got {k}")
         self.model, self.draft, self.k = model, draft, k
         self.draft_kv_dtype = draft_kv_dtype
+        self.graphs = GraphCache("SpeculativeDecoder", model.device)
 
     @torch.no_grad()
     def generate(self, prompt, steps: int) -> Tuple[np.ndarray, Dict]:
         """prompt [B, T0] (or [T0]) -> (tokens [B, steps] int32, stats:
-        rounds / proposed / accepted / acceptance_rate)."""
+        rounds / proposed / accepted / acceptance_rate). The accept loop,
+        positions and tokens stay on the host, as in JAX; a round's device
+        work is :meth:`_round_body`, one CUDA graph per (B, k) on the
+        card."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -303,32 +339,27 @@ class SpeculativeDecoder:
         dev = self.model.device
         ids = torch.from_numpy(prompt).to(dev)
         cell, last = self.model.prefill(ids)
-        cur = torch.argmax(last, dim=-1).to(torch.int32)
+        cur = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
         dcell, _ = (self.draft.prefill(ids, kv_dtype=self.draft_kv_dtype)
                     if self.draft_kv_dtype is not None
                     else self.draft.prefill(ids))
+        self.graphs.watch([p for m in (self.model, self.draft)
+                           if isinstance(m, torch.nn.Module)
+                           for p in m.parameters()])
 
         pos = np.full((B,), T0, np.int64)
-        emitted: List[List[int]] = [[int(t)] for t in cur.cpu().numpy()]
+        emitted: List[List[int]] = [[int(t)] for t in cur]
         rounds = proposed = accepted = 0
         while min(len(e) for e in emitted) < steps:
-            # the draft proposes k - 1 tokens from cur at the target's
-            # accepted positions, then one more step writes the last
-            # proposal's row (on a fully accepted round it becomes live)
-            dcell = dict(dcell, pos=torch.from_numpy(
-                pos.astype(np.int32)).to(dev))
-            d_cur, props = cur, []
-            for i in range(self.k if self.k > 1 else 0):
-                logits, dcell = self.draft.decode_step(dcell, d_cur)
-                d_cur = torch.argmax(logits, dim=-1).to(torch.int32)
-                if i < self.k - 1:
-                    props.append(d_cur)     # the k-th output is discarded
-            span = torch.stack([cur] + props, dim=1)          # [B, k]
-            logits, cell = self.model.verify_step(cell, span)
-            t_np = torch.argmax(logits, dim=-1).cpu().numpy()
-            props_np = (np.stack([p.cpu().numpy() for p in props], axis=1)
-                        if props else t_np[:, :0])
-            next_cur = cur.cpu().numpy().copy()
+            cell, dcell, out = self.graphs.run(
+                "round", self._round_body,
+                {"cell": cell, "dcell": dcell,
+                 "pos": torch.from_numpy(pos.astype(np.int32)),
+                 "cur": torch.from_numpy(cur)},
+                donate=("cell", "dcell"))
+            out = out.cpu().numpy()
+            t_np, props_np = out[:, :self.k], out[:, self.k:]
+            next_cur = cur.copy()
             for b in range(B):
                 if len(emitted[b]) >= steps:
                     continue                # frozen: pos and cur hold
@@ -340,12 +371,32 @@ class SpeculativeDecoder:
                 pos[b] += m + 1
                 proposed += self.k - 1
                 accepted += m
-            cell = dict(cell, pos=torch.from_numpy(
-                pos.astype(np.int32)).to(dev))
-            cur = torch.from_numpy(next_cur.astype(np.int32)).to(dev)
+            cur = next_cur
             rounds += 1
         out = np.asarray([e[:steps] for e in emitted], np.int32)
         return out, {"rounds": rounds, "proposed": proposed,
                      "accepted": accepted,
                      "acceptance_rate": (accepted / proposed if proposed
                                          else 1.0)}
+
+    @torch.no_grad()
+    def _round_body(self, cell, dcell, pos, cur):
+        """A round's device work: from token ``cur`` at the accepted
+        positions ``pos`` the draft proposes k - 1 tokens, then one more
+        step writes the last proposal's row (on a fully accepted round it
+        becomes live); the target scores the span [cur, proposals] in one
+        ``verify_step``. Rejected rows lie past the next round's position
+        and are overwritten before they are read. Returns (cell, dcell,
+        [B, 2k - 1]: the target's k choices, then the k - 1
+        proposals)."""
+        dc = dict(dcell, pos=pos)
+        d_cur, props = cur, []
+        for i in range(self.k if self.k > 1 else 0):
+            logits, dc = self.draft.decode_step(dc, d_cur)
+            d_cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            if i < self.k - 1:
+                props.append(d_cur)     # the k-th output is discarded
+        span = torch.stack([cur] + props, dim=1)              # [B, k]
+        logits, _ = self.model.verify_step(dict(cell, pos=pos), span)
+        choice = torch.argmax(logits, dim=-1).to(torch.int32)
+        return cell, dcell, torch.cat([choice, span[:, 1:]], dim=1)

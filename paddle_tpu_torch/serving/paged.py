@@ -18,7 +18,12 @@ Invariants the exactness contract rides on (as in the JAX pool):
 Where JAX donates the pools to a jitted program and gets new ones back,
 the port writes into the pool tensors in place (admission scatters with
 index assignment, each decode step writes its row in place), and the
-segment's ``lax.scan`` is a Python loop of ``segment`` steps.
+segment's ``lax.scan`` is a Python loop of ``segment`` steps. As JAX jits
+the admission per prompt bucket and the segment per read bound, each is
+one CUDA graph on the card (``core/graphs.py``): the admission per
+prompt bucket, the segment per page count of its read; the pools are
+donated to both (the graphs' static buffers), the tables, positions,
+tokens and prompts are copied in from the host before a replay.
 
 ``kv_dtype="int8"`` holds the pools as int8 rows with f32 scale pools
 [P, bs, H] (initialised to 1.0); the admission scatters the prompt's
@@ -36,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.graphs import GraphCache
 from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
 from .batcher import (DEFAULT_PROMPT_BUCKETS, Request, clip_emission,
@@ -94,17 +100,20 @@ class PagePool:
         H = model.blocks[0].n_heads
         Dh = model.blocks[0].d_head
         dt = torch.int8 if kv_dtype == "int8" else model.dtype
-        self.pools: Dict[str, torch.Tensor] = {}
+        pools: Dict[str, torch.Tensor] = {}
         for i in range(len(model.blocks)):
             for nm in (f"k{i}", f"v{i}"):
-                self.pools[nm] = torch.zeros((self.pages, self.bs, H, Dh),
-                                             dtype=dt, device=self.device)
+                pools[nm] = torch.zeros((self.pages, self.bs, H, Dh),
+                                        dtype=dt, device=self.device)
                 if kv_dtype == "int8":
                     # scale 1.0 everywhere, the null page included, so that
                     # a dequantized (never read) padding row stays finite
-                    self.pools[nm + "_scale"] = torch.ones(
+                    pools[nm + "_scale"] = torch.ones(
                         (self.pages, self.bs, H), dtype=torch.float32,
                         device=self.device)
+        # the pools are the graphs' carried state (donated to every one)
+        self.graphs = GraphCache("PagePool", self.device)
+        self.pools = self.graphs.buffer("pools", lambda: pools)
         # the bytes of one cache row of one layer's k or v: an int8 row
         # carries one f32 scale per head (JAX's _decode_attention_bytes)
         itemsize = torch.empty((), dtype=dt).element_size()
@@ -201,9 +210,6 @@ class PagePool:
         self.tables[slot, :] = 0
         self.pos[slot] = 0
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     # -- the two scheduler-visible operations ------------------------------
     def admit(self, group: List[Tuple[int, _AdmitPlan]]) -> Dict[int, int]:
         """Commit ``group`` = [(slot, plan)] (the caller has checked
@@ -225,7 +231,6 @@ class PagePool:
             out[slot] = int(first[slot])
         return out
 
-    @torch.no_grad()
     def _prefill(self, group) -> np.ndarray:
         """ONE full-pool-width prefill over the prompt bucket: every slot
         row runs (idle rows with length 0 and pages at the null page), as
@@ -234,7 +239,6 @@ class PagePool:
                              self.prompt_buckets)
         tpad = min(tpad, self.model.max_len - 1)
         nbp = -(-tpad // self.bs)
-        tpp = nbp * self.bs
         prompts = np.zeros((self.n_slots, tpad), np.int32)
         lens = np.zeros((self.n_slots,), np.int32)
         pages = np.zeros((self.n_slots, nbp), np.int64)
@@ -243,20 +247,33 @@ class PagePool:
             lens[slot] = plan.plen
             n = min(nbp, len(self.slot_pages[slot]))
             pages[slot, :n] = self.slot_pages[slot][:n]
-        cell, last = self.model.prefill(self._to_device(prompts),
-                                        self._to_device(lens),
-                                        kv_dtype=self.kv_dtype, pad_to=tpp)
-        pages_d = self._to_device(pages)
-        for nm, pool in self.pools.items():
-            rows = cell[nm][:, :tpp].reshape(
-                (self.n_slots, nbp, self.bs) + tuple(pool.shape[2:]))
-            pool[pages_d] = rows.to(pool.dtype)          # in place
+        self.graphs.watch(self.model.parameters())
+        self.pools, first = self.graphs.run(
+            "admit", self._admit_body,
+            {"pools": self.pools, "prompts": torch.from_numpy(prompts),
+             "lens": torch.from_numpy(lens),
+             "pages": torch.from_numpy(pages)}, donate=("pools",))
         self.admissions_total += 1
         self.admissions_by_bucket[tpad] = \
             self.admissions_by_bucket.get(tpad, 0) + 1
-        return torch.argmax(last, dim=-1).cpu().numpy()
+        return first.cpu().numpy()
 
     @torch.no_grad()
+    def _admit_body(self, pools, prompts, lens, pages):
+        """The admission program: the ragged prefill of prompts [slots,
+        tpad] padded to whole pages, its rows scattered into the pools at
+        ``pages`` [slots, tpad / bs] in place. Returns (pools, each slot's
+        first token)."""
+        nbp = pages.shape[1]
+        tpp = nbp * self.bs
+        cell, last = self.model.prefill(prompts, lens,
+                                        kv_dtype=self.kv_dtype, pad_to=tpp)
+        for nm, pool in pools.items():
+            rows = cell[nm][:, :tpp].reshape(
+                (self.n_slots, nbp, self.bs) + tuple(pool.shape[2:]))
+            pool[pages] = rows.to(pool.dtype)          # in place
+        return pools, torch.argmax(last, dim=-1)
+
     def run_segment(self, live: Sequence[int]) -> np.ndarray:
         """One decode segment across the whole pool; returns the emitted
         token block [slots, segment] (drained slots' rows are garbage).
@@ -269,17 +286,17 @@ class PagePool:
             -(-(max_pos + self.segment + 1) // self.cache_bucket)
             * self.cache_bucket, self.model.max_len)
         nb = cache_len // self.bs
-        tables = self._to_device(self.tables[:, :nb])
-        pos = self._to_device(
-            np.clip(self.pos, 0, self.model.max_len - 1).astype(np.int32))
-        cur = self._to_device(self.cur)
-        cell = dict(self.pools, pos=pos)
-        toks = []
-        for _ in range(self.segment):            # the JAX segment's scan
-            logits, cell = self.model.decode_step_paged(cell, cur, tables)
-            toks.append(cur)
-            cur = torch.argmax(logits, dim=-1).to(torch.int32)
-        block = torch.stack(toks, dim=1).cpu().numpy()
+        pos = np.clip(self.pos, 0, self.model.max_len - 1).astype(np.int32)
+        self.graphs.watch(self.model.parameters())
+        self.pools, out = self.graphs.run(
+            "segment", self._segment_body,
+            {"pools": self.pools,
+             "tables": torch.from_numpy(np.ascontiguousarray(
+                 self.tables[:, :nb])),
+             "pos": torch.from_numpy(pos),
+             "cur": torch.from_numpy(self.cur)}, donate=("pools",))
+        out = out.cpu().numpy()
+        block = out[:, :-1]
         self.segments_total += 1
         self.segments_by_pages[nb] = self.segments_by_pages.get(nb, 0) + 1
         # k + v live-table rows streamed per step, every layer
@@ -289,8 +306,22 @@ class PagePool:
         self.occupancy_num += self.live_tokens(live)
         self.occupancy_den += max(self.pages_used, 1) * self.bs
         self.pos += self.segment
-        self.cur = cur.cpu().numpy().astype(np.int32)
+        self.cur = out[:, -1].astype(np.int32)
         return block
+
+    @torch.no_grad()
+    def _segment_body(self, pools, tables, pos, cur):
+        """The segment program (the JAX segment's ``lax.scan``):
+        ``segment`` paged decode steps from tokens ``cur`` at ``pos``
+        through ``tables`` [slots, nb]. Returns (pools, [slots, segment +
+        1]: the tokens fed to each step, then the next token)."""
+        cell = dict(pools, pos=pos)
+        toks = []
+        for _ in range(self.segment):
+            logits, cell = self.model.decode_step_paged(cell, cur, tables)
+            toks.append(cur)
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        return pools, torch.stack(toks + [cur], dim=1)
 
     def live_tokens(self, live: Sequence[int]) -> int:
         """Cache rows written across ``live`` slots (occupancy numerator)."""

@@ -5,9 +5,13 @@ and a test pass.
 As in JAX the trainer is functional: ``loss_fn(params, *batch)`` returns
 the scalar loss of a nested dict of parameters, one step is value and
 gradient (``torch.autograd.grad`` with respect to the tree's leaves) and
-the optimizer's ``update``, and ``train`` returns the new (params,
-opt_state). PyTorch runs eagerly, so a step is not one compiled
-function; the kernels on its path are the port's CUDA kernels.
+the optimizer's update, and ``train`` returns the new (params,
+opt_state). As JAX jits the step with the params and the optimizer state
+donated (``donate_argnums=(0, 1)``), a step on the card is one CUDA graph
+per batch signature (``core/graphs.py``): the loss (the bf16 recipe's
+cast of the f32 masters included), the backward through the port's
+kernels and the optimizer's ``apply_``, written in place into the trees
+the graph carries. The test loss is one graph per batch signature too.
 
 The JAX trainer's mesh/layout, evaluators, checkpoints, preemption, the
 non-finite-loss guard, obs metrics, prefetch, ``check_gradient`` and
@@ -20,14 +24,10 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 
+from ..core.graphs import GraphCache
 from ..core.place import DeviceLike, require_device
-from ..core.pytree import tree_from_items, tree_items
+from ..core.pytree import tree_from_items, tree_items, tree_map
 from . import event as EV
-
-
-def _to(batch, device: torch.device):
-    return tuple(t.to(device) if isinstance(t, torch.Tensor) else t
-                 for t in batch)
 
 
 class Trainer:
@@ -45,29 +45,47 @@ class Trainer:
         self.loss_fn = loss_fn
         self.opt = optimizer
         self.device = require_device(device)
+        self.graphs = GraphCache("Trainer", self.device)
 
     def step(self, params: Mapping, opt_state: Dict[str, Any], *batch
              ) -> Tuple[Dict[str, Any], Dict[str, Any], torch.Tensor]:
         """One step: loss and gradients of ``params``, then the update.
-        Returns (new params, new opt_state, loss)."""
+        Returns (new params, new opt_state, loss).
+
+        ``params`` and ``opt_state`` are donated, as in JAX. The trees a
+        step returns are the trainer's own, updated in place: passing them
+        back to the next step copies nothing, and that step writes them
+        again (take a copy to keep one). Trees the trainer does not own
+        (a model's ``tree()``, a fresh ``opt.init``) are copied in first
+        and never written."""
+        return self.graphs.run(
+            "step", self._step_body,
+            {"params": params, "opt_state": opt_state, "batch": batch},
+            donate=("params", "opt_state"))
+
+    def _step_body(self, params, opt_state, batch):
+        """The step program: value and gradient of the loss with respect to
+        the leaves of ``params``, then the optimizer's ``apply_`` into
+        ``params`` and ``opt_state``. Returns (params, opt_state, loss)."""
         items = [(path, leaf.detach().requires_grad_(True))
                  for path, leaf in tree_items(params)]
         leaves = tree_from_items(items)
-        loss = self.loss_fn(leaves, *_to(batch, self.device))
+        loss = self.loss_fn(leaves, *batch)
         grads = torch.autograd.grad(loss, [leaf for _, leaf in items])
         grads = tree_from_items((path, g.to(torch.float32))
                                 for (path, _), g in zip(items, grads))
-        new_params, new_state = self.opt.update(grads, opt_state, params)
-        return new_params, new_state, loss.detach()
+        self.opt.apply_(grads, opt_state, params)
+        return params, opt_state, loss.detach()
 
     def train(self, reader: Callable[[], Iterable], params: Mapping, *,
               num_passes: int = 1,
               event_handler: Optional[Callable] = None):
         """Run ``num_passes`` passes over ``reader()`` (each item is one
         batch: a tuple of the loss_fn's batch arguments) from a fresh
-        optimizer state; returns (params, opt_state). ``EndIteration``
-        carries the batch's cost as a float (reading it waits for the step
-        to finish)."""
+        optimizer state; returns (params, opt_state), copies of the
+        trees the last step wrote, so that a later call writes neither
+        them nor ``params``. ``EndIteration`` carries the batch's cost as
+        a float (reading it waits for the step to finish)."""
         event_handler = event_handler or (lambda e: None)
         opt_state = self.opt.init(params)
         for pass_id in range(num_passes):
@@ -79,15 +97,22 @@ class Trainer:
                 event_handler(EV.EndIteration(pass_id, batch_id,
                                               float(loss)))
             event_handler(EV.EndPass(pass_id))
-        return params, opt_state
+        return tree_map(torch.clone, params), tree_map(torch.clone, opt_state)
 
     @torch.no_grad()
     def test(self, reader: Callable[[], Iterable], params: Mapping
              ) -> Dict[str, float]:
         """Average cost over a test reader, with gradients off (so the
-        LSTM runs its inference kernel)."""
+        LSTM runs its inference kernel); each batch's loss is one graph
+        per batch signature on the card."""
         total, n = 0.0, 0
         for batch in reader():
-            total += float(self.loss_fn(params, *_to(batch, self.device)))
+            total += float(self.graphs.run(
+                "loss", self._loss_body,
+                {"params": params, "batch": tuple(batch)}))
             n += 1
         return {"cost": total / max(n, 1)}
+
+    @torch.no_grad()
+    def _loss_body(self, params, batch):
+        return self.loss_fn(params, *batch)

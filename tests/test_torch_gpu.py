@@ -1415,3 +1415,287 @@ def test_seq2seq_generation_matches_plain_on_card(cuda):
         want_t, want_s = call("plain")
         assert torch.equal(toks, want_t)
         torch.testing.assert_close(scores, want_s, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA graphs of the ported paths (core/graphs.py) against their eager
+# bodies (graphs.disabled())
+# ---------------------------------------------------------------------------
+
+def _counted(fn):
+    """fn() with the launch and dispatch counts set to 0 just before:
+    (out, launches, dispatches)."""
+    from paddle_tpu_torch.core import graphs
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    graphs.reset_dispatch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: n for k, n in ck.LAUNCHES.items() if n},
+            {o: {k: dict(n) for k, n in keys.items()}
+             for o, keys in graphs.DISPATCHES.items()})
+
+
+def _replays(dispatches, kind):
+    """(captures, replays) of the keys whose label starts with ``kind``."""
+    c = r = 0
+    for keys in dispatches.values():
+        for label, n in keys.items():
+            if label.startswith(kind + "("):
+                c, r = c + n["captures"], r + n["replays"]
+    return c, r
+
+
+def _eager_and_graphed(fn):
+    """fn() on the eager route, then through the graphs once to capture and
+    once counted: (eager out, eager launches, graphed out, graphed
+    launches, graphed dispatches)."""
+    from paddle_tpu_torch.core import graphs
+    with graphs.disabled():
+        e, le, de = _counted(fn)
+    assert de == {}
+    fn()
+    g, lg, dg = _counted(fn)
+    assert lg == le and lg
+    return e, g, dg
+
+
+def _graph_lm(cuda):
+    return TransformerLM(101, d_model=128, n_heads=2, n_layers=2,
+                         max_len=256).init(seed=3, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("sample", ["greedy", "topk"])
+def test_generate_fused_graphs_equal_the_eager_loop_on_card(cuda, kv,
+                                                            sample):
+    """One graph a decode token after the prefill (two cache buckets), the
+    eager loop's tokens (top-k: under the same generator seed) and its
+    kernel launches."""
+    model = _graph_lm(cuda)
+    ids = torch.as_tensor(np.random.RandomState(5).randint(0, 101, (3, 40)),
+                          device=cuda)
+    gen = torch.Generator(device=cuda)
+    kw = dict(sample="topk", top_k=7, temperature=0.9) \
+        if sample == "topk" else {}
+    fn = lambda: model.generate_fused(ids, 40, bucket=64, kv_dtype=kv,
+                                      generator=gen.manual_seed(1), **kw)
+    e, g, d = _eager_and_graphed(fn)
+    assert torch.equal(e, g)
+    assert _replays(d, "decode") == (0, 39)
+    assert _replays(d, "prefill") == (0, 1)
+
+
+@pytest.mark.gpu
+def test_generate_fused_memory_stays_flat_on_card(cuda):
+    """A fresh generator and a new prompt length each call add graphs
+    (of a few small outputs), never a KV cell: the model keeps one cell
+    per (B, kv_dtype). The draws of a fresh generator are the eager
+    loop's under the same seed."""
+    from paddle_tpu_torch.core import graphs
+    model = _graph_lm(cuda)
+    cell = sum(t.numel() * t.element_size()
+               for t in model.empty_cell(3).values())
+
+    def call(T0, seed):
+        ids = torch.as_tensor(np.random.RandomState(T0).randint(
+            0, 101, (3, T0)), device=cuda)
+        return model.generate_fused(
+            ids, 20, bucket=64, sample="topk", top_k=7,
+            generator=torch.Generator(device=cuda).manual_seed(seed))
+    call(40, 0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    _, _, d = _counted(lambda: [call(T0, i) for i, T0 in enumerate(
+        (10, 17, 25, 33, 48, 61, 70, 90))])
+    grown = torch.cuda.memory_allocated() - base
+    assert grown < cell / 8, (grown, cell)
+    assert _replays(d, "prefill") == (8, 0)
+    assert _replays(d, "decode")[0] == 1          # the 128-row bucket
+    with graphs.disabled():
+        want = call(33, 5)
+    assert torch.equal(call(33, 5), want)
+
+
+@pytest.mark.gpu
+def test_serving_graphs_equal_the_eager_bodies_on_card(cuda):
+    """The paged pool (ServingEngine), the dense pool (ContinuousBatcher)
+    and the speculative round: the eager route's tokens, one graph replay
+    a segment or round."""
+    from paddle_tpu_torch.serving import (ContinuousBatcher, Request,
+                                          SpeculativeDecoder)
+    model = _graph_lm(cuda)
+    rs = np.random.RandomState(4)
+    work = [(rs.randint(0, 101, int(n)), int(m))
+            for n, m in ((70, 20), (5, 9), (33, 30), (120, 12), (17, 25))]
+
+    def engine():
+        eng = ServingEngine(model, slots=3, segment=8, page_block=16,
+                            cache_bucket=64, kv_dtype="int8", device=cuda)
+        out = []
+        for _ in range(2):     # the second burst replays the first's graphs
+            rids = [eng.submit(p, n) for p, n in work]
+            while not all(eng.poll(r)[1] for r in rids):
+                eng.step()
+            out.append([eng.poll(r)[0] for r in rids])
+        return out, eng.pool.segments_total
+    from paddle_tpu_torch.core import graphs
+    with graphs.disabled():
+        want, _ = engine()
+    (got, segs), _, d = _counted(engine)
+    assert got == want
+    captures, replays = _replays(d, "segment")
+    assert captures + replays == segs and replays > captures
+
+    b = ContinuousBatcher(model, slots=3, segment=8, cache_bucket=64,
+                          device=cuda)
+    def batcher():
+        seg0 = b.segments_total
+        out = b.serve([Request(i, p, n) for i, (p, n) in enumerate(work)])
+        return out, b.segments_total - seg0
+    e, g, d = _eager_and_graphed(batcher)
+    assert all(np.array_equal(e[0][k], g[0][k]) for k in e[0])
+    assert e[1] == g[1] and _replays(d, "segment") == (0, g[1])
+
+    draft = TransformerLM(101, d_model=128, n_heads=2, n_layers=2,
+                          max_len=256).init(seed=9, device=cuda)
+    sd = SpeculativeDecoder(model, draft, k=3)
+    prompt = rs.randint(0, 101, (2, 30))
+    e, g, d = _eager_and_graphed(lambda: sd.generate(prompt, 24))
+    assert np.array_equal(e[0], g[0]) and e[1] == g[1]
+    assert e[1]["accepted"] < e[1]["proposed"]
+    assert _replays(d, "round") == (0, g[1]["rounds"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lm", "textcls", "seq2seq"])
+def test_trainer_step_graph_equals_the_eager_step_on_card(cuda, kind):
+    """One f32 Adam step replayed through the trainer's graph against the
+    eager step from the same params: the loss and every parameter equal
+    (a GEMM that picks other bits under capture is held to 1e-5), the
+    same launches, one replay."""
+    from paddle_tpu_torch.core import SeqBatch, graphs
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    gen = torch.Generator().manual_seed(8)
+    if kind == "lm":
+        model = TransformerLM(300, d_model=128, n_heads=2, n_layers=2,
+                              max_len=160).init(seed=2, device=cuda)
+        batch = (torch.randint(0, 300, (3, 131), generator=gen),)
+        loss = lambda p, x: model.call(p, x, method="loss")
+    elif kind == "textcls":
+        from paddle_tpu_torch.models import LSTMTextCls
+        model = LSTMTextCls(500, 32, 64, pool="last").init(seed=1,
+                                                           device=cuda)
+        batch = (torch.randint(0, 500, (37, 20), generator=gen),
+                 torch.randint(1, 21, (37,), generator=gen),
+                 torch.randint(0, 2, (37,), generator=gen))
+        loss = lambda p, d, ln, y: model.call(p, SeqBatch(d, ln), y)
+    else:
+        model, batch = _s2s(cuda)
+        loss = lambda p, s, sl, ti, to, tl: model.call(
+            p, SeqBatch(s, sl), SeqBatch(ti, tl), SeqBatch(to, tl),
+            method="loss")
+    res = {}
+    for route in ("eager", "graphed"):
+        tr = Trainer(loss, Adam(1e-3), device=cuda)
+        fresh = lambda: tree_map(torch.clone, model.tree())
+        if route == "eager":
+            with graphs.disabled():
+                p = fresh()
+                out, launches, d = _counted(
+                    lambda: tr.step(p, tr.opt.init(p), *batch))
+        else:
+            p = fresh()
+            tr.step(p, tr.opt.init(p), *batch)             # the capture
+            p = fresh()
+            out, launches, d = _counted(
+                lambda: tr.step(p, tr.opt.init(p), *batch))
+            assert _replays(d, "step") == (0, 1)
+        res[route] = (tree_map(torch.clone, out[0]), out[2].item(),
+                      launches)
+    (pe, le, ne), (pg, lg, ng) = res["eager"], res["graphed"]
+    assert ne == ng and ne
+    assert abs(le - lg) <= 1e-6 * abs(le)
+    for (path, a), (_, b) in zip(tree_items(pe), tree_items(pg)):
+        assert (a - b).abs().max().item() <= 1e-5, path
+
+
+@pytest.mark.gpu
+def test_trainer_train_and_test_dispatch_once_a_step_on_card(cuda):
+    from paddle_tpu_torch.models import LSTMTextCls
+    from paddle_tpu_torch.core import SeqBatch
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    model = LSTMTextCls(500, 32, 64, pool="last").init(seed=1, device=cuda)
+    gen = torch.Generator().manual_seed(3)
+    batches = [(torch.randint(0, 500, (16, T), generator=gen).to(cuda),
+                torch.randint(1, T + 1, (16,), generator=gen).to(cuda),
+                torch.randint(0, 2, (16,), generator=gen).to(cuda))
+               for T in (20, 20, 30)]
+    tr = Trainer(lambda p, d, ln, y: model.call(p, SeqBatch(d, ln), y),
+                 Adam(1e-3), device=cuda)
+    (params, state), launches, d = _counted(
+        lambda: tr.train(lambda: batches, model.tree(), num_passes=2))
+    # two batch signatures: a capture each, a replay every other step
+    assert _replays(d, "step") == (2, 4)
+    assert launches == {"lstm_seq_train": 6, "lstm_seq_bwd": 6}
+    cost, launches, d = _counted(lambda: tr.test(lambda: batches, params))
+    assert _replays(d, "loss") == (2, 1)
+    assert launches == {"lstm_seq": 3}
+    assert int(state["step"]) == 6
+
+
+@pytest.mark.gpu
+def test_seq2seq_search_graphs_equal_the_eager_search_on_card(cuda):
+    from paddle_tpu_torch.core import SeqBatch
+    model, batch = _s2s(cuda)
+    src = SeqBatch(batch[0].to(cuda), batch[1].to(cuda))
+    for kind, call in (
+            ("beam", lambda: model.generate(src, beam_size=4, max_len=10,
+                                            length_penalty=0.6)),
+            ("greedy", lambda: model.greedy_generate(src, max_len=10))):
+        e, g, d = _eager_and_graphed(call)
+        assert torch.equal(e[0], g[0]) and torch.equal(e[1], g[1])
+        assert _replays(d, kind) == (0, 1)
+
+
+@pytest.mark.gpu
+def test_graphs_are_dropped_when_the_weights_move_on_card(cuda):
+    """A capture reads the weights where they were: ``model.to(bf16)``
+    reallocates them, and the next call captures anew on the new ones."""
+    from paddle_tpu_torch.core import graphs
+    model = _graph_lm(cuda)
+    ids = torch.as_tensor(np.random.RandomState(2).randint(0, 101, (2, 20)),
+                          device=cuda)
+    fn = lambda: model.generate_fused(ids, 12)
+    fn()
+    model.to(torch.bfloat16)
+    with graphs.disabled():
+        want = fn()
+    got, _, d = _counted(fn)
+    assert torch.equal(got, want)
+    assert _replays(d, "decode")[0] == 1
+
+
+@pytest.mark.gpu
+def test_a_capture_that_cannot_run_raises_on_card(cuda):
+    """A body that reads the card from the host cannot be captured: the
+    call raises, with no eager fallback (in a child process: a failed
+    capture leaves its stream unusable)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = ("import torch\n"
+            "from paddle_tpu_torch.core.graphs import GraphCache\n"
+            "c = GraphCache('bad', 'cuda')\n"
+            "x = torch.ones(4, device='cuda')\n"
+            "c.run('f', lambda x: x * float(x.sum()), {'x': x})\n"
+            "print('carried on')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode != 0 and "carried on" not in r.stdout
+    assert "capture" in r.stderr.lower()
