@@ -116,7 +116,33 @@ Phases:
    ``generate`` (beam 4) and ``greedy_generate`` (max_len 32) in f32, 2
    launches of #11 a call, tokens equal to the plain route's.
 
-Phases 3, 5, 7, 8, 10 and 12 also run each path twice, on the eager
+13. image — the image stack (no kernel of the port's: convs and BN go
+   through cuDNN, as XLA's convs did): (a) every ported op (convs: the
+   stem 7x7/s2 direct and by space-to-depth, a 3x3, a 1x1/s2 projection,
+   a depthwise and a transpose conv; pools; BN in training mode, each
+   training pass and ``batch_norm``, and eval mode; LRN) on the card
+   against the port on the CPU in f32 (TF32 off) and bf16; (c) ResNet-50
+   at batch 2 in f32: logits, loss, gradients and new BN stats on the
+   card against the CPU's float64 run, within twice the CPU's own f32
+   distance to it; (b) ResNet-50 trained as benchmarks/resnet50.py trains
+   it (batch 64 of 224x224x3, 1000 classes, 4 rotating batches from the
+   seed, Momentum(0.1, 0.9), bf16 over f32 masters, train-mode BN with
+   the stat updates merged into the masters), one graph replay a step,
+   12 steps on both routes: finite costs, no launch of the port's
+   kernels, one f32 step through the graph equal to the eager step
+   (under ``cudnn.deterministic``), and 8 steps on one repeated batch
+   whose first two later costs fall below the first (all 8 printed);
+   ms and images a second, device time and busy share, peak memory, the
+   step's FLOP count (``torch.utils.flop_counter``) and its share of the
+   bf16 peak, the device time by kind (convs, BN, pools, elementwise) and
+   the top kernels; (d) the batch-64 rows of benchmarks/image_suite.py
+   (SmallNet, AlexNet, GoogleNet) likewise with Momentum(0.01, 0.9) and
+   dropout drawn from a card generator through the graph, a falling loss
+   on batch 0; (e) the stem direct against space-to-depth, the two BN
+   training passes at ResNet-50's 53 BN shapes, and an HWIO weight view
+   against a channels-last weight, all timed.
+
+Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
 with the counts set to 0 just before and read just after, then
@@ -133,7 +159,8 @@ Phase 10 also calls ``generate_fused`` at six new prompt lengths with a
 fresh generator each: one capture a length and no growth of the memory
 allocated beyond an eighth of a KV cell.
 
-Prints ``{"graph_paths": [...]}`` (those figures), ``{"kernels":
+Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
+(phase 13's), ``{"kernels":
 [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
 card, or without the ``paddle_tpu_torch`` package beside this file.
@@ -884,16 +911,9 @@ def graph_launch_check(say, what: str) -> None:
         f"{json.dumps(total)})")
 
 
-def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
-                      share_of=None):
-    """Device busy share of ``run()`` and its top kernels, from one run
-    under torch.profiler. The share divides device kernel time by the wall
-    time ``wall`` of the same work run unprofiled. ``run()`` takes
-    ``steps`` steps; ``share_of`` {label: kernel-name substring, or a
-    tuple of them} prints those kernels' device time a step and share.
-    Returns {"device_ms_per_step", "busy_share", "kernels_per_step"}, or
-    None when the profiler saw no device time. The kernels inside a CUDA
-    graph's replay count one by one, as eager launches do."""
+def device_rows(run):
+    """(device time in µs, count, name) of every kernel of one ``run()``
+    under torch.profiler, and the profiled run's wall seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -905,11 +925,24 @@ def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
         wall_prof = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        rows.append((us, e.count, e.key))
+        if e.device_type == DeviceType.CUDA:
+            rows.append((getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0)),
+                         e.count, e.key))
+    return rows, wall_prof
+
+
+def profile_breakdown(say, what: str, run, wall: float, steps: int = 1,
+                      share_of=None):
+    """Device busy share of ``run()`` and its top kernels, from one run
+    under torch.profiler. The share divides device kernel time by the wall
+    time ``wall`` of the same work run unprofiled. ``run()`` takes
+    ``steps`` steps; ``share_of`` {label: kernel-name substring, or a
+    tuple of them} prints those kernels' device time a step and share.
+    Returns {"device_ms_per_step", "busy_share", "kernels_per_step"}, or
+    None when the profiler saw no device time. The kernels inside a CUDA
+    graph's replay count one by one, as eager launches do."""
+    rows, wall_prof = device_rows(run)
     dev_s = sum(r[0] for r in rows) / 1e6
     if dev_s == 0.0:
         say(f"profile {what}: the profiler saw no device time (not measured)")
@@ -2119,20 +2152,24 @@ def bf16_step_check(say, what, loss_for, params, batch, per_step,
             "bf16_vs_f32_worst_rel_l2": bf16_floor}
 
 
-def graph_step_check(say, what, loss, params, batch, lr, device):
-    """One f32 Adam step replayed through the trainer's graph against the
-    same step on the eager route, from copies of the same params and a
-    fresh state: the loss and every parameter bit-equal, or, where a
-    GEMM's bits differ under capture, within GRAPH_STEP_LOSS_RTOL and
-    GRAPH_STEP_PARAM_ATOL; the same kernel launches, and the graphed step
-    one replay."""
+def graph_step_check(say, what, loss, params, batch, lr, device,
+                     make_opt=None, expect_launches=True):
+    """One f32 Adam step (``make_opt()``'s optimizer, if given) replayed
+    through the trainer's graph against the same step on the eager route,
+    from copies of the same params and a fresh state: the loss and every
+    parameter bit-equal, or, where a GEMM's bits differ under capture,
+    within GRAPH_STEP_LOSS_RTOL and GRAPH_STEP_PARAM_ATOL; the same kernel
+    launches on both routes, some with ``expect_launches`` and none
+    without it (a path with no kernel of the port's: the image path), and
+    the graphed step one replay."""
     import torch
     from paddle_tpu_torch.core.pytree import tree_items, tree_map
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.trainer import Trainer
+    make_opt = make_opt or (lambda: Adam(lr))
     res = {}
     for route in ("eager", "graphed"):
-        tr = Trainer(loss, Adam(lr), device=device)
+        tr = Trainer(loss, make_opt(), device=device)
         with _route(route):
             if route == "graphed":              # the capture
                 p = tree_map(torch.clone, params)
@@ -2148,8 +2185,9 @@ def graph_step_check(say, what, loss, params, batch, lr, device):
     check(de == {"captures": 0, "replays": 0}
           and dg == {"captures": 0, "replays": 1},
           f"{what} graph step: dispatches eager {de}, graphed {dg}")
-    check(ne == ng and ne, f"{what} graph step: launches eager {ne} != "
-          f"graphed {ng}")
+    check(ne == ng and bool(ne) == expect_launches,
+          f"{what} graph step: launches eager {ne}, graphed {ng} (expected "
+          f"{'some' if expect_launches else 'none'})")
     worst, equal = 0.0, le == lg
     for (path, a), (_, b) in zip(tree_items(pe), tree_items(pg)):
         equal = equal and torch.equal(a, b)
@@ -2165,7 +2203,7 @@ def graph_step_check(say, what, loss, params, batch, lr, device):
 
 def train_and_time(say, what, make_trainer, params, batches, passes,
                    per_step, device, warmup=2, names=ATTENTION_KERNELS,
-                   share_of=None, held=None):
+                   share_of=None, held=None, probe=None, falls=True):
     """``Trainer.train`` over ``batches`` for ``passes`` passes on the
     eager route and through the graphs, each from a copy of ``params``
     with a fresh trainer (``make_trainer()``), the launch and dispatch
@@ -2176,7 +2214,10 @@ def train_and_time(say, what, make_trainer, params, batches, passes,
     batch 0; prints ms per step and a profile of two warm steps. With
     ``held`` also ``Trainer.test`` over it (one replay a batch). Returns
     the graphed route's counts (the held test's included) and the number
-    of steps."""
+    of steps. ``probe`` is the batch list the falling loss is read on
+    (default: batch 0 as it is; a dropout model's without its
+    generator); ``falls=False`` prints the probe's costs without holding
+    them (ResNet-50's recipe: its caller checks a repeated batch)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.core.pytree import tree_map
@@ -2194,7 +2235,8 @@ def train_and_time(say, what, make_trainer, params, batches, passes,
                 costs.append(e.cost)
 
         with _route(route):
-            before = trainer.test(lambda: batches[:1], params0)["cost"]
+            before = trainer.test(lambda: probe or batches[:1],
+                                  params0)["cost"]
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             (p, state), _, launches, disp = counted(
@@ -2214,14 +2256,15 @@ def train_and_time(say, what, make_trainer, params, batches, passes,
                 if route == "graphed":
                     for k, n in test_launches.items():
                         launches[k] = launches.get(k, 0) + n
-            after = trainer.test(lambda: batches[:1], p)["cost"]
+            after = trainer.test(lambda: probe or batches[:1], p)["cost"]
             say(f"{what} training ({route}): {steps} steps, costs "
                 f"{json.dumps(costs)}; batch 0 cost before {before} after "
                 f"{after}; launches {launches}")
             check(len(costs) == steps and int(state["step"]) == steps,
                   f"{what}: {len(costs)} steps ran, want {steps}")
             check(all(np.isfinite(costs)), f"{what}: a non-finite cost")
-            check(after < before, f"{what} ({route}): batch 0 cost did not "
+            check(after < before or not falls,
+                  f"{what} ({route}): batch 0 cost did not "
                   f"fall: {before} -> {after}")
             for n in names:
                 check(launches.get(n, 0) == per_step * steps,
@@ -3217,6 +3260,528 @@ def s2s_phase(say, seed: int, device="cuda", config=S2S,
     return train, steps, s2s_generation(say, model, batches[0], device)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the image stack and ResNet-50 training
+# ---------------------------------------------------------------------------
+
+# benchmarks/resnet50.py:27-30,48-66: ResNet-50, batch 64 of 224x224x3,
+# 1000 classes, 4 rotating batches, Momentum(0.1, 0.9), bf16 over f32
+# masters (the running stats too), train-mode BN merged every step
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES, RESNET_NBUF = 64, 224, 1000, 4
+RESNET_LR, RESNET_MU, RESNET_PASSES = 0.1, 0.9, 3
+# benchmarks/image_suite.py:28-35,55-60: the batch-64 rows, Momentum(0.01,
+# 0.9), bf16 over f32, training mode with dropout, LRN and the aux towers
+SUITE = (("smallnet", 32, 10), ("alexnet", 224, 1000),
+         ("googlenet", 224, 1000))
+SUITE_BATCH, SUITE_LR, SUITE_PASSES = 64, 0.01, 3
+# op checks, card against the port on the CPU. f32 (TF32 off): cuDNN may
+# pick a Winograd or FFT algorithm, whose f32 error is ~1e-5-1e-4 of the
+# output's scale: convs to 1e-4 of the largest magnitude, the rest 1e-5;
+# rtol 1e-4 (summation order). bf16: both sides round one f32 result, one
+# bf16 ulp of the largest magnitude plus 2**-7 of each entry
+IMAGE_CONV_ATOL, IMAGE_F32_ATOL, IMAGE_F32_RTOL = 1e-4, 1e-5, 1e-4
+# the device time of an image step by kind, each kernel in the first
+# kind whose name holds one of its keys
+IMAGE_KINDS = (
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "bn_", "batchnorm")),
+    ("convolution", ("conv", "xmma", "cudnn", "cutlass", "implicit",
+                     "wgrad", "dgrad", "fprop", "winograd", "fft",
+                     "gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("pooling", ("pool",)),
+    ("elementwise (relu, adds, casts, optimizer)", ("elementwise",
+                                                    "vectorized",
+                                                    "unrolled")),
+    ("reductions", ("reduce",)),
+)
+
+
+def _image_close(got, want, dtype, atol_scale, what):
+    """Card against CPU with the stated tolerance; returns the max abs
+    error."""
+    import torch
+    g, w = got.detach().float().cpu(), want.detach().float()
+    err = (g - w).abs().max().item()
+    scale = max(w.abs().max().item(), 1e-30)
+    if dtype == torch.float32:
+        ok = torch.allclose(g, w, rtol=IMAGE_F32_RTOL,
+                            atol=atol_scale * max(scale, 1.0))
+    else:
+        ok = torch.allclose(g, w, rtol=2.0 ** -7, atol=bf16_ulp(scale))
+    check(ok, f"image op {what}: card differs from the CPU by {err}")
+    return err
+
+
+def image_op_checks(say, seed: int, device="cuda"):
+    """Each ported op of the image stack on the card against the same op
+    of the port on the CPU, in f32 (TF32 off) and bf16, at ResNet-50's
+    shapes (batch 4): the stem 7x7/s2 direct and by space-to-depth, a 3x3,
+    a 1x1 stride-2 projection, a depthwise 3x3, a 3x3/s2 transpose; the
+    3/2/1 max pool, the 3/2/1 avg pool under both count rules, the global
+    pools; BN in training mode (each pass with its batch moments, and
+    ``batch_norm`` with the new stats) and eval
+    mode; LRN at AlexNet's first map."""
+    import torch
+    from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import norm as N
+    from paddle_tpu_torch.ops import pool as P
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0, shift=0.0: (
+        torch.randn(s, generator=gen) * scale + shift)
+    bn_args = (r(4, 56, 56, 256, scale=2.0, shift=1.0),
+               r(256, scale=0.3, shift=1.0), r(256, scale=0.3),
+               r(256, scale=0.5), r(256).abs() + 0.5)
+    cases = {
+        "stem 7x7/s2 direct": (lambda x, w: C.conv2d(x, w, stride=2,
+                                                     padding=3),
+                               (r(4, 224, 224, 3), r(7, 7, 3, 64,
+                                                     scale=0.1)), True),
+        "stem 7x7/s2 space-to-depth": (C.conv7s2_space_to_depth,
+                                       (r(4, 224, 224, 3),
+                                        r(7, 7, 3, 64, scale=0.1)), True),
+        "3x3 64->64": (lambda x, w: C.conv2d(x, w, padding=1),
+                       (r(4, 56, 56, 64), r(3, 3, 64, 64, scale=0.05)),
+                       True),
+        "1x1/s2 projection 256->512": (
+            lambda x, w: C.conv2d(x, w, stride=2),
+            (r(4, 56, 56, 256), r(1, 1, 256, 512, scale=0.05)), True),
+        "depthwise 3x3": (lambda x, w: C.depthwise_conv2d(x, w, padding=1),
+                          (r(4, 56, 56, 64), r(3, 3, 1, 64, scale=0.3)),
+                          True),
+        "transpose 3x3/s2": (lambda x, w: C.conv2d_transpose(
+            x, w, stride=2, padding=1), (r(4, 28, 28, 64),
+                                         r(3, 3, 64, 32, scale=0.05)), True),
+        "max pool 3/2/1": (lambda x: P.max_pool2d(x, 3, 2, 1),
+                           (r(4, 112, 112, 64),), False),
+        "avg pool 3/2/1 count pad": (lambda x: P.avg_pool2d(x, 3, 2, 1),
+                                     (r(4, 112, 112, 64),), False),
+        "avg pool 3/2/1 count cells": (
+            lambda x: P.avg_pool2d(x, 3, 2, 1, count_include_pad=False),
+            (r(4, 112, 112, 64),), False),
+        "global avg pool": (P.global_avg_pool2d, (r(4, 7, 7, 2048),),
+                            False),
+        "global max pool": (P.global_max_pool2d, (r(4, 7, 7, 2048),),
+                            False),
+        "BN train fused": (lambda x, g, b, m, v: N._train_fused(
+            x, g, b, 1e-5), bn_args, False),
+        "BN train shifted": (lambda x, g, b, m, v: N._train_shifted(
+            x, g, b, m, 1e-5), bn_args, False),
+        "BN train": (lambda *a: N.batch_norm(*a, train=True), bn_args,
+                     False),
+        "BN eval": (lambda *a: N.batch_norm(*a, train=False), bn_args,
+                    False),
+        "LRN": (N.lrn, (r(4, 55, 55, 96, scale=3.0),), False),
+    }
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, (fn, args, is_conv) in cases.items():
+            cpu = [a.to(dtype) for a in args]
+            want = fn(*cpu)
+            got = fn(*[a.to(device) for a in cpu])
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            check(len(got) == len(want) and all(
+                g.dtype == w.dtype and g.shape == w.shape
+                for g, w in zip(got, want)),
+                f"image op {what}: card and CPU outputs differ in kind")
+            atol = IMAGE_CONV_ATOL if is_conv else IMAGE_F32_ATOL
+            worst[f"{what} {str(dtype)[6:]}"] = max(
+                _image_close(g, w, dtype, atol, what)
+                for g, w in zip(got, want))
+    say(f"image ops, card against the port on the CPU (f32 with TF32 off "
+        f"and bf16), max abs errors: {json.dumps(worst)}")
+
+
+def image_batches(seed: int, n: int, device, batch: int, image: int,
+                  classes: int):
+    """``n`` batches (x [B, image, image, 3] in [0, 1), labels) from the
+    seed, as benchmarks/resnet50.py draws them."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    return [(torch.as_tensor(rs.rand(batch, image, image, 3)
+                             .astype(np.float32), device=device),
+             torch.as_tensor(rs.randint(0, classes, batch), device=device))
+            for _ in range(n)]
+
+
+def resnet_loss(model, dtype):
+    """benchmarks/resnet50.py's loss: every f32 leaf (the running stats
+    too) cast to ``dtype``, train-mode BN, the logits as f32, the mean
+    cross-entropy; returns (loss, stat updates) for the trainer to merge
+    into the f32 masters."""
+    import torch
+
+    def loss_fn(params, x, y):
+        mut = {}
+        logits = model.call(cast_tree(params, dtype), x.to(dtype),
+                            train=True, mutable=mut).to(torch.float32)
+        logp = torch.log_softmax(logits, -1)
+        return -logp.gather(1, y.long()[:, None]).mean(), mut
+    return loss_fn
+
+
+def step_flops(make_model, batch: int, image: int) -> float:
+    """The operations of one training step of a fresh model on the meta
+    device (``torch.utils.flop_counter``: convs and matmuls, forward and
+    backward; none is run)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from paddle_tpu_torch.core.pytree import tree_from_items, tree_items
+    model = make_model()
+    items = [(p, v.to(torch.bfloat16).requires_grad_(True))
+             for p, v in tree_items(model.tree())]
+    x = torch.empty(batch, image, image, 3, device="meta",
+                    dtype=torch.bfloat16)
+    y = torch.zeros(batch, dtype=torch.long, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        loss = model.call(tree_from_items(items), x, y, train=True,
+                          mutable={}, method="loss")
+        torch.autograd.grad(loss, [v for _, v in items],
+                            materialize_grads=True)
+    return float(fc.get_total_flops())
+
+
+def kernel_split(say, what, run, steps: int, wall: float) -> dict:
+    """The device time of ``run()`` (``steps`` steps) by IMAGE_KINDS from
+    one profiled run, with the top kernels; ``wall`` is the same work's
+    unprofiled wall time (for the busy share)."""
+    rows, _ = device_rows(run)
+    total = sum(r[0] for r in rows)
+    check(total > 0, f"{what}: the profiler saw no device time")
+    kinds = {k: 0.0 for k, _ in IMAGE_KINDS}
+    kinds["other"] = 0.0
+    for us, _, name in rows:
+        low = name.lower()
+        kind = next((k for k, keys in IMAGE_KINDS
+                     if any(key.lower() in low for key in keys)), "other")
+        kinds[kind] += us
+    split = {k: {"ms_per_step": v / 1e3 / steps, "share": v / total}
+             for k, v in kinds.items()}
+    out = {"device_ms_per_step": total / 1e3 / steps,
+           "busy_share": total / 1e6 / wall,
+           "kernels_per_step": sum(r[1] for r in rows) / steps,
+           "split": split}
+    say(f"{what} device time by kind: {json.dumps(out)}")
+    rows.sort(reverse=True)
+    for us, n, name in rows[:15]:
+        print(f"  {us / 1e3 / steps:9.3f} ms/step {100 * us / total:5.1f}% "
+              f"x{n / steps:<6.1f} {name[:100]}")
+    return out
+
+
+def _time_fwd_bwd(fn, make, nbytes_one: int) -> float:
+    """Mean device ms of one forward and backward of ``fn`` over input
+    sets from ``make(i)`` (larger than L2 in all), through time_ms."""
+    import torch
+
+    def call(args):
+        ins, cot = args
+        out = fn(*ins)
+        out = out[0] if isinstance(out, tuple) else out
+        torch.autograd.grad(out, [a for a in ins if a.requires_grad], cot)
+    sets = input_sets(make, nbytes_one, floor=2)
+    return time_ms([lambda a=a: call(a) for a in sets], rounds=2, reps=3)
+
+
+def image_route_timings(say, seed: int, device="cuda") -> dict:
+    """(e) The two choices of this slice, timed on the card in bf16,
+    forward and backward: the stem 7x7/s2 direct against space-to-depth at
+    64x224x224x3 -> 64; the BN training passes (``ops/norm.py``
+    ``_train_fused``, ``_train_shifted``) at each of ResNet-50's 53 BN
+    input shapes at batch 64, summed a step; and what
+    the HWIO weight's per-call conversion costs a conv (forward, the HWIO
+    view against a channels-last OIHW copy of it) at three ResNet-50
+    shapes."""
+    import collections
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.nn import BatchNorm
+    from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import norm as N
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s, grad=False: torch.randn(
+        s, generator=gen, device=device, dtype=bf).requires_grad_(grad)
+    out = {}
+    x_b = 64 * 224 * 224 * 3 * 2
+    stem = {}
+    for name, fn in (("direct", lambda x, w: C.conv2d(x, w, stride=2,
+                                                      padding=3)),
+                     ("s2d", C.conv7s2_space_to_depth)):
+        stem[name] = _time_fwd_bwd(fn, lambda i: (
+            (rnd(64, 224, 224, 3), rnd(7, 7, 3, 64, grad=True)),
+            rnd(64, 112, 112, 64)), x_b)
+    out["stem_ms_fwd_bwd"] = stem
+    say(f"image stem 7x7/s2 at 64x224x224x3 -> 64, bf16 forward + dW: "
+        f"{json.dumps(stem)}")
+    # ResNet-50's BN input shapes, from a forward on the meta device
+    model, shapes = resnet50(), []
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.register_forward_pre_hook(
+                lambda m, a: shapes.append(tuple(a[0].shape)))
+    model(torch.empty(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3,
+                      device="meta", dtype=bf), train=True, mutable={})
+    counts = collections.Counter(shapes)
+    check(sum(counts.values()) == 53, f"ResNet-50 has {len(shapes)} BNs")
+    passes = {"fused": lambda x, g, b, m: N._train_fused(x, g, b, 1e-5),
+              "shifted": lambda x, g, b, m: N._train_shifted(x, g, b, m,
+                                                             1e-5)}
+
+    def bn_train(bn_pass):
+        """``batch_norm``'s training step through ``bn_pass``: the pass,
+        then the running stats merged; returns y."""
+        def run(x, g, b, m, v):
+            y, mean, var = bn_pass(x, g, b, m)
+            N._merge_running(m, v, mean, var, 0.9)
+            return y
+        return run
+    forms = {f: 0.0 for f in passes}
+    per_shape = {}
+    for shape, n in counts.items():
+        C_ = shape[-1]
+        nbytes = 2 * torch.Size(shape).numel()
+        for f, bn_pass in passes.items():
+            ms = _time_fwd_bwd(
+                bn_train(bn_pass),
+                lambda i: ((rnd(*shape, grad=True), rnd(C_, grad=True),
+                            rnd(C_, grad=True), rnd(C_), rnd(C_).abs()),
+                           rnd(*shape)), nbytes)
+            per_shape.setdefault("x".join(map(str, shape)), {})[f] = ms
+            forms[f] += n * ms
+    out["bn_ms_per_step"] = forms
+    out["bn_ms_by_shape"] = per_shape
+    say(f"image BN training passes, bf16 forward + backward summed over ResNet-50's "
+        f"53 BNs at batch 64: {json.dumps(forms)}; by shape "
+        f"{json.dumps(per_shape)}")
+    layout = {}
+    for (H, cin, cout, k, s) in ((56, 64, 64, 3, 1), (56, 256, 64, 1, 1),
+                                 (14, 1024, 2048, 1, 2), (7, 512, 512, 3, 1)):
+        w = rnd(k, k, cin, cout)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        xs = input_sets(lambda i: rnd(64, H, H, cin).permute(0, 3, 1, 2),
+                        64 * H * H * cin * 2, floor=2)
+        ms = {}
+        for name, wt in (("hwio_view", w.permute(3, 2, 0, 1)),
+                         ("channels_last", w_cl)):
+            ms[name] = time_ms([lambda x=x, wt=wt: F.conv2d(
+                x, wt, stride=s, padding=k // 2) for x in xs], 2, 3)
+        layout[f"{H}x{H}x{cin}->{cout} k{k} s{s}"] = ms
+    out["weight_layout_ms_fwd"] = layout
+    say(f"image conv forward, HWIO weight view (converted per call) "
+        f"against a channels-last copy: {json.dumps(layout)}")
+    return out
+
+
+def repeated_batch_check(say, trainer, params, batch, steps: int = 8,
+                         falls: int = 2):
+    """``steps`` steps of ``trainer`` on one batch from ``params`` through
+    the step's graph: every cost finite and the next ``falls`` costs below
+    the first; all are printed. The bench's Momentum(0.1, 0.9), with no
+    warm-up, overshoots on one repeated batch after a few steps, and so
+    does JAX's ResNet-50 under the same recipe
+    (tests/test_torch_image_models.py
+    ``test_repeated_batch_losses_follow_jax``): only the first steps are
+    held to fall. Returns the costs."""
+    import numpy as np
+    from paddle_tpu_torch.trainer import event
+    costs = []
+    trainer.train(lambda: [batch] * steps, params, event_handler=lambda e:
+                  costs.append(e.cost)
+                  if isinstance(e, event.EndIteration) else None)
+    check(len(costs) == steps and all(np.isfinite(costs))
+          and all(c < costs[0] for c in costs[1:1 + falls]),
+          f"ResNet-50: the cost of a repeated batch did not fall in its "
+          f"first {falls} steps: {costs}")
+    say(f"ResNet-50 bf16, {steps} steps on one repeated batch (the first "
+        f"{falls} after the first held to fall): costs {json.dumps(costs)}")
+    return costs
+
+
+def resnet_card_vs_cpu(say, seed: int, device="cuda"):
+    """(c) ResNet-50 at batch 2 in f32 (TF32 off), weights from the seed:
+    logits, loss, every gradient and the new BN stats of one train-mode
+    forward and backward on the card against the same port code on the
+    CPU. The card's f32 step is held to the CPU's float64 step within
+    twice the CPU's own f32 distance to it (summation order, amplified
+    through 53 batch norms), relative L2, and at least 1e-5 (~80 f32 ulps:
+    one f32 scalar, the loss, may land nearer the float64 one on one side
+    by chance)."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_from_items, tree_items
+    from paddle_tpu_torch.models import resnet50
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(2, RESNET_IMAGE, RESNET_IMAGE, 3, generator=gen)
+    y = torch.randint(0, RESNET_CLASSES, (2,), generator=gen)
+
+    def run(dev, dtype):
+        model = resnet50(RESNET_CLASSES).init(seed, dev)
+        items = [(p, v.to(dtype).requires_grad_(True))
+                 for p, v in tree_items(model.tree())]
+        mut = {}
+        logits = model.call(tree_from_items(items), x.to(dev, dtype),
+                            train=True, mutable=mut)
+        loss = -torch.log_softmax(logits, -1).gather(
+            1, y.to(dev)[:, None]).mean()
+        grads = torch.autograd.grad(loss, [v for _, v in items],
+                                    materialize_grads=True)
+        flat = lambda ts: torch.cat([t.detach().double().cpu().reshape(-1)
+                                     for t in ts])
+        stats = [v for k in sorted(mut) for v in mut[k].values()]
+        return {"logits": flat([logits]), "loss": flat([loss]),
+                "grads": flat(grads), "stats": flat(stats)}
+    t0 = time.perf_counter()
+    card = run(device, torch.float32)
+    cpu, cpu64 = run("cpu", torch.float32), run("cpu", torch.float64)
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    res = {}
+    for k in card:
+        res[k] = {"card_vs_cpu": rel(card[k], cpu[k]),
+                  "card_vs_cpu_f64": rel(card[k], cpu64[k]),
+                  "cpu_vs_cpu_f64": rel(cpu[k], cpu64[k])}
+        check(res[k]["card_vs_cpu_f64"]
+              <= max(2 * res[k]["cpu_vs_cpu_f64"], 1e-5),
+              f"ResNet-50 batch 2 f32 {k}: card {res[k]}")
+        check(bool(torch.isfinite(card[k]).all()), f"ResNet-50 {k}: "
+              "non-finite on the card")
+    say(f"ResNet-50 batch 2 f32, card against the CPU (relative L2; "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+    return res
+
+
+def suite_loss(model, takes_generator: bool):
+    """benchmarks/image_suite.py's loss: bf16 over f32 masters, training
+    mode with dropout drawn from the batch's generator (none: no
+    dropout), the loss as f32."""
+    import torch
+
+    def loss_fn(params, x, y, generator=None):
+        kw = ({"train": True, "generator": generator} if takes_generator
+              else {})
+        return model.call(cast_tree(params, torch.bfloat16),
+                          x.to(torch.bfloat16), y, method="loss",
+                          **kw).to(torch.float32)
+    return loss_fn
+
+
+def image_suite_phase(say, seed: int, device="cuda") -> dict:
+    """(d) The batch-64 rows of benchmarks/image_suite.py (SmallNet 32²,
+    AlexNet and GoogleNet 224²; random weights and data from the seed)
+    trained by ``Trainer.train`` with Momentum(0.01, 0.9), bf16 over f32,
+    training mode with dropout live (a card generator in every batch,
+    through the graph), 12 steps over 4 batches on both routes: one
+    replay a step, finite costs, a falling loss on batch 0 without
+    dropout; ms a batch."""
+    import torch
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.trainer import Trainer
+    make = {"smallnet": models.SmallNet, "alexnet": models.AlexNet,
+            "googlenet": models.GoogleNet}
+    out = {}
+    for name, image, classes in SUITE:
+        model = make[name](classes=classes).init(seed, device)
+        takes = name != "smallnet"
+        data = image_batches(seed, RESNET_NBUF, device, SUITE_BATCH, image,
+                             classes)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        batches = [b + (gen,) for b in data] if takes else data
+        probe = [data[0] + (None,)] if takes else None
+
+        def make_trainer():
+            gen.manual_seed(seed)       # both routes draw the same masks
+            return Trainer(suite_loss(model, takes),
+                           Momentum(SUITE_LR, 0.9), device=device)
+        launches, steps = train_and_time(
+            say, name, make_trainer, model.tree(), batches, SUITE_PASSES, 0,
+            device, names=(), probe=probe)
+        check(not launches, f"{name}: the port's kernels launched "
+              f"{launches}")
+        out[name] = {r: GRAPH_PATHS[-1][r]["wall_ms_per_step"]
+                     for r in ("eager", "graphed")}
+        del model, data, batches
+        torch.cuda.empty_cache()
+    say(f"image_suite rows at batch 64, ms a batch eager -> graphed: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def image_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 13: (a) the image ops card against CPU, (b) ResNet-50 trained
+    at the bench's shape and recipe on both routes, (c) ResNet-50 batch 2
+    f32 card against CPU, (d) the image_suite rows, (e) the stem and BN
+    route timings. Returns the figures."""
+    import torch
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.trainer import Trainer
+    figs = {}
+    image_op_checks(say, seed, device)
+    figs["card_vs_cpu_batch2"] = resnet_card_vs_cpu(say, seed, device)
+    model = resnet50(RESNET_CLASSES).init(seed, device)
+    batches = image_batches(seed, RESNET_NBUF, device, RESNET_BATCH,
+                            RESNET_IMAGE, RESNET_CLASSES)
+    flops = step_flops(lambda: resnet50(RESNET_CLASSES), RESNET_BATCH,
+                       RESNET_IMAGE)
+    momentum = lambda: Momentum(RESNET_LR, RESNET_MU)
+    # cuDNN's backward may pick an algorithm that sums in another order
+    # from call to call: the f32 graphed step is held to the eager one
+    # under cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graph_step_check(say, "ResNet-50", resnet_loss(model,
+                                                        torch.float32),
+                         model.tree(), batches[0], RESNET_LR, device,
+                         make_opt=momentum, expect_launches=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    figs["resnet50_repeated_batch"] = repeated_batch_check(
+        say, Trainer(resnet_loss(model, torch.bfloat16), momentum(),
+                     device=device), model.tree(), batches[0])
+    launches, steps = train_and_time(
+        say, "ResNet-50", lambda: Trainer(resnet_loss(model, torch.bfloat16),
+                                          momentum(), device=device),
+        model.tree(), batches, RESNET_PASSES, 0, device, names=(),
+        falls=False)
+    check(not launches, f"ResNet-50: the port's kernels launched {launches}")
+    say("ResNet-50 training: the port's kernel launches (LAUNCHES) stayed 0 "
+        "on both routes: the image path runs none of the twelve kernels")
+    row = GRAPH_PATHS[-1]
+    figs["resnet50"] = {}
+    for route in ("eager", "graphed"):
+        ms = row[route]["wall_ms_per_step"]
+        dev_ms = row[route]["device_ms_per_step"]
+        figs["resnet50"][route] = {
+            "ms_per_step": ms, "images_per_s": RESNET_BATCH / ms * 1e3,
+            "device_ms_per_step": dev_ms,
+            "busy_share": row[route]["busy_share"],
+            "step_tflop": flops / 1e12,
+            "bf16_peak_share_wall": flops / (ms / 1e3) / PEAK_FLOPS[
+                "bfloat16"],
+            "bf16_peak_share_device": (flops / (dev_ms / 1e3) / PEAK_FLOPS[
+                "bfloat16"]) if dev_ms else None}
+    say(f"ResNet-50 bs{RESNET_BATCH} {RESNET_IMAGE}² bf16 train-mode BN "
+        f"(figures a step): {json.dumps(figs['resnet50'])}")
+    tr = Trainer(resnet_loss(model, torch.bfloat16), momentum(),
+                 device=device)
+    run = lambda: tr.train(lambda: batches[:2], model.tree())
+    run()                                            # capture, warm
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    figs["resnet50_split"] = kernel_split(
+        say, "ResNet-50 bf16 step (graphed)", run, 2,
+        time.perf_counter() - t0)
+    del tr, model, batches
+    torch.cuda.empty_cache()
+    figs["suite"] = image_suite_phase(say, seed, device)
+    figs["routes"] = image_route_timings(say, seed, device)
+    return figs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3327,6 +3892,7 @@ def main(argv=None) -> int:
             f"{train[name]} in {s2s_steps} seq2seq training steps + "
             + " + ".join(f"{g[name]} in one {what} generate call"
                          for what, g in gen.items()))
+    image = image_phase(say, args.seed)
     if args.rnn_sweep:
         for entry in lstm + gru:
             for tag, res in sweep.items():
@@ -3339,6 +3905,7 @@ def main(argv=None) -> int:
                 if entry["name"] == name:
                     entry[key] = sass[body]
     print(json.dumps({"graph_paths": GRAPH_PATHS, "card": card}))
+    print(json.dumps({"image": image, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

@@ -11,7 +11,18 @@ for ``LSTMTextCls``: ``embed/w``, ``w{i}``, ``u{i}``, ``b{i}``,
 ``fc/w``, ``fc/b``; and for ``AttentionSeq2Seq``: ``src_embed/w``,
 ``trg_embed/w``, ``enc_{w,u,b}_{f,b}``, ``init_fc/{w,b}``, ``att_enc/w``,
 ``att_dec/w``, ``att_v``, ``dec_w``, ``dec_u``, ``dec_b``, ``out/{w,b}``
-(no block list: it loads with no renaming). On the JAX side, ``jax.tree_util.tree_map(np.asarray,
+(no block list: it loads with no renaming). The image models
+(``models/image.py``) keep JAX's attribute names and load with no
+renaming either: ``ResNet`` has ``stem/{conv/w, bn}``,
+``layer{li}_{bi}/{a,b,c,proj}/{conv/w, bn}`` (``c`` only in the
+bottleneck; ``proj`` where the shape changes) and ``head/{w,b}``, each
+``bn`` being ``{gamma, beta, stats: {moving_mean, moving_var}}``; ``VGG``
+``b{i}_{j}/{conv,bn}``, ``fc1``, ``fc2``, ``out``; ``GoogleNet``
+``stem1..3``, ``i3a``..``i5b`` (each ``b1, b3r, b3, b5r, b5, bp``),
+``aux1``/``aux2`` (``conv, fc, out``), ``head``; ``AlexNet``,
+``LeNet``, ``SmallNet`` ``c{i}``, ``fc{i}``(, ``out``); a
+``Sequential``'s children ``mods_{i}``. Conv weights are HWIO, as in
+JAX. On the JAX side, ``jax.tree_util.tree_map(np.asarray,
 params)`` turns it into numpy arrays. The port stores ``Linear`` weights
 as [in, out], as JAX does, so nothing is transposed: the one layout
 change is a block list, which JAX names ``blocks_{i}`` (``enc_blocks_{i}``,
@@ -19,7 +30,8 @@ change is a block list, which JAX names ``blocks_{i}`` (``enc_blocks_{i}``,
 ``ModuleList`` (``blocks.{i}``; ``Module.tree()`` gives ``blocks/{i}``).
 
 An optimizer state (``{"step", "slots": {<param path>: {"m", "v"}}}`` for
-Adam) has the params' layout under ``slots``; ``tree_from_numpy`` carries
+Adam, ``{"velocity"}`` a leaf for Momentum, the stats' leaves included)
+has the params' layout under ``slots``; ``tree_from_numpy`` carries
 it, or any nested dict of arrays, across with the same renaming, so a
 JAX Adam state of a transformer matches the port's
 ``Adam.init(model.tree())``.

@@ -1,4 +1,9 @@
-from .layers import Embedding, LayerNorm, Linear
-from .module import Module, run_initializers
+from .layers import (AvgPool2D, BatchNorm, Conv2D, Conv2DTranspose, Dropout,
+                     Embedding, LayerNorm, Linear, MaxPool2D)
+from .module import (Lambda, Module, Sequential, apply_stat_updates,
+                     apply_stat_updates_, param_count, run_initializers)
 
-__all__ = ["Embedding", "LayerNorm", "Linear", "Module", "run_initializers"]
+__all__ = ["AvgPool2D", "BatchNorm", "Conv2D", "Conv2DTranspose", "Dropout",
+           "Embedding", "Lambda", "LayerNorm", "Linear", "MaxPool2D",
+           "Module", "Sequential", "apply_stat_updates",
+           "apply_stat_updates_", "param_count", "run_initializers"]

@@ -1,5 +1,5 @@
-from . import (activations, cuda_kernels, loss, norm, rnn, rnn_kernels,
-               sequence)
+from . import (activations, conv, cuda_kernels, loss, norm, pool, random,
+               rnn, rnn_kernels, sequence)
 
-__all__ = ["activations", "cuda_kernels", "loss", "norm", "rnn",
-           "rnn_kernels", "sequence"]
+__all__ = ["activations", "conv", "cuda_kernels", "loss", "norm", "pool",
+           "random", "rnn", "rnn_kernels", "sequence"]

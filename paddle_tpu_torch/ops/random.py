@@ -1,0 +1,27 @@
+"""Random ops — ``dropout`` of ``paddle_tpu/ops/random.py``.
+
+JAX passes an explicit PRNG key; the port passes an explicit
+``torch.Generator`` on the tensor's device. The two draw different bits,
+so tests compare the keep rate and the scale, not the masks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool = True,
+            scale_in_train: bool = True) -> torch.Tensor:
+    """Zero each element with probability ``rate``; the kept ones are
+    scaled by 1 / (1 - rate) (upscale in train). In eval (or at rate 0)
+    x comes back as it is, or scaled by 1 - rate where the scale is not
+    applied in train (downgrade in infer)."""
+    if not train or rate <= 0.0:
+        return x if scale_in_train else x * (1.0 - rate)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep if scale_in_train else x,
+                       x.new_zeros(()))

@@ -1,3 +1,3 @@
-from .optimizers import SGD, Adam, Optimizer
+from .optimizers import SGD, Adam, Momentum, Optimizer
 
-__all__ = ["Adam", "Optimizer", "SGD"]
+__all__ = ["Adam", "Momentum", "Optimizer", "SGD"]

@@ -1,5 +1,6 @@
 """First-order optimizers — the counterpart of
-``paddle_tpu/optimizer/optimizers.py`` for ``SGD`` and ``Adam``.
+``paddle_tpu/optimizer/optimizers.py`` for ``SGD``, ``Momentum`` and
+``Adam``.
 
 Functional, as in JAX: ``init(params) -> state`` and
 ``update(grads, state, params) -> (new_params, new_state)`` over nested
@@ -101,6 +102,25 @@ class SGD(Optimizer):
 
     def apply_one(self, p, g, slot, lr, step):
         return p - lr * g, slot
+
+
+class Momentum(Optimizer):
+    """Momentum, or Nesterov's: v = mu * v + g, then p - lr * v (Nesterov:
+    p - lr * (g + mu * v)). Every leaf has a ``velocity`` slot, the stats'
+    too, as in JAX; the stats' is never used."""
+
+    def __init__(self, learning_rate: Union[float, Schedule] = 0.01,
+                 momentum: float = 0.9, use_nesterov: bool = False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.mu, self.nesterov = momentum, use_nesterov
+
+    def init_slot(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def apply_one(self, p, g, slot, lr, step):
+        v = self.mu * slot["velocity"] + g
+        step_dir = g + self.mu * v if self.nesterov else v
+        return p - lr * step_dir, {"velocity": v}
 
 
 class Adam(Optimizer):

@@ -27,14 +27,53 @@ import torch
 from ..core.graphs import GraphCache
 from ..core.place import DeviceLike, require_device
 from ..core.pytree import tree_from_items, tree_items, tree_map
+from ..nn.module import apply_stat_updates_
 from . import event as EV
+
+
+def _split_generators(batch: tuple):
+    """(the batch with None for each generator, {name: generator}): the
+    generators go to the graph as static arguments."""
+    gens = {f"generator{i}": b for i, b in enumerate(batch)
+            if isinstance(b, torch.Generator)}
+    rest = tuple(None if isinstance(b, torch.Generator) else b
+                 for b in batch)
+    return rest, gens
+
+
+def _join_generators(batch: tuple, gens: Dict[str, torch.Generator]):
+    return tuple(gens.get(f"generator{i}", b) for i, b in enumerate(batch))
+
+
+def _loss_and_stats(out):
+    """A loss's result as (loss, stat updates or None); raises TypeError
+    on a tuple that is not (loss, {module path: {stat name: tensor}})."""
+    if not isinstance(out, tuple):
+        return out, None
+    if not (len(out) == 2 and isinstance(out[1], Mapping)
+            and all(isinstance(u, Mapping)
+                    and all(isinstance(v, torch.Tensor) for v in u.values())
+                    for u in out[1].values())):
+        raise TypeError(
+            "a loss returns a scalar tensor or (loss, stat updates), the "
+            "updates a dict {module path: {stat name: tensor}} (the "
+            f"mutable dict of a training-mode forward); got {out!r:.200}")
+    return out
 
 
 class Trainer:
     """Drive (loss_fn, optimizer) over reader batches with events.
 
     Args:
-      loss_fn: (params, *batch) -> scalar loss tensor.
+      loss_fn: (params, *batch) -> scalar loss tensor, or (loss, stat
+        updates) for a model with running stats: the updates are the
+        ``mutable`` dict a training-mode forward filled
+        (``Module.record_stats``: {module path: {stat name: tensor}}),
+        merged into the step's params in place after the optimizer's
+        update (``nn.apply_stat_updates_``, each cast to its stat's
+        dtype), as benchmarks/resnet50.py merges them after JAX's update.
+        JAX's Trainer takes a scalar loss only; the pair is the port's.
+        Any other tuple raises TypeError.
       optimizer: a ``paddle_tpu_torch.optimizer`` optimizer.
       device: where the batches go and the step runs (default: the card;
         with no card the constructor raises).
@@ -58,23 +97,29 @@ class Trainer:
         again (take a copy to keep one). Trees the trainer does not own
         (a model's ``tree()``, a fresh ``opt.init``) are copied in first
         and never written."""
+        batch, gens = _split_generators(batch)
         return self.graphs.run(
             "step", self._step_body,
             {"params": params, "opt_state": opt_state, "batch": batch},
-            donate=("params", "opt_state"))
+            static=gens, donate=("params", "opt_state"))
 
-    def _step_body(self, params, opt_state, batch):
+    def _step_body(self, params, opt_state, batch, **gens):
         """The step program: value and gradient of the loss with respect to
         the leaves of ``params``, then the optimizer's ``apply_`` into
-        ``params`` and ``opt_state``. Returns (params, opt_state, loss)."""
+        ``params`` and ``opt_state`` and the stat updates into ``params``.
+        Returns (params, opt_state, loss)."""
         items = [(path, leaf.detach().requires_grad_(True))
                  for path, leaf in tree_items(params)]
         leaves = tree_from_items(items)
-        loss = self.loss_fn(leaves, *batch)
-        grads = torch.autograd.grad(loss, [leaf for _, leaf in items])
+        loss, stats = _loss_and_stats(
+            self.loss_fn(leaves, *_join_generators(batch, gens)))
+        grads = torch.autograd.grad(loss, [leaf for _, leaf in items],
+                                    materialize_grads=True)
         grads = tree_from_items((path, g.to(torch.float32))
                                 for (path, _), g in zip(items, grads))
         self.opt.apply_(grads, opt_state, params)
+        if stats:
+            apply_stat_updates_(params, stats)
         return params, opt_state, loss.detach()
 
     def train(self, reader: Callable[[], Iterable], params: Mapping, *,
@@ -107,12 +152,14 @@ class Trainer:
         per batch signature on the card."""
         total, n = 0.0, 0
         for batch in reader():
+            batch, gens = _split_generators(tuple(batch))
             total += float(self.graphs.run(
                 "loss", self._loss_body,
-                {"params": params, "batch": tuple(batch)}))
+                {"params": params, "batch": batch}, static=gens))
             n += 1
         return {"cost": total / max(n, 1)}
 
     @torch.no_grad()
-    def _loss_body(self, params, batch):
-        return self.loss_fn(params, *batch)
+    def _loss_body(self, params, batch, **gens):
+        return _loss_and_stats(
+            self.loss_fn(params, *_join_generators(batch, gens)))[0]

@@ -1699,3 +1699,188 @@ def test_a_capture_that_cannot_run_raises_on_card(cuda):
                        cwd=Path(__file__).resolve().parents[1])
     assert r.returncode != 0 and "carried on" not in r.stdout
     assert "capture" in r.stderr.lower()
+
+
+# -- the image stack (no kernel of the port's: cuDNN) -------------------------
+
+@pytest.fixture
+def cuda_f32():
+    """The card with TF32 off for convolutions too (cuDNN's default is
+    on), restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _image_ops():
+    from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import norm as N
+    from paddle_tpu_torch.ops import pool as P
+    bn = ((2, 14, 14, 32), (32,), (32,), (32,), (32,))
+    return {
+        "stem_direct": (lambda x, w: C.conv2d(x, w, stride=2, padding=3),
+                        ((2, 32, 32, 3), (7, 7, 3, 16)), True),
+        "stem_s2d": (C.conv7s2_space_to_depth,
+                     ((2, 32, 32, 3), (7, 7, 3, 16)), True),
+        "conv3x3": (lambda x, w: C.conv2d(x, w, padding=1),
+                    ((2, 14, 14, 32), (3, 3, 32, 32)), True),
+        "proj1x1s2": (lambda x, w: C.conv2d(x, w, stride=2),
+                      ((2, 14, 14, 32), (1, 1, 32, 64)), True),
+        "same_s2": (lambda x, w: C.conv2d(x, w, stride=2, padding="SAME"),
+                    ((2, 13, 11, 16), (3, 3, 16, 16)), True),
+        "depthwise": (lambda x, w: C.depthwise_conv2d(x, w, padding=1),
+                      ((2, 14, 14, 32), (3, 3, 1, 32)), True),
+        "transpose": (lambda x, w: C.conv2d_transpose(x, w, stride=2,
+                                                      padding=1),
+                      ((2, 7, 7, 32), (3, 3, 32, 16)), True),
+        "max_pool": (lambda x: P.max_pool2d(x, 3, 2, 1),
+                     ((2, 15, 15, 16),), False),
+        "avg_pool_pad": (lambda x: P.avg_pool2d(x, 3, 2, 1),
+                         ((2, 15, 15, 16),), False),
+        "avg_pool_cells": (lambda x: P.avg_pool2d(
+            x, 3, 2, 1, count_include_pad=False), ((2, 15, 15, 16),), False),
+        "global_pools": (lambda x: (P.global_avg_pool2d(x),
+                                    P.global_max_pool2d(x)),
+                         ((2, 7, 7, 64),), False),
+        "bn_train_fused": (lambda x, g, b, m, v: N._train_fused(
+            x, g, b, 1e-5), bn, False),
+        "bn_train_shifted": (lambda x, g, b, m, v: N._train_shifted(
+            x, g, b, m, 1e-5), bn, False),
+        "bn_train": (lambda *a: N.batch_norm(*a, train=True), bn, False),
+        "bn_eval": (lambda *a: N.batch_norm(*a, train=False), bn, False),
+        "lrn": (N.lrn, ((2, 9, 9, 24),), False),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(_image_ops()))
+def test_image_op_matches_the_cpu_on_card(cuda_f32, name, dtype):
+    """Each image op on the card against the port on the CPU. f32 (TF32
+    off): convs to 1e-4 of the largest magnitude (cuDNN may pick a
+    Winograd or FFT algorithm), the rest 1e-5, rtol 1e-4; bf16: one bf16
+    ulp of the largest magnitude, rtol 2**-7 (each side rounds one f32
+    result)."""
+    fn, shapes, is_conv = _image_ops()[name]
+    gen = torch.Generator().manual_seed(5)
+    args = [torch.randn(s, generator=gen) for s in shapes]
+    if name.startswith("bn"):
+        args[0] = args[0] * 2 + 1
+        args[4] = args[4].abs() + 0.5
+    args = [a.to(dtype) for a in args]
+    want = fn(*args)
+    got = fn(*[a.to(cuda_f32) for a in args])
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        g, w = g.float().cpu(), w.float()
+        scale = max(w.abs().max().item(), 1e-30)
+        if dtype == torch.float32:
+            atol = (1e-4 if is_conv else 1e-5) * max(scale, 1.0)
+            torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
+        else:
+            torch.testing.assert_close(g, w, atol=_bf16_ulp(scale),
+                                       rtol=2.0 ** -7)
+
+
+def _resnet_loss(model, dtype):
+    def loss(params, x, y):
+        from paddle_tpu_torch.core.pytree import tree_map
+        mut = {}
+        p = tree_map(lambda a: a.to(dtype), params)
+        logits = model.call(p, x.to(dtype), train=True,
+                            mutable=mut).float()
+        return -torch.log_softmax(logits, -1).gather(
+            1, y.long()[:, None]).mean(), mut
+    return loss
+
+
+@pytest.mark.gpu
+def test_resnet18_graphed_step_equals_the_eager_step_on_card(cuda_f32):
+    """One f32 Momentum step of a small ResNet-18 (train-mode BN, the stat
+    updates merged) replayed through the trainer's graph against the eager
+    step, under cudnn.deterministic: the loss and every leaf, the merged
+    stats too, bit-equal; one replay, no launch of the port's kernels."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.models import ResNet
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.trainer import Trainer
+    model = ResNet(18, classes=10, width_mult=0.25).init(seed=4,
+                                                         device=cuda_f32)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(8, 32, 32, 3, generator=gen).to(cuda_f32)
+    y = torch.randint(0, 10, (8,), generator=gen).to(cuda_f32)
+    fresh = lambda: tree_map(torch.clone, model.tree())
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = {}
+        for route in ("eager", "graphed"):
+            tr = Trainer(_resnet_loss(model, torch.float32),
+                         Momentum(0.1, 0.9), device=cuda_f32)
+            if route == "eager":
+                with graphs.disabled():
+                    p = fresh()
+                    out, launches, d = _counted(
+                        lambda: tr.step(p, tr.opt.init(p), x, y))
+            else:
+                p = fresh()
+                tr.step(p, tr.opt.init(p), x, y)             # the capture
+                p = fresh()
+                out, launches, d = _counted(
+                    lambda: tr.step(p, tr.opt.init(p), x, y))
+                assert _replays(d, "step") == (0, 1)
+            assert launches == {}
+            res[route] = (tree_map(torch.clone, out[0]), out[2].item())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (pe, le), (pg, lg) = res["eager"], res["graphed"]
+    assert le == lg
+    moved = pe["stem"]["bn"]["stats"]["moving_var"]
+    assert not torch.equal(moved, model.tree()["stem"]["bn"]["stats"]
+                           ["moving_var"])
+    for (path, a), (_, b) in zip(tree_items(pe), tree_items(pg),
+                                 strict=True):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.gpu
+def test_dropout_generator_replays_through_the_graph_on_card(cuda_f32):
+    """A card generator in the batch: the graphed step draws what the
+    eager step draws from the same seed (the loss equal, to 1e-6 where a
+    GEMM picks other bits under capture), and advances the caller's
+    generator alike."""
+    import contextlib
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.core.pytree import tree_map
+    from paddle_tpu_torch.models import AlexNet
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.trainer import Trainer
+    model = AlexNet(classes=10).init(seed=1, device=cuda_f32)
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(2, 224, 224, 3, generator=g).to(cuda_f32)
+    y = torch.tensor([1, 7], device=cuda_f32)
+    loss = lambda p, x, y, gen: model.call(p, x, y, train=True,
+                                           generator=gen, method="loss")
+    fresh = lambda: tree_map(torch.clone, model.tree())
+    res = {}
+    for route in ("eager", "graphed"):
+        tr = Trainer(loss, Momentum(0.01, 0.9), device=cuda_f32)
+        gen = torch.Generator(device=cuda_f32).manual_seed(11)
+        if route == "graphed":
+            p = fresh()
+            tr.step(p, tr.opt.init(p), x, y, gen)           # the capture
+            gen.manual_seed(11)
+        with (graphs.disabled() if route == "eager" else
+              contextlib.nullcontext()):
+            p = fresh()
+            _, _, cost = tr.step(p, tr.opt.init(p), x, y, gen)
+        res[route] = (cost.item(), gen.get_state())
+    (le, se), (lg, sg) = res["eager"], res["graphed"]
+    assert abs(le - lg) <= 1e-6 * abs(le)
+    assert torch.equal(se, sg)
