@@ -142,6 +142,26 @@ Phases:
    training passes at ResNet-50's 53 BN shapes, and an HWIO weight view
    against a channels-last weight, all timed.
 
+14. training loop — the flagship of phase 5 trained as a user trains
+   it: rows (ids, label, scale) from a reader through ``DataFeeder([
+   SeqSlot(), IndexSlot(), DenseSlot(1)])`` (lengths 30..100 bucket to T
+   = 128) on the ``DoubleBuffer`` prefetch thread into ``Trainer.train``
+   with ``outputs_fn`` (logits, probabilities, labels; one forward shared
+   with the loss through ``shared_forward``), the classification-error,
+   AUC and sum evaluators, a test reader of 2 batches and a checkpoint a
+   pass, 3 passes of 8 batches, bf16 over f32 masters, Adam 2e-3, warmed
+   first: one replay and one launch of #9 and #10 a step, one #8 a test
+   batch, a falling mean cost, finite in-range evaluator results, the
+   checkpoints; ms a step (median) and a profiled pass's busy share beside
+   the bare graphed step of the same batches fed beforehand, and the
+   host timers of the loop; the pass checkpoint loaded on the CPU and,
+   re-saved there, back on the card bit-equal, the seconds and bytes of a
+   save and of a resume's load; in f32 a preemption after pass 1's batch
+   3 and ``resume=True`` bit-equal to the uninterrupted run (replays
+   only); under ``on_nonfinite="skip"`` a batch whose loss scale is inf
+   leaving every parameter and the optimizer state (its step too)
+   bit-equal to the run without that batch.
+
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
@@ -160,7 +180,7 @@ fresh generator each: one capture a length and no growth of the memory
 allocated beyond an eighth of a KV cell.
 
 Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
-(phase 13's), ``{"kernels":
+(phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"kernels":
 [...]}``, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
 card, or without the ``paddle_tpu_torch`` package beside this file.
@@ -1178,12 +1198,13 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                        flagship=(TEXTCLS_BATCH, TEXTCLS_LEN,
                                  TEXTCLS["hidden"]), parent=None):
     """#8, #9 and #10 against their plain versions in f32 and bf16 at the
-    flagship shape (lengths from the seed in 30..100) and at the edge
-    shape; at the flagship shape also their times, the plain versions'
-    and the bound (and #8's and #9's beside the ``parent`` library's
-    bodies, timed in turns, where one is given). Returns the kernels' JSON
-    entries (the bf16 flagship numbers first: that is what the training
-    path runs)."""
+    flagship shape (lengths from the seed in 30..100), at the training
+    loop's shape (phase 14's first batch through its feeder: the lengths
+    of its rows, T bucketed to 128) and at the edge shape; at the
+    flagship shape also their times, the plain versions' and the bound
+    (and #8's and #9's beside the ``parent`` library's bodies, timed in
+    turns, where one is given). Returns the kernels' JSON entries (the
+    bf16 flagship numbers first: that is what the training path runs)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops import rnn_kernels as rk
@@ -1191,7 +1212,10 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
     rs = np.random.RandomState(seed)
     flag_lens = rs.randint(min(TEXTCLS_MIN_LEN, T), T + 1, B)
     edge_T = max(LSTM_EDGE_LENS)
+    loop_sb = loop_feeder(device)(next(loop_rows(seed + 1, 1)()))[0]
     shapes = (("flagship", B, T, flag_lens, False),
+              ("loop", loop_sb.batch_size, loop_sb.max_len,
+               loop_sb.lengths.tolist(), False),
               ("edge", len(LSTM_EDGE_LENS), edge_T, LSTM_EDGE_LENS, True))
     gen = torch.Generator().manual_seed(seed + 3)
     entries = {name: {"name": name, "route": "cuda", "source": src,
@@ -1235,10 +1259,10 @@ def lstm_kernel_checks(say, seed: int, device="cuda", timed: bool = True,
                             check(torch.equal(got[1][b], fwd[4][b]),
                                   f"{name}: a 0-length sample's hT != h0")
                 res = {"max_abs_err": max(errs)}
-                if tag == "flagship":
+                if tag != "edge":
                     again = run(name, args)
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                          f"{name} flagship {dname}: two runs differ")
+                          f"{name} {tag} {dname}: two runs differ")
                     res["bit_equal_two_runs"] = True
                 if timed and tag == "flagship":
                     res.update(_lstm_times(name, run, Bs, Ts, H, lens, dt,
@@ -1544,7 +1568,7 @@ def f32_loss(model, route=None):
     return loss_fn
 
 
-def f32_step_check(say, model, batch, device):
+def f32_step_check(say, model, batch, device, what="f32 training step"):
     """One f32 Adam step through the kernels against the same step with
     the plain versions, on the card. Tolerances: the gradients (read as
     Adam's first moment, 0.1 g) to rtol 1e-4 plus 1e-5 of each tensor's
@@ -1575,7 +1599,7 @@ def f32_step_check(say, model, batch, device):
         check(err <= 1e-5, f"f32 step: param {'/'.join(path)} differs "
               f"from plain by {err}")
         worst["param " + "/".join(path)] = err
-    say(f"f32 training step, kernels vs plain on the card: loss "
+    say(f"{what}, kernels vs plain on the card: loss "
         f"{lk.item():.6f} vs {lp.item():.6f}; max abs differences "
         f"{json.dumps(worst)}")
 
@@ -3782,6 +3806,396 @@ def image_phase(say, seed: int, device="cuda") -> dict:
     return figs
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the whole training loop over the flagship
+# ---------------------------------------------------------------------------
+
+# 3 passes of 8 batches and a test pass of 2 batches after each pass;
+# the preemption after pass 1's batch 3; the poisoned batch of the skip
+# check; the prefetch watchdog
+LOOP_BATCHES, LOOP_TEST_BATCHES, LOOP_PASSES = 8, 2, 3
+LOOP_PREEMPT, LOOP_POISON, LOOP_TIMEOUT = (1, 3), 3, 120.0
+
+
+def loop_rows(seed: int, n_batches: int, poison=None,
+              batch=TEXTCLS_BATCH, vocab=TEXTCLS["vocab"]):
+    """A reader creator of ``n_batches`` row batches of the flagship's
+    rows, from ``seed``: (ids as a list, lengths 30..100; the label, the
+    parity of the last id; [scale]); the rows of batch ``poison`` have
+    scale inf."""
+    import numpy as np
+
+    def reader():
+        rs = np.random.RandomState(seed)
+        for b in range(n_batches):
+            rows = []
+            for n in rs.randint(TEXTCLS_MIN_LEN, TEXTCLS_LEN + 1, batch):
+                ids = rs.randint(0, vocab, n)
+                rows.append((ids.tolist(), int(ids[-1] % 2),
+                             [float("inf") if b == poison else 1.0]))
+            yield rows
+    return reader
+
+
+def loop_feeder(device):
+    from paddle_tpu_torch.data import (DataFeeder, DenseSlot, IndexSlot,
+                                       SeqSlot)
+    return DataFeeder([SeqSlot(), IndexSlot(), DenseSlot(1)], device=device)
+
+
+def loop_fns(model, dtype):
+    """The loop's loss (each row's cross-entropy times its scale; in bf16
+    the f32 masters cast as phase 5 casts them) and the evaluators'
+    outputs (logits, the positive class's probability, labels), one
+    forward for both (``shared_forward``)."""
+    import torch
+    from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
+    from paddle_tpu_torch.trainer import shared_forward
+
+    @shared_forward
+    def logits(p, sb):
+        if dtype != torch.float32:
+            p = cast_tree(p, dtype)
+        return model.call(p, sb).to(torch.float32)
+
+    def loss(p, sb, y, sc):
+        return torch.mean(softmax_with_cross_entropy(logits(p, sb), y)
+                          * sc[:, 0])
+
+    def outputs(p, sb, y, sc):
+        lg = logits(p, sb)
+        return {"logits": lg, "probs": torch.softmax(lg, -1)[:, 1],
+                "labels": y}
+    return loss, outputs
+
+
+def loop_trainer(model, dtype, device, evaluators=True, **kw):
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import (AucEvaluator,
+                                          ClassificationErrorEvaluator,
+                                          SumEvaluator, Trainer)
+    loss, outs = loop_fns(model, dtype)
+    if evaluators:
+        kw.update(outputs_fn=outs, evaluators=[
+            ClassificationErrorEvaluator(), AucEvaluator(), SumEvaluator()])
+    return Trainer(loss, Adam(TEXTCLS_LR), device=device,
+                   prefetch_timeout=LOOP_TIMEOUT, **kw)
+
+
+def check_results(what, res) -> None:
+    """Evaluator results finite and in range (the AUC, an f32 sum of
+    trapezoids as in JAX, within 2**-20 of [0, 1])."""
+    import numpy as np
+    check(res is not None and {"classification_error", "accuracy", "auc",
+                               "avg_cost", "sum_cost"} <= set(res),
+          f"{what}: evaluator result {res}")
+    check(all(np.isfinite(v) for v in res.values()),
+          f"{what}: a non-finite evaluator result {res}")
+    check(all(-2.0 ** -20 <= res[k] <= 1.0 + 2.0 ** -20
+              for k in ("classification_error", "accuracy", "auc")),
+          f"{what}: a rate out of [0, 1]: {res}")
+
+
+def tree_max_diff(a, b) -> dict:
+    """Per leaf, the largest absolute difference of two trees with the same
+    paths and dtypes."""
+    from paddle_tpu_torch.core.pytree import tree_items
+    want = dict(tree_items(b))
+    check(sorted(want) == sorted(p for p, _ in tree_items(a)),
+          "the trees have different paths")
+    out = {}
+    for path, x in tree_items(a):
+        y = want[path]
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"trees differ at {path}")
+        out["/".join(path)] = (x.double() - y.double().to(x.device)
+                               ).abs().max().item()
+    return out
+
+
+def stamped_run(run):
+    """run(event_handler) with the host clock at each EndIteration: (out,
+    ms per step after the first two: median, p10, p90, costs)."""
+    import numpy as np
+    from paddle_tpu_torch.trainer import event
+    stamps, costs, results = [], [], []
+
+    def on_event(e):
+        if isinstance(e, event.EndIteration):
+            stamps.append(time.perf_counter())
+            costs.append(e.cost)
+            results.append(e.evaluator_result)
+    t0 = time.perf_counter()
+    out = run(on_event)
+    ms = np.diff([t0] + stamps)[2:] * 1e3
+    return out, {"ms_per_step_median": float(np.median(ms)),
+                 "ms_per_step_p10": float(np.percentile(ms, 10)),
+                 "ms_per_step_p90": float(np.percentile(ms, 90))}, \
+        costs, results
+
+
+def dir_bytes(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def loop_phase(say, seed: int, device="cuda") -> dict:
+    """The flagship trained as a user trains it: rows from a reader
+    through ``DataFeeder`` and the ``DoubleBuffer`` prefetch thread into
+    ``Trainer.train`` with ``outputs_fn``, three evaluators, a test
+    reader and a checkpoint a pass; beside it the bare graphed step of
+    the same batches (and one f32 step of the first fed batch against
+    the plain route's); then preempt-and-resume and the f32 runs it must
+    equal, the skip policy on a poisoned batch against the run without
+    it, a checkpoint written on the card loaded on the CPU and back, and
+    the seconds and bytes of a pass checkpoint and of a resume."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.models import LSTMTextCls
+    from paddle_tpu_torch.trainer import event
+    from paddle_tpu_torch.trainer.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    cfg = TEXTCLS
+    model = LSTMTextCls(cfg["vocab"], cfg["embed"], cfg["hidden"],
+                        cfg["classes"], pool="last").init(seed, device)
+    reader = loop_rows(seed + 1, LOOP_BATCHES)
+    test_reader = loop_rows(seed + 2, LOOP_TEST_BATCHES)
+    feeder = loop_feeder(device)
+    tmp = tempfile.mkdtemp(prefix="loop_")
+    figs = {}
+    try:
+        # (a) the loop, warmed (its step and test graphs captured) first
+        tr = loop_trainer(model, torch.bfloat16, device)
+        tr.train(loop_rows(seed + 3, 1), model.tree(), feeder=feeder,
+                 test_reader=loop_rows(seed + 4, 1), handle_signals=False)
+        tr.output_dir = os.path.join(tmp, "main")
+        passes = []
+        tests = []
+
+        def on_pass(e):
+            if isinstance(e, event.EndPass):
+                passes.append(e.evaluator_result)
+            elif isinstance(e, event.TestResult):
+                tests.append((e.cost, e.evaluator_result))
+
+        def loop_run(on_event):
+            def handler(e):
+                on_event(e)
+                on_pass(e)
+            return counted(lambda: tr.train(
+                reader, model.tree(), num_passes=LOOP_PASSES,
+                event_handler=handler, feeder=feeder,
+                test_reader=test_reader, handle_signals=False))
+
+        tr.stats.reset()
+        (res, wall, launches, disp), loop_ms, costs, results = \
+            stamped_run(loop_run)
+        p, state = res
+        host = {k: {"ms_avg": v.avg * 1e3, "count": v.count}
+                for k, v in tr.stats.items().items()}
+        steps = LOOP_PASSES * LOOP_BATCHES
+        tests_n = LOOP_PASSES * LOOP_TEST_BATCHES
+        say(f"training loop (bf16, {steps} steps, feeder + prefetch + "
+            f"evaluators + test + checkpoints): costs {json.dumps(costs)}; "
+            f"test costs {[t[0] for t in tests]}; launches {launches}; "
+            f"dispatches {json.dumps(disp)}")
+        check(int(state["step"]) == steps and len(costs) == steps,
+              f"loop: {len(costs)} steps ran, want {steps}")
+        check(all(np.isfinite(costs)), "loop: a non-finite cost")
+        first, last = (np.mean(costs[:LOOP_BATCHES]),
+                       np.mean(costs[-LOOP_BATCHES:]))
+        check(last < first, f"loop: the mean cost of a pass did not fall: "
+              f"{first} -> {last}")
+        want = {"lstm_seq_train": steps, "lstm_seq_bwd": steps,
+                "lstm_seq": tests_n}
+        check(launches == want, f"loop: launches {launches}, want {want}")
+        check(step_dispatches(disp, "step") == {"captures": 0,
+                                                "replays": steps},
+              f"loop: step graphs {step_dispatches(disp, 'step')}, want "
+              f"one replay a step")
+        check(step_dispatches(disp, "loss") == {"captures": 0,
+                                                "replays": tests_n},
+              f"loop: test graphs {step_dispatches(disp, 'loss')}")
+        graph_launch_check(say, "training loop")
+        for i, r in enumerate(results):
+            check_results(f"loop step {i}", r)
+        for i, r in enumerate(passes):
+            check_results(f"loop pass {i}", r)
+        for i, (c, r) in enumerate(tests):
+            check(np.isfinite(c), f"loop test {i}: cost {c}")
+            check_results(f"loop test {i}", r)
+        check(sorted(os.listdir(tr.output_dir)) ==
+              [f"pass-{i:05d}" for i in range(LOOP_PASSES)],
+              f"loop: checkpoints {os.listdir(tr.output_dir)}")
+        say(f"training loop evaluators: last step {json.dumps(results[-1])};"
+            f" passes {json.dumps(passes)}; tests {json.dumps(tests)}")
+        say(f"training loop host timers (StatSet): {json.dumps(host)} "
+            f"(TrainBatch: the step's copy-in and graph launch; Eval: the "
+            f"evaluators' update and result, host reads included)")
+        figs["loop"] = dict(loop_ms, launches=launches, costs=costs,
+                            passes=passes, tests=tests, host_timers=host)
+
+        # (b) the bare graphed step of the same batches, fed beforehand
+        fed = [feeder(rows) for rows in reader()]
+        sb, y, _ = fed[0]
+        f32_step_check(say, model, (sb.data, sb.lengths, y), device,
+                       what=f"f32 step of the loop's first fed batch "
+                            f"(B={sb.batch_size} T={sb.max_len})")
+        bare = loop_trainer(model, torch.bfloat16, device, evaluators=False)
+        bare.train(lambda: fed[:1], model.tree())
+        (res_b, _, bare_launches, bare_disp), bare_ms, bare_costs, _ = \
+            stamped_run(lambda on: counted(lambda: bare.train(
+                lambda: fed, model.tree(), num_passes=LOOP_PASSES,
+                event_handler=on)))
+        check(bare_launches == {"lstm_seq_train": steps,
+                                "lstm_seq_bwd": steps},
+              f"bare step: launches {bare_launches}")
+        check(step_dispatches(bare_disp, "step")["replays"] == steps,
+              f"bare step: dispatches {bare_disp}")
+        # both replay the same kernels and ops on the same batches from the
+        # same weights (the evaluators' outputs read the loss's forward)
+        diff = max(abs(a - b) for a, b in zip(costs, bare_costs))
+        say(f"training loop against the bare graphed step of the same "
+            f"batches: costs max difference {diff!r}")
+        check(diff == 0.0, f"loop: costs differ from the bare step's by "
+              f"{diff!r}")
+        figs["bare"] = bare_ms
+
+        # busy share of one pass of each (no test pass, no checkpoint)
+        tr.output_dir = None
+        runs = {"loop": lambda: tr.train(reader, model.tree(), feeder=feeder,
+                                         handle_signals=False),
+                "bare": lambda: bare.train(lambda: fed, model.tree())}
+        for what, run in runs.items():
+            walls = []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            figs[what]["pass_wall_ms_per_step"] = min(walls) * 1e3 / \
+                LOOP_BATCHES
+            figs[what]["profile"] = profile_breakdown(
+                say, f"training {what} (one pass of {LOOP_BATCHES} steps)",
+                run, min(walls), steps=LOOP_BATCHES)
+        say(f"training loop vs bare graphed step, ms a step: median of the "
+            f"gaps between steps over {steps - 2} steps (3 passes, test "
+            f"passes and checkpoints between them): loop "
+            f"{loop_ms['ms_per_step_median']:.4f}, bare "
+            f"{bare_ms['ms_per_step_median']:.4f}; one pass's wall over "
+            f"{LOOP_BATCHES} steps (best of 2, no test, no checkpoint): "
+            f"{figs['loop']['pass_wall_ms_per_step']:.4f} vs "
+            f"{figs['bare']['pass_wall_ms_per_step']:.4f}; busy share of "
+            f"that one-pass wall "
+            f"{(figs['loop']['profile'] or {}).get('busy_share')} vs "
+            f"{(figs['bare']['profile'] or {}).get('busy_share')}")
+        del bare, fed
+
+        # (c) a checkpoint written on the card, on the CPU and back
+        cp, cs, st = load_checkpoint(os.path.join(tmp, "main"),
+                                     device="cpu")
+        check(st == {"pass_id": LOOP_PASSES - 1, "version": 1,
+                     "pass_complete": True}, f"checkpoint state {st}")
+        check(all(v == 0.0 for v in tree_max_diff(
+            tree_map(lambda t: t.cpu(), p), cp).values()),
+            "the card's checkpoint differs from the trained params on "
+            "the CPU")
+        save_checkpoint(os.path.join(tmp, "cpu"), 0, cp, cs)
+        back, back_s, _ = load_checkpoint(os.path.join(tmp, "cpu"),
+                                          device=device)
+        check(all(v == 0.0 for v in tree_max_diff(back, cp).values())
+              and int(back_s["step"]) == steps,
+              "the CPU's checkpoint differs on the card")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "timed"), 0, p, state)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        lp, ls, _ = load_checkpoint(os.path.join(tmp, "timed"),
+                                    device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        nbytes = dir_bytes(os.path.join(tmp, "timed", "pass-00000"))
+        figs["checkpoint"] = {"save_s": save_s, "resume_load_s": load_s,
+                              "bytes": nbytes}
+        say(f"checkpoint of the flagship's trees (params + Adam state): "
+            f"{nbytes} bytes, saved (host copy, tar, fsync, rename) in "
+            f"{save_s:.4f} s, loaded back onto the card in {load_s:.4f} s; "
+            f"the card's pass checkpoint loaded on the CPU and, re-saved "
+            f"there, on the card, bit-equal")
+        del tr, lp, ls, cp, cs, back, back_s
+
+        # (d) preempt and resume in f32 against the uninterrupted run
+        f32 = loop_trainer(model, torch.float32, device)
+        f32.train(loop_rows(seed + 3, 1), model.tree(), feeder=feeder,
+                  handle_signals=False)
+        want_p, want_s = f32.train(reader, model.tree(),
+                                   num_passes=LOOP_PASSES, feeder=feeder,
+                                   handle_signals=False)
+        f32.output_dir = os.path.join(tmp, "f32")
+
+        def preempt(e):
+            if isinstance(e, event.EndIteration) and \
+                    (e.pass_id, e.batch_id) == LOOP_PREEMPT:
+                f32.request_preemption()
+
+        f32.train(reader, model.tree(), num_passes=LOOP_PASSES,
+                  feeder=feeder, event_handler=preempt,
+                  handle_signals=False)
+        check(f32.preempted and f32.train_stats["preemptions"] == 1,
+              "f32: the preemption did not stop the run")
+        (got_p, got_s), _, res_launches, res_disp = counted(
+            lambda: f32.train(reader, model.tree(),
+                              num_passes=LOOP_PASSES - LOOP_PREEMPT[0],
+                              feeder=feeder, resume=True,
+                              handle_signals=False))
+        rest = steps - (LOOP_PREEMPT[0] * LOOP_BATCHES + LOOP_PREEMPT[1]
+                        + 1)
+        check(step_dispatches(res_disp, "step") == {"captures": 0,
+                                                    "replays": rest},
+              f"f32 resume: step graphs {res_disp}, want {rest} replays")
+        pd_ = tree_max_diff(got_p, want_p)
+        sd_ = tree_max_diff(got_s, want_s)
+        say(f"f32 preempt at pass {LOOP_PREEMPT[0]} batch {LOOP_PREEMPT[1]}"
+            f" and resume against the uninterrupted run: params "
+            f"{json.dumps(pd_)}; opt_state {json.dumps(sd_)}")
+        check(max(pd_.values()) == 0.0 and max(sd_.values()) == 0.0,
+              "f32: resume is not bit-equal to the uninterrupted run")
+        figs["resume"] = {"bit_equal": True, "replays": rest}
+        del f32, want_p, want_s, got_p, got_s
+
+        # (e) skip: a poisoned batch against the run without it (bf16)
+        sk = loop_trainer(model, torch.bfloat16, device,
+                          on_nonfinite="skip")
+        sk.train(loop_rows(seed + 3, 1), model.tree(), feeder=feeder,
+                 handle_signals=False)
+        poisoned = loop_rows(seed + 1, LOOP_BATCHES, poison=LOOP_POISON)
+        clean = lambda: (b for i, b in enumerate(poisoned())
+                         if i != LOOP_POISON)
+        (skip_p, skip_s), _, _, _ = counted(lambda: sk.train(
+            poisoned, model.tree(), feeder=feeder, handle_signals=False))
+        clean_p, clean_s = sk.train(clean, model.tree(), feeder=feeder,
+                                    handle_signals=False)
+        check(sk.train_stats["skipped_batches"] == 1,
+              f"skip: {dict(sk.train_stats)}")
+        pd_ = tree_max_diff(skip_p, clean_p)
+        sd_ = tree_max_diff(skip_s, clean_s)
+        say(f"skip (bf16): the poisoned batch {LOOP_POISON} skipped; "
+            f"against the run without it: params {json.dumps(pd_)}; "
+            f"opt_state {json.dumps(sd_)}; step {int(skip_s['step'])} vs "
+            f"{int(clean_s['step'])}")
+        check(max(pd_.values()) == 0.0 and max(sd_.values()) == 0.0
+              and int(skip_s["step"]) == LOOP_BATCHES - 1,
+              "skip: not bit-equal to the run without the batch")
+        figs["skip"] = {"bit_equal": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return figs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3893,6 +4307,9 @@ def main(argv=None) -> int:
             + " + ".join(f"{g[name]} in one {what} generate call"
                          for what, g in gen.items()))
     image = image_phase(say, args.seed)
+    loop = loop_phase(say, args.seed)
+    for entry in lstm:
+        entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
     if args.rnn_sweep:
         for entry in lstm + gru:
             for tag, res in sweep.items():
@@ -3906,6 +4323,7 @@ def main(argv=None) -> int:
                     entry[key] = sass[body]
     print(json.dumps({"graph_paths": GRAPH_PATHS, "card": card}))
     print(json.dumps({"image": image, "card": card}))
+    print(json.dumps({"loop": loop, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

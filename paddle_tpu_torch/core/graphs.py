@@ -62,6 +62,7 @@ kernel nodes against that record (:func:`captured`).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import weakref
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional
 
@@ -117,8 +118,9 @@ _LEAF = _Leaf()
 
 
 def _flatten(tree, leaves: List[torch.Tensor]):
-    """A hashable spec of ``tree`` (dicts, lists, tuples and NamedTuples of
-    tensors and constants), appending its tensors to ``leaves``."""
+    """A hashable spec of ``tree`` (dicts, lists, tuples, NamedTuples and
+    dataclasses such as a ``SeqBatch``, of tensors and constants),
+    appending its tensors to ``leaves``."""
     if isinstance(tree, torch.Tensor):
         leaves.append(tree)
         return _LEAF
@@ -126,6 +128,10 @@ def _flatten(tree, leaves: List[torch.Tensor]):
         return (dict, tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
     if isinstance(tree, (list, tuple)):
         return (type(tree), tuple(_flatten(v, leaves) for v in tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree), tuple(
+            _flatten(getattr(tree, f.name), leaves)
+            for f in dataclasses.fields(tree)))
     return (None, tree)
 
 
@@ -140,7 +146,7 @@ def _unflatten(spec, leaves):
     if kind is None:
         return body
     items = [_unflatten(v, leaves) for v in body]
-    if hasattr(kind, "_fields"):
+    if hasattr(kind, "_fields") or dataclasses.is_dataclass(kind):
         return kind(*items)
     return kind(items)
 

@@ -49,12 +49,20 @@ def sequence_mask(lengths: torch.Tensor, max_len: int,
 
 def bucket_length(n: int,
                   buckets: Sequence[int] = (8, 16, 32, 64, 128, 256, 512,
-                                            1024)) -> int:
+                                            1024),
+                  overflow: str = "exact") -> int:
     """Round a max sequence length up to the first bucket that holds it
-    (``buckets`` ascending); past the largest bucket, ``n`` itself."""
+    (``buckets`` ascending). Past the largest bucket, ``overflow="exact"``
+    gives ``n`` itself and ``"pow2"`` the next power of two (the feeder's
+    ``next_bucket``)."""
     for b in buckets:
         if n <= b:
             return int(b)
+    if overflow == "pow2":
+        p = 1
+        while p < n:
+            p <<= 1
+        return p
     return int(n)
 
 

@@ -175,15 +175,19 @@ def apply_stat_updates(params: Mapping, mutable: Mapping) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def apply_stat_updates_(params: Mapping, mutable: Mapping) -> None:
+def apply_stat_updates_(params: Mapping, mutable: Mapping,
+                        ok: Optional[torch.Tensor] = None) -> None:
     """:func:`apply_stat_updates` written into ``params`` in place, each
     value cast to the dtype of the stat it replaces (the bf16 recipe's
-    updates into the f32 masters)."""
+    updates into the f32 masters); with ``ok`` (a 0-d bool tensor) each
+    write is ``where(ok, new, old)`` (the trainer's non-finite guard)."""
     for path, updates in mutable.items():
         stats = tree_get(params, tuple(k for k in path.split("/") if k)
                          + ("stats",))
         for name, value in updates.items():
-            stats[name].copy_(value)
+            old = stats[name]
+            old.copy_(value if ok is None else
+                      torch.where(ok, value.to(old.dtype), old))
 
 
 def run_initializers(root: nn.Module, gen: torch.Generator) -> None:

@@ -1,4 +1,17 @@
-from . import event
-from .trainer import Trainer
+from . import checkpoint, evaluator, event, plot
+from .checkpoint import (latest_pass, load_checkpoint, save_checkpoint,
+                         verify_checkpoint)
+from .evaluator import (AucEvaluator, ChunkEvaluator,
+                        ClassificationErrorEvaluator, Evaluator,
+                        EvaluatorGroup, MaxIdPrinterEvaluator,
+                        PnpairEvaluator, PrecisionRecallEvaluator,
+                        SumEvaluator, ValuePrinterEvaluator)
+from .plot import Ploter
+from .trainer import Trainer, shared_forward
 
-__all__ = ["Trainer", "event"]
+__all__ = ["AucEvaluator", "ChunkEvaluator", "ClassificationErrorEvaluator",
+           "Evaluator", "EvaluatorGroup", "MaxIdPrinterEvaluator",
+           "PnpairEvaluator", "Ploter", "PrecisionRecallEvaluator",
+           "SumEvaluator", "Trainer", "ValuePrinterEvaluator", "checkpoint",
+           "evaluator", "event", "latest_pass", "load_checkpoint", "plot",
+           "save_checkpoint", "shared_forward", "verify_checkpoint"]

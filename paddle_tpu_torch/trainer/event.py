@@ -1,11 +1,12 @@
 """Training events delivered to user callbacks — the event set of
-``paddle_tpu/trainer/event.py`` (the reference's v2 API), fired from the
+``paddle_tpu/trainer/event.py`` (the reference's v2 API:
+BeginPass/EndPass/BeginIteration/EndIteration/TestResult), fired from the
 train loop at the same points."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
 
 
 @dataclass
@@ -29,5 +30,13 @@ class BeginIteration:
 class EndIteration:
     pass_id: int
     batch_id: int
+    cost: float
+    evaluator_result: Optional[Dict[str, float]] = None
+    metrics: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class TestResult:
+    pass_id: int
     cost: float
     evaluator_result: Optional[Dict[str, float]] = None

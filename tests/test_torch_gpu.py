@@ -1884,3 +1884,204 @@ def test_dropout_generator_replays_through_the_graph_on_card(cuda_f32):
     (le, se), (lg, sg) = res["eager"], res["graphed"]
     assert abs(le - lg) <= 1e-6 * abs(le)
     assert torch.equal(se, sg)
+
+
+# -- the training loop (trainer, optimizers, data, checkpoints) ---------------
+
+def _loop_model(cuda, seed=1):
+    from paddle_tpu_torch.models import LSTMTextCls
+    return LSTMTextCls(500, 32, 64, pool="last").init(seed=seed,
+                                                      device=cuda)
+
+
+def _loop_fns(model):
+    """The loss (each row's cross-entropy times its scale) and the
+    evaluators' outputs, sharing one forward."""
+    from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
+    from paddle_tpu_torch.trainer import shared_forward
+
+    @shared_forward
+    def logits(p, sb):
+        return model.call(p, sb)
+
+    def loss(p, sb, y, sc):
+        return torch.mean(softmax_with_cross_entropy(logits(p, sb), y)
+                          * sc[:, 0])
+
+    def outputs(p, sb, y, sc):
+        lg = logits(p, sb)
+        return {"logits": lg, "probs": torch.softmax(lg, -1)[:, 1],
+                "labels": y}
+    return loss, outputs
+
+
+def _loop_rows(seed, n_batches, B=16, poison=None, hi=(20, 60, 100)):
+    """A reader of row batches [(ids, label, [scale])] whose longest
+    sequence cycles through ``hi``, so that the feeder's bucket (32, 64,
+    128) changes from batch to batch; batch ``poison``'s scale is inf."""
+    def reader():
+        rs = np.random.RandomState(seed)
+        for b in range(n_batches):
+            top = hi[b % len(hi)]
+            rows = []
+            for _ in range(B):
+                ids = rs.randint(0, 500, rs.randint(top // 2, top + 1))
+                rows.append((ids.tolist(), int(ids[-1] % 2),
+                             [np.inf if b == poison else 1.0]))
+            yield rows
+    return reader
+
+
+def _loop_feeder(cuda):
+    from paddle_tpu_torch.data import DataFeeder, DenseSlot, IndexSlot, \
+        SeqSlot
+    return DataFeeder([SeqSlot(), IndexSlot(), DenseSlot(1)], device=cuda)
+
+
+def _tree_diff(a, b):
+    from paddle_tpu_torch.core.pytree import tree_items
+    return max((x.float() - y.float()).abs().max().item()
+               for (_, x), (_, y) in zip(tree_items(a), tree_items(b),
+                                         strict=True))
+
+
+@pytest.mark.gpu
+def test_guarded_step_graph_equals_the_eager_step_on_card(cuda):
+    """``on_nonfinite="skip"`` through the graphs against the eager route,
+    over a pass with a poisoned batch: the same costs and launches, the
+    parameters within the graph check's 1e-5, the step counter not
+    advanced by the poisoned batch; and the graphed skip run bit-equal to
+    the graphed run without that batch."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    model = _loop_model(cuda)
+    loss, outs = _loop_fns(model)
+    runs = {}
+    for route in ("eager", "graphed", "clean"):
+        tr = Trainer(loss, Adam(1e-3), device=cuda, on_nonfinite="skip")
+        costs = []
+        on = lambda e: costs.append(getattr(e, "cost", None))
+        reader = _loop_rows(4, 5, poison=None if route == "clean" else 2)
+        if route == "clean":
+            whole = reader
+            reader = lambda: (b for i, b in enumerate(whole()) if i != 2)
+        ctx = graphs.disabled() if route == "eager" else \
+            __import__("contextlib").nullcontext()
+        with ctx:
+            (p, s), launches, d = _counted(lambda: tr.train(
+                reader, model.tree(), feeder=_loop_feeder(cuda),
+                event_handler=on, handle_signals=False))
+        runs[route] = (p, s, [c for c in costs if c is not None], launches)
+        if route == "graphed":
+            assert tr.train_stats["skipped_batches"] == 1
+    (pe, se, ce, le), (pg, sg, cg, lg), (pc, sc, cc, _) = (
+        runs["eager"], runs["graphed"], runs["clean"])
+    assert le == lg and le["lstm_seq_train"] == 5
+    assert np.isinf(ce[2]) and np.isinf(cg[2])
+    np.testing.assert_allclose(cg, ce, rtol=1e-6)
+    assert _tree_diff(pg, pe) <= 1e-5 and _tree_diff(sg["slots"],
+                                                     se["slots"]) <= 1e-5
+    assert int(sg["step"]) == int(se["step"]) == 4
+    assert cg[:2] + cg[3:] == cc
+    assert _tree_diff(pg, pc) == 0.0 and _tree_diff(sg, sc) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", ["exponential", "piecewise"])
+def test_schedule_follows_the_step_through_the_graph_on_card(cuda, sched):
+    """A schedule of the step tensor inside the step's graph: 7 replays
+    past its boundaries equal the eager route (1e-5), and differ from the
+    rate frozen at its first value."""
+    from paddle_tpu_torch.core import SeqBatch, graphs
+    from paddle_tpu_torch.optimizer import (SGD, exponential_decay,
+                                            piecewise_decay)
+    from paddle_tpu_torch.trainer import Trainer
+    model = _loop_model(cuda, 2)
+    gen = torch.Generator().manual_seed(5)
+    batch = (torch.randint(0, 500, (16, 24), generator=gen).to(cuda),
+             torch.randint(1, 25, (16,), generator=gen).to(cuda),
+             torch.randint(0, 2, (16,), generator=gen).to(cuda))
+    loss = lambda p, d, ln, y: model.call(p, SeqBatch(d, ln), y)
+    lr = {"exponential": exponential_decay(0.5, 2, 0.3),
+          "piecewise": piecewise_decay([2, 4], [0.5, 0.05, 0.005])}[sched]
+    out = {}
+    for route, rate in (("eager", lr), ("graphed", lr),
+                        ("frozen", float(lr(torch.tensor(1.0))))):
+        tr = Trainer(loss, SGD(rate), device=cuda)
+        ctx = graphs.disabled() if route == "eager" else \
+            __import__("contextlib").nullcontext()
+        with ctx:
+            p, s = tr.train(lambda: [batch] * 8, model.tree())
+        out[route] = p
+        assert int(s["step"]) == 8
+    assert _tree_diff(out["graphed"], out["eager"]) <= 1e-5
+    assert _tree_diff(out["graphed"], out["frozen"]) > 1e-3
+
+
+@pytest.mark.gpu
+def test_feeder_captures_in_the_middle_of_a_pass_on_card(cuda):
+    """The feeder on the prefetch thread copies to the card while the main
+    thread captures a new bucket's graph (buckets 32, 64, 128 in turn):
+    the captures survive (one per bucket, replays after), and the costs,
+    evaluator results and parameters equal the eager route's."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import (AucEvaluator,
+                                          ClassificationErrorEvaluator,
+                                          Trainer)
+    model = _loop_model(cuda, 3)
+    loss, outs = _loop_fns(model)
+    res = {}
+    for route in ("eager", "graphed"):
+        tr = Trainer(loss, Adam(1e-3), device=cuda, outputs_fn=outs,
+                     evaluators=[ClassificationErrorEvaluator(),
+                                 AucEvaluator(20)], prefetch_timeout=60)
+        evs = []
+        on = lambda e: evs.append((e.cost, e.evaluator_result)) \
+            if type(e).__name__ == "EndIteration" else None
+        ctx = graphs.disabled() if route == "eager" else \
+            __import__("contextlib").nullcontext()
+        with ctx:
+            (p, s), launches, d = _counted(lambda: tr.train(
+                _loop_rows(6, 9), model.tree(), num_passes=2,
+                feeder=_loop_feeder(cuda), event_handler=on,
+                handle_signals=False))
+        res[route] = (p, evs, launches, d)
+    (pe, ee, le, de), (pg, eg, lg, dg) = res["eager"], res["graphed"]
+    assert _replays(dg, "step") == (3, 15) and de == {}
+    assert le == lg == {"lstm_seq_train": 18, "lstm_seq_bwd": 18}
+    np.testing.assert_allclose([c for c, _ in eg], [c for c, _ in ee],
+                               rtol=1e-5)
+    for (_, rg), (_, re) in zip(eg, ee):
+        assert rg.keys() == re.keys()
+    assert _tree_diff(pg, pe) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A tree on the card (f32, bf16, int32) saved and loaded back onto the
+    card and onto the CPU bit for bit, in the saved order; the CPU's
+    re-save is the same bytes, params and state."""
+    from paddle_tpu_torch.core.pytree import tree_items
+    from paddle_tpu_torch.trainer.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    gen = torch.Generator().manual_seed(9)
+    params = {"w": torch.randn(33, 7, generator=gen).to(cuda),
+              "h": torch.randn(5, generator=gen).to(cuda, torch.bfloat16),
+              "t": torch.randn(4, 6, generator=gen).to(cuda).t()}
+    state = {"step": torch.tensor(3, dtype=torch.int32, device=cuda),
+             "slots": {"w": {}, "h": {"m": torch.zeros(5, device=cuda)}}}
+    save_checkpoint(str(tmp_path / "a"), 0, params, state)
+    for dev in (cuda, torch.device("cpu")):
+        p, s, st = load_checkpoint(str(tmp_path / "a"), device=dev)
+        assert st["pass_id"] == 0 and s["slots"]["w"] == {}
+        for (path, a), (_, b) in zip(tree_items(p), tree_items(params)):
+            assert a.device.type == dev.type and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu()), path
+        assert int(s["step"]) == 3
+    p, s, _ = load_checkpoint(str(tmp_path / "a"), device="cpu")
+    save_checkpoint(str(tmp_path / "b"), 0, p, s)
+    for name in ("params.tar", "opt_state.tar"):
+        assert (tmp_path / "a" / "pass-00000" / name).read_bytes() == \
+            (tmp_path / "b" / "pass-00000" / name).read_bytes(), name

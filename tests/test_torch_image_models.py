@@ -44,7 +44,13 @@ Tolerances, each with its reason:
   of that stat.
 * The other models in f32: 1e-5 of the largest magnitude.
 * Several steps on one repeated batch: ResNet-18 in f32 follows JAX's
-  losses step for step (1e-3 relative; measured 1e-4 after 8 steps).
+  losses step for step, each within 1e-3 of its value plus 1e-5 of the
+  first step's loss: the loss falls 470x in 8 steps (2.116 to 0.0045)
+  while the two sides stay (1-5)e-6 apart from the first step to the
+  last, so a bound relative to the last, vanishing loss alone measures
+  the host's rounding (1e-4 on one host, 1.02e-3 on another); the
+  absolute term ties it to the loss scale where the run starts. A wrong
+  gradient moves the second loss (0.17) by orders of magnitude more.
   ResNet-50 at width 0.125 follows them only for its first step (its
   2e-2 gradient distance grows under lr 0.1); there the test holds what
   both sides do under the bench's Momentum(0.1, 0.9): the loss rises
@@ -270,7 +276,8 @@ def test_repeated_batch_losses_follow_jax(name, dtype):
     want, got = np.array(want), np.array(got)
     assert np.isfinite(got).all() and np.isfinite(want).all()
     if name == "resnet18_small":
-        np.testing.assert_allclose(got, want, rtol=1e-3)
+        np.testing.assert_allclose(got, want, rtol=1e-3,
+                                   atol=1e-5 * want[0])
     else:
         if not bf16:
             assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
