@@ -162,6 +162,33 @@ Phases:
    leaving every parameter and the optimizer state (its step too)
    bit-equal to the run without that batch.
 
+15. data plane — the flagship of phase 14 fed from files: (a) one pass of
+   its rows (512, unbatched) written by ``dump_to_chunks`` into recordio
+   chunks of 128 rows through the host library (built from native/'s
+   sources with g++, its seconds printed, or "cached") and trained from
+   ``batch(chunk_reader(paths), 64)`` with a test pass from chunks
+   through the warmed graphed trainer: costs and parameters bit-equal to
+   the same pass from the rows in memory, one replay and one #9 and #10
+   a step, one #8 a test batch; the loop's ms a step (one pass, best of
+   walls taken in turns) and busy share from chunks and from memory
+   beside phase 14's, the rows a second of ``chunk_reader`` and of it
+   with the feeder on the host alone, the seconds and bytes of the
+   chunks; (b) ``cloud_reader`` over a ``TaskMaster`` with a
+   ``FaultPlan`` raising at ``reader.next`` on the first task: every row
+   exactly once (as a multiset), the failed task re-dispatched once, and
+   a pass trained from it (the failure on the prefetch thread) with
+   finite costs and the same launches; (c) ``step.grad`` corrupting the
+   third step's cost under ``on_nonfinite="raise"``: the trainer raises
+   at that batch; ``ckpt.write`` truncating the last pass's params.tar
+   (f32): verification refuses it, the load falls back to the pass
+   before, and ``resume=True`` replays the step graph and ends bit-equal
+   to the run with no fault; (d) a DataFormat file of 64 rows (dense,
+   index, sequence and nested-sequence slots) read back through
+   ``format.reader_creator``, the feeder with ``SeqSlot(nested=True)`` on
+   the card bit-equal to the CPU's, and a body over its
+   ``NestedSeqBatch`` (embedding, masked means and sums, a product)
+   through a CUDA graph against the eager body and the CPU's.
+
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
@@ -180,8 +207,9 @@ fresh generator each: one capture a length and no growth of the memory
 allocated beyond an eighth of a KV cell.
 
 Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
-(phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"kernels":
-[...]}``, the card's name and power limit, and last
+(phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"data": {...}}``
+(phase 15's), ``{"kernels": [...]}``, the card's name and power limit,
+and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
 card, or without the ``paddle_tpu_torch`` package beside this file.
 """
@@ -3939,6 +3967,19 @@ def dir_bytes(d: str) -> int:
                for r, _, fs in os.walk(d) for f in fs)
 
 
+def one_pass_walls(run) -> list:
+    """The walls in seconds of two calls of ``run`` (one pass each), each
+    up to the card's end of its work."""
+    import torch
+    walls = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    return walls
+
+
 def loop_phase(say, seed: int, device="cuda") -> dict:
     """The flagship trained as a user trains it: rows from a reader
     through ``DataFeeder`` and the ``DoubleBuffer`` prefetch thread into
@@ -4070,12 +4111,7 @@ def loop_phase(say, seed: int, device="cuda") -> dict:
                                          handle_signals=False),
                 "bare": lambda: bare.train(lambda: fed, model.tree())}
         for what, run in runs.items():
-            walls = []
-            for _ in range(2):
-                t1 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t1)
+            walls = one_pass_walls(run)
             figs[what]["pass_wall_ms_per_step"] = min(walls) * 1e3 / \
                 LOOP_BATCHES
             figs[what]["profile"] = profile_breakdown(
@@ -4196,6 +4232,421 @@ def loop_phase(say, seed: int, device="cuda") -> dict:
     return figs
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: the data plane from files
+# ---------------------------------------------------------------------------
+
+# 2 batches a chunk, so a re-dispatched task leaves every batch whole; a
+# task timeout far past a pass, so no task is handed out twice mid-pass
+DATA_CHUNK, DATA_TASK_TIMEOUT = 2 * TEXTCLS_BATCH, 600.0
+# the nested DataFormat rows of (d): sub-sequences a row, ids a sub-sequence
+DATA_SUBSEQS, DATA_SUBLEN = 8, 32
+
+
+class RecordingMaster:
+    """A ``TaskMaster`` whose task ids handed out, failed and finished are
+    recorded (the master keeps no failure count past a finished task)."""
+
+    def __init__(self, master):
+        self.m = master
+        self.handed, self.failed, self.finished = [], [], []
+
+    def get_task(self):
+        task = self.m.get_task()
+        if task is not None:
+            self.handed.append(task[0])
+        return task
+
+    def stats(self):
+        return self.m.stats()
+
+    def task_failed(self, tid):
+        self.failed.append(tid)
+        return self.m.task_failed(tid)
+
+    def task_finished(self, tid):
+        self.finished.append(tid)
+        self.m.task_finished(tid)
+
+    def new_pass(self):
+        return self.m.new_pass()
+
+
+def nested_rows(seed: int, n: int, vocab: int):
+    """``n`` DataFormat rows: (dense [3], label, ids, sub-sequences of
+    ids)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [(rs.randn(3).astype(np.float32), int(rs.randint(2)),
+             rs.randint(0, vocab, int(rs.randint(1, 65))).tolist(),
+             [rs.randint(0, vocab, int(rs.randint(0, DATA_SUBLEN + 1)))
+              .tolist() for _ in range(int(rs.randint(1, DATA_SUBSEQS + 1)))])
+            for _ in range(n)]
+
+
+def nested_body(emb, w, nb):
+    """The embedding of every id of a ``NestedSeqBatch``, averaged over
+    each sub-sequence's valid steps, summed over each row's valid
+    sub-sequences, then a product: a nested model's head."""
+    import torch
+    inner = nb.inner_flat()
+    m = inner.mask()
+    x = emb[inner.data.long()] * m[..., None]
+    mean = x.sum(1) / m.sum(-1, keepdim=True).clamp(min=1.0)
+    outer = nb.outer(mean)
+    return torch.tanh((outer.data * outer.mask()[..., None]).sum(1) @ w)
+
+
+def data_phase(say, seed: int, loop_figs: dict, device="cuda") -> dict:
+    """The flagship of phase 14 fed from files: its rows written to
+    recordio chunks and trained from ``chunk_reader`` (bit-equal to the
+    in-memory pass) and from ``cloud_reader`` over a ``TaskMaster`` with
+    an injected task failure; the ``ckpt.write`` and ``step.grad`` faults
+    in the trainer; a DataFormat file with nested sequences through the
+    feeder on the card and a graphed body over its ``NestedSeqBatch``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.core.graphs import GraphCache
+    from paddle_tpu_torch.data import (DataFeeder, DenseSlot, IndexSlot,
+                                       SeqSlot, batch)
+    from paddle_tpu_torch.data import format as fmt
+    from paddle_tpu_torch.data.chunks import (chunk_reader, cloud_reader,
+                                              dump_to_chunks)
+    from paddle_tpu_torch.models import LSTMTextCls
+    from paddle_tpu_torch.runtime import TaskMaster
+    from paddle_tpu_torch.runtime import lib as hostlib
+    from paddle_tpu_torch.trainer import event
+    from paddle_tpu_torch.trainer.checkpoint import (latest_pass,
+                                                     load_checkpoint,
+                                                     pass_dir,
+                                                     verify_checkpoint)
+    cfg = TEXTCLS
+    B = TEXTCLS_BATCH
+    figs = {}
+    hb = hostlib.load()
+    figs["host_library"] = {"built": hb.built, "seconds": hb.seconds}
+    say(f"host runtime library (native/'s five sources, g++ -O2): "
+        f"{'built in %.2f s' % hb.seconds if hb.built else 'cached'} -> "
+        f"{hb.path.name}")
+    model = LSTMTextCls(cfg["vocab"], cfg["embed"], cfg["hidden"],
+                        cfg["classes"], pool="last").init(seed, device)
+    mem_reader = loop_rows(seed + 1, LOOP_BATCHES)
+    mem_test = loop_rows(seed + 2, LOOP_TEST_BATCHES)
+    rows = [r for b in mem_reader() for r in b]
+    test_rows = [r for b in mem_test() for r in b]
+    feeder = loop_feeder(device)
+    tmp = tempfile.mkdtemp(prefix="data_")
+    steps, tests_n = LOOP_BATCHES, LOOP_TEST_BATCHES
+    want_launches = {"lstm_seq_train": steps, "lstm_seq_bwd": steps,
+                     "lstm_seq": tests_n}
+    try:
+        # (a) chunks: written, then one pass from them against the same
+        # pass from the rows in memory, through one warmed trainer
+        t1 = time.perf_counter()
+        paths = dump_to_chunks(lambda: iter(rows), os.path.join(tmp, "c"),
+                               samples_per_chunk=DATA_CHUNK)
+        write_s = time.perf_counter() - t1
+        test_paths = dump_to_chunks(lambda: iter(test_rows),
+                                    os.path.join(tmp, "t"),
+                                    samples_per_chunk=DATA_CHUNK)
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        check(len(paths) == len(rows) // DATA_CHUNK,
+              f"chunks: {len(paths)} files for {len(rows)} rows")
+        figs["chunks"] = {"rows": len(rows), "files": len(paths),
+                          "bytes": nbytes, "write_s": write_s,
+                          "bytes_per_row": nbytes / len(rows)}
+        say(f"chunks: {len(rows)} rows of the flagship (ids 30..100, label, "
+            f"scale) pickled (protocol 4) into {len(paths)} recordio files "
+            f"of {DATA_CHUNK} rows, {nbytes} bytes "
+            f"({nbytes / len(rows):.1f} a row), written in {write_s:.4f} s")
+        check(list(chunk_reader(paths)()) == rows,
+              "chunks: the rows read back differ from those written")
+        file_reader = batch(chunk_reader(paths), B)
+        file_test = batch(chunk_reader(test_paths), B)
+        tr = loop_trainer(model, torch.bfloat16, device)
+        tr.train(loop_rows(seed + 3, 1), model.tree(), feeder=feeder,
+                 test_reader=loop_rows(seed + 4, 1), handle_signals=False)
+
+        def one_pass(reader, test):
+            costs = []
+
+            def on_event(e):
+                if isinstance(e, event.EndIteration):
+                    costs.append(e.cost)
+            out = counted(lambda: tr.train(
+                reader, model.tree(), feeder=feeder, test_reader=test,
+                event_handler=on_event, handle_signals=False))
+            return out, costs
+
+        ((mem_p, _), _, mem_l, _), mem_costs = one_pass(mem_reader,
+                                                        mem_test)
+        ((file_p, file_s), _, file_l, file_d), file_costs = \
+            one_pass(file_reader, file_test)
+        diff = tree_max_diff(file_p, mem_p)
+        say(f"one pass from the chunks (chunk_reader -> batch -> DataFeeder "
+            f"-> DoubleBuffer -> graphed step, a test pass from chunks): "
+            f"costs {json.dumps(file_costs)}; launches {file_l}; "
+            f"dispatches {json.dumps(file_d)}; params against the pass "
+            f"from the rows in memory: max difference "
+            f"{max(diff.values())!r}")
+        check(file_costs == mem_costs and len(file_costs) == steps,
+              f"chunks: costs {file_costs} differ from the in-memory pass's "
+              f"{mem_costs}")
+        check(max(diff.values()) == 0.0 and int(file_s["step"]) == steps,
+              "chunks: params not bit-equal to the in-memory pass's")
+        check(file_l == want_launches == mem_l,
+              f"chunks: launches {file_l} (memory {mem_l}), want "
+              f"{want_launches}")
+        check(step_dispatches(file_d, "step") == {"captures": 0,
+                                                  "replays": steps}
+              and step_dispatches(file_d, "loss") == {"captures": 0,
+                                                      "replays": tests_n},
+              f"chunks: dispatches {file_d}, want one replay a step and a "
+              f"test batch")
+        figs["chunk_pass"] = {"costs": file_costs, "launches": file_l,
+                              "bit_equal": True}
+        figs["launches"] = file_l
+
+        # the loop's ms a step and busy share, chunks beside memory, in
+        # turns (memory, chunks, chunks, memory), one pass, no test pass
+        runs = {"memory": lambda: tr.train(mem_reader, model.tree(),
+                                           feeder=feeder,
+                                           handle_signals=False),
+                "chunks": lambda: tr.train(file_reader, model.tree(),
+                                           feeder=feeder,
+                                           handle_signals=False)}
+        walls = {k: [] for k in runs}
+        for what in ("memory", "chunks", "chunks", "memory"):
+            walls[what] += one_pass_walls(runs[what])
+        timing = {}
+        for what, run in runs.items():
+            best = min(walls[what])
+            prof = profile_breakdown(
+                say, f"training loop from {what} (one pass of {steps} "
+                f"steps)", run, best, steps=steps)
+            timing[what] = {"pass_wall_ms_per_step": best * 1e3 / steps,
+                            "walls_ms_per_step": [w * 1e3 / steps
+                                                  for w in walls[what]],
+                            "busy_share": (prof or {}).get("busy_share"),
+                            "device_ms_per_step":
+                                (prof or {}).get("device_ms_per_step")}
+        figs["timing"] = timing
+        p14 = loop_figs.get("loop", {})
+        say(f"training loop, ms a step over one pass (best of 4 walls, in "
+            f"turns): from chunks "
+            f"{timing['chunks']['pass_wall_ms_per_step']:.4f} (busy "
+            f"{timing['chunks']['busy_share']}), from memory "
+            f"{timing['memory']['pass_wall_ms_per_step']:.4f} (busy "
+            f"{timing['memory']['busy_share']}); phase 14's loop in this "
+            f"run: {p14.get('pass_wall_ms_per_step')} ms a step, busy "
+            f"{(p14.get('profile') or {}).get('busy_share')}")
+
+        # the host alone: rows a second through chunk_reader, and through
+        # chunk_reader + batch + the feeder onto the card
+        def rate(fn, n):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return n / (time.perf_counter() - t1)
+
+        host = {}
+        for _ in range(2):
+            for what, fn in (
+                    ("chunk_reader", lambda: sum(1 for _ in
+                                                 chunk_reader(paths)())),
+                    ("chunk_reader + feeder", lambda: [
+                        feeder(b) for b in file_reader()]),
+                    ("memory + feeder", lambda: [feeder(b)
+                                                 for b in mem_reader()])):
+                host[what] = max(host.get(what, 0.0), rate(fn, len(rows)))
+        figs["host_rows_per_s"] = host
+        say(f"host alone, rows a second (best of 2 over {len(rows)} rows): "
+            + "; ".join(f"{k} {v:.0f}" for k, v in host.items()))
+
+        # (b) the cloud reader over a TaskMaster, the first task failing
+        master = RecordingMaster(TaskMaster(timeout_s=DATA_TASK_TIMEOUT,
+                                            failure_max=3))
+        master.m.set_dataset(paths)
+        plan = faults.FaultPlan(seed=seed)
+        plan.add("reader.next", "raise", nth=1,
+                 exc=OSError("injected chunk read failure"))
+        with plan.installed():
+            got = list(cloud_reader(master)())
+        first = master.handed[0]
+        handed, failed = list(master.handed), list(master.failed)
+        say(f"cloud_reader over TaskMaster ({len(paths)} tasks): handed "
+            f"{master.handed}, failed {master.failed}, finished "
+            f"{master.finished}; fired {plan.fired}; stats (todo, pending, "
+            f"done, discarded, epoch) {master.stats()}; {len(got)} rows")
+        check(sorted(map(repr, got)) == sorted(map(repr, rows)),
+              "cloud_reader: the rows delivered are not the rows written, "
+              "each exactly once")
+        check(master.failed == [first] and master.handed.count(first) == 2
+              and len(master.handed) == len(paths) + 1
+              and sorted(master.finished) == sorted(set(master.handed))
+              and master.stats() == (0, 0, len(paths), 0, 0),
+              "cloud_reader: the failed task was not re-dispatched once")
+        check(master.new_pass(), "cloud_reader: the pass did not end")
+        plan = faults.FaultPlan(seed=seed)
+        plan.add("reader.next", "raise", nth=1,
+                 exc=OSError("injected chunk read failure"))
+        costs = []
+        with plan.installed():
+            (_, _, cl_l, cl_d) = counted(lambda: tr.train(
+                batch(cloud_reader(master), B), model.tree(), feeder=feeder,
+                test_reader=file_test, handle_signals=False,
+                event_handler=lambda e: costs.append(e.cost)
+                if isinstance(e, event.EndIteration) else None))
+        say(f"one pass from cloud_reader (the first task failing on the "
+            f"prefetch thread, re-dispatched last): costs "
+            f"{json.dumps(costs)}; launches {cl_l}; fired {plan.fired}")
+        check(len(costs) == steps and all(np.isfinite(costs)),
+              f"cloud pass: costs {costs}")
+        check(plan.fired == [("reader.next", 1, "raise")]
+              and master.stats() == (0, 0, len(paths), 0, 1),
+              f"cloud pass: fired {plan.fired}, stats {master.stats()}")
+        check(cl_l == want_launches
+              and step_dispatches(cl_d, "step")["replays"] == steps,
+              f"cloud pass: launches {cl_l}, dispatches {cl_d}")
+        figs["cloud"] = {"rows_exactly_once": True, "handed": handed,
+                         "failed": failed, "launches": cl_l, "costs": costs}
+
+        # (c1) step.grad corrupting batch 3's cost under "raise"
+        plan = faults.FaultPlan(seed=seed)
+        plan.add("step.grad", "corrupt", nth=3)
+        raised = None
+        with plan.installed():
+            try:
+                tr.train(file_reader, model.tree(), feeder=feeder,
+                         handle_signals=False)
+            except FloatingPointError as e:
+                raised = str(e)
+        say(f"step.grad corrupting the third step's cost, "
+            f"on_nonfinite='raise': {raised!r}")
+        check(raised is not None and "pass 0 batch 2" in raised
+              and plan.fired == [("step.grad", 3, "corrupt")],
+              f"step.grad: the trainer did not raise at batch 2 ({raised})")
+        del tr
+
+        # (c2) ckpt.write truncating the last pass's params.tar (f32)
+        f32 = loop_trainer(model, torch.float32, device)
+        f32.train(loop_rows(seed + 3, 1), model.tree(), feeder=feeder,
+                  handle_signals=False)
+        want_p, want_s = f32.train(file_reader, model.tree(),
+                                   num_passes=LOOP_PASSES, feeder=feeder,
+                                   handle_signals=False)
+        out = os.path.join(tmp, "ckpt")
+        f32.output_dir = out
+        members = 3                     # params.tar, opt_state.tar, state
+        plan = faults.FaultPlan(seed=seed)
+        plan.add("ckpt.write", "truncate",
+                 nth=(LOOP_PASSES - 1) * members + 1)
+        with plan.installed():
+            f32.train(file_reader, model.tree(), num_passes=LOOP_PASSES,
+                      feeder=feeder, handle_signals=False)
+        last = pass_dir(out, LOOP_PASSES - 1)
+        torn = os.path.getsize(os.path.join(last, "params.tar"))
+        _, _, st = load_checkpoint(out, device=device)
+        say(f"ckpt.write truncating pass {LOOP_PASSES - 1}'s params.tar to "
+            f"{torn} bytes: fired {plan.fired}; newest pass "
+            f"{latest_pass(out)}, newest verified "
+            f"{latest_pass(out, verify=True)}, loaded pass {st['pass_id']}")
+        check(plan.fired == [("ckpt.write", (LOOP_PASSES - 1) * members + 1,
+                              "truncate")]
+              and latest_pass(out) == LOOP_PASSES - 1
+              and not verify_checkpoint(last)
+              and latest_pass(out, verify=True) == LOOP_PASSES - 2
+              and st["pass_id"] == LOOP_PASSES - 2,
+              "ckpt.write: the torn pass was not refused")
+        (got_p, got_s), _, _, res_d = counted(lambda: f32.train(
+            file_reader, model.tree(), num_passes=1, feeder=feeder,
+            resume=True, handle_signals=False))
+        pd_ = tree_max_diff(got_p, want_p)
+        sd_ = tree_max_diff(got_s, want_s)
+        say(f"resume after the torn pass (retrains pass "
+            f"{LOOP_PASSES - 1}) against the run with no fault: params max "
+            f"difference {max(pd_.values())!r}, opt_state "
+            f"{max(sd_.values())!r}; step graphs "
+            f"{step_dispatches(res_d, 'step')}")
+        check(max(pd_.values()) == 0.0 and max(sd_.values()) == 0.0
+              and verify_checkpoint(last),
+              "ckpt.write: the resumed run is not bit-equal to the run "
+              "with no fault")
+        check(step_dispatches(res_d, "step") == {"captures": 0,
+                                                 "replays": steps},
+              f"ckpt.write: the resume did not replay its graph ({res_d})")
+        figs["faults"] = {"step_grad_raised": raised,
+                          "truncated_bytes": torn,
+                          "resume_bit_equal": True}
+        del f32, want_p, want_s, got_p, got_s
+
+        # (d) a DataFormat file with nested sequences, the feeder on the
+        # card against the CPU's, a graphed body over its NestedSeqBatch
+        schema = [fmt.SlotDef(fmt.DENSE, 3), fmt.SlotDef(fmt.INDEX),
+                  fmt.SlotDef(fmt.INDEX, 0, fmt.SEQ),
+                  fmt.SlotDef(fmt.INDEX, 0, fmt.SUB_SEQ)]
+        nrows = nested_rows(seed + 5, B, cfg["vocab"])
+        path = os.path.join(tmp, "rows.ptdf")
+        with open(path, "wb") as f:
+            w = fmt.DataWriter(f, schema)
+            for r in nrows:
+                w.write(r)
+        back = list(fmt.reader_creator(path)())
+        check(len(back) == B and all(
+            np.array_equal(a[0], b[0]) and a[1:] == tuple(b[1:])
+            for a, b in zip(back, nrows)),
+            "DataFormat: the rows read back differ from those written")
+        slots = [DenseSlot(3), IndexSlot(), SeqSlot(), SeqSlot(nested=True)]
+        on_card = DataFeeder(slots, device=device)(back)
+        on_cpu = DataFeeder(slots, device="cpu")(back)
+        pairs = [(on_card[0], on_cpu[0]), (on_card[1], on_cpu[1]),
+                 (on_card[2].data, on_cpu[2].data),
+                 (on_card[2].lengths, on_cpu[2].lengths)] + \
+            [(getattr(on_card[3], f), getattr(on_cpu[3], f))
+             for f in ("data", "sub_lengths", "seq_lengths")]
+        check(all(a.device.type == "cuda" and a.dtype == b.dtype
+                  and torch.equal(a.cpu(), b) for a, b in pairs),
+              "nested feeder: the card's tensors differ from the CPU's")
+        nb = on_card[3]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        emb = model.tree()["embed"]["w"]
+        wout = torch.randn(cfg["embed"], 16, generator=gen, device=device)
+        cache = GraphCache("data_phase", device)
+        inputs = {"emb": emb, "w": wout, "nb": nb}
+        graphs.reset_dispatch_counts()
+        cache.run("nested", nested_body, inputs)         # eager, capture
+        graphed = cache.run("nested", nested_body, inputs)
+        disp = json.loads(json.dumps(graphs.DISPATCHES))
+        eager = nested_body(emb, wout, nb)
+        ref = nested_body(emb.cpu(), wout.cpu(), on_cpu[3])
+        g_err = (graphed - eager).abs().max().item()
+        err = (graphed.cpu() - ref).abs().max().item()
+        say(f"nested batch [B, S, T] = {list(nb.data.shape)} from the "
+            f"DataFormat file: the card's feeder bit-equal to the CPU's; "
+            f"graphed body ({json.dumps(disp)}) against eager: max abs "
+            f"{g_err!r}, against the CPU: max abs {err:.3e}")
+        check(step_dispatches(disp, "nested") == {"captures": 1,
+                                                  "replays": 1},
+              f"nested: dispatches {disp}")
+        # the product's GEMM may pick another algorithm under capture: the
+        # graph step checks' loss bound (f32, TF32 off)
+        check(g_err <= GRAPH_STEP_LOSS_RTOL * eager.abs().max().item(),
+              f"nested: the graphed body differs from the eager one by "
+              f"{g_err}")
+        check(err <= 1e-5 * max(1.0, ref.abs().max().item()),
+              f"nested: the card's body differs from the CPU's by {err}")
+        figs["nested"] = {"shape": list(nb.data.shape),
+                          "graph_max_abs_err": g_err,
+                          "cpu_max_abs_err": err}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return figs
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4308,8 +4759,10 @@ def main(argv=None) -> int:
                          for what, g in gen.items()))
     image = image_phase(say, args.seed)
     loop = loop_phase(say, args.seed)
+    data = data_phase(say, args.seed, loop)
     for entry in lstm:
         entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
+        entry["launches_data"] = data["launches"][entry["name"]]
     if args.rnn_sweep:
         for entry in lstm + gru:
             for tag, res in sweep.items():
@@ -4324,6 +4777,7 @@ def main(argv=None) -> int:
     print(json.dumps({"graph_paths": GRAPH_PATHS, "card": card}))
     print(json.dumps({"image": image, "card": card}))
     print(json.dumps({"loop": loop, "card": card}))
+    print(json.dumps({"data": data, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

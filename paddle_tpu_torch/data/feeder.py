@@ -5,7 +5,9 @@ reference's DataProviderConverter and v2 DataFeeder).
 * ``DenseSlot``  -> float [B, dim]
 * ``IndexSlot``  -> int32 [B]
 * ``SeqSlot``    -> ``SeqBatch`` (padded [B, T (bucketed), ...] + lengths,
-  through ``core.lod.pack_sequences``, bucketed as in JAX)
+  through ``core.lod.pack_sequences``, bucketed as in JAX);
+  ``SeqSlot(nested=True)`` -> ``NestedSeqBatch`` ([B, S, T] + sub- and
+  sequence lengths, through ``core.lod.pack_nested_sequences``)
 * ``SparseSlot`` -> padded COO a row: (ids [B, K], vals [B, K]) with K the
   bucketed largest count of ids
 
@@ -22,9 +24,6 @@ stream (``torch.cuda.Stream`` is non-blocking) under
 ``capture_error_mode="thread_local"``, so a copy the worker makes while
 the main thread captures a new bucket's graph neither joins nor breaks
 the capture.
-
-``SeqSlot(nested=True)`` raises: ``NestedSeqBatch`` is not ported
-(ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -35,7 +34,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.lod import SeqBatch, bucket_length, pack_sequences
+from ..core.lod import (SeqBatch, bucket_length, pack_nested_sequences,
+                        pack_sequences)
 from ..core.place import DeviceLike, require_device
 
 
@@ -116,7 +116,9 @@ class IndexSlot:
 @dataclass
 class SeqSlot:
     """A variable-length sequence of scalars (ids) or vectors: elem_dim
-    None -> id sequence (int32), else vector sequence [len, elem_dim]."""
+    None -> id sequence (int32), else vector sequence [len, elem_dim].
+    nested=True takes a list of lists of elements and packs a
+    ``NestedSeqBatch`` ([B, S, T] + sub- and sequence lengths)."""
     elem_dim: Optional[int] = None
     nested: bool = False
     dtype: Any = None
@@ -143,10 +145,6 @@ class DataFeeder:
     def __init__(self, slots: Sequence[Any], device: DeviceLike = None):
         self.slots = list(slots)
         self.device = require_device(device)
-        for slot in self.slots:
-            if isinstance(slot, SeqSlot) and slot.nested:
-                raise NotImplementedError(
-                    "nested sequences are not ported (ROADMAP A.4)")
 
     def __call__(self, rows: Sequence[Tuple]) -> Tuple:
         return self.feed(rows)
@@ -170,11 +168,18 @@ class DataFeeder:
             return self._put(np.asarray(col, dtype=slot.dtype).reshape(
                 len(col)))
         if isinstance(slot, SeqSlot):
-            return pack_sequences([np.asarray(s, dtype=slot.np_dtype)
-                                   for s in col], device=self.device)
+            return self._convert_seq(slot, col)
         if isinstance(slot, SparseSlot):
             return self._convert_sparse(slot, col)
         raise TypeError(f"unknown slot {slot!r}")
+
+    def _convert_seq(self, slot: SeqSlot, col):
+        if slot.nested:
+            nested = [[np.asarray(sub, dtype=slot.np_dtype) for sub in sample]
+                      for sample in col]
+            return pack_nested_sequences(nested, device=self.device)
+        return pack_sequences([np.asarray(s, dtype=slot.np_dtype)
+                               for s in col], device=self.device)
 
     def _convert_sparse(self, slot: SparseSlot, col):
         if slot.with_values:

@@ -17,15 +17,16 @@ never at import, so the package imports where there is no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 from typing import List, Optional
+
+# absolute, so that this file also loads on its own (chip_smoke.py's
+# load_parent builds another checkout's kernels through it)
+from paddle_tpu_torch.utils import native_build
+from paddle_tpu_torch.utils.native_build import Build
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -74,22 +75,6 @@ class BuildError(RuntimeError):
     """nvcc is missing or refused a source."""
 
 
-class Build:
-    """One built library: its handle, where it lives, what nvcc said."""
-
-    def __init__(self, lib: ctypes.CDLL, path: Path, log: str,
-                 seconds: float, built: bool):
-        self.lib, self.path, self.log = lib, path, log
-        self.seconds, self.built = seconds, built
-
-    def resource_lines(self) -> List[str]:
-        """ptxas' register / shared-memory / spill lines per kernel."""
-        keep = ("Compiling entry function", "Used ", "spill stores",
-                "bytes stack frame")
-        return [ln.strip() for ln in self.log.splitlines()
-                if any(k in ln for k in keep)]
-
-
 _lock = threading.Lock()
 _loaded: Optional[Build] = None
 
@@ -99,11 +84,7 @@ def sources() -> List[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+    return native_build.source_hash(CFLAGS, sources())
 
 
 def find_nvcc() -> str:
@@ -120,61 +101,21 @@ def find_nvcc() -> str:
 
 
 def _compile(out_dir: Path) -> str:
-    nvcc = find_nvcc()
-    cu = sorted(CSRC.glob("*.cu"))
-    procs = []
-    for src in cu:
-        obj = out_dir / (src.stem + ".o")
-        cmd = [nvcc, *CFLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs, failed = [], []
-    for src, _, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out}")
-        if proc.returncode != 0:
-            failed.append(src.name)
-    log = "\n".join(logs)
-    if failed:
-        raise BuildError(f"nvcc failed on {failed}:\n{log}")
-    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out_dir / LIB_NAME),
-            *[str(obj) for _, obj, _ in procs]]
-    res = subprocess.run(link, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    if res.returncode != 0:
-        raise BuildError(f"nvcc link failed:\n{res.stdout}")
-    return log
+    return native_build.compile_library(
+        find_nvcc(), [*CFLAGS, "-I", str(CSRC)], sorted(CSRC.glob("*.cu")),
+        out_dir, LIB_NAME, ARCH_FLAGS, BuildError)
 
 
 def load() -> Build:
     """Build (if this source hash has no library yet) and load the kernels."""
     global _loaded
     with _lock:
-        if _loaded is not None:
-            return _loaded
-        t0 = time.perf_counter()
-        final = BUILD_ROOT / source_hash()
-        built = False
-        if not (final / LIB_NAME).is_file():
-            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-            tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
-            try:
-                log = _compile(tmp)
-                (tmp / "nvcc.log").write_text(log)
-                try:
-                    os.replace(tmp, final)     # atomic publish
-                except OSError:                # another process won the race
-                    pass
-            finally:
-                shutil.rmtree(tmp, ignore_errors=True)
-            built = True
-        lib = ctypes.CDLL(str(final / LIB_NAME))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        log_path = final / "nvcc.log"
-        log = log_path.read_text() if log_path.is_file() else ""
-        _loaded = Build(lib, final, log, time.perf_counter() - t0, built)
+        if _loaded is None:
+            build = native_build.build_and_load(
+                BUILD_ROOT / source_hash(), LIB_NAME, _compile)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(build.lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _loaded = build
         return _loaded

@@ -20,11 +20,13 @@ such a leaf, then its raw 2-byte words), so the files are identical; on
 load a 2-byte void member (``'<V2'`` or ``'|V2'``) becomes a bf16 tensor.
 Only ml_dtypes' bf16 saves as ``V2`` (float16 saves as ``'<f2'``), so
 the mapping is unambiguous. JAX's own ``from_tar`` gives such a leaf back
-as a raw ``|V2`` void array, not as bf16 (ROADMAP C.3).
+as a raw ``|V2`` void array, not as bf16 (ROADMAP C.2).
 
-Loads put the leaves on ``device`` (default: the card). The ``ckpt.*``
-spans and counters and the ``ckpt.write`` fault hook of the JAX module
-wait for the obs session plane and the fault injector (ROADMAP A.8).
+Loads put the leaves on ``device`` (default: the card). Every member
+passes the ``ckpt.write`` fault hook after its CRC is taken, as in JAX,
+so an injected torn or corrupt write is what manifest verification
+catches. The ``ckpt.*`` spans and counters of the JAX module wait for the
+obs session plane (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import faults
 from ..core.place import DeviceLike, require_device
 from ..core.pytree import flatten_path_tree, tree_spec, unflatten_path_tree
 from ..utils.logging import get_logger
@@ -170,10 +173,16 @@ def _fsync_dir(path: str) -> None:
 
 
 def _write_member(d: str, name: str, payload: bytes) -> Dict[str, int]:
-    """Write one checkpoint member, fsynced; returns its manifest entry."""
+    """Write one checkpoint member, fsynced; returns its manifest entry.
+
+    The CRC is computed on the *intended* payload BEFORE the ``ckpt.write``
+    fault hook, so an injected torn/corrupt write is exactly what manifest
+    verification later catches — same property as a real partial write.
+    """
     entry = {"crc32": zlib.crc32(payload) & 0xFFFFFFFF, "size": len(payload)}
+    written = faults.filter_bytes("ckpt.write", payload)
     with open(os.path.join(d, name), "wb") as f:
-        f.write(payload)
+        f.write(written)
         _fsync_file(f)
     return entry
 

@@ -28,11 +28,18 @@ by both ``loss_fn`` and ``outputs_fn`` with the same argument objects
 step. Unwrapped, both run their own forward and the results are the
 same.
 
-Not ported here: ``mesh=``/``layout=`` (ROADMAP A.7, they raise), the
+The cost read back from each step passes the ``step.grad`` fault hook
+(``faults.filter_value``), as in JAX. The hook changes only the host's
+copy of the loss: it drives the raise/skip/halt accounting, but the
+guard inside the step's graph reacts only to a loss that really is
+non-finite, so under ``skip`` a corrupted host cost counts a skip whose
+update was applied — JAX's behaviour, kept.
+
+Not ported here: ``mesh=``/``layout=`` (ROADMAP A.7, they raise) and the
 obs session plane (spans, goodput, the flight dump, roofline
-instrumentation, the counters' session mirror, ``summary()``) and the
-``step.grad`` fault hook (ROADMAP A.8). The typed counters live on the
-trainer's own ``MetricsRegistry`` as in JAX.
+instrumentation, the counters' session mirror, ``summary()``; ROADMAP
+A.8). The typed counters live on the trainer's own ``MetricsRegistry``
+as in JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import faults
 from ..core.graphs import GraphCache
 from ..core.place import DeviceLike, require_device
 from ..core.pytree import tree_from_items, tree_items, tree_map
@@ -459,7 +467,7 @@ class Trainer:
                     else:
                         params, opt_state, cost = res
                         outs = None
-                    cost_f = float(cost)
+                    cost_f = faults.filter_value("step.grad", float(cost))
                     self._c_steps.inc()
                     lead = (getattr(batch[0], "shape", None)
                             if isinstance(batch, (tuple, list)) and batch

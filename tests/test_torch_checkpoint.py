@@ -6,7 +6,7 @@ pass directories loading into the other, and the crash-safety rules
 bf16: JAX's ml_dtypes bf16 leaf is written with ``descr '<V2'``; the
 port writes a bf16 tensor with the same header and words, and maps a
 2-byte void member back to bf16. JAX's own ``from_tar`` returns such a
-leaf as a raw ``|V2`` array (ROADMAP C.3), so the JAX side of a bf16
+leaf as a raw ``|V2`` array (ROADMAP C.2), so the JAX side of a bf16
 comparison reads the words through ``view(ml_dtypes.bfloat16)``.
 Comparisons are exact: nothing is computed.
 """

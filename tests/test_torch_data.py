@@ -149,8 +149,14 @@ def test_feeder_device_and_nested_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             PF.DataFeeder([PF.IndexSlot()])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        PF.DataFeeder([PF.SeqSlot(nested=True)], device="cpu")
+    # the nested slot packs a NestedSeqBatch as JAX's does
+    rows = [([[1, 2], [3]],), ([[4]],)]
+    (nb,) = PF.DataFeeder([PF.SeqSlot(nested=True)], device="cpu")(rows)
+    (jb,) = JF.DataFeeder([JF.SeqSlot(nested=True)])(rows)
+    for f in ("data", "sub_lengths", "seq_lengths"):
+        np.testing.assert_array_equal(getattr(nb, f).numpy(),
+                                      np.asarray(getattr(jb, f)))
+        assert getattr(nb, f).dtype == torch.int32
     with pytest.raises(ValueError, match="sample width"):
         PF.DataFeeder([PF.IndexSlot()], device="cpu")([(1, 2)])
 

@@ -2085,3 +2085,151 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     for name in ("params.tar", "opt_state.tar"):
         assert (tmp_path / "a" / "pass-00000" / name).read_bytes() == \
             (tmp_path / "b" / "pass-00000" / name).read_bytes(), name
+
+
+# -- the data plane from files (chunks, faults, nested batches) ----------------
+
+def _nested_rows(seed, n=12):
+    rs = np.random.RandomState(seed)
+    return [([rs.randint(0, 500, int(rs.randint(0, 30))).tolist()
+              for _ in range(int(rs.randint(1, 7)))], int(rs.randint(2)),
+             rs.randn(int(rs.randint(1, 5)), 3).tolist())
+            for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_nested_feeder_on_card_equals_the_cpu(cuda):
+    """``SeqSlot(nested=True)`` (ids and vector elements) beside an index
+    slot: the card's tensors bit-equal to the CPU feeder's."""
+    from paddle_tpu_torch.core import NestedSeqBatch
+    from paddle_tpu_torch.data import DataFeeder, IndexSlot, SeqSlot
+    slots = [SeqSlot(nested=True), IndexSlot(), SeqSlot(elem_dim=3)]
+    rows = _nested_rows(1)
+    got = DataFeeder(slots, device=cuda)(rows)
+    want = DataFeeder(slots, device="cpu")(rows)
+    assert isinstance(got[0], NestedSeqBatch)
+    pairs = [(getattr(got[0], f), getattr(want[0], f))
+             for f in ("data", "sub_lengths", "seq_lengths")]
+    pairs += [(got[1], want[1]), (got[2].data, want[2].data),
+              (got[2].lengths, want[2].lengths)]
+    for a, b in pairs:
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+def _nested_head(emb, w, nb):
+    inner = nb.inner_flat()
+    m = inner.mask()
+    mean = (emb[inner.data.long()] * m[..., None]).sum(1) \
+        / m.sum(-1, keepdim=True).clamp(min=1.0)
+    outer = nb.outer(mean)
+    return (outer.data * outer.mask()[..., None]).sum(1) @ w
+
+
+@pytest.mark.gpu
+def test_graphed_body_over_a_nested_batch_equals_eager_on_card(cuda):
+    """A body over a ``NestedSeqBatch`` through the graph cache: one
+    capture, then replays (another sub-sequence bucket is another key),
+    each within 1e-6 of the eager body (its GEMM may differ under
+    capture), and the eager body within 1e-5 of the CPU's."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.data import DataFeeder, SeqSlot
+    gen = torch.Generator().manual_seed(3)
+    emb = torch.randn(500, 16, generator=gen)
+    w = torch.randn(16, 4, generator=gen)
+    feed = DataFeeder([SeqSlot(nested=True)], device=cuda)
+    cache = graphs.GraphCache("test_nested", cuda)
+    graphs.reset_dispatch_counts()
+    for seed in (1, 2, 1):
+        rows = [(r[0],) for r in _nested_rows(seed)]
+        (nb,) = feed(rows)
+        for _ in range(2):
+            got = cache.run("head", _nested_head,
+                            {"emb": emb.to(cuda), "w": w.to(cuda),
+                             "nb": nb})
+            want = _nested_head(emb.to(cuda), w.to(cuda), nb)
+            assert (got - want).abs().max().item() <= \
+                1e-6 * want.abs().max().item()
+        (cpu_nb,) = DataFeeder([SeqSlot(nested=True)], device="cpu")(rows)
+        torch.testing.assert_close(want.cpu(), _nested_head(emb, w, cpu_nb),
+                                   rtol=1e-5, atol=1e-5)
+    keys = graphs.DISPATCHES["test_nested"]
+    assert sum(n["captures"] for n in keys.values()) == len(keys) <= 2
+    assert sum(n["replays"] for n in keys.values()) == 6 - len(keys)
+
+
+def _chunk_pass(cuda, tmp_path, reader_kind, **kw):
+    """One warmed trainer over a pass of 4 batches of 16 rows (bucket 64)
+    from the rows in memory or from chunk files of 32 rows."""
+    from paddle_tpu_torch.data import batch
+    from paddle_tpu_torch.data.chunks import chunk_reader, dump_to_chunks
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    model = _loop_model(cuda, 4)
+    loss, _ = _loop_fns(model)
+    mem = _loop_rows(7, 4, hi=(60,))
+    paths = dump_to_chunks(lambda: (r for b in mem() for r in b),
+                           str(tmp_path / "chunks"), samples_per_chunk=32)
+    reader = {"memory": mem,
+              "chunks": batch(chunk_reader(paths), 16)}[reader_kind]
+    tr = Trainer(loss, Adam(1e-3), device=cuda, **kw)
+    tr.train(_loop_rows(8, 1, hi=(60,)), model.tree(),
+             feeder=_loop_feeder(cuda), handle_signals=False)
+    return tr, model, reader
+
+
+@pytest.mark.gpu
+def test_a_chunk_pass_equals_the_in_memory_pass_on_card(cuda, tmp_path):
+    """The same rows from chunk files and from memory through the feeder
+    into the graphed trainer: the same costs and parameters bit for bit,
+    one replay and one #9 and #10 a step."""
+    res = {}
+    for kind in ("memory", "chunks"):
+        tr, model, reader = _chunk_pass(cuda, tmp_path / kind, kind)
+        costs = []
+        (p, s), launches, d = _counted(lambda: tr.train(
+            reader, model.tree(), feeder=_loop_feeder(cuda),
+            event_handler=lambda e: costs.append(e.cost)
+            if type(e).__name__ == "EndIteration" else None,
+            handle_signals=False))
+        res[kind] = (p, costs, launches, d)
+    (pm, cm, lm, _), (pc, cc, lc, dc) = res["memory"], res["chunks"]
+    assert cc == cm and len(cc) == 4
+    assert _tree_diff(pc, pm) == 0.0
+    assert lc == lm == {"lstm_seq_train": 4, "lstm_seq_bwd": 4}
+    assert _replays(dc, "step") == (0, 4)
+
+
+@pytest.mark.gpu
+def test_a_truncated_checkpoint_falls_back_and_resumes_on_card(cuda,
+                                                               tmp_path):
+    """``ckpt.write`` truncating the last pass's params.tar: verification
+    refuses that pass, the load falls back to the pass before, and
+    ``resume=True`` retrains the last pass bit-equal to the run with no
+    fault, replaying the step's graph."""
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.trainer.checkpoint import (latest_pass,
+                                                     load_checkpoint,
+                                                     pass_dir,
+                                                     verify_checkpoint)
+    tr, model, reader = _chunk_pass(cuda, tmp_path, "chunks")
+    want_p, want_s = tr.train(reader, model.tree(), num_passes=3,
+                              feeder=_loop_feeder(cuda),
+                              handle_signals=False)
+    out = str(tmp_path / "ckpt")
+    tr.output_dir = out
+    plan = faults.FaultPlan()
+    plan.add("ckpt.write", "truncate", nth=7, truncate_to=100)
+    with plan.installed():
+        tr.train(reader, model.tree(), num_passes=3,
+                 feeder=_loop_feeder(cuda), handle_signals=False)
+    assert plan.fired == [("ckpt.write", 7, "truncate")]
+    assert latest_pass(out) == 2 and not verify_checkpoint(pass_dir(out, 2))
+    assert latest_pass(out, verify=True) == 1
+    assert load_checkpoint(out, device=cuda)[2]["pass_id"] == 1
+    (p, s), _, d = _counted(lambda: tr.train(
+        reader, model.tree(), num_passes=1, feeder=_loop_feeder(cuda),
+        resume=True, handle_signals=False))
+    assert _replays(d, "step") == (0, 4)
+    assert _tree_diff(p, want_p) == 0.0 and _tree_diff(s, want_s) == 0.0
+    assert verify_checkpoint(pass_dir(out, 2))

@@ -203,6 +203,18 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 10
+    # the host runtime, the fault plane and the file formats among them
+    rel = {str(f.relative_to(ROOT)) for f in files}
+    assert {"paddle_tpu_torch/faults/inject.py",
+            "paddle_tpu_torch/runtime/lib.py",
+            "paddle_tpu_torch/runtime/master.py",
+            "paddle_tpu_torch/runtime/recordio.py",
+            "paddle_tpu_torch/utils/retry.py",
+            "paddle_tpu_torch/data/chunks.py",
+            "paddle_tpu_torch/data/format.py",
+            "paddle_tpu_torch/data/parsers.py",
+            "paddle_tpu_torch/data/provider.py",
+            "paddle_tpu_torch/data/image.py"} <= rel
     banned = {"jax", "jaxlib", "paddle_tpu"}
     bad = []
     for path in files:
