@@ -189,6 +189,35 @@ Phases:
    ``NestedSeqBatch`` (embedding, masked means and sums, a product)
    through a CUDA graph against the eager body and the CPU's.
 
+16. model zoo — the rest of the model zoo and its ops, each path's
+   counts set to 0 just before and read just after: (a) the BiLSTM-CRF
+   tagger (vocab 30000, embed 128, hidden 256 a direction, 9 tags, batch
+   64, lengths 30..100): one f32 step through the kernels against the
+   plain route's, the graphed step against the eager step, 12 f32 Adam
+   steps a route on one repeated batch with 2 launches of #9 and 2 of #10
+   and one replay a step and a falling cost, then ``decode`` through its
+   graph (2 launches of #8 a call) against the plain route's tags, and a
+   ``ChunkEvaluator`` test pass over the decoded tags of 2 held batches;
+   (b) ``ConvTextCls`` (128 filters, context 3, batch 64, length 100),
+   (c) ``Word2Vec`` (imikolov's vocabulary, embed 32, hidden 256, context
+   4), ``Recommender`` (the movielens constants, dim 32) and ``DeepFM``
+   (13 dense and 26 hashed fields, hash 2**20, factor 10, hidden 400 x 3,
+   batch 4096; its embedding backward's share of a step): the graphed
+   step against the eager one, 12 steps a route, a falling cost, ms a
+   step; (d) the GAN (D and G steps one graph each, each Adam moving only
+   its half) and the VAE (one graph with a card generator; the example's
+   300 steps to below 0.8 of the first cost) of examples/gan_vae_mnist.py;
+   (e) the zoo's ops on the card against the CPU: the CRF at the tagger's
+   shape, CTC (and ``F.ctc_loss`` on the feasible rows), SSD300's 8732
+   priors with 21 classes at batch 8 (multibox loss with its gradient,
+   NMS, the detection output, keep_top_k 100), NCE, the hierarchical
+   sigmoid, the sequence ops, and the CTC-error and detection-mAP
+   evaluators; (f) GPT-2 small (phase 7's configuration) in f32: a
+   ``remat=True`` loss and gradient bit-equal to ``remat=False``, #1 twice
+   a block, #2 and #3 once, the peak memory of both, one Adam step of
+   each through the trainer's graph bit-equal, and 4 ``tie_head=False``
+   steps through the trainer's graph with a falling cost.
+
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
@@ -208,7 +237,8 @@ allocated beyond an eighth of a KV cell.
 
 Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"data": {...}}``
-(phase 15's), ``{"kernels": [...]}``, the card's name and power limit,
+(phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"kernels": [...]}``,
+the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
 card, or without the ``paddle_tpu_torch`` package beside this file.
@@ -1596,20 +1626,23 @@ def f32_loss(model, route=None):
     return loss_fn
 
 
-def f32_step_check(say, model, batch, device, what="f32 training step"):
+def f32_step_check(say, model, batch, device, what="f32 training step",
+                   loss_for=None, lr=TEXTCLS_LR):
     """One f32 Adam step through the kernels against the same step with
     the plain versions, on the card. Tolerances: the gradients (read as
     Adam's first moment, 0.1 g) to rtol 1e-4 plus 1e-5 of each tensor's
     largest magnitude (summation order); the updated parameters to atol
     1e-5 (0.5% of the lr: the first Adam step lr*g/(|g|+eps) turns ~1e-11
-    differences of gradients near eps into ~1e-6)."""
+    differences of gradients near eps into ~1e-6). ``loss_for(route)``:
+    the loss of another model than the text classifier."""
     import torch
     from paddle_tpu_torch.core.pytree import tree_get, tree_items
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.trainer import Trainer
     res = {}
     for route in (None, "plain"):
-        tr = Trainer(f32_loss(model, route), Adam(TEXTCLS_LR), device=device)
+        loss = loss_for(route) if loss_for else f32_loss(model, route)
+        tr = Trainer(loss, Adam(lr), device=device)
         res[route] = tr.step(model.tree(), tr.opt.init(model.tree()), *batch)
     (pk, sk, lk), (pp, sp, lp) = res[None], res["plain"]
     check(abs(lk.item() - lp.item()) <= 1e-5, f"f32 loss {lk.item()} != "
@@ -2205,7 +2238,7 @@ def bf16_step_check(say, what, loss_for, params, batch, per_step,
 
 
 def graph_step_check(say, what, loss, params, batch, lr, device,
-                     make_opt=None, expect_launches=True):
+                     make_opt=None, expect_launches=True, reseed=None):
     """One f32 Adam step (``make_opt()``'s optimizer, if given) replayed
     through the trainer's graph against the same step on the eager route,
     from copies of the same params and a fresh state: the loss and every
@@ -2213,7 +2246,9 @@ def graph_step_check(say, what, loss, params, batch, lr, device,
     within GRAPH_STEP_LOSS_RTOL and GRAPH_STEP_PARAM_ATOL; the same kernel
     launches on both routes, some with ``expect_launches`` and none
     without it (a path with no kernel of the port's: the image path), and
-    the graphed step one replay."""
+    the graphed step one replay. ``reseed()``, if given, runs before each
+    step: a loss that draws from a generator in the batch then draws the
+    same numbers on both routes."""
     import torch
     from paddle_tpu_torch.core.pytree import tree_items, tree_map
     from paddle_tpu_torch.optimizer import Adam
@@ -2222,12 +2257,15 @@ def graph_step_check(say, what, loss, params, batch, lr, device,
     res = {}
     for route in ("eager", "graphed"):
         tr = Trainer(loss, make_opt(), device=device)
+        reseed = reseed or (lambda: None)
         with _route(route):
             if route == "graphed":              # the capture
                 p = tree_map(torch.clone, params)
+                reseed()
                 tr.step(p, tr.opt.init(p), *batch)
             p = tree_map(torch.clone, params)
             state = tr.opt.init(p)
+            reseed()
             (new, _, cost), _, launches, disp = counted(
                 lambda: tr.step(p, state, *batch))
         res[route] = (tree_map(torch.clone, new), cost.item(), launches,
@@ -4647,6 +4685,735 @@ def data_phase(say, seed: int, loop_figs: dict, device="cuda") -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return figs
 
+# ---------------------------------------------------------------------------
+# phase 16: the model zoo and its ops
+# ---------------------------------------------------------------------------
+
+# the BiLSTM-CRF tagger at the flagship's widths (benchmarks/lstm_textcls.py
+# :28-33) over conll05's 9 IOB tags (4 chunk types and O), batch 64,
+# padded length 100, lengths 30..100
+TAGGER = dict(vocab_size=30000, num_tags=9, embed_dim=128, hidden=256)
+TAGGER_CHUNK_TYPES = 4
+ZOO_STEPS, ZOO_LR = 12, 2e-3
+# ConvTextCls at the flagship's vocabulary and width: 128 filters over a
+# context of 3
+CONVTEXT = dict(vocab_size=30000, embed_dim=128, num_filters=128,
+                context_len=3, classes=2)
+# the fluid book's word2vec (embed 32, hidden 256, 4 context words, batch
+# 100) over imikolov's vocabulary; the recommender at dim 32 over the
+# movielens constants (batch 256, 6 category slots); DeepFM over the
+# criteo layout (13 dense, 26 hashed fields) at the DeepFM paper's widths
+# (Guo et al., 2017: factor 10, three hidden layers of 400), hash 2**20,
+# batch 4096
+W2V = dict(embed_dim=32, context=4, hidden=256)
+W2V_BATCH = 100
+REC_DIM, REC_BATCH, REC_SLOTS = 32, 256, 6
+DEEPFM = dict(hash_size=2 ** 20, num_fields=26, dense_dim=13, factor=10,
+              hidden=(400, 400, 400))
+DEEPFM_BATCH = 4096
+# examples/gan_vae_mnist.py: data 784, noise 32, hidden 128, VAE latent 16,
+# batch 64; Adam 2e-4 (GAN) and 1e-3 (VAE); the VAE's loss must fall
+# below 0.8 of its first within the example's 300 steps
+GAN_CFG = dict(data_dim=784, noise_dim=32, hidden=128)
+VAE_CFG = dict(data_dim=784, latent=16, hidden=128)
+GEN_BATCH, GAN_LR, VAE_LR, VAE_STEPS, VAE_FALL = 64, 2e-4, 1e-3, 300, 0.8
+# SSD300's six prior maps (feature side, min size, max size, aspect
+# ratios): 8732 priors; 21 classes (VOC), batch 8, keep_top_k 100
+SSD300_MAPS = ((38, 30.0, 60.0, (2.0,)), (19, 60.0, 111.0, (2.0, 3.0)),
+               (10, 111.0, 162.0, (2.0, 3.0)), (5, 162.0, 213.0, (2.0, 3.0)),
+               (3, 213.0, 264.0, (2.0,)), (1, 264.0, 315.0, (2.0,)))
+SSD_CLASSES, SSD_BATCH, SSD_KEEP, SSD_GTS = 21, 8, 100, 8
+# the zoo's ops on the card against the same code on the CPU, both f32
+# with TF32 off: the same arithmetic in another summation order, so
+# rtol 1e-4 and atol 1e-5 of the largest magnitude (at least 1); integer
+# results (tags, tokens, indices, NMS keeps) equal
+ZOO_RTOL, ZOO_ATOL = 1e-4, 1e-5
+
+
+def zoo_close(got, want, what: str) -> float:
+    """Hold a card result against the CPU's (ZOO_RTOL, ZOO_ATOL; integer
+    and bool results equal); returns the max abs difference."""
+    import torch
+    got, want = got.detach().cpu(), want.detach().cpu()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
+          f"{tuple(want.shape)}")
+    if not want.dtype.is_floating_point:
+        check(torch.equal(got, want), f"{what}: differs from the CPU")
+        return 0.0
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    atol = ZOO_ATOL * max(want.abs().max().item() if want.numel() else 0.0,
+                          1.0)
+    check(torch.allclose(got, want, rtol=ZOO_RTOL, atol=atol),
+          f"{what}: card differs from the CPU by {err} (atol {atol})")
+    return err
+
+
+def zoo_train(say, what, loss, params, batch, device, names=(),
+              per_step=0, lr=ZOO_LR, steps=ZOO_STEPS, share_of=None,
+              reseed=None, falls=True):
+    """One f32 Adam step through the trainer's graph against the eager step
+    (``graph_step_check``), then ``steps`` steps on one repeated batch on
+    the eager route and through the graph (the first step of each route
+    unmeasured: the graphed one captures), counted: ``per_step`` launches
+    of each kernel of ``names`` a step (none of the port's kernels without
+    ``names``), one replay a step, finite costs that fall (printed only
+    with ``falls=False``). ``share_of`` {label: kernel-name substrings}:
+    those kernels' share of one eager step's device time (and its top
+    kernels). ``reseed()``
+    starts each route (and each step of ``graph_step_check``) from the
+    same generator state. Returns the figures."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_map
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    graph_step_check(say, what, loss, params, batch, lr, device,
+                     expect_launches=bool(names), reseed=reseed)
+    figs = {}
+    for route in ("eager", "graphed"):
+        tr = Trainer(loss, Adam(lr), device=device)
+        state = {"p": tree_map(torch.clone, params)}
+        state["s"] = tr.opt.init(state["p"])
+
+        def step():
+            state["p"], state["s"], c = tr.step(state["p"], state["s"],
+                                                *batch)
+            return c
+
+        if reseed:
+            reseed()
+        with _route(route):
+            costs = [step().item()]
+            out, wall, launches, disp = counted(
+                lambda: [step() for _ in range(steps - 1)])
+            costs += [c.item() for c in out]
+            n = steps - 1
+            fig = {"ms_per_step": wall * 1e3 / n, "costs": costs,
+                   "launches_per_step": {k: v / n
+                                         for k, v in launches.items()}}
+            check(all(np.isfinite(costs))
+                  and (costs[-1] < costs[0] or not falls),
+                  f"{what} ({route}): the cost of a repeated batch did "
+                  f"not fall: {costs}")
+            check(fig["launches_per_step"] == {k: per_step for k in names},
+                  f"{what} ({route}): launches a step "
+                  f"{fig['launches_per_step']}, want {per_step} of each of "
+                  f"{names}")
+            replays = step_dispatches(disp, "step")
+            check(replays == ({"captures": 0, "replays": n}
+                              if route == "graphed"
+                              else {"captures": 0, "replays": 0}),
+                  f"{what} ({route}): step graphs {replays}")
+            if route == "eager" and share_of:
+                # the eager step's kernels are the graph's (the counts
+                # above), and the profiler can drop the records of a fast
+                # replay's first kernels
+                rows, _ = device_rows(step)
+                total = sum(r[0] for r in rows)
+                check(total > 0, f"{what}: the profiler saw no device time")
+                fig["device_ms_per_step"] = total / 1e3
+                fig["share"] = {
+                    label: sum(r[0] for r in rows
+                               if any(k in r[2] for k in keys)) / total
+                    for label, keys in share_of.items()}
+                fig["top_kernels_ms"] = [(r[2][:100], r[1], r[0] / 1e3)
+                                         for r in sorted(rows,
+                                                         reverse=True)[:8]]
+        figs[route] = fig
+        del tr, state
+    diff = max(abs(a - b) for a, b in zip(figs["eager"]["costs"],
+                                          figs["graphed"]["costs"]))
+    figs["graphed_vs_eager_max_cost_diff"] = diff
+    say(f"zoo {what}: {steps} f32 Adam steps on one repeated batch, eager "
+        f"and graphed (smoke figures, not a benchmark): "
+        f"{json.dumps(figs)}")
+    return figs
+
+
+def tagger_zoo(say, seed: int, device="cuda") -> dict:
+    """(a) The BiLSTM-CRF tagger: one f32 step through the kernels against
+    the plain route's, the graphed step against the eager one, 12 steps a
+    route (2 #9 and 2 #10 a step), then ``decode`` through its graph (2
+    #8 a call) against the plain route's tags, and a test pass of
+    ``ChunkEvaluator`` over the decoded tags of 2 held batches
+    (``tools/tagger_step_profile.py`` splits the step's device time)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import SeqBatch, graphs
+    from paddle_tpu_torch.core.pytree import tree_get
+    from paddle_tpu_torch.models import BiLSTMCRFTagger
+    from paddle_tpu_torch.ops import crf
+    from paddle_tpu_torch.trainer import ChunkEvaluator
+    model = BiLSTMCRFTagger(**TAGGER).init(seed, device)
+    rs = np.random.RandomState(seed + 16)
+
+    def batch():
+        data = rs.randint(0, TAGGER["vocab_size"], (TEXTCLS_BATCH,
+                                                    TEXTCLS_LEN))
+        lens = rs.randint(TEXTCLS_MIN_LEN, TEXTCLS_LEN + 1, TEXTCLS_BATCH)
+        tags = rs.randint(0, TAGGER["num_tags"], (TEXTCLS_BATCH,
+                                                  TEXTCLS_LEN))
+        return tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                     for a in (data, lens, tags))
+
+    train, held = batch(), [batch() for _ in range(2)]
+
+    def loss_for(route):
+        return lambda p, d, ln, t: model.call(p, SeqBatch(d, ln), t,
+                                              route=route, method="loss")
+
+    f32_step_check(say, model, train, device, "zoo tagger f32 step",
+                   loss_for=loss_for, lr=ZOO_LR)
+    names = ("lstm_seq_train", "lstm_seq_bwd")
+    figs = zoo_train(say, "tagger", loss_for(None), model.tree(), train,
+                     device, names=names, per_step=2)
+    # decode with weights trained a few steps
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    tr = Trainer(loss_for(None), Adam(ZOO_LR), device=device)
+    p, s = model.tree(), tr.opt.init(model.tree())
+    for _ in range(4):
+        p, s, _ = tr.step(p, s, *train)
+    with torch.no_grad():
+        for name, leaf in model.named_parameters():
+            leaf.copy_(tree_get(p, tuple(name.split("."))))
+    evaluator = ChunkEvaluator(TAGGER_CHUNK_TYPES)
+    launches = {}
+    dec = {}
+    for i, (d, ln, t) in enumerate(held):
+        sb = SeqBatch(d, ln)
+        if i == 0:
+            model.decode(sb)                               # the capture
+        (tags, score), wall, n, disp = counted(lambda: model.decode(sb))
+        check(n == {"lstm_seq": 2}
+              and step_dispatches(disp, "decode") == {"captures": 0,
+                                                      "replays": 1},
+              f"tagger decode: launches {n}, dispatches {disp}")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        with graphs.disabled():
+            ptags, pscore = model.decode(sb, route="plain")
+            _, ewall, _, _ = counted(lambda: model.decode(sb))
+        same = torch.equal(tags, ptags)
+        if not same:
+            # another path of (nearly) the same score: compare the scores
+            # of both paths under the same emissions
+            with torch.no_grad():
+                em = model.emissions(sb, route="plain")
+                sk = crf.crf_score(em, tags, ln, model.crf.start,
+                                   model.crf.end, model.crf.trans)
+                sp = crf.crf_score(em, ptags, ln, model.crf.start,
+                                   model.crf.end, model.crf.trans)
+            say(f"tagger decode batch {i}: tags differ from the plain "
+                f"route's at {int((tags != ptags).sum())} steps; best-path "
+                f"scores {sk.tolist()} vs {sp.tolist()}")
+            zoo_close(sk, sp, "tagger decode: best-path scores")
+        zoo_close(score, pscore, f"tagger decode batch {i}: Viterbi scores")
+        check(not tags[ln == 0].any() and torch.equal(
+            tags * (torch.arange(TEXTCLS_LEN, device=device)[None]
+                    < ln[:, None]), tags), "tagger decode: tags past a "
+              "length are not 0")
+        evaluator.update(pred_tags=tags, label_tags=t, lengths=ln)
+        dec[f"batch{i}"] = {"tags_equal_plain": same,
+                            "ms_graphed": wall * 1e3,
+                            "ms_eager": ewall * 1e3}
+    res = evaluator.result()
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()),
+          f"tagger: chunk evaluator {res}")
+    say(f"zoo tagger decode: {json.dumps(dec)}; launches {launches}; "
+        f"ChunkEvaluator over the decoded tags {json.dumps(res)}")
+    figs.update(decode=dec, decode_launches=launches, chunk=res)
+    return figs
+
+
+def embedding_zoo(say, seed: int, device="cuda") -> dict:
+    """(b) ConvTextCls, (c) Word2Vec, Recommender and DeepFM: the graphed
+    step against the eager step, 12 steps a route on one repeated batch,
+    ms a step; DeepFM's embedding backward's share of a step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import SeqBatch
+    from paddle_tpu_torch.data.dataset import imikolov, movielens
+    from paddle_tpu_torch.models import (ConvTextCls, DeepFM, Recommender,
+                                         Word2Vec)
+    rs = np.random.RandomState(seed + 17)
+    dev = lambda a: torch.as_tensor(a, device=device)
+    ints = lambda hi, *shape: dev(rs.randint(0, hi, shape).astype(np.int32))
+    out = {}
+    conv = ConvTextCls(**CONVTEXT).init(seed, device)
+    out["convtext"] = zoo_train(
+        say, "ConvTextCls",
+        lambda p, d, ln, y: conv.call(p, SeqBatch(d, ln), y), conv.tree(),
+        textcls_batches(seed + 17, 1, device)[0], device)
+    w2v = Word2Vec(imikolov.VOCAB, **W2V).init(seed, device)
+    out["word2vec"] = zoo_train(
+        say, "Word2Vec", lambda p, c, t: w2v.call(p, c, t, method="loss"),
+        w2v.tree(), (ints(imikolov.VOCAB, W2V_BATCH, W2V["context"]),
+                     ints(imikolov.VOCAB, W2V_BATCH)), device)
+    rec = Recommender(movielens.USERS, movielens.MOVIES,
+                      movielens.CATEGORIES, movielens.JOBS, movielens.AGES,
+                      dim=REC_DIM).init(seed, device)
+    out["recommender"] = zoo_train(
+        say, "Recommender",
+        lambda p, *b: rec.call(p, *b, method="loss"), rec.tree(),
+        (ints(movielens.USERS, REC_BATCH), ints(2, REC_BATCH),
+         ints(movielens.AGES, REC_BATCH), ints(movielens.JOBS, REC_BATCH),
+         ints(movielens.MOVIES, REC_BATCH),
+         ints(movielens.CATEGORIES, REC_BATCH, REC_SLOTS),
+         dev((rs.rand(REC_BATCH, REC_SLOTS) > 0.5).astype(np.float32)),
+         dev(rs.uniform(1, 5, REC_BATCH).astype(np.float32))), device)
+    fm = DeepFM(**DEEPFM).init(seed, device)
+    out["deepfm"] = zoo_train(
+        say, "DeepFM", lambda p, *b: fm.call(p, *b, method="loss"),
+        fm.tree(),
+        (dev(rs.randn(DEEPFM_BATCH, DEEPFM["dense_dim"]).astype(np.float32)),
+         ints(DEEPFM["hash_size"], DEEPFM_BATCH, DEEPFM["num_fields"]),
+         ints(2, DEEPFM_BATCH)), device,
+        share_of={"embedding backward (indexing_backward)":
+                  ("indexing_backward",)})
+    with torch.no_grad():
+        prob = fm.predict_proba(*(t for t in (
+            dev(rs.randn(8, DEEPFM["dense_dim"]).astype(np.float32)),
+            ints(DEEPFM["hash_size"], 8, DEEPFM["num_fields"]))))
+    check(bool(((prob > 0) & (prob < 1)).all()), f"DeepFM.predict_proba "
+          f"{prob.tolist()}")
+    return out
+
+
+def example_rows(n: int):
+    """The rows of examples/gan_vae_mnist.py ``batches``: x = tanh(z A + b)
+    on a fixed rank-8 manifold (RandomState(0))."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    A = rs.randn(8, 784).astype(np.float32) * 0.6
+    b = rs.randn(784).astype(np.float32) * 0.1
+    z = rs.randn(n, 8).astype(np.float32)
+    return np.tanh(z @ A + b)
+
+
+def generative_zoo(say, seed: int, device="cuda") -> dict:
+    """(d) The GAN's D step and G step, one graph each, each Adam moving
+    only its own half (the other half's leaves detached, as
+    ``GAN.split_grads`` splits them), on both routes; the VAE step as one
+    graph with a card generator, 12 steps a route, then the example's 300
+    steps and its 0.8 factor."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_get, tree_items, tree_map
+    from paddle_tpu_torch.models import GAN, VAE
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    rows = torch.as_tensor(example_rows(2048), device=device)
+    data = [rows[i:i + GEN_BATCH] for i in range(0, 2048, GEN_BATCH)]
+    gen = torch.Generator().manual_seed(seed + 18)
+    zs = [torch.randn((GEN_BATCH, GAN_CFG["noise_dim"]),
+                      generator=gen).to(device) for _ in range(2 * ZOO_STEPS)]
+    gan = GAN(**GAN_CFG).init(seed, device)
+
+    def frozen(p, half):
+        g, d = GAN.split_grads(p)
+        keep, other = (g, d) if half == "d" else (d, g)
+        return {**keep, **tree_map(torch.Tensor.detach, other)}
+
+    d_loss = lambda p, real, z: gan.call(frozen(p, "g"), real, z,
+                                         method="d_loss")
+    g_loss = lambda p, z: gan.call(frozen(p, "d"), z, method="g_loss")
+    graph_step_check(say, "GAN D", d_loss, gan.tree(), (data[0], zs[0]),
+                     GAN_LR, device, expect_launches=False)
+    graph_step_check(say, "GAN G", g_loss, gan.tree(), (zs[1],), GAN_LR,
+                     device, expect_launches=False)
+    figs, finals = {}, {}
+    for route in ("eager", "graphed"):
+        d_tr = Trainer(d_loss, Adam(GAN_LR), device=device)
+        g_tr = Trainer(g_loss, Adam(GAN_LR), device=device)
+        p = tree_map(torch.clone, gan.tree())
+        sd, sg = d_tr.opt.init(p), g_tr.opt.init(p)
+        losses = []
+
+        def alternate(i, p, sd, sg):
+            before = tree_map(torch.clone, p)
+            p, sd, dl = d_tr.step(p, sd, data[i % len(data)], zs[2 * i])
+            moved_d = GAN.split_grads(tree_map(torch.clone, p))
+            p, sg, gl = g_tr.step(p, sg, zs[2 * i + 1])
+            return p, sd, sg, dl, gl, before, moved_d
+
+        with _route(route):
+            p, sd, sg, *_ = alternate(0, p, sd, sg)        # the captures
+
+            def run():
+                nonlocal p, sd, sg
+                out = []
+                for i in range(1, ZOO_STEPS):
+                    p, sd, sg, dl, gl, before, after_d = alternate(i, p, sd,
+                                                                   sg)
+                    out.append((dl, gl, before, after_d,
+                                tree_map(torch.clone, p)))
+                return out
+
+            out, wall, launches, disp = counted(run)
+        for dl, gl, before, (g_after_d, d_after_d), after in out:
+            g0, d0 = GAN.split_grads(before)
+            g1, d1 = GAN.split_grads(after)
+            check(all(torch.equal(a, b) for (_, a), (_, b) in
+                      zip(tree_items(g0), tree_items(g_after_d))),
+                  "GAN: the D step moved the generator")
+            check(all(torch.equal(a, b) for (_, a), (_, b) in
+                      zip(tree_items(d_after_d), tree_items(d1))),
+                  "GAN: the G step moved the discriminator")
+            check(not all(torch.equal(a, b) for (_, a), (_, b) in
+                          zip(tree_items(d0), tree_items(d_after_d))),
+                  "GAN: the D step did not move the discriminator")
+            losses.append((dl.item(), gl.item()))
+        n = ZOO_STEPS - 1
+        check(all(np.isfinite(losses).ravel()), f"GAN: losses {losses}")
+        check(not launches, f"GAN: launches of the port's kernels "
+              f"{launches}")
+        want = n if route == "graphed" else 0
+        for key in ("step",):
+            got = step_dispatches(disp, key)
+            check(got == {"captures": 0, "replays": 2 * want},
+                  f"GAN ({route}): step graphs {got}, want {want} D and "
+                  f"{want} G replays")
+        figs[route] = {"ms_per_d_plus_g_step": wall * 1e3 / n,
+                       "losses": losses}
+        finals[route] = losses
+    diff = max(abs(a - b) for x, y in zip(finals["eager"], finals["graphed"])
+               for a, b in zip(x, y))
+    figs["graphed_vs_eager_max_loss_diff"] = diff
+    say(f"zoo GAN: {ZOO_STEPS} D + G steps a route (smoke figures, not a "
+        f"benchmark): {json.dumps(figs)}")
+    out = {"gan": figs}
+
+    vae = VAE(**VAE_CFG).init(seed, device)
+    vae_loss = lambda p, x, g: vae.call(p, x, g, method="loss")
+    vgen = torch.Generator(device=device).manual_seed(seed)
+    # 12 steps draw 12 noises: the cost is held to fall over the
+    # example's 300 steps below, not over these
+    vfigs = zoo_train(say, "VAE", vae_loss, vae.tree(), (data[0], vgen),
+                      device, lr=VAE_LR, reseed=lambda: vgen.manual_seed(seed),
+                      falls=False)
+    tr = Trainer(vae_loss, Adam(VAE_LR), device=device)
+    p = tree_map(torch.clone, vae.tree())
+    s = tr.opt.init(p)
+    vgen.manual_seed(seed + 1)
+    costs = []
+    t0 = time.perf_counter()
+    for i in range(VAE_STEPS):
+        p, s, c = tr.step(p, s, data[i % len(data)], vgen)
+        costs.append(c)
+    costs = [c.item() for c in costs]
+    wall = time.perf_counter() - t0
+    check(all(np.isfinite(costs)), "VAE: a non-finite cost")
+    fell = costs[-1] < VAE_FALL * costs[0]
+    say(f"zoo VAE: {VAE_STEPS} graphed steps (the example's), cost "
+        f"{costs[0]!r} -> {costs[-1]!r} ({'below' if fell else 'NOT below'}"
+        f" {VAE_FALL} of the first), {wall * 1e3 / VAE_STEPS:.3f} ms a step "
+        f"(costs read after the loop)")
+    check(fell, f"VAE: the cost did not fall below {VAE_FALL} of the "
+          f"first in {VAE_STEPS} steps: {costs[0]} -> {costs[-1]}")
+    with torch.no_grad():
+        for name, leaf in vae.named_parameters():
+            leaf.copy_(tree_get(p, tuple(name.split("."))))
+    smp = vae.sample(torch.Generator(device=device).manual_seed(1), 4)
+    check(smp.shape == (4, 784) and bool(((smp >= 0) & (smp <= 1)).all()),
+          "VAE.sample: out of [0, 1]")
+    vfigs["example_steps"] = {"first": costs[0], "last": costs[-1],
+                              "steps": VAE_STEPS, "fell_below": VAE_FALL}
+    out["vae"] = vfigs
+    return out
+
+
+def ssd300_priors(device):
+    """SSD300's 8732 priors and variances (SSD300_MAPS) on ``device``."""
+    import torch
+    from paddle_tpu_torch.ops import detection as D
+    boxes, var = zip(*(D.prior_box((f, f), (300, 300), lo, hi, ars,
+                                   device=device)
+                       for f, lo, hi, ars in SSD300_MAPS))
+    return torch.cat(boxes), torch.cat(var)
+
+
+def zoo_op_checks(say, seed: int, device="cuda") -> dict:
+    """(e) The zoo's ops on the card against the same code on the CPU:
+    the CRF at the tagger's shape, CTC (loss with its gradient, also
+    against ``F.ctc_loss`` on the feasible rows, and the greedy decode),
+    SSD300's priors, multibox loss with its gradient, NMS and the
+    detection output over a vmapped batch of 8, NCE and the hierarchical
+    sigmoid with their gradients, the sequence ops, and the CTC-error and
+    detection-mAP evaluators over card outputs against the CPU's."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import crf, ctc, nce
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.ops import sequence as S
+    from paddle_tpu_torch.trainer import (CTCErrorEvaluator,
+                                          DetectionMAPEvaluator)
+    gen = torch.Generator().manual_seed(seed + 19)
+    r = lambda *s, k=1.0: torch.randn(s, generator=gen) * k
+    ri = lambda lo, hi, *s: torch.randint(lo, hi, s, generator=gen)
+    errs = {}
+
+    def both(what, fn, args, diff=()):
+        """fn on the card and on the CPU (gradients of sum(out0) for the
+        inputs in ``diff``); every output held; the card's outputs."""
+        res = {}
+        for dev in ("cpu", device):
+            a = [t.to(dev) if isinstance(t, torch.Tensor) else t
+                 for t in args]
+            for i in diff:
+                a[i] = a[i].clone().requires_grad_(True)
+            out = fn(*a)
+            outs = list(out) if isinstance(out, tuple) else [out]
+            if diff:
+                outs += list(torch.autograd.grad(outs[0].sum(),
+                                                 [a[i] for i in diff]))
+            res[str(dev)] = [o.detach() for o in outs]
+        errs[what] = max(zoo_close(g, w, f"{what} [{j}]") for j, (g, w) in
+                         enumerate(zip(res[str(device)], res["cpu"])))
+        return res[str(device)], res["cpu"]
+
+    B, T, N = TEXTCLS_BATCH, TEXTCLS_LEN, TAGGER["num_tags"]
+    lens = ri(TEXTCLS_MIN_LEN, T + 1, B)
+    crf_args = [r(B, T, N), r(N, k=0.05), r(N, k=0.05), r(N, N, k=0.05)]
+    tags = ri(0, N, B, T)
+    both("crf_loss", lambda e, s, n, t, tg, ln: crf.crf_loss(
+        e, tg, ln, s, n, t), crf_args + [tags, lens], (0, 1, 2, 3))
+    both("crf_decode", lambda e, s, n, t, ln: crf.crf_decode(e, ln, s, n, t),
+         crf_args + [lens])
+
+    Bc, Tc, V, L = 16, 50, 30, 20
+    lp = torch.log_softmax(r(Bc, Tc, V, k=2.0), -1)
+    il = ri(30, Tc + 1, Bc)
+    ll = ri(0, L + 1, Bc)
+    ll[0], il[1], ll[1] = 0, 10, L                 # empty; infeasible
+    labels = ri(1, V, Bc, L)
+    (loss_k, grad_k), _ = both("ctc_loss", lambda a, b, c, d: ctc.ctc_loss(
+        a, b, c, d), [lp, il, labels, ll], (0,))
+    check(bool(torch.isfinite(loss_k).all() and torch.isfinite(grad_k).all()),
+          "ctc_loss: non-finite on the card")
+    ref = F.ctc_loss(lp.to(device).transpose(0, 1), labels.to(device).long(),
+                     il.to(device).long(), ll.to(device).long(),
+                     reduction="none", zero_infinity=False)
+    feasible = torch.isfinite(ref)
+    check(not bool(feasible[1]), "ctc: the infeasible row is feasible")
+    errs["ctc_loss_vs_F.ctc_loss"] = (loss_k[feasible] - ref[feasible]
+                                      ).abs().max().item()
+    check(torch.allclose(loss_k[feasible], ref[feasible], rtol=1e-4,
+                         atol=1e-4), f"ctc_loss: against F.ctc_loss on the "
+          f"feasible rows by {errs['ctc_loss_vs_F.ctc_loss']}")
+    (dec_k, dl_k), (dec_c, dl_c) = both(
+        "ctc_greedy_decode", lambda a, b: ctc.ctc_greedy_decode(a, b),
+        [lp, il])
+    ev = {}
+    for dev, (dec, dl) in (("card", (dec_k, dl_k)), ("cpu", (dec_c, dl_c))):
+        e = CTCErrorEvaluator()
+        on = device if dev == "card" else "cpu"
+        e.update(decoded=dec, decoded_lengths=dl, labels=labels.to(on),
+                 label_lengths=ll.to(on))
+        e.update(log_probs=lp.to(on), logit_lengths=il.to(on),
+                 labels=labels.to(on), label_lengths=ll.to(on))
+        ev[dev] = e.result()
+    check(ev["card"] == ev["cpu"], f"CTCErrorEvaluator: card {ev['card']} "
+          f"!= CPU {ev['cpu']}")
+
+    pri_k, var_k = ssd300_priors(device)
+    pri_c, var_c = ssd300_priors("cpu")
+    errs["prior_box"] = max(zoo_close(pri_k, pri_c, "SSD300 priors"),
+                            zoo_close(var_k, var_c, "SSD300 variances"))
+    P = pri_c.shape[0]
+    check(P == 8732, f"SSD300: {P} priors, want 8732")
+    xy = torch.rand((SSD_BATCH, SSD_GTS, 2), generator=gen) * 0.7
+    gt = torch.cat([xy, xy + 0.05 + 0.25 * torch.rand(
+        (SSD_BATCH, SSD_GTS, 2), generator=gen)], -1)
+    n_gt = ri(1, SSD_GTS + 1, SSD_BATCH)
+    gmask = (torch.arange(SSD_GTS)[None] < n_gt[:, None]).float()
+    glab = ri(1, SSD_CLASSES, SSD_BATCH, SSD_GTS)
+    loc, conf = r(SSD_BATCH, P, 4, k=0.3), r(SSD_BATCH, P, SSD_CLASSES,
+                                               k=2.0)
+
+    def mbox(lc, cf, g, gl, m):
+        pr, vr = pri_c.to(lc.device), var_c.to(lc.device)
+        return torch.func.vmap(lambda a, b, c, d, e: D.multibox_loss(
+            a, b, pr, vr, c, d, e))(lc, cf, g, gl, m)
+
+    both("multibox_loss", mbox, [loc, conf, gt, glab, gmask], (0, 1))
+
+    def detect(lc, cf):
+        pr, vr = pri_c.to(lc.device), var_c.to(lc.device)
+        return torch.func.vmap(lambda a, b: D.detection_output(
+            a, b, pr, vr, num_classes=SSD_CLASSES,
+            keep_top_k=SSD_KEEP))(lc, cf)
+
+    det_k, det_c = both("detection_output", detect, [loc, conf * 2.0])
+    both("nms", lambda bx, sc: D.nms(bx, sc, top_k=SSD_KEEP),
+         [D.decode_boxes(loc[0], pri_c, var_c), torch.softmax(conf[0], -1)
+          [:, 3]])
+    maps = {}
+    for dev, (bx, sc, valid) in (("card", det_k), ("cpu", det_c)):
+        e = DetectionMAPEvaluator(SSD_CLASSES)
+        for i in range(SSD_BATCH):
+            keep = valid[i] > 0
+            cls = (torch.arange(1, SSD_CLASSES, device=bx.device)[:, None]
+                   .expand(-1, keep.shape[1]))
+            det = torch.cat([cls[keep][:, None].float(),
+                             sc[i][keep][:, None], bx[i][keep]], 1)
+            g = torch.cat([glab[i][:n_gt[i], None].float(),
+                           gt[i][:n_gt[i]]], 1)
+            e.update(detections=det, gt=g)
+        maps[dev] = e.result()
+    check(maps["card"] == maps["cpu"], f"DetectionMAPEvaluator: card "
+          f"{maps['card']} != CPU {maps['cpu']}")
+
+    Bn, Dn, Vn, Sn = 256, 128, 10000, 64
+    neg = nce._draw_negatives(torch.Generator().manual_seed(seed), Vn, Sn,
+                              device="cpu")
+    both("nce_loss", lambda h, w, b, y, ng: nce._nce_from_negatives(
+        h, y, w, b, ng), [r(Bn, Dn), r(Vn, Dn, k=0.1), r(Vn, k=0.1),
+                          ri(0, Vn, Bn), neg], (0, 1, 2))
+    paths, codes = nce.build_huffman_codes(Vn, device="cpu")
+    both("hsigmoid_loss", lambda h, w, b, y, p_, c_: nce.hsigmoid_loss(
+        h, y, w, b, p_, c_), [r(Bn, Dn), r(2 * Vn, Dn, k=0.1),
+                              r(2 * Vn, k=0.1), ri(0, Vn, Bn), paths, codes],
+         (0, 1, 2))
+
+    x = r(B, T, 128)
+    both("sequence_pool", lambda a, ln: torch.stack([
+        S.sequence_pool(a, ln, pool) for pool in
+        ("average", "sum", "sqrt", "max", "min", "last", "first")]),
+        [x, lens], (0,))
+    both("context_projection", lambda a, ln, w: S.context_projection(
+        a, ln, -2, 5, w), [x, lens, r(4, 128)], (0, 2))
+    both("sequence_conv", lambda a, ln, f: S.sequence_conv(a, ln, f, -1, 3),
+         [x, lens, r(384, 128, k=0.05)], (0, 2))
+    both("sequence_reverse_slice_concat", lambda a, ln: (
+        S.sequence_reverse(a, ln),
+        S.sequence_slice(a, ln, ln // 3, ln // 2, 60),
+        S.sequence_concat(a, ln, a[:, :40], ln.clamp(max=40))[0]),
+        [x, lens], (0,))
+    both("kmax_seq_score", lambda a, ln: S.kmax_seq_score(
+        torch.round(a * 2.0), ln, 10), [x[..., 0], lens])
+    say(f"zoo ops on the card against the CPU (f32, TF32 off; rtol "
+        f"{ZOO_RTOL}, atol {ZOO_ATOL} of the largest magnitude; integer "
+        f"results equal): max abs differences {json.dumps(errs)}; "
+        f"CTCErrorEvaluator {json.dumps(ev['card'])}; DetectionMAPEvaluator "
+        f"{json.dumps(maps['card'])} (both equal to the CPU's)")
+    return {"max_abs_err": errs, "ctc_error": ev["card"],
+            "detection_map": maps["card"]}
+
+
+def lm_options_zoo(say, seed: int, device="cuda") -> dict:
+    """(f) GPT-2 small (phase 7's configuration): one f32 loss and gradient
+    with ``remat=True`` bit-equal to ``remat=False``, #1 twice a block and
+    #2/#3 once, the peak memory of both, then one Adam step of each
+    through the trainer's graph (the recompute inside the capture), the
+    loss and every updated parameter bit-equal; then ``tie_head=False``
+    trained 4 f32 steps on one repeated batch through the trainer's
+    graph."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    rs = np.random.RandomState(seed + 20)
+    ids = torch.as_tensor(rs.randint(0, GPT2_TRAIN["vocab"], (
+        LM_BATCH, LM_SEQ)).astype(np.int32), device=device)
+    res, figs, stepped = {}, {}, {}
+    for remat in (False, True):
+        model = TransformerLM(**GPT2_TRAIN, remat=remat).init(seed, device)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                          model.tree())
+
+        def run():
+            loss = model.call(leaves, ids, method="loss")
+            return loss, torch.autograd.grad(
+                loss, [v for _, v in tree_items(leaves)])
+
+        run()                                              # warm
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), wall, launches, _ = counted(run)
+        res[remat] = (loss, grads, launches)
+        figs["remat" if remat else "plain"] = {
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "ms_loss_and_grads": wall * 1e3, "launches": launches}
+        del leaves, run
+        tr = Trainer(lambda p, x, m=model: m.call(p, x, method="loss"),
+                     Adam(LM_LR), device=device)
+        p0 = model.tree()
+        tr.step(p0, tr.opt.init(p0), ids)                  # the capture
+        (new, _, cost), _, n, disp = counted(
+            lambda: tr.step(p0, tr.opt.init(p0), ids))
+        check(n == launches and step_dispatches(disp, "step") == {
+            "captures": 0, "replays": 1}, f"GPT-2 remat={remat} graphed "
+              f"step: launches {n}, dispatches {disp}")
+        stepped[remat] = (cost, tree_map(torch.clone, new))
+        del tr, new, model, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, g0, n0), (l1, g1, n1) = res[False], res[True]
+    layers = GPT2_TRAIN["n_layers"]
+    check(n0 == {"flash_attention_fwd": layers,
+                 "flash_attention_bwd_dq": layers,
+                 "flash_attention_bwd_dkv": layers}
+          and n1 == dict(n0, flash_attention_fwd=2 * layers),
+          f"remat launches {n1}, plain {n0}")
+    equal = torch.equal(l0, l1) and all(torch.equal(a, b)
+                                        for a, b in zip(g0, g1))
+    check(equal, "GPT-2 remat: the loss or a gradient differs from the "
+          "plain forward's")
+    (c0, p0), (c1, p1) = stepped[False], stepped[True]
+    check(torch.equal(c0, c1) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(p0),
+                                                    tree_items(p1))),
+          "GPT-2 remat: the graphed Adam step differs from the plain one's")
+    del res, g0, g1, stepped, p0, p1
+    torch.cuda.empty_cache()
+    model = TransformerLM(**GPT2_TRAIN, tie_head=False).init(seed, device)
+    check(tuple(model.head.w.shape) == (GPT2_TRAIN["d_model"],
+                                        GPT2_TRAIN["vocab"]),
+          "tie_head=False: no head")
+    tr = Trainer(lambda p, x: model.call(p, x, method="loss"), Adam(LM_LR),
+                 device=device)
+    p, s = model.tree(), tr.opt.init(model.tree())
+    costs = []
+    for _ in range(4):
+        p, s, c = tr.step(p, s, ids)
+        costs.append(c.item())
+    check(all(np.isfinite(costs)) and costs[-1] < costs[0],
+          f"GPT-2 tie_head=False: costs {costs}")
+    figs["untied_costs"] = costs
+    say(f"zoo GPT-2 small f32 (B={LM_BATCH}, T={LM_SEQ}): remat=True loss "
+        f"and gradients bit-equal to remat=False, and its Adam step through "
+        f"the trainer's graph; {json.dumps(figs)}")
+    del model, tr, p, s
+    torch.cuda.empty_cache()
+    return figs
+
+
+def zoo_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 16: (a)-(f), each path's launch counts set to 0 just before
+    and read just after. Returns the figures, with the tagger's launches
+    of #8-#10 and GPT-2's of #1-#3 under "launches"."""
+    t0 = time.perf_counter()
+    figs = {"tagger": tagger_zoo(say, seed, device)}
+    figs.update(embedding_zoo(say, seed, device))
+    figs.update(generative_zoo(say, seed, device))
+    figs["ops"] = zoo_op_checks(say, seed, device)
+    figs["gpt2"] = lm_options_zoo(say, seed, device)
+    tg = figs["tagger"]
+    steps = ZOO_STEPS - 1
+    launches = {k: int(round(v * steps)) for k, v in
+                tg["graphed"]["launches_per_step"].items()}
+    launches.update(tg["decode_launches"])
+    for k, v in figs["gpt2"]["remat"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    figs["launches"] = launches
+    figs["seconds"] = time.perf_counter() - t0
+    say(f"zoo phase: {figs['seconds']:.1f} s")
+    return figs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4760,9 +5527,13 @@ def main(argv=None) -> int:
     image = image_phase(say, args.seed)
     loop = loop_phase(say, args.seed)
     data = data_phase(say, args.seed, loop)
+    zoo = zoo_phase(say, args.seed)
     for entry in lstm:
         entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
         entry["launches_data"] = data["launches"][entry["name"]]
+        entry["launches_zoo"] = zoo["launches"][entry["name"]]
+    for entry in [flash] + bwd:
+        entry["launches_zoo"] = zoo["launches"][entry["name"]]
     if args.rnn_sweep:
         for entry in lstm + gru:
             for tag, res in sweep.items():
@@ -4778,6 +5549,7 @@ def main(argv=None) -> int:
     print(json.dumps({"image": image, "card": card}))
     print(json.dumps({"loop": loop, "card": card}))
     print(json.dumps({"data": data, "card": card}))
+    print(json.dumps({"zoo": zoo, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

@@ -21,7 +21,13 @@ bottleneck; ``proj`` where the shape changes) and ``head/{w,b}``, each
 ``stem1..3``, ``i3a``..``i5b`` (each ``b1, b3r, b3, b5r, b5, bp``),
 ``aux1``/``aux2`` (``conv, fc, out``), ``head``; ``AlexNet``,
 ``LeNet``, ``SmallNet`` ``c{i}``, ``fc{i}``(, ``out``); a
-``Sequential``'s children ``mods_{i}``. Conv weights are HWIO, as in
+``Sequential``'s children ``mods_{i}``. The zoo of ``models/tagger.py``,
+``embeddings.py`` and ``generative.py`` keeps JAX's names too: the
+taggers' ``embed``, ``w_{f,b}``/``u_{f,b}``/``bias_{f,b}``, ``fc`` and
+``crf/{start,end,trans}``; ``DeepFM``'s ``w1``, ``v``, ``dense_w``,
+``deep_{i}`` (attributes of those names, as JAX names a list of
+children) and ``deep_out``; ``ConvTextCls``'s ``conv_w``/``conv_b``; a
+``TransformerLM(tie_head=False)``'s ``head/w``. Conv weights are HWIO, as in
 JAX. On the JAX side, ``jax.tree_util.tree_map(np.asarray,
 params)`` turns it into numpy arrays. The port stores ``Linear`` weights
 as [in, out], as JAX does, so nothing is transposed: the one layout

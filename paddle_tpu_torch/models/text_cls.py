@@ -1,5 +1,6 @@
 """Text classification models — the counterpart of
-``paddle_tpu/models/text_cls.py`` (``LSTMTextCls``, ``BiLSTMTextCls``).
+``paddle_tpu/models/text_cls.py`` (``LSTMTextCls``, ``BiLSTMTextCls``,
+``ConvTextCls``).
 
 embedding -> masked LSTM over a ``SeqBatch`` (``ops/rnn.py``, through the
 port's LSTM kernels) -> pooling over time -> linear -> logits, with
@@ -10,7 +11,9 @@ the JAX model's default.
 
 Parameter names and layouts are the JAX tree's (``embed/w``, ``w{i}``
 [D, 4H], ``u{i}`` [H, 4H], ``b{i}`` [4H], ``fc/w`` [H, classes],
-``fc/b``), so ``convert.params_from_numpy`` loads a JAX tree as it is.
+``fc/b``; ``ConvTextCls``: ``embed/w``, ``conv_w`` [context*E, F],
+``conv_b``, ``fc``), so ``convert.params_from_numpy`` loads a JAX tree
+as it is.
 
 ``model(batch)`` gives logits, ``model(batch, labels)`` the mean softmax
 cross-entropy; ``model.call(params, batch, labels)`` the same with the
@@ -94,3 +97,30 @@ class BiLSTMTextCls(Module):
         h = torch.cat([S.sequence_last_step(hf, batch.lengths),
                        S.sequence_first_step(hb, batch.lengths)], dim=-1)
         return _head(self.fc(h), labels)
+
+
+class ConvTextCls(Module):
+    """Sequence convolution (a context window of ``context_len`` steps
+    centred on each step) + ReLU -> max pool over time -> logits
+    (networks.py text_conv_pool, the CNN quick start)."""
+
+    def __init__(self, vocab_size: int, embed_dim: int = 128,
+                 num_filters: int = 128, context_len: int = 3,
+                 classes: int = 2):
+        super().__init__()
+        self.embed = Embedding(vocab_size, embed_dim)
+        self.context_len = context_len
+        self.param("conv_w", (context_len * embed_dim, num_filters),
+                   uniform(-0.08, 0.08))
+        self.param("conv_b", (num_filters,), zeros)
+        self.fc = Linear(num_filters, classes)
+
+    def forward(self, batch: SeqBatch, labels: Optional[torch.Tensor] = None,
+                **kw) -> torch.Tensor:
+        x = self.embed(batch.data)
+        h = S.sequence_conv(x, batch.lengths, self.conv_w,
+                            context_start=-(self.context_len // 2),
+                            context_length=self.context_len)
+        h = torch.relu(h + self.conv_b)
+        return _head(self.fc(S.sequence_pool(h, batch.lengths, "max")),
+                     labels)

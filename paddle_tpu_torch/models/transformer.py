@@ -10,9 +10,13 @@ method="loss")`` is what ``Trainer`` differentiates); the decode methods
 (``prefill``, ``decode_step``, ``decode_step_paged``, ``verify_step``,
 ``generate_fused`` and its alias ``generate_cached``) run without
 autograd and write their caches in place; ``generate_fused`` runs each
-step as one CUDA graph on the card (``core/graphs.py``). Not ported:
-``tie_head=False``, ``remat``, ``prefill_paged`` (the prefix cache) and
-sequence sharding (``positions``, ``seq_axis``). The model
+step as one CUDA graph on the card (``core/graphs.py``).
+``tie_head=False`` gives the model its own ``head`` [d_model, vocab] (no
+bias), which the training forward and every decode method use;
+``remat=True`` recomputes each block's activations in the backward
+(:func:`_remat_block`, ``torch.utils.checkpoint``), as JAX wraps each
+block in ``jax.checkpoint``. Not ported: ``prefill_paged`` (the prefix
+cache) and sequence sharding (``positions``, ``seq_axis``). The model
 carries its own parameters (JAX passes a parameter tree beside it); they
 keep the JAX names and layouts so a JAX tree loads through
 ``paddle_tpu_torch.convert.params_from_numpy``.
@@ -30,6 +34,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from ..nn import Embedding, LayerNorm, Linear, Module
 from ..nn.initializer import normal
@@ -97,9 +103,34 @@ class TransformerBlock(nn.Module):
                                           route=route))
 
 
+def _remat_block(blk: TransformerBlock, x: torch.Tensor,
+                 route: Optional[str]) -> torch.Tensor:
+    """``blk(x)`` whose activations are recomputed in the backward
+    (``jax.checkpoint`` of the block). The block's parameters go in as
+    inputs and the recompute runs the block on those same tensors, not
+    on what its attributes hold by then: under ``Module.call`` (the
+    trainer's tree) they are the tree's leaves only while the forward
+    runs. ``preserve_rng_state=False``: the block draws no random number
+    (the LM has no dropout), and saving or restoring the RNG state has no
+    place inside a CUDA graph capture. The recompute sees the same
+    inputs, so the gradients are those of the plain forward, bit for bit;
+    on the card it launches the attention forward (#1) a second time a
+    block."""
+    names = [n for n, _ in blk.named_parameters()]
+    leaves = [p for _, p in blk.named_parameters()]
+
+    def run(x, *leaves):
+        return torch.func.functional_call(blk, dict(zip(names, leaves)),
+                                          (x,), {"route": route})
+
+    return checkpoint(run, x, *leaves, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class TransformerLM(Module):
     """GPT-style LM: token + learned position embeddings, N pre-LN blocks,
-    final LN, head tied to the token embedding.
+    final LN, a head tied to the token embedding (or its own with
+    ``tie_head=False``).
 
     Built with its parameters on the ``meta`` device: :meth:`init` (random
     weights from a seed) or ``convert.params_from_numpy`` (weights from the
@@ -107,15 +138,20 @@ class TransformerLM(Module):
 
     def __init__(self, vocab: int, d_model: int = 512, n_heads: int = 8,
                  n_layers: int = 6, d_ff: Optional[int] = None,
-                 max_len: int = 1024):
+                 max_len: int = 1024, tie_head: bool = True,
+                 remat: bool = False):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.vocab, self.max_len = vocab, max_len
+        self.tie_head, self.remat = tie_head, remat
         self.embed = Embedding(vocab, d_model, w_init=normal(0.0, 0.02))
         self.param("pos_embed", (max_len, d_model), normal(0.0, 0.01))
         self.blocks = nn.ModuleList(TransformerBlock(d_model, n_heads, d_ff)
                                     for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model)
+        if not tie_head:
+            self.head = Linear(d_model, vocab, bias=False,
+                               w_init=normal(0.0, 0.02))
 
     @property
     def device(self) -> torch.device:
@@ -128,8 +164,10 @@ class TransformerLM(Module):
         return self.embed.w.dtype
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The head tied to the token embedding."""
-        return x @ self.embed.w.t().to(x.dtype)
+        """The head: the token embedding's transpose, or ``head``."""
+        if self.tie_head:
+            return x @ self.embed.w.t().to(x.dtype)
+        return x @ self.head.w.to(x.dtype)
 
     def forward(self, ids: torch.Tensor, *,
                 route: Optional[str] = None) -> torch.Tensor:
@@ -139,7 +177,10 @@ class TransformerLM(Module):
         x = self.embed(ids)
         x = x + self.pos_embed[:T].to(x.dtype)
         for blk in self.blocks:
-            x = blk(x, route=route)
+            if self.remat and torch.is_grad_enabled():
+                x = _remat_block(blk, x, route)
+            else:
+                x = blk(x, route=route)
         return self._logits(self.ln_f(x))
 
     def shifted_loss(self, ids_in: torch.Tensor, targets: torch.Tensor, *,

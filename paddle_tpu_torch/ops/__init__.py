@@ -1,5 +1,7 @@
-from . import (activations, conv, cuda_kernels, loss, metrics, norm, pool,
-               random, rnn, rnn_kernels, sequence)
+from . import (activations, conv, crf, ctc, cuda_kernels, detection, loss,
+               math, metrics, nce, norm, pool, random, rnn, rnn_kernels,
+               sequence)
 
-__all__ = ["activations", "conv", "cuda_kernels", "loss", "metrics", "norm",
-           "pool", "random", "rnn", "rnn_kernels", "sequence"]
+__all__ = ["activations", "conv", "crf", "ctc", "cuda_kernels", "detection",
+           "loss", "math", "metrics", "nce", "norm", "pool", "random", "rnn",
+           "rnn_kernels", "sequence"]

@@ -2,14 +2,16 @@ from . import checkpoint, evaluator, event, plot
 from .checkpoint import (latest_pass, load_checkpoint, save_checkpoint,
                          verify_checkpoint)
 from .evaluator import (AucEvaluator, ChunkEvaluator,
-                        ClassificationErrorEvaluator, Evaluator,
+                        ClassificationErrorEvaluator, CTCErrorEvaluator,
+                        DetectionMAPEvaluator, Evaluator,
                         EvaluatorGroup, MaxIdPrinterEvaluator,
                         PnpairEvaluator, PrecisionRecallEvaluator,
                         SumEvaluator, ValuePrinterEvaluator)
 from .plot import Ploter
 from .trainer import Trainer, shared_forward
 
-__all__ = ["AucEvaluator", "ChunkEvaluator", "ClassificationErrorEvaluator",
+__all__ = ["AucEvaluator", "CTCErrorEvaluator", "ChunkEvaluator",
+           "ClassificationErrorEvaluator", "DetectionMAPEvaluator",
            "Evaluator", "EvaluatorGroup", "MaxIdPrinterEvaluator",
            "PnpairEvaluator", "Ploter", "PrecisionRecallEvaluator",
            "SumEvaluator", "Trainer", "ValuePrinterEvaluator", "checkpoint",

@@ -1,14 +1,16 @@
 """Streaming evaluators — the counterpart of
 ``paddle_tpu/trainer/evaluator.py`` (the gserver Evaluator zoo:
-classification error, sum, AUC, precision/recall, chunk F1, pn-pair and
-the printers).
+classification error, sum, AUC, precision/recall, chunk F1, CTC error,
+pn-pair, detection mAP and the printers).
 
 Each evaluator owns small host accumulators; the per-batch counts come
 from ``ops/metrics.py`` on the tensors the trainer's step hands over
 (its ``outputs_fn``, evaluated inside the step's graph on the card) and
 are read back here, after the step. ``result()`` returns a dict for
-events and logs. ``CTCErrorEvaluator`` and ``DetectionMAPEvaluator``
-wait for ``ops/ctc`` and ``ops/detection`` (ROADMAP A.4).
+events and logs. ``CTCErrorEvaluator`` decodes with
+``ops/ctc.py`` ``ctc_greedy_decode`` on the tensors' device;
+``DetectionMAPEvaluator`` matches on the host, through
+``ops/detection.py`` ``iou_matrix`` in f32 as JAX's does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import numpy as np
 import torch
 
 from ..ops import metrics as M
+from ..ops.ctc import ctc_greedy_decode
+from ..ops.detection import iou_matrix
 from ..utils.logging import get_logger
 
 
@@ -186,6 +190,44 @@ class ChunkEvaluator(Evaluator):
         return {"chunk_precision": p, "chunk_recall": r, "chunk_f1": f1}
 
 
+class CTCErrorEvaluator(Evaluator):
+    """Sequence error rate: the edit distance between the CTC greedy
+    decodes and the label sequences over the total label length
+    (CTCErrorEvaluator.cpp)."""
+
+    name = "ctc_error"
+
+    def __init__(self, blank: int = 0):
+        self.blank = blank
+        self.start()
+
+    def start(self):
+        self.dist = 0.0
+        self.label_len = 0.0
+        self.seq_errs = 0.0
+        self.n_seq = 0.0
+
+    def update(self, log_probs=None, logit_lengths=None, labels=None,
+               label_lengths=None, decoded=None, decoded_lengths=None, **_):
+        if decoded is None:
+            decoded, decoded_lengths = ctc_greedy_decode(
+                _tensor(log_probs), _tensor(logit_lengths), blank=self.blank)
+        decoded = _tensor(decoded)
+        dev = decoded.device
+        d = _np(M.edit_distance(decoded, _tensor(decoded_lengths).to(dev),
+                                _tensor(labels).to(dev),
+                                _tensor(label_lengths).to(dev))
+                ).astype(np.float64)
+        self.dist += float(d.sum())
+        self.label_len += float(_np(label_lengths).sum())
+        self.seq_errs += float((d > 0).sum())
+        self.n_seq += d.shape[0]
+
+    def result(self):
+        return {"ctc_error_rate": self.dist / max(self.label_len, 1.0),
+                "ctc_seq_error": self.seq_errs / max(self.n_seq, 1.0)}
+
+
 class EvaluatorGroup:
     """Evaluator composition the way NeuralNetwork combines them
     (gserver combined evaluator): start/update/result fan out."""
@@ -234,6 +276,69 @@ class PnpairEvaluator(Evaluator):
         denom = max(self.neg + self.spe / 2.0, 1e-12)
         return {"pnpair_ratio": (self.pos + self.spe / 2.0) / denom,
                 "pnpair_pos": self.pos, "pnpair_neg": self.neg}
+
+
+class DetectionMAPEvaluator(Evaluator):
+    """Mean average precision over detection outputs
+    (DetectionMAPEvaluator.cpp, integral mode).
+
+    update() takes one image's detections [N, 6] rows (class, score, x1,
+    y1, x2, y2), the detection output's format, and its ground truth
+    [M, 5] rows (class, x1, y1, x2, y2). Each class's detections are taken
+    best score first; one matches the gt of its highest IoU (the first on
+    a tie) when that IoU reaches the threshold and the gt is not taken
+    yet."""
+
+    name = "detection_map"
+
+    def __init__(self, num_classes: int, iou_threshold: float = 0.5,
+                 background: int = 0):
+        self.num_classes = num_classes
+        self.iou = iou_threshold
+        self.background = background
+        self.start()
+
+    def start(self):
+        self.scores = {c: [] for c in range(self.num_classes)}
+        self.matched = {c: [] for c in range(self.num_classes)}
+        self.n_gt = {c: 0 for c in range(self.num_classes)}
+
+    def update(self, detections=None, gt=None, **_):
+        det = _np(detections).astype(np.float64)
+        gts = _np(gt).astype(np.float64)
+        for c in range(self.num_classes):
+            if c == self.background:
+                continue
+            d = det[det[:, 0] == c]
+            g = gts[gts[:, 0] == c]
+            self.n_gt[c] += len(g)
+            if len(d) == 0:
+                continue
+            d = d[np.argsort(-d[:, 1])]
+            taken = np.zeros(len(g), bool)
+            # one [D, M] IoU call a class, in f32 as JAX computes it
+            all_ious = (iou_matrix(
+                torch.as_tensor(d[:, 2:6], dtype=torch.float32),
+                torch.as_tensor(g[:, 1:5], dtype=torch.float32)).numpy()
+                if len(g) else np.zeros((len(d), 0)))
+            for row, ious in zip(d, all_ious):
+                self.scores[c].append(row[1])
+                if ious.size == 0:
+                    self.matched[c].append(0.0)
+                    continue
+                best = int(ious.argmax())
+                if ious[best] >= self.iou and not taken[best]:
+                    taken[best] = True
+                    self.matched[c].append(1.0)
+                else:
+                    self.matched[c].append(0.0)
+
+    def result(self):
+        aps = [M.average_precision(self.scores[c], self.matched[c],
+                                   self.n_gt[c])
+               for c in range(self.num_classes)
+               if c != self.background and self.n_gt[c] > 0]
+        return {"detection_map": float(np.mean(aps)) if aps else 0.0}
 
 
 class ValuePrinterEvaluator(Evaluator):

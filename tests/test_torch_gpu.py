@@ -2233,3 +2233,188 @@ def test_a_truncated_checkpoint_falls_back_and_resumes_on_card(cuda,
     assert _replays(d, "step") == (0, 4)
     assert _tree_diff(p, want_p) == 0.0 and _tree_diff(s, want_s) == 0.0
     assert verify_checkpoint(pass_dir(out, 2))
+
+
+# -- the model zoo and its ops (CRF, CTC, detection, NCE, sequence) -----------
+
+def _zoo_ops(gen):
+    """name -> (fn(*tensors) -> tensor or tuple, inputs on the CPU, the
+    indices of the inputs to differentiate). Each is run on the card and
+    on the CPU."""
+    from paddle_tpu_torch.ops import crf, ctc, detection as D, nce
+    from paddle_tpu_torch.ops import sequence as S
+    r = lambda *s, k=1.0: torch.randn(s, generator=gen) * k
+    ri = lambda hi, *s: torch.randint(0, hi, s, generator=gen)
+    B, T, N = 6, 20, 9
+    lens = torch.tensor([20, 1, 0, 7, 13, 20])
+    em, st, en, tr = r(B, T, N), r(N, k=0.1), r(N, k=0.1), r(N, N, k=0.1)
+    tags = ri(N, B, T)
+    lp = torch.log_softmax(r(B, 30, 12), -1)
+    labels = ri(11, B, 8) + 1
+    il = torch.tensor([30, 25, 10, 30, 5, 18])
+    ll = torch.tensor([8, 3, 0, 5, 4, 1])
+    pri, var = D.prior_box((8, 8), (300, 300), 60.0, 111.0, (2.0, 3.0),
+                           device="cpu")
+    P = pri.shape[0]
+    xy = torch.rand((4, 5, 2), generator=gen) * 0.6
+    gt = torch.cat([xy, xy + 0.1 + 0.2 * torch.rand((4, 5, 2),
+                                                    generator=gen)], -1)
+    gmask = (torch.arange(5)[None] < torch.tensor([5, 2, 1, 3])[:, None]
+             ).float()
+    glab = ri(20, 4, 5) + 1
+    det = lambda loc, conf: torch.func.vmap(lambda a, b: D.detection_output(
+        a, b, pri.to(a.device), var.to(a.device), num_classes=21,
+        keep_top_k=30))(loc, conf)
+    mbox = lambda loc, conf, g, gl, m: torch.func.vmap(
+        lambda a, b, c, d, e: D.multibox_loss(
+            a, b, pri.to(a.device), var.to(a.device), c, d, e))(
+                loc, conf, g, gl, m)
+    paths, codes = nce.build_huffman_codes(50, device="cpu")
+    x = r(B, T, 8)
+    return {
+        "crf_loss": (lambda e, s, n, t, tg, ln: crf.crf_loss(e, tg, ln, s, n,
+                                                            t),
+                     [em, st, en, tr, tags, lens], (0, 1, 2, 3)),
+        "crf_decode": (lambda e, s, n, t, ln: crf.crf_decode(e, ln, s, n, t),
+                       [em, st, en, tr, lens], ()),
+        "ctc_loss": (lambda a, b, c, d: ctc.ctc_loss(a, b, c, d),
+                     [lp, il, labels, ll], (0,)),
+        "ctc_greedy_decode": (lambda a, b: ctc.ctc_greedy_decode(a, b),
+                              [lp, il], ()),
+        "multibox_loss": (mbox, [r(4, P, 4, k=0.3), r(4, P, 21), gt, glab,
+                                 gmask], (0, 1)),
+        "detection_output": (det, [r(4, P, 4, k=0.3), r(4, P, 21, k=3.0)],
+                             ()),
+        "nce": (lambda h, w, b, y, ng: nce._nce_from_negatives(h, y, w, b,
+                                                               ng),
+                [r(B, 8), r(50, 8, k=0.3), r(50, k=0.1), ri(50, B),
+                 ri(50, 10)], (0, 1, 2)),
+        "hsigmoid": (lambda h, w, b, y, p, c: nce.hsigmoid_loss(h, y, w, b,
+                                                                p, c),
+                     [r(B, 8), r(100, 8, k=0.3), r(100, k=0.1), ri(50, B),
+                      paths, codes], (0, 1, 2)),
+        "context_projection": (lambda a, ln, w: S.context_projection(
+            a, ln, -2, 5, w), [x, lens, r(4, 8)], (0, 2)),
+        "sequence_conv": (lambda a, ln, f: S.sequence_conv(a, ln, f, -1, 3),
+                          [x, lens, r(24, 16)], (0, 2)),
+        "sequence_pools": (lambda a, ln: torch.stack([
+            S.sequence_pool(a, ln, p) for p in
+            ("average", "sum", "sqrt", "max", "min", "last")]),
+            [x, lens], (0,)),
+        "kmax_seq_score": (lambda a, ln: S.kmax_seq_score(
+            torch.round(a * 2), ln, 5), [x[..., 0], lens], ()),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["crf_loss", "crf_decode", "ctc_loss",
+                                  "ctc_greedy_decode", "multibox_loss",
+                                  "detection_output", "nce", "hsigmoid",
+                                  "context_projection", "sequence_conv",
+                                  "sequence_pools", "kmax_seq_score"])
+def test_zoo_op_on_card_equals_the_cpu(cuda_f32, name):
+    """The op and its gradients on the card against the same code on the
+    CPU (f32, TF32 off): values and gradients within rtol 1e-4 and 1e-5 of
+    the largest magnitude (summation order); integer results (tags,
+    tokens, indices, NMS keeps) equal."""
+    fn, args, diff = _zoo_ops(torch.Generator().manual_seed(3))[name]
+    res = {}
+    for dev in ("cpu", cuda_f32):
+        a = [t.to(dev) for t in args]
+        for i in diff:
+            a[i] = a[i].clone().requires_grad_(True)
+        out = fn(*a)
+        outs = list(out) if isinstance(out, tuple) else [out]
+        grads = []
+        if diff:
+            cot = torch.ones_like(outs[0])
+            grads = torch.autograd.grad(outs[0], [a[i] for i in diff], cot)
+        res[str(dev)] = [o.detach().cpu() for o in outs + list(grads)]
+    for got, want in zip(res[str(cuda_f32)], res["cpu"]):
+        if want.dtype.is_floating_point:
+            torch.testing.assert_close(
+                got, want, rtol=1e-4,
+                atol=1e-5 * max(want.abs().max().item(), 1.0))
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_tagger_runs_the_lstm_kernels_on_card(cuda):
+    """A BiLSTM-CRF training step launches #9 and #10 twice (the two
+    directions) through one replay, and its decode #8 twice; the decoded
+    tags equal the plain route's."""
+    from paddle_tpu_torch.core import SeqBatch
+    from paddle_tpu_torch.models import BiLSTMCRFTagger
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    gen = torch.Generator().manual_seed(4)
+    model = BiLSTMCRFTagger(200, 9, embed_dim=16, hidden=32).init(
+        seed=1, device=cuda)
+    data = torch.randint(0, 200, (8, 12), generator=gen).to(cuda)
+    lens = torch.tensor([12, 1, 5, 12, 3, 9, 7, 2], device=cuda)
+    tags = torch.randint(0, 9, (8, 12), generator=gen).to(cuda)
+    tr = Trainer(lambda p, d, ln, t: model.call(p, SeqBatch(d, ln), t,
+                                                method="loss"),
+                 Adam(1e-3), device=cuda)
+    p, s = model.tree(), Adam(1e-3).init(model.tree())
+    p, s, _ = tr.step(p, s, data, lens, tags)              # the capture
+    (p, s, cost), launches, d = _counted(lambda: tr.step(p, s, data, lens,
+                                                         tags))
+    assert torch.isfinite(cost)
+    assert launches == {"lstm_seq_train": 2, "lstm_seq_bwd": 2}
+    assert _replays(d, "step") == (0, 1)
+    sb = SeqBatch(data, lens)
+    model.decode(sb)                                       # the capture
+    (dec, score), launches, d = _counted(lambda: model.decode(sb))
+    assert launches == {"lstm_seq": 2} and _replays(d, "decode") == (0, 1)
+    plain, plain_score = model.decode(sb, route="plain")
+    assert torch.equal(dec, plain)
+    torch.testing.assert_close(score, plain_score, rtol=1e-4, atol=1e-4)
+    assert not dec[1, 1:].any()
+
+
+@pytest.mark.gpu
+def test_lm_remat_step_is_bit_equal_on_card(cuda):
+    """remat=True recomputes each block in the backward: the attention
+    forward (#1) twice a block, #2 and #3 once, and the loss and every
+    gradient bit-equal to remat=False; so is an Adam step through the
+    trainer's graph, whose capture holds the recompute."""
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    ids = torch.randint(0, 300, (2, 96),
+                        generator=torch.Generator().manual_seed(5)).to(cuda)
+    res, stepped = {}, {}
+    for remat in (False, True):
+        model = TransformerLM(300, d_model=128, n_heads=2, n_layers=2,
+                              max_len=128, remat=remat).init(seed=2,
+                                                             device=cuda)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                          model.tree())
+
+        def run():
+            loss = model.call(leaves, ids, method="loss")
+            return loss, torch.autograd.grad(
+                loss, [v for _, v in tree_items(leaves)])
+
+        res[remat] = _counted(run)
+        tr = Trainer(lambda p, x, m=model: m.call(p, x, method="loss"),
+                     Adam(1e-3), device=cuda)
+        tr.step(model.tree(), tr.opt.init(model.tree()), ids)  # capture
+        (p, _, cost), launches, d = _counted(
+            lambda: tr.step(model.tree(), tr.opt.init(model.tree()), ids))
+        assert _replays(d, "step") == (0, 1)
+        assert launches == res[remat][1]
+        stepped[remat] = (cost, tree_map(torch.clone, p))
+    (l0, g0), n0, _ = res[False]
+    (l1, g1), n1, _ = res[True]
+    assert torch.equal(stepped[False][0], stepped[True][0])
+    for (_, a), (_, b) in zip(tree_items(stepped[False][1]),
+                              tree_items(stepped[True][1])):
+        assert torch.equal(a, b)
+    assert n0 == {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+                  "flash_attention_bwd_dkv": 2}
+    assert n1 == dict(n0, flash_attention_fwd=4)
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
