@@ -218,6 +218,30 @@ Phases:
    each through the trainer's graph bit-equal, and 4 ``tie_head=False``
    steps through the trainer's graph with a falling cost.
 
+17. routes, ops, offload, prefix cache — (a) the flagship's LSTMTextCls
+   at every ``SUITE_ROWS`` (B, H) of benchmarks/lstm_textcls.py (T=100,
+   lengths 30..100): one f32 step through the kernels (the trainer's
+   graph) against the plain route's, one bf16 step (loss within 1% of
+   the plain route's) and its ms, each with the routes and launches
+   ``rnn_kernels.plan_route`` gives (``ROUTES``; H = 1280 the step loop),
+   and where a route tiles, in f32 and bf16, #9 and #10 on it against
+   the plain versions on the same inputs and the tiled backward
+   bit-equal across two runs; the seq2seq's GRU encoder likewise at B 64
+   and 128 (#11 and #12 where they tile); (b) ``roi_pool`` (a ResNet-50 C4
+   map, 128 RoIs), ``conv3d`` (a 16-frame 112² clip), ``group_norm`` (32
+   groups) and the sparse SGD and Adagrad updates (a 2**20 x 64 table)
+   on the card against the CPU, timed; (c) a 2**22 x 64 f32
+   ``HostEmbeddingTable`` under 4 SGD steps of a bag-of-ids classifier
+   through ``HostEmbedPrefetcher``, bit-equal to the same steps over the
+   table on the card, and the rows a second it streams; (d) GPT-2 small's
+   ``ServingEngine`` with ``prefix_cache=True``: a warm request, then two
+   bursts of 8 prompts sharing its declared 200-token prefix (its last 8
+   tokens on a partial page), tokens equal to the cache-off engine's and
+   the solo plain decode, hits > 0, copies on write > 0 and a replay of
+   the hit admission's graph, TTFT and TPOT beside cache-off. Phase
+   10's engine bursts are queued whole before the engine starts, so the
+   eager and graphed routes see one admission pattern.
+
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
@@ -237,7 +261,8 @@ allocated beyond an eighth of a KV cell.
 
 Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"data": {...}}``
-(phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"kernels": [...]}``,
+(phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"slice18": {...}}``
+(phase 17's), ``{"kernels": [...]}`` (with ``launches_routes`` on #8-#12),
 the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -740,30 +765,32 @@ def workload(seed: int, vocab: int):
     return [rs.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def serve(model, prompts, device, kv_dtype=None, eng=None):
+def serve(model, prompts, device, kv_dtype=None, eng=None, prefix_len=None):
     """Submit every prompt at once through start()/submit()/poll() (one
     burst, no arrival schedule); returns (tokens per request, (ttft, tpot)
-    seconds per request, wall seconds, engine). ``eng``: a started engine
-    to submit to (left running; its graphs stay warm), in place of a new
-    one that is stopped at the end."""
+    seconds per request, wall seconds, engine). ``eng``: a stopped engine
+    to submit to (its graphs stay warm), in place of a new one;
+    ``prefix_len``: the shared prefix each request declares. The whole
+    burst is queued before the scheduler starts, so the first admission
+    sees every request (a scheduler already running may admit the first
+    before the rest arrive, and the admissions would differ run to run);
+    the engine is stopped at the end."""
     import torch
     from paddle_tpu_torch.serving import ServingEngine
-    own = eng is None
-    if own:
+    if eng is None:
         eng = ServingEngine(model, device=device, kv_dtype=kv_dtype,
                             **ENGINE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if own:
-        eng.start()
     try:
-        rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        rids = [eng.submit(p, NEW_TOKENS, prefix_len=prefix_len)
+                for p in prompts]
+        eng.start()
         while not all(eng.poll(r)[1] for r in rids):
             time.sleep(0.002)
         wall = time.perf_counter() - t0
     finally:
-        if own:
-            eng.stop()
+        eng.stop()
     check(eng.failed is None, f"engine failed: {eng.failed}")
     toks, lat = [], []
     for r in rids:
@@ -779,10 +806,11 @@ def serve(model, prompts, device, kv_dtype=None, eng=None):
 
 def engine_pair(say, what, model, prompts, device, kv_dtype=None):
     """The engine's traffic on the eager route and through the graphs,
-    each on one started engine (warmed by one burst, then one measured
-    burst and one profiled): tokens equal, one graph replay a segment,
-    latency figures and peak memory of the measured burst. Returns
-    {route: figures}."""
+    each on one engine (warmed by one burst, then one measured burst and
+    one profiled; each burst queued whole before the engine starts
+    again): tokens equal, the same launches a segment, one graph replay a
+    segment, latency figures and peak memory of the measured burst.
+    Returns {route: figures}."""
     import torch
     from paddle_tpu_torch.serving import ServingEngine
     figs = {}
@@ -795,7 +823,7 @@ def engine_pair(say, what, model, prompts, device, kv_dtype=None):
     res = {}
     for route in ("eager", "graphed"):
         eng = ServingEngine(model, device=device, kv_dtype=kv_dtype,
-                            **ENGINE).start()
+                            **ENGINE)
         try:
             with _route(route):
                 run_on(eng)
@@ -5414,6 +5442,529 @@ def zoo_phase(say, seed: int, device="cuda") -> dict:
     return figs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the recurrences at every bench shape, the ops A.4 left, the
+# host-offloaded embedding table and the prefix cache
+# ---------------------------------------------------------------------------
+
+# benchmarks/lstm_textcls.py:132-136 SUITE_ROWS: every published LSTM row
+# (batch, hidden) beyond the flagship, the flagship's model otherwise
+SUITE_SHAPES = ((64, 512), (64, 1280), (128, 256), (128, 512), (128, 1280),
+                (256, 256), (256, 512), (256, 1280))
+# the seq2seq bench's encoder (batch 64, hidden 512) and a batch past the
+# GRU backward's one-launch limit there
+GRU_SHAPES = (64, 128)
+
+
+def planned(name: str, B: int, H: int, dtype) -> "object":
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    return rk.plan_route(name, B, H, dtype, *rk.card_limits(0))
+
+
+def route_counts(fn):
+    """fn() with LAUNCHES and ROUTES set to 0 just before and read just
+    after: (out, {kernel: launches}, {"kernel route": count})."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: n for k, n in ck.LAUNCHES.items() if n},
+            {f"{k} {r}": n for (k, r), n in ck.ROUTES.items()})
+
+
+def expected_counts(names, B, H, dtype, per_call=1):
+    """The launches and routes one training step through ``names`` (a
+    forward and a backward kernel, each called ``per_call`` times) must
+    show by the planner."""
+    launches, routes = {}, {}
+    for name in names:
+        rt = planned(name, B, H, dtype)
+        routes[f"{name} {rt.kind}"] = per_call
+        if rt.kind != "scan":
+            launches[name] = per_call * len(rt.tiles)
+    return launches, routes
+
+
+def tiled_route_check(kind, B, H, dtype, gen, device="cuda"):
+    """The planner's routes of one recurrence (``kind`` "lstm": #9 and #10
+    at T = 100, lengths 30..100, nonzero h0/c0; "gru": #11 and #12 at the
+    seq2seq's T = 32, lengths 16..32) on B rows against the plain versions
+    on the same inputs (lstm_close's tolerances, du as a sum of B*T
+    products), and the backward bit-equal across two runs. Returns each
+    kernel's max abs error."""
+    import torch
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    if kind == "lstm":
+        T, lo = TEXTCLS_LEN, TEXTCLS_MIN_LEN
+        lens = torch.randint(lo, T + 1, (B,), generator=gen).tolist()
+        fwd, bwd = _lstm_case(B, T, H, lens, dtype, gen, device, True)
+        names, du_index = ("lstm_seq_train", "lstm_seq_bwd"), 3
+
+        def run(name, args, route=None):
+            if name == "lstm_seq_bwd":
+                return rk.lstm_sequence_fused_bwd(*args, route=route,
+                                                  forget_bias=1.0)
+            return rk.lstm_sequence_fused(*args, save_cell=True, route=route,
+                                          forget_bias=1.0)
+    else:
+        T, lo = S2S_SEQ, S2S_MIN_LEN
+        lens = torch.randint(lo, T + 1, (B,), generator=gen).tolist()
+        fwd, bwd = _gru_inputs(B, T, H, lens, dtype, gen, device)
+        names, run, du_index = ("gru_seq", "gru_seq_bwd"), _gru_run, 2
+    dname = str(dtype).replace("torch.", "")
+    errs = {}
+    for name, args in zip(names, (fwd, bwd)):
+        got, want = run(name, args), run(name, args, route="plain")
+        errs[name] = max(
+            lstm_close(g, w, f"{name} B={B} H={H} output {i}", dname,
+                       sum_terms=B * T if (name == names[1]
+                                           and i == du_index) else 0)
+            for i, (g, w) in enumerate(zip(got, want)))
+        if name == names[1]:
+            again = run(name, args)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} B={B} H={H} {dname}: the backward differs "
+                  "between two runs")
+    return errs
+
+
+def step_ms(trainer, params, batch, steps: int = 5) -> float:
+    """The median wall of ``steps`` trainer steps (after one to warm and
+    capture), on fresh state from ``params``."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_map
+    p = tree_map(torch.clone, params)
+    state = trainer.opt.init(p)
+    p, state, _ = trainer.step(p, state, *batch)
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, cost = trainer.step(p, state, *batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(cost)), "step_ms: a non-finite cost")
+    return sorted(walls)[len(walls) // 2] * 1e3
+
+
+def recurrence_routes(say, seed: int, device="cuda") -> dict:
+    """(a) One f32 training step of the flagship's LSTMTextCls at each
+    SUITE_ROWS (B, H) through the kernels (the trainer's graph) against
+    the plain route's step (transformer_step_check's tolerances: at H =
+    1280 the step loop's gradients differ from the plain versions' in
+    rounding, which the first Adam step turns into up to lr where a
+    gradient is rounding noise), with the routes
+    and launches the planner gives (counted across the step); one bf16
+    step likewise (routes, launches, the loss within 1% of the plain
+    route's) and its ms; where a route tiles, #9 and #10 on that route
+    against the plain versions and the backward bit-equal across two
+    runs, in f32 and bf16 (tiled_route_check); then the seq2seq's GRU
+    encoder at batch 64 and 128 (transformer_step_check's tolerances),
+    with #11 and #12 likewise where they tile. Returns the rows'
+    figures."""
+    import torch
+    from paddle_tpu_torch.models import AttentionSeq2Seq, LSTMTextCls
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    gen = torch.Generator().manual_seed(seed + 17)
+    names = ("lstm_seq_train", "lstm_seq_bwd")
+    rows, launches_all = {}, {}
+    for B, H in SUITE_SHAPES:
+        model = LSTMTextCls(TEXTCLS["vocab"], TEXTCLS["embed"], H,
+                            TEXTCLS["classes"], pool="last").init(seed,
+                                                                  device)
+        batch = textcls_batches(seed, 1, device, batch=B)[0]
+        row = {}
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            want = expected_counts(names, B, H, dtype)
+            if dtype == torch.float32:
+                _, got_l, got_r = route_counts(
+                    lambda: transformer_step_check(
+                        say, f"suite row B={B} H={H}",
+                        lambda r: f32_loss(model, r), model.tree(), batch,
+                        TEXTCLS_LR, 1, device, names=()))
+            else:
+                losses = {}
+                for route in ("plain", None):
+                    tr = Trainer(bf16_loss_route(model, route),
+                                 Adam(TEXTCLS_LR), device=device)
+                    step = lambda: tr.step(model.tree(),
+                                           tr.opt.init(model.tree()), *batch)
+                    if route is None:
+                        (_, _, cost), got_l, got_r = route_counts(step)
+                    else:
+                        _, _, cost = step()
+                    losses[route] = cost.item()
+                plain_loss = losses["plain"]
+                check(abs(losses[None] - plain_loss) <= 1e-2 * abs(plain_loss),
+                      f"suite row B={B} H={H} bf16: loss {losses[None]} vs "
+                      f"plain {plain_loss}")
+                row["bf16_loss"] = [losses[None], plain_loss]
+                row["bf16_step_ms"] = step_ms(
+                    Trainer(bf16_loss(model), Adam(TEXTCLS_LR),
+                            device=device), model.tree(), batch)
+            check((got_l, got_r) == want,
+                  f"suite row B={B} H={H} {dname}: launches {got_l} and "
+                  f"routes {got_r}, the planner's {want}")
+            row[dname] = {"routes": got_r, "launches": got_l}
+            for k, n in got_l.items():
+                launches_all[k] = launches_all.get(k, 0) + n
+            if "tiles" in (planned(n, B, H, dtype).kind for n in names):
+                row[dname]["tiled_vs_plain_max_abs"] = tiled_route_check(
+                    "lstm", B, H, dtype, gen, device)
+                row[dname]["tiled_bwd_bit_equal"] = True
+        say(f"suite row B={B} H={H}: {json.dumps(row)}")
+        rows[f"lstm B={B} H={H}"] = row
+        del model
+        torch.cuda.empty_cache()
+    gnames = ("gru_seq", "gru_seq_bwd")
+    model = AttentionSeq2Seq(**S2S).init(seed=seed, device=device)
+    for B in GRU_SHAPES:
+        batch = nmt_batches(seed, 1, device, B, S2S_SEQ, S2S["src_vocab"],
+                            S2S_MIN_LEN)[0]
+        want = expected_counts(gnames, B, S2S["hidden"], torch.float32, 2)
+        _, got_l, got_r = route_counts(lambda: transformer_step_check(
+            say, f"seq2seq B={B}", lambda r: nmt_loss(model, torch.float32,
+                                                      r),
+            model.tree(), batch, S2S_LR, 2, device, names=(), floor=1e-7))
+        check((got_l, got_r) == want,
+              f"seq2seq B={B} f32: launches {got_l} and routes {got_r}, the "
+              f"planner's {want}")
+        row = {"float32": {"routes": got_r, "launches": got_l}}
+        for k, n in got_l.items():
+            launches_all[k] = launches_all.get(k, 0) + n
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            if "tiles" in (planned(n, B, S2S["hidden"], dtype).kind
+                           for n in gnames):
+                row.setdefault(dname, {})["tiled_vs_plain_max_abs"] = (
+                    tiled_route_check("gru", B, S2S["hidden"], dtype, gen,
+                                      device))
+        rows[f"gru B={B} H={S2S['hidden']}"] = row
+        say(f"seq2seq B={B}: {json.dumps(row)}")
+    return {"rows": rows, "launches": launches_all}
+
+
+def bf16_loss_route(model, route):
+    """bf16_loss with the kernels' ``route`` (None or "plain")."""
+    import torch
+    from paddle_tpu_torch.core import SeqBatch
+
+    def loss_fn(params, data, lengths, labels):
+        return model.call(cast_tree(params, torch.bfloat16),
+                          SeqBatch(data, lengths), labels,
+                          route=route).to(torch.float32)
+    return loss_fn
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """The median of ``reps`` timed calls of fn() (after one to warm), by
+    CUDA events."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def card_vs_cpu(what, fn, args, rtol, atol_scale, exact=False):
+    """fn on the card against fn on the CPU over the same inputs: every
+    output within rtol plus atol_scale of its largest magnitude (or bit
+    for bit with ``exact``). Returns (max abs difference, card ms)."""
+    import torch
+    cpu = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    card = fn(*args)
+    outs = (card,) if isinstance(card, torch.Tensor) else tuple(card)
+    wants = (cpu,) if isinstance(cpu, torch.Tensor) else tuple(cpu)
+    worst = 0.0
+    for got, want in zip(outs, wants):
+        got = got.cpu()
+        if exact:
+            check(torch.equal(got, want), f"{what}: the card's result "
+                  "differs from the CPU's")
+            continue
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)),
+              f"{what}: non-finite entries differ")
+        g, w = got[fin].double(), want[fin].double()
+        err = (g - w).abs().max().item() if w.numel() else 0.0
+        tol = atol_scale * (w.abs().max().item() if w.numel() else 0.0)
+        check(bool(((g - w).abs() <= tol + rtol * w.abs()).all()),
+              f"{what}: card vs CPU max abs difference {err}")
+        worst = max(worst, err)
+    return worst, cuda_ms(lambda: fn(*args))
+
+
+# the C4 map of ResNet-50 (stride 16, 1024 channels) of a 600 x 800 image,
+# the Fast R-CNN head's 128 RoIs a batch and 7 x 7 bins; C3D's first conv
+# (a 16-frame 112 x 112 clip, 3 x 3 x 3 to 64 channels); group norm at 32
+# groups over ResNet-50's 56 x 56 x 256 stage; the sparse updates of
+# DeepFM's 2**20-row hashed table at embed 64 (a batch of 4096 x 26 ids)
+ROI_FEAT, ROI_N, ROI_OUT = (38, 50, 1024), 128, (7, 7)
+CLIP, CLIP_W = (4, 16, 112, 112, 3), (3, 3, 3, 3, 64)
+GN_X, GN_GROUPS = (8, 56, 56, 256), 32
+SPARSE_TABLE, SPARSE_IDS = (2 ** 20, 64), (4096, 26)
+
+
+def a4b_ops(say, seed: int, device="cuda") -> dict:
+    """(b) The ops A.4 left on the card against the CPU, at their callers'
+    shapes (f32, TF32 off): roi_pool bit for bit (a max), conv3d and
+    group_norm within rtol 1e-4 plus 1e-5 of the largest magnitude, the
+    SGD sparse update bit for bit (ordered adds), Adagrad's (a square
+    root and a division a row) within rtol 1e-6 plus 1e-6 of the largest
+    magnitude; each one's ms on the card."""
+    import torch
+    from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import norm as N
+    from paddle_tpu_torch.ops import pool as P
+    from paddle_tpu_torch.ops import sparse as S
+    gen = torch.Generator().manual_seed(seed + 18)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        device)
+    figs = {}
+    H, W, _ = ROI_FEAT
+    feat = rnd(*ROI_FEAT)
+    xy = torch.rand((ROI_N, 2), generator=gen) * torch.tensor(
+        [W * 16.0 - 64, H * 16.0 - 64])
+    wh = 32 + torch.rand((ROI_N, 2), generator=gen) * 320
+    rois = torch.cat([xy, torch.minimum(xy + wh, torch.tensor(
+        [W * 16.0 - 1, H * 16.0 - 1]))], dim=1).to(device)
+    err, ms = card_vs_cpu("roi_pool", lambda f, r: P.roi_pool(
+        f, r, ROI_OUT, spatial_scale=1 / 16), (feat, rois), 0, 0,
+        exact=True)
+    figs["roi_pool"] = {"ms": ms, "bit_equal": True}
+    x, w = rnd(*CLIP), rnd(*CLIP_W, scale=0.2)
+    err, ms = card_vs_cpu("conv3d", lambda x, w: C.conv3d(x, w, padding=1),
+                          (x, w), 1e-4, 1e-5)
+    figs["conv3d"] = {"ms": ms, "max_abs_err": err}
+    x = rnd(*GN_X) + 0.5
+    g, b = rnd(GN_X[-1]), rnd(GN_X[-1])
+    err, ms = card_vs_cpu("group_norm", lambda x, g, b: N.group_norm(
+        x, g, b, GN_GROUPS), (x, g, b), 1e-4, 1e-5)
+    figs["group_norm"] = {"ms": ms, "max_abs_err": err}
+    table = rnd(*SPARSE_TABLE, scale=0.01)
+    moment = rnd(*SPARSE_TABLE).abs()
+    # hashed ids pile up on few rows (zipf), as a click log's do
+    ids = torch.from_numpy(__import__("numpy").random.RandomState(
+        seed).zipf(1.2, SPARSE_IDS) % SPARSE_TABLE[0]).to(device)
+    grads = rnd(*SPARSE_IDS, SPARSE_TABLE[1], scale=0.1)
+    sr = lambda i, g: S.embedding_grad_rows(i, g, SPARSE_TABLE[0])
+    _, ms = card_vs_cpu("sgd_sparse_update", lambda t, i, g:
+                        S.sgd_sparse_update(t, sr(i, g), 0.05),
+                        (table, ids, grads), 0, 0, exact=True)
+    figs["sgd_sparse_update"] = {"ms": ms, "bit_equal": True}
+    err, ms = card_vs_cpu("adagrad_sparse_update", lambda t, m, i, g:
+                          S.adagrad_sparse_update(t, m, sr(i, g), 0.05),
+                          (table, moment, ids, grads), 1e-6, 1e-6)
+    figs["adagrad_sparse_update"] = {"ms": ms, "max_abs_err": err}
+    figs["sparse_ids"] = {"ids": ids.numel(),
+                          "rows": int(torch.unique(ids).numel()),
+                          "most_repeats": int(torch.unique(
+                              ids, return_counts=True)[1].max())}
+    say(f"A.4b ops, card vs CPU: {json.dumps(figs)}")
+    return figs
+
+
+# a bag-of-ids classifier over a 2**22 x 64 f32 table: a batch of 512
+# samples of 32 ids, the ids Zipf-distributed over the table
+EMB_TABLE, EMB_BATCH, EMB_IDS, EMB_STEPS, EMB_LR = (2 ** 22, 64), 512, 32, \
+    4, 0.05
+
+
+def host_embedding_steps(say, seed: int, device="cuda") -> dict:
+    """(c) ``HostEmbeddingTable`` (the table in host memory, the
+    prefetcher streaming each batch's rows) inside EMB_STEPS SGD steps of
+    a bag-of-ids classifier, against the same steps over the table on
+    the card (its SGD as the host library computes it: lr a double, the
+    step rounded to f32): per-step losses, the head and every touched
+    row bit-equal, untouched rows unchanged; the rows a second of the
+    prefetch (unique rows gathered and sent to the card)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.runtime import (HostEmbeddingTable,
+                                          HostEmbedPrefetcher)
+    V, Dm = EMB_TABLE
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    init = torch.randn(EMB_TABLE, generator=gen, device=device) * 0.01
+    head0 = torch.randn((Dm, 2), generator=gen, device=device) * 0.1
+    rs = np.random.RandomState(seed + 19)
+    batches = [(rs.zipf(1.3, (EMB_BATCH, EMB_IDS)) % V,
+                rs.randint(0, 2, EMB_BATCH)) for _ in range(EMB_STEPS)]
+
+    def loss_of(rows, idx, head, y):
+        e = F.embedding(idx, rows).mean(dim=1)
+        return F.cross_entropy(e @ head, y)
+
+    t0 = time.perf_counter()
+    table = HostEmbeddingTable(V, Dm, lr=EMB_LR, capacity=EMB_BATCH *
+                               EMB_IDS, init=init.cpu().numpy(),
+                               device=device)
+    build_s = time.perf_counter() - t0
+    head = head0.clone()
+    pf = HostEmbedPrefetcher(table, iter([ids for ids, _ in batches]))
+    host_losses, rows_moved = [], 0
+    for _, y in batches:
+        b = pf.next()
+        rows = b.rows.detach().requires_grad_()
+        hd = head.detach().requires_grad_()
+        loss = loss_of(rows, b.inverse, hd, torch.as_tensor(y,
+                                                            device=device))
+        g_rows, g_head = torch.autograd.grad(loss, (rows, hd))
+        pf.commit(b, g_rows)
+        head = head - EMB_LR * g_head
+        host_losses.append(loss.item())
+        rows_moved += b.count
+    check(pf.next() is None, "host embedding: the prefetcher ran on")
+    dense, head = init.clone(), head0.clone()
+    card_losses = []
+    for ids, y in batches:
+        tb = dense.detach().requires_grad_()
+        hd = head.detach().requires_grad_()
+        idx = torch.as_tensor(ids, device=device)
+        loss = loss_of(tb, idx, hd, torch.as_tensor(y, device=device))
+        g_tab, g_head = torch.autograd.grad(loss, (tb, hd))
+        touched = torch.unique(idx)
+        dense[touched] -= (EMB_LR * g_tab[touched].double()).float()
+        head = head - EMB_LR * g_head
+        card_losses.append(loss.item())
+    check(host_losses == card_losses,
+          f"host embedding: losses {host_losses} != on-card {card_losses}")
+    touched = np.unique(np.concatenate([ids.reshape(-1)
+                                        for ids, _ in batches]))
+    got = torch.from_numpy(table.rows_host(touched))
+    check(torch.equal(got, dense[torch.from_numpy(touched).to(device)]
+                      .cpu()), "host embedding: touched rows differ from "
+          "the on-card table's")
+    probe = np.setdiff1d(np.arange(0, V, 9973), touched)
+    check(torch.equal(torch.from_numpy(table.rows_host(probe)),
+                      init[torch.from_numpy(probe).to(device)].cpu()),
+          "host embedding: an untouched row moved")
+    # the prefetch alone: unique rows gathered on the host and sent over
+    t0 = time.perf_counter()
+    n = 0
+    for ids, _ in batches * 2:
+        n += table.prefetch(ids).count
+    torch.cuda.synchronize()
+    rate = n / (time.perf_counter() - t0)
+    figs = {"table": list(EMB_TABLE), "steps": EMB_STEPS,
+            "losses": host_losses, "unique_rows_a_step": rows_moved /
+            EMB_STEPS, "prefetch_rows_per_s": rate,
+            "host_table_build_s": build_s, "bit_equal": True}
+    say(f"host embedding (host table vs on-card table): {json.dumps(figs)}")
+    return figs
+
+
+#: the bursts of (d): 8 prompts sharing a 200-token prefix (3 full pages
+#: of 64 and 8 tokens of a fourth, which every hit copies on write), each
+#: request declaring it, with distinct suffixes of 16..64 tokens, after
+#: one request that warms the cache with the prefix; then 8 more with
+#: other suffixes of the same lengths (the hit admission's graph replays)
+PREFIX_LEN, SUFFIX_LENS = 200, (16, 64)
+
+
+def prefix_engine(say, seed: int, device="cuda", config=GPT2_SMALL) -> dict:
+    """(d) GPT-2 small's ``ServingEngine`` (phase 10's ENGINE) with
+    ``prefix_cache=True``, f32: a warm request, then the burst queued whole
+    before the engine starts again, then a second burst of the same
+    shapes; every request's tokens equal to the cache-off engine's, and
+    the warm request's and the first burst's to the solo plain decode;
+    the hits, the prefill tokens saved, the copies on write of the
+    prefix's partial page and the hit graph's captures and replays (hits
+    > 0, copies > 0, a replay). Latency figures: the second burst (the
+    first captures the hit admission's graph; the cache-off engine's
+    admission graph was captured by the warm request)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+    model = TransformerLM(**config).init(seed=seed, device=device)
+    rs = np.random.RandomState(seed + 20)
+    prefix = rs.randint(0, config["vocab"], PREFIX_LEN)
+    lens = [int(n) + 1 for n in rs.randint(*SUFFIX_LENS, N_REQUESTS + 1)]
+    prompts = [np.concatenate([prefix, rs.randint(0, config["vocab"], n)])
+               for n in lens]
+    again = [np.concatenate([prefix, rs.randint(0, config["vocab"], n)])
+             for n in lens[1:]]
+    res = {}
+    for cache in (False, True):
+        eng = ServingEngine(model, device=device, prefix_cache=cache,
+                            **ENGINE)
+        warm = serve(model, prompts[:1], device, eng=eng,
+                     prefix_len=PREFIX_LEN)[0]
+        ck.reset_launch_counts()
+        graphs.reset_dispatch_counts()
+        toks = serve(model, prompts[1:], device, eng=eng,
+                     prefix_len=PREFIX_LEN)[0]
+        toks2, lat, wall, _ = serve(model, again, device, eng=eng,
+                                    prefix_len=PREFIX_LEN)
+        res[cache] = {"toks": warm + toks, "again": toks2, "wall": wall,
+                      "launches": {k: n for k, n in ck.LAUNCHES.items()
+                                   if n},
+                      "hit": step_dispatches(graphs.DISPATCHES, "hit"),
+                      "stats": eng.stats(), "latency": latency_figures(
+                          lat, wall)}
+        del eng
+        gc.collect()
+    check(res[True]["toks"] == res[False]["toks"]
+          and res[True]["again"] == res[False]["again"],
+          "prefix cache: the engine's tokens differ from the cache-off "
+          "engine's")
+    for i, p in enumerate(prompts):
+        ids = torch.as_tensor(p[None].astype(np.int64), device=device)
+        solo = model.generate_greedy(ids, NEW_TOKENS, route="plain")
+        same_tokens([res[True]["toks"][i]], [solo[0, len(p):].cpu()
+                                             .numpy().tolist()],
+                    f"prefix cache request {i}")
+    st = res[True]["stats"]
+    hits = st["prefix_hits"]
+    check(hits > 0, f"prefix cache: no hit in the burst ({st})")
+    check(st["cow_copies"] > 0, "prefix cache: no hit copied the prefix's "
+          f"partial page ({st})")
+    check(res[True]["hit"]["replays"] > 0,
+          f"prefix cache: the hit admission's graph never replayed "
+          f"({res[True]['hit']})")
+    figs = {"hits": hits, "misses": st["prefix_misses"],
+            "prefill_tokens_saved": st["prompt_tokens"]
+            - st["prefill_tokens"], "prompt_tokens": st["prompt_tokens"],
+            "cow_copies": st["cow_copies"], "hit_graph": res[True]["hit"],
+            "launches": res[True]["launches"],
+            "launches_cache_off": res[False]["launches"],
+            "latency": res[True]["latency"],
+            "latency_cache_off": res[False]["latency"]}
+    say(f"prefix cache, GPT-2 small f32 engine: tokens equal to the solo "
+        f"plain decode and the cache-off engine's; {json.dumps(figs)}")
+    return figs
+
+
+def slice18_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 17: (a) the recurrences at every bench shape, (b) the ops A.4
+    left, (c) the host-offloaded embedding table, (d) the prefix cache
+    ((e), phase 10's engine check with each burst queued before the
+    engine starts, runs in phase 10)."""
+    import torch
+    out = {"recurrences": recurrence_routes(say, seed, device)}
+    torch.cuda.empty_cache()
+    out["ops"] = a4b_ops(say, seed, device)
+    torch.cuda.empty_cache()
+    out["host_embedding"] = host_embedding_steps(say, seed, device)
+    torch.cuda.empty_cache()
+    out["prefix_cache"] = prefix_engine(say, seed, device)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5528,12 +6079,16 @@ def main(argv=None) -> int:
     loop = loop_phase(say, args.seed)
     data = data_phase(say, args.seed, loop)
     zoo = zoo_phase(say, args.seed)
+    s18 = slice18_phase(say, args.seed)
     for entry in lstm:
         entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
         entry["launches_data"] = data["launches"][entry["name"]]
         entry["launches_zoo"] = zoo["launches"][entry["name"]]
     for entry in [flash] + bwd:
         entry["launches_zoo"] = zoo["launches"][entry["name"]]
+    for entry in lstm + gru:
+        entry["launches_routes"] = s18["recurrences"]["launches"].get(
+            entry["name"], 0)
     if args.rnn_sweep:
         for entry in lstm + gru:
             for tag, res in sweep.items():
@@ -5550,6 +6105,7 @@ def main(argv=None) -> int:
     print(json.dumps({"loop": loop, "card": card}))
     print(json.dumps({"data": data, "card": card}))
     print(json.dumps({"zoo": zoo, "card": card}))
+    print(json.dumps({"slice18": s18, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru, "card": card}))
     print(card)

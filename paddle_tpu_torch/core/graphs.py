@@ -53,8 +53,9 @@ Counts: :data:`DISPATCHES` holds the captures and replays per owner and
 key (the counterpart of JAX's ``decode.dispatches_total``), beside
 ``ops.cuda_kernels.LAUNCHES``. The kernel wrappers count their launches
 in Python when they are called, which a replay is not, so each graph
-records the ``LAUNCHES`` its capture added (and takes them back out: a
-capture launches nothing) and every replay adds them again. A graph keeps
+records the ``LAUNCHES`` (and the recurrences' ``ROUTES``) its capture
+added (and takes them back out: a capture launches nothing) and every
+replay adds them again. A graph keeps
 its cudaGraph_t (``keep_graph=True``) so that a check can count its
 kernel nodes against that record (:func:`captured`).
 """
@@ -191,7 +192,7 @@ def _donated_ids(inputs: Dict[str, Any], donate: Iterable[str]) -> set:
 
 
 class _Graph:
-    __slots__ = ("graph", "statics", "out_spec", "outs", "launches",
+    __slots__ = ("graph", "statics", "out_spec", "outs", "launches", "routes",
                  "label", "generators")
 
     def outputs(self):
@@ -307,9 +308,11 @@ class GraphCache:
         for k in entry.generators:
             static[k].set_state(self._generators[k].get_state())
         self._count(entry, "replays")
-        from ..ops.cuda_kernels import LAUNCHES
+        from ..ops.cuda_kernels import LAUNCHES, ROUTES
         for k, n in entry.launches.items():
             LAUNCHES[k] += n
+        for k, n in entry.routes.items():
+            ROUTES[k] = ROUTES.get(k, 0) + n
         return entry.outputs()
 
     def _count(self, entry: _Graph, what: str) -> None:
@@ -318,7 +321,7 @@ class GraphCache:
         counts[what] += 1
 
     def _capture(self, key, name, body, spec, leaves, static, donated):
-        from ..ops.cuda_kernels import LAUNCHES
+        from ..ops.cuda_kernels import LAUNCHES, ROUTES
         dev = self.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
@@ -354,7 +357,7 @@ class GraphCache:
                 self._generators[k] = torch.Generator(device=dev)
             drawn[k] = self._generators[k]
             graph.register_generator_state(drawn[k])
-        before = dict(LAUNCHES)
+        before, routes_before = dict(LAUNCHES), dict(ROUTES)
         with torch.cuda.graph(graph, pool=self._pool, stream=stream,
                               capture_error_mode="thread_local"):
             gout = body(**args, **drawn)
@@ -362,8 +365,13 @@ class GraphCache:
         delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                  if LAUNCHES[k] != before[k]}
         LAUNCHES.update(before)          # a capture launches nothing
+        routes = {k: n - routes_before.get(k, 0) for k, n in ROUTES.items()
+                  if n != routes_before.get(k, 0)}
+        ROUTES.clear()
+        ROUTES.update(routes_before)
         entry = _Graph()
         entry.graph, entry.statics, entry.launches = graph, statics, delta
+        entry.routes = routes
         entry.label, entry.generators = name, gens
         glist: List[torch.Tensor] = []
         entry.out_spec = _flatten(gout, glist)

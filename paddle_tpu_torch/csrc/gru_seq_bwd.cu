@@ -142,6 +142,9 @@ __host__ __device__ inline size_t u_bytes(int H) {
   return static_cast<size_t>(3) * ((H + 63) / 64) * 128 * sizeof(float4);
 }
 
+// ops/rnn_kernels.py _gru_bwd_smem and _BWD_BLOCK repeat this layout and
+// the launch bounds to plan routes; tests/test_torch_gpu.py
+// test_bwd_planner_meets_the_kernels_limit_on_card holds the two together.
 __host__ __device__ inline size_t bwd_smem_bytes(int B, int H) {
   const size_t stages = kStages * static_cast<size_t>(kStage);
   const size_t ub = u_bytes(H);

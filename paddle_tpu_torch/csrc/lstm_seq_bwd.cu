@@ -69,7 +69,10 @@ constexpr int kLdDg = kCols + 4;
 // the shared memory the plan may take: of the 227 KB a block may have
 // where the grid is one block an SM, and half the SM's where it needs two
 // (the kernel's launch bounds hold it to 128 registers a thread, which
-// leave room for two blocks)
+// leave room for two blocks). ops/rnn_kernels.py _lstm_bwd_smem and
+// _BWD_BLOCK repeat these budgets and make_plan's layout to plan routes;
+// tests/test_torch_gpu.py test_bwd_planner_meets_the_kernels_limit_on_card
+// holds the two sides together.
 constexpr int kBudget = 200 * 1024, kBudgetTwo = 110 * 1024;
 // the block's rows' lengths, at the start of shared memory
 constexpr size_t kHeadBytes = kRows * sizeof(int);

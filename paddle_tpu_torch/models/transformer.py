@@ -443,6 +443,84 @@ class TransformerLM(Module):
         return logits[:, 0], new_cell
 
     @torch.no_grad()
+    def prefill_paged(self, pools: Dict[str, torch.Tensor],
+                      tokens: torch.Tensor, offsets: torch.Tensor,
+                      lengths: torch.Tensor, tables: torch.Tensor
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Prefill from an offset over pre-populated block tables — the
+        prefix-cache admission (``serving/paged.py``): each sample's first
+        ``offsets[b]`` positions already sit in shared pool pages, so only
+        the suffix ``tokens[b, :lengths[b]]`` runs the forward.
+
+        tokens [B, S] (right-padded suffixes); offsets, lengths [B]; tables
+        [B, NB] covering positions 0 .. offsets + lengths - 1 (the suffix's
+        positions land in pages the slot owns; shared pages are never
+        written). ``pools``: ``k{i}``/``v{i}`` [P, bs, H, Dh] (and
+        ``*_scale`` [P, bs, H] for int8), written IN PLACE (the returned
+        dict holds the same tensors). Returns (pools, logits [B, V] at
+        each sample's last suffix position).
+
+        Each layer scatters the suffix's k/v rows into the pools (int8
+        pools quantize them; padded rows land in the null page 0), then
+        attends over the gathered pages with the suffix's own rows
+        overlaid at full precision (the full prefill's precision: only the
+        cache read is quantized), in ``_dense_attention``'s op order
+        (f32 einsum, * scale, causal mask j <= offset + i, softmax,
+        einsum, cast): a zero-offset call reproduces the plain full
+        prefill. Plain PyTorch, as JAX's is plain jnp."""
+        B, S = tokens.shape
+        bs = pools["k0"].shape[1]
+        NB = tables.shape[1]
+        L = NB * bs
+        dev = tokens.device
+        offsets = offsets.to(dev).long()
+        lengths = lengths.to(dev).long()
+        tables = tables.to(dev).long()
+        iota = torch.arange(S, device=dev)
+        positions = offsets[:, None] + iota[None, :]              # [B, S]
+        live = iota[None, :] < lengths[:, None]
+        gpos = torch.clamp(positions, 0, self.max_len - 1)
+        blk_idx = torch.clamp(gpos // bs, 0, NB - 1)
+        pages = torch.where(live, tables.gather(1, blk_idx),
+                            torch.zeros_like(blk_idx))
+        rows = gpos % bs
+        jpos = torch.arange(L, device=dev)
+        rel = jpos[None, :] - offsets[:, None]                    # [B, L]
+        own = (rel >= 0) & (rel < lengths[:, None])
+        rel_c = torch.clamp(rel, 0, S - 1)
+        causal = jpos[None, None, None, :] <= positions[:, None, :, None]
+
+        def read(pool, scale_pool, own_rows):
+            g = ck.gather_pages(pool, tables).float()             # [B, L, H, D]
+            if scale_pool is not None:
+                g = g * ck.gather_pages(scale_pool, tables)[..., None]
+            idx = rel_c[:, :, None, None].expand((B, L) + own_rows.shape[2:])
+            o = torch.gather(own_rows.float(), 1, idx)
+            return torch.where(own[:, :, None, None], o, g)
+
+        x = self._embed_at(tokens, gpos)
+        for i, blk in enumerate(self.blocks):
+            q, k, v = blk.heads(x)                                # [B, S, H, Dh]
+            for nm, t in ((f"k{i}", k), (f"v{i}", v)):
+                if nm + "_scale" in pools:
+                    t8, sc = ck.quantize_kv(t)
+                    pools[nm + "_scale"][pages, rows] = sc
+                    pools[nm][pages, rows] = t8
+                else:
+                    pools[nm][pages, rows] = t.to(pools[nm].dtype)
+            kr = read(pools[f"k{i}"], pools.get(f"k{i}_scale"), k)
+            vr = read(pools[f"v{i}"], pools.get(f"v{i}_scale"), v)
+            sc = torch.einsum("bthd,bjhd->bhtj", q.float(), kr) \
+                * blk.d_head ** -0.5
+            sc = torch.where(causal, sc, ck._NEG)
+            p = torch.softmax(sc, dim=-1)
+            o = torch.einsum("bhtj,bjhd->bthd", p, vr).to(q.dtype)
+            x = blk.finish(x, o)
+        last = torch.clamp(lengths - 1, 0, S - 1)
+        x = self.ln_f(x[torch.arange(B, device=dev), last])
+        return pools, self._logits(x)
+
+    @torch.no_grad()
     def verify_step(self, cell: Cell, tokens: torch.Tensor, *,
                     cache_len: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Cell]:

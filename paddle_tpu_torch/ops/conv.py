@@ -1,6 +1,8 @@
-"""Convolutions — the part of ``paddle_tpu/ops/conv.py`` the image models
-need: ``conv2d``, the stem's ``conv7s2`` (and its space-to-depth form),
-``depthwise_conv2d`` and ``conv2d_transpose``.
+"""Convolutions — the counterpart of ``paddle_tpu/ops/conv.py``:
+``conv2d``, the stem's ``conv7s2`` (and its space-to-depth form),
+``depthwise_conv2d`` and ``conv2d_transpose`` for the image models;
+``conv3d`` (NDHWC, DHWIO), ``row_conv``, ``im2col``, ``bilinear_interp``
+and ``maxout``.
 
 The JAX package computes them with ``lax.conv_general_dilated`` and has
 no Pallas kernel for them; here they go through
@@ -170,3 +172,79 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *,
     y = _nhwc(y)
     return y[:, :y.shape[1] + min(extra[0], 0),
              :y.shape[2] + min(extra[1], 0)]
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
+           dilation=1, groups: int = 1) -> torch.Tensor:
+    """NDHWC 3-D conv with a DHWIO weight [kd, kh, kw, cin/groups, cout]:
+    an int or a triple pads both sides, ``"SAME"``/``"VALID"`` as XLA."""
+    t3 = lambda v: (v,) * 3 if isinstance(v, int) else tuple(v)
+    s, d = t3(stride), t3(dilation)
+    xc = x.permute(0, 4, 1, 2, 3)
+    if isinstance(padding, str):
+        kind = padding.upper()
+        if kind not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r} is not SAME or VALID")
+        windows = [(k - 1) * dk + 1 for k, dk in zip(w.shape[:3], d)]
+        pads = [same_pads(n, k, st) if kind == "SAME" else (0, 0)
+                for n, k, st in zip(x.shape[1:4], windows, s)]
+        xc = F.pad(xc, pads[2] + pads[1] + pads[0])
+        pad = 0
+    else:
+        pad = t3(padding)
+    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=s, padding=pad,
+                 dilation=d, groups=groups)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def row_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Lookahead row convolution over time: x [B, T, D], w [context, D];
+    out[t] = sum_i x[t + i] * w[i], zero past T, summed i by i as JAX."""
+    context = w.shape[0]
+    xpad = F.pad(x, (0, 0, 0, context - 1))
+    out = torch.zeros_like(x)
+    for i in range(context):
+        out = out + xpad[:, i:i + x.shape[1], :] * w[i][None, None, :]
+    return out
+
+
+def im2col(x: torch.Tensor, kernel: IntOr2, stride: IntOr2 = 1,
+           padding: IntOr2 = 0) -> torch.Tensor:
+    """Patches of x [B, H, W, C] -> [B, oh, ow, kh * kw * C] in patch-major
+    (kh, kw, C) order (``F.unfold``, which is exact: it copies)."""
+    kh, kw = _pair(kernel)
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    B, H, W, C = x.shape
+    oh = (H + 2 * ph - kh) // sh + 1
+    ow = (W + 2 * pw - kw) // sw + 1
+    cols = F.unfold(_nchw(x), (kh, kw), padding=(ph, pw), stride=(sh, sw))
+    # [B, C * kh * kw, oh * ow], channel-major: reorder to (kh, kw, C)
+    cols = cols.reshape(B, C, kh, kw, oh, ow).permute(0, 4, 5, 2, 3, 1)
+    return cols.reshape(B, oh, ow, kh * kw * C)
+
+
+def bilinear_interp(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize NHWC with aligned corners, in JAX's op order (the
+    rows' blend of the columns' blends)."""
+    B, H, W, C = x.shape
+    ry = (H - 1) / max(out_h - 1, 1)
+    rx = (W - 1) / max(out_w - 1, 1)
+    ys = torch.arange(out_h, device=x.device) * ry
+    xs = torch.arange(out_w, device=x.device) * rx
+    y0, x0 = torch.floor(ys).long(), torch.floor(xs).long()
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    wy = (ys - y0).to(x.dtype)[None, :, None, None]
+    wx = (xs - x0).to(x.dtype)[None, None, :, None]
+    g = lambda yi, xi: x[:, yi][:, :, xi]
+    top = g(y0, x0) * (1 - wx) + g(y0, x1) * wx
+    bot = g(y1, x0) * (1 - wx) + g(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def maxout(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Maxout over channel groups, NHWC: C -> C / groups channels, each
+    the max of ``groups`` consecutive channels."""
+    B, H, W, C = x.shape
+    return torch.amax(x.reshape(B, H, W, C // groups, groups), dim=-1)

@@ -76,9 +76,18 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "gru_seq_bwd": 0}
 
 
+#: the routes the recurrent wrappers took, by (kernel, route): "whole",
+#: "tiles" or "scan" (ops/rnn_kernels.py ``plan_route``; the counterpart of
+#: JAX's ``kernels.routes_total``). A call counts where its route is
+#: decided; a graph replays the counts its capture took, as LAUNCHES.
+ROUTES: Dict[Tuple[str, str], int] = {}
+
+
 def reset_launch_counts() -> None:
+    """Set every count of LAUNCHES and ROUTES to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTES.clear()
 
 
 def _route(route: Optional[str], *tensors: torch.Tensor) -> str:

@@ -1,6 +1,6 @@
 """Normalization — the counterpart of ``paddle_tpu/ops/norm.py``:
 ``layer_norm`` for the transformers, ``batch_norm``, ``lrn`` and
-``cross_map_norm`` for the image models.
+``cross_map_norm`` for the image models, and ``group_norm``.
 
 JAX computes them with plain jnp (no Pallas kernel), and so does the
 port, but for the training pass of ``batch_norm``:
@@ -26,6 +26,8 @@ fused pass the one ``batch_norm`` runs.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -48,12 +50,14 @@ def _scale_shift(x, gamma, beta, mean, var, eps):
     return x * a.to(x.dtype) + b.to(x.dtype)
 
 
-def _train_shifted(x, gamma, beta, running_mean, eps):
-    """JAX's one pass: f32 sums of d = x - shift and d * d over every axis
-    but the last, shifted by the running mean; the mean and the biased
-    variance (clamped at 0) normalize x."""
-    red = tuple(range(x.dim() - 1))
-    n = x.numel() // x.shape[-1]
+def _train_shifted(x, gamma, beta, running_mean, eps, red=None):
+    """JAX's one pass: f32 sums of d = x - shift and d * d over the axes
+    ``red`` (every axis but the last by default), shifted by the running
+    mean; the mean and the biased variance (clamped at 0) normalize x."""
+    red = tuple(range(x.dim() - 1)) if red is None else red
+    n = 1
+    for a in red:
+        n *= x.shape[a]
     shift = running_mean.detach().to(torch.float32)
     d = x.to(torch.float32) - shift
     dm = d.sum(dim=red) / n
@@ -91,8 +95,11 @@ def _merge_running(running_mean, running_var, mean, var, momentum):
 
 def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor, *,
-               train: bool, momentum: float = 0.9, eps: float = 1e-5):
-    """Batch normalization over every axis but the last (channels last).
+               train: bool, momentum: float = 0.9, eps: float = 1e-5,
+               axis_mask: Optional[Tuple[int, ...]] = None):
+    """Batch normalization over every axis but the last (channels last),
+    or over the axes ``axis_mask`` (the statistics then have the shape of
+    the axes left, broadcast against x from the right as in JAX).
 
     Returns (y, new_mean, new_var) as JAX does: in training mode the batch
     mean and biased variance normalize x and the running stats become
@@ -100,13 +107,18 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     stored in the running stats' dtype; in eval mode the running stats
     normalize x and come back unchanged. Gradients flow through the batch
     moments. Training runs the fused pass, or the shifted one for one
-    element a channel (module docstring)."""
+    element a channel or an ``axis_mask`` other than every axis but the
+    last (module docstring)."""
+    red = None if axis_mask is None else tuple(
+        a % x.dim() for a in axis_mask)
+    if red == tuple(range(x.dim() - 1)):
+        red = None
     if not train:
         y = _scale_shift(x, gamma, beta, running_mean.to(torch.float32),
                          running_var.to(torch.float32), eps)
         return y, running_mean, running_var
-    if x.numel() == x.shape[-1]:
-        y, mean, var = _train_shifted(x, gamma, beta, running_mean, eps)
+    if red is not None or x.numel() == x.shape[-1]:
+        y, mean, var = _train_shifted(x, gamma, beta, running_mean, eps, red)
     else:
         y, mean, var = _train_fused(x, gamma, beta, eps)
     return (y,) + _merge_running(running_mean, running_var, mean, var,
@@ -131,3 +143,18 @@ def cross_map_norm(x: torch.Tensor, size: int = 5, scale: float = 1e-4,
                    pow_: float = 0.75) -> torch.Tensor:
     """The gen-1 name of ``lrn`` (CMRProjectionNormLayer)."""
     return lrn(x, size=size, alpha=scale, beta=pow_, k=1.0)
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Group norm, channels last: the C channels in ``groups`` groups,
+    each normalized over its channels and every axis but the batch's by
+    the population variance, then ``* gamma + beta``."""
+    shape = x.shape
+    C = shape[-1]
+    xg = x.reshape(shape[:-1] + (groups, C // groups))
+    red = tuple(range(1, xg.dim() - 2)) + (xg.dim() - 1,)
+    mean = xg.mean(dim=red, keepdim=True)
+    var = xg.var(dim=red, keepdim=True, correction=0)
+    xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(shape)
+    return xn * gamma + beta

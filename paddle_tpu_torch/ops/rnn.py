@@ -1,5 +1,6 @@
 """Recurrent ops — the counterpart of ``paddle_tpu/ops/rnn.py``: the
-LSTM, the GRU, ``bidirectional`` and ``simple_rnn``.
+LSTM, the GRU, ``bidirectional``, ``simple_rnn`` and the peephole step
+``lstm_peephole_step``.
 
 The input projection x@W of all steps is one [B*T, D] x [D, G] product
 before the recurrence; only h@U runs step by step. Every step is masked:
@@ -18,10 +19,16 @@ differentiates, as the reference. The fused GRU adds the bias to x@W
 before the kernel and the loop adds it after the product (as in JAX), so
 the two round differently in the last bits.
 
-The JAX routing by a VMEM plan (``_fused_plan``, ``plan_is_legal``,
-``chunk_t``, the 15.5 MB VMEM model) sets nothing on the card: the CUDA
-kernels run all T steps in one launch, so tensors on the card always go
-to the kernels, and tensors on the CPU to the kernels' plain versions.
+Routing follows JAX's (``_fused_plan``, ``_fused_bwd_plan``), with the
+card's residency in place of VMEM (``rnn_kernels.plan_route``): before
+the forward, ``lstm``/``gru`` take one route for the forward and, under
+autograd, one for the backward — one launch over the batch, one launch
+a row tile, or the step loop where no tile fits (JAX's ``_lstm_scan``
+and ``lax.scan``). A backward with no tile replays the step loop under
+autograd, as JAX's ``_lstm_fused_bwd`` replays ``_lstm_scan`` under
+``jax.vjp``. Tensors on the CPU take the kernels' plain versions over the
+whole batch, unless ``rnn_kernels.forced_limits`` asks for the card's
+routes there.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.lod import sequence_mask
-from .rnn_kernels import (gru_sequence_fused, gru_sequence_fused_bwd,
-                          lstm_sequence_fused, lstm_sequence_fused_bwd)
+from .rnn_kernels import (count_route, gru_sequence_fused,
+                          gru_sequence_fused_bwd, lstm_sequence_fused,
+                          lstm_sequence_fused_bwd, route_for)
 
 
 class LSTMState(NamedTuple):
@@ -131,22 +139,33 @@ class _LSTMFused(torch.autograd.Function):
     outside it (rnn.py:388-394 of the JAX package)."""
 
     @staticmethod
-    def forward(ctx, x, lens, w, u, b, h0, c0, forget_bias, route):
+    def forward(ctx, x, lens, w, u, b, h0, c0, forget_bias, route, plans):
         xw = _xw(x, w)
         out, h_t, c_t, c_seq = lstm_sequence_fused(
             xw, lens, u, b, h0, c0, forget_bias=forget_bias, save_cell=True,
-            route=route)
+            route=route, plan=plans[0])
         ctx.save_for_backward(x, lens, w, u, b, h0, c0, xw, out, c_seq)
-        ctx.forget_bias, ctx.route = forget_bias, route
+        ctx.forget_bias, ctx.route, ctx.bwd = forget_bias, route, plans[1]
         return out, h_t, c_t
 
     @staticmethod
     def backward(ctx, g_out, g_ht, g_ct):
         x, lens, w, u, b, h0, c0, xw, out, c_seq = ctx.saved_tensors
+        if ctx.bwd is not None and ctx.bwd.kind == "scan":
+            count_route("lstm_seq_bwd", "scan")
+
+            def replay(x, w, u, b, h0, c0):
+                out, state = _lstm_scan(x, lens, w, u, b, h0, c0, False,
+                                        ctx.forget_bias)
+                return out, state.h, state.c
+
+            grads = _replay(replay, (x, w, u, b, h0, c0),
+                            (g_out, g_ht, g_ct))
+            return grads[:1] + (None,) + grads[1:] + (None, None, None)
         dxw, dh0, dc0, du = lstm_sequence_fused_bwd(
             xw, lens, u, b, h0, c0, out, c_seq, g_out.contiguous(),
             g_ht.contiguous(), g_ct.contiguous(),
-            forget_bias=ctx.forget_bias, route=ctx.route)
+            forget_bias=ctx.forget_bias, route=ctx.route, plan=ctx.bwd)
         B, T, D = x.shape
         dxw2 = dxw.reshape(B * T, -1).to(torch.float32)
         dx = torch.matmul(dxw2, w.t().to(torch.float32)).reshape(x.shape)
@@ -154,7 +173,30 @@ class _LSTMFused(torch.autograd.Function):
         db = dxw2.sum(0)
         return (dx.to(x.dtype), None, dw.to(w.dtype), du.to(u.dtype),
                 db.to(b.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype), None,
-                None)
+                None, None)
+
+
+def _replay(fn, inputs, cotangents):
+    """The gradients of ``fn(*inputs)`` (a tuple of outputs) against
+    ``cotangents``, by running fn again under autograd: the backward of a
+    training call whose backward kernel no tile of fits (JAX's
+    ``jax.vjp`` of ``_lstm_scan`` in ``_lstm_fused_bwd``)."""
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_() for t in inputs)
+        return torch.autograd.grad(fn(*leaves), leaves, cotangents,
+                                   allow_unused=True)
+
+
+def _training(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _plans(fwd_name: str, bwd_name: str, xk, H, route, training):
+    """The forward's route and, in training, the backward's, decided
+    together before anything runs (None where unplanned)."""
+    fwd = route_for(fwd_name, xk, H, route)
+    bwd = route_for(bwd_name, xk, H, route) if training else None
+    return fwd, bwd
 
 
 def lstm(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
@@ -172,20 +214,27 @@ def lstm(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
         return _lstm_scan(x, lengths, w, u, b, h0, c0, reverse, forget_bias)
     B, T, _ = x.shape
     H = u.shape[0]
+    training = _training(x, w, u, *(t for t in (b, h0, c0) if t is not None))
+    fwd, bwd = _plans("lstm_seq_train" if training else "lstm_seq",
+                      "lstm_seq_bwd", x, H, route, training)
+    if fwd is not None and fwd.kind == "scan":
+        count_route("lstm_seq_train" if training else "lstm_seq", "scan")
+        if training:
+            count_route("lstm_seq_bwd", "scan")
+        return _lstm_scan(x, lengths, w, u, b, h0, c0, reverse, forget_bias)
     lens = (lengths.to(x.device) if lengths is not None
             else torch.full((B,), T, dtype=torch.int32, device=x.device))
     b = b if b is not None else x.new_zeros((4 * H,))
     h0 = h0 if h0 is not None else x.new_zeros((B, H))
     c0 = c0 if c0 is not None else x.new_zeros((B, H))
     xk = _reverse_within_length(x, lens) if reverse else x
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xk, w, u, b, h0, c0)):
+    if training:
         out, h_t, c_t = _LSTMFused.apply(xk, lens, w, u, b, h0, c0,
-                                         forget_bias, route)
+                                         forget_bias, route, (fwd, bwd))
     else:
         out, h_t, c_t = lstm_sequence_fused(_xw(xk, w), lens, u, b, h0, c0,
                                             forget_bias=forget_bias,
-                                            route=route)
+                                            route=route, plan=fwd)
     if reverse:
         out = _reverse_within_length(out, lens)
     return out, LSTMState(h_t, c_t)
@@ -213,26 +262,36 @@ class _GRUFused(torch.autograd.Function):
     bias rides in xw)."""
 
     @staticmethod
-    def forward(ctx, x, lens, w, u, b, h0, route):
+    def forward(ctx, x, lens, w, u, b, h0, route, plans):
         xw = _xw(x, w) + b
-        out, h_t = gru_sequence_fused(xw, lens, u, None, h0, route=route)
+        out, h_t = gru_sequence_fused(xw, lens, u, None, h0, route=route,
+                                      plan=plans[0])
         ctx.save_for_backward(x, lens, w, u, b, h0, xw, out)
-        ctx.route = route
+        ctx.route, ctx.bwd = route, plans[1]
         return out, h_t
 
     @staticmethod
     def backward(ctx, g_out, g_ht):
         x, lens, w, u, b, h0, xw, out = ctx.saved_tensors
+        if ctx.bwd is not None and ctx.bwd.kind == "scan":
+            count_route("gru_seq_bwd", "scan")
+            T = x.shape[1]
+            grads = _replay(
+                lambda x, w, u, b, h0: _masked_scan(
+                    lambda xw_t, h_: gru_cell(xw_t, h_, u, b), _xw(x, w),
+                    _mask(lens, x.shape[0], T, x), h0, False),
+                (x, w, u, b, h0), (g_out, g_ht))
+            return grads[:1] + (None,) + grads[1:] + (None, None)
         dxw, dh0, du = gru_sequence_fused_bwd(
             xw, lens, u, h0, out, g_out.contiguous(), g_ht.contiguous(),
-            route=ctx.route)
+            route=ctx.route, plan=ctx.bwd)
         B, T, D = x.shape
         dxw2 = dxw.reshape(B * T, -1).to(torch.float32)
         dx = torch.matmul(dxw2, w.t().to(torch.float32)).reshape(x.shape)
         dw = torch.matmul(x.reshape(B * T, D).t().to(torch.float32), dxw2)
         db = dxw2.sum(0)
         return (dx.to(x.dtype), None, dw.to(w.dtype), du.to(u.dtype),
-                db.to(b.dtype), dh0.to(h0.dtype), None)
+                db.to(b.dtype), dh0.to(h0.dtype), None, None)
 
 
 def gru(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
@@ -250,6 +309,15 @@ def gru(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
     loop."""
     B, T, _ = x.shape
     H = u.shape[0]
+    training = fused and _training(
+        x, w, u, *(t for t in (b, h0) if t is not None))
+    fwd, bwd = (_plans("gru_seq", "gru_seq_bwd", x, H, route, training)
+                if fused else (None, None))
+    if fwd is not None and fwd.kind == "scan":
+        count_route("gru_seq", "scan")
+        if training:
+            count_route("gru_seq_bwd", "scan")
+        fused = False
     if not fused:
         h = h0 if h0 is not None else x.new_zeros((B, H))
         return _masked_scan(lambda xw_t, h_: gru_cell(xw_t, h_, u, b),
@@ -259,15 +327,34 @@ def gru(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
     b = b if b is not None else x.new_zeros((3 * H,))
     h0 = h0 if h0 is not None else x.new_zeros((B, H))
     xk = _reverse_within_length(x, lens) if reverse else x
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xk, w, u, b, h0)):
-        out, h_t = _GRUFused.apply(xk, lens, w, u, b, h0, route)
+    if training:
+        out, h_t = _GRUFused.apply(xk, lens, w, u, b, h0, route, (fwd, bwd))
     else:
         out, h_t = gru_sequence_fused(_xw(xk, w), lens, u, b, h0,
-                                      route=route)
+                                      route=route, plan=fwd)
     if reverse:
         out = _reverse_within_length(out, lens)
     return out, h_t
+
+
+def lstm_peephole_step(xw: torch.Tensor, c_prev: torch.Tensor,
+                       w_peep: torch.Tensor, b: Optional[torch.Tensor] = None,
+                       forget_bias: float = 0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step with pre-projected gates and peephole connections
+    (the reference's LstmStepLayer): xw [B, 4H] packed (i, f, c, o),
+    w_peep [3, H] packed (ci, cf, co); i and f peep at c_prev, o at the
+    new cell. Returns (h, c)."""
+    H = c_prev.shape[-1]
+    gi, gf, gc, go = xw.split(H, dim=-1)
+    if b is not None:
+        bi, bf, bc, bo = b.split(H, dim=-1)
+        gi, gf, gc, go = gi + bi, gf + bf, gc + bc, go + bo
+    i = torch.sigmoid(gi + c_prev * w_peep[0])
+    f = torch.sigmoid(gf + c_prev * w_peep[1] + forget_bias)
+    c = f * c_prev + i * torch.tanh(gc)
+    o = torch.sigmoid(go + c * w_peep[2])
+    return o * torch.tanh(c), c
 
 
 def bidirectional(rnn_fn: Callable, x, lengths, fwd_params: dict,

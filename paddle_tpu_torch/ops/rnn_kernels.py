@@ -17,9 +17,10 @@ for tensors on the card and takes the plain
 PyTorch version beside it for tensors on the CPU, or when a caller asks
 with ``route="plain"``. A kernel runs the whole sequence in one launch
 and carries h and c in f32 from the first step to the last; the JAX
-wrappers' ``block_b`` and ``chunk_t`` tile for VMEM and have no
-counterpart here (in bf16, ``chunk_t`` rounds h and c to bf16 at each
-chunk boundary, which the port never does).
+wrappers' ``chunk_t`` tiles time for VMEM and has no counterpart here
+(in bf16 it rounds h and c to bf16 at each chunk boundary, which the
+port never does), and their ``block_b`` is the row tile of the routes
+below.
 
 The plain versions follow the op order of the JAX kernel bodies: all
 arithmetic in f32, stores in the input dtype; LSTM gates i, f, g, o with
@@ -31,7 +32,14 @@ step freezes the state and outputs 0. Launches are counted in
 ``lstm_seq_bwd``, ``gru_seq`` and ``gru_seq_bwd``.
 
 Every kernel keeps its whole grid resident (grid barriers every step),
-so each has a batch limit. The backwards take fixed partitions: #10 4
+so each has a batch limit, and a call is routed by :func:`plan_route`
+from the shape and the card's SMs and shared memory before anything is
+launched: "whole" (one launch), "tiles" (one launch for each tile of the
+most rows that fit, in row order; the backwards sum the tiles' dU
+partials in f32 in tile order) or "scan" (no tile fits: ``ops/rnn.py``
+runs the step loop, as JAX takes ``_lstm_scan`` where no VMEM plan
+fits). ``cuda_kernels.ROUTES`` counts the routes taken. A launch that
+fails raises; nothing steps down to the plain versions. The backwards take fixed partitions: #10 4
 hidden units x 32 batch rows a block, #12 8 x 32. The forwards (#8, #9,
 #11) take a plan from :func:`forward_plan`: ``units`` (8 or 16) hidden
 units x ``rows`` (8, 16 or 32) batch rows a block, one warp or a pair of
@@ -44,13 +52,15 @@ H = 256, B <= 128 at H = 512 and no B at H = 1280 (no 8-unit block fits
 two an SM); the GRU forward takes B <= 528 at H = 256, B <= 256 at H =
 512 and B <= 64 at H = 1024. That is every (B, H) the 4-unit x 32-row
 forwards they replace took, but the LSTM's at H = 4 past B = 8448 (those
-took 3 blocks of 256 threads an SM; these plan for 2). A shape past its
-kernel's limit raises ``ValueError`` ("split the batch"), as does a
-hidden width that is not a multiple of 4.
+took 3 blocks of 256 threads an SM; these plan for 2). Handed straight
+to a kernel, a shape past its limit raises ``ValueError`` ("split the
+batch"), as does a hidden width that is not a multiple of 4 (which the
+planner routes to the scan).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 from typing import List, NamedTuple, Optional, Tuple
@@ -58,8 +68,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .cuda_kernels import (LAUNCHES, _DTYPE_CODE, _check_float, _raise_on,
-                           _route, _stream)
+from .cuda_kernels import (LAUNCHES, ROUTES, _DTYPE_CODE, _check_float,
+                           _raise_on, _route, _stream)
 
 #: the kernels give each block a multiple of this many hidden units: H
 #: must be a multiple
@@ -207,6 +217,193 @@ def _card_plan(kind: str, name: str, xw: torch.Tensor, B: int,
     return plan
 
 
+# ---------------------------------------------------------------------------
+# routes: one launch, a launch per row tile, or the step loop
+# ---------------------------------------------------------------------------
+
+#: the kernel family of each wrapper's count name
+KERNEL_KINDS = {"lstm_seq": "lstm", "lstm_seq_train": "lstm",
+                "lstm_seq_bwd": "lstm_bwd", "gru_seq": "gru",
+                "gru_seq_bwd": "gru_bwd"}
+#: the backwards' fixed partitions (csrc/lstm.cuh, csrc/gru_seq_bwd.cu):
+#: hidden units and batch rows a block of 256 threads, and the blocks an
+#: SM their launch bounds leave room for (#10: 128 registers a thread,
+#: two; #12: up to 255, one). This, _lstm_bwd_smem and _gru_bwd_smem
+#: repeat the C side's layouts; the card test
+#: test_bwd_planner_meets_the_kernels_limit_on_card holds them together.
+_BWD_BLOCK = {"lstm_bwd": (4, 32, 2), "gru_bwd": (8, 32, 1)}
+
+
+def _lstm_bwd_smem(H: int, itemsize: int, budget: int) -> int:
+    """The LSTM backward's dynamic shared memory (``make_plan`` of
+    csrc/lstm_seq_bwd.cu): the phases' layouts at the most steps a stage
+    (4, 2, 1) that fit ``budget``."""
+    hp = -(-H // 16) * 16
+    ldh, ldx, cols = hp + 4, hp + (4 if itemsize == 4 else 8), 16
+    ut = cols * ldh * 4
+    ns = 4
+    while True:
+        rows = 32 * ns
+        stage = rows * ldx * itemsize
+        p1 = ut + 2 * stage + 8192
+        p3 = 2 * (stage + rows * (cols + 4) * 4)
+        if ns == 1 or (p1 <= budget and p3 <= budget):
+            break
+        ns //= 2
+    p2 = (hp + 32) * (cols + 4) * 4
+    return 32 * 4 + max(p1, p2, p3)
+
+
+def _gru_bwd_smem(B: int, H: int) -> int:
+    """The GRU backward's dynamic shared memory (``bwd_smem_bytes`` of
+    csrc/gru_seq_bwd.cu): the rows' lengths, then the larger of two
+    stages of 64 x 64 tiles and U's rows of a block's units."""
+    head = -(-(B + 2) * 4 // 16) * 16
+    stages = 2 * (64 * 68 * 4 + 64 * 72 * 4)
+    return head + max(stages, 3 * -(-H // 64) * 128 * 16)
+
+
+def _bwd_fits(kind: str, B: int, H: int, itemsize: int, sms: int,
+              smem_optin: int) -> bool:
+    """Whether a backward's grid for B rows is resident at once (the
+    check ``launch_cooperative`` of csrc/lstm.cuh makes on the card)."""
+    units, rows, bound = _BWD_BLOCK[kind]
+    if B <= 0 or H <= 0 or H % KERNEL_HIDDEN_MULTIPLE:
+        return False
+    blocks = -(-H // units) * -(-B // rows)
+    if kind == "lstm_bwd":
+        smem = _lstm_bwd_smem(H, itemsize,
+                              110 * 1024 if blocks > sms else 200 * 1024)
+    else:
+        smem = _gru_bwd_smem(B, H)
+    if smem > smem_optin:
+        return False
+    per_sm = min(bound, (smem_optin + 1024) // (smem + 1024))
+    return blocks <= per_sm * sms
+
+
+class Route(NamedTuple):
+    """How one call of a recurrent kernel runs: ``kind`` "whole" (one
+    launch over the batch), "tiles" (one launch for each contiguous row
+    range ``(first row, rows)`` of ``tiles``, in row order) or "scan" (no
+    tile fits: the caller runs the step loop); ``plans`` holds each
+    tile's forward plan (None for a backward)."""
+    kind: str
+    tiles: Tuple[Tuple[int, int], ...]
+    plans: Tuple[Optional[ForwardPlan], ...]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_route(name: str, B: int, H: int, dtype: torch.dtype = torch.float32,
+               sms: int = H100[0], smem_optin: int = H100[1]) -> Route:
+    """The route of kernel ``name`` (a ``LAUNCHES`` name of this module)
+    for B rows of hidden width H in ``dtype`` on a card of ``sms`` SMs and
+    ``smem_optin`` bytes of shared memory a block — the counterpart of the
+    JAX wrappers' ``_fused_plan`` / ``_fused_bwd_plan``, with the card's
+    residency in place of VMEM. "whole" where the grid of all B rows fits
+    at once; else "tiles" of the most rows whose grid fits (as JAX takes
+    the widest ``block_b``), the last tile holding the rest; else
+    "scan". A pure function of its arguments: nothing is tried on the
+    card."""
+    kind = KERNEL_KINDS[name]
+    if kind in _FORWARD_KINDS:
+        plan_of = lambda b: forward_plan(kind, b, H, sms, smem_optin)
+        fits = lambda b: plan_of(b) is not None
+    else:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        plan_of = lambda b: None
+        fits = lambda b: _bwd_fits(kind, b, H, itemsize, sms, smem_optin)
+    if B <= 0 or fits(B):
+        return Route("whole", ((0, B),), (plan_of(B),))
+    lo, hi = 0, B                       # fits(lo) (or lo = 0), not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    if lo == 0:
+        return Route("scan", (), ())
+    tiles = tuple((r, min(lo, B - r)) for r in range(0, B, lo))
+    return Route("tiles", tiles, tuple(plan_of(n) for _, n in tiles))
+
+
+_FORCED: List[Tuple[int, int]] = []
+
+
+@contextlib.contextmanager
+def forced_limits(sms: int, smem_optin: int):
+    """Plan every call inside the block, on the CPU too, for a card of
+    ``sms`` SMs and ``smem_optin`` bytes of shared memory a block (on the
+    CPU each tile then runs the kernels' plain versions): how tests drive
+    the tiled and scan routes at small shapes."""
+    _FORCED.append((sms, smem_optin))
+    try:
+        yield
+    finally:
+        _FORCED.pop()
+
+
+def limits_for(device: torch.device) -> Optional[Tuple[int, int]]:
+    """The limits the planner takes for tensors on ``device``: forced ones
+    (:func:`forced_limits`), else the card's, else None (a CPU call runs
+    the plain versions over the whole batch, unplanned)."""
+    if _FORCED:
+        return _FORCED[-1]
+    if device.type == "cuda":
+        return card_limits(device.index if device.index is not None
+                           else torch.cuda.current_device())
+    return None
+
+
+def route_for(name: str, xw: torch.Tensor, H: int,
+              route: Optional[str] = None) -> Optional[Route]:
+    """The planner's route for a call of ``name`` on xw's rows, or None
+    for an unplanned call (``route="plain"``, or the CPU with no forced
+    limits)."""
+    if route == "plain":
+        return None
+    lim = limits_for(xw.device)
+    if lim is None:
+        return None
+    return plan_route(name, xw.shape[0], H, xw.dtype, *lim)
+
+
+def count_route(name: str, kind: str) -> None:
+    ROUTES[(name, kind)] = ROUTES.get((name, kind), 0) + 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernels take it: itself where contiguous and 16-byte
+    aligned, else a fresh (aligned) copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
+def _run_tiles(rt: Route, ins, outs, one) -> None:
+    """Run ``one(tile inputs, tile outputs, plan)`` for each tile of
+    ``rt`` in row order over the rows of the row-indexed tensors ``ins``
+    and ``outs`` (written in place; a tile view that breaks the 16-byte
+    rule is computed into an aligned copy and copied back)."""
+    for (r0, n), plan in zip(rt.tiles, rt.plans):
+        views = [t[r0:r0 + n] for t in outs]
+        touts = [_aligned(v) for v in views]
+        one([_aligned(t[r0:r0 + n]) for t in ins], touts, plan)
+        for v, t in zip(views, touts):
+            if t is not v:
+                v.copy_(t)
+
+
+def _no_scan(rt: Route, name: str, B: int, H: int) -> None:
+    if H % KERNEL_HIDDEN_MULTIPLE:
+        raise ValueError(f"{name}: hidden width {H} not taken by the kernel "
+                         f"(a multiple of {KERNEL_HIDDEN_MULTIPLE}); the step "
+                         "loop takes it (ops.rnn.lstm / ops.rnn.gru)")
+    if rt.kind == "scan":
+        raise ValueError(
+            f"{name}: B={B}, H={H}: no row tile's grid is resident on the "
+            "card at once; the step loop takes this shape (ops.rnn.lstm / "
+            "ops.rnn.gru route it there)")
+
+
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32)
 
@@ -300,17 +497,24 @@ def _raise_launch(err: int, name: str, B: int, H: int) -> None:
     _raise_on(err, name)
 
 
+def _lstm_outs(xw, save_cell):
+    B, T, G = xw.shape
+    H = G // 4
+    out = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
+    h_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    c_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    return (out, h_t, c_t) + ((torch.empty_like(out),) if save_cell else ())
+
+
 def _lstm_sequence_fused_kernel(xw, lengths, u, b, h0, c0, forget_bias,
-                                save_cell, plan=None):
+                                save_cell, plan=None, outs=None):
     B, T, G = xw.shape
     H = G // 4
     name = "lstm_seq_train" if save_cell else "lstm_seq"
     lens = _check_lstm_args("lstm_sequence_fused", xw, lengths, u, b, h0, c0)
-    out = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
-    h_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
-    c_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
-    c_seq = torch.empty_like(out) if save_cell else None
-    res = (out, h_t, c_t) + ((c_seq,) if save_cell else ())
+    res = tuple(outs) if outs is not None else _lstm_outs(xw, save_cell)
+    out, h_t, c_t = res[:3]
+    c_seq = res[3] if save_cell else None
     if B == 0 or T == 0:
         h_t.copy_(h0)
         c_t.copy_(c0)
@@ -338,20 +542,48 @@ def lstm_sequence_fused(xw: torch.Tensor, lengths: torch.Tensor,
                         h0: Optional[torch.Tensor] = None,
                         c0: Optional[torch.Tensor] = None, *,
                         forget_bias: float = 0.0, save_cell: bool = False,
-                        route: Optional[str] = None):
+                        route: Optional[str] = None,
+                        plan: Optional[Route] = None):
     """Masked LSTM over a whole sequence — the
     ``pallas_kernels.lstm_sequence_fused`` contract: xw = x@W [B, T, 4H],
     lengths [B] int, u [H, 4H], b [4H], h0/c0 [B, H] (zeros when None) ->
     (out [B, T, H], hT [B, H], cT [B, H]) in xw's dtype, plus the
     post-mask cell sequence c_seq [B, T, H] when ``save_cell`` (the
-    residual :func:`lstm_sequence_fused_bwd` consumes)."""
+    residual :func:`lstm_sequence_fused_bwd` consumes).
+
+    On the card the call takes the route of :func:`plan_route` (``plan``
+    where the caller decided it already): one launch, or one launch for
+    each row tile, each writing its rows of the outputs; a shape no tile
+    of takes raises (``ops.rnn.lstm`` runs the step loop there)."""
     lengths, b, h0, c0 = _defaults(xw, lengths, u, b, h0, c0)
-    if _route(route, xw, lengths, u, b, h0, c0) == "plain":
+    name = "lstm_seq_train" if save_cell else "lstm_seq"
+    kernel = _route(route, xw, lengths, u, b, h0, c0) == "kernel"
+    rt = plan if plan is not None else route_for(name, xw, u.shape[0], route)
+    if rt is None:
         return lstm_sequence_fused_plain(xw, lengths, u, b, h0, c0,
                                          forget_bias=forget_bias,
                                          save_cell=save_cell)
-    return _lstm_sequence_fused_kernel(xw, lengths, u, b, h0, c0,
-                                       forget_bias, save_cell)
+    _no_scan(rt, name, xw.shape[0], u.shape[0])
+    count_route(name, rt.kind)
+    if kernel and rt.kind == "whole":
+        return _lstm_sequence_fused_kernel(xw, lengths, u, b, h0, c0,
+                                           forget_bias, save_cell,
+                                           rt.plans[0])
+    outs = _lstm_outs(xw, save_cell)
+
+    def one(tin, touts, tplan):
+        if kernel:
+            _lstm_sequence_fused_kernel(*tin[:2], u, b, *tin[2:],
+                                        forget_bias, save_cell, tplan, touts)
+            return
+        got = lstm_sequence_fused_plain(*tin[:2], u, b, *tin[2:],
+                                        forget_bias=forget_bias,
+                                        save_cell=save_cell)
+        for o, g in zip(touts, got):
+            o.copy_(g)
+
+    _run_tiles(rt, [xw, lengths, h0, c0], outs, one)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +633,8 @@ def lstm_sequence_fused_bwd_plain(xw, lengths, u, b, h0, c0, out_seq, c_seq,
 
 
 def _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0, out_seq, c_seq,
-                                    g_out, g_ht, g_ct, forget_bias):
+                                    g_out, g_ht, g_ct, forget_bias,
+                                    outs=None):
     B, T, G = xw.shape
     H = G // 4
     seq, vec = (B, T, H), (B, H)
@@ -409,9 +642,10 @@ def _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0, out_seq, c_seq,
         "lstm_sequence_fused_bwd", xw, lengths, u, b, h0, c0,
         [("out_seq", out_seq, seq), ("c_seq", c_seq, seq),
          ("g_out", g_out, seq), ("g_ht", g_ht, vec), ("g_ct", g_ct, vec)])
-    dxw = torch.empty_like(xw)
-    dh0 = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
-    dc0 = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    dxw, dh0, dc0 = outs if outs is not None else (
+        torch.empty_like(xw),
+        torch.empty((B, H), dtype=xw.dtype, device=xw.device),
+        torch.empty((B, H), dtype=xw.dtype, device=xw.device))
     du = torch.empty((H, G), dtype=torch.float32, device=xw.device)
     if B == 0 or T == 0:
         dh0.copy_(g_ht)
@@ -441,22 +675,63 @@ def _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0, out_seq, c_seq,
     return dxw, dh0, dc0, du
 
 
+def _tiled_bwd(rt: Route, ins, outs, run) -> torch.Tensor:
+    """A backward over the tiles of ``rt``: ``run(tile inputs, tile
+    outputs)`` writes each tile's rows of ``outs`` and returns its dU
+    partial [H, G] f32; the partials are summed in f32 in tile order (no
+    atomics: the same inputs give the same bits)."""
+    parts = []
+    _run_tiles(rt, ins, outs, lambda tin, touts, _: parts.append(
+        run(tin, touts)))
+    du = parts[0]
+    for p in parts[1:]:
+        du = du + p
+    return du
+
+
 def lstm_sequence_fused_bwd(xw, lengths, u, b, h0, c0, out_seq, c_seq, g_out,
                             g_ht, g_ct, *, forget_bias: float = 0.0,
-                            route: Optional[str] = None):
+                            route: Optional[str] = None,
+                            plan: Optional[Route] = None):
     """Backward of :func:`lstm_sequence_fused` from its ``save_cell``
     residuals — the ``pallas_kernels.lstm_sequence_fused_bwd`` contract:
     -> (dxw [B, T, 4H], dh0 [B, H], dc0 [B, H]) in xw's dtype and
-    du [H, 4H] f32."""
+    du [H, 4H] f32. Routed as the forward; on the "tiles" route each
+    tile's dU partial is summed in tile order."""
     lengths = lengths.to(xw.device)
-    if _route(route, xw, lengths, u, b, h0, c0, out_seq, c_seq, g_out, g_ht,
-              g_ct) == "plain":
+    kernel = _route(route, xw, lengths, u, b, h0, c0, out_seq, c_seq, g_out,
+                    g_ht, g_ct) == "kernel"
+    rt = (plan if plan is not None
+          else route_for("lstm_seq_bwd", xw, u.shape[0], route))
+    if rt is None:
         return lstm_sequence_fused_bwd_plain(
             xw, lengths, u, b, h0, c0, out_seq, c_seq, g_out, g_ht, g_ct,
             forget_bias=forget_bias)
-    return _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0, out_seq,
-                                           c_seq, g_out, g_ht, g_ct,
-                                           forget_bias)
+    _no_scan(rt, "lstm_seq_bwd", xw.shape[0], u.shape[0])
+    count_route("lstm_seq_bwd", rt.kind)
+    if kernel and rt.kind == "whole":
+        return _lstm_sequence_fused_bwd_kernel(xw, lengths, u, b, h0, c0,
+                                               out_seq, c_seq, g_out, g_ht,
+                                               g_ct, forget_bias)
+    B, H = xw.shape[0], u.shape[0]
+    outs = (torch.empty_like(xw),
+            torch.empty((B, H), dtype=xw.dtype, device=xw.device),
+            torch.empty((B, H), dtype=xw.dtype, device=xw.device))
+
+    def run(tin, touts):
+        xw_, len_, h0_, c0_, *rest = tin
+        if kernel:
+            return _lstm_sequence_fused_bwd_kernel(
+                xw_, len_, u, b, h0_, c0_, *rest, forget_bias, touts)[3]
+        got = lstm_sequence_fused_bwd_plain(xw_, len_, u, b, h0_, c0_, *rest,
+                                            forget_bias=forget_bias)
+        for o, g in zip(touts, got):
+            o.copy_(g)
+        return got[3]
+
+    du = _tiled_bwd(rt, [xw, lengths, h0, c0, out_seq, c_seq, g_out, g_ht,
+                         g_ct], outs, run)
+    return outs + (du,)
 
 
 # ---------------------------------------------------------------------------
@@ -503,12 +778,17 @@ def _gru_shapes(xw, u):
     return B, T, H
 
 
-def _gru_sequence_fused_kernel(xw, lengths, u, h0, plan=None):
+def _gru_outs(xw, H):
+    B, T, _ = xw.shape
+    return (torch.empty((B, T, H), dtype=xw.dtype, device=xw.device),
+            torch.empty((B, H), dtype=xw.dtype, device=xw.device))
+
+
+def _gru_sequence_fused_kernel(xw, lengths, u, h0, plan=None, outs=None):
     B, T, H = _gru_shapes(xw, u)
     lens = _check_args("gru_sequence_fused", xw, lengths, H,
                        [("u", u, (H, 3 * H)), ("h0", h0, (B, H))])
-    out = torch.empty((B, T, H), dtype=xw.dtype, device=xw.device)
-    h_t = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    out, h_t = outs if outs is not None else _gru_outs(xw, H)
     if B == 0 or T == 0:
         h_t.copy_(h0)
         return out, h_t
@@ -531,18 +811,20 @@ def _gru_sequence_fused_kernel(xw, lengths, u, h0, plan=None):
 def gru_sequence_fused(xw: torch.Tensor, lengths: torch.Tensor,
                        u: torch.Tensor, b: Optional[torch.Tensor] = None,
                        h0: Optional[torch.Tensor] = None, *,
-                       route: Optional[str] = None):
+                       route: Optional[str] = None,
+                       plan: Optional[Route] = None):
     """Masked GRU over a whole sequence — the
     ``pallas_kernels.gru_sequence_fused`` contract: xw = x@W [B, T, 3H],
     lengths [B] int, u [H, 3H] packed [u_z | u_r | u_c], b [3H] (added to
     xw in xw's dtype before the recurrence, as the JAX wrapper does), h0
     [B, H] (zeros when None) -> (out [B, T, H], hT [B, H]) in xw's dtype.
 
-    The kernel runs all T steps in one launch (the JAX ``block_b`` and
-    ``chunk_t`` tile VMEM and have no counterpart; ``chunk_t`` rounds h to
-    bf16 at chunk boundaries, which the port never does) and saves nothing
-    beyond this contract: :func:`gru_sequence_fused_bwd` recomputes the
-    gates from xw and ``out``."""
+    The kernel runs all T steps in one launch for each row tile of its
+    route (:func:`plan_route`, as :func:`lstm_sequence_fused`; the JAX
+    ``chunk_t`` tiles VMEM and has no counterpart: it rounds h to bf16 at
+    chunk boundaries, which the port never does) and saves nothing beyond
+    this contract: :func:`gru_sequence_fused_bwd` recomputes the gates
+    from xw and ``out``."""
     _gru_shapes(xw, u)
     if b is not None:
         xw = xw + b
@@ -550,9 +832,28 @@ def gru_sequence_fused(xw: torch.Tensor, lengths: torch.Tensor,
         h0 = torch.zeros((xw.shape[0], u.shape[0]), dtype=xw.dtype,
                          device=xw.device)
     lengths = lengths.to(xw.device)
-    if _route(route, xw, lengths, u, h0) == "plain":
+    kernel = _route(route, xw, lengths, u, h0) == "kernel"
+    rt = plan if plan is not None else route_for("gru_seq", xw, u.shape[0],
+                                                 route)
+    if rt is None:
         return gru_sequence_fused_plain(xw, lengths, u, h0)
-    return _gru_sequence_fused_kernel(xw, lengths, u, h0)
+    _no_scan(rt, "gru_seq", xw.shape[0], u.shape[0])
+    count_route("gru_seq", rt.kind)
+    if kernel and rt.kind == "whole":
+        return _gru_sequence_fused_kernel(xw, lengths, u, h0, rt.plans[0])
+    outs = _gru_outs(xw, u.shape[0])
+
+    def one(tin, touts, tplan):
+        if kernel:
+            _gru_sequence_fused_kernel(tin[0], tin[1], u, tin[2], tplan,
+                                       touts)
+            return
+        for o, g in zip(touts, gru_sequence_fused_plain(tin[0], tin[1], u,
+                                                        tin[2])):
+            o.copy_(g)
+
+    _run_tiles(rt, [xw, lengths, h0], outs, one)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +893,8 @@ def gru_sequence_fused_bwd_plain(xw, lengths, u, h0, out_seq, g_out, g_ht):
     return dxw, dh.to(dt), du
 
 
-def _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out, g_ht):
+def _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out, g_ht,
+                                   outs=None):
     B, T, H = _gru_shapes(xw, u)
     G = 3 * H
     seq, vec = (B, T, H), (B, H)
@@ -600,8 +902,9 @@ def _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out, g_ht):
         "gru_sequence_fused_bwd", xw, lengths, H,
         [("u", u, (H, G)), ("h0", h0, vec), ("out_seq", out_seq, seq),
          ("g_out", g_out, seq), ("g_ht", g_ht, vec)])
-    dxw = torch.empty_like(xw)
-    dh0 = torch.empty((B, H), dtype=xw.dtype, device=xw.device)
+    dxw, dh0 = outs if outs is not None else (
+        torch.empty_like(xw),
+        torch.empty((B, H), dtype=xw.dtype, device=xw.device))
     du = torch.empty((H, G), dtype=torch.float32, device=xw.device)
     if B == 0 or T == 0:
         dh0.copy_(g_ht)
@@ -631,7 +934,8 @@ def _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out, g_ht):
 
 
 def gru_sequence_fused_bwd(xw, lengths, u, h0, out_seq, g_out, g_ht, *,
-                           route: Optional[str] = None):
+                           route: Optional[str] = None,
+                           plan: Optional[Route] = None):
     """Backward of :func:`gru_sequence_fused` — the
     ``pallas_kernels.gru_sequence_fused_bwd`` contract: xw with the bias
     added (its gradient is also the bias's, summed outside), the saved
@@ -639,11 +943,34 @@ def gru_sequence_fused_bwd(xw, lengths, u, h0, out_seq, g_out, g_ht, *,
     (dxw [B, T, 3H], dh0 [B, H]) in xw's dtype and du [H, 3H] f32. The
     kernel keeps its recomputed gates and f32 cotangents of the live
     steps in scratch allocated per call; nothing is read from the forward
-    but ``out_seq``."""
+    but ``out_seq``. Routed as :func:`lstm_sequence_fused_bwd`."""
     _gru_shapes(xw, u)
     lengths = lengths.to(xw.device)
-    if _route(route, xw, lengths, u, h0, out_seq, g_out, g_ht) == "plain":
+    kernel = _route(route, xw, lengths, u, h0, out_seq, g_out,
+                    g_ht) == "kernel"
+    rt = (plan if plan is not None
+          else route_for("gru_seq_bwd", xw, u.shape[0], route))
+    if rt is None:
         return gru_sequence_fused_bwd_plain(xw, lengths, u, h0, out_seq,
                                             g_out, g_ht)
-    return _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq, g_out,
-                                          g_ht)
+    _no_scan(rt, "gru_seq_bwd", xw.shape[0], u.shape[0])
+    count_route("gru_seq_bwd", rt.kind)
+    if kernel and rt.kind == "whole":
+        return _gru_sequence_fused_bwd_kernel(xw, lengths, u, h0, out_seq,
+                                              g_out, g_ht)
+    B, H = xw.shape[0], u.shape[0]
+    outs = (torch.empty_like(xw),
+            torch.empty((B, H), dtype=xw.dtype, device=xw.device))
+
+    def run(tin, touts):
+        xw_, len_, h0_, *rest = tin
+        if kernel:
+            return _gru_sequence_fused_bwd_kernel(xw_, len_, u, h0_, *rest,
+                                                  touts)[2]
+        got = gru_sequence_fused_bwd_plain(xw_, len_, u, h0_, *rest)
+        for o, g in zip(touts, got):
+            o.copy_(g)
+        return got[2]
+
+    du = _tiled_bwd(rt, [xw, lengths, h0, out_seq, g_out, g_ht], outs, run)
+    return outs + (du,)

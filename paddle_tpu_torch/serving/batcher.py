@@ -42,8 +42,9 @@ TENANT_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,31}$")
 class Request:
     """One generation request: prompt ids, generation budget, optional EOS
     (generation stops BEFORE emitting eos_id; it is not returned).
-    ``prefix_len`` declares a shared prefix (kept for the request contract;
-    the port's pool has no prefix cache yet)."""
+    ``prefix_len`` declares how many leading prompt tokens are a shared
+    prefix worth caching (the paged pool's prefix cache caps what it
+    inserts there; matching is always by content)."""
     rid: int
     prompt: np.ndarray
     max_new: int
@@ -141,8 +142,10 @@ class ContinuousBatcher:
     padded to max_len: each request's greedy continuation equals its solo
     decode at the same ``kv_dtype``.
 
-    Requests are admitted longest effective budget first (the JAX
-    batcher's default schedule, as ``PagedBatcher``'s). ``cache_bucket``
+    ``schedule`` orders admission: "longest_first" (the default) admits
+    the largest effective budgets first, "fifo" in arrival order; the
+    outputs are the same either way (greedy decode does not depend on
+    the batch). ``cache_bucket``
     bounds each segment's cache read to the next bucket multiple past the
     live slots' positions. ``kv_dtype="int8"`` holds the pool quantized:
     tokens then equal the solo int8 decode."""
@@ -150,10 +153,14 @@ class ContinuousBatcher:
     def __init__(self, model, *, slots: int = 8, segment: int = 32,
                  cache_bucket: int = 256,
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 schedule: str = "longest_first",
                  kv_dtype: Optional[str] = None,
                  device: DeviceLike = None):
+        if schedule not in ("longest_first", "fifo"):
+            raise ValueError(f"unknown schedule {schedule!r}")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        self.schedule = schedule
         self.device = _model_device(model, device)
         self.model = model
         self.n_slots, self.segment = slots, segment
@@ -177,7 +184,8 @@ class ContinuousBatcher:
         queue = list(requests)
         for r in queue:
             validate_request(r, model)
-        queue.sort(key=lambda r: -self._budget(r))
+        if self.schedule == "longest_first":
+            queue.sort(key=lambda r: -self._budget(r))
         slots = [_Slot() for _ in range(n)]
         results: Dict[int, np.ndarray] = {}
         self.graphs.watch(model.parameters())

@@ -10,8 +10,14 @@ reads a token buffer, cancel marks a flag the scheduler honours at the
 next segment boundary. Device work runs outside the lock, so a poll never
 waits on a dispatch. In-process tests may drive :meth:`step` instead.
 
-Not ported yet (see ROADMAP.md): the RPC daemon, prefix cache, shipped
-admissions (``submit_prefilled``), request timelines and the obs metrics.
+``prefix_cache=True`` shares prompt-prefix pages across requests
+(:class:`PagePool`'s radix index): a hit admits with only its suffix
+prefilled, and the scheduler evicts cold cached prefixes when a request
+does not fit otherwise.
+
+Not ported yet (see ROADMAP.md): the RPC daemon, shipped admissions
+(``submit_prefilled``), request timelines, ``alert_rules`` and the obs
+metrics.
 """
 
 from __future__ import annotations
@@ -42,13 +48,14 @@ class _Rec:
 
     __slots__ = ("rid", "prompt", "eos_id", "left", "deadline", "t_submit",
                  "t_first", "t_done", "tokens", "done", "reason", "slot",
-                 "skip", "cancelled", "collected", "tenant", "slo")
+                 "skip", "cancelled", "collected", "tenant", "slo",
+                 "prefix_len")
 
     def __init__(self, rid, prompt, left, eos_id, deadline, t_submit,
-                 tenant="default", slo="interactive"):
+                 tenant="default", slo="interactive", prefix_len=None):
         self.rid, self.prompt, self.left = rid, prompt, left
         self.eos_id, self.deadline, self.t_submit = eos_id, deadline, t_submit
-        self.tenant, self.slo = tenant, slo
+        self.tenant, self.slo, self.prefix_len = tenant, slo, prefix_len
         self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
         self.tokens: List[int] = []
@@ -72,6 +79,7 @@ class ServingEngine:
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
                  kv_dtype: Optional[str] = None, queue_cap: int = 64,
                  default_timeout_s: Optional[float] = None,
+                 prefix_cache: bool = False,
                  class_weights: Optional[Dict[str, float]] = None,
                  max_tenants: int = 32, device: DeviceLike = None,
                  clock=time.monotonic):
@@ -79,7 +87,8 @@ class ServingEngine:
                              page_block=page_block, pages=pages,
                              cache_bucket=cache_bucket,
                              prompt_buckets=prompt_buckets,
-                             kv_dtype=kv_dtype, device=device)
+                             kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+                             device=device)
         self.model = model
         self.queue_cap = queue_cap
         self.default_timeout_s = default_timeout_s
@@ -115,12 +124,15 @@ class ServingEngine:
 
     def submit(self, prompt, max_new: int, *, eos_id: Optional[int] = None,
                timeout_s: Optional[float] = None, tenant: str = "default",
-               slo: str = "interactive") -> int:
+               slo: str = "interactive",
+               prefix_len: Optional[int] = None) -> int:
         """Queue one request; returns its rid. Raises ValueError for a
         malformed or unservable request and :class:`Overloaded` when the
-        queue cap is reached."""
+        queue cap is reached. ``prefix_len`` declares how many leading
+        prompt tokens are a shared prefix worth caching (the prefix cache
+        inserts no more; matching is always by content)."""
         r = Request(-1, np.asarray(prompt), int(max_new), eos_id,
-                    tenant=str(tenant), slo=str(slo))
+                    tenant=str(tenant), slo=str(slo), prefix_len=prefix_len)
         self.pool.validate(r)                  # mutates r.prompt to int32
         left = self.pool.effective_budget(r.prompt.size, r.max_new)
         timeout = timeout_s if timeout_s is not None else \
@@ -143,7 +155,7 @@ class ServingEngine:
             rid = self._next_rid
             self._next_rid += 1
             rec = _Rec(rid, r.prompt, left, eos_id, deadline, now,
-                       tenant=r.tenant, slo=r.slo)
+                       tenant=r.tenant, slo=r.slo, prefix_len=r.prefix_len)
             self._recs[rid] = rec
             self._queues[r.slo].append(rec)
             self._wake.notify_all()
@@ -158,6 +170,14 @@ class ServingEngine:
             if rec.done:
                 rec.collected = True
             return list(rec.tokens[cursor:]), rec.done, rec.reason
+
+    def pending_results(self) -> int:
+        """Finished results no poll has collected yet (the drain signal
+        of a daemon: live and queued work drain before)."""
+        with self._lock:
+            return sum(1 for rid in self._done_order
+                       if rid in self._recs
+                       and not self._recs[rid].collected)
 
     def cancel(self, rid: int) -> bool:
         """Request cancellation; True if the request was still queued or
@@ -195,13 +215,20 @@ class ServingEngine:
                "pages_reserved": pool.reserved,
                "pages_total": pool.capacity_pages,
                "page_block": pool.bs,
-               "peak_pages_used": pool.peak_pages_used,
-               "prompt_tokens": pool.prompt_tokens_total}
+               "peak_pages_used": pool.peak_pages_used}
         out.update(per_class)
+        out.update(pool.prefix_stats())
         return out
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "ServingEngine":
+        """Spawn the scheduler thread. An engine that was stopped starts
+        again with its pool (and its graphs) as they were; requests
+        submitted while it was stopped wait in the queue."""
+        with self._lock:
+            if self._thread is not None:
+                raise RuntimeError("serving engine already started")
+            self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serving-engine")
         self._thread.start()
@@ -277,9 +304,11 @@ class ServingEngine:
     def admit_prefill(self) -> int:
         """Phase 1: assign free slots to queued requests by weighted-fair
         deficit scheduling across SLO classes (FIFO within a class; a class
-        head that does not fit the page budget blocks only its class),
-        run the batched prefill, and emit each admission's first token
-        (TTFT stops here). Returns the number admitted."""
+        head that does not fit the page budget, even after cold cached
+        prefixes are evicted, blocks only its class), run the batched
+        prefill (the full prefill for misses, copy-on-write and the suffix
+        prefill for prefix-cache hits), and emit each admission's first
+        token (TTFT stops here). Returns the number admitted."""
         with self._lock:
             group, members, pending = [], [], 0
             free_slots = [s for s in range(self.pool.n_slots)
@@ -300,8 +329,12 @@ class ServingEngine:
                     break
                 c = max(avail, key=lambda k: self._deficit[k])
                 rec = self._queues[c][0]
-                plan = self.pool.plan_admission(rec.prompt, rec.left)
-                if not self.pool.fits(plan.need_pages, pending):
+                plan = self.pool.plan_admission(
+                    rec.prompt, rec.left, tenant=rec.tenant,
+                    prefix_len=rec.prefix_len)
+                if not self.pool.evict_for(plan.need_pages, pending,
+                                           protect=[p for _, p in group]
+                                           + [plan]):
                     blocked.add(c)  # pages free at segment boundaries
                     continue
                 self._queues[c].pop(0)

@@ -1,19 +1,32 @@
-"""Paged KV cache — the counterpart of ``paddle_tpu/serving/paged.py``
-without the prefix cache (``prefix_cache=False``, the engine default).
+"""Paged KV cache — the counterpart of ``paddle_tpu/serving/paged.py``.
 
 The cache is a shared pool of fixed-size pages (``page_block`` positions
 each) plus a per-slot block table naming which pages hold positions
 ``j*bs .. (j+1)*bs-1``: device memory holds live tokens, not max_len
 padding, and a finished or cancelled request returns its pages at once.
 
+With ``prefix_cache=True`` the pool also shares pages across requests
+through a radix index over prompt prefixes (``serving/prefix.py``): a
+request whose prompt starts with a cached prefix admits with only the
+suffix prefilled (``TransformerLM.prefill_paged``, from an offset over
+pre-populated block tables), full prefix pages are read in place under
+refcounts, and a matched partial last page is copied into a page of the
+slot's own before the suffix appends to it. Cold entries evict by their
+measured reuse.
+
 Invariants the exactness contract rides on (as in the JAX pool):
 
-* live slots never share a page (allocation pops unique pages);
+* live slots never share an owned page (allocation pops unique pages);
+  pages the index holds are shared read-only and never written after
+  the admission wave that filled them;
 * page 0 is the reserved NULL page: padded table entries and drained-slot
   writes land there, and no live read is ever unmasked into it;
-* admission reserves each request's worst-case page count up front
-  (prompt + capped budget + one segment of overshoot), so a live slot can
-  never fail an allocation mid-decode: backpressure happens at admission.
+* admission reserves each request's worst-case owned page count up
+  front (prompt + capped budget + one segment of overshoot, less the
+  shared prefix pages), and the fit check counts the index's pages too,
+  so a live slot can never fail an allocation mid-decode and a cold
+  cache can always be evicted out of the way: backpressure happens at
+  admission.
 
 Where JAX donates the pools to a jitted program and gets new ones back,
 the port writes into the pool tensors in place (admission scatters with
@@ -21,9 +34,10 @@ index assignment, each decode step writes its row in place), and the
 segment's ``lax.scan`` is a Python loop of ``segment`` steps. As JAX jits
 the admission per prompt bucket and the segment per read bound, each is
 one CUDA graph on the card (``core/graphs.py``): the admission per
-prompt bucket, the segment per page count of its read; the pools are
-donated to both (the graphs' static buffers), the tables, positions,
-tokens and prompts are copied in from the host before a replay.
+prompt bucket, the prefix-hit admission per (suffix pad, read pages),
+the segment per page count of its read; the pools are donated to each
+(the graphs' static buffers), the tables, positions, tokens and prompts
+are copied in from the host before a replay.
 
 ``kv_dtype="int8"`` holds the pools as int8 rows with f32 scale pools
 [P, bs, H] (initialised to 1.0); the admission scatters the prompt's
@@ -46,30 +60,40 @@ from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
 from .batcher import (DEFAULT_PROMPT_BUCKETS, Request, clip_emission,
                       validate_request)
+from .prefix import Match, PrefixIndex
 
 
 class _AdmitPlan:
-    """One request's host-side admission plan: its prompt, budget and the
-    pages it must reserve."""
+    """One request's host-side admission plan: the prefix-index match (or
+    None), the owned pages it must reserve, the prefix cap and its tenant.
+    Computed with no pool mutation, so a scheduler can check fits (and
+    evict) before it commits anything."""
 
-    __slots__ = ("prompt", "left", "plen", "need_pages")
+    __slots__ = ("prompt", "left", "plen", "tenant", "prefix_cap", "match",
+                 "need_pages", "offset")
 
-    def __init__(self, prompt, left, need_pages):
+    def __init__(self, prompt, left, need_pages, tenant="default",
+                 prefix_cap=None, match: Optional[Match] = None):
         self.prompt = prompt
         self.left = left
         self.plen = int(prompt.size)
+        self.tenant = tenant
+        self.prefix_cap = prefix_cap
+        self.match = match
         self.need_pages = need_pages
+        self.offset = match.shared_len if match is not None else 0
 
 
 class PagePool:
-    """Device page pools + host page accounting + the admission and
-    segment dispatches."""
+    """Device page pools + host page accounting + the admission, prefix-hit
+    admission and segment dispatches."""
 
     def __init__(self, model, *, slots: int, segment: int = 32,
                  page_block: int = 64, pages: Optional[int] = None,
                  cache_bucket: int = 256,
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
                  kv_dtype: Optional[str] = None,
+                 prefix_cache: bool = False, prefix_half_life: int = 64,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -119,6 +143,11 @@ class PagePool:
         itemsize = torch.empty((), dtype=dt).element_size()
         self._row_bytes = H * (Dh + 4 if kv_dtype == "int8"
                                else Dh * itemsize)
+        # one (k + v) page of every layer: the prefix index's reuse credit
+        self.page_bytes = 2.0 * self.bs * self._row_bytes * len(model.blocks)
+        self.index: Optional[PrefixIndex] = (
+            PrefixIndex(self.bs, self.page_bytes, half_life=prefix_half_life)
+            if prefix_cache else None)
 
         # host accounting
         self.free: List[int] = list(range(self.pages - 1, 0, -1))
@@ -126,6 +155,8 @@ class PagePool:
         self.pos = np.zeros((slots,), np.int64)
         self.cur = np.zeros((slots,), np.int32)
         self.slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        self.slot_shared: List[list] = [[] for _ in range(slots)]
+        self.slot_partial: List[Optional[object]] = [None] * slots
         self.slot_reserve = np.zeros((slots,), np.int64)
         self.reserved = 0
         self.peak_pages_used = 0
@@ -135,7 +166,10 @@ class PagePool:
         self.read_bytes_total = 0.0
         self.occupancy_num = 0           # live tokens, summed per segment
         self.occupancy_den = 0           # allocated page capacity, ditto
-        self.prompt_tokens_total = 0
+        self.prompt_tokens_total = 0     # tokens admitted
+        self.prefill_tokens_total = 0    # tokens prefilled
+        self.cow_copies_total = 0        # partial-page copies on write
+        self.hit_admissions_total = 0    # prefix-hit admission dispatches
         self.admissions_by_bucket: Dict[int, int] = {}   # prompt pad -> n
         self.segments_by_pages: Dict[int, int] = {}      # read pages -> n
 
@@ -143,6 +177,10 @@ class PagePool:
     @property
     def pages_used(self) -> int:
         return self.capacity_pages - len(self.free)
+
+    @property
+    def index_pages(self) -> int:
+        return self.index.total_pages if self.index is not None else 0
 
     def required_pages(self, plen: int, left: int) -> int:
         """Worst-case pages a (prompt, capped budget) request can touch:
@@ -152,10 +190,58 @@ class PagePool:
         return -(-hi // self.bs)
 
     def fits(self, need_pages: int, pending: int = 0) -> bool:
-        """Can a request needing ``need_pages`` be admitted? ``pending`` is
-        what the current admission wave has already claimed (``reserved``
-        only moves inside :meth:`admit`)."""
-        return self.reserved + pending + need_pages <= self.capacity_pages
+        """Can a request needing ``need_pages`` owned pages be admitted?
+        ``pending`` is what the current admission wave has already claimed
+        (``reserved`` only moves inside :meth:`admit`); the pages the
+        prefix index holds count too (they are not in the free list)."""
+        return (self.reserved + pending + need_pages + self.index_pages
+                <= self.capacity_pages)
+
+    def evict_for(self, need_pages: int, pending: int = 0,
+                  protect: Sequence[_AdmitPlan] = ()) -> bool:
+        """Evict cold prefix-cache entries (lowest decayed measured reuse
+        first) until ``need_pages`` fits; True on success. Pinned entries
+        never evict, and ``protect`` (the wave's plans, the one being
+        priced included) shields the entries a plan has matched but not
+        yet pinned (plans pin only inside :meth:`admit`)."""
+        if self.index is None:
+            return self.fits(need_pages, pending)
+        keep = set()
+        for plan in protect:
+            if plan.match is not None:
+                keep.update(id(n) for n in plan.match.nodes)
+                if plan.match.partial is not None:
+                    keep.add(id(plan.match.partial))
+        while True:
+            deficit = (self.reserved + pending + need_pages
+                       + self.index_pages) - self.capacity_pages
+            if deficit <= 0:
+                return True
+            freed = self.index.evict_pages(deficit, keep)
+            if not freed:
+                return False
+            self.free.extend(freed)
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every unpinned prefix-cache entry back to the free list;
+        returns the pages reclaimed."""
+        if self.index is None:
+            return 0
+        freed = self.index.clear()
+        self.free.extend(freed)
+        return len(freed)
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """Host tallies: hits and misses, shared and cached pages, prompt
+        against prefilled tokens, copies on write, hit dispatches."""
+        out = {"prefix_cache": 1.0 if self.index is not None else 0.0,
+               "prompt_tokens": self.prompt_tokens_total,
+               "prefill_tokens": self.prefill_tokens_total,
+               "cow_copies": self.cow_copies_total,
+               "hit_admissions": self.hit_admissions_total}
+        if self.index is not None:
+            out.update(self.index.stats())
+        return out
 
     def effective_budget(self, prompt_len: int, max_new: int) -> int:
         """The max_len-capped token budget a (prompt, max_new) can hold."""
@@ -178,10 +264,20 @@ class PagePool:
                 f"{self.capacity_pages}; shrink max_new or grow pages")
         return need
 
-    def plan_admission(self, prompt: np.ndarray, left: int) -> _AdmitPlan:
-        """Price an admission in pages, with no pool mutation."""
-        return _AdmitPlan(prompt, left,
-                          self.required_pages(int(prompt.size), left))
+    def plan_admission(self, prompt: np.ndarray, left: int, *,
+                       tenant: str = "default",
+                       prefix_len: Optional[int] = None) -> _AdmitPlan:
+        """Match ``prompt`` against the prefix index (nothing is pinned
+        until :meth:`admit`) and price the admission in owned pages. The
+        match is capped at plen - 1, so at least the last prompt token is
+        prefilled: its logits give the first token, and logits are not
+        cached."""
+        plen = int(prompt.size)
+        match = (self.index.match(prompt, plen - 1)
+                 if self.index is not None else None)
+        shared_full = len(match.nodes) if match is not None else 0
+        need = self.required_pages(plen, left) - shared_full
+        return _AdmitPlan(prompt, left, need, tenant, prefix_len, match)
 
     def _alloc(self) -> int:
         if not self.free:       # reservation accounting makes this a bug
@@ -191,9 +287,10 @@ class PagePool:
         return page
 
     def _ensure(self, slot: int, upto_pos: int) -> None:
-        """Grow ``slot``'s table to cover positions < upto_pos."""
+        """Grow ``slot``'s table to cover positions < upto_pos; the shared
+        prefix pages hold the leading entries, only the tail allocates."""
         need = -(-min(upto_pos, self.model.max_len) // self.bs)
-        have = len(self.slot_pages[slot])
+        have = len(self.slot_shared[slot]) + len(self.slot_pages[slot])
         while have < need:
             page = self._alloc()
             self.tables[slot, have] = page
@@ -201,10 +298,25 @@ class PagePool:
             have += 1
 
     def free_slot(self, slot: int) -> None:
-        """Return the slot's pages and park it: table -> null page,
-        pos -> 0, so its idle decode writes and reads touch page 0 only."""
-        self.free.extend(self.slot_pages[slot])
+        """Return every owned page, unpin the shared prefix path (its
+        pages return only through eviction), hand the last partial prompt
+        page to the index (it keys a stored tail), and park the slot:
+        table -> null page, pos -> 0, so its idle decode writes and reads
+        touch page 0 only."""
+        entry = self.slot_partial[slot]
+        pages = self.slot_pages[slot]
+        if entry is not None:
+            if (self.index is not None
+                    and entry.node.partials.get(entry.key) is entry):
+                # the index adopts the page as a cold cached tail
+                self.index.adopt(entry)
+                pages.remove(entry.page)
+            self.slot_partial[slot] = None
+        self.free.extend(pages)
         self.slot_pages[slot] = []
+        if self.index is not None and self.slot_shared[slot]:
+            self.index.release(self.slot_shared[slot])
+        self.slot_shared[slot] = []
         self.reserved -= int(self.slot_reserve[slot])
         self.slot_reserve[slot] = 0
         self.tables[slot, :] = 0
@@ -213,17 +325,51 @@ class PagePool:
     # -- the two scheduler-visible operations ------------------------------
     def admit(self, group: List[Tuple[int, _AdmitPlan]]) -> Dict[int, int]:
         """Commit ``group`` = [(slot, plan)] (the caller has checked
-        :meth:`fits`): reserve pages, allocate the prompts' pages, run one
-        pool-width ragged prefill that scatters the prompt rows into the
-        pools, and return {slot: first generated token}."""
+        :meth:`fits` / :meth:`evict_for`): reserve owned pages, pin the
+        matched prefix paths, allocate the prompts' tail pages, run the
+        full-prefill dispatch for misses and the copy-on-write +
+        suffix-prefill dispatch for hits, insert the new full prompt
+        blocks (and the last partial page) into the index, and return
+        {slot: first generated token}."""
         if not group:
             return {}
+        if self.index is not None:
+            self.index.tick += 1
+        miss, hits = [], []
+        cow: Dict[int, Tuple[int, int]] = {}      # slot -> (src, dst)
         for slot, plan in group:
             self.slot_reserve[slot] = plan.need_pages
             self.reserved += plan.need_pages
+            self.slot_partial[slot] = None
+            if plan.match is not None:
+                self.index.acquire(plan.match)
+                self.slot_shared[slot] = list(plan.match.nodes)
+                for j, node in enumerate(plan.match.nodes):
+                    self.tables[slot, j] = node.page
+            else:
+                self.slot_shared[slot] = []
             self._ensure(slot, plan.plen)
+            if plan.match is not None and plan.match.partial_len > 0:
+                # the block past the shared full pages is the slot's first
+                # owned page: the stored tail is copied there before the
+                # suffix prefill appends to it
+                cow[slot] = (plan.match.partial.page, self.slot_pages[slot][0])
+                self.cow_copies_total += 1
             self.prompt_tokens_total += plan.plen
-        first = self._prefill(group)
+            self.prefill_tokens_total += plan.plen - plan.offset
+            (hits if plan.offset else miss).append((slot, plan))
+        first = np.zeros((self.n_slots,), np.int64)
+        if miss:
+            got = self._prefill(miss)
+            for slot, _ in miss:
+                first[slot] = got[slot]
+        if hits:
+            got = self._prefill_hits(hits, cow)
+            for slot, _ in hits:
+                first[slot] = got[slot]
+        if self.index is not None:
+            for slot, plan in group:
+                self._insert_after(slot, plan)
         out = {}
         for slot, plan in group:
             self.pos[slot] = plan.plen
@@ -257,6 +403,97 @@ class PagePool:
         self.admissions_by_bucket[tpad] = \
             self.admissions_by_bucket.get(tpad, 0) + 1
         return first.cpu().numpy()
+
+    def _prefill_hits(self, hits, cow) -> np.ndarray:
+        """The prefix-hit admission: the copies on write, then the suffix
+        prefill of every hit from its offset, reading the shared prefix
+        pages through the block tables; one pool-width dispatch (one CUDA
+        graph per (suffix pad, read pages) on the card)."""
+        max_sfx = max(p.plen - p.offset for _, p in hits)
+        tpad = min(bucket_length(max_sfx, self.prompt_buckets),
+                   self.model.max_len - 1)
+        nbr = -(-min(bucket_length(max(p.plen for _, p in hits),
+                                   self.prompt_buckets),
+                     self.model.max_len) // self.bs)
+        suffix = np.zeros((self.n_slots, tpad), np.int32)
+        offsets = np.zeros((self.n_slots,), np.int64)
+        lens = np.zeros((self.n_slots,), np.int64)
+        src = np.zeros((self.n_slots,), np.int64)
+        dst = np.zeros((self.n_slots,), np.int64)
+        for slot, plan in hits:
+            sfx = plan.prompt[plan.offset:]
+            suffix[slot, :sfx.size] = sfx
+            offsets[slot] = plan.offset
+            lens[slot] = sfx.size
+            if slot in cow:
+                src[slot], dst[slot] = cow[slot]
+        self.graphs.watch(self.model.parameters())
+        self.pools, first = self.graphs.run(
+            "hit", self._hit_body,
+            {"pools": self.pools, "suffix": torch.from_numpy(suffix),
+             "offsets": torch.from_numpy(offsets),
+             "lens": torch.from_numpy(lens),
+             "tables": torch.from_numpy(np.ascontiguousarray(
+                 self.tables[:, :nbr]).astype(np.int64)),
+             "copy_src": torch.from_numpy(src),
+             "copy_dst": torch.from_numpy(dst)}, donate=("pools",))
+        self.hit_admissions_total += 1
+        return first.cpu().numpy()
+
+    @torch.no_grad()
+    def _hit_body(self, pools, suffix, offsets, lens, tables, copy_src,
+                  copy_dst):
+        """The prefix-hit admission program: each slot's matched partial
+        page copied into its fresh owned page (slots with no copy pass
+        (0, 0): the null page copies onto itself), then
+        ``prefill_paged`` of the suffixes. Returns (pools, each slot's
+        first token)."""
+        for pool in pools.values():
+            pool[copy_dst] = pool[copy_src]
+        pools, last = self.model.prefill_paged(pools, suffix, offsets, lens,
+                                               tables)
+        return pools, torch.argmax(last, dim=-1)
+
+    def _insert_after(self, slot: int, plan: _AdmitPlan) -> None:
+        """Grow the radix index from this admission: each full prompt
+        block past the matched depth becomes a shared node (the slot's
+        page passes to the index, or the slot takes an equal node's page
+        and frees its own), and a partial prompt tail registers for
+        copy-on-write sharing; ``prefix_cap`` (a declared prefix_len)
+        caps what is cached."""
+        idx = self.index
+        prompt, plen = plan.prompt, plan.plen
+        cap = plen if plan.prefix_cap is None else min(plan.prefix_cap, plen)
+        q0 = len(plan.match.nodes) if plan.match is not None else 0
+        parent = (plan.match.nodes[-1] if plan.match is not None
+                  and plan.match.nodes else idx.root)
+        kfull = cap // self.bs
+        for j in range(q0, kfull):
+            page = self.slot_pages[slot].pop(0)
+            key = tuple(int(t) for t in prompt[j * self.bs:
+                                               (j + 1) * self.bs])
+            node, created = idx.insert_full(parent, key, page)
+            if created:
+                # a first use counts one reuse credit, so a new prefix
+                # survives an eviction scan long enough to be hit
+                idx._credit(node, idx.page_bytes)
+            else:
+                # two misses of one prefix in a wave: keep the existing
+                # shared page, free ours
+                self.free.append(page)
+                self.tables[slot, j] = node.page
+            idx.ref(node)
+            self.slot_shared[slot].append(node)
+            self.slot_reserve[slot] -= 1
+            self.reserved -= 1
+            parent = node
+        tail = tuple(int(t) for t in prompt[kfull * self.bs:cap])
+        if tail and kfull >= q0 and self.slot_pages[slot]:
+            entry = idx.insert_partial(parent, tail,
+                                       self.slot_pages[slot][0], slot)
+            if entry is not None:
+                idx._credit(entry, idx.page_bytes * len(tail) / self.bs)
+                self.slot_partial[slot] = entry
 
     @torch.no_grad()
     def _admit_body(self, pools, prompts, lens, pages):
@@ -331,21 +568,29 @@ class PagePool:
 
 class PagedBatcher:
     """Continuous batching over the paged pool: greedy outputs token-for-
-    token equal to solo decode. Requests are admitted longest budget first
-    (the JAX batcher's default schedule)."""
+    token equal to solo decode. ``schedule``: "longest_first" (the
+    default) admits the longest budgets first, "fifo" in arrival order
+    (the same outputs); ``prefix_cache=True`` shares prompt prefixes
+    across requests (:class:`PagePool`)."""
 
     def __init__(self, model, *, slots: int = 8, segment: int = 32,
                  page_block: int = 64, pages: Optional[int] = None,
                  cache_bucket: int = 256,
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 schedule: str = "longest_first",
                  kv_dtype: Optional[str] = None,
+                 prefix_cache: bool = False,
                  device: DeviceLike = None):
+        if schedule not in ("longest_first", "fifo"):
+            raise ValueError(f"unknown schedule {schedule!r}")
         self.model = model
+        self.schedule = schedule
         self.pool = PagePool(model, slots=slots, segment=segment,
                              page_block=page_block, pages=pages,
                              cache_bucket=cache_bucket,
                              prompt_buckets=prompt_buckets,
-                             kv_dtype=kv_dtype, device=device)
+                             kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+                             device=device)
 
     def _effective_budget(self, r: Request) -> int:
         return self.pool.effective_budget(r.prompt.size, r.max_new)
@@ -355,7 +600,8 @@ class PagedBatcher:
         queue = list(requests)
         for r in queue:
             pool.validate(r)
-        queue.sort(key=lambda r: -self._effective_budget(r))
+        if self.schedule == "longest_first":
+            queue.sort(key=lambda r: -self._effective_budget(r))
         slots: List[Optional[Request]] = [None] * pool.n_slots
         left = np.zeros((pool.n_slots,), np.int64)
         outs: List[List[int]] = [[] for _ in range(pool.n_slots)]
@@ -367,9 +613,12 @@ class PagedBatcher:
                 if slots[i] is not None or not queue:
                     continue
                 r = queue[0]
-                plan = pool.plan_admission(r.prompt,
-                                           self._effective_budget(r))
-                if not pool.fits(plan.need_pages, pending):
+                plan = pool.plan_admission(
+                    r.prompt, self._effective_budget(r), tenant=r.tenant,
+                    prefix_len=r.prefix_len)
+                if not pool.evict_for(plan.need_pages, pending,
+                                      protect=[p for _, p in group]
+                                      + [plan]):
                     break          # head-of-line: wait for pages to free
                 pending += plan.need_pages
                 queue.pop(0)

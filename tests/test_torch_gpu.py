@@ -713,11 +713,17 @@ def test_lstm_kernels_refuse_what_they_do_not_take(cuda):
                                torch.tensor([3, 1]),
                                torch.randn(8, 32, device=cuda,
                                            dtype=torch.bfloat16))
-    # 64 x 64 blocks cannot all be resident for the grid barrier
+    # 64 x 64 blocks cannot all be resident for the grid barrier: the
+    # wrapper routes such a batch to row tiles, and handed straight to the
+    # kernel with a plan for the whole batch the launch raises
     big = torch.randn(2048, 1, 1024, device=cuda)
+    ones = torch.ones(2048, dtype=torch.int32, device=cuda)
+    u = torch.randn(256, 1024, device=cuda)
+    z = torch.zeros(2048, 256, device=cuda)
+    plan = rk.forward_plans("lstm", 64, 256)[0]
     with pytest.raises(ValueError, match="split the batch"):
-        rk.lstm_sequence_fused(big, torch.ones(2048, dtype=torch.int32),
-                               torch.randn(256, 1024, device=cuda))
+        rk._lstm_sequence_fused_kernel(big, ones, u, torch.zeros(
+            1024, device=cuda), z, z, 0.0, False, plan)
 
 
 @pytest.mark.gpu
@@ -1221,15 +1227,19 @@ def test_gru_kernels_refuse_what_they_do_not_take(cuda):
                               torch.tensor([3, 1]),
                               torch.randn(8, 24, device=cuda,
                                           dtype=torch.bfloat16))
-    # 256 x 64 blocks cannot all be resident for the grid barriers
+    # 256 x 64 blocks cannot all be resident for the grid barriers: the
+    # wrappers route such a batch to row tiles, and handed straight to the
+    # kernels for the whole batch the launches raise
     big = torch.randn(2048, 1, 3072, device=cuda)
-    lens = torch.ones(2048, dtype=torch.int32)
+    lens = torch.ones(2048, dtype=torch.int32, device=cuda)
     u = torch.randn(1024, 3072, device=cuda)
-    with pytest.raises(ValueError, match="split the batch"):
-        rk.gru_sequence_fused(big, lens, u)
     h = torch.zeros(2048, 1024, device=cuda)
+    plan = rk.forward_plans("gru", 32, 1024)[0]
     with pytest.raises(ValueError, match="split the batch"):
-        rk.gru_sequence_fused_bwd(big, lens, u, h, h[:, None], h[:, None], h)
+        rk._gru_sequence_fused_kernel(big, lens, u, h, plan)
+    with pytest.raises(ValueError, match="split the batch"):
+        rk._gru_sequence_fused_bwd_kernel(big, lens, u, h, h[:, None],
+                                          h[:, None], h)
 
 
 # ---------------------------------------------------------------------------
@@ -2418,3 +2428,312 @@ def test_lm_remat_step_is_bit_equal_on_card(cuda):
     assert n1 == dict(n0, flash_attention_fwd=4)
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# ---------------------------------------------------------------------------
+# the recurrences' routes (ops/rnn_kernels.py plan_route)
+# ---------------------------------------------------------------------------
+
+def _lstm_fwd_args(B, T, H, dtype, gen, device):
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        device, dtype)
+    lens = torch.randint(0, T + 1, (B,), generator=gen).to(device,
+                                                           torch.int32)
+    return (rnd(B, T, 4 * H, scale=0.5), lens, rnd(H, 4 * H, scale=0.05),
+            rnd(4 * H, scale=0.1), rnd(B, H, scale=0.5), rnd(B, H, scale=0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_lstm_matches_whole_launches_on_card(cuda, dtype):
+    """A batch both routes take (B=96, H=256): the tiles of 32 forced by
+    small limits against one launch, forward and backward, the tiled
+    backward bit-equal across two runs."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    B, T, H = 96, 20, 256
+    gen = torch.Generator().manual_seed(31)
+    fwd = _lstm_fwd_args(B, T, H, dtype, gen, cuda)
+    sms, smem = rk.card_limits(0)
+    whole = rk.lstm_sequence_fused(*fwd, forget_bias=1.0, save_cell=True)
+    limits = (16, smem)           # #9 at H = 256 fits 32 rows on 16 SMs
+    tiled_rt = rk.plan_route("lstm_seq_train", B, H, dtype, *limits)
+    assert tiled_rt.kind == "tiles"
+    before = ck.LAUNCHES["lstm_seq_train"]
+    with rk.forced_limits(*limits):
+        tiled = rk.lstm_sequence_fused(*fwd, forget_bias=1.0,
+                                       save_cell=True)
+    assert ck.LAUNCHES["lstm_seq_train"] - before == len(tiled_rt.tiles)
+    for g, w in zip(tiled, whole):
+        _lstm_close(g, w, dtype)
+    args = fwd + (whole[0], whole[3]) + tuple(
+        (torch.randn(s, generator=gen) * 0.1).to(cuda, dtype)
+        for s in ((B, T, H), (B, H), (B, H)))
+    want = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0)
+    bwd_rt = rk.plan_route("lstm_seq_bwd", B, H, dtype, 32, smem)
+    assert bwd_rt.kind == "tiles"
+    with rk.forced_limits(32, smem):
+        got = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0)
+        again = rk.lstm_sequence_fused_bwd(*args, forget_bias=1.0)
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), i
+        _lstm_close(g, w, dtype, du=i == 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_gru_backward_is_bit_equal_past_its_limit_on_card(cuda, dtype):
+    """#12 at B=128, H=512 (past its one-launch limit): the card's own
+    route tiles it, bit-equal across two runs and within the LSTM
+    tolerances of the plain version."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    B, T, H = 128, 12, 512
+    rt = rk.plan_route("gru_seq_bwd", B, H, dtype, *rk.card_limits(0))
+    assert rt.kind == "tiles"
+    gen = torch.Generator().manual_seed(37)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda, dtype)
+    lens = torch.randint(0, T + 1, (B,), generator=gen).to(cuda,
+                                                           torch.int32)
+    xw, u, h0 = rnd(B, T, 3 * H, scale=0.5), rnd(H, 3 * H, scale=0.05), \
+        rnd(B, H, scale=0.5)
+    out, _ = rk.gru_sequence_fused(xw, lens, u, None, h0)
+    args = (xw, lens, u, h0, out, rnd(B, T, H, scale=0.1),
+            rnd(B, H, scale=0.1))
+    before = ck.LAUNCHES["gru_seq_bwd"]
+    got = rk.gru_sequence_fused_bwd(*args)
+    again = rk.gru_sequence_fused_bwd(*args)
+    assert ck.LAUNCHES["gru_seq_bwd"] - before == 2 * len(rt.tiles)
+    want = rk.gru_sequence_fused_bwd(*args, route="plain")
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), i
+        _lstm_close(g, w, dtype, du=i == 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,H", [("lstm_seq_bwd", 256),
+                                    ("lstm_seq_bwd", 512),
+                                    ("lstm_seq_bwd", 1280),
+                                    ("gru_seq_bwd", 256),
+                                    ("gru_seq_bwd", 512)])
+def test_bwd_planner_meets_the_kernels_limit_on_card(cuda, name, H, dtype):
+    """The planner's copy of #10's and #12's layouts and launch bounds
+    against the kernels' own residency check: at the largest B the
+    planner launches whole, the raw kernel launches; one row more, the
+    planner tiles and the raw kernel raises "split the batch" (where no
+    B is whole, B = 1 raises)."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    limits = rk.card_limits(0)
+    whole = lambda n: rk.plan_route(name, n, H, dtype, *limits).kind \
+        == "whole"
+    lo, hi = 0, 1
+    while whole(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if whole(mid) else (lo, mid)
+    T = 2
+    gen = torch.Generator().manual_seed(53)
+
+    def launch(B):
+        rnd = lambda *s: (torch.randn(s, generator=gen) * 0.1).to(cuda,
+                                                                  dtype)
+        lens = torch.full((B,), T, dtype=torch.int32, device=cuda)
+        if name == "lstm_seq_bwd":
+            return rk._lstm_sequence_fused_bwd_kernel(
+                rnd(B, T, 4 * H), lens, rnd(H, 4 * H), rnd(4 * H),
+                rnd(B, H), rnd(B, H), rnd(B, T, H), rnd(B, T, H),
+                rnd(B, T, H), rnd(B, H), rnd(B, H), 1.0)
+        return rk._gru_sequence_fused_bwd_kernel(
+            rnd(B, T, 3 * H), lens, rnd(H, 3 * H), rnd(B, H), rnd(B, T, H),
+            rnd(B, T, H), rnd(B, H))
+
+    if lo:
+        assert all(torch.isfinite(t).all() for t in launch(lo))
+        torch.cuda.synchronize()
+    assert not whole(lo + 1)
+    with pytest.raises(ValueError, match="split the batch"):
+        launch(lo + 1)
+
+
+@pytest.mark.gpu
+def test_h1280_training_step_takes_the_scan_on_card(cuda):
+    """At H = 1280 no tile of #9 or #10 fits: ``lstm`` runs the step loop
+    (no launch) and its gradients equal the plain versions' (f32)."""
+    from paddle_tpu_torch.ops import rnn as R
+    B, T, D, H = 64, 16, 32, 1280
+    gen = torch.Generator().manual_seed(41)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda).requires_grad_()
+    x, w, u, b = (rnd(B, T, D), rnd(D, 4 * H, scale=0.05),
+                  rnd(H, 4 * H, scale=0.02), rnd(4 * H, scale=0.1))
+    lens = torch.randint(1, T + 1, (B,), generator=gen).to(cuda)
+    ck.reset_launch_counts()
+    out, st = R.lstm(x, lens, w, u, b, forget_bias=1.0)
+    got = torch.autograd.grad((out * out).sum() + st.c.sum(), (x, w, u, b))
+    assert ck.ROUTES == {("lstm_seq_train", "scan"): 1,
+                         ("lstm_seq_bwd", "scan"): 1}
+    assert ck.LAUNCHES["lstm_seq_train"] == ck.LAUNCHES["lstm_seq_bwd"] == 0
+    out2, st2 = R.lstm(x, lens, w, u, b, forget_bias=1.0, route="plain")
+    want = torch.autograd.grad((out2 * out2).sum() + st2.c.sum(),
+                               (x, w, u, b))
+    torch.testing.assert_close(out, out2, atol=1e-5, rtol=1e-4)
+    for g, wg in zip(got, want):
+        torch.testing.assert_close(g, wg, atol=1e-5 * wg.abs().max().item(),
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_backward_replays_the_scan_where_no_tile_fits_on_card(cuda):
+    """Limits under which #9 fits and #10 does not: the forward launches
+    the kernel and the backward replays the step loop under autograd (as
+    JAX's ``_lstm_fused_bwd`` does)."""
+    from paddle_tpu_torch.ops import rnn as R
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    B, T, D, H = 32, 10, 16, 256
+    sms, smem = rk.card_limits(0)
+    limits = (16, smem)           # #9: 32 rows fit, #10: 64 blocks do not
+    assert rk.plan_route("lstm_seq_train", B, H, torch.float32,
+                         *limits).kind == "whole"
+    assert rk.plan_route("lstm_seq_bwd", B, H, torch.float32,
+                         *limits).kind == "scan"
+    gen = torch.Generator().manual_seed(43)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=gen) * scale).to(
+        cuda).requires_grad_()
+    x, w, u, b = (rnd(B, T, D), rnd(D, 4 * H, scale=0.1),
+                  rnd(H, 4 * H, scale=0.05), rnd(4 * H, scale=0.1))
+    lens = torch.randint(1, T + 1, (B,), generator=gen).to(cuda)
+    ck.reset_launch_counts()
+    with rk.forced_limits(*limits):
+        out, _ = R.lstm(x, lens, w, u, b)
+    got = torch.autograd.grad(out.square().sum(), (x, w, u, b))
+    assert ck.ROUTES == {("lstm_seq_train", "whole"): 1,
+                         ("lstm_seq_bwd", "scan"): 1}
+    assert ck.LAUNCHES["lstm_seq_train"] == 1
+    assert ck.LAUNCHES["lstm_seq_bwd"] == 0
+    out2, _ = R.lstm(x, lens, w, u, b, route="plain")
+    want = torch.autograd.grad(out2.square().sum(), (x, w, u, b))
+    for g, wg in zip(got, want):
+        torch.testing.assert_close(g, wg, atol=1e-5 * wg.abs().max().item(),
+                                   rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache, the ops A.4 left and the host-offloaded table
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_prefix_cache_engine_on_card_matches_the_cache_off_engine(
+        cuda, kv_dtype):
+    """Requests sharing a declared 50-token prefix (3 pages of 16 and 2
+    tokens of a fourth) through ServingEngine.step() with the prefix
+    cache on the card: the hits admit through the hit graph (the copy on
+    write of the partial page, then prefill_paged), and every
+    continuation equals the cache-off engine's (and, in f32, the solo
+    plain decode)."""
+    from paddle_tpu_torch.core import graphs
+    model = TransformerLM(101, d_model=128, n_heads=2, n_layers=2,
+                          max_len=256).init(seed=5, device=cuda)
+    rs = np.random.RandomState(6)
+    prefix = rs.randint(0, 101, 50)
+    work = [(np.concatenate([prefix, rs.randint(0, 101, int(n))]), int(m))
+            for n, m in ((9, 20), (3, 9), (30, 14), (17, 25))]
+    outs = {}
+    for cache in (False, True):
+        graphs.reset_dispatch_counts()
+        eng = ServingEngine(model, slots=3, segment=8, page_block=16,
+                            cache_bucket=64, kv_dtype=kv_dtype,
+                            prefix_cache=cache, device=cuda)
+        got = []
+        for wave in (work[:1], work[1:]):
+            rids = [eng.submit(p, n, prefix_len=prefix.size)
+                    for p, n in wave]
+            while not all(eng.poll(r)[1] for r in rids):
+                eng.step()
+            got += [eng.poll(r)[0] for r in rids]
+        outs[cache] = got
+        if cache:
+            assert eng.stats()["prefix_hits"] == 3
+            assert eng.stats()["cow_copies"] == 3
+            hit = [n for keys in graphs.DISPATCHES.values()
+                   for label, n in keys.items() if label.startswith("hit(")]
+            assert hit and sum(n["captures"] + n["replays"]
+                               for n in hit) >= 1
+    assert outs[True] == outs[False]
+    if kv_dtype is None:
+        for (p, n), toks in zip(work, outs[True]):
+            ids = torch.as_tensor(p[None].astype(np.int64), device=cuda)
+            want = model.generate_greedy(ids, n, route="plain")[0, len(p):]
+            assert toks == want.cpu().tolist()
+
+
+@pytest.mark.gpu
+def test_a4b_ops_on_card_match_the_cpu(cuda):
+    from paddle_tpu_torch.ops import conv as C
+    from paddle_tpu_torch.ops import norm as N
+    from paddle_tpu_torch.ops import pool as P
+    from paddle_tpu_torch.ops import sparse as S
+    gen = torch.Generator().manual_seed(47)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    feat = rnd(14, 14, 64)
+    rois = torch.tensor([[0, 0, 223, 223], [10, 20, 90, 60], [5, 5, 5, 5],
+                         [100, 30, 200, 130]], dtype=torch.float32)
+    want = P.roi_pool(feat, rois, (7, 7), spatial_scale=1 / 16)
+    got = P.roi_pool(feat.to(cuda), rois.to(cuda), (7, 7),
+                     spatial_scale=1 / 16)
+    assert torch.equal(got.cpu(), want)
+    x, w = rnd(2, 8, 16, 16, 3), rnd(3, 3, 3, 3, 8)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # cuDNN's f32, not TF32
+    try:
+        got = C.conv3d(x.to(cuda), w.to(cuda), padding=1).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.testing.assert_close(got, C.conv3d(x, w, padding=1), atol=1e-4,
+                               rtol=1e-4)
+    x, g, b = rnd(2, 7, 7, 64), rnd(64), rnd(64)
+    torch.testing.assert_close(
+        N.group_norm(x.to(cuda), g.to(cuda), b.to(cuda), 32).cpu(),
+        N.group_norm(x, g, b, 32), atol=1e-5, rtol=1e-5)
+    v, i = P.max_pool2d_with_index(x.to(cuda), 3, 2, 1)
+    vc, ic = P.max_pool2d_with_index(x, 3, 2, 1)
+    assert torch.equal(v.cpu(), vc) and torch.equal(i.cpu(), ic)
+    table = rnd(1000, 16)
+    ids = torch.from_numpy(np.random.RandomState(3).zipf(1.3, 500) % 1000)
+    grads = rnd(500, 16)
+    sr = S.SelectedRows(ids.to(cuda), grads.to(cuda), 1000)
+    assert torch.equal(S.sgd_sparse_update(table.to(cuda), sr, 0.1).cpu(),
+                       S.sgd_sparse_update(table, S.SelectedRows(
+                           ids, grads, 1000), 0.1))
+
+
+@pytest.mark.gpu
+def test_host_embedding_on_card_is_bit_equal_to_a_card_table(cuda):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.runtime import (HostEmbeddingTable,
+                                          HostEmbedPrefetcher)
+    V, Dm, lr = 5000, 16, 0.1
+    gen = torch.Generator().manual_seed(53)
+    init = torch.randn((V, Dm), generator=gen) * 0.1
+    w = torch.randn(Dm, generator=gen).to(cuda)
+    rs = np.random.RandomState(8)
+    batches = [rs.zipf(1.3, (32, 8)) % V for _ in range(4)]
+    table = HostEmbeddingTable(V, Dm, lr=lr, capacity=256,
+                               init=init.numpy(), device=cuda)
+    pf = HostEmbedPrefetcher(table, iter(batches))
+    while (b := pf.next()) is not None:
+        rows = b.rows.detach().requires_grad_()
+        (g,) = torch.autograd.grad(
+            torch.tanh(F.embedding(b.inverse, rows) @ w).sum(), rows)
+        pf.commit(b, g)
+    dense = init.to(cuda)
+    for ids in batches:
+        tb = dense.detach().requires_grad_()
+        idx = torch.as_tensor(ids, device=cuda)
+        (g,) = torch.autograd.grad(torch.tanh(F.embedding(idx, tb) @ w)
+                                   .sum(), tb)
+        touched = torch.unique(idx)
+        dense[touched] -= (lr * g[touched].double()).float()
+    assert torch.equal(torch.from_numpy(table.rows_host(np.arange(V))),
+                       dense.cpu())
