@@ -242,6 +242,35 @@ Phases:
    10's engine bursts are queued whole before the engine starts, so the
    eager and graphed routes see one admission pattern.
 
+18. head widths, GPT-Neo-1.3B's widths, the wire plane — (a) #1-#3 at
+   head widths 8, 32, 80 and 128 (B=2, T=S=1024, 16 heads, causal; 64
+   and 128 natively, the others by the counted pad route), f32 and bf16,
+   against the plain versions; causal at S = T -/+ 64 with kv_lens and a
+   view off the 16-byte rule (the copy16 route) at 80 and 128; #4-#7 at
+   the same widths (every query and cache dtype, no route: caches read at
+   their width), the paged reads bit-equal to the dense reads of their
+   gathered pages; each kernel at D = 128 timed beside its plain version,
+   SDPA where one call computes the same and its bound (the kernels
+   line's D = 128 entries); (b) a TransformerLM at EleutherAI/
+   gpt-neo-1.3B's widths (hidden 2048, 16 heads of 128, 24 layers, vocab
+   50257, 2048 positions; random weights; global attention in every
+   layer): one f32 training step at 2 x 1024 tokens through #1-#3 against
+   the plain route (transformer_step_check's bounds, the step written
+   out), one graphed bf16 step timed, phase 10's burst through
+   ``ServingEngine`` in bf16 and bf16 at int8 KV and ``generate_fused``
+   through #4 and #5, each equal to its solo plain-attention decode;
+   (c) the wire plane over GPT-2 small in bf16 (benchmarks/
+   serving_daemon.py's and serving_router.py's layout): a
+   ``ServingDaemon`` of 16 slots answering 48 requests over localhost,
+   the in-process engine on the same traffic, and a ``ServingRouter``
+   over one ``PrefillDaemon`` and two decode daemons of 8 slots answering
+   32 requests at bf16 and int8 KV; 8 requests of each run equal to the
+   solo plain decode, client-side TTFT and TPOT p50/p95 and tokens/s;
+   shipped rows byte-equal to the prefill pool's; a decode worker
+   stopped with no drain mid-stream re-routed with no token lost or
+   duplicated; a ``srv.ship`` corrupt refused with data_loss and never
+   adopted.
+
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
@@ -262,7 +291,8 @@ allocated beyond an eighth of a KV cell.
 Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"data": {...}}``
 (phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"slice18": {...}}``
-(phase 17's), ``{"kernels": [...]}`` (with ``launches_routes`` on #8-#12),
+(phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"kernels": [...]}``
+(with ``launches_routes`` on #8-#12, and #1-#7 again at D = 128),
 the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -385,9 +415,12 @@ SASS_OPS = {**{body: ("HGMMA", "UTMALDG") for body in TENSOR_CORE_BODIES},
 def sass_counts(lib_path) -> dict:
     """The SASS_OPS instructions in the SASS of each tensor-core body of the
     built library, from ``cuobjdump -sass``, and each body's instruction
-    count; fails when a body lacks one of its opcodes."""
+    count, by head width (the bodies are templates on D, built for
+    ``ck.KERNEL_HEAD_DIMS``): {body: {"D64": {...}, "D128": {...}}}; fails
+    when an instantiation is missing or lacks one of its opcodes."""
     import re
     import shutil
+    from paddle_tpu_torch.ops import cuda_kernels as ck
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib_path)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -396,17 +429,23 @@ def sass_counts(lib_path) -> dict:
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = next((k for k in SASS_OPS if k in m.group(1)), None)
-            if cur:
-                counts[cur] = dict.fromkeys(SASS_OPS[cur] + ("all",), 0)
+            cur = None
+            for k in SASS_OPS:
+                w = re.search(k + r"ILi(\d+)E", m.group(1))
+                if w:
+                    cur = (k, f"D{w.group(1)}")
+                    counts.setdefault(k, {})[cur[1]] = dict.fromkeys(
+                        SASS_OPS[k] + ("all",), 0)
         elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[cur]["all"] += 1
-            for op in SASS_OPS[cur]:
-                counts[cur][op] += op in line
+            c = counts[cur[0]][cur[1]]
+            c["all"] += 1
+            for op in SASS_OPS[cur[0]]:
+                c[op] += op in line
     for body, ops in SASS_OPS.items():
-        c = counts.get(body, {})
-        check(all(c.get(op, 0) > 0 for op in ops),
-              f"{body}: not all of {ops} in its SASS ({c})")
+        for D in ck.KERNEL_HEAD_DIMS:
+            c = counts.get(body, {}).get(f"D{D}", {})
+            check(all(c.get(op, 0) > 0 for op in ops),
+                  f"{body} D={D}: not all of {ops} in its SASS ({c})")
     return counts
 
 
@@ -1758,12 +1797,12 @@ def _bwd_lens(kind, B, S, rs):
     return lens
 
 
-def _bwd_inputs(B, T, S, H, causal, lens, fused, dtype, gen, device):
+def _bwd_inputs(B, T, S, H, causal, lens, fused, dtype, gen, device,
+                D=HEAD_DIM):
     """(q, k, v, o, lse, do) and kv_lens: o and lse from the plain forward,
     do a unit-scale cotangent."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    D = HEAD_DIM
     rnd = lambda *shape: torch.randn(shape, generator=gen).to(device, dtype)
     if fused:
         q, k, v = _qkv_views(B, T, H, D, dtype, gen, device)
@@ -1987,13 +2026,12 @@ def flash_bwd_checks(say, seed: int, device="cuda"):
     return fwd, [entries[name] for name, _, _ in FLASH_BWD_KERNELS]
 
 
-def _fwd_times(B, T, H, dt, dname, gen, device):
+def _fwd_times(B, T, H, dt, dname, gen, device, D=HEAD_DIM):
     """#1 at the LM's training shape (causal, S = T): its time, the plain
     version's, SDPA's and the bound, as phase 2 takes them."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    D = HEAD_DIM
     esize = torch.empty((), dtype=dt).element_size()
     sets = input_sets(lambda i: _qkv_views(B, T, H, D, dt, gen, device),
                       3 * B * T * H * D * esize)
@@ -2010,7 +2048,8 @@ def _fwd_times(B, T, H, dt, dname, gen, device):
                 4 * B * T * H * D * esize + B * T * H * 4, dname)}
 
 
-def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
+def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device,
+               D=HEAD_DIM):
     """Each kernel's time (CUDA graph over input sets larger than L2), the
     plain backward's and the SDPA backward's (both compute dq, dk and dv:
     they stand against the pair), and each kernel's bound: its products
@@ -2018,11 +2057,10 @@ def _bwd_times(B, T, S, H, causal, lens, dt, dname, gen, device):
     against each input read and each output written once."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    D = HEAD_DIM
     esize = torch.empty((), dtype=dt).element_size()
     q_el, k_el, row = B * T * H * D, B * S * H * D, B * T * H * 4
     sets = input_sets(lambda i: _bwd_inputs(B, T, S, H, causal, lens, False,
-                                            dt, gen, device)[0],
+                                            dt, gen, device, D=D)[0],
                       (3 * q_el + 2 * k_el) * esize)
     runs = [ck.FlashBwdLaunch(*s, causal, D ** -0.5, None, None)
             for s in sets]
@@ -5965,6 +6003,946 @@ def slice18_phase(say, seed: int, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: every head width up to 128; GPT-Neo-1.3B's widths; the wire plane
+# ---------------------------------------------------------------------------
+
+# EleutherAI/gpt-neo-1.3B's config.json: hidden_size 2048, num_heads 16
+# (head width 128), num_layers 24, vocab_size 50257,
+# max_position_embeddings 2048, intermediate 4 x 2048. TransformerLM's
+# global attention runs in every layer, where GPT-Neo alternates it with
+# a 256-token local window. Weights random from the seed.
+GPT_NEO = dict(vocab=50257, d_model=2048, n_heads=16, n_layers=24,
+               d_ff=8192, max_len=2048)
+NEO_TRAIN_B, NEO_TRAIN_T, NEO_LR = 2, 1024, 3e-4
+# the head widths phase 18 holds every kernel at: 8 and 32 (the repo's
+# small examples and `paddle_tpu profile`'s default), 80 (Phi-2's
+# 2560/32), 128 (GPT-Neo's); at GPT-Neo's 16 heads
+WIDTHS, WIDTH_H = (8, 32, 80, 128), 16
+# the decode reads at GPT-Neo's widths: 8 slots, a [:, :512] read of a
+# 640-row cache (#4, #5), 8 pages of 64 rows (#6, #7)
+NEO_DECODE_B, NEO_DECODE_L, NEO_DECODE_MAX, NEO_DECODE_NB = 8, 512, 640, 8
+# the wire plane over GPT-2 small, as benchmarks/serving_daemon.py and
+# benchmarks/serving_router.py lay it out: prompts 32-256, 32-256 new
+# tokens, page_block 64, cache_bucket 512, one prompt bucket of 256
+WIRE_POOL = dict(segment=32, page_block=64, cache_bucket=512,
+                 prompt_buckets=(256,))
+WIRE_DAEMON_SLOTS, WIRE_DAEMON_REQUESTS = 16, 48
+WIRE_ROUTER_SLOTS, WIRE_ROUTER_REQUESTS, WIRE_PREFILL_SLOTS = 8, 32, 4
+WIRE_CHECKED = 8            # requests of each run held to the solo decode
+
+
+def _pad_route(D):
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return None if D in ck.KERNEL_HEAD_DIMS else f"pad{64 if D <= 64 else 128}"
+
+
+def _flash_pair(q, k, v, do, causal, lens, dname, what):
+    """#1 and #2/#3 on (q, k, v) against the plain versions (f32 inputs
+    for bf16: the plain version's accuracy); returns the max abs errors
+    of o, dq, dk, dv and the routes counted."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=lens)
+    po, plse = ck.flash_attention_fwd(q.float(), k.float(), v.float(),
+                                      causal=causal, kv_lens=lens,
+                                      route="plain")
+    torch.cuda.synchronize()
+    if dname == "float32":
+        err = fwd_f32_close(o, po, what)
+    else:
+        err = bf16_tc_close(o, po, what)
+    check(torch.allclose(lse, plse, atol=F32_ATOL, rtol=F32_RTOL),
+          f"{what}: lse differs from plain")
+    o_in = po.to(q.dtype)
+    got = ck.flash_attention_bwd(q, k, v, o_in, plse, do, causal=causal,
+                                 kv_lens=lens)
+    want = ck.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                  o_in.float(), plse, do.float(),
+                                  causal=causal, kv_lens=lens, route="plain")
+    errs = {"o": err}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape and g.dtype == q.dtype,
+              f"{what}: {name} {tuple(g.shape)} {g.dtype}")
+        errs[name] = (bwd_close(g, w, f"{what} {name}", dname)
+                      if dname == "float32"
+                      else bf16_tc_close(g, w, f"{what} {name}"))
+    launches = {n: ck.LAUNCHES[n] for n in ATTENTION_KERNELS}
+    check(launches == dict.fromkeys(ATTENTION_KERNELS, 1),
+          f"{what}: launches {launches}")
+    return errs, dict(ck.ROUTES)
+
+
+def width_flash_checks(say, gen, device) -> dict:
+    """#1-#3 at each width of WIDTHS, f32 and bf16, at GPT-Neo's training
+    shape (B=2, T=S=1024, 16 heads, causal): against the plain versions,
+    natively at 64/128 and by the counted pad route at the others; then
+    causal at S = T - 64 and T + 64 with kv_lens (top-left aligned) and a
+    view off the 16-byte rule (the copy16 route) at D = 128 and 80."""
+    import torch
+    B, T, H = NEO_TRAIN_B, NEO_TRAIN_T, WIDTH_H
+    out = {}
+    for D in WIDTHS:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            rnd = lambda *shape: torch.randn(shape, generator=gen).to(
+                device, dt)
+            q, k, v, do = rnd(B, T, H, D), rnd(B, T, H, D), rnd(B, T, H, D), \
+                rnd(B, T, H, D)
+            what = f"flash D={D} {dname}"
+            errs, routes = _flash_pair(q, k, v, do, True, None, dname, what)
+            r = _pad_route(D)
+            want = {} if r is None else {(n, r): 1 for n in ATTENTION_KERNELS}
+            check(routes == want, f"{what}: routes {routes} != {want}")
+            out[f"D{D} {dname}"] = {"max_abs_err": errs,
+                                    "route": r or "native"}
+            del q, k, v, do
+    for D in (128, 80):
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            rnd = lambda *shape: torch.randn(shape, generator=gen).to(
+                device, dt)
+            for S in (T - 64, T + 64):
+                q, k, v, do = rnd(B, T, H, D), rnd(B, S, H, D), \
+                    rnd(B, S, H, D), rnd(B, T, H, D)
+                lens = torch.tensor([S, S // 2 + 3], device=device)
+                what = f"flash causal T={T} S={S} D={D} {dname}"
+                errs, _ = _flash_pair(q, k, v, do, True, lens, dname, what)
+                out[f"causal S={S} D{D} {dname}"] = {"max_abs_err": errs}
+            # q, k, v 2 elements past a 16-byte boundary (copy16 at 128)
+            flat = torch.randn(3 * B * T * H * D + 2, generator=gen).to(
+                device, dt)
+            q, k, v = (flat[2 + i * B * T * H * D:2 + (i + 1) * B * T * H * D]
+                       .view(B, T, H, D) for i in range(3))
+            errs, routes = _flash_pair(q, k, v, rnd(B, T, H, D), True, None,
+                                       dname, f"flash view off 16 bytes D={D}"
+                                       f" {dname}")
+            r = _pad_route(D) or "copy16"
+            check(routes == {(n, r): 1 for n in ATTENTION_KERNELS},
+                  f"flash view off 16 bytes D={D}: routes {routes}")
+            out[f"view off 16 bytes D{D} {dname}"] = {
+                "max_abs_err": errs, "route": r}
+    say(f"flash #1-#3 at head widths {WIDTHS} (B={B} T={T} H={H} causal), "
+        "causal S = T -/+ 64 with kv_lens and views off the 16-byte rule, "
+        f"against plain: {json.dumps(out)}")
+    return out
+
+
+def _neo_decode_inputs(D, qname, kind, gen, device, B=NEO_DECODE_B,
+                       H=WIDTH_H, L=NEO_DECODE_L, Lmax=NEO_DECODE_MAX):
+    """(q, k[:, :L], v[:, :L], pos) over a [B, Lmax, H, D] cache (int8 with
+    its scales' views for ``kind`` "int8", else the query's dtype); pos
+    with 0, L - 1 and a drained slot past L."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    q = _decode_query(B, H, D, getattr(torch, qname), gen, device)
+    k, v = (torch.randn((B, Lmax, H, D), generator=gen).to(device)
+            for _ in range(2))
+    scales = (None, None)
+    if kind == "int8":
+        (k, ks), (v, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+        scales = (ks[:, :L], vs[:, :L])
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    pos = torch.linspace(0, L - 1, B).round().to(torch.int32)
+    pos[-1] = L + 37
+    return (q, k[:, :L], v[:, :L], pos.to(device)), scales
+
+
+def _neo_paged_inputs(D, qname, kind, gen, device, B=NEO_DECODE_B,
+                      H=WIDTH_H, NB=NEO_DECODE_NB):
+    """Pools of B*NB + 1 pages of 64 rows (page 0 the null page), a
+    permuted table with null tails, pos spread over the rows; int8 pools
+    with their scale pools for ``kind`` "int8"."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    P = B * NB + 1
+    q = _decode_query(B, H, D, getattr(torch, qname), gen, device)
+    kp, vp = (torch.randn((P, PAGE_ROWS, H, D), generator=gen).to(device)
+              for _ in range(2))
+    scales = (None, None)
+    if kind == "int8":
+        (kp, ks), (vp, vs) = ck.quantize_kv(kp), ck.quantize_kv(vp)
+        scales = (ks, vs)
+    else:
+        kp, vp = kp.to(q.dtype), vp.to(q.dtype)
+    tables = (torch.randperm(P - 1, generator=gen)[:B * NB] + 1).reshape(
+        B, NB).to(torch.int32)
+    pos = torch.linspace(0, NB * PAGE_ROWS - 1, B).round().to(torch.int32)
+    for b in range(B):
+        tables[b, int(pos[b]) // PAGE_ROWS + 1:] = 0
+    return (q, kp, vp, tables.to(device), pos.to(device)), scales
+
+
+def width_decode_checks(say, gen, device) -> dict:
+    """#4-#7 at each width of WIDTHS, every query and cache dtype, against
+    their plain versions over caches at the real width (no route: nothing
+    padded or copied), and #6/#7 bit-equal to #4/#5 over ``gather_pages``
+    of the same pools at the same split count."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    out = {}
+    B, H = NEO_DECODE_B, WIDTH_H
+    for D in WIDTHS:
+        for qname, kind in DECODE_CASES:
+            ck.reset_launch_counts()
+            (q, k, v, pos), (ks, vs) = _neo_decode_inputs(D, qname, kind,
+                                                          gen, device)
+            o = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+            po = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
+                                     route="plain")
+            (q2, kp, vp, tables, ppos), (kps, vps) = _neo_paged_inputs(
+                D, qname, kind, gen, device)
+            pg = ck.paged_decode_attention(q2, kp, vp, tables, ppos,
+                                           k_scale=kps, v_scale=vps)
+            ppg = ck.paged_decode_attention(q2, kp, vp, tables, ppos,
+                                            k_scale=kps, v_scale=vps,
+                                            route="plain")
+            n_split = ck.decode_splits(B * H, NEO_DECODE_NB * PAGE_ROWS)[0]
+            gathered = ck._decode_attention_kernel(
+                q2, ck.gather_pages(kp, tables), ck.gather_pages(vp, tables),
+                ppos, D ** -0.5,
+                None if kps is None else ck.gather_pages(kps, tables),
+                None if vps is None else ck.gather_pages(vps, tables),
+                n_split)
+            torch.cuda.synchronize()
+            what = f"decode D={D} q {qname} cache {kind}"
+            errs = {}
+            for name, g, w in (("dense", o, po), ("paged", pg, ppg)):
+                errs[name] = (g - w).abs().max().item()
+                check(torch.allclose(g, w, atol=F32_ATOL, rtol=F32_RTOL),
+                      f"{what} {name}: max abs {errs[name]} from plain")
+            check(torch.equal(pg, gathered),
+                  f"{what}: the paged read differs from the dense read of "
+                  "its gathered pages")
+            check(ck.ROUTES == {}, f"{what}: routes {ck.ROUTES}")
+            out[f"D{D} {qname}/{kind}"] = errs
+    say(f"decode #4-#7 at head widths {WIDTHS} (B={B} H={H}, a [:, :"
+        f"{NEO_DECODE_L}] read and {NEO_DECODE_NB} pages of {PAGE_ROWS}), "
+        f"every query/cache dtype, against plain, paged bit-equal to dense "
+        f"over its gathered pages, no route: {json.dumps(out)}")
+    return out
+
+
+def width_timings(say, gen, device) -> list:
+    """Each kernel at D = 128 on GPT-Neo's shapes (#1-#3: B=2, T=S=1024,
+    16 heads, causal, f32 and bf16; #4-#7: phase 18's decode reads, bf16
+    queries) timed beside the plain version, SDPA where one call computes
+    the same (#1's forward and #2/#3's backward; #4's read with a bool
+    mask) and the bound: the kernels line's D = 128 entries (launches are
+    filled in from the GPT-Neo runs)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    D, B, T, H = 128, NEO_TRAIN_B, NEO_TRAIN_T, WIDTH_H
+    entries = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[1]
+        fwd = _fwd_times(B, T, H, dt, dname, gen, device, D=D)
+        bwd = _bwd_times(B, T, T, H, True, None, dt, dname, gen, device,
+                         D=D)
+        for name, res in (("flash_attention_fwd", fwd), *bwd.items()):
+            e = entries.setdefault(name, {})
+            if dt == torch.bfloat16:
+                e.update(res)
+            else:
+                e["float32"] = res
+    sources = {"flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
+                                       "paddle_tpu/ops/pallas_kernels.py:69"),
+               "flash_attention_bwd_dq": (
+                   "paddle_tpu_torch/csrc/flash_bwd.cu",
+                   "paddle_tpu/ops/pallas_kernels.py:123"),
+               "flash_attention_bwd_dkv": (
+                   "paddle_tpu_torch/csrc/flash_bwd.cu",
+                   "paddle_tpu/ops/pallas_kernels.py:168")}
+    out = []
+    errs = WIDTH_ERRS
+    for name, e in entries.items():
+        src, rep = sources[name]
+        err_key = {"flash_attention_fwd": "o", "flash_attention_bwd_dq":
+                   "dq", "flash_attention_bwd_dkv": "dk"}[name]
+        out.append({"name": name, "head_dim": D, "route": "cuda",
+                    "source": src, "replaces": rep, "dtype": "bfloat16",
+                    "shape": f"B={B} T=S={T} H={H} D={D} causal",
+                    "max_abs_err": errs["flash"][f"D{D} bfloat16"][
+                        "max_abs_err"][err_key], **e})
+    B, H, L, NB = NEO_DECODE_B, WIDTH_H, NEO_DECODE_L, NEO_DECODE_NB
+    for name, kind, paged, rep in (
+            ("decode_attention", "bfloat16", False,
+             "paddle_tpu/ops/pallas_kernels.py:561"),
+            ("decode_attention_q", "int8", False,
+             "paddle_tpu/ops/pallas_kernels.py:571"),
+            ("paged_decode_attention", "bfloat16", True,
+             "paddle_tpu/ops/pallas_kernels.py:711"),
+            ("paged_decode_attention_q", "int8", True,
+             "paddle_tpu/ops/pallas_kernels.py:727")):
+        int8 = kind == "int8"
+        if paged:
+            make = lambda i, kind=kind: _neo_paged_inputs(
+                D, "bfloat16", kind, gen, device)
+            run = lambda s, route=None: ck.paged_decode_attention(
+                *s[0], k_scale=s[1][0], v_scale=s[1][1], route=route)
+            rows = NB * PAGE_ROWS
+        else:
+            make = lambda i, kind=kind: _neo_decode_inputs(
+                D, "bfloat16", kind, gen, device)
+            run = lambda s, route=None: ck.decode_attention(
+                *s[0], k_scale=s[1][0], v_scale=s[1][1], route=route)
+            rows = L
+        kv_size = 1 if int8 else 2
+        # live rows of the spread pos (clamped to the read), as the
+        # kernels read them
+        live = sum(min(int(p) + 1, rows) for p in torch.linspace(
+            0, rows - 1, B).round().tolist()[:-1]) + rows
+        nbytes = (B * H * D * 2 + 2 * live * H * D * kv_size
+                  + (2 * live * H * 4 if int8 else 0) + B * 4
+                  + (B * NB * 4 if paged else 0) + B * H * D * 4)
+        b_ms, b_by = bound(4.0 * live * H * D, nbytes, "float32")
+        times = _decode_times(run, make, 2 * B * rows * H * D * kv_size,
+                              sdpa=name == "decode_attention")
+        key = f"D{D} bfloat16/{'int8' if int8 else 'bfloat16'}"
+        out.append({"name": name, "head_dim": D, "route": "cuda",
+                    "source": ("paddle_tpu_torch/csrc/paged_decode.cu"
+                               if paged else "paddle_tpu_torch/csrc/"
+                               "decode.cu"),
+                    "body": "paddle_tpu_torch/csrc/decode_attn.cuh",
+                    "replaces": rep, "dtype": "bfloat16",
+                    "shape": f"B={B} H={H} D={D} "
+                             + (f"{NB} pages of {PAGE_ROWS}" if paged
+                                else f"[:, :{L}] of {NEO_DECODE_MAX} rows"),
+                    "max_abs_err": errs["decode"][key][
+                        "paged" if paged else "dense"],
+                    "ms": times["ms"], "plain_ms": times["plain_ms"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": times.get("library_ms")})
+    say(f"kernels at D = 128 (GPT-Neo's shapes): {json.dumps(out)}")
+    return out
+
+
+# the errors of the width checks, kept for the D = 128 entries
+WIDTH_ERRS: dict = {}
+# bf16 serving: an engine token may differ from the plain model's greedy
+# choice only where the two are within this many bf16 ulps of the largest
+# logit (a near-tie; see greedy_within_ties)
+NEAR_TIE_ULPS = 4
+
+
+def greedy_within_ties(model, prompts, toks, kv, what, device) -> dict:
+    """Hold bf16 serving tokens to the plain model's greedy choices. In
+    bf16 an exact match with a solo decode is not a sound check: the
+    solo decode's GEMMs run other shapes (one row against the engine's
+    full pool width) and #1 rounds P to bf16, so hidden states differ by
+    a few bf16 ulps, and where two tokens' logits lie that close the
+    argmax may go either way, after which the two sequences part for
+    good (phase 18's first card run: GPT-Neo's widths, request 0, token
+    17, the top two tokens swapped). So each request's tokens are fed
+    back through the plain route (``prefill`` then ``decode_step``,
+    ``route="plain"``, the request's own KV dtype): at every step the
+    engine's token must be the plain logits' argmax, or within
+    NEAR_TIE_ULPS bf16 ulps of the largest logit of it. Returns the
+    tokens checked, those equal to the argmax and the largest gap in
+    ulps."""
+    import numpy as np
+    import torch
+    checked = equal = 0
+    worst = 0.0
+    with torch.no_grad():
+        for i, (p, t) in enumerate(zip(prompts, toks)):
+            ids = torch.as_tensor(np.asarray(p)[None].astype(np.int64),
+                                  device=device)
+            cell, logits = model.prefill(ids, kv_dtype=kv, route="plain")
+            for j, tok in enumerate(t):
+                row = logits[0].float()
+                top = row.max().item()
+                ulp = bf16_ulp(row.abs().max().item())
+                gap = (top - row[int(tok)].item()) / ulp
+                check(gap <= NEAR_TIE_ULPS, f"{what}: request {i} token {j} "
+                      f"= {tok} is {gap:.1f} bf16 ulps below the plain "
+                      f"model's greedy choice {int(row.argmax())}")
+                worst = max(worst, gap)
+                equal += int(tok) == int(row.argmax())
+                checked += 1
+                if j + 1 < len(t):
+                    logits, cell = model.decode_step(
+                        cell, torch.tensor([int(tok)], device=device),
+                        route="plain")
+    return {"tokens": checked, "equal_to_argmax": equal,
+            "worst_gap_bf16_ulps": worst}
+
+
+def gpt_neo_phase(say, seed: int, device="cuda") -> dict:
+    """(b) A TransformerLM at GPT-Neo-1.3B's widths: one f32 training
+    step at 2 x 1024 tokens through #1-#3 against the plain route
+    (lean_step_check), one graphed bf16 step timed; then phase 10's burst
+    through ``ServingEngine`` (phase 10's ENGINE; one burst to capture the
+    graphs, one measured) with f32 weights at f32 and int8 KV, tokens
+    equal to each request's solo plain-attention decode, and with bf16
+    weights at bf16 and int8 KV, each token the plain model's greedy
+    choice up to a near-tie (greedy_within_ties); and ``generate_fused``
+    through #4 and #5 in bf16 likewise. Each path's counts set to 0 just
+    before and read just after; returns the launches, the serving
+    figures and the training figures."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.trainer import Trainer
+    runs = {}
+    cfg = GPT_NEO
+    L = cfg["n_layers"]
+    model = TransformerLM(**cfg).init(seed=seed, device=device)
+    n_params = sum(t.numel() for t in model.parameters())
+    say(f"GPT-Neo-1.3B widths: {n_params / 1e9:.3f} B "
+        f"parameters, head width {model.blocks[0].d_head}")
+    rs = np.random.RandomState(seed + 18)
+    ids = torch.as_tensor(rs.randint(0, cfg["vocab"], (NEO_TRAIN_B,
+                                                       NEO_TRAIN_T + 1)),
+                          device=device)
+    params = model.tree()
+    runs["f32 training step"] = lean_step_check(
+        say, "GPT-Neo widths", lm_loss(model, torch.float32),
+        lm_loss(model, torch.float32, route="plain"), params, (ids,),
+        NEO_LR, per_step=L)
+    # one graphed bf16 step over f32 masters (the training recipe), timed
+    tr = Trainer(lm_loss(model, torch.bfloat16), Adam(NEO_LR), device=device)
+    trees = [params, tr.opt.init(params)]
+
+    def step():
+        trees[0], trees[1], cost = tr.step(*trees, ids)
+        return cost
+    step()                                         # eager + capture
+    (cost,), wall, launches, disp = counted(lambda: [step()])
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(step_dispatches(disp, "step") == {"captures": 0, "replays": 1}
+          and launches == {n: L for n in ATTENTION_KERNELS}
+          and torch.isfinite(cost).item(),
+          f"GPT-Neo widths bf16 graphed step: dispatches "
+          f"{step_dispatches(disp, 'step')}, launches {launches}, cost "
+          f"{cost.item()}")
+    runs["bf16 graphed step"] = launches
+    toks_s = NEO_TRAIN_B * NEO_TRAIN_T / min(walls)
+    say(f"GPT-Neo widths bf16 graphed training step ({NEO_TRAIN_B} x "
+        f"{NEO_TRAIN_T} tokens, Adam over f32 masters): "
+        f"{min(walls) * 1e3:.2f} ms (best of 3; "
+        f"{toks_s:.0f} tokens/s), cost {cost.item():.4f}, launches a step "
+        f"{launches}")
+    neo_train = {"bf16_step_ms": min(walls) * 1e3, "tokens_per_s": toks_s}
+    del tr, trees, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = workload(seed, cfg["vocab"])
+    serving = {}
+    for wdt in (torch.float32, torch.bfloat16):
+        wname = str(wdt).split(".")[1]
+        model.to(wdt)
+        for kv in (None, "int8"):
+            run = f"ServingEngine {wname} {kv or wname} KV"
+            eng = ServingEngine(model, device=device, kv_dtype=kv, **ENGINE)
+            if wdt == torch.bfloat16:       # the figures: a warm engine's
+                serve(model, prompts, device, eng=eng)
+            seg0 = eng.pool.segments_total
+            adm0 = eng.pool.admissions_total
+            (toks, lat, wall, eng), _, runs[run], _ = counted(
+                lambda: serve(model, prompts, device, eng=eng))
+            steps = (eng.pool.segments_total - seg0) * eng.pool.segment
+            name = ("paged_decode_attention_q" if kv
+                    else "paged_decode_attention")
+            check(runs[run].get(name) == L * steps
+                  and runs[run].get("flash_attention_fwd")
+                  == L * (eng.pool.admissions_total - adm0),
+                  f"{run}: launches {runs[run]}, want {L} x {steps} {name}")
+            if wdt == torch.float32:
+                solo = [model.generate_fused(
+                    torch.as_tensor(p[None].astype(np.int64),
+                                    device=device),
+                    NEW_TOKENS, kv_dtype=kv, route="plain")[0, len(p):]
+                    .cpu().tolist() for p in prompts]
+                same_tokens(toks, solo, f"GPT-Neo widths {run}")
+                held = "equal to each request's solo plain-attention decode"
+            else:
+                ties = greedy_within_ties(model, prompts, toks, kv,
+                                          f"GPT-Neo widths {run}", device)
+                held = ("each the plain model's greedy choice up to a "
+                        f"bf16 near-tie ({json.dumps(ties)})")
+            serving[run] = latency_figures(lat, wall)
+            if wdt == torch.float32:
+                serving[run]["note"] = "the engine's first burst: its " \
+                    "graphs' captures included"
+            say(f"GPT-Neo widths {run}: {len(prompts)} requests x "
+                f"{NEW_TOKENS} tokens {held}; launches {runs[run]}; "
+                f"{json.dumps(serving[run])}")
+            del eng
+            gc.collect()
+    gids = torch.as_tensor(rs.randint(0, cfg["vocab"], (2, 200)),
+                           device=device)
+    for kv in (None, "int8"):
+        run = f"generate_fused bf16 {kv or 'bf16'} KV"
+        name = "decode_attention_q" if kv else "decode_attention"
+        got, _, runs[run], _ = counted(lambda: model.generate_fused(
+            gids, 32, bucket=256, kv_dtype=kv))
+        check(runs[run].get(name) == L * 31,
+              f"{run}: launches {runs[run]}, want {L} x 31 {name}")
+        ties = greedy_within_ties(model, gids.cpu().numpy(),
+                                  got[:, 200:].cpu().tolist(), kv,
+                                  f"GPT-Neo widths {run}", device)
+        say(f"GPT-Neo widths {run}: 2 x 32 tokens, each the plain model's "
+            f"greedy choice up to a bf16 near-tie ({json.dumps(ties)}); "
+            f"launches {runs[run]}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": runs, "serving": serving, "training": neo_train}
+
+
+def lean_step_check(say, what, loss_k, loss_p, params, batch, lr,
+                    per_step):
+    """transformer_step_check's bounds on one f32 Adam step, with the
+    step's arithmetic written out instead of two trainers (which would
+    hold two copies of a 1.3B model's parameters and Adam states): the
+    loss and the gradients of both routes by autograd, each parameter's
+    first Adam update p - lr * g / (|g| + eps) (bias-corrected m and v of
+    one step), the loss to rtol 1e-6, each gradient to 1e-4 of its L2
+    norm, each updated parameter within 1e-5 plus what the update makes
+    of a gradient difference of 1e-4 of the entry and of the tensor's
+    rms. #1-#3 launch ``per_step`` times on the kernel route, never on the
+    plain one. Returns the kernel route's launches."""
+    import torch
+    from paddle_tpu_torch.core.pytree import tree_items, tree_map
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    norm = torch.linalg.vector_norm
+    res = {}
+    for route, loss_fn in ((None, loss_k), ("plain", loss_p)):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        ck.reset_launch_counts()
+        loss = loss_fn(leaves, *batch)
+        grads = torch.autograd.grad(loss, [v for _, v in tree_items(leaves)])
+        torch.cuda.synchronize()
+        launched = {n: ck.LAUNCHES[n] for n in ATTENTION_KERNELS}
+        want = {n: per_step if route is None else 0
+                for n in ATTENTION_KERNELS}
+        check(launched == want, f"{what} f32 step, route {route}: launches "
+              f"{launched} != {want}")
+        res[route] = (loss.item(), grads, launched)
+        del leaves, loss
+    (lk, gk, launched), (lp, gp, _) = res[None], res["plain"]
+    check(abs(lk - lp) <= 1e-6 * abs(lp), f"{what} f32 loss {lk} != plain "
+          f"{lp}")
+    eps, worst_g, worst_p = 1e-8, 0.0, 0.0
+    for (path, p), a, b in zip(tree_items(params), gk, gp):
+        name = "/".join(path)
+        err, ref = norm(a - b).item(), norm(b).item()
+        check(err <= 1e-4 * ref, f"{what} f32 step: gradient {name} differs "
+              f"from plain: relative L2 {err / max(ref, 1e-30)}")
+        worst_g = max(worst_g, err / max(ref, 1e-30))
+        g = b.abs()
+        dg = 1e-4 * (g + g.square().mean().sqrt())
+        allowed = 1e-5 + lr * dg * eps / (g + eps) ** 2
+        step_k = p - lr * a / (a.abs() + eps)
+        step_p = p - lr * b / (b.abs() + eps)
+        diff = (step_k - step_p).abs()
+        check(bool((diff <= allowed).all()), f"{what} f32 step: param {name} "
+              f"differs from plain by {diff.max().item()}")
+        worst_p = max(worst_p, diff.max().item())
+    say(f"{what} f32 training step (2 x {NEO_TRAIN_T} tokens, full depth), "
+        f"kernels vs plain on the card: loss {lk:.6f} vs {lp:.6f}; worst "
+        f"gradient relative L2 {worst_g:.3e}; worst parameter difference "
+        f"after Adam's first update {worst_p:.3e}; launches {launched}")
+    return launched
+
+
+def _wire_workload(seed, n, vocab):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, vocab, int(rs.randint(32, 257))).astype(np.int32),
+             int(rs.randint(32, 257))) for _ in range(n)]
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
+
+
+def client_run(client, work, submit=None, deadline_s=240.0):
+    """Submit every (prompt, new tokens) of ``work`` at once and stream
+    them home by polling, timed on the client's clock as the benchmarks
+    time them: (tokens per request, figures)."""
+    submit = submit or (lambda p, n: client.submit_with_backoff(p, n))
+    t0 = time.perf_counter()
+    t_sub, t_first, t_done, toks = {}, {}, {}, {}
+    pending = []
+    for i, (p, n) in enumerate(work):
+        t_sub[i] = time.perf_counter()
+        pending.append((i, submit(p, n)))
+        toks[i] = []
+    while pending:
+        check(time.perf_counter() - t0 < deadline_s,
+              f"client run: {len(pending)} requests still open after "
+              f"{deadline_s} s")
+        for i, rid in list(pending):
+            got, done, reason = client.poll(rid, len(toks[i]))
+            now = time.perf_counter()
+            if got and i not in t_first:
+                t_first[i] = now
+            toks[i].extend(got)
+            if done:
+                check(reason == "length", f"request {i} ended {reason!r}")
+                t_done[i] = now
+                pending.remove((i, rid))
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    delivered = sum(len(t) for t in toks.values())
+    ttft = [(t_first[i] - t_sub[i]) * 1e3 for i in t_first]
+    tpot = [(t_done[i] - t_first[i]) / (len(toks[i]) - 1) * 1e3
+            for i in t_done if len(toks[i]) > 1]
+    return toks, {"requests": len(work), "delivered_tokens": delivered,
+                  "tokens_per_s": delivered / wall, "wall_s": wall,
+                  "ttft_p50_ms": _pct(ttft, 50), "ttft_p95_ms": _pct(ttft, 95),
+                  "tpot_p50_ms": _pct(tpot, 50), "tpot_p95_ms": _pct(tpot, 95)}
+
+
+class _EngineClient:
+    """The in-process engine behind the client surface client_run polls
+    (submit, poll): the wire plane's figures have their in-process
+    counterpart on the same traffic."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def poll(self, rid, cursor=0):
+        return self.eng.poll(rid, cursor)
+
+
+def _solo_check(model, work, toks, what, device, kv=None):
+    """WIRE_CHECKED requests of a run against the solo plain decode: equal
+    token for token in f32; in bf16 each token the plain model's greedy
+    choice up to a near-tie (greedy_within_ties). Returns what was held."""
+    import numpy as np
+    import torch
+    if model.dtype == torch.bfloat16:
+        return greedy_within_ties(model, [w[0] for w in work[:WIRE_CHECKED]],
+                                  [toks[i] for i in range(WIRE_CHECKED)], kv,
+                                  what, device)
+    got, want = [], []
+    for i in range(WIRE_CHECKED):
+        p, n = work[i]
+        ids = torch.as_tensor(p[None].astype(np.int64), device=device)
+        want.append(model.generate_fused(ids, n, kv_dtype=kv, route="plain")
+                    [0, len(p):].cpu().tolist())
+        got.append(toks[i])
+    same_tokens(got, want, what)
+    return {"tokens": sum(len(t) for t in got), "equal_to_solo": True}
+
+
+def _fleet(model, kv, device, router_ttl=2.0):
+    """A ServingRouter over two decode daemons (WIRE_ROUTER_SLOTS each)
+    and one PrefillDaemon, all joined: (router, [decode, decode,
+    prefill])."""
+    from paddle_tpu_torch.serving import (PagePool, PrefillDaemon,
+                                          ServingDaemon, ServingEngine,
+                                          ServingRouter)
+    router = ServingRouter(ttl=router_ttl, scrape_interval_s=0.1).start()
+    daemons = []
+    try:
+        for i in range(2):
+            dd = ServingDaemon(ServingEngine(
+                model, slots=WIRE_ROUTER_SLOTS, kv_dtype=kv, device=device,
+                queue_cap=4 * WIRE_ROUTER_REQUESTS, **WIRE_POOL)).start()
+            dd.join_router(router.address, f"decode-{i}")
+            daemons.append(dd)
+        pool = PagePool(model, slots=WIRE_PREFILL_SLOTS, kv_dtype=kv,
+                        device=device, **WIRE_POOL)
+        pd = PrefillDaemon(pool).start()
+        pd.join_router(router.address, "prefill-0", role="prefill")
+        daemons.append(pd)
+    except Exception:
+        for x in daemons:
+            x.stop()
+        router.stop()
+        raise
+    return router, daemons
+
+
+def wire_phase(say, seed: int, device="cuda", config=GPT2_SMALL) -> dict:
+    """(c) The wire plane over GPT-2 small (phase 10's model) in bf16:
+    one ServingDaemon (16 slots) answering 48 requests over localhost,
+    the same traffic through the in-process engine for scale, and a
+    ServingRouter over one PrefillDaemon and two decode daemons (8 slots
+    each) answering 32 requests at bf16 and int8 KV; 8 requests of each
+    run held to the solo plain decode (in bf16 up to near-ties:
+    greedy_within_ties); shipped rows byte-equal to the prefill pool's.
+    Then the same fleet in f32, where the solo check is exact: 8 requests
+    equal to the solo plain decode, a decode worker stopped with no drain
+    mid-stream re-routed with no token lost or duplicated, and a
+    ``srv.ship`` corrupt refused with data_loss and never adopted. Counts
+    set to 0 just before each run and read just after; returns figures
+    and launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.serving import (RouterClient, ServingClient,
+                                          ServingDaemon, ServingEngine, ship)
+    model = TransformerLM(**config).init(seed=seed, device=device)
+    model.to(torch.bfloat16)
+    vocab = config["vocab"]
+    figs, launches, held = {}, {}, {}
+    work = _wire_workload(seed + 30, WIRE_DAEMON_REQUESTS, vocab)
+    warm = [(np.full(256, 7, np.int32), 256)] * 4
+
+    # the in-process engine on the daemon's traffic (the yardstick)
+    eng = ServingEngine(model, slots=WIRE_DAEMON_SLOTS, device=device,
+                        queue_cap=4 * WIRE_DAEMON_REQUESTS, **WIRE_POOL)
+    eng.start()
+    try:
+        client_run(_EngineClient(eng), warm,
+                   submit=lambda p, n: eng.submit(p, n))
+        _, figs["in-process engine"] = client_run(
+            _EngineClient(eng), work, submit=lambda p, n: eng.submit(p, n))
+    finally:
+        eng.stop()
+    del eng
+    # one daemon over localhost
+    d = ServingDaemon(ServingEngine(
+        model, slots=WIRE_DAEMON_SLOTS, device=device,
+        queue_cap=4 * WIRE_DAEMON_REQUESTS, **WIRE_POOL)).start()
+    try:
+        c = ServingClient(*d.address, call_timeout=120.0)
+        client_run(c, warm)
+        (toks, figs["daemon"]), _, launches["daemon"], _ = counted(
+            lambda: client_run(c, work))
+        c.close()
+    finally:
+        d.stop()
+    held["daemon"] = _solo_check(model, work, toks, "daemon bf16", device)
+    say(f"wire: ServingDaemon ({WIRE_DAEMON_SLOTS} slots) over localhost, "
+        f"{len(work)} requests, {WIRE_CHECKED} held to the solo plain "
+        f"decode {json.dumps(held['daemon'])}; client-side "
+        f"{json.dumps(figs['daemon'])}; the in-process engine on the same "
+        f"traffic {json.dumps(figs['in-process engine'])}; launches "
+        f"{launches['daemon']}")
+
+    rwork = _wire_workload(seed + 31, WIRE_ROUTER_REQUESTS, vocab)
+    for kv in (None, "int8"):
+        tag = f"router {kv or 'bf16'} KV"
+        router, daemons = _fleet(model, kv, device)
+        try:
+            c = RouterClient(*router.address, call_timeout=120.0)
+            client_run(c, warm)
+            (toks, figs[tag]), _, launches[tag], _ = counted(
+                lambda: client_run(c, rwork))
+            adopted = sum(x.engine.pool.prompt_tokens_total
+                          for x in daemons[:2])
+            check(all(x.engine.pool.admissions_total == 0
+                      for x in daemons[:2]),
+                  f"{tag}: a decode worker prefilled (no shipment)")
+            c.close()
+        finally:
+            for x in daemons:
+                x.stop()
+            router.stop()
+        held[tag] = _solo_check(model, rwork, toks, tag, device, kv)
+        say(f"wire: ServingRouter over 1 prefill + 2 decode daemons "
+            f"({WIRE_ROUTER_SLOTS} slots each) at {kv or 'bf16'} KV, "
+            f"{len(rwork)} requests (the decode pools adopted {adopted} "
+            f"shipped prompt tokens, warm-up included, and prefilled none), "
+            f"{WIRE_CHECKED} held to the solo plain decode "
+            f"{json.dumps(held[tag])}; client-side {json.dumps(figs[tag])}; "
+            f"launches {launches[tag]}")
+        figs[f"shipped rows {kv or 'bf16'} KV"] = _shipped_rows_check(
+            model, kv, device, ship)
+
+    # f32: the exact checks (solo tokens, re-route, a corrupted shipment)
+    model.to(torch.float32)
+    tag = "router f32 KV"
+    router, daemons = _fleet(model, None, device)
+    try:
+        c = RouterClient(*router.address, call_timeout=120.0)
+        (toks, figs[tag]), _, launches[tag], _ = counted(
+            lambda: client_run(c, rwork[:WIRE_CHECKED]))
+        held[tag] = _solo_check(model, rwork, toks, tag, device)
+        figs["reroute"] = _reroute_check(c, daemons, router, model, device)
+        figs["ship_corrupt"] = _ship_corrupt_check(daemons[-1], daemons[0])
+        c.close()
+    finally:
+        for x in daemons:
+            x.stop()
+        router.stop()
+    say(f"wire: ServingRouter f32, {WIRE_CHECKED} requests equal to the "
+        f"solo plain decode; client-side {json.dumps(figs[tag])}; re-route "
+        f"{json.dumps(figs['reroute'])}; ship corrupt "
+        f"{json.dumps(figs['ship_corrupt'])}; launches {launches[tag]}; "
+        f"a 200-token prompt's shipment, byte-equal once adopted: bf16 KV "
+        f"{json.dumps(figs['shipped rows bf16 KV'])}, int8 KV "
+        f"{json.dumps(figs['shipped rows int8 KV'])}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"figures": figs, "held": held, "launches": launches}
+
+
+def _shipped_rows_check(model, kv, device, ship):
+    """A prompt prefilled in one pool, exported, chunked, reassembled and
+    adopted by a second engine: the adopted pages' rows equal the prefill
+    pool's byte for byte (every pool array, the int8 scales included)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import PagePool, Request, ServingEngine
+    rs = np.random.RandomState(7)
+    prompt = rs.randint(0, GPT2_SMALL["vocab"], 200).astype(np.int32)
+    pre = PagePool(model, slots=2, kv_dtype=kv, device=device, **WIRE_POOL)
+    r = Request(-1, prompt, 16)
+    pre.validate(r)
+    plan = pre.plan_admission(prompt, pre.effective_budget(200, 16))
+    first = int(pre.admit([(1, plan)])[1])
+    npg = -(-200 // pre.bs)
+    pages = torch.as_tensor(pre.tables[1, :npg].astype(np.int64),
+                            device=device)
+    src = {nm: a[pages].clone() for nm, a in pre.pools.items()}
+    t = [time.perf_counter()]
+    manifest, payload = pre.export_slot(1, first)
+    t.append(time.perf_counter())
+    frames = list(ship.iter_chunks(payload))
+    asm = ship.ChunkAssembler(frames[0][1])
+    for seq, _, fr in frames:
+        asm.add(seq, fr["data"], fr["crc"])
+    t.append(time.perf_counter())
+    arrays = ship.unpack(manifest, asm.payload())
+    t.append(time.perf_counter())
+    eng = ServingEngine(model, slots=2, kv_dtype=kv, device=device,
+                        **WIRE_POOL)
+    rid = eng.submit_prefilled(manifest["plen"], manifest["first"], arrays,
+                               max_new=16)
+    eng.admit_prefill()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    slot = next(s for s, rec in eng._live.items() if rec.rid == rid)
+    dst = torch.as_tensor(eng.pool.tables[slot, :npg].astype(np.int64),
+                          device=device)
+    for nm, rows in src.items():
+        got = eng.pool.pools[nm][dst]
+        check(got.dtype == rows.dtype and torch.equal(
+            got.view(torch.uint8) if got.dtype != torch.bfloat16
+            else got.view(torch.int16),
+            rows.view(torch.uint8) if rows.dtype != torch.bfloat16
+            else rows.view(torch.int16)),
+              f"shipped rows {nm} ({kv or 'bf16'} KV) differ from the "
+              "prefill pool's")
+    # the host's seconds of each step of the hop (no RPC: the frames'
+    # JSON and the sockets come on top in the fleet)
+    return {"arrays": len(src), "pages": npg, "payload_bytes": len(payload),
+            "chunks": len(frames), "byte_equal": True,
+            "export_ms": (t[1] - t[0]) * 1e3,
+            "chunk_and_reassemble_ms": (t[2] - t[1]) * 1e3,
+            "unpack_ms": (t[3] - t[2]) * 1e3,
+            "submit_and_adopt_ms": (t[4] - t[3]) * 1e3}
+
+
+def _reroute_check(c, daemons, router, model, device):
+    """Stop the decode worker holding a live stream, with no drain: the
+    router re-prefills prompt + delivered tokens on the survivor, and the
+    client's whole sequence equals the solo plain decode."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(9)
+    prompt, n = rs.randint(0, GPT2_SMALL["vocab"], 120), 160
+    rid = c.submit(prompt, n)
+    toks = []
+    t0 = time.perf_counter()
+    while not toks:
+        check(time.perf_counter() - t0 < 60, "re-route: no first token")
+        got, done, _ = c.poll(rid, 0)
+        toks.extend(got)
+        check(not done, "re-route: the stream finished before the stop")
+        time.sleep(0.002)
+    rec = router._recs[rid]
+    victim = next(x for x in daemons[:2]
+                  if x._mbr_worker == rec.worker)
+    victim.stop()
+    daemons.remove(victim)
+    cursor = before = len(toks)
+    while True:
+        check(time.perf_counter() - t0 < 300, "re-route: stream stalled")
+        got, done, reason = c.poll(rid, cursor)
+        toks.extend(got)
+        cursor += len(got)
+        if done:
+            check(reason == "length", f"re-route: ended {reason!r}")
+            break
+        time.sleep(0.005)
+    want = model.generate_fused(torch.as_tensor(prompt[None], device=device),
+                                n, route="plain")[0, len(prompt):].cpu()
+    same_tokens([toks], [want.tolist()], "re-routed stream")
+    check(rec.reroutes == 1, f"re-route: {rec.reroutes} re-routes")
+    return {"tokens_before_stop": before, "reroutes": rec.reroutes,
+            "tokens": len(toks), "equal_to_solo": True}
+
+
+def _ship_corrupt_check(pd, decode):
+    """``srv.ship`` corrupting the first chunk of a prefill's shipment:
+    the decode worker refuses it (data_loss, a CRC), admits nothing and
+    holds no reassembly."""
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.runtime import MasterClient
+    raw = MasterClient(*pd.address, call_timeout=60.0)
+    host, port = decode.address
+    before = decode.engine._next_rid
+    plan = faults.FaultPlan(seed=3).add("srv.ship", "corrupt", nth=1)
+    try:
+        with plan.installed():
+            r = raw._call({"op": "srv_prefill", "prompt": list(range(1, 90)),
+                           "max_new": 8, "decode_host": host,
+                           "decode_port": port})
+    finally:
+        raw.close()
+    check(not r.get("ok") and r.get("code") == "data_loss"
+          and "CRC" in str(r.get("error")),
+          f"ship corrupt: the decode worker answered {r}")
+    check(decode.engine._next_rid == before and not decode._ships,
+          "ship corrupt: a corrupted shipment was adopted or kept")
+    return {"code": r["code"], "fired": plan.fired, "adopted": False}
+
+
+def slice19_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 18: (a) #1-#7 at head widths 8/32/80/128 against plain, the
+    causal S != T and 16-byte-view routes, the D = 128 timings; (b) GPT-Neo
+    1.3B's widths training and serving; (c) the wire plane."""
+    import torch
+    # the node counts graph_launch_check memoized hold the earlier phases'
+    # graphs (and their memory pools) alive: GPT-Neo's widths need the room
+    _GRAPH_NODES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 18: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        "allocated at its start")
+    gen = torch.Generator().manual_seed(seed + 19)
+    t0 = time.perf_counter()
+    WIDTH_ERRS["flash"] = width_flash_checks(say, gen, device)
+    WIDTH_ERRS["decode"] = width_decode_checks(say, gen, device)
+    entries = width_timings(say, gen, device)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    neo = gpt_neo_phase(say, seed, device)
+    t2 = time.perf_counter()
+    wire = wire_phase(say, seed, device)
+    t3 = time.perf_counter()
+    for e in entries:
+        e["launches"] = sum(n.get(e["name"], 0)
+                            for n in neo["launches"].values())
+        e["launches_note"] = {run: n.get(e["name"], 0)
+                              for run, n in neo["launches"].items()}
+    seconds = {"widths": t1 - t0, "gpt_neo": t2 - t1, "wire": t3 - t2}
+    say(f"phase 18 seconds: {json.dumps(seconds)}")
+    return {"entries": entries, "gpt_neo": {k: v for k, v in neo.items()},
+            "wire": wire, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5999,6 +6977,11 @@ def main(argv=None) -> int:
     def say(msg: str) -> None:
         print(f"{msg} | {card}", flush=True)
 
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        say(f"elapsed {time.perf_counter() - t_start:.1f} s after {what}")
+
     from paddle_tpu_torch.ops import _build
     build = _build.load()
     say(f"build: {build.seconds:.1f} s ({'built' if build.built else 'cached'}"
@@ -6019,7 +7002,9 @@ def main(argv=None) -> int:
     parent = load_parent(args.parent) if args.parent else None
     flash = flash_checks(say)
     paged = paged_checks(say, parent=parent)
+    stamp("phases 1-2")
     launches = serving_phase(say, args.seed)
+    stamp("phase 3")
     for entry in (flash, paged):
         entry["launches"] = launches[entry["name"]]
     fwd_regs = {"lstm_seq_kernel": ptxas_usage(build, "lstm_seq_kernel",
@@ -6030,7 +7015,9 @@ def main(argv=None) -> int:
     lstm = lstm_kernel_checks(say, args.seed, parent=parent)
     if args.rnn_sweep:
         sweep = rnn_sweep(say, args.seed)
+    stamp("phase 4")
     launches, steps = training_phase(say, args.seed)
+    stamp("phase 5")
     for entry in lstm:
         entry["launches"] = launches[entry["name"]]
         entry["launches_note"] = (f"{steps} training steps, then a test "
@@ -6040,8 +7027,11 @@ def main(argv=None) -> int:
         else:
             entry["ptxas"] = fwd_regs["lstm_seq_kernel"]
     flash["training_shapes"], bwd = flash_bwd_checks(say, args.seed)
+    stamp("phase 6")
     lm_launches, lm_steps = lm_training_phase(say, args.seed)
+    stamp("phase 7")
     nmt_launches, nmt_steps = nmt_training_phase(say, args.seed)
+    stamp("phase 8")
     for entry in bwd:
         name = entry["name"]
         entry["launches"] = lm_launches[name] + nmt_launches[name]
@@ -6054,7 +7044,9 @@ def main(argv=None) -> int:
     decode = decode_checks(
         say, args.seed, SPLIT_BATCHES if args.split_sweep else PATH_BATCHES,
         parent=parent, paged_entry=paged)
+    stamp("phase 9")
     runs = dense_decode_phase(say, args.seed)
+    stamp("phase 10")
     for entry in decode:
         per_run = {run: n[entry["name"]] for run, n in runs.items()
                    if entry["name"] in n}
@@ -6067,7 +7059,9 @@ def main(argv=None) -> int:
     gru[1]["ptxas"] = ptxas_usage(build, "gru_seq_bwd_kernel")
     say(f"gru_seq_bwd_kernel registers and spills: "
         f"{json.dumps(gru[1]['ptxas'])}")
+    stamp("phase 11")
     train, s2s_steps, gen = s2s_phase(say, args.seed)
+    stamp("phase 12")
     for entry in gru:
         name = entry["name"]
         entry["launches"] = train[name] + sum(g[name] for g in gen.values())
@@ -6076,10 +7070,17 @@ def main(argv=None) -> int:
             + " + ".join(f"{g[name]} in one {what} generate call"
                          for what, g in gen.items()))
     image = image_phase(say, args.seed)
+    stamp("phase 13")
     loop = loop_phase(say, args.seed)
+    stamp("phase 14")
     data = data_phase(say, args.seed, loop)
+    stamp("phase 15")
     zoo = zoo_phase(say, args.seed)
+    stamp("phase 16")
     s18 = slice18_phase(say, args.seed)
+    stamp("phase 17")
+    s19 = slice19_phase(say, args.seed)
+    stamp("phase 18")
     for entry in lstm:
         entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
         entry["launches_data"] = data["launches"][entry["name"]]
@@ -6106,8 +7107,10 @@ def main(argv=None) -> int:
     print(json.dumps({"data": data, "card": card}))
     print(json.dumps({"zoo": zoo, "card": card}))
     print(json.dumps({"slice18": s18, "card": card}))
+    print(json.dumps({"slice19": {k: v for k, v in s19.items()
+                                  if k != "entries"}, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
-                      + gru, "card": card}))
+                      + gru + s19["entries"], "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,12 +58,21 @@ added (and takes them back out: a capture launches nothing) and every
 replay adds them again. A graph keeps
 its cudaGraph_t (``keep_graph=True``) so that a check can count its
 kernel nodes against that record (:func:`captured`).
+
+Threads: caches of one process may run on several threads at once (the
+engines of a routed fleet, each on its scheduler thread, and a prefill
+worker on its RPC threads). One capture runs at a time and no replay
+runs during one (``_CAPTURE_LOCK``): ``torch.cuda.graph`` begins with a
+device-wide synchronize, which would break a capture in flight on
+another thread, and the capture's launch record must hold its own
+launches only.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import weakref
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional
 
@@ -79,6 +88,14 @@ _disabled = 0
 
 #: every live cache, for :func:`captured`
 _CACHES: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
+
+#: one capture at a time in the process, and no replay during one:
+#: ``torch.cuda.graph`` begins with a device-wide synchronize, which breaks
+#: a capture another thread has in flight (two engines of one process, a
+#: prefill worker beside them, each capturing on its own scheduler or RPC
+#: thread), and a capture sets LAUNCHES back to what it found, which would
+#: drop the launches another thread's replays add meanwhile
+_CAPTURE_LOCK = threading.RLock()
 
 
 def reset_dispatch_counts() -> None:
@@ -266,6 +283,21 @@ class GraphCache:
         buf.copy_(t)
         return buf
 
+    @contextlib.contextmanager
+    def ordered(self):
+        """Work issued inside runs on the caller's stream after every
+        replay issued so far, and every replay issued later runs after it:
+        a read or write of a :meth:`buffer` from outside the graphs (the
+        pool's export gather and adopt scatter of shipped pages) never
+        races a replay, whichever stream the caller is on."""
+        if self.device.type != "cuda" or self._stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        caller.wait_stream(self._stream)
+        yield
+        self._stream.wait_stream(caller)
+
     def run(self, name: str, body: Callable, inputs: Dict[str, Any], *,
             static: Optional[Dict[str, Hashable]] = None,
             donate: Iterable[str] = ()):
@@ -291,8 +323,9 @@ class GraphCache:
             return body(**_unflatten(spec, iter(args)), **static)
         entry = self._graphs.get(key)
         if entry is None:
-            return self._capture(key, label(name, inputs, static), body,
-                                 spec, leaves, static, donated)
+            with _CAPTURE_LOCK:
+                return self._capture(key, label(name, inputs, static), body,
+                                     spec, leaves, static, donated)
         caller = torch.cuda.current_stream(self.device)
         with torch.no_grad():
             for x, s in zip(leaves, entry.statics):
@@ -301,18 +334,19 @@ class GraphCache:
         for k in entry.generators:
             self._generators[k].set_state(static[k].get_state())
         stream = self._stream
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            entry.graph.replay()
-        caller.wait_stream(stream)
+        from ..ops.cuda_kernels import LAUNCHES, ROUTES
+        with _CAPTURE_LOCK:
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                entry.graph.replay()
+            caller.wait_stream(stream)
+            self._count(entry, "replays")
+            for k, n in entry.launches.items():
+                LAUNCHES[k] += n
+            for k, n in entry.routes.items():
+                ROUTES[k] = ROUTES.get(k, 0) + n
         for k in entry.generators:
             static[k].set_state(self._generators[k].get_state())
-        self._count(entry, "replays")
-        from ..ops.cuda_kernels import LAUNCHES, ROUTES
-        for k, n in entry.launches.items():
-            LAUNCHES[k] += n
-        for k, n in entry.routes.items():
-            ROUTES[k] = ROUTES.get(k, 0) + n
         return entry.outputs()
 
     def _count(self, entry: _Graph, what: str) -> None:

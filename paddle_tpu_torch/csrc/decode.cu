@@ -28,17 +28,18 @@ namespace {
 
 using namespace decode;
 
-// The dense caches, as a kernel argument: rows(b, h, lane) is the row
-// loader of one (b, h) read, at this lane's first element.
+// The dense caches, as a kernel argument: rows<kPer>(b, h, lane) is the
+// row loader of one (b, h) read, for this lane's chunks.
 template <typename T>
 struct DenseCache {                    // #4: k/v [B, L, H, D] of T
   const T* k;
   const T* v;
   int64_t sb, sl, sh;                  // batch, row and head strides
-  __device__ __forceinline__ DenseRows<T> rows(int b, int h,
-                                               int lane) const {
-    const int64_t at = b * sb + h * sh + lane;
-    return DenseRows<T>{k + at, v + at, sl};
+  template <int kPer>
+  __device__ __forceinline__ DenseRows<kPer, T> rows(int b, int h,
+                                                     Lane ln) const {
+    const int64_t at = b * sb + h * sh;
+    return DenseRows<kPer, T>{k + at, v + at, sl, ln};
   }
 };
 
@@ -49,17 +50,20 @@ struct DenseCacheQ {                   // #5: int8 k/v, f32 scales [B, L, H]
   const float* vs;
   int64_t sb, sl, sh;                  // k/v strides
   int64_t ssb, ssl, ssh;               // the scales' strides
-  __device__ __forceinline__ DenseRowsQ rows(int b, int h, int lane) const {
-    const int64_t at = b * sb + h * sh + lane;
+  template <int kPer>
+  __device__ __forceinline__ DenseRowsQ<kPer> rows(int b, int h,
+                                                   Lane ln) const {
+    const int64_t at = b * sb + h * sh;
     const int64_t sat = b * ssb + h * ssh;
-    return DenseRowsQ{k + at, v + at, ks + sat, vs + sat, sl, ssl};
+    return DenseRowsQ<kPer>{k + at, v + at, ks + sat, vs + sat, sl, ssl, ln};
   }
 };
 
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// #4. q [B, H, D] with element strides (innermost 1); k/v [B, L, H, D]
+// #4. q [B, H, D] (D a multiple of 8 up to 128) with element strides
+// (innermost 1); k/v [B, L, H, D]
 // with shared element strides (batch kv_sb, row kv_sl, head kv_sh;
 // innermost 1), each a multiple of 8, 16-byte-aligned bases; pos [B] int32
 // >= 0 (the live count is clamped to L); o [B, H, D] contiguous f32.
@@ -81,14 +85,14 @@ extern "C" int paddle_decode_attention(
     const DenseCache<float> c{static_cast<const float*>(k),
                               static_cast<const float*>(v), kv_sb, kv_sl,
                               kv_sh};
-    return launch<float>(q, c, pos, o, part, tickets, B, H, L, splits, chunk,
-                         q_sb, q_sh, scale, st);
+    return launch<float>(q, c, pos, o, part, tickets, B, H, D, L, splits,
+                         chunk, q_sb, q_sh, scale, st);
   }
   if (dtype == kBF16) {
     const DenseCache<__nv_bfloat16> c{
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), kv_sb, kv_sl, kv_sh};
-    return launch<__nv_bfloat16>(q, c, pos, o, part, tickets, B, H, L,
+    return launch<__nv_bfloat16>(q, c, pos, o, part, tickets, B, H, D, L,
                                  splits, chunk, q_sb, q_sh, scale, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -112,10 +116,10 @@ extern "C" int paddle_decode_attention_q(
   const DenseCacheQ c{k, v, k_scale, v_scale, kv_sb, kv_sl, kv_sh,
                       sc_sb, sc_sl, sc_sh};
   if (q_dtype == kF32)
-    return launch<float>(q, c, pos, o, part, tickets, B, H, L, splits, chunk,
-                         q_sb, q_sh, scale, st);
+    return launch<float>(q, c, pos, o, part, tickets, B, H, D, L, splits,
+                         chunk, q_sb, q_sh, scale, st);
   if (q_dtype == kBF16)
-    return launch<__nv_bfloat16>(q, c, pos, o, part, tickets, B, H, L,
+    return launch<__nv_bfloat16>(q, c, pos, o, part, tickets, B, H, D, L,
                                  splits, chunk, q_sb, q_sh, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -87,6 +87,24 @@
 // Its one stated deviation from the plain version is the bf16 rounding
 // of P^T and dS^T before the second products.
 //
+// Head widths. Every body is a template on D, built for D = 64 and
+// D = 128 (the wrapper zero-pads any other multiple of 8 up to 128 to the
+// next of them). At D = 128 a bf16 tile is two 64-column TMA boxes, the
+// D-long products S, dP (and S^T, dP^T) take 8 k steps of 16, and each
+// [64 x D] accumulator (dQ; dK and dV) is two m64n64 halves, each its own
+// wgmma chain: shared memory is 96 KB for #2 (Q, dO, two K/V stages) and
+// for #3 (K, V, two Q/dO stages). The f32 bodies stage fewer rows at
+// D = 128 (dq: 32 keys, 135 KB; dk/dv: 16 q rows, 102 KB; rows of 132
+// floats) and sum the second products a column tile at a time, each over
+// every row of the stage into a fresh 4-register accumulator: the same
+// sums as at D = 64, without a second [16 x 128] accumulator a warp (two,
+// for dK and dV) live beside the running one.
+//
+// Causal masks are top-left aligned (key j is live for query i when
+// j <= i), as JAX's tril(ones(T, S)): at S != T the k bound of #2 and the
+// q lower bound of #3 (the q tiles that end before a k tile's first key)
+// hold as they are.
+//
 // q, k and v are read in place through their strides (views of the fused
 // qkv projection; innermost stride 1, a 16-byte aligned base and strides
 // of 16-byte multiples: TMA in bf16, cp.async in f32). o, dO, lse, delta
@@ -110,18 +128,25 @@ constexpr int kWgThreads = 128;   // one warpgroup: 64 keys
 constexpr int kStages = 2;        // Q/dO ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <int D>
 struct DkvSmem {                  // every tile 1024-byte aligned
-  __nv_bfloat16 k[64 * 64];
-  __nv_bfloat16 v[64 * 64];
-  __nv_bfloat16 q[kStages][64 * 64];
-  __nv_bfloat16 dout[kStages][64 * 64];
+  __nv_bfloat16 k[64 * D];
+  __nv_bfloat16 v[64 * D];
+  __nv_bfloat16 q[kStages][64 * D];
+  __nv_bfloat16 dout[kStages][64 * D];
   float lse[kStages][64];         // log2(e) * lse of the tile's q rows
   float delta[kStages][64];
   uint64_t kv_bar;
   uint64_t full[kStages];
 };
-constexpr size_t kDkvSmemBytes = sizeof(DkvSmem) + 1024;  // + align1024
 
+// the 64-column half c of a [64 x D] bf16 tile
+__device__ __forceinline__ const void* half_of(const __nv_bfloat16* tile,
+                                               int c) {
+  return reinterpret_cast<const uint8_t*>(tile) + c * sm90::kTileBytes;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kWgThreads)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -134,8 +159,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            __nv_bfloat16* __restrict__ dv, int T_len, int S,
                            int H, float scale, int causal) {
   using namespace sm90;
+  constexpr int kH = D / 64;                     // 64-column halves
+  constexpr uint32_t kTile = kH * kTileBytes;    // one [64 x D] tile
   extern __shared__ uint8_t smem_raw[];
-  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(align1024(smem_raw));
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align1024(smem_raw));
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -145,9 +172,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const float scale_log2 = scale * kLog2e;
   const int row0 = acc_row(tid, 0);   // this thread's keys k0 + row0 (+8)
 
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[kH][32], dv_acc[kH][32];   // by 64-column halves
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int c = 0; c < kH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
 
   if (k0 < kv_len) {  // else every key of the tile is masked: zeros
     // causal: q tiles that end before this tile's first key see none of
@@ -168,13 +197,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     __syncthreads();
     if (tid == 0) {
-      mbar_expect_tx(&sm.kv_bar, 2 * kTileBytes);
-      tma_load_tile(sm.k, &kmap, &sm.kv_bar, h, k0, b);
-      tma_load_tile(sm.v, &vmap, &sm.kv_bar, h, k0, b);
+      mbar_expect_tx(&sm.kv_bar, 2 * kTile);
+      tma_load_tile<kH>(sm.k, &kmap, &sm.kv_bar, h, k0, b);
+      tma_load_tile<kH>(sm.v, &vmap, &sm.kv_bar, h, k0, b);
       for (int s = 0; s < kStages && s < n; ++s) {
-        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-        tma_load_tile(sm.q[s], &qmap, &sm.full[s], h, (lo + s) * kB, b);
-        tma_load_tile(sm.dout[s], &domap, &sm.full[s], h, (lo + s) * kB, b);
+        mbar_expect_tx(&sm.full[s], 2 * kTile);
+        tma_load_tile<kH>(sm.q[s], &qmap, &sm.full[s], h, (lo + s) * kB, b);
+        tma_load_tile<kH>(sm.dout[s], &domap, &sm.full[s], h, (lo + s) * kB,
+                          b);
       }
     }
     for (int s = 0; s < kStages && s < n; ++s) {
@@ -204,8 +234,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
       // S^T = K . Q^T and dP^T = V . dO^T: keys are the rows
       wgmma_fence();
-      gemm_abt(sc, sm.k, sm.q[st]);
-      gemm_abt(dp, sm.v, sm.dout[st]);
+      gemm_abt<kH>(sc, sm.k, sm.q[st]);
+      gemm_abt<kH>(dp, sm.v, sm.dout[st]);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -232,17 +262,24 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
 
       // dV += P^T . dO and dK += dS^T . Q: P^T and dS^T rounded to bf16 in
-      // registers as the A operands, dO and Q [q][d] read MN-major
+      // registers as the A operands, dO and Q [q][d] read MN-major, one
+      // wgmma chain a 64-column half
       uint32_t pf[16], df[16];
       acc_to_frag(sc, pf);
       acc_to_frag(dp, df);
       wgmma_fence();
-      gemm_pb(dv_acc, pf, sm.dout[st]);
-      gemm_pb(dk_acc, df, sm.q[st]);
+#pragma unroll
+      for (int c = 0; c < kH; ++c) {
+        gemm_pb(dv_acc[c], pf, half_of(sm.dout[st], c));
+        gemm_pb(dk_acc[c], df, half_of(sm.q[st], c));
+      }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc(dv_acc);
-      fence_acc(dk_acc);
+#pragma unroll
+      for (int c = 0; c < kH; ++c) {
+        fence_acc(dv_acc[c]);
+        fence_acc(dk_acc[c]);
+      }
 
       // every warp is done with stage st: refill it with tile it + kStages
       __syncthreads();
@@ -250,9 +287,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         dst[st * kB] = next;
         if (tid == 0) {
           const int qn = q0 + kStages * kB;
-          mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
-          tma_load_tile(sm.q[st], &qmap, &sm.full[st], h, qn, b);
-          tma_load_tile(sm.dout[st], &domap, &sm.full[st], h, qn, b);
+          mbar_expect_tx(&sm.full[st], 2 * kTile);
+          tma_load_tile<kH>(sm.q[st], &qmap, &sm.full[st], h, qn, b);
+          tma_load_tile<kH>(sm.dout[st], &domap, &sm.full[st], h, qn, b);
         }
       }
     }
@@ -262,19 +299,23 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int r = 0; r < 2; ++r) {
     const int s = k0 + row0 + 8 * r;
     if (s >= S) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * 64;
+    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * r;
-      const int col = acc_col(tid, i);
-      *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
-          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
-          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
-    }
+    for (int c = 0; c < kH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        const int col = 64 * c + acc_col(tid, i);
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
+            __floats2bfloat162_rn(dk_acc[c][i] * scale,
+                                  dk_acc[c][i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+            __floats2bfloat162_rn(dv_acc[c][i], dv_acc[c][i + 1]);
+      }
   }
 }
 
+template <int D>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     const int* kv_lens, void* dk, void* dv, int B, int T_len,
@@ -282,20 +323,21 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                     int64_t v_ss, int64_t v_sh, float scale, int causal,
                     cudaStream_t stream) {
-  const int64_t row_st = static_cast<int64_t>(H) * 64;   // dout contiguous
+  const int64_t row_st = static_cast<int64_t>(H) * D;   // dout contiguous
   CUtensorMap qm, km, vm, dom;
-  if (!sm90::make_tile_map(&qm, q, B, T_len, H, q_sb, q_st, q_sh) ||
-      !sm90::make_tile_map(&km, k, B, S, H, k_sb, k_ss, k_sh) ||
-      !sm90::make_tile_map(&vm, v, B, S, H, v_sb, v_ss, v_sh) ||
-      !sm90::make_tile_map(&dom, dout, B, T_len, H, T_len * row_st, row_st,
-                           64))
+  if (!sm90::make_tile_map(&qm, q, B, T_len, H, D, q_sb, q_st, q_sh) ||
+      !sm90::make_tile_map(&km, k, B, S, H, D, k_sb, k_ss, k_sh) ||
+      !sm90::make_tile_map(&vm, v, B, S, H, D, v_sb, v_ss, v_sh) ||
+      !sm90::make_tile_map(&dom, dout, B, T_len, H, D, T_len * row_st,
+                           row_st, D))
     return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = sizeof(DkvSmem<D>) + 1024;   // + align1024
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kB - 1) / kB, B * H);
-  flash_bwd_dkv_wgmma_kernel<<<grid, kWgThreads, kDkvSmemBytes, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
       qm, km, vm, dom, lse, delta, kv_lens, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), T_len, S, H, scale, causal);
   return (int)cudaGetLastError();
@@ -307,16 +349,17 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 constexpr int kDqStages = 2;      // the K/V ring's depth
 
+template <int D>
 struct DqSmem {                   // every tile 1024-byte aligned
-  __nv_bfloat16 q[64 * 64];
-  __nv_bfloat16 dout[64 * 64];
-  __nv_bfloat16 k[kDqStages][64 * 64];
-  __nv_bfloat16 v[kDqStages][64 * 64];
+  __nv_bfloat16 q[64 * D];
+  __nv_bfloat16 dout[64 * D];
+  __nv_bfloat16 k[kDqStages][64 * D];
+  __nv_bfloat16 v[kDqStages][64 * D];
   uint64_t qdo_bar;
   uint64_t full[kDqStages];
 };
-constexpr size_t kDqSmemBytes = sizeof(DqSmem) + 1024;   // + align1024
 
+template <int D>
 __global__ void __launch_bounds__(kWgThreads)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -331,8 +374,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           int H, float scale, int causal,
                           int compute_delta) {
   using namespace sm90;
+  constexpr int kH = D / 64;                     // 64-column halves
+  constexpr uint32_t kTile = kH * kTileBytes;    // one [64 x D] tile
   extern __shared__ uint8_t smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(align1024(smem_raw));
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align1024(smem_raw));
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -340,9 +385,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kv_len = kv_lens ? min(kv_lens[b], S) : S;
   const float scale_log2 = scale * kLog2e;
   const int row0 = acc_row(tid, 0);   // this thread's q rows q0 + row0 (+8)
-  // o, dO and dq are contiguous [B, T, H, 64]; lse and delta [B, T, H]
-  const int64_t row_st = static_cast<int64_t>(H) * 64;
-  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * 64;
+  // o, dO and dq are contiguous [B, T, H, D]; lse and delta [B, T, H]
+  const int64_t row_st = static_cast<int64_t>(H) * D;
+  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * D;
 
   // the forward's k-tile bound: tiles wholly past the causal diagonal or
   // past kv_len have P == 0 exactly and add nothing to dq
@@ -359,20 +404,20 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (tid == 0 && hi > 0) {
-    mbar_expect_tx(&sm.qdo_bar, 2 * kTileBytes);
-    tma_load_tile(sm.q, &qmap, &sm.qdo_bar, h, q0, b);
-    tma_load_tile(sm.dout, &domap, &sm.qdo_bar, h, q0, b);
+    mbar_expect_tx(&sm.qdo_bar, 2 * kTile);
+    tma_load_tile<kH>(sm.q, &qmap, &sm.qdo_bar, h, q0, b);
+    tma_load_tile<kH>(sm.dout, &domap, &sm.qdo_bar, h, q0, b);
     for (int s = 0; s < kDqStages && s < hi; ++s) {
-      mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-      tma_load_tile(sm.k[s], &kmap, &sm.full[s], h, s * kB, b);
-      tma_load_tile(sm.v[s], &vmap, &sm.full[s], h, s * kB, b);
+      mbar_expect_tx(&sm.full[s], 2 * kTile);
+      tma_load_tile<kH>(sm.k[s], &kmap, &sm.full[s], h, s * kB, b);
+      tma_load_tile<kH>(sm.v[s], &vmap, &sm.full[s], h, s * kB, b);
     }
   }
 
   // lse (in log2 units) and delta of this thread's two rows, while the
   // tiles load; a row past T gets 0 for both (its dq is never written).
   // delta = rowsum(dO * O) comes from global memory, not from the
-  // swizzled dO tile: the row's quad of lanes reads 16 elements each.
+  // swizzled dO tile: the row's quad of lanes reads D / 4 elements each.
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -383,11 +428,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (compute_delta) {
       float part = 0.f;
       if (in) {
-        const int64_t at = base + t * row_st + 16 * (tid & 3);
+        const int64_t at = base + t * row_st + (D / 4) * (tid & 3);
         const uint4* op = reinterpret_cast<const uint4*>(o + at);
         const uint4* dp = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < D / 32; ++u) {
           const uint4 ov = op[u], dv = dp[u];
           const __nv_bfloat162* o2 =
               reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -411,9 +456,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  float acc[32];
+  float acc[kH][32];                  // dQ by 64-column halves
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int c = 0; c < kH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
 
   if (hi > 0) {
     mbar_wait(&sm.qdo_bar, 0);
@@ -427,8 +474,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
       // S = Q . K^T and dP = dO . V^T: q rows are the rows
       wgmma_fence();
-      gemm_abt(sc, sm.q, sm.k[st]);
-      gemm_abt(dp, sm.dout, sm.v[st]);
+      gemm_abt<kH>(sc, sm.q, sm.k[st]);
+      gemm_abt<kH>(dp, sm.dout, sm.v[st]);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -452,22 +499,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
 
       // dQ += dS . K: dS rounded to bf16 in registers as the A operand,
-      // K [keys][d] read MN-major
+      // K [keys][d] read MN-major, one wgmma chain a 64-column half
       uint32_t df[16];
       acc_to_frag(dp, df);
       wgmma_fence();
-      gemm_pb(acc, df, sm.k[st]);
+#pragma unroll
+      for (int c = 0; c < kH; ++c) gemm_pb(acc[c], df, half_of(sm.k[st], c));
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc(acc);
+#pragma unroll
+      for (int c = 0; c < kH; ++c) fence_acc(acc[c]);
 
       // every warp is done with stage st: refill it with tile kt + kDqStages
       __syncthreads();
       if (tid == 0 && kt + kDqStages < hi) {
         const int kn = k0 + kDqStages * kB;
-        mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
-        tma_load_tile(sm.k[st], &kmap, &sm.full[st], h, kn, b);
-        tma_load_tile(sm.v[st], &vmap, &sm.full[st], h, kn, b);
+        mbar_expect_tx(&sm.full[st], 2 * kTile);
+        tma_load_tile<kH>(sm.k[st], &kmap, &sm.full[st], h, kn, b);
+        tma_load_tile<kH>(sm.v[st], &vmap, &sm.full[st], h, kn, b);
       }
     }
   }
@@ -478,14 +527,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (t >= T_len) continue;
     __nv_bfloat16* row = dq + base + t * row_st;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(row + acc_col(tid, i)) =
-          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
-    }
+    for (int c = 0; c < kH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * c + acc_col(tid, i)) =
+            __floats2bfloat162_rn(acc[c][i] * scale, acc[c][i + 1] * scale);
+      }
   }
 }
 
+template <int D>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, const int* kv_lens, void* dq, int B,
@@ -493,20 +545,21 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                    int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
                    int causal, int compute_delta, cudaStream_t stream) {
-  const int64_t row_st = static_cast<int64_t>(H) * 64;   // dout contiguous
+  const int64_t row_st = static_cast<int64_t>(H) * D;   // dout contiguous
   CUtensorMap qm, km, vm, dom;
-  if (!sm90::make_tile_map(&qm, q, B, T_len, H, q_sb, q_st, q_sh) ||
-      !sm90::make_tile_map(&km, k, B, S, H, k_sb, k_ss, k_sh) ||
-      !sm90::make_tile_map(&vm, v, B, S, H, v_sb, v_ss, v_sh) ||
-      !sm90::make_tile_map(&dom, dout, B, T_len, H, T_len * row_st, row_st,
-                           64))
+  if (!sm90::make_tile_map(&qm, q, B, T_len, H, D, q_sb, q_st, q_sh) ||
+      !sm90::make_tile_map(&km, k, B, S, H, D, k_sb, k_ss, k_sh) ||
+      !sm90::make_tile_map(&vm, v, B, S, H, D, v_sb, v_ss, v_sh) ||
+      !sm90::make_tile_map(&dom, dout, B, T_len, H, D, T_len * row_st,
+                           row_st, D))
     return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = sizeof(DqSmem<D>) + 1024;   // + align1024
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmemBytes);
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + kB - 1) / kB, B * H);
-  flash_bwd_dq_wgmma_kernel<<<grid, kWgThreads, kDqSmemBytes, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
       qm, km, vm, dom, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, delta, kv_lens,
       static_cast<__nv_bfloat16*>(dq), T_len, S, H, scale, causal,
@@ -519,21 +572,27 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 // (mma.sync m16n8k8, tf32x3.cuh), tiles fed by cp.async
 // ---------------------------------------------------------------------------
 
-constexpr int kTfLd = tf32x3::kLdt;
-// dq: four warps of 16 q rows each; 64 keys a K/V stage
+// dq: four warps of 16 q rows each; 64 keys a K/V stage at D = 64, 32 at
+// D = 128
 constexpr int kDqWarps = 4;
-constexpr int kDqRows = 64;
 constexpr int kDqThreads = 32 * kDqWarps;
 constexpr int kDqTile = 16 * kDqWarps;       // q rows a block
-constexpr int kDqTiles = kDqRows / 8;       // n-tiles of a stage's S, dP
 
-struct DqF32Smem {
-  float q[kDqTile * kTfLd];
-  float dout[kDqTile * kTfLd];
-  float k[2][kDqRows * kTfLd];
-  float v[2][kDqRows * kTfLd];
+template <int D>
+struct DqF32 {
+  static constexpr int kLd = tf32x3::ld_for(D);     // row pitch, floats
+  static constexpr int kRows = D == 64 ? 64 : 32;   // keys a K/V stage
+  static constexpr int kTiles = kRows / 8;          // n-tiles of S, dP
+  static constexpr int kCols = D / 8;               // n-tiles of dQ
+  struct Smem {
+    float q[kDqTile * kLd];
+    float dout[kDqTile * kLd];
+    float k[2][kRows * kLd];
+    float v[2][kRows * kLd];
+  };
 };
 
+template <int D>
 __global__ void __launch_bounds__(kDqThreads)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -549,8 +608,11 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                          int64_t v_sb, int64_t v_ss, int64_t v_sh,
                          float scale, int causal, int compute_delta) {
   using namespace tf32x3;
+  using P = DqF32<D>;
+  constexpr int kLd = P::kLd, kDqRows = P::kRows, kDqTiles = P::kTiles;
+  constexpr int kCols = P::kCols;
   extern __shared__ float4 smem_f4[];
-  DqF32Smem& sm = *reinterpret_cast<DqF32Smem*>(smem_f4);
+  typename P::Smem& sm = *reinterpret_cast<typename P::Smem*>(smem_f4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t4 = lane & 3;
   const int bh = blockIdx.y;
@@ -560,9 +622,9 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb_ = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-  // o, dO and dq are contiguous [B, T, H, 64]; lse and delta [B, T, H]
-  const int64_t row_st = static_cast<int64_t>(H) * 64;
-  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * 64;
+  // o, dO and dq are contiguous [B, T, H, D]; lse and delta [B, T, H]
+  const int64_t row_st = static_cast<int64_t>(H) * D;
+  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * D;
   const int r0 = 16 * warp;            // the warp's rows of the tile
   const int qa = q0 + r0 + (lane >> 2);  // this thread's rows qa, qa + 8
 
@@ -574,16 +636,16 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
 
   // groups: Q and dO, then the first two K/V stages
   if (n_kt > 0) {
-    load_tile_async<kDqTile, kDqThreads>(sm.q, qb, q_st, q0, T_len, tid);
-    load_tile_async<kDqTile, kDqThreads>(sm.dout, dout + base, row_st, q0,
-                                         T_len, tid);
+    load_tile_async<kDqTile, kDqThreads, D>(sm.q, qb, q_st, q0, T_len, tid);
+    load_tile_async<kDqTile, kDqThreads, D>(sm.dout, dout + base, row_st, q0,
+                                            T_len, tid);
     cp_async_commit();
     for (int s = 0; s < 2; ++s) {
       if (s < n_kt) {
-        load_tile_async<kDqRows, kDqThreads>(sm.k[s], kb_, k_ss, s * kDqRows,
-                                             S, tid);
-        load_tile_async<kDqRows, kDqThreads>(sm.v[s], vb, v_ss, s * kDqRows,
-                                             S, tid);
+        load_tile_async<kDqRows, kDqThreads, D>(sm.k[s], kb_, k_ss,
+                                                s * kDqRows, S, tid);
+        load_tile_async<kDqRows, kDqThreads, D>(sm.v[s], vb, v_ss,
+                                                s * kDqRows, S, tid);
       }
       cp_async_commit();
     }
@@ -591,7 +653,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
 
   // lse and delta of this thread's two rows, while the tiles load; a row
   // past T gets 0 for both (its dq is never written). delta = rowsum(dO *
-  // O) from global memory, the row's quad of lanes 16 elements each.
+  // O) from global memory, the row's quad of lanes D / 4 elements each.
   float lse_r[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -602,11 +664,11 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     if (compute_delta) {
       float part = 0.f;
       if (in) {
-        const int64_t at = base + tq * row_st + 16 * t4;
+        const int64_t at = base + tq * row_st + (D / 4) * t4;
         const float4* op = reinterpret_cast<const float4*>(o + at);
         const float4* dp = reinterpret_cast<const float4*>(dout + at);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
+        for (int u = 0; u < D / 16; ++u) {
           const float4 ov = op[u], dv = dp[u];
           part = fmaf(dv.x, ov.x, part);
           part = fmaf(dv.y, ov.y, part);
@@ -623,9 +685,9 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     }
   }
 
-  float acc[8][4];                     // dQ: the warp's 16 rows x 64
+  float acc[kCols][4];                 // dQ: the warp's 16 rows x D
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kCols; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -643,15 +705,15 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
+      for (int ks = 0; ks < D / 8; ++ks) {
         FragA fq, fdo;
-        load_a(fq, sm.q, r0, 8 * ks, lane);
-        load_a(fdo, sm.dout, r0, 8 * ks, lane);
+        load_a(fq, sm.q, r0, 8 * ks, lane, kLd);
+        load_a(fdo, sm.dout, r0, 8 * ks, lane, kLd);
 #pragma unroll
         for (int np = 0; np < kDqTiles / 2; ++np) {
           FragB fk0, fk1, fv0, fv1;
-          load_b_nk2(fk0, fk1, sm.k[st], 16 * np, 8 * ks, lane);
-          load_b_nk2(fv0, fv1, sm.v[st], 16 * np, 8 * ks, lane);
+          load_b_nk2(fk0, fk1, sm.k[st], 16 * np, 8 * ks, lane, kLd);
+          load_b_nk2(fv0, fv1, sm.v[st], 16 * np, 8 * ks, lane, kLd);
           mma3(sc[2 * np], fq, fk0);
           mma3(sc[2 * np + 1], fq, fk1);
           mma3(dp[2 * np], fdo, fv0);
@@ -683,32 +745,53 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
       // K [keys][d] read down its rows
       // (the stage's sum in a fresh accumulator, added to dQ in f32:
       // tf32x3.cuh, "Accumulation")
-      float q_st[8][4];
+      if constexpr (D == 64) {
+        float q_st[kCols][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < kCols; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) q_st[n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) q_st[n][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kDqTiles; ++j) {
-        FragA fds;
-        acc_to_a(fds, dp[j]);
+        for (int j = 0; j < kDqTiles; ++j) {
+          FragA fds;
+          acc_to_a(fds, dp[j]);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          FragB fk;
-          load_b_kn(fk, sm.k[st], 8 * j, 8 * n, lane);
-          mma3(q_st[n], fds, fk);
+          for (int n = 0; n < kCols; ++n) {
+            FragB fk;
+            load_b_kn(fk, sm.k[st], 8 * j, 8 * n, lane, kLd);
+            mma3(q_st[n], fds, fk);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kCols; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += q_st[n][e];
+      } else {
+        // a column tile at a time (flash_fwd.cu: the same sums)
+        FragA fds[kDqTiles];
+#pragma unroll
+        for (int j = 0; j < kDqTiles; ++j) acc_to_a(fds[j], dp[j]);
+#pragma unroll
+        for (int n = 0; n < kCols; ++n) {
+          float q_st[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < kDqTiles; ++j) {
+            FragB fk;
+            load_b_kn(fk, sm.k[st], 8 * j, 8 * n, lane, kLd);
+            mma3(q_st, fds[j], fk);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += q_st[e];
         }
       }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += q_st[n][e];
     }
     __syncthreads();                   // every warp is done with stage st
     if (kt + 2 < n_kt) {
       const int kn = k0 + 2 * kDqRows;
-      load_tile_async<kDqRows, kDqThreads>(sm.k[st], kb_, k_ss, kn, S, tid);
-      load_tile_async<kDqRows, kDqThreads>(sm.v[st], vb, v_ss, kn, S, tid);
+      load_tile_async<kDqRows, kDqThreads, D>(sm.k[st], kb_, k_ss, kn, S,
+                                              tid);
+      load_tile_async<kDqRows, kDqThreads, D>(sm.v[st], vb, v_ss, kn, S,
+                                              tid);
     }
     cp_async_commit();                 // (empty past the end: the count stays)
   }
@@ -719,28 +802,35 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     if (tq >= T_len) continue;
     float* row = dq + base + tq * row_st + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kCols; ++n)
       *reinterpret_cast<float2*>(row + 8 * n) =
           make_float2(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
-// dk/dv: four warps of 16 keys each; 32 q rows a Q/dO stage
+// dk/dv: four warps of 16 keys each; 32 q rows a Q/dO stage at D = 64, 16
+// at D = 128
 constexpr int kDkvWarps = 4;
-constexpr int kDkvRows = 32;
 constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr int kDkvTile = 16 * kDkvWarps;     // keys a block
-constexpr int kDkvTiles = kDkvRows / 8;     // n-tiles of a stage's S^T
 
-struct DkvF32Smem {
-  float k[kDkvTile * kTfLd];
-  float v[kDkvTile * kTfLd];
-  float q[2][kDkvRows * kTfLd];
-  float dout[2][kDkvRows * kTfLd];
-  float lse[2][kDkvRows];
-  float delta[2][kDkvRows];
+template <int D>
+struct DkvF32 {
+  static constexpr int kLd = tf32x3::ld_for(D);     // row pitch, floats
+  static constexpr int kRows = D == 64 ? 32 : 16;   // q rows a stage
+  static constexpr int kTiles = kRows / 8;          // n-tiles of S^T, dP^T
+  static constexpr int kCols = D / 8;               // n-tiles of dK, dV
+  struct Smem {
+    float k[kDkvTile * kLd];
+    float v[kDkvTile * kLd];
+    float q[2][kRows * kLd];
+    float dout[2][kRows * kLd];
+    float lse[2][kRows];
+    float delta[2][kRows];
+  };
 };
 
+template <int D>
 __global__ void __launch_bounds__(kDkvThreads)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -756,8 +846,11 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           int64_t v_sb, int64_t v_ss, int64_t v_sh,
                           float scale, int causal) {
   using namespace tf32x3;
+  using P = DkvF32<D>;
+  constexpr int kLd = P::kLd, kDkvRows = P::kRows, kDkvTiles = P::kTiles;
+  constexpr int kCols = P::kCols;
   extern __shared__ float4 smem_f4[];
-  DkvF32Smem& sm = *reinterpret_cast<DkvF32Smem*>(smem_f4);
+  typename P::Smem& sm = *reinterpret_cast<typename P::Smem*>(smem_f4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t4 = lane & 3;
   const int bh = blockIdx.y;
@@ -767,15 +860,15 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb_ = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-  const int64_t row_st = static_cast<int64_t>(H) * 64;
-  const float* dob = dout + (static_cast<int64_t>(b) * T_len * H + h) * 64;
+  const int64_t row_st = static_cast<int64_t>(H) * D;
+  const float* dob = dout + (static_cast<int64_t>(b) * T_len * H + h) * D;
   const int64_t lrow = static_cast<int64_t>(b) * T_len * H + h;  // lse/delta
   const int r0 = 16 * warp;              // the warp's keys of the tile
   const int ka = k0 + r0 + (lane >> 2);  // this thread's keys ka, ka + 8
 
-  float dk_acc[8][4], dv_acc[8][4];      // the warp's 16 keys x 64
+  float dk_acc[kCols][4], dv_acc[kCols][4];   // the warp's 16 keys x D
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kCols; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -787,10 +880,10 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
     // one stage: the chunk's Q and dO rows, and its lse and delta
     auto load_stage = [&](int s, int chunk) {
       const int qn = chunk * kDkvRows;
-      load_tile_async<kDkvRows, kDkvThreads>(sm.q[s], qb, q_st, qn, T_len,
-                                             tid);
-      load_tile_async<kDkvRows, kDkvThreads>(sm.dout[s], dob, row_st, qn,
-                                             T_len, tid);
+      load_tile_async<kDkvRows, kDkvThreads, D>(sm.q[s], qb, q_st, qn, T_len,
+                                                tid);
+      load_tile_async<kDkvRows, kDkvThreads, D>(sm.dout[s], dob, row_st, qn,
+                                                T_len, tid);
       if (tid < 2 * kDkvRows) {
         const int r = tid % kDkvRows;
         const bool in = qn + r < T_len;
@@ -799,8 +892,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
         cp_async4((tid < kDkvRows ? sm.lse[s] : sm.delta[s]) + r, src, in);
       }
     };
-    load_tile_async<kDkvTile, kDkvThreads>(sm.k, kb_, k_ss, k0, S, tid);
-    load_tile_async<kDkvTile, kDkvThreads>(sm.v, vb, v_ss, k0, S, tid);
+    load_tile_async<kDkvTile, kDkvThreads, D>(sm.k, kb_, k_ss, k0, S, tid);
+    load_tile_async<kDkvTile, kDkvThreads, D>(sm.v, vb, v_ss, k0, S, tid);
     cp_async_commit();
     for (int s = 0; s < 2; ++s) {
       if (s < n) load_stage(s, lo + s);
@@ -822,15 +915,15 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks < 8; ++ks) {
+        for (int ks = 0; ks < D / 8; ++ks) {
           FragA fk, fv;
-          load_a(fk, sm.k, r0, 8 * ks, lane);
-          load_a(fv, sm.v, r0, 8 * ks, lane);
+          load_a(fk, sm.k, r0, 8 * ks, lane, kLd);
+          load_a(fv, sm.v, r0, 8 * ks, lane, kLd);
 #pragma unroll
           for (int np = 0; np < kDkvTiles / 2; ++np) {
             FragB fq0, fq1, fo0, fo1;
-            load_b_nk2(fq0, fq1, sm.q[st], 16 * np, 8 * ks, lane);
-            load_b_nk2(fo0, fo1, sm.dout[st], 16 * np, 8 * ks, lane);
+            load_b_nk2(fq0, fq1, sm.q[st], 16 * np, 8 * ks, lane, kLd);
+            load_b_nk2(fo0, fo1, sm.dout[st], 16 * np, 8 * ks, lane, kLd);
             mma3(sc[2 * np], fk, fq0);
             mma3(sc[2 * np + 1], fk, fq1);
             mma3(dp[2 * np], fv, fo0);
@@ -864,32 +957,61 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
         // P^T, dS^T from the accumulators, dO and Q read down their rows
         // (the chunk's sums in fresh accumulators, added to dV and dK in
         // f32: tf32x3.cuh, "Accumulation")
-        float v_st[8][4], k_st[8][4];
+        if constexpr (D == 64) {
+          float v_st[kCols][4], k_st[kCols][4];
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+          for (int c = 0; c < kCols; ++c)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) v_st[c][e] = k_st[c][e] = 0.f;
+            for (int e = 0; e < 4; ++e) v_st[c][e] = k_st[c][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < kDkvTiles; ++j) {
-          FragA fp, fds;
-          acc_to_a(fp, sc[j]);
-          acc_to_a(fds, dp[j]);
+          for (int j = 0; j < kDkvTiles; ++j) {
+            FragA fp, fds;
+            acc_to_a(fp, sc[j]);
+            acc_to_a(fds, dp[j]);
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            FragB fo, fq;
-            load_b_kn(fo, sm.dout[st], 8 * j, 8 * c, lane);
-            load_b_kn(fq, sm.q[st], 8 * j, 8 * c, lane);
-            mma3(v_st[c], fp, fo);
-            mma3(k_st[c], fds, fq);
+            for (int c = 0; c < kCols; ++c) {
+              FragB fo, fq;
+              load_b_kn(fo, sm.dout[st], 8 * j, 8 * c, lane, kLd);
+              load_b_kn(fq, sm.q[st], 8 * j, 8 * c, lane, kLd);
+              mma3(v_st[c], fp, fo);
+              mma3(k_st[c], fds, fq);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dv_acc[c][e] += v_st[c][e];
+              dk_acc[c][e] += k_st[c][e];
+            }
+        } else {
+          // a column tile at a time (flash_fwd.cu: the same sums; here it
+          // keeps two [16 x 128] fresh accumulators out of the registers)
+          FragA fp[kDkvTiles], fds[kDkvTiles];
+#pragma unroll
+          for (int j = 0; j < kDkvTiles; ++j) {
+            acc_to_a(fp[j], sc[j]);
+            acc_to_a(fds[j], dp[j]);
+          }
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            float v_st[4] = {0.f, 0.f, 0.f, 0.f};
+            float k_st[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int j = 0; j < kDkvTiles; ++j) {
+              FragB fo, fq;
+              load_b_kn(fo, sm.dout[st], 8 * j, 8 * c, lane, kLd);
+              load_b_kn(fq, sm.q[st], 8 * j, 8 * c, lane, kLd);
+              mma3(v_st, fp[j], fo);
+              mma3(k_st, fds[j], fq);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dv_acc[c][e] += v_st[e];
+              dk_acc[c][e] += k_st[e];
+            }
           }
         }
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dv_acc[c][e] += v_st[c][e];
-            dk_acc[c][e] += k_st[c][e];
-          }
       }
       __syncthreads();                 // every warp is done with stage st
       if (it + 2 < n) load_stage(st, lo + it + 2);
@@ -901,10 +1023,10 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int s = ka + 8 * i;
     if (s >= S) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * 64
+    const int64_t row = ((static_cast<int64_t>(b) * S + s) * H + h) * D
                         + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < kCols; ++c) {
       *reinterpret_cast<float2*>(dk + row + 8 * c) = make_float2(
           dk_acc[c][2 * i] * scale, dk_acc[c][2 * i + 1] * scale);
       *reinterpret_cast<float2*>(dv + row + 8 * c) =
@@ -913,6 +1035,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   }
 }
 
+template <int D>
 int launch_dq_tf32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, const int* kv_lens, void* dq, int B,
@@ -920,13 +1043,13 @@ int launch_dq_tf32(const void* q, const void* k, const void* v,
                    int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                    int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
                    int causal, int compute_delta, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(DqF32Smem);
+  constexpr size_t smem = sizeof(typename DqF32<D>::Smem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + kDqTile - 1) / kDqTile, B * H);
-  flash_bwd_dq_tf32_kernel<<<grid, kDqThreads, smem, stream>>>(
+  flash_bwd_dq_tf32_kernel<D><<<grid, kDqThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(dout), lse, delta, kv_lens,
@@ -935,6 +1058,7 @@ int launch_dq_tf32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int D>
 int launch_dkv_tf32(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     const int* kv_lens, void* dk, void* dv, int B, int T_len,
@@ -942,13 +1066,13 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v,
                     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                     int64_t v_ss, int64_t v_sh, float scale, int causal,
                     cudaStream_t stream) {
-  constexpr size_t smem = sizeof(DkvF32Smem);
+  constexpr size_t smem = sizeof(typename DkvF32<D>::Smem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkv_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kDkvTile - 1) / kDkvTile, B * H);
-  flash_bwd_dkv_tf32_kernel<<<grid, kDkvThreads, smem, stream>>>(
+  flash_bwd_dkv_tf32_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, kv_lens, static_cast<float*>(dk), static_cast<float*>(dv), T_len,
@@ -957,14 +1081,52 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// the two launches at head width D, by dtype
+template <int D>
+int dq_at(const void* q, const void* k, const void* v, const void* o,
+          const void* dout, const float* lse, float* delta,
+          const int* kv_lens, void* dq, int B, int T, int S, int H,
+          int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb,
+          int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+          int64_t v_sh, float scale, int causal, int compute_delta,
+          int dtype, cudaStream_t st) {
+  if (dtype == kF32)
+    return launch_dq_tf32<D>(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
+                             S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
+                             v_ss, v_sh, scale, causal, compute_delta, st);
+  if (dtype == kBF16)
+    return launch_dq_bf16<D>(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
+                             S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
+                             v_ss, v_sh, scale, causal, compute_delta, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int dkv_at(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, const int* kv_lens,
+           void* dk, void* dv, int B, int T, int S, int H, int64_t q_sb,
+           int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+           int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+           float scale, int causal, int dtype, cudaStream_t st) {
+  if (dtype == kF32)
+    return launch_dkv_tf32<D>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B,
+                              T, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                              v_sb, v_ss, v_sh, scale, causal, st);
+  if (dtype == kBF16)
+    return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B,
+                              T, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                              v_sb, v_ss, v_sh, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// q [B, T, H, D] and k/v [B, S, H, D] with element strides (innermost
-// stride 1); o, dout and dq contiguous [B, T, H, D] in q's dtype; lse and
-// delta contiguous [B, T, H] f32 (delta is written when compute_delta is
-// 1, read otherwise); kv_lens [B] int32 in [1, S] or null. Returns the
-// launch's cudaError_t (0 on success).
+// q [B, T, H, D] and k/v [B, S, H, D] (D = 64 or 128) with element
+// strides (innermost stride 1); o, dout and dq contiguous [B, T, H, D] in
+// q's dtype; lse and delta contiguous [B, T, H] f32 (delta is written when
+// compute_delta is 1, read otherwise); kv_lens [B] int32 in [1, S] or
+// null. Returns the launch's cudaError_t (0 on success).
 extern "C" int paddle_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, const int* kv_lens,
@@ -974,16 +1136,15 @@ extern "C" int paddle_flash_attention_bwd_dq(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, int causal, int compute_delta, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (D != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_dq_tf32(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
-                          S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
-                          v_ss, v_sh, scale, causal, compute_delta, st);
-  if (dtype == kBF16)
-    return launch_dq_bf16(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T,
-                          S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
-                          v_ss, v_sh, scale, causal, compute_delta, st);
+  if (D == 64)
+    return dq_at<64>(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T, S, H,
+                     q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                     scale, causal, compute_delta, dtype, st);
+  if (D == 128)
+    return dq_at<128>(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T, S, H,
+                      q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                      scale, causal, compute_delta, dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1000,16 +1161,14 @@ extern "C" int paddle_flash_attention_bwd_dkv(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, int causal, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (D != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_dkv_tf32(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T,
-                           S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
-                           v_ss, v_sh, scale, causal, st);
-  if (dtype == kBF16)
-    return launch_dkv_bf16(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T,
-                           S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb,
-                           v_ss, v_sh, scale, causal, st);
+  if (D == 64)
+    return dkv_at<64>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T, S, H,
+                      q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                      scale, causal, dtype, st);
+  if (D == 128)
+    return dkv_at<128>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T, S,
+                       H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                       v_sh, scale, causal, dtype, st);
   return (int)cudaErrorInvalidValue;
 }
-

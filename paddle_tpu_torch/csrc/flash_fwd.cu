@@ -43,6 +43,21 @@
 // transpose in shared memory. The one stated deviation from the plain
 // version: P is rounded to bf16 before that product (l sums the f32 P).
 //
+// Head widths. Both bodies are templates on D and are built for D = 64
+// and D = 128 (the wrapper zero-pads any other multiple of 8 up to 128 to
+// the next of them). At D = 128 the bf16 tiles are two 64-column TMA
+// boxes each, Q.K^T takes 8 k steps of 16, and O is two m64n64
+// accumulators (one a 64-column half, 64 f32 registers a thread in all),
+// each P.V half its own wgmma; shared memory is Q plus two K/V stages,
+// 80 KB. The f32 body at D = 128 stages 32 keys (Q plus two stages,
+// 101 KB, in rows of 132 floats) and sums P.V a column tile at a time
+// (every key of the stage into a fresh 4-register accumulator, then into
+// O), which keeps the same sums with no second [16 x 128] accumulator.
+//
+// Causal masks are top-left aligned (key j is live for query i when
+// j <= i), as JAX's tril(ones(T, S)) and the TPU kernel's q_pos >= k_pos:
+// at S != T the k bounds and the diagonal tests below hold as they are.
+//
 // In both bodies K tiles past the causal diagonal or past kv_len are
 // never loaded (_k_block_hi), and q, k and v are read in place through
 // their strides (no head transpose in device memory); the innermost
@@ -64,21 +79,27 @@ constexpr float kLog2e = 1.4426950408889634f;
 // tf32x3.cuh), tiles fed by cp.async
 // ---------------------------------------------------------------------------
 
-constexpr int kTfLd = tf32x3::kLdt;
-// four warps of 16 q rows each; 64 keys a K/V stage (measured against
-// 32 keys and eight warps: tools/flash_fwd_f32_variants.py)
+// four warps of 16 q rows each; 64 keys a K/V stage at D = 64 (measured
+// against 32 keys and eight warps: tools/flash_f32_variants.py), 32 at
+// D = 128
 constexpr int kFwdWarps = 4;
-constexpr int kFwdKeys = 64;
 constexpr int kFwdThreads = 32 * kFwdWarps;
 constexpr int kFwdTile = 16 * kFwdWarps;     // q rows a block
-constexpr int kFwdTiles = kFwdKeys / 8;      // n-tiles of a stage's S
 
-struct FwdF32Smem {
-  float q[kFwdTile * kTfLd];
-  float k[2][kFwdKeys * kTfLd];
-  float v[2][kFwdKeys * kTfLd];
+template <int D>
+struct FwdF32 {
+  static constexpr int kLd = tf32x3::ld_for(D);    // row pitch, floats
+  static constexpr int kKeys = D == 64 ? 64 : 32;  // keys a K/V stage
+  static constexpr int kTiles = kKeys / 8;         // n-tiles of a stage's S
+  static constexpr int kCols = D / 8;              // n-tiles of O
+  struct Smem {
+    float q[kFwdTile * kLd];
+    float k[2][kKeys * kLd];
+    float v[2][kKeys * kLd];
+  };
 };
 
+template <int D>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -91,8 +112,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
                       int64_t v_sb, int64_t v_ss, int64_t v_sh,
                       float scale, int causal) {
   using namespace tf32x3;
+  using P = FwdF32<D>;
+  constexpr int kLd = P::kLd, kKeys = P::kKeys, kTiles = P::kTiles;
+  constexpr int kCols = P::kCols;
   extern __shared__ float4 smem_f4[];
-  FwdF32Smem& sm = *reinterpret_cast<FwdF32Smem*>(smem_f4);
+  typename P::Smem& sm = *reinterpret_cast<typename P::Smem*>(smem_f4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t4 = lane & 3;
   const int bh = blockIdx.y;
@@ -109,16 +133,16 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   // diagonal or past kv_len hold p == 0 exactly and are never loaded
   int k_end = kv_len;
   if (causal) k_end = min(k_end, q0 + kFwdTile);
-  const int n_kt = (k_end + kFwdKeys - 1) / kFwdKeys;   // >= 1: kv_len >= 1
+  const int n_kt = (k_end + kKeys - 1) / kKeys;   // >= 1: kv_len >= 1
 
   // groups: Q with the first K/V stage, then the second stage
-  load_tile_async<kFwdTile, kFwdThreads>(sm.q, qb, q_st, q0, T_len, tid);
+  load_tile_async<kFwdTile, kFwdThreads, D>(sm.q, qb, q_st, q0, T_len, tid);
   for (int s = 0; s < 2; ++s) {
     if (s < n_kt) {
-      load_tile_async<kFwdKeys, kFwdThreads>(sm.k[s], kb_, k_ss,
-                                             s * kFwdKeys, S, tid);
-      load_tile_async<kFwdKeys, kFwdThreads>(sm.v[s], vb, v_ss,
-                                             s * kFwdKeys, S, tid);
+      load_tile_async<kKeys, kFwdThreads, D>(sm.k[s], kb_, k_ss, s * kKeys,
+                                             S, tid);
+      load_tile_async<kKeys, kFwdThreads, D>(sm.v[s], vb, v_ss, s * kKeys,
+                                             S, tid);
     }
     cp_async_commit();
   }
@@ -129,34 +153,34 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   // the one inexact factor, as the backward's recompute takes it, so the
   // rounding of log2(e) scales no more than that difference.
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float acc[8][4];                       // O: the warp's 16 rows x 64
+  float acc[kCols][4];                   // O: the warp's 16 rows x D
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kCols; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt & 1;
-    const int k0 = kt * kFwdKeys;
+    const int k0 = kt * kKeys;
     cp_async_wait<1>();                  // this thread's copies of stage kt
     __syncthreads();                     // everyone's
     // the warp's rows see none of the stage's keys past the diagonal
     // (stage 0 always has key 0 live for every row, so m is real after it)
     if (!causal || k0 <= q0 + r0 + 15) {
-      // S = Q . K^T: [16 rows x kFwdKeys keys]
-      float sc[kFwdTiles][4];
+      // S = Q . K^T: [16 rows x kKeys keys]
+      float sc[kTiles][4];
 #pragma unroll
-      for (int j = 0; j < kFwdTiles; ++j)
+      for (int j = 0; j < kTiles; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
+      for (int ks = 0; ks < D / 8; ++ks) {
         FragA fq;
-        load_a(fq, sm.q, r0, 8 * ks, lane);
+        load_a(fq, sm.q, r0, 8 * ks, lane, kLd);
 #pragma unroll
-        for (int np = 0; np < kFwdTiles / 2; ++np) {
+        for (int np = 0; np < kTiles / 2; ++np) {
           FragB fk0, fk1;
-          load_b_nk2(fk0, fk1, sm.k[st], 16 * np, 8 * ks, lane);
+          load_b_nk2(fk0, fk1, sm.k[st], 16 * np, 8 * ks, lane, kLd);
           mma3(sc[2 * np], fq, fk0);
           mma3(sc[2 * np + 1], fq, fk1);
         }
@@ -165,11 +189,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
       // masks only on edge stages (kv_len, the causal diagonal); then the
       // online softmax on the fragments: a row lies in a quad of lanes,
       // so its max takes two shuffles
-      const bool edge = k0 + kFwdKeys > kv_len ||
-                        (causal && k0 + kFwdKeys - 1 > q0 + r0);
+      const bool edge = k0 + kKeys > kv_len ||
+                        (causal && k0 + kKeys - 1 > q0 + r0);
       float mx[2] = {kNeg, kNeg};
 #pragma unroll
-      for (int j = 0; j < kFwdTiles; ++j)
+      for (int j = 0; j < kTiles; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
@@ -193,7 +217,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
         l[i] *= corr[i];
       }
 #pragma unroll
-      for (int j = 0; j < kFwdTiles; ++j)
+      for (int j = 0; j < kTiles; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
@@ -202,7 +226,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
           l[i] += p;
         }
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < kCols; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
 
@@ -210,33 +234,54 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
       // [keys][d] read down its rows
       // (the stage's sum in a fresh accumulator, added to O in f32:
       // tf32x3.cuh, "Accumulation")
-      float o_st[8][4];
+      if constexpr (D == 64) {
+        float o_st[kCols][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < kCols; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o_st[n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) o_st[n][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kFwdTiles; ++j) {
-        FragA fp;
-        acc_to_a(fp, sc[j]);
+        for (int j = 0; j < kTiles; ++j) {
+          FragA fp;
+          acc_to_a(fp, sc[j]);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          FragB fv;
-          load_b_kn(fv, sm.v[st], 8 * j, 8 * n, lane);
-          mma3(o_st[n], fp, fv);
+          for (int n = 0; n < kCols; ++n) {
+            FragB fv;
+            load_b_kn(fv, sm.v[st], 8 * j, 8 * n, lane, kLd);
+            mma3(o_st[n], fp, fv);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kCols; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += o_st[n][e];
+      } else {
+        // column tile by column tile, each over every key of the stage
+        // in the same order: the same sums, with one 4-register fresh
+        // accumulator live in place of [16 x D]
+        FragA fp[kTiles];
+#pragma unroll
+        for (int j = 0; j < kTiles; ++j) acc_to_a(fp[j], sc[j]);
+#pragma unroll
+        for (int n = 0; n < kCols; ++n) {
+          float o_st[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) {
+            FragB fv;
+            load_b_kn(fv, sm.v[st], 8 * j, 8 * n, lane, kLd);
+            mma3(o_st, fp[j], fv);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += o_st[e];
         }
       }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += o_st[n][e];
     }
     __syncthreads();                     // every warp is done with stage st
     if (kt + 2 < n_kt) {
-      const int kn = k0 + 2 * kFwdKeys;
-      load_tile_async<kFwdKeys, kFwdThreads>(sm.k[st], kb_, k_ss, kn, S,
+      const int kn = k0 + 2 * kKeys;
+      load_tile_async<kKeys, kFwdThreads, D>(sm.k[st], kb_, k_ss, kn, S,
                                              tid);
-      load_tile_async<kFwdKeys, kFwdThreads>(sm.v[st], vb, v_ss, kn, S,
+      load_tile_async<kKeys, kFwdThreads, D>(sm.v[st], vb, v_ss, kn, S,
                                              tid);
     }
     cp_async_commit();                 // (empty past the end: the count stays)
@@ -247,7 +292,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  // o and lse are contiguous [B, T, H, 64] and [B, T, H]
+  // o and lse are contiguous [B, T, H, D] and [B, T, H]
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tq = qa + 8 * i;
@@ -255,28 +300,29 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     // a row with no live key has l == 0 (the l_safe guard of the TPU kernel)
     const float ls = l[i] == 0.f ? 1.f : l[i];
     const int64_t row = (static_cast<int64_t>(b) * T_len + tq) * H + h;
-    float* orow = o + row * 64 + 2 * t4;
+    float* orow = o + row * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kCols; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n) =
           make_float2(acc[n][2 * i] / ls, acc[n][2 * i + 1] / ls);
     if (t4 == 0) lse[row] = m[i] + logf(ls);
   }
 }
 
+template <int D>
 int launch_tf32(const void* q, const void* k, const void* v,
                 const int* kv_lens, void* o, float* lse, int B, int T_len,
                 int S, int H, int64_t q_sb, int64_t q_st, int64_t q_sh,
                 int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                 int64_t v_ss, int64_t v_sh, float scale, int causal,
                 cudaStream_t stream) {
-  constexpr size_t smem = sizeof(FwdF32Smem);
+  constexpr size_t smem = sizeof(typename FwdF32<D>::Smem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + kFwdTile - 1) / kFwdTile, B * H);
-  flash_fwd_tf32_kernel<<<grid, kFwdThreads, smem, stream>>>(
+  flash_fwd_tf32_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), kv_lens, static_cast<float*>(o), lse,
       T_len, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
@@ -291,15 +337,21 @@ int launch_tf32(const void* q, const void* k, const void* v,
 constexpr int kWgThreads = 128;   // one warpgroup: 64 q rows
 constexpr int kStages = 2;        // K/V ring depth
 
+template <int D>
 struct FwdSmem {                  // every tile 1024-byte aligned
-  __nv_bfloat16 q[64 * 64];
-  __nv_bfloat16 k[kStages][64 * 64];
-  __nv_bfloat16 v[kStages][64 * 64];
+  static constexpr int kHalves = D / 64;
+  __nv_bfloat16 q[64 * D];
+  __nv_bfloat16 k[kStages][64 * D];
+  __nv_bfloat16 v[kStages][64 * D];
   uint64_t q_bar;
   uint64_t full[kStages];
 };
-constexpr size_t kFwdSmemBytes = sizeof(FwdSmem) + 1024;  // + align1024
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(FwdSmem<D>) + 1024;   // + align1024
+}
 
+template <int D>
 __global__ void __launch_bounds__(kWgThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -309,8 +361,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        int T_len, int S, int H, float scale_log2,
                        int causal) {
   using namespace sm90;
+  constexpr int kH = FwdSmem<D>::kHalves;
+  constexpr uint32_t kTile = kH * kTileBytes;    // one [64 x D] tile
   extern __shared__ uint8_t smem_raw[];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(align1024(smem_raw));
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align1024(smem_raw));
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -331,12 +385,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&sm.q_bar, kTileBytes);
-    tma_load_tile(sm.q, &qmap, &sm.q_bar, h, q0, b);
+    mbar_expect_tx(&sm.q_bar, kTile);
+    tma_load_tile<kH>(sm.q, &qmap, &sm.q_bar, h, q0, b);
     for (int s = 0; s < kStages && s < hi; ++s) {
-      mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-      tma_load_tile(sm.k[s], &kmap, &sm.full[s], h, s * kBK, b);
-      tma_load_tile(sm.v[s], &vmap, &sm.full[s], h, s * kBK, b);
+      mbar_expect_tx(&sm.full[s], 2 * kTile);
+      tma_load_tile<kH>(sm.k[s], &kmap, &sm.full[s], h, s * kBK, b);
+      tma_load_tile<kH>(sm.v[s], &vmap, &sm.full[s], h, s * kBK, b);
     }
   }
 
@@ -345,9 +399,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // thread's 16 columns (the quad's four partials are summed at the end)
   const int row0 = acc_row(tid, 0);
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float acc[32], sc[32];
+  float acc[kH][32], sc[32];             // O by 64-column halves
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = sc[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kH; ++c) acc[c][i] = 0.f;
+  }
   mbar_wait(&sm.q_bar, 0);
 
   for (int kt = 0; kt < hi; ++kt) {
@@ -357,7 +415,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // S = Q . K^T on the tensor cores
     wgmma_fence();
-    gemm_abt(sc, sm.q, sm.k[st]);
+    gemm_abt<kH>(sc, sm.q, sm.k[st]);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(sc);
@@ -397,26 +455,31 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const float p = exp2f(sc[i] - m[r]);
       sc[i] = p;
       l[r] += p;
-      acc[i] *= corr[r];
+#pragma unroll
+      for (int c = 0; c < kH; ++c) acc[c][i] *= corr[r];
     }
 
     // O += P . V: P rounded to bf16 in registers as the A operand, V
-    // [key][d] read MN-major from shared memory
+    // [key][d] read MN-major from shared memory, one wgmma chain a half
     uint32_t pf[16];
     acc_to_frag(sc, pf);
     wgmma_fence();
-    gemm_pb(acc, pf, sm.v[st]);
+#pragma unroll
+    for (int c = 0; c < kH; ++c)
+      gemm_pb(acc[c], pf, reinterpret_cast<const uint8_t*>(sm.v[st])
+                              + c * kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(acc);
+#pragma unroll
+    for (int c = 0; c < kH; ++c) fence_acc(acc[c]);
 
     // every warp is done with stage st: refill it with tile kt + kStages
     __syncthreads();
     if (tid == 0 && kt + kStages < hi) {
       const int kn = (kt + kStages) * kBK;
-      mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
-      tma_load_tile(sm.k[st], &kmap, &sm.full[st], h, kn, b);
-      tma_load_tile(sm.v[st], &vmap, &sm.full[st], h, kn, b);
+      mbar_expect_tx(&sm.full[st], 2 * kTile);
+      tma_load_tile<kH>(sm.k[st], &kmap, &sm.full[st], h, kn, b);
+      tma_load_tile<kH>(sm.v[st], &vmap, &sm.full[st], h, kn, b);
     }
   }
 
@@ -432,17 +495,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // a row with no live key has l == 0 (the l_safe guard of the TPU kernel)
     const float ls = l[r] == 0.f ? 1.f : l[r];
     const int64_t row = (static_cast<int64_t>(b) * T_len + t) * H + h;
-    __nv_bfloat16* orow = o + row * 64;
+    __nv_bfloat16* orow = o + row * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(orow + acc_col(tid, i)) =
-          __floats2bfloat162_rn(acc[i] / ls, acc[i + 1] / ls);
-    }
+    for (int c = 0; c < kH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c
+                                           + acc_col(tid, i)) =
+            __floats2bfloat162_rn(acc[c][i] / ls, acc[c][i + 1] / ls);
+      }
     if (tid % 4 == 0) lse[row] = (m[r] + log2f(ls)) / kLog2e;
   }
 }
 
+template <int D>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const int* kv_lens, void* o, float* lse, int B, int T_len,
                 int S, int H, int64_t q_sb, int64_t q_st, int64_t q_sh,
@@ -450,27 +517,45 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 int64_t v_ss, int64_t v_sh, float scale, int causal,
                 cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!sm90::make_tile_map(&qm, q, B, T_len, H, q_sb, q_st, q_sh) ||
-      !sm90::make_tile_map(&km, k, B, S, H, k_sb, k_ss, k_sh) ||
-      !sm90::make_tile_map(&vm, v, B, S, H, v_sb, v_ss, v_sh))
+  if (!sm90::make_tile_map(&qm, q, B, T_len, H, D, q_sb, q_st, q_sh) ||
+      !sm90::make_tile_map(&km, k, B, S, H, D, k_sb, k_ss, k_sh) ||
+      !sm90::make_tile_map(&vm, v, B, S, H, D, v_sb, v_ss, v_sh))
     return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kFwdSmemBytes);
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + kBQ - 1) / kBQ, B * H);
-  flash_fwd_wgmma_kernel<<<grid, kWgThreads, kFwdSmemBytes, stream>>>(
+  flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
       qm, km, vm, kv_lens, static_cast<__nv_bfloat16*>(o), lse, T_len, S, H,
       scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, const int* kv_lens,
+           void* o, float* lse, int B, int T, int S, int H, int64_t q_sb,
+           int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+           int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+           float scale, int causal, int dtype, cudaStream_t st) {
+  if (dtype == kF32)
+    return launch_tf32<D>(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
+                          q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                          causal, st);
+  if (dtype == kBF16)
+    return launch_bf16<D>(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
+                          q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                          causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// q [B, T, H, D] and k/v [B, S, H, D] with element strides (innermost
-// stride 1); kv_lens [B] int32 in [1, S] or null; o [B, T, H, D]
-// contiguous in q's dtype; lse [B, T, H] contiguous f32. Returns the
+// q [B, T, H, D] and k/v [B, S, H, D] (D = 64 or 128) with element
+// strides (innermost stride 1); kv_lens [B] int32 in [1, S] or null;
+// o [B, T, H, D] contiguous in q's dtype; lse [B, T, H] contiguous f32. Returns the
 // launch's cudaError_t (0 on success).
 extern "C" int paddle_flash_attention_fwd(
     const void* q, const void* k, const void* v, const int* kv_lens, void* o,
@@ -480,15 +565,14 @@ extern "C" int paddle_flash_attention_fwd(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, int causal, int dtype, void* stream) {
   using namespace paddle_tpu_torch;
-  if (D != 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_tf32(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
+  if (D == 64)
+    return launch<64>(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st, q_sh,
+                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
+                      dtype, st);
+  if (D == 128)
+    return launch<128>(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
                        q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                       causal, st);
-  if (dtype == kBF16)
-    return launch_bf16(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
-                       q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                       causal, st);
+                       causal, dtype, st);
   return (int)cudaErrorInvalidValue;
 }

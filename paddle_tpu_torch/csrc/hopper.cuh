@@ -6,6 +6,9 @@
 // The tiles these kernels move are [64 rows x 64] bf16: one 128-byte row
 // per sequence position, so a tile is 8 KB and one 128B-swizzle atom is 8
 // rows (1024 bytes). Every tile sits at a 1024-byte-aligned shared address.
+// A head of width D = 128 is two such tiles side by side (a 128B-swizzle
+// box holds 64 bf16 columns): columns 0-63 at the tile's address and
+// columns 64-127 kTileBytes past it, each loaded by a box of its own.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: no libcuda link)
@@ -61,17 +64,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
 
 // ---- TMA -------------------------------------------------------------------
 
-// One [64 x 64] tile of a (D, H, L, B) map: positions l0..l0+63 of head h
-// of sample b. Rows past the map's L arrive as zeros.
-__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int h, int l0,
-                                              int b) {
+// One [64 x 64] box of a (D, H, L, B) map: columns c0..c0+63 of
+// positions l0..l0+63 of head h of sample b. Rows past the map's L arrive
+// as zeros.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int c0, int h,
+                                             int l0, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(l0), "r"(b)
+         "r"(smem_u32(bar)), "r"(c0), "r"(h), "r"(l0), "r"(b)
       : "memory");
+}
+
+// One [64 x D] tile (D / 64 boxes, kHalves = D / 64): positions l0..l0+63
+// of head h of sample b, each 64-column half kTileBytes past the last.
+// The barrier expects kHalves * kTileBytes for it.
+template <int kHalves>
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int h, int l0,
+                                              int b) {
+#pragma unroll
+  for (int c = 0; c < kHalves; ++c)
+    tma_load_box(static_cast<uint8_t*>(dst) + c * kTileBytes, map, bar,
+                 64 * c, h, l0, b);
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -152,14 +169,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 #undef PTT_WGMMA_D32
 #undef PTT_WGMMA_OUT
 
-// C = A . B^T over a 64-wide reduction: A [64 rows][64] and B [64 rows][64]
-// K-major tiles, four k steps of 16. Issues; the caller commits and waits.
+// C = A . B^T over a (64 * kHalves)-wide reduction: A [64 rows][D] and B
+// [64 rows][D] K-major tiles of kHalves 64-column halves, four k steps of
+// 16 a half. Issues; the caller commits and waits.
+template <int kHalves>
 __device__ __forceinline__ void gemm_abt(float (&d)[32], const void* a,
                                          const void* b) {
-  const uint64_t da = smem_desc(a), db = smem_desc(b);
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    wgmma_ss(d, da + 2 * k, db + 2 * k, k > 0);   // +32 bytes a step
+  for (int c = 0; c < kHalves; ++c) {
+    const uint64_t da = smem_desc(static_cast<const uint8_t*>(a)
+                                  + c * kTileBytes);
+    const uint64_t db = smem_desc(static_cast<const uint8_t*>(b)
+                                  + c * kTileBytes);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)   // +32 bytes a step
+      wgmma_ss(d, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+  }
 }
 
 // d += P . B over 64 rows of B: P as the bf16 fragments of a 64 x 64
@@ -225,22 +250,23 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a bf16 [B, L, H, 64] tensor read through its element strides
-// (batch sb, position sl, head sh; innermost 1) as (D, H, L, B), loaded in
-// [64 positions x 64] boxes with the 128-byte swizzle. Needs a 16-byte
-// aligned base and strides of 16-byte multiples (the wrapper checks; the
-// stride of a dimension of size 1 is not read).
+// The map of a bf16 [B, L, H, D] tensor (D = 64 or 128) read through its
+// element strides (batch sb, position sl, head sh; innermost 1) as
+// (D, H, L, B), loaded in [64 positions x 64] boxes with the 128-byte
+// swizzle (two boxes a tile at D = 128). Needs a 16-byte aligned base and
+// strides of 16-byte multiples (the wrapper checks; the stride of a
+// dimension of size 1 is not read).
 // Returns false when the map is refused.
 inline bool make_tile_map(CUtensorMap* map, const void* base, int B, int L,
-                          int H, int64_t sb, int64_t sl, int64_t sh) {
+                          int H, int D, int64_t sb, int64_t sl, int64_t sh) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)L,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
                               (cuuint64_t)B};
   // a dimension of size 1 is never stepped: any legal stride will do
-  const cuuint64_t strides[3] = {(cuuint64_t)(H == 1 ? 64 : sh) * 2,
-                                 (cuuint64_t)(L == 1 ? 64 : sl) * 2,
-                                 (cuuint64_t)(B == 1 ? 64 : sb) * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)(H == 1 ? D : sh) * 2,
+                                 (cuuint64_t)(L == 1 ? D : sl) * 2,
+                                 (cuuint64_t)(B == 1 ? D : sb) * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTileRows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,

@@ -27,20 +27,21 @@ namespace {
 
 using namespace decode;
 
-// The page pools, as a kernel argument: rows(b, h, lane) is the row loader
-// of one (b, h) read, at this lane's first element.
+// The page pools, as a kernel argument: rows<kPer>(b, h, lane) is the row
+// loader of one (b, h) read, for this lane's chunks.
 template <typename T, bool kCarry>
 struct PagedCache {                    // #6: pools [P, bs, H, D] of T
   const T* k_pool;
   const T* v_pool;
   const int* tables;                   // [B, NB]
-  int bs, NB, H;
-  __device__ __forceinline__ PagedRows<T, kCarry> rows(int b, int h,
-                                                       int lane) const {
+  int bs, NB, H, D;
+  template <int kPer>
+  __device__ __forceinline__ PagedRows<kPer, T, kCarry> rows(
+      int b, int h, Lane ln) const {
     return {k_pool, v_pool,
             TableRows<kCarry>{tables + static_cast<int64_t>(b) * NB, bs, NB,
                               H, h},
-            lane};
+            D, ln};
   }
 };
 
@@ -51,26 +52,27 @@ struct PagedCacheQ {                   // #7: int8 pools, f32 scale pools
   const float* ks_pool;
   const float* vs_pool;
   const int* tables;
-  int bs, NB, H;
-  __device__ __forceinline__ PagedRowsQ<kCarry> rows(int b, int h,
-                                                     int lane) const {
+  int bs, NB, H, D;
+  template <int kPer>
+  __device__ __forceinline__ PagedRowsQ<kPer, kCarry> rows(int b, int h,
+                                                           Lane ln) const {
     return {k_pool, v_pool, ks_pool, vs_pool,
             TableRows<kCarry>{tables + static_cast<int64_t>(b) * NB, bs, NB,
                               H, h},
-            lane};
+            D, ln};
   }
 };
 
 template <typename T, bool kCarry>
 int launch_paged(const void* q, const void* k_pool, const void* v_pool,
                  const int* tables, const int* pos, float* o, float* part,
-                 int* tickets, int B, int H, int bs, int NB, int splits,
-                 int chunk, int64_t q_sb, int64_t q_sh, float scale,
-                 cudaStream_t st) {
+                 int* tickets, int B, int H, int D, int bs, int NB,
+                 int splits, int chunk, int64_t q_sb, int64_t q_sh,
+                 float scale, cudaStream_t st) {
   const PagedCache<T, kCarry> c{static_cast<const T*>(k_pool),
                                 static_cast<const T*>(v_pool), tables, bs,
-                                NB, H};
-  return launch<T>(q, c, pos, o, part, tickets, B, H, NB * bs, splits,
+                                NB, H, D};
+  return launch<T>(q, c, pos, o, part, tickets, B, H, D, NB * bs, splits,
                    chunk, q_sb, q_sh, scale, st);
 }
 
@@ -78,19 +80,20 @@ template <typename TQ, bool kCarry>
 int launch_paged_q(const void* q, const int8_t* k_pool, const float* k_scale,
                    const int8_t* v_pool, const float* v_scale,
                    const int* tables, const int* pos, float* o, float* part,
-                   int* tickets, int B, int H, int bs, int NB, int splits,
-                   int chunk, int64_t q_sb, int64_t q_sh, float scale,
-                   cudaStream_t st) {
+                   int* tickets, int B, int H, int D, int bs, int NB,
+                   int splits, int chunk, int64_t q_sb, int64_t q_sh,
+                   float scale, cudaStream_t st) {
   const PagedCacheQ<kCarry> c{k_pool, v_pool, k_scale, v_scale, tables, bs,
-                              NB, H};
-  return launch<TQ>(q, c, pos, o, part, tickets, B, H, NB * bs, splits,
+                              NB, H, D};
+  return launch<TQ>(q, c, pos, o, part, tickets, B, H, D, NB * bs, splits,
                     chunk, q_sb, q_sh, scale, st);
 }
 
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// #6. q [B, H, D] with element strides (innermost 1); k_pool/v_pool
+// #6. q [B, H, D] (D a multiple of 8 up to 128) with element strides
+// (innermost 1); k_pool/v_pool
 // [P, bs, H, D] contiguous and 16-byte aligned; tables [B, NB] int32
 // contiguous, every entry in [0, P); pos [B] int32 >= 0 (rows past NB*bs
 // are not read); o [B, H, D] contiguous f32. ``splits`` chunks of ``chunk``
@@ -112,8 +115,8 @@ extern "C" int paddle_paged_decode_attention(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto go = [&](auto run) {
-    return run(q, k_pool, v_pool, tables, pos, o, part, tickets, B, H, bs,
-               NB, splits, chunk, q_sb, q_sh, scale, st);
+    return run(q, k_pool, v_pool, tables, pos, o, part, tickets, B, H, D,
+               bs, NB, splits, chunk, q_sb, q_sh, scale, st);
   };
   if (dtype == kF32)
     return carry ? go(launch_paged<float, true>)
@@ -141,7 +144,8 @@ extern "C" int paddle_paged_decode_attention_q(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto go = [&](auto run) {
     return run(q, k_pool, k_scale, v_pool, v_scale, tables, pos, o, part,
-               tickets, B, H, bs, NB, splits, chunk, q_sb, q_sh, scale, st);
+               tickets, B, H, D, bs, NB, splits, chunk, q_sb, q_sh, scale,
+               st);
   };
   if (q_dtype == kF32)
     return carry ? go(launch_paged_q<float, true>)

@@ -43,7 +43,8 @@
 //
 // Tiles. f32 tiles sit in shared memory as rows of 64 floats padded to
 // kLdt = 68 (272 bytes: 16-byte aligned for cp.async, and 68 = 4 mod 32
-// banks). Three ways to read them, each free of bank conflicts:
+// banks); a D = 128 head's rows are padded to 132 (ld_for). Three ways to
+// read them, each free of bank conflicts:
 //  * an operand whose reduction runs along the row (A = X[m][k], or B from
 //    X[n][k]) by ldmatrix: its m8n8 b16 matrices are 8 rows of 16 bytes,
 //    four floats, and lane 4g + t receives the 32-bit word (g, t), which
@@ -70,6 +71,10 @@ namespace paddle_tpu_torch {
 namespace tf32x3 {
 
 constexpr int kLdt = 68;   // row pitch of an f32 [rows x 64] tile, in floats
+
+// the row pitch of an f32 [rows x D] tile: D + 4 floats (68 at D = 64,
+// 132 at D = 128), 4 mod 8 as the loaders below need
+__host__ __device__ constexpr int ld_for(int D) { return D + 4; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -112,22 +117,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + ROWS - 1 of a [L, 64] f32 operand (row r at
-// src + r * row_stride, 16-byte aligned) into a [ROWS][kLdt] tile; rows at
-// or past ``rows_valid`` are zero-filled. Issued by all THREADS threads,
-// neighbouring threads on neighbouring 16-byte chunks of a row.
-template <int ROWS, int THREADS>
+// Rows row0 .. row0 + ROWS - 1 of a [L, COLS] f32 operand (row r at
+// src + r * row_stride, 16-byte aligned) into a [ROWS][ld_for(COLS)]
+// tile; rows at or past ``rows_valid`` are zero-filled. Issued by all
+// THREADS threads, neighbouring threads on neighbouring 16-byte chunks of
+// a row.
+template <int ROWS, int THREADS, int COLS = 64>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
                                                 int64_t row_stride, int row0,
                                                 int rows_valid, int tid) {
-  static_assert(ROWS * 16 % THREADS == 0, "whole chunks a thread");
+  constexpr int kChunks = COLS / 4;          // 16-byte chunks a row
+  constexpr int kLd = ld_for(COLS);
+  static_assert(ROWS * kChunks % THREADS == 0, "whole chunks a thread");
 #pragma unroll
-  for (int j = 0; j < ROWS * 16 / THREADS; ++j) {
+  for (int j = 0; j < ROWS * kChunks / THREADS; ++j) {
     const int i = tid + j * THREADS;
-    const int r = i >> 4, c = i & 15;
+    const int r = i / kChunks, c = i % kChunks;
     const bool in = row0 + r < rows_valid;
     const float* p = in ? src + (row0 + r) * row_stride + 4 * c : src;
-    cp_async16(dst + r * kLdt + 4 * c, p, in);
+    cp_async16(dst + r * kLd + 4 * c, p, in);
   }
 }
 

@@ -14,13 +14,22 @@ site                      where it fires in the port
 ``ckpt.write``            per checkpoint member written (trainer/checkpoint.py)
 ``reader.next``           per chunk-task stream opened (data/chunks.py)
 ``step.grad``             per train-step loss read back (trainer/trainer.py)
+``rpc.send``              per RPC frame a client sends (filters the payload;
+                          runtime/master_service.py)
+``rpc.recv``              per RPC reply a client reads
+``mbr.heartbeat``         per membership heartbeat sent (runtime/membership.py)
+``srv.ship``              per shipped KV-page chunk, after its CRC (filters the
+                          raw chunk; serving/ship.py)
+``srv.adopt``             per adopt request a decode daemon takes
+                          (serving/daemon.py)
+``route.submit``          per placement attempt of the router
+                          (serving/router.py)
 ========================  =====================================================
 
-:data:`SITES` holds these three and no more: JAX's other sites
-(``rpc.*``, ``lease.renew``, ``mbr.heartbeat``, ``srv.*``,
-``route.submit``, ``actor.*``) belong to modules the port has not taken
-yet, and :meth:`FaultPlan.add` refuses a rule for one, so that a plan
-never waits on a site that cannot fire.
+:data:`SITES` holds these and no more: JAX's other sites
+(``lease.renew``, ``actor.spawn``, ``actor.drain``) belong to modules the
+port has not taken yet, and :meth:`FaultPlan.add` refuses a rule for
+one, so that a plan never waits on a site that cannot fire.
 
 ``step.grad`` caveat: the hook filters the HOST-observed loss value after
 the step ran — it drives the detection/raise/halt machinery, but it
@@ -59,7 +68,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-SITES = ("ckpt.write", "reader.next", "step.grad")
+SITES = ("ckpt.write", "reader.next", "step.grad", "rpc.send", "rpc.recv",
+         "mbr.heartbeat", "srv.ship", "srv.adopt", "route.submit")
 
 #: process-global active plan; None = harness disabled (the fast path)
 _PLAN: Optional["FaultPlan"] = None

@@ -29,8 +29,19 @@ versions keep f32. In f32 the three kernels run on the tensor cores
 too, at f32 accuracy: each product is three TF32 products of split
 operands (``csrc/tf32x3.cuh``), on tiles fed by 16-byte ``cp.async``
 copies. Every attention kernel needs q, k and v (and, for the backward,
-o and dO) at a 16-byte-aligned base with strides of 16-byte multiples,
-which the wrappers check (they raise otherwise).
+o and dO) at a 16-byte-aligned base with strides of 16-byte multiples:
+the wrappers copy a view that breaks the rule into a contiguous buffer
+first (the ``copy16`` route).
+
+Head widths. #1-#3 are built for D = 64 and D = 128
+(``KERNEL_HEAD_DIMS``); the wrappers zero-pad q, k and v (and o, dO) of
+any other multiple of 8 up to 128 to the next of them and slice the
+outputs back (the ``pad64`` and ``pad128`` routes), which is exact: a zero
+column adds +0.0 to every score and the padded output columns are
+dropped; the scale is the real width's. #4-#7 read every multiple of 8 up
+to 128 natively, with no copy of a cache. Wider heads, or widths that are
+not multiples of 8, raise (ROADMAP B.1.4). ``ROUTES`` counts each call
+that took a route other than the kernel's own, by (kernel, route).
 
 The decode reads (#4 and #6, and #5 and #7 over int8) run one split
 body: each (sample, head) read is split across blocks when the card
@@ -59,8 +70,12 @@ from . import _build
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: head widths the CUDA kernels are compiled for
-KERNEL_HEAD_DIMS = (64,)
+#: head widths the attention bodies #1-#3 are compiled for; any other
+#: multiple of 8 up to MAX_HEAD_DIM is zero-padded to the next of them
+KERNEL_HEAD_DIMS = (64, 128)
+#: the widest head every kernel takes (#4-#7 read each multiple of 8 up to
+#: it natively)
+MAX_HEAD_DIM = 128
 
 #: launches of every kernel of the port, by kernel (the LSTM and GRU
 #: wrappers of ops/rnn_kernels.py count here too)
@@ -76,11 +91,19 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "gru_seq_bwd": 0}
 
 
-#: the routes the recurrent wrappers took, by (kernel, route): "whole",
-#: "tiles" or "scan" (ops/rnn_kernels.py ``plan_route``; the counterpart of
-#: JAX's ``kernels.routes_total``). A call counts where its route is
-#: decided; a graph replays the counts its capture took, as LAUNCHES.
+#: the routes the wrappers took, by (kernel, route): the recurrences'
+#: "whole", "tiles" or "scan" (ops/rnn_kernels.py ``plan_route``; the
+#: counterpart of JAX's ``kernels.routes_total``), and the attention
+#: kernels' "pad64", "pad128" (a head width zero-padded to a built one)
+#: and "copy16" (a view copied to meet the 16-byte rule). A call counts
+#: where its route is decided; a graph replays the counts its capture
+#: took, as LAUNCHES.
 ROUTES: Dict[Tuple[str, str], int] = {}
+
+
+def _count_route(route: str, *kernels: str) -> None:
+    for name in kernels:
+        ROUTES[(name, route)] = ROUTES.get((name, route), 0) + 1
 
 
 def reset_launch_counts() -> None:
@@ -159,21 +182,36 @@ def _live(T: int, S: int, causal: bool, kv_lens: Optional[torch.Tensor],
     return ok
 
 
-def _attention_shapes(what: str, q, k, v, causal: bool):
+def _check_width(what: str, D: int) -> None:
+    """Raises on a head width no kernel takes: a multiple of 8 up to
+    MAX_HEAD_DIM."""
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{what}: head width {D} not taken by the kernels (multiples of "
+            f"8 up to {MAX_HEAD_DIM}: {KERNEL_HEAD_DIMS} natively, the rest "
+            "zero-padded to the next of them for #1-#3)")
+
+
+def _built_width(what: str, D: int) -> int:
+    """The width #1-#3 run a head of width D at: D itself when it is
+    built, else the next built width (the pad route)."""
+    _check_width(what, D)
+    return next(w for w in KERNEL_HEAD_DIMS if w >= D)
+
+
+def _attention_shapes(what: str, q, k, v):
     """(B, T, S, H, D) of q [B,T,H,D], k/v [B,S,H,D] in one dtype with an
-    innermost stride of 1, as the attention kernels take them; raises on
-    anything else."""
+    innermost stride of 1 and a built head width, as the attention
+    kernels take them; raises on anything else."""
     B, T, H, D = q.shape
     S = k.shape[1]
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[2:] != (H, D):
         raise ValueError(f"{what}: k/v {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)} as [B, S, H, D]")
-    if causal and S != T:
-        raise ValueError(f"{what}: causal needs S == T")
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head width {D} not taken by the kernel "
-                         f"(built for {KERNEL_HEAD_DIMS})")
+        raise ValueError(f"{what}: head width {D} not built (built for "
+                         f"{KERNEL_HEAD_DIMS}; the wrappers pad the rest)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_float(name, t, q.dtype)
         if t.stride(-1) != 1:
@@ -181,22 +219,52 @@ def _attention_shapes(what: str, q, k, v, causal: bool):
     return B, T, S, H, D
 
 
+def _breaks_tma(t: torch.Tensor) -> bool:
+    """Whether ``t`` breaks the 16-byte rule of the attention kernels: a
+    16-byte-aligned base, an innermost stride of 1, and batch, position
+    and head strides that are multiples of 16 bytes (a dimension of size
+    1 is never stepped)."""
+    esize = t.element_size()
+    return (t.data_ptr() % 16 != 0 or t.stride(-1) != 1
+            or any(n > 1 and (st * esize) % 16
+                   for n, st in zip(t.shape[:3], t.stride()[:3])))
+
+
 def _check_tma(what: str, **tensors: torch.Tensor) -> None:
-    """The bf16 attention kernels load [B, L, H, 64] operands by TMA, and
-    the f32 ones (#1, #2, #3) by 16-byte ``cp.async`` copies; both need a
-    16-byte-aligned base and batch, position and head strides that are
-    multiples of 16 bytes (a dimension of size 1 is never stepped).
-    Raises on anything else: no copy, no other route."""
+    """The bf16 attention kernels load [B, L, H, D] operands by TMA, and
+    the f32 ones (#1, #2, #3) by 16-byte ``cp.async`` copies; both need
+    the 16-byte rule (:func:`_breaks_tma`). The wrappers copy a view that
+    breaks it (:func:`_kernel_operands`), so this raises only on a direct
+    call of a launch with such a view."""
     for name, t in tensors.items():
-        esize = t.element_size()
-        bad = [d for d, (n, st) in enumerate(zip(t.shape[:3], t.stride()[:3]))
-               if n > 1 and (st * esize) % 16]
-        if t.data_ptr() % 16 or bad:
+        if _breaks_tma(t):
             raise ValueError(
                 f"{what}: {name} (strides {tuple(t.stride())}, base "
                 f"{t.data_ptr() % 16} bytes past 16) breaks the TMA rule of "
                 "the attention kernels: a 16-byte-aligned base and strides "
                 "of 16-byte multiples")
+
+
+def _kernel_operands(what: str, kernels: Tuple[str, ...], *ts):
+    """The operands of #1-#3 as the kernels take them: at a built head
+    width the tensors as they are, with those that break the 16-byte rule
+    copied into contiguous buffers (route "copy16"); at any other width
+    every [..., D] operand zero-padded to the next built width ("pad64",
+    "pad128": fresh contiguous buffers). A route other than the kernel's
+    own is counted in ROUTES under each of ``kernels``."""
+    D = ts[0].shape[-1]
+    W = _built_width(what, D)
+    if W != D:
+        route = f"pad{W}"
+        out = tuple(torch.nn.functional.pad(t, (0, W - D)) for t in ts)
+    elif any(_breaks_tma(t) for t in ts):
+        route = "copy16"
+        out = tuple(t.clone(memory_format=torch.contiguous_format)
+                    if _breaks_tma(t) else t for t in ts)
+    else:
+        return ts
+    _count_route(route, *kernels)
+    return out
 
 
 def _kernel_lens(what: str, kv_lens: Optional[torch.Tensor], B: int,
@@ -218,13 +286,29 @@ def _strides(*ts: torch.Tensor):
     return [s for t in ts for s in t.stride()[:3]]
 
 
-def _flash_attention_fwd_kernel(q, k, v, causal, scale, kv_lens):
+def flash_fwd_by_route(q, k, v, causal, scale, kv_lens, launch):
+    """#1's wrapper route around ``launch(q, k, v, causal, scale, kv_lens)
+    -> (o, lse)``: the operands as :func:`_kernel_operands` gives them
+    (padded to a built width, or copied to keep the 16-byte rule), o
+    sliced back to the caller's width. The kernel route passes the launch
+    of #1; the CPU tests pass the plain version, so the pad route's
+    arithmetic is held to JAX's there."""
+    B, T, H, D = q.shape
+    if B == 0 or T == 0:
+        return (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device),
+                torch.empty((B, T, H), dtype=torch.float32, device=q.device))
+    q, k, v = _kernel_operands("flash_attention_fwd", ("flash_attention_fwd",),
+                               q, k, v)
+    o, lse = launch(q, k, v, causal, scale, kv_lens)
+    return (o if o.shape[-1] == D else o[..., :D].contiguous()), lse
+
+
+def _flash_fwd_launch(q, k, v, causal, scale, kv_lens):
+    """Kernel #1 on operands at a built width that keep the 16-byte rule."""
     what = "flash_attention_fwd"
-    B, T, S, H, D = _attention_shapes(what, q, k, v, causal)
+    B, T, S, H, D = _attention_shapes(what, q, k, v)
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
-    if B == 0 or T == 0:
-        return o, lse
     _check_tma(what, q=q, k=k, v=v)
     lens = _kernel_lens(what, kv_lens, B, q.device)
     lib = _build.load().lib
@@ -245,9 +329,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention with the row logsumexp — the ``_fa_fwd_call`` contract:
-    q [B,T,H,D], k/v [B,S,H,D] (f32 or bf16; ``causal`` assumes S == T),
-    optional ``kv_lens`` [B] masking each sample's keys at or past its
-    length -> (o [B,T,H,D] in q's dtype, lse [B,T,H] f32).
+    q [B,T,H,D], k/v [B,S,H,D] (f32 or bf16; ``causal`` masks key j for
+    query i when j > i, top-left aligned at any S and T, as JAX's
+    ``tril(ones(T, S))``), optional ``kv_lens`` [B] masking each sample's
+    keys at or past its length -> (o [B,T,H,D] in q's dtype, lse [B,T,H]
+    f32). On the card D is any multiple of 8 up to 128 (module
+    docstring: the pad route).
 
     A length is clamped to [1, S] on both routes: a sample with no key has
     no softmax support, so it attends key 0 (``flash_attention`` then
@@ -258,7 +345,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _route(route, q, k, v) == "plain":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          scale=scale_v, kv_lens=kv_lens)
-    return _flash_attention_fwd_kernel(q, k, v, causal, scale_v, kv_lens)
+    return flash_fwd_by_route(q, k, v, causal, scale_v, kv_lens,
+                              _flash_fwd_launch)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +391,7 @@ class FlashBwdLaunch:
                  kv_lens: Optional[torch.Tensor],
                  delta: Optional[torch.Tensor]):
         what = "flash_attention_bwd"
-        B, T, S, H, D = _attention_shapes(what, q, k, v, causal)
+        B, T, S, H, D = _attention_shapes(what, q, k, v)
         for name, t in (("o", o), ("do", do)):
             if t.shape != q.shape:
                 raise ValueError(f"{what}: {name} {tuple(t.shape)} != q "
@@ -367,8 +455,8 @@ class FlashBwdLaunch:
         LAUNCHES["flash_attention_bwd_dkv"] += 1
 
 
-def _flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, scale, kv_lens,
-                                delta):
+def _flash_bwd_launch(q, k, v, o, lse, do, causal, scale, kv_lens, delta):
+    """Kernels #2 then #3 on operands at a built width."""
     run = FlashBwdLaunch(q, k, v, o, lse, do, causal, scale, kv_lens, delta)
     B, T, S = run.shape[:3]
     if B == 0 or T == 0 or S == 0:
@@ -376,6 +464,22 @@ def _flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, scale, kv_lens,
     run.dq()
     run.dkv()
     return run.dq_out, run.dk_out, run.dv_out
+
+
+def flash_bwd_by_route(q, k, v, o, lse, do, causal, scale, kv_lens, delta,
+                       launch):
+    """#2 and #3's wrapper route around ``launch(q, k, v, o, lse, do,
+    causal, scale, kv_lens, delta) -> (dq, dk, dv)``, as
+    :func:`flash_fwd_by_route` wraps #1: o and dO are padded (or copied)
+    with q, k and v, and the gradients sliced back."""
+    D = q.shape[-1]
+    q, k, v, o, do = _kernel_operands(
+        "flash_attention_bwd",
+        ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), q, k, v, o, do)
+    outs = launch(q, k, v, o, lse, do, causal, scale, kv_lens, delta)
+    if q.shape[-1] != D:
+        outs = tuple(t[..., :D].contiguous() for t in outs)
+    return outs
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -391,7 +495,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v [B,S,H,D] in one dtype (f32 or bf16), lse [B,T,H] f32, optional
     ``delta`` = rowsum(dO·O) [B,T,H] f32. ``kv_lens`` is clamped to [1, S]
     as :func:`flash_attention_fwd` clamps it, so the two agree on which
-    keys are live.
+    keys are live; ``causal`` is the forward's top-left-aligned mask.
 
     For CUDA tensors two kernels run on the current stream: dq (#2), which
     also computes delta when none is given, then dk/dv (#3)."""
@@ -403,8 +507,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale_v, kv_lens=kv_lens,
                                          delta=delta)
-    return _flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, scale_v,
-                                       kv_lens, delta)
+    return flash_bwd_by_route(q, k, v, o, lse, do, causal, scale_v, kv_lens,
+                              delta, _flash_bwd_launch)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -522,14 +626,13 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, *,
 
 def _decode_query(what: str, q: torch.Tensor, pos: torch.Tensor):
     """(B, H, D, pos as contiguous int32) of a decode read's query
-    q [B, H, D] (f32 or bf16, innermost stride 1); raises on anything the
-    kernels do not take."""
+    q [B, H, D] (f32 or bf16, innermost stride 1, D a multiple of 8 up to
+    MAX_HEAD_DIM, read natively); raises on anything the kernels do not
+    take."""
     if q.dim() != 3:
         raise ValueError(f"{what}: q {tuple(q.shape)} is not [B, H, D]")
     B, H, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head width {D} not taken by the kernel "
-                         f"(built for {KERNEL_HEAD_DIMS})")
+    _check_width(what, D)
     _check_float("q", q, q.dtype)
     if q.stride(-1) != 1:
         raise ValueError(f"{what}: q needs an innermost stride of 1")

@@ -15,9 +15,13 @@ waits on a dispatch. In-process tests may drive :meth:`step` instead.
 prefilled, and the scheduler evicts cold cached prefixes when a request
 does not fit otherwise.
 
-Not ported yet (see ROADMAP.md): the RPC daemon, shipped admissions
-(``submit_prefilled``), request timelines, ``alert_rules`` and the obs
-metrics.
+Disaggregation: :meth:`ServingEngine.submit_prefilled` queues a shipped
+admission (a prompt prefilled on another worker, ``serving/ship.py``),
+which the scheduler adopts into the pool in place of a prefill; the RPC
+surface over the engine is ``serving/daemon.py``.
+
+Not ported yet (see ROADMAP.md A.8): request timelines (``submit_key``),
+``alert_rules`` and the obs metrics.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ class _Rec:
     __slots__ = ("rid", "prompt", "eos_id", "left", "deadline", "t_submit",
                  "t_first", "t_done", "tokens", "done", "reason", "slot",
                  "skip", "cancelled", "collected", "tenant", "slo",
-                 "prefix_len")
+                 "prefix_len", "ship")
 
     def __init__(self, rid, prompt, left, eos_id, deadline, t_submit,
                  tenant="default", slo="interactive", prefix_len=None):
@@ -65,6 +69,9 @@ class _Rec:
         self.skip = 0              # segment tokens already delivered early
         self.cancelled = False
         self.collected = False     # a poll has observed done=True
+        #: a shipped admission's payload (disaggregation): dict with plen,
+        #: first, arrays, need — consumed (and dropped) at adoption
+        self.ship = None
 
 
 class ServingEngine:
@@ -156,6 +163,57 @@ class ServingEngine:
             self._next_rid += 1
             rec = _Rec(rid, r.prompt, left, eos_id, deadline, now,
                        tenant=r.tenant, slo=r.slo, prefix_len=r.prefix_len)
+            self._recs[rid] = rec
+            self._queues[r.slo].append(rec)
+            self._wake.notify_all()
+        return rid
+
+    def submit_prefilled(self, plen: int, first: int, arrays, *,
+                         max_new: int, eos_id: Optional[int] = None,
+                         timeout_s: Optional[float] = None,
+                         tenant: str = "default",
+                         slo: str = "interactive") -> int:
+        """Queue a shipped admission (disaggregation): the prompt was
+        prefilled on another worker and arrives as ``arrays`` — the slot's
+        page rows for every pool array (``serving/ship.py`` ``unpack``
+        output) — plus the prefill's first generated token. The scheduler
+        adopts it into the pool instead of prefilling (admit_prefill's
+        adopt branch); from there the record is a local admission's: the
+        same weighted-fair scheduling, budget/EOS/timeout finalization and
+        backpressure. A shipment whose arrays do not fit this pool's
+        layout raises ValueError here, before anything is queued."""
+        plen = int(plen)
+        # a placeholder prompt of the shipped length drives the shared
+        # validation (length bounds, tenant charset, slo class, the
+        # page-budget check); token values are never needed decode-side
+        r = Request(-1, np.zeros(plen, np.int32), int(max_new), eos_id,
+                    tenant=str(tenant), slo=str(slo))
+        need = self.pool.validate(r)
+        self.pool.check_shipment(plen, arrays)
+        left = self.pool.effective_budget(plen, int(max_new))
+        timeout = timeout_s if timeout_s is not None else \
+            self.default_timeout_s
+        now = self._clock()
+        deadline = None if timeout is None else now + float(timeout)
+        with self._lock:
+            if self._failed is not None:
+                raise RuntimeError(
+                    f"serving engine failed and stopped: {self._failed}")
+            if (r.tenant not in self._tenants
+                    and len(self._tenants) >= self.max_tenants):
+                raise ValueError(
+                    f"request: tenant {r.tenant!r} would exceed this "
+                    f"engine's {self.max_tenants}-tenant label budget")
+            if self._queue_len_locked() >= self.queue_cap:
+                raise Overloaded(
+                    f"queue full ({self.queue_cap} waiting); retry later")
+            self._tenants.add(r.tenant)
+            rid = self._next_rid
+            self._next_rid += 1
+            rec = _Rec(rid, None, left, eos_id, deadline, now,
+                       tenant=r.tenant, slo=r.slo)
+            rec.ship = {"plen": plen, "first": int(first),
+                        "arrays": arrays, "need": need}
             self._recs[rid] = rec
             self._queues[r.slo].append(rec)
             self._wake.notify_all()
@@ -307,10 +365,11 @@ class ServingEngine:
         head that does not fit the page budget, even after cold cached
         prefixes are evicted, blocks only its class), run the batched
         prefill (the full prefill for misses, copy-on-write and the suffix
-        prefill for prefix-cache hits), and emit each admission's first
-        token (TTFT stops here). Returns the number admitted."""
+        prefill for prefix-cache hits; shipped admissions are adopted in
+        its place), and emit each admission's first token (TTFT stops
+        here). Returns the number admitted."""
         with self._lock:
-            group, members, pending = [], [], 0
+            group, adopts, members, pending = [], [], [], 0
             free_slots = [s for s in range(self.pool.n_slots)
                           if s not in self._live]
             quantum = float(self.pool.segment)
@@ -329,6 +388,23 @@ class ServingEngine:
                     break
                 c = max(avail, key=lambda k: self._deficit[k])
                 rec = self._queues[c][0]
+                if rec.ship is not None:
+                    # a shipped admission owns its worst-case pages like
+                    # any other; it just skips the prefill dispatch
+                    if not self.pool.evict_for(rec.ship["need"], pending,
+                                               protect=[p for _, p
+                                                        in group]):
+                        blocked.add(c)
+                        continue
+                    self._queues[c].pop(0)
+                    self._deficit[c] -= float(rec.left)
+                    pending += rec.ship["need"]
+                    slot = free_slots.pop(0)
+                    rec.slot = slot
+                    self._live[slot] = rec
+                    adopts.append((slot, rec))
+                    members.append(rec)
+                    continue
                 plan = self.pool.plan_admission(
                     rec.prompt, rec.left, tenant=rec.tenant,
                     prefix_len=rec.prefix_len)
@@ -345,9 +421,15 @@ class ServingEngine:
                 self._live[slot] = rec
                 group.append((slot, plan))
                 members.append(rec)
-        if not group:
+        if not group and not adopts:
             return 0
         first = self.pool.admit(group)          # device work, lock released
+        for slot, rec in adopts:                # ditto: scheduler thread
+            s = rec.ship
+            self.pool.adopt_slot(slot, s["plen"], s["first"], s["arrays"],
+                                 s["need"])
+            first[slot] = s["first"]
+            rec.ship = None                     # payload consumed
         now = self._clock()
         with self._lock:
             for rec in members:
@@ -363,7 +445,7 @@ class ServingEngine:
                 rec.skip = 1        # the next segment re-emits this token
                 if rec.left <= 0:
                     self._release_locked(rec, "length")
-        return len(group)
+        return len(group) + len(adopts)
 
     def decode_segment(self) -> None:
         """Phase 2: one batched decode segment over every live slot, then

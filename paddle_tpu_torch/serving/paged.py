@@ -43,6 +43,11 @@ are copied in from the host before a replay.
 [P, bs, H] (initialised to 1.0); the admission scatters the prompt's
 scales with its rows, and the decode reads dequantize on load.
 
+Disaggregation: :meth:`PagePool.export_slot` packs a prefilled slot's
+pages for shipping (``serving/ship.py``) and :meth:`PagePool.adopt_slot`
+lands a shipment in another pool byte for byte; both order their gather
+and scatter with the pool's graphs.
+
 The ``tune`` consults of the JAX pool are not ported: page_block 64,
 cache_bucket 256 and prompt buckets (32, 64, 128, 256, 512) are the
 heuristic defaults the JAX pool falls back to.
@@ -60,6 +65,7 @@ from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
 from .batcher import (DEFAULT_PROMPT_BUCKETS, Request, clip_emission,
                       validate_request)
+from . import ship
 from .prefix import Match, PrefixIndex
 
 
@@ -321,6 +327,82 @@ class PagePool:
         self.slot_reserve[slot] = 0
         self.tables[slot, :] = 0
         self.pos[slot] = 0
+
+    # -- disaggregation: export / adopt (serving/ship.py) ------------------
+    def export_slot(self, slot: int, first: int):
+        """Serialize ``slot``'s prefilled page contents for shipping to a
+        decode worker's pool: gather the slot's table pages from every
+        pool array (k/v per layer + int8 scales) and pack them with the
+        request state (``pos``/first token) under a payload CRC. Rows past
+        ``pos`` inside the last page are garbage on both ends — the paged
+        read masks by ``pos``, so shipping them changes nothing. The
+        gather is ordered after the pool's graphs (``GraphCache.ordered``)."""
+        plen = int(self.pos[slot])
+        npg = -(-plen // self.bs)
+        pages = torch.from_numpy(
+            self.tables[slot, :npg].astype(np.int64)).to(self.device)
+        with self.graphs.ordered():
+            arrays = {nm: arr[pages] for nm, arr in self.pools.items()}
+        arrays = {nm: a.cpu() for nm, a in arrays.items()}
+        return ship.pack(arrays, plen=plen, first=first, page_block=self.bs,
+                         kv_dtype=self.kv_dtype)
+
+    def check_shipment(self, plen: int,
+                       arrays: Dict[str, torch.Tensor]) -> None:
+        """Validate shipped arrays against THIS pool's layout without
+        touching any page. Callable at submit time (the engine's
+        ``submit_prefilled``) so a mismatched shipment is a structured
+        ValueError refusal at the wire edge, never a scheduler-thread
+        death mid-adoption."""
+        npg = -(-int(plen) // self.bs)
+        missing = set(self.pools) - set(arrays)
+        extra = set(arrays) - set(self.pools)
+        if missing or extra:
+            raise ValueError(
+                f"shipped arrays disagree with this pool's layout "
+                f"(missing {sorted(missing)}, unexpected {sorted(extra)}) "
+                "— prefill and decode pools must share model depth and "
+                "kv_dtype")
+        for nm, rows in arrays.items():
+            ref = self.pools[nm]
+            want = (npg,) + tuple(ref.shape[1:])
+            if tuple(rows.shape) != want:
+                raise ValueError(
+                    f"shipped {nm!r} shape {tuple(rows.shape)} != expected "
+                    f"{want} (page_block/heads/width mismatch)")
+            if rows.dtype != ref.dtype:
+                raise ValueError(
+                    f"shipped {nm!r} dtype {rows.dtype} != pool "
+                    f"{ref.dtype}; refusing a lossy cast")
+
+    def adopt_slot(self, slot: int, plen: int, first: int,
+                   arrays: Dict[str, torch.Tensor], need_pages: int) -> None:
+        """Land a shipped slot (the decode half of :meth:`export_slot`):
+        reserve its worst-case owned pages, allocate the table, scatter
+        the shipped rows in byte-identical (dtype-checked: a silent cast
+        would break wire-greedy parity), and arm ``pos``/``cur`` so the
+        next segment continues exactly where the prefill worker's
+        admission stopped. The scatter writes the graphs' pool buffers in
+        place, ordered with their replays (``GraphCache.ordered``). The
+        caller (the engine scheduler) has already checked
+        :meth:`fits`/:meth:`evict_for` for ``need_pages``."""
+        plen = int(plen)
+        npg = -(-plen // self.bs)
+        self.check_shipment(plen, arrays)
+        self.slot_reserve[slot] = need_pages
+        self.reserved += need_pages
+        self.slot_shared[slot] = []
+        self.slot_partial[slot] = None
+        self._ensure(slot, plen)
+        pages = torch.from_numpy(
+            self.tables[slot, :npg].astype(np.int64)).to(self.device)
+        rows = {nm: a.to(self.device) for nm, a in arrays.items()}
+        with torch.no_grad(), self.graphs.ordered():
+            for nm, r in rows.items():
+                self.pools[nm][pages] = r
+        self.pos[slot] = plen
+        self.cur[slot] = int(first)
+        self.prompt_tokens_total += plen
 
     # -- the two scheduler-visible operations ------------------------------
     def admit(self, group: List[Tuple[int, _AdmitPlan]]) -> Dict[int, int]:

@@ -110,13 +110,91 @@ def test_plans_of_the_two_packages_are_separate():
     assert set(PF.SITES) < set(JF.SITES)
 
 
-@pytest.mark.parametrize("site", sorted(set(JF.SITES) - set(PF.SITES)))
+#: JAX's sites whose modules the port has not taken (runtime/lease.py,
+#: cluster/actor.py: ROADMAP A.8)
+_UNPORTED_SITES = ("actor.drain", "actor.spawn", "lease.renew")
+
+
+@pytest.mark.parametrize("site", _UNPORTED_SITES)
 def test_the_port_refuses_a_site_it_does_not_fire(site):
     """A site of a module the port has not taken is refused by the port's
     plan (JAX's accepts it): a rule for it could never fire."""
+    assert set(JF.SITES) - set(PF.SITES) == set(_UNPORTED_SITES)
     JF.FaultPlan().add(site, "raise")
     with pytest.raises(ValueError, match="unknown injection site"):
         PF.FaultPlan().add(site, "raise")
+
+
+def _fire_wire_site(site):
+    """Drive the port's code path that fires ``site`` once under a plan
+    that raises there (``srv.ship``: corrupts), and return the plan."""
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.runtime import (MasterClient, MasterServer,
+                                          MembershipClient,
+                                          MembershipService)
+    from paddle_tpu_torch.serving import (ServingDaemon, ServingEngine,
+                                          ServingRouter, ship)
+    action = "corrupt" if site == "srv.ship" else "raise"
+    plan = PF.FaultPlan(seed=1).add(site, action, nth=1,
+                                    exc=ConnectionError("injected"))
+    if site in ("rpc.send", "rpc.recv", "mbr.heartbeat"):
+        srv = MasterServer()
+        MembershipService(ttl=5.0).attach(srv)
+        srv.start()
+        try:
+            if site == "mbr.heartbeat":
+                mc = MembershipClient(*srv.address, call_timeout=10.0)
+                token, _, _ = mc.join("w")
+                with plan.installed():
+                    with pytest.raises(ConnectionError, match="injected"):
+                        mc.heartbeat("w", token)
+                    assert mc.heartbeat("w", token) >= 1
+            else:
+                # the client's retry rides over the dropped frame
+                mc = MasterClient(*srv.address, retry_delay=0.01,
+                                  call_timeout=10.0)
+                with plan.installed():
+                    assert mc.stats()[0] == 0
+            mc.close()
+        finally:
+            srv.stop()
+    elif site == "srv.ship":
+        with plan.installed():
+            frames = list(ship.iter_chunks(b"\x01" * 64, chunk_bytes=32))
+        asm = ship.ChunkAssembler(2)
+        with pytest.raises(ship.ShipError, match="CRC"):
+            asm.add(0, frames[0][2]["data"], frames[0][2]["crc"])
+    elif site == "srv.adopt":
+        lm = TransformerLM(11, d_model=16, n_heads=2, n_layers=1,
+                           max_len=32).init(0, "cpu")
+        d = ServingDaemon(ServingEngine(lm, slots=1, segment=4,
+                                        page_block=8, cache_bucket=16,
+                                        device="cpu"))
+        with plan.installed(), pytest.raises(ConnectionError):
+            d._srv_adopt_pages({"xid": "x"})
+    else:
+        router = ServingRouter()
+        router.membership.join("d0", {"role": "decode",
+                                      "rpc_host": "127.0.0.1",
+                                      "rpc_port": 1})
+        with plan.installed(), pytest.raises(ConnectionError):
+            router._place([1, 2], 2, eos_id=None, timeout_s=None,
+                          tenant="default", slo="interactive",
+                          prefix_len=None, submit_key=None)
+    return plan
+
+
+@pytest.mark.parametrize("site", ["rpc.send", "rpc.recv", "mbr.heartbeat",
+                                  "srv.ship", "srv.adopt", "route.submit"])
+def test_the_wire_plane_fires_its_sites(site):
+    """Each site the wire plane added fires where JAX's does: a client's
+    frame out (rpc.send) and reply in (rpc.recv), a membership heartbeat,
+    a shipped chunk after its CRC (srv.ship, caught by the receiver's
+    CRC), an adopt request (srv.adopt) and a router placement attempt
+    (route.submit)."""
+    plan = _fire_wire_site(site)
+    assert plan.fired[0] == (site, 1, "corrupt" if site == "srv.ship"
+                             else "raise")
 
 
 def test_every_port_site_has_a_hook_in_the_port():

@@ -498,8 +498,13 @@ def test_decode_kernels_refuse_what_they_do_not_take(cuda):
         ck.decode_attention(q, k.to(torch.bfloat16), v, pos)
     with pytest.raises(TypeError, match="dtype"):
         ck.decode_attention(q.half(), k.half(), v.half(), pos)
+    # widths past 128 or off the multiples of 8 (ROADMAP B.1.4)
     with pytest.raises(ValueError, match="head width"):
-        ck.decode_attention(q[..., :32], k[..., :32], v[..., :32], pos)
+        ck.decode_attention(q[..., :36], k[..., :36], v[..., :36], pos)
+    wide = torch.randn(4, 96, 3, 136, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        ck.decode_attention(torch.randn(4, 3, 136, device=cuda), wide, wide,
+                            pos)
     # a cache 8 bytes off a 16-byte boundary, and one with odd strides
     off = torch.empty(4 * 96 * 3 * 64 + 2, device=cuda)[2:].view(4, 96, 3,
                                                                  64)
@@ -610,9 +615,11 @@ def test_dense_decode_paths_on_card_match_plain_decode(cuda):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(1, 8, 2, 32, device=cuda)
-    with pytest.raises(ValueError, match="head width"):
-        ck.flash_attention_fwd(q, q, q)
+    # widths past 128 or off the multiples of 8 (ROADMAP B.1.4)
+    for D in (36, 136):
+        q = torch.randn(1, 8, 2, D, device=cuda)
+        with pytest.raises(ValueError, match="head width"):
+            ck.flash_attention_fwd(q, q, q)
     h = torch.randn(1, 8, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         ck.flash_attention_fwd(h, h, h)
@@ -643,6 +650,48 @@ def test_engine_on_card_matches_solo_plain_decode(cuda):
         want = model.generate_greedy(ids, n, route="plain")[0, len(p):]
         assert eng.poll(r)[0] == want.cpu().tolist()
     assert pool.pages_used == 0
+
+
+@pytest.mark.gpu
+def test_engines_on_two_threads_capture_at_once_on_card(cuda):
+    """Two ServingEngines of one process started together (a routed
+    fleet's decode workers, each on its scheduler thread) capture their
+    graphs at the same time: the captures run one at a time
+    (core/graphs.py ``_CAPTURE_LOCK``), both engines serve every request
+    the solo plain decode's tokens, and the launches counted are both
+    engines' own, none dropped by the other's capture."""
+    import time
+    model = TransformerLM(101, d_model=256, n_heads=2, n_layers=2,
+                          max_len=256).init(seed=5, device=cuda)
+    rs = np.random.RandomState(6)
+    work = [(rs.randint(0, 101, int(n)), 24) for n in (40, 7, 90, 23)]
+    ck.reset_launch_counts()
+    engines = [ServingEngine(model, slots=2, segment=8, page_block=16,
+                             cache_bucket=64, device=cuda)
+               for _ in range(2)]
+    rids = [[e.submit(p, n) for p, n in work] for e in engines]
+    for e in engines:
+        e.start()
+    deadline = time.monotonic() + 120.0
+    try:
+        while not all(e.poll(r)[1] for e, rs_ in zip(engines, rids)
+                      for r in rs_):
+            assert time.monotonic() < deadline, "engines did not finish"
+            assert all(e.failed is None for e in engines), \
+                [e.failed for e in engines]
+            time.sleep(0.01)
+    finally:
+        for e in engines:
+            e.stop()
+    for e, rs_ in zip(engines, rids):
+        for r, (p, n) in zip(rs_, work):
+            ids = torch.as_tensor(p[None].astype(np.int64), device=cuda)
+            want = model.generate_greedy(ids, n, route="plain")[0, len(p):]
+            assert e.poll(r)[0] == want.cpu().tolist()
+    segments = sum(e.pool.segments_total for e in engines)
+    admissions = sum(e.pool.admissions_total for e in engines)
+    assert ck.LAUNCHES["flash_attention_fwd"] == 2 * admissions
+    assert ck.LAUNCHES["paged_decode_attention"] == 2 * segments * 8
 
 
 # ---------------------------------------------------------------------------
@@ -908,40 +957,197 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, shape):
 @pytest.mark.gpu
 def test_flash_bf16_refuses_views_that_break_the_tma_rule(cuda):
     """The bf16 bodies load q, k and v by TMA, and the f32 bodies (the
-    forward and the backward) by 16-byte cp.async copies: a base that is
-    not 16-byte aligned, or a stride that is not a multiple of 16 bytes,
-    raises (no copy, no other route); f32 views that keep the rule are
-    read in place."""
+    forward and the backward) by 16-byte cp.async copies, both under the
+    16-byte rule: a view whose base is not 16-byte aligned, or whose
+    stride is not a multiple of 16 bytes, is copied into a contiguous
+    buffer by the wrapper (the ``copy16`` route, counted in ROUTES) and
+    gives the plain version's result; f32 views that keep the rule are
+    read in place (no route counted)."""
     good = torch.randn(2, 40, 3, 64, device=cuda, dtype=torch.bfloat16)
     wide = torch.randn(2, 40, 3, 68, device=cuda)
     flat = torch.randn(2 * 40 * 3 * 64 + 1, device=cuda)
     bad = [wide.to(torch.bfloat16)[..., :64],              # 136-byte heads
            flat.to(torch.bfloat16)[1:].view(2, 40, 3, 64)]  # base 2 bytes off
-    o, lse = ck.flash_attention_fwd(good, good, good)
-    for x in bad:
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_fwd(x, good, good)
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_fwd(good, good, x)
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_bwd(good, x, good, o, lse, o)
     good32 = good.float()
-    o32, lse32 = ck.flash_attention_fwd(good32, good32, good32)
     bad32 = [torch.randn(2, 40, 3, 66, device=cuda)[..., :64],  # 264-byte heads
              flat[1:].view(2, 40, 3, 64)]                     # base 4 bytes off
-    for x in bad32:
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_bwd(x, good32, good32, o32, lse32, o32)
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_bwd(good32, good32, x, o32, lse32, o32)
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_fwd(x, good32, good32)
-        with pytest.raises(ValueError, match="TMA"):
-            ck.flash_attention_fwd(good32, good32, x)
+    for g, xs in ((good, bad), (good32, bad32)):
+        o, lse = ck.flash_attention_fwd(g, g, g, route="plain")
+        for x in xs:
+            with pytest.raises(ValueError, match="TMA"):
+                ck._check_tma("flash_attention_fwd", q=x)
+            for args in ((x, g, g), (g, g, x)):
+                ck.reset_launch_counts()
+                got = ck.flash_attention_fwd(*args)
+                want = ck.flash_attention_fwd(*args, route="plain")
+                assert ck.ROUTES == {("flash_attention_fwd", "copy16"): 1}
+                close = (_bf16_tc_close if g.dtype == torch.bfloat16
+                         else functools.partial(torch.testing.assert_close,
+                                                atol=1e-5, rtol=1e-4))
+                close(got[0], want[0])
+            ck.reset_launch_counts()
+            got = ck.flash_attention_bwd(g, x, g, o, lse, o)
+            want = ck.flash_attention_bwd(g, x, g, o, lse, o, route="plain")
+            assert ck.ROUTES == {("flash_attention_bwd_dq", "copy16"): 1,
+                                 ("flash_attention_bwd_dkv", "copy16"): 1}
+            for a, b in zip(got, want):
+                if g.dtype == torch.bfloat16:
+                    _bf16_tc_close(a, b)
+                else:
+                    _bwd_close(a, b, g.dtype)
     x = wide[..., :64]                                   # 272-byte heads
+    ck.reset_launch_counts()
     o32, lse32 = ck.flash_attention_fwd(x, x, x)
+    assert ck.ROUTES == {}
     po, plse = ck.flash_attention_fwd(x, x, x, route="plain")
     torch.testing.assert_close(o32, po, atol=1e-5, rtol=1e-4)
+
+
+# head widths the kernels take: 64 and 128 natively for every kernel, the
+# rest by #1-#3's pad route and natively for #4-#7 (80 is Phi-2's)
+_WIDTHS = (8, 32, 48, 64, 80, 96, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", _WIDTHS)
+def test_flash_kernels_at_every_head_width_on_card(cuda, dtype, D):
+    """#1, #2 and #3 at head width D against the plain version at the
+    scale of the real width, with kv_lens, causal and not: natively at
+    D = 64 and 128 (no route counted), else by the counted pad route."""
+    gen = torch.Generator().manual_seed(D)
+    B, T, H = 2, 150, 3
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda, dtype)
+    q, k, v, do = rnd(B, T, H, D), rnd(B, T, H, D), rnd(B, T, H, D), \
+        rnd(B, T, H, D)
+    lens = torch.tensor([T, 77], device=cuda)
+    route = None if D in ck.KERNEL_HEAD_DIMS else f"pad{64 if D <= 64 else 128}"
+    for causal in (False, True):
+        ck.reset_launch_counts()
+        o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=lens)
+        po, plse = ck.flash_attention_fwd(q, k, v, causal=causal,
+                                          kv_lens=lens, route="plain")
+        assert o.shape == (B, T, H, D) and o.is_contiguous()
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+        else:
+            _bf16_tc_close(o, po)
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-4)
+        got = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=causal,
+                                     kv_lens=lens)
+        want = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=causal,
+                                      kv_lens=lens, route="plain")
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            if dtype == torch.bfloat16:
+                _bf16_tc_close(g, w)
+            else:
+                _bwd_close(g, w, dtype)
+        assert ck.LAUNCHES["flash_attention_fwd"] == 1
+        assert ck.LAUNCHES["flash_attention_bwd_dq"] == 1
+        assert ck.LAUNCHES["flash_attention_bwd_dkv"] == 1
+        want_routes = {} if route is None else {
+            ("flash_attention_fwd", route): 1,
+            ("flash_attention_bwd_dq", route): 1,
+            ("flash_attention_bwd_dkv", route): 1}
+        assert ck.ROUTES == want_routes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 80])
+@pytest.mark.parametrize("T,S", [(200, 136), (136, 200), (64, 300)])
+def test_flash_kernels_causal_with_s_not_t_on_card(cuda, dtype, D, T, S):
+    """Causal at S < T and S > T: #1, #2 and #3 hold to the plain
+    version's top-left-aligned tril(ones(T, S)) mask, with kv_lens (keys
+    past T get exactly zero dk and dv under the mask)."""
+    gen = torch.Generator().manual_seed(T + S)
+    B, H = 2, 2
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda, dtype)
+    q, k, v, do = rnd(B, T, H, D), rnd(B, S, H, D), rnd(B, S, H, D), \
+        rnd(B, T, H, D)
+    lens = torch.tensor([S, S // 2 + 3], device=cuda)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=True, kv_lens=lens)
+    po, plse = ck.flash_attention_fwd(q, k, v, causal=True, kv_lens=lens,
+                                      route="plain")
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    else:
+        _bf16_tc_close(o, po)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-4)
+    got = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=True,
+                                 kv_lens=lens)
+    want = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=True,
+                                  kv_lens=lens, route="plain")
+    for g, w in zip(got, want):
+        if dtype == torch.bfloat16:
+            _bf16_tc_close(g, w)
+        else:
+            _bwd_close(g, w, dtype)
+    if S > T:
+        assert not got[1][:, T:].any() and not got[2][:, T:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DECODE_DTYPES)
+@pytest.mark.parametrize("D", _WIDTHS)
+def test_decode_reads_at_every_head_width_on_card(cuda, dtype, D):
+    """#4-#7 read every width natively: a [:, :L] view of a dense cache
+    and pools at the model's real width (nothing padded, no route
+    counted), split and not, against the plain version; a paged read
+    equals the dense read of its gathered pages bit for bit."""
+    gen = torch.Generator().manual_seed(100 + D)
+    qdt, kv = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    B, H, Lmax, L = 3, 4, 320, 290
+    q = torch.randn(B, H, D, generator=gen).to(cuda, qdt)
+    k, v = (torch.randn(B, Lmax, H, D, generator=gen).to(cuda)
+            for _ in range(2))
+    ks = vs = None
+    if kv == "int8":
+        (k, ks), (v, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+    else:
+        k, v = k.to(qdt), v.to(qdt)
+    pos = torch.tensor([0, 150, L + 5], dtype=torch.int32, device=cuda)
+    kr, vr = k[:, :L], v[:, :L]
+    ksr, vsr = (None, None) if ks is None else (ks[:, :L], vs[:, :L])
+    ck.reset_launch_counts()
+    for splits in (None, 1, 5):
+        o = ck._decode_attention_kernel(q, kr, vr, pos, D ** -0.5, ksr, vsr,
+                                        splits)
+        po = ck.decode_attention(q, kr, vr, pos, k_scale=ksr, v_scale=vsr,
+                                 route="plain")
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    bs, NB = 16, 19
+    P = B * NB + 1
+    perm = torch.randperm(P - 1, generator=gen)[:B * NB] + 1
+    tables = perm.reshape(B, NB).to(torch.int32).to(cuda)
+    pool = lambda t: torch.zeros((P, bs) + tuple(t.shape[2:]), dtype=t.dtype,
+                                 device=cuda)
+    kp, vp = pool(k), pool(v)
+    ksp = vsp = None
+    if ks is not None:
+        ksp, vsp = pool(ks), pool(vs)
+    for b in range(B):
+        for j in range(NB):
+            rows = slice(j * bs, (j + 1) * bs)
+            p = int(tables[b, j])
+            kp[p], vp[p] = k[b, rows], v[b, rows]
+            if ks is not None:
+                ksp[p], vsp[p] = ks[b, rows], vs[b, rows]
+    for splits in (None, 4):
+        o = ck._paged_decode_attention_kernel(q, kp, vp, tables, pos,
+                                              D ** -0.5, ksp, vsp, splits)
+        po = ck.paged_decode_attention(q, kp, vp, tables, pos, k_scale=ksp,
+                                       v_scale=vsp, route="plain")
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+        dense = ck._decode_attention_kernel(
+            q, ck.gather_pages(kp, tables), ck.gather_pages(vp, tables), pos,
+            D ** -0.5,
+            None if ksp is None else ck.gather_pages(ksp, tables),
+            None if vsp is None else ck.gather_pages(vsp, tables),
+            ck.decode_splits(B * H, NB * bs, splits)[0])
+        torch.testing.assert_close(o, dense, atol=0, rtol=0)
+    assert ck.ROUTES == {}
 
 
 @pytest.mark.gpu
@@ -1043,10 +1249,12 @@ def test_flash_fwd_f32_is_not_one_pass_tf32(cuda, causal):
 
 @pytest.mark.gpu
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(1, 8, 2, 32, device=cuda)
-    o, lse = ck.flash_attention_fwd(q, q, q, route="plain")
-    with pytest.raises(ValueError, match="head width"):
-        ck.flash_attention_bwd(q, q, q, o, lse, o)
+    # widths past 128 or off the multiples of 8 (ROADMAP B.1.4)
+    for D in (36, 136):
+        q = torch.randn(1, 8, 2, D, device=cuda)
+        o, lse = ck.flash_attention_fwd(q, q, q, route="plain")
+        with pytest.raises(ValueError, match="head width"):
+            ck.flash_attention_bwd(q, q, q, o, lse, o)
     q = torch.randn(1, 8, 2, 64, device=cuda)
     o, lse = ck.flash_attention_fwd(q, q, q)
     with pytest.raises(TypeError, match="dtype"):
