@@ -271,6 +271,42 @@ Phases:
    duplicated; a ``srv.ship`` corrupt refused with data_loss and never
    adopted.
 
+19. head widths up to 256, GPT-J-6B's widths — (a) #1-#3 at head widths
+   12, 136, 200 and 256 (phase 18's shapes; 256 natively by
+   csrc/flash_wide.cu, the others by the counted pad route), f32 and
+   bf16, against the plain versions; causal at S = T -/+ 64 with kv_lens
+   and a view off the 16-byte rule at 200 and 256; #4-#7 at the same
+   widths (12 by the counted pad8 route; the paged reads bit-equal to
+   the dense reads of their gathered pages at the multiples of 8); #2
+   and #3 at 256 bit-equal across two runs; each kernel at D = 256 timed
+   beside its plain version, SDPA where one call computes the same and
+   its bound (the kernels line's D = 256 entries); (b) a TransformerLM at
+   GPT-J-6B's attention and MLP widths (4096, 16 heads of 256, d_ff
+   16384, vocab 50400) cut to 4 layers: one f32 training step through the
+   trainer's graph on both routes (transformer_step_check), one graphed
+   bf16 step timed, phase 10's burst through ``ServingEngine`` in f32 at
+   f32 KV (equal to the solo plain decode) and int8 KV (each token the
+   plain model's greedy choice up to a near-tie: an int8 code flip turns
+   f32 rounding into a code step) and ``generate_fused`` at both, against
+   the same loop on the plain route; every kernel of #1-#7 launched at
+   D = 256.
+
+20. the fluid plane — (a) the LSTM flagship (phase 5's widths) as a fluid
+   program (embedding, ``dynamic_lstm``, ``sequence_last_step``, fc,
+   softmax cross-entropy, mean; Adam), 20 ``exe.run`` steps over 4
+   batches: one #9 and one #10 a step, one graph capture for the key, a
+   falling loss, one f32 step equal to the same run with the kernels
+   routed plain (``fluid.registry.routed``), ms a step graphed and
+   eager; (b) its inference bundle (export, load) on 2 held batches: one
+   #8 a run, logits equal to the plain route's; (c) a ``dynamic_gru``
+   program at the seq2seq bench's widths (batch 64, hidden 512, T 32),
+   10 steps: one #11 and one #12 a step, one f32 step equal to plain;
+   (d) benchmarks/fluid_executor.py's MLP (784-256-64-10, Adam, batch
+   256): 200 timed runs with ``return_numpy=False``, ms a run, the
+   cache hit rate, no graph capture inside the window, and an LRU of one
+   key evicting and recapturing; (e) small While, Cond and StaticRNN
+   programs equal to the same programs on the CPU.
+
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
 its CUDA graphs (``core/graphs.py``), each warmed once, then measured
@@ -281,7 +317,8 @@ or within GRAPH_STEP_LOSS_RTOL / GRAPH_STEP_PARAM_ATOL), the same kernel
 launches, one graph replay a decode token, segment, speculative round,
 trainer step or search call; each prints the wall a step, the device
 time a step and the busy share, the graph dispatches and the kernel
-launches a step of both routes. In each profiled run the port's kernel
+launches a step of both routes (phase 10 profiles the graphed route
+only). In each profiled run the port's kernel
 launches that the profiler saw, by body, must equal what ``LAUNCHES``
 counted (through the graphs: what the replays recorded at capture).
 Phase 10 also calls ``generate_fused`` at six new prompt lengths with a
@@ -291,8 +328,10 @@ allocated beyond an eighth of a KV cell.
 Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"data": {...}}``
 (phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"slice18": {...}}``
-(phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"kernels": [...]}``
-(with ``launches_routes`` on #8-#12, and #1-#7 again at D = 128),
+(phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"slice20": {...},
+"fluid": {...}}`` (phases 19 and 20), ``{"kernels": [...]}`` (with
+``launches_routes`` and ``launches_fluid`` on #8-#12, and #1-#7 again at
+D = 128 and D = 256),
 the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -360,6 +399,9 @@ PAGED_SOURCES = {"source": "paddle_tpu_torch/csrc/paged_decode.cu",
 TENSOR_CORE_BODIES = {"flash_fwd_wgmma_kernel": "flash_attention_fwd",
                       "flash_bwd_dq_wgmma_kernel": "flash_attention_bwd_dq",
                       "flash_bwd_dkv_wgmma_kernel": "flash_attention_bwd_dkv"}
+# the head widths the tensor-core bodies of #1-#3 are built for (D = 256:
+# the CUDA-core bodies of csrc/flash_wide.cu)
+TC_WIDTHS = (64, 128)
 # the three-pass TF32 bodies (mma.sync, cp.async): kernel -> JSON entry
 TF32_BODIES = {"flash_fwd_tf32_kernel": "flash_attention_fwd",
                "flash_bwd_dq_tf32_kernel": "flash_attention_bwd_dq",
@@ -416,11 +458,11 @@ def sass_counts(lib_path) -> dict:
     """The SASS_OPS instructions in the SASS of each tensor-core body of the
     built library, from ``cuobjdump -sass``, and each body's instruction
     count, by head width (the bodies are templates on D, built for
-    ``ck.KERNEL_HEAD_DIMS``): {body: {"D64": {...}, "D128": {...}}}; fails
-    when an instantiation is missing or lacks one of its opcodes."""
+    TC_WIDTHS; D = 256 runs csrc/flash_wide.cu's bodies on the CUDA
+    cores): {body: {"D64": {...}, "D128": {...}}}; fails when an
+    instantiation is missing or lacks one of its opcodes."""
     import re
     import shutil
-    from paddle_tpu_torch.ops import cuda_kernels as ck
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib_path)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -442,7 +484,7 @@ def sass_counts(lib_path) -> dict:
             for op in SASS_OPS[cur[0]]:
                 c[op] += op in line
     for body, ops in SASS_OPS.items():
-        for D in ck.KERNEL_HEAD_DIMS:
+        for D in TC_WIDTHS:
             c = counts.get(body, {}).get(f"D{D}", {})
             check(all(c.get(op, 0) > 0 for op in ops),
                   f"{body} D={D}: not all of {ops} in its SASS ({c})")
@@ -1163,11 +1205,12 @@ def step_dispatches(dispatches, kind: str) -> dict:
 
 
 def route_pair(say, what, run, steps, same, kind, per_step=1,
-               share_of=None):
+               share_of=None, profiled=("eager", "graphed")):
     """``run()`` on the eager route and through the graphs. Each route
     runs once to warm (the graphed one captures), once measured with the
-    counts set to 0 just before and read just after, and once under the
-    profiler. ``steps(out)`` counts the measured run's steps (tokens after
+    counts set to 0 just before and read just after, and (the routes of
+    ``profiled``) once under the profiler. ``steps(out)`` counts the
+    measured run's steps (tokens after
     the prefill, segments, rounds, trainer steps, calls); ``same(eager,
     graphed)`` must hold; the graphed run must launch every kernel as
     often as the eager one and replay its ``kind`` graphs ``per_step``
@@ -1178,8 +1221,9 @@ def route_pair(say, what, run, steps, same, kind, per_step=1,
             run()
             out, wall, launches, disp = counted(run)
             n = steps(out)
-            prof = profile_breakdown(say, f"{what} ({route})", run, wall,
-                                     steps=n, share_of=share_of)
+            prof = (profile_breakdown(say, f"{what} ({route})", run, wall,
+                                      steps=n, share_of=share_of)
+                    if route in profiled else None)
             if route == "graphed":
                 graph_launch_check(say, what)
         outs[route] = out
@@ -2159,7 +2203,7 @@ def nmt_loss(model, dtype, route=None):
 
 def transformer_step_check(say, what, loss_for_route, params, batch, lr,
                            per_step, device, names=ATTENTION_KERNELS,
-                           floor=0.0):
+                           floor=0.0, row_scale=False):
     """One f32 Adam step through the kernels against the same step with the
     plain versions, on the card. Tolerances: the loss to rtol 1e-6; each
     gradient (read as Adam's first moment m = 0.1 g) to 1e-4 of its L2
@@ -2171,9 +2215,13 @@ def transformer_step_check(say, what, loss_for_route, params, batch, lr,
     eps). ``floor`` > 0 adds ``floor`` times the step's largest gradient
     norm to each gradient's allowance, for a gradient that sits at the
     step's rounding floor (a relative check of rounding noise fails
-    however right the kernels are). Each kernel of ``names`` (the attention
-    kernels by default) launches ``per_step`` times on the kernel route and
-    never on the plain one."""
+    however right the kernels are). ``row_scale``: the rms of each
+    parameter's gradient is taken a row at a time where that is larger
+    (a tied embedding's rows of the batch's tokens sum terms orders of
+    magnitude larger than the other rows, whose tiny gradients set the
+    tensor's rms; an entry of such a row rounds with its row). Each kernel
+    of ``names`` (the attention kernels by default) launches ``per_step``
+    times on the kernel route and never on the plain one."""
     import torch
     from paddle_tpu_torch.core.pytree import tree_get, tree_items
     from paddle_tpu_torch.ops import cuda_kernels as ck
@@ -2210,7 +2258,11 @@ def transformer_step_check(say, what, loss_for_route, params, batch, lr,
                             f"{err:.3e})")
             rel = 0.0       # held to the floor, not relatively
         g = mp.abs() / 0.1
-        dg = 1e-4 * (g + g.square().mean().sqrt())
+        rms = g.square().mean().sqrt()
+        if row_scale and g.dim() > 1:
+            rms = torch.maximum(rms, g.square().mean(-1, keepdim=True)
+                                .sqrt())
+        dg = 1e-4 * (g + rms)
         allowed = 1e-5 + lr * dg * eps / (g + eps) ** 2
         diff = (tree_get(pk, path) - b).abs()
         check(bool((diff <= allowed).all()), f"{what} f32 step: param {name} "
@@ -2945,9 +2997,17 @@ def split_sweep(say, gen, cpu_gen, batches, device="cuda"):
 # phase 10: dense decode at GPT-2-small width
 # ---------------------------------------------------------------------------
 
+# generate_fused: 8 prompts of 200, 64 new tokens (the reads cross the
+# 256-row bucket into 512 rows); the speculative decoders 2 x 32 tokens.
+# Phase 10 was the smoke's longest phase (353 s of a 965 s run): it
+# generates 64 tokens a prompt (was 100) and 32 a speculative run (was
+# 48), and profiles only the graphed route of each path (the graphed
+# profile is the path's figure; the eager one was more than half of it)
 GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, GEN_BUCKET, GEN_TOP_K = \
-    8, 200, 100, 256, 40
-SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW, SPEC_K = 2, 100, 48, 4
+    8, 200, 64, 256, 40
+SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW, SPEC_K = 2, 100, 32, 4
+# the routes phase 10 profiles
+DECODE_PROFILED = ("graphed",)
 
 
 def same_tokens(got, want, what: str) -> None:
@@ -3036,7 +3096,8 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
             "figure)")
         route_pair(say, run, lambda: model.generate_fused(
             ids, GEN_NEW, bucket=GEN_BUCKET, kv_dtype=kv),
-            lambda out: steps, torch.equal, "decode")
+            lambda out: steps, torch.equal, "decode",
+            profiled=DECODE_PROFILED)
     # top-k sampling: the graphs draw with the caller's generator, the
     # same tokens as the eager loop under the same seed; the generator is
     # no part of a key, so a fresh one each call replays the same graphs
@@ -3046,7 +3107,8 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
                    top_k=GEN_TOP_K, temperature=0.8,
                    generator=torch.Generator(device=device).manual_seed(
                        seed)),
-               lambda out: steps, torch.equal, "decode")
+               lambda out: steps, torch.equal, "decode",
+            profiled=DECODE_PROFILED)
     generate_memory_check(say, model, ids, device)
 
     prompts = workload(seed, vocab)
@@ -3078,7 +3140,7 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
     route_pair(say, run, batcher_run, lambda out: out[1],
                lambda a, b: a[1] == b[1] and all(
                    np.array_equal(a[0][k], b[0][k]) for k in a[0]),
-               "segment")
+               "segment", profiled=DECODE_PROFILED)
 
     run = "ServingEngine int8 KV"
     (toks, _, wall, eng), _ = launched(run, lambda: serve(
@@ -3109,7 +3171,8 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
         f"{wall:.3f} s")
     same_spec = lambda a, b: np.array_equal(a[0], b[0]) and a[1] == b[1]
     route_pair(say, run, lambda: sd.generate(sids, SPEC_NEW),
-               lambda out: out[1]["rounds"], same_spec, "round")
+               lambda out: out[1]["rounds"], same_spec, "round",
+               profiled=DECODE_PROFILED)
 
     # a draft that disagrees: GPT-2 small from another seed, at f32 KV, so
     # rounds reject proposals, rewind pos and overwrite rejected rows
@@ -3129,7 +3192,8 @@ def dense_decode_phase(say, seed: int, device="cuda", config=GPT2_SMALL):
         f"plain decode; {json.dumps(stats)}; launches {runs[run]}; "
         f"{wall:.3f} s")
     route_pair(say, run, lambda: sd.generate(sids, SPEC_NEW),
-               lambda out: out[1]["rounds"], same_spec, "round")
+               lambda out: out[1]["rounds"], same_spec, "round",
+               profiled=DECODE_PROFILED)
     del draft, sd
 
     model.to(torch.bfloat16)
@@ -6034,7 +6098,8 @@ WIRE_CHECKED = 8            # requests of each run held to the solo decode
 
 def _pad_route(D):
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    return None if D in ck.KERNEL_HEAD_DIMS else f"pad{64 if D <= 64 else 128}"
+    return None if D in ck.KERNEL_HEAD_DIMS else \
+        f"pad{next(w for w in ck.KERNEL_HEAD_DIMS if w >= D)}"
 
 
 def _flash_pair(q, k, v, do, causal, lens, dname, what):
@@ -6074,16 +6139,18 @@ def _flash_pair(q, k, v, do, causal, lens, dname, what):
     return errs, dict(ck.ROUTES)
 
 
-def width_flash_checks(say, gen, device) -> dict:
-    """#1-#3 at each width of WIDTHS, f32 and bf16, at GPT-Neo's training
-    shape (B=2, T=S=1024, 16 heads, causal): against the plain versions,
-    natively at 64/128 and by the counted pad route at the others; then
-    causal at S = T - 64 and T + 64 with kv_lens (top-left aligned) and a
-    view off the 16-byte rule (the copy16 route) at D = 128 and 80."""
+def width_flash_checks(say, gen, device, widths=WIDTHS,
+                       views=(128, 80)) -> dict:
+    """#1-#3 at each width of ``widths``, f32 and bf16, at GPT-Neo's
+    training shape (B=2, T=S=1024, 16 heads, causal): against the plain
+    versions, natively at the built widths and by the counted pad route at
+    the others; then causal at S = T - 64 and T + 64 with kv_lens
+    (top-left aligned) and a view off the 16-byte rule (the copy16 route
+    at a built width) at each width of ``views``."""
     import torch
     B, T, H = NEO_TRAIN_B, NEO_TRAIN_T, WIDTH_H
     out = {}
-    for D in WIDTHS:
+    for D in widths:
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[1]
             rnd = lambda *shape: torch.randn(shape, generator=gen).to(
@@ -6098,7 +6165,7 @@ def width_flash_checks(say, gen, device) -> dict:
             out[f"D{D} {dname}"] = {"max_abs_err": errs,
                                     "route": r or "native"}
             del q, k, v, do
-    for D in (128, 80):
+    for D in views:
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[1]
             rnd = lambda *shape: torch.randn(shape, generator=gen).to(
@@ -6123,7 +6190,7 @@ def width_flash_checks(say, gen, device) -> dict:
                   f"flash view off 16 bytes D={D}: routes {routes}")
             out[f"view off 16 bytes D{D} {dname}"] = {
                 "max_abs_err": errs, "route": r}
-    say(f"flash #1-#3 at head widths {WIDTHS} (B={B} T={T} H={H} causal), "
+    say(f"flash #1-#3 at head widths {widths} (B={B} T={T} H={H} causal), "
         "causal S = T -/+ 64 with kv_lens and views off the 16-byte rule, "
         f"against plain: {json.dumps(out)}")
     return out
@@ -6175,16 +6242,17 @@ def _neo_paged_inputs(D, qname, kind, gen, device, B=NEO_DECODE_B,
     return (q, kp, vp, tables.to(device), pos.to(device)), scales
 
 
-def width_decode_checks(say, gen, device) -> dict:
-    """#4-#7 at each width of WIDTHS, every query and cache dtype, against
-    their plain versions over caches at the real width (no route: nothing
-    padded or copied), and #6/#7 bit-equal to #4/#5 over ``gather_pages``
-    of the same pools at the same split count."""
+def width_decode_checks(say, gen, device, widths=WIDTHS) -> dict:
+    """#4-#7 at each width of ``widths``, every query and cache dtype,
+    against their plain versions over caches at the real width (no route
+    at a multiple of 8: nothing padded or copied; the counted pad8 route
+    at any other), and, at the multiples of 8, #6/#7 bit-equal to #4/#5
+    over ``gather_pages`` of the same pools at the same split count."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
     out = {}
     B, H = NEO_DECODE_B, WIDTH_H
-    for D in WIDTHS:
+    for D in widths:
         for qname, kind in DECODE_CASES:
             ck.reset_launch_counts()
             (q, k, v, pos), (ks, vs) = _neo_decode_inputs(D, qname, kind,
@@ -6199,8 +6267,9 @@ def width_decode_checks(say, gen, device) -> dict:
             ppg = ck.paged_decode_attention(q2, kp, vp, tables, ppos,
                                             k_scale=kps, v_scale=vps,
                                             route="plain")
+            routes = dict(ck.ROUTES)
             n_split = ck.decode_splits(B * H, NEO_DECODE_NB * PAGE_ROWS)[0]
-            gathered = ck._decode_attention_kernel(
+            gathered = None if D % 8 else ck._decode_attention_kernel(
                 q2, ck.gather_pages(kp, tables), ck.gather_pages(vp, tables),
                 ppos, D ** -0.5,
                 None if kps is None else ck.gather_pages(kps, tables),
@@ -6213,28 +6282,33 @@ def width_decode_checks(say, gen, device) -> dict:
                 errs[name] = (g - w).abs().max().item()
                 check(torch.allclose(g, w, atol=F32_ATOL, rtol=F32_RTOL),
                       f"{what} {name}: max abs {errs[name]} from plain")
-            check(torch.equal(pg, gathered),
+            check(gathered is None or torch.equal(pg, gathered),
                   f"{what}: the paged read differs from the dense read of "
                   "its gathered pages")
-            check(ck.ROUTES == {}, f"{what}: routes {ck.ROUTES}")
+            q8 = "_q" if kind == "int8" else ""
+            want = {} if D % 8 == 0 else {
+                ("decode_attention" + q8, "pad8"): 1,
+                ("paged_decode_attention" + q8, "pad8"): 1}
+            check(routes == want, f"{what}: routes {routes} != {want}")
             out[f"D{D} {qname}/{kind}"] = errs
-    say(f"decode #4-#7 at head widths {WIDTHS} (B={B} H={H}, a [:, :"
+    say(f"decode #4-#7 at head widths {widths} (B={B} H={H}, a [:, :"
         f"{NEO_DECODE_L}] read and {NEO_DECODE_NB} pages of {PAGE_ROWS}), "
         f"every query/cache dtype, against plain, paged bit-equal to dense "
         f"over its gathered pages, no route: {json.dumps(out)}")
     return out
 
 
-def width_timings(say, gen, device) -> list:
-    """Each kernel at D = 128 on GPT-Neo's shapes (#1-#3: B=2, T=S=1024,
-    16 heads, causal, f32 and bf16; #4-#7: phase 18's decode reads, bf16
-    queries) timed beside the plain version, SDPA where one call computes
-    the same (#1's forward and #2/#3's backward; #4's read with a bool
-    mask) and the bound: the kernels line's D = 128 entries (launches are
-    filled in from the GPT-Neo runs)."""
+def width_timings(say, gen, device, D=128, errs=None) -> list:
+    """Each kernel at head width D on GPT-Neo's shapes (#1-#3: B=2,
+    T=S=1024, 16 heads, causal, f32 and bf16; #4-#7: phase 18's decode
+    reads, bf16 queries) timed beside the plain version, SDPA where one
+    call computes the same (#1's forward and #2/#3's backward; #4's read
+    with a bool mask) and the bound: the kernels line's entries at D
+    (launches are filled in from the model runs at that width). ``errs``
+    are the width checks' errors (default WIDTH_ERRS)."""
     import torch
     from paddle_tpu_torch.ops import cuda_kernels as ck
-    D, B, T, H = 128, NEO_TRAIN_B, NEO_TRAIN_T, WIDTH_H
+    B, T, H = NEO_TRAIN_B, NEO_TRAIN_T, WIDTH_H
     entries = {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[1]
@@ -6256,7 +6330,7 @@ def width_timings(say, gen, device) -> list:
                    "paddle_tpu_torch/csrc/flash_bwd.cu",
                    "paddle_tpu/ops/pallas_kernels.py:168")}
     out = []
-    errs = WIDTH_ERRS
+    errs = WIDTH_ERRS if errs is None else errs
     for name, e in entries.items():
         src, rep = sources[name]
         err_key = {"flash_attention_fwd": "o", "flash_attention_bwd_dq":
@@ -6315,7 +6389,7 @@ def width_timings(say, gen, device) -> list:
                     "ms": times["ms"], "plain_ms": times["plain_ms"],
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": times.get("library_ms")})
-    say(f"kernels at D = 128 (GPT-Neo's shapes): {json.dumps(out)}")
+    say(f"kernels at D = {D} (GPT-Neo's shapes): {json.dumps(out)}")
     return out
 
 
@@ -6943,6 +7017,585 @@ def slice19_phase(say, seed: int, device="cuda") -> dict:
             "wire": wire, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: head widths up to 256 (ROADMAP B.1.4) and GPT-J-6B's widths
+# ---------------------------------------------------------------------------
+
+# GPT-J-6B's attention and MLP widths (EleutherAI/gpt-j-6b config.json:
+# n_embd 4096, n_head 16, rotary_dim aside, n_inner 4 * 4096, vocab
+# 50400), cut to 4 of its 28 layers for the smoke's time (about 1.0 B
+# parameters; a f32 Adam step holds about 16 GB)
+GPTJ = dict(vocab=50400, d_model=4096, n_heads=16, n_layers=4, d_ff=16384,
+            max_len=2048)
+# the widths phase 19 holds #1-#7 at: off the multiples of 8 (12), between
+# the built widths (136, 200) and the widest built one (256, GPT-J's and
+# Gemma's heads)
+WIDE_WIDTHS = (12, 136, 200, 256)
+# the errors of phase 19's width checks, for the D = 256 entries
+WIDE_ERRS: dict = {}
+
+
+def wide_bwd_bits(say, gen, device) -> dict:
+    """#2 and #3 at D = 256 (csrc/flash_wide.cu) run twice on the same
+    inputs, f32 and bf16: bit-equal (one owner a sum, a fixed order, no
+    atomics)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    B, T, H, D = NEO_TRAIN_B, 512, WIDTH_H, 256
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        q, k, v, do = (torch.randn((B, T, H, D), generator=gen).to(device, dt)
+                       for _ in range(4))
+        o, lse = ck.flash_attention_fwd(q, k, v, causal=True)
+        a = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        b = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(same, f"D=256 {dname} backward: two runs differ")
+        out[dname] = same
+    say(f"#2 and #3 at D = 256 (B={B} T={T} H={H} causal): two runs "
+        f"bit-equal {json.dumps(out)}")
+    return out
+
+
+def gptj_phase(say, seed: int, device="cuda") -> dict:
+    """A TransformerLM at GPT-J-6B's attention and MLP widths (GPTJ, 4
+    layers): one f32 training step through the Trainer's graph on both
+    routes, kernels against plain (transformer_step_check's Adam-aware
+    bounds); one graphed bf16 step timed; ServingEngine with f32 weights
+    at f32 KV (phase 10's burst, tokens equal to each request's solo plain
+    decode) and int8 KV (each token the plain model's greedy choice up to
+    a near-tie, greedy_within_ties), the figures from a second burst on
+    the warm engine; generate_fused at f32 and int8 KV against the same
+    loop on the plain route. Each path's counts set to 0 just before and
+    read just after; #1-#7 all launch at D = 256."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    runs = {}
+    cfg = GPTJ
+    L = cfg["n_layers"]
+    model = TransformerLM(**cfg).init(seed=seed, device=device)
+    n_params = sum(t.numel() for t in model.parameters())
+    check(model.blocks[0].d_head == 256, "GPT-J widths: head width "
+          f"{model.blocks[0].d_head}")
+    say(f"GPT-J-6B widths ({L} of 28 layers): {n_params / 1e9:.3f} B "
+        f"parameters, head width {model.blocks[0].d_head}")
+    rs = np.random.RandomState(seed + 20)
+    ids = torch.as_tensor(rs.randint(0, cfg["vocab"], (NEO_TRAIN_B,
+                                                       NEO_TRAIN_T + 1)),
+                          device=device)
+    params = model.tree()
+    _, wall, runs["f32 graphed step"], _ = counted(
+        lambda: transformer_step_check(
+            say, "GPT-J widths", lambda r: lm_loss(model, torch.float32, r),
+            params, (ids,), NEO_LR, L, device, row_scale=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = Trainer(lm_loss(model, torch.bfloat16), Adam(NEO_LR), device=device)
+    trees = [params, tr.opt.init(params)]
+
+    def step():
+        trees[0], trees[1], cost = tr.step(*trees, ids)
+        return cost
+    step()                                         # eager + capture
+    (cost,), _, launches, disp = counted(lambda: [step()])
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(step_dispatches(disp, "step") == {"captures": 0, "replays": 1}
+          and launches == {n: L for n in ATTENTION_KERNELS}
+          and torch.isfinite(cost).item(),
+          f"GPT-J widths bf16 graphed step: dispatches "
+          f"{step_dispatches(disp, 'step')}, launches {launches}, cost "
+          f"{cost.item()}")
+    runs["bf16 graphed step"] = launches
+    toks_s = NEO_TRAIN_B * NEO_TRAIN_T / min(walls)
+    say(f"GPT-J widths bf16 graphed training step ({NEO_TRAIN_B} x "
+        f"{NEO_TRAIN_T} tokens, Adam over f32 masters): "
+        f"{min(walls) * 1e3:.2f} ms (best of 3; {toks_s:.0f} tokens/s), "
+        f"cost {cost.item():.4f}, launches a step {launches}")
+    training = {"bf16_step_ms": min(walls) * 1e3, "tokens_per_s": toks_s}
+    del tr, trees, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = workload(seed, cfg["vocab"])
+    serving = {}
+    for kv in (None, "int8"):
+        run = f"ServingEngine float32 {kv or 'float32'} KV"
+        (toks, _, _, eng), _, runs[run], _ = counted(
+            lambda: serve(model, prompts, device, kv_dtype=kv))
+        steps = eng.pool.segments_total * eng.pool.segment
+        name = "paged_decode_attention_q" if kv else "paged_decode_attention"
+        check(runs[run].get(name) == L * steps
+              and runs[run].get("flash_attention_fwd")
+              == L * eng.pool.admissions_total,
+              f"{run}: launches {runs[run]}, want {L} x {steps} {name}")
+        if kv is None:
+            solo = [model.generate_fused(
+                torch.as_tensor(p[None].astype(np.int64), device=device),
+                NEW_TOKENS, route="plain")[0, len(p):].cpu().tolist()
+                for p in prompts]
+            same_tokens(toks, solo, f"GPT-J widths {run}")
+            held = "equal to each request's solo plain-attention decode"
+        else:
+            # int8 KV: the kernel and plain routes' hidden states differ
+            # by f32 rounding, and a value that close to a rounding
+            # boundary of its row's int8 codebook takes the next code, a
+            # step of 1/127 of the row's largest value: so exact equality
+            # with a plain-route decode is not a sound check at int8 KV
+            # (phase 18's bf16 reason); each token is held to the plain
+            # model's greedy choice at int8 KV up to a near-tie
+            ties = greedy_within_ties(model, prompts, toks, kv,
+                                      f"GPT-J widths {run}", device)
+            held = ("each the plain model's greedy choice at int8 KV up to "
+                    f"a near-tie ({json.dumps(ties)})")
+        # the figures: a second burst on the warm engine (graphs captured)
+        _, lat, wall, eng = serve(model, prompts, device, eng=eng)
+        serving[run] = latency_figures(lat, wall)
+        say(f"GPT-J widths {run}: {len(prompts)} requests x {NEW_TOKENS} "
+            f"tokens {held}; launches {runs[run]}; the warm engine's second "
+            f"burst: {json.dumps(serving[run])}")
+        del eng
+        gc.collect()
+    gids = torch.as_tensor(rs.randint(0, cfg["vocab"], (2, 200)),
+                           device=device)
+    for kv in (None, "int8"):
+        run = f"generate_fused float32 {kv or 'float32'} KV"
+        name = "decode_attention_q" if kv else "decode_attention"
+        got, _, runs[run], _ = counted(lambda: model.generate_fused(
+            gids, 32, bucket=256, kv_dtype=kv))
+        check(runs[run].get(name) == L * 31,
+              f"{run}: launches {runs[run]}, want {L} x 31 {name}")
+        want = model.generate_fused(gids, 32, bucket=256, kv_dtype=kv,
+                                    route="plain")
+        same_tokens(got[:, 200:].cpu(), want[:, 200:].cpu(),
+                    f"GPT-J widths {run}")
+        say(f"GPT-J widths {run}: 2 x 32 tokens equal to the same loop on "
+            f"the plain route; launches {runs[run]}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": runs, "serving": serving, "training": training,
+            "parameters": n_params}
+
+
+def slice20_widths_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 19: (a) #1-#7 at head widths 12/136/200/256 against plain
+    (f32 and bf16; causal S != T and views off the 16-byte rule at 256 and
+    200), #2/#3 at 256 bit-equal run to run, the D = 256 timings; (b)
+    GPT-J-6B's widths training and serving."""
+    import torch
+    _GRAPH_NODES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(seed + 20)
+    t0 = time.perf_counter()
+    WIDE_ERRS["flash"] = width_flash_checks(say, gen, device,
+                                            widths=WIDE_WIDTHS,
+                                            views=(256, 200))
+    WIDE_ERRS["decode"] = width_decode_checks(say, gen, device,
+                                              widths=WIDE_WIDTHS)
+    bits = wide_bwd_bits(say, gen, device)
+    entries = width_timings(say, gen, device, D=256, errs=WIDE_ERRS)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    gptj = gptj_phase(say, seed, device)
+    t2 = time.perf_counter()
+    for e in entries:
+        if e["name"].startswith("flash"):
+            e["body"] = "paddle_tpu_torch/csrc/flash_wide.cu"
+        e["launches"] = sum(n.get(e["name"], 0)
+                            for n in gptj["launches"].values())
+        e["launches_note"] = {run: n.get(e["name"], 0)
+                              for run, n in gptj["launches"].items()}
+        check(e["launches"] > 0, f"GPT-J widths: {e['name']} never "
+              "launched at D = 256")
+    seconds = {"widths": t1 - t0, "gpt_j": t2 - t1}
+    say(f"phase 19 seconds: {json.dumps(seconds)}")
+    return {"entries": entries, "gpt_j": gptj, "bwd_bit_equal": bits,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the fluid plane (Program IR + Executor) through #8-#12
+# ---------------------------------------------------------------------------
+
+# the LSTM flagship as a fluid program: benchmarks/lstm_textcls.py's
+# widths (phase 5's TEXTCLS), Adam 2e-3, batch 64, padded length 100,
+# lengths 30..100, 20 exe.run steps over 4 batches
+FLUID_STEPS, FLUID_NBUF = 20, 4
+# the dynamic_gru program at the seq2seq bench's widths: batch 64, embed
+# and hidden 512, T 32 (lengths 16..32), 10 steps
+FLUID_GRU = dict(vocab=30000, embed=512, hidden=512, batch=64, seq=32,
+                 steps=10)
+# benchmarks/fluid_executor.py's MLP: fc 784-256-64-10, Adam, batch 256,
+# 200 timed runs
+FLUID_MLP_BATCH, FLUID_MLP_RUNS = 256, 200
+
+
+def _fluid_textcls(fl, cell, vocab, embed, hidden, lr):
+    """A text classifier as a fluid program: embedding -> dynamic_lstm (or
+    dynamic_gru) -> sequence_last_step -> fc 2 -> softmax CE -> mean, Adam.
+    Returns (logits, loss)."""
+    layers = fl.layers
+    words = layers.data("words", shape=(-1,), dtype="int32")
+    lens = layers.data("lens", shape=(), dtype="int32")
+    label = layers.data("label", shape=(), dtype="int32")
+    emb = layers.embedding(words, (vocab, embed))
+    rnn = layers.dynamic_lstm if cell == "lstm" else layers.dynamic_gru
+    last = layers.sequence_last_step(rnn(emb, lens, hidden), lens)
+    logits = layers.fc(last, 2)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    fl.AdamOptimizer(lr).minimize(loss)
+    return logits, loss
+
+
+def _fluid_feed(batch):
+    data, lengths, labels = batch
+    return {"words": data, "lens": lengths, "label": labels}
+
+
+def _fluid_scope(vars, device):
+    """A fresh scope holding copies of ``vars`` (name -> tensor)."""
+    from paddle_tpu_torch import fluid
+    scope = fluid.Scope()
+    for n, v in vars.items():
+        scope.set(n, v.detach().clone().to(device))
+    return scope
+
+
+def fluid_step_check(say, what, main, start_vars, feed, loss, device):
+    """One f32 exe.run of ``main`` from ``start_vars`` through the kernels
+    against the same run with the kernels routed plain: f32_step_check's
+    bounds (the loss to 1e-5, Adam's first moments to rtol 1e-4 plus 1e-5
+    of each tensor's largest, the parameters to 1e-5)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.registry import routed
+    res = {}
+    for route in (None, "plain"):
+        exe = fluid.Executor(device=device,
+                             scope=_fluid_scope(start_vars, device))
+        with routed(route):
+            out, = exe.run(main, feed=feed, fetch_list=[loss],
+                           return_numpy=False)
+        res[route] = (float(out), exe.scope)
+    (lk, sk), (lp, sp) = res[None], res["plain"]
+    check(abs(lk - lp) <= 1e-5, f"{what}: f32 loss {lk} != plain {lp}")
+    worst = {}
+    for n in start_vars:
+        a, b = sk.get(n), sp.get(n)
+        if n.endswith("@moment1"):
+            atol = 1e-5 * b.abs().max().item()
+            ok = torch.allclose(a, b, rtol=1e-4, atol=atol)
+        elif "@" in n or not a.is_floating_point():
+            continue
+        else:
+            ok = (a - b).abs().max().item() <= 1e-5
+        worst[n] = (a - b).abs().max().item()
+        check(ok, f"{what}: {n} differs from plain by {worst[n]}")
+    say(f"{what}, kernels vs plain on the card: loss {lk:.6f} vs "
+        f"{lp:.6f}; max abs differences {json.dumps(worst)}")
+    return worst
+
+
+def fluid_flagship(say, seed: int, device="cuda") -> dict:
+    """(a) The LSTM flagship as a fluid program, 20 exe.run steps: #9 and
+    #10 once a step, one graph capture for the key; the losses fall; one
+    f32 step equal to the plain route's; graphed and eager ms a step.
+    (b) Its inference bundle: export -> load -> 2 held batches through #8,
+    equal to the plain route."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.registry import routed
+    cfg = TEXTCLS
+    fluid.reset_default_programs()
+    logits, loss = _fluid_textcls(fluid, "lstm", cfg["vocab"], cfg["embed"],
+                                  cfg["hidden"], TEXTCLS_LR)
+    main, start = fluid.default_main_program(), fluid.default_startup_program()
+    exe = fluid.Executor(device=device, scope=fluid.Scope())
+    exe.run(start)
+    start_vars = {n: v.detach().clone() for n, v in exe.scope.vars.items()}
+    batches = textcls_batches(seed + 30, FLUID_NBUF + 2, device)
+    train, held = batches[:FLUID_NBUF], batches[FLUID_NBUF:]
+    check_res = fluid_step_check(say, "fluid LSTM flagship", main,
+                                 start_vars, _fluid_feed(train[0]), loss,
+                                 device)
+
+    def run_steps(ex, n):
+        return [ex.run(main, feed=_fluid_feed(train[i % FLUID_NBUF]),
+                       fetch_list=[loss], return_numpy=False)[0]
+                for i in range(n)]
+    outs, wall, launches, disp = counted(lambda: run_steps(exe, FLUID_STEPS))
+    losses = [float(o) for o in outs]
+    want = {"lstm_seq_train": FLUID_STEPS, "lstm_seq_bwd": FLUID_STEPS}
+    mine = step_dispatches(disp, "fluid.run")
+    check(launches == want, f"fluid flagship: launches {launches} != {want}")
+    check(mine == {"captures": 1, "replays": FLUID_STEPS - 1},
+          f"fluid flagship: graphs {mine}, want one capture for the key")
+    first, last = (sum(losses[:FLUID_NBUF]) / FLUID_NBUF,
+                   sum(losses[-FLUID_NBUF:]) / FLUID_NBUF)
+    check(last < first, f"fluid flagship: losses did not fall ({first} -> "
+          f"{last})")
+    # graphed ms a step (the key's graph warm) and eager ms a step
+    timed = {}
+    for route in ("graphed", "eager"):
+        with _route(route):
+            run_steps(exe, 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_steps(exe, 10)
+            torch.cuda.synchronize()
+            timed[route] = (time.perf_counter() - t0) * 1e3 / 10
+    say(f"fluid LSTM flagship ({TEXTCLS_BATCH} x {TEXTCLS_LEN}, embed "
+        f"{cfg['embed']}, LSTM {cfg['hidden']}, Adam): {FLUID_STEPS} "
+        f"exe.run steps, losses {losses[0]:.4f} -> {losses[-1]:.4f} (means "
+        f"of the first and last {FLUID_NBUF}: {first:.4f} -> {last:.4f}); "
+        f"launches {launches}; graphs {mine}; ms a step graphed "
+        f"{timed['graphed']:.3f}, eager {timed['eager']:.3f}")
+    # (b) the inference bundle
+    with tempfile.TemporaryDirectory() as d:
+        fluid.io.export_inference_model(d, ["words", "lens"], [logits], exe,
+                                        main)
+        iexe = fluid.Executor(device=device, scope=fluid.Scope())
+        prog, feeds, fetches = fluid.io.load_inference_model(d, iexe)
+        pexe = fluid.Executor(device=device, scope=fluid.Scope())
+        fluid.io.load_inference_model(d, pexe)
+    feed_of = lambda b: {"words": b[0], "lens": b[1]}  # noqa: E731
+    outs, _, inf_launches, _ = counted(lambda: [
+        iexe.run(prog, feed=feed_of(b), fetch_list=fetches,
+                 return_numpy=False)[0] for b in held])
+    check(inf_launches == {"lstm_seq": len(held)},
+          f"fluid bundle: launches {inf_launches}")
+    errs = []
+    with routed("plain"):
+        for b, o in zip(held, outs):
+            want, = pexe.run(prog, feed=feed_of(b), fetch_list=fetches,
+                             return_numpy=False)
+            errs.append((o - want).abs().max().item())
+            check(torch.allclose(o, want, atol=F32_ATOL, rtol=F32_RTOL),
+                  f"fluid bundle: logits differ from plain by {errs[-1]}")
+    say(f"fluid inference bundle (export -> load, {len(held)} held "
+        f"batches): launches {inf_launches}, logits within {max(errs):.3e} "
+        "of the plain route")
+    return {"train": {"launches": launches, "graphs": mine,
+                      "losses_first_last": [losses[0], losses[-1]],
+                      "ms_per_step": timed, "step_check": check_res},
+            "bundle": {"launches": inf_launches, "max_abs_err": max(errs)}}
+
+
+def fluid_gru(say, seed: int, device="cuda") -> dict:
+    """(c) A dynamic_gru program at the seq2seq bench's widths, 10 steps:
+    #11 and #12 once a step, one f32 step equal to the plain route's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    g = FLUID_GRU
+    fluid.reset_default_programs()
+    _, loss = _fluid_textcls(fluid, "gru", g["vocab"], g["embed"],
+                             g["hidden"], S2S_LR)
+    main, start = fluid.default_main_program(), fluid.default_startup_program()
+    exe = fluid.Executor(device=device, scope=fluid.Scope())
+    exe.run(start)
+    start_vars = {n: v.detach().clone() for n, v in exe.scope.vars.items()}
+    rs = np.random.RandomState(seed + 31)
+    data = rs.randint(0, g["vocab"], (g["batch"], g["seq"])).astype(np.int32)
+    lens = rs.randint(g["seq"] // 2, g["seq"] + 1, g["batch"]).astype(
+        np.int32)
+    feed = {"words": torch.as_tensor(data, device=device),
+            "lens": torch.as_tensor(lens, device=device),
+            "label": torch.as_tensor(data[np.arange(g["batch"]), lens - 1]
+                                     % 2, device=device)}
+    worst = fluid_step_check(say, "fluid dynamic_gru", main, start_vars,
+                             feed, loss, device)
+    outs, _, launches, disp = counted(lambda: [
+        exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)[0]
+        for _ in range(g["steps"])])
+    want = {"gru_seq": g["steps"], "gru_seq_bwd": g["steps"]}
+    check(launches == want, f"fluid gru: launches {launches} != {want}")
+    losses = [float(o) for o in outs]
+    check(losses[-1] < losses[0], f"fluid gru: losses {losses}")
+    say(f"fluid dynamic_gru (batch {g['batch']}, hidden {g['hidden']}, T "
+        f"{g['seq']}): {g['steps']} steps, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {launches}; graphs "
+        f"{step_dispatches(disp, 'fluid.run')}")
+    return {"launches": launches, "step_check": worst}
+
+
+def fluid_mlp(say, seed: int, device="cuda") -> dict:
+    """(d) benchmarks/fluid_executor.py's MLP: 200 timed exe.run with
+    return_numpy=False after a warm-up; ms a run, the cache hit rate and
+    the graph captures inside the timed window (0); then an LRU of one key
+    evicting and recapturing."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.core import graphs
+    fluid.reset_default_programs()
+    layers = fluid.layers
+    img = layers.data("img", shape=(784,))
+    label = layers.data("label", shape=(), dtype="int32")
+    h = layers.fc(layers.fc(img, 256, act="relu"), 64, act="relu")
+    loss = layers.mean(layers.softmax_with_cross_entropy(layers.fc(h, 10),
+                                                         label))
+    fluid.AdamOptimizer(1e-3).minimize(loss)
+    main = fluid.default_main_program()
+    exe = fluid.Executor(device=device, scope=fluid.Scope())
+    exe.run(fluid.default_startup_program())
+    rs = np.random.RandomState(seed + 32)
+    feed = {"img": torch.as_tensor(rs.randn(FLUID_MLP_BATCH, 784).astype(
+        np.float32), device=device),
+            "label": torch.as_tensor(rs.randint(0, 10, FLUID_MLP_BATCH)
+                                     .astype(np.int32), device=device)}
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+    stats0 = dict(exe.stats)
+    torch.cuda.synchronize()
+    graphs.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    for _ in range(FLUID_MLP_RUNS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss],
+                       return_numpy=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FLUID_MLP_RUNS
+    disp = step_dispatches(json.loads(json.dumps(graphs.DISPATCHES)),
+                           "fluid.run")
+    hits = exe.stats["cache_hits"] - stats0["cache_hits"]
+    runs = exe.stats["runs"] - stats0["runs"]
+    check(disp["captures"] == 0 and disp["replays"] == FLUID_MLP_RUNS,
+          f"fluid MLP: graphs in the timed window {disp}")
+    check(torch.isfinite(out).item(), "fluid MLP: loss not finite")
+    # an LRU of one key: two batch shapes alternating evict each other
+    lru = fluid.Executor(device=device, cache_capacity=1,
+                         scope=_fluid_scope(exe.scope.vars, device))
+    graphs.reset_dispatch_counts()
+    for bs in (FLUID_MLP_BATCH, 128, FLUID_MLP_BATCH):
+        lru.run(main, feed={k: v[:bs] for k, v in feed.items()},
+                fetch_list=[loss])
+    ev = step_dispatches(json.loads(json.dumps(graphs.DISPATCHES)),
+                         "fluid.run")
+    check(lru.stats["cache_evictions"] == 2 and ev["captures"] == 3
+          and len(lru.graphs._graphs) == 1,
+          f"fluid MLP LRU: evictions {lru.stats['cache_evictions']}, graphs "
+          f"{ev}, live {len(lru.graphs._graphs)}")
+    say(f"fluid MLP (784-256-64-10, Adam, batch {FLUID_MLP_BATCH}): "
+        f"{FLUID_MLP_RUNS} timed exe.run (return_numpy=False): {ms:.4f} ms "
+        f"a run, cache hit rate {hits / runs:.3f}, graph captures in the "
+        f"window {disp['captures']}; an LRU of one key: 2 evictions, "
+        f"{ev['captures']} captures, 1 graph live")
+    return {"ms_per_run": ms, "hit_rate": hits / runs,
+            "captures_in_window": disp["captures"],
+            "lru": {"evictions": 2, "captures": ev["captures"]}}
+
+
+def fluid_control_flow(say, device="cuda") -> dict:
+    """(e) Small While, Cond and StaticRNN programs: the card's fetches
+    equal the same programs run by the port on the CPU (While and Cond
+    run eagerly, StaticRNN through its graph)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    layers = fluid.layers
+    out = {}
+
+    def both(name, build, feed):
+        # the startup's initializers draw from CPU generators, so both
+        # devices start from the same weights
+        fluid.reset_default_programs()
+        fetch = build()
+        got = {}
+        for dev in (device, "cpu"):
+            exe = fluid.Executor(device=dev, scope=fluid.Scope())
+            exe.run(fluid.default_startup_program())
+            before = exe.stats["eager_runs"]
+            got[dev] = exe.run(feed=feed, fetch_list=fetch)
+            got[dev + "_eager"] = exe.stats["eager_runs"] - before
+        errs = [float(np.abs(a.astype(np.float64) - b).max())
+                for a, b in zip(got[device], got["cpu"])]
+        check(all(e <= 1e-5 for e in errs), f"fluid {name}: card vs CPU "
+              f"{errs}")
+        out[name] = {"max_abs_err": max(errs),
+                     "eager_runs": got[device + "_eager"]}
+
+    def while_prog():
+        i = layers.fill_constant((), "int32", 0)
+        n = layers.fill_constant((), "int32", 10)
+        acc = layers.fill_constant((), "float32", 0.0)
+        cond = layers.less_than(i, n)
+        with fluid.While(cond).block():
+            b = fluid.default_main_program().current_block()
+            fi = layers.cast(i, "float32")
+            b.append_op("elementwise_add", {"X": [acc.name], "Y": [fi.name]},
+                        {"Out": [acc.name]})
+            layers.increment(i)
+            layers.less_than(i, n, cond=cond)
+        return [acc, i]
+
+    def cond_prog():
+        x = layers.data("x", shape=())
+        res = layers.fill_constant((), "float32", 0.0)
+        c = fluid.Cond(layers.greater_than(
+            x, layers.fill_constant((), "float32", 5.0)))
+        with c.true_block():
+            layers.assign(layers.elementwise_add(x, x), res)
+        with c.false_block():
+            layers.assign(x, res)
+        return [res]
+
+    def rnn_prog():
+        x = layers.data("x", shape=(6, 8))
+        rnn = fluid.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(x)
+            h = rnn.memory(shape=(16,), value=0.0, batch_ref=x_t)
+            h_new = layers.fc(layers.concat([x_t, h], axis=1), 16,
+                              act="tanh")
+            rnn.update_memory(h, h_new)
+            rnn.step_output(h_new)
+        return [rnn()[0]]
+
+    both("While", while_prog, {})
+    both("Cond", cond_prog, {"x": np.float32(7.0)})
+    both("StaticRNN", rnn_prog, {"x": np.random.RandomState(5).randn(
+        4, 6, 8).astype(np.float32)})
+    check(out["While"]["eager_runs"] == 1 and out["Cond"]["eager_runs"] == 1
+          and out["StaticRNN"]["eager_runs"] == 0,
+          f"fluid control flow: eager runs {out}")
+    say(f"fluid While, Cond and StaticRNN: card equal to the CPU "
+        f"{json.dumps(out)}")
+    return out
+
+
+def fluid_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 20: the fluid plane, (a)-(e) (see each part)."""
+    import torch
+    _GRAPH_NODES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flag = fluid_flagship(say, seed, device)
+    gru = fluid_gru(say, seed, device)
+    mlp = fluid_mlp(say, seed, device)
+    cf = fluid_control_flow(say, device)
+    launches = {}
+    for part in (flag["train"]["launches"], flag["bundle"]["launches"],
+                 gru["launches"]):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+    seconds = time.perf_counter() - t0
+    say(f"phase 20 seconds: {seconds:.1f}; launches {json.dumps(launches)}")
+    return {"flagship": flag, "gru": gru, "mlp": mlp, "control_flow": cf,
+            "launches": launches, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7081,6 +7734,14 @@ def main(argv=None) -> int:
     stamp("phase 17")
     s19 = slice19_phase(say, args.seed)
     stamp("phase 18")
+    s20 = slice20_widths_phase(say, args.seed)
+    stamp("phase 19")
+    fl = fluid_phase(say, args.seed)
+    stamp("phase 20")
+    for entry in lstm + gru:
+        entry["launches_fluid"] = fl["launches"].get(entry["name"], 0)
+        check(entry["launches_fluid"] > 0,
+              f"fluid phase: {entry['name']} never launched")
     for entry in lstm:
         entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
         entry["launches_data"] = data["launches"][entry["name"]]
@@ -7109,8 +7770,12 @@ def main(argv=None) -> int:
     print(json.dumps({"slice18": s18, "card": card}))
     print(json.dumps({"slice19": {k: v for k, v in s19.items()
                                   if k != "entries"}, "card": card}))
+    print(json.dumps({"slice20": {k: v for k, v in s20.items()
+                                  if k != "entries"}, "fluid": fl,
+                      "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
-                      + gru + s19["entries"], "card": card}))
+                      + gru + s19["entries"] + s20["entries"],
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

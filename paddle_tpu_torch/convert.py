@@ -109,3 +109,17 @@ def tree_from_numpy(tree: Mapping, device: DeviceLike = None
     dev = resolve_device(device)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
                     port_tree(tree))
+
+
+def scope_from_numpy(vars: Mapping, device: DeviceLike = None):
+    """A fluid scope's variables by name (a JAX ``Scope.vars`` read as
+    numpy: ``{n: np.asarray(v) for n, v in scope.vars.items()}``) as a
+    port ``fluid.Scope`` of tensors on ``device`` (default: the card),
+    dtypes kept, so that both packages' executors start from the same
+    weights and optimizer state."""
+    from .fluid.executor import Scope
+    dev = resolve_device(device)
+    scope = Scope()
+    for name, arr in vars.items():
+        scope.set(name, torch.tensor(np.asarray(arr), device=dev))
+    return scope

@@ -246,6 +246,17 @@ class GraphCache:
         self._buffers.clear()
         self._pool = None
 
+    def drop(self, match: Callable[[Hashable], bool]) -> int:
+        """Drop the graphs whose key ``match(key)`` accepts (the fluid
+        executor's LRU drops the graph of each key it evicts); returns how
+        many went. Their static buffers go with them, apart from the
+        donated ones the cache still shares with its other graphs or the
+        owner's buffers."""
+        keys = [k for k in self._graphs if match(k)]
+        for k in keys:
+            del self._graphs[k]
+        return len(keys)
+
     def watch(self, tensors: Iterable[torch.Tensor]) -> None:
         """Drop the graphs and buffers when one of ``tensors`` (what the
         bodies read without taking it as an input: a model's weights) is

@@ -62,7 +62,7 @@ struct DenseCacheQ {                   // #5: int8 k/v, f32 scales [B, L, H]
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// #4. q [B, H, D] (D a multiple of 8 up to 128) with element strides
+// #4. q [B, H, D] (D a multiple of 8 up to 256) with element strides
 // (innermost 1); k/v [B, L, H, D]
 // with shared element strides (batch kv_sb, row kv_sl, head kv_sh;
 // innermost 1), each a multiple of 8, 16-byte-aligned bases; pos [B] int32

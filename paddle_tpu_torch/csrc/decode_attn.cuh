@@ -18,10 +18,12 @@
 // row is handled by a group of 8 lanes; the row's D elements are D / 8
 // chunks of 8 (one 16-byte load for bf16, two for f32, one 8-byte load for
 // int8), and lane li holds chunks li, li + 8, ... (kPer of them at most:
-// one for D <= 64, two for D <= 128), so a warp reads 4 rows at once and
-// a dot product is 3 shuffles. The head width D is a run-time number (any
-// multiple of 8 up to 128), read natively: a lane's chunks past the row
-// hold zeros and are never loaded, and no cache is padded or copied.
+// one for D <= 64, two for D <= 128, four for D <= 256), so a warp reads
+// 4 rows at once and a dot product is 3 shuffles. The head width D is a
+// run-time number (any multiple of 8 up to 256), read natively: a lane's
+// chunks past the row hold zeros and are never loaded, and no cache is
+// padded or copied. Each thread of the block merges output elements tid
+// and tid + 128 (the second only past D = 128).
 // The 16 row groups of the block each keep (m, l, acc) and are merged
 // through shared memory at the end. Rows past the live count are never
 // read. A read walks its live rows one dependent row group step after
@@ -41,15 +43,17 @@ constexpr int kThreads = 128;
 constexpr int kLanesPerRow = 8;
 constexpr int kGroups = kThreads / kLanesPerRow;   // rows in flight a block
 constexpr int kGroupsPerWarp = 32 / kLanesPerRow;
-constexpr int kMaxD = 128;                         // the widest head built
+constexpr int kMaxD = 256;                         // the widest head built
+constexpr int kOut = kMaxD / kThreads;             // output elements a thread
 
 // The kernels' __launch_bounds__(kThreads, min_blocks<kPer>()): without
 // the occupancy hint ptxas held the f32 paged kernel to 40 registers and
 // spilled inside the loop (on an H100, 20.6 against 15.0 us for B=8, H=12
 // and 256 rows). A lane of a D <= 128 read holds twice the elements, so it
-// asks for half the blocks (128 registers a thread).
+// asks for half the blocks (128 registers a thread), and one of a D <= 256
+// read half of that again (255).
 template <int kPer>
-constexpr int min_blocks() { return kPer == 1 ? 8 : 4; }
+constexpr int min_blocks() { return kPer == 1 ? 8 : kPer == 2 ? 4 : 2; }
 
 // A lane's view of a row: its chunks li, li + 8, ... of the row's D / 8;
 // ``n`` of them (<= kPer) lie inside the row.
@@ -220,16 +224,17 @@ struct PagedRowsQ {
 };
 
 // A block's partial softmax sums over its rows: the running max m, the
-// sum l of exp(s - m) and, for output element tid (threads tid < D), the
-// unnormalized sum acc of exp(s - m) * v. No row: m = kNeg, l = 0, acc = 0.
+// sum l of exp(s - m) and, for output elements tid + kThreads * i (those
+// below D), the unnormalized sums acc[i] of exp(s - m) * v. No row:
+// m = kNeg, l = 0, acc = 0.
 struct Partial {
-  float m, l, acc;
+  float m, l, acc[kOut];
 };
 
 // The walk over rows j_lo .. j_hi - 1 (the caller clamps j_hi to the live
 // rows the cache has): ``qb`` is the (b, h) query row, ``rows`` this
 // lane's loader (a copy: a paged loader carries its page). Returns the
-// block's partial (threads tid < D hold it). Every loader gives the same
+// block's partial (for the elements below D). Every loader gives the same
 // f32 values for the same row contents, and the arithmetic does not
 // depend on the loader, so a paged read equals the dense read of its
 // gathered pages bit for bit at the same chunks.
@@ -298,15 +303,17 @@ __device__ __forceinline__ Partial walk_rows(const TQ* __restrict__ qb,
 #pragma unroll
       for (int e = 0; e < 8; ++e) sm_acc[g][ln.at(i) + e] = acc[8 * i + e];
   __syncthreads();
-  Partial out{kNeg, 0.f, 0.f};
-  if (tid < D) {
+  Partial out{kNeg, 0.f, {}};
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i) out.m = fmaxf(out.m, sm_m[i]);
+  for (int i = 0; i < kGroups; ++i) out.m = fmaxf(out.m, sm_m[i]);
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i) {
-      const float w = expf(sm_m[i] - out.m);
-      out.l = fmaf(sm_l[i], w, out.l);
-      out.acc = fmaf(sm_acc[i][tid], w, out.acc);
+  for (int i = 0; i < kGroups; ++i) {
+    const float w = expf(sm_m[i] - out.m);
+    out.l = fmaf(sm_l[i], w, out.l);
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) {
+      const int d = tid + kThreads * e;
+      if (d < D && d < 64 * kPer) out.acc[e] = fmaf(sm_acc[i][d], w, out.acc[e]);
     }
   }
   return out;
@@ -337,18 +344,26 @@ decode_split_kernel(const TQ* __restrict__ q, const Cache cache,
   const int bh = b * H + h;
   const int j_lo = s * chunk;
   const int j_hi = min(j_lo + chunk, min(pos[b] + 1, L));
-  Partial pt{kNeg, 0.f, 0.f};
+  Partial pt{kNeg, 0.f, {}};
   if (j_lo < j_hi) {        // else the chunk is past the live rows
     const Lane ln(tid % kLanesPerRow, D);
     pt = walk_rows<kPer>(q + b * q_sb + h * q_sh, D, scale, j_lo, j_hi,
                          cache.template rows<kPer>(b, h, ln));
   }
   if (splits == 1) {        // the whole read (row 0 is live, so l > 0)
-    if (tid < D) o[static_cast<int64_t>(bh) * D + tid] = pt.acc / pt.l;
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) {
+      const int d = tid + kThreads * e;
+      if (d < D) o[static_cast<int64_t>(bh) * D + d] = pt.acc[e] / pt.l;
+    }
     return;
   }
   float* mine = part + (static_cast<int64_t>(bh) * splits + s) * kPart;
-  if (tid < D) mine[2 + tid] = pt.acc;
+#pragma unroll
+  for (int e = 0; e < kOut; ++e) {
+    const int d = tid + kThreads * e;
+    if (d < D) mine[2 + d] = pt.acc[e];
+  }
   if (tid == 0) {
     mine[0] = pt.m;
     mine[1] = pt.l;
@@ -364,10 +379,13 @@ decode_split_kernel(const TQ* __restrict__ q, const Cache cache,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  if (tid < D) {
-    // chunk 0 holds row 0, which is always live, so M is a real score
-    // and an empty chunk's weight exp(kNeg - M) is exactly 0
-    const float* all = part + static_cast<int64_t>(bh) * splits * kPart;
+  // chunk 0 holds row 0, which is always live, so M is a real score
+  // and an empty chunk's weight exp(kNeg - M) is exactly 0
+  const float* all = part + static_cast<int64_t>(bh) * splits * kPart;
+#pragma unroll
+  for (int e = 0; e < kOut; ++e) {
+    const int d = tid + kThreads * e;
+    if (d >= D) continue;
     float M = kNeg;
     for (int i = 0; i < splits; ++i) M = fmaxf(M, __ldcg(all + i * kPart));
     float l = 0.f, acc = 0.f;
@@ -375,9 +393,9 @@ decode_split_kernel(const TQ* __restrict__ q, const Cache cache,
       const float* pi = all + i * kPart;
       const float w = expf(__ldcg(pi) - M);
       l = fmaf(__ldcg(pi + 1), w, l);
-      acc = fmaf(__ldcg(pi + 2 + tid), w, acc);
+      acc = fmaf(__ldcg(pi + 2 + d), w, acc);
     }
-    o[static_cast<int64_t>(bh) * D + tid] = acc / l;
+    o[static_cast<int64_t>(bh) * D + d] = acc / l;
   }
 }
 
@@ -393,8 +411,12 @@ int launch(const void* q, const Cache& cache, const int* pos, float* o,
     decode_split_kernel<1, TQ, Cache><<<grid, kThreads, 0, stream>>>(
         static_cast<const TQ*>(q), cache, pos, o, part, tickets, H, D, L,
         chunk, q_sb, q_sh, scale);
-  else
+  else if (D <= 128)
     decode_split_kernel<2, TQ, Cache><<<grid, kThreads, 0, stream>>>(
+        static_cast<const TQ*>(q), cache, pos, o, part, tickets, H, D, L,
+        chunk, q_sb, q_sh, scale);
+  else
+    decode_split_kernel<4, TQ, Cache><<<grid, kThreads, 0, stream>>>(
         static_cast<const TQ*>(q), cache, pos, o, part, tickets, H, D, L,
         chunk, q_sb, q_sh, scale);
   return (int)cudaGetLastError();

@@ -88,8 +88,8 @@
 // of P^T and dS^T before the second products.
 //
 // Head widths. Every body is a template on D, built for D = 64 and
-// D = 128 (the wrapper zero-pads any other multiple of 8 up to 128 to the
-// next of them). At D = 128 a bf16 tile is two 64-column TMA boxes, the
+// D = 128; D = 256 runs the bodies of flash_wide.cu (the wrapper
+// zero-pads any other width up to 256 to the next of the three). At D = 128 a bf16 tile is two 64-column TMA boxes, the
 // D-long products S, dP (and S^T, dP^T) take 8 k steps of 16, and each
 // [64 x D] accumulator (dQ; dK and dV) is two m64n64 halves, each its own
 // wgmma chain: shared memory is 96 KB for #2 (Q, dO, two K/V stages) and
@@ -112,6 +112,7 @@
 // which copies nothing for autograd's cotangent of the forward's
 // contiguous output.
 #include "common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 #include "tf32x3.cuh"
 
@@ -1122,7 +1123,8 @@ int dkv_at(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// q [B, T, H, D] and k/v [B, S, H, D] (D = 64 or 128) with element
+// q [B, T, H, D] and k/v [B, S, H, D] (D = 64, 128 or 256; flash_wide.cu
+// at 256) with element
 // strides (innermost stride 1); o, dout and dq contiguous [B, T, H, D] in
 // q's dtype; lse and delta contiguous [B, T, H] f32 (delta is written when
 // compute_delta is 1, read otherwise); kv_lens [B] int32 in [1, S] or
@@ -1145,6 +1147,10 @@ extern "C" int paddle_flash_attention_bwd_dq(
     return dq_at<128>(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T, S, H,
                       q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                       scale, causal, compute_delta, dtype, st);
+  if (D == wide::kD)
+    return wide::dq(q, k, v, o, dout, lse, delta, kv_lens, dq, B, T, S, H,
+                    q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                    scale, causal, compute_delta, dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1170,5 +1176,9 @@ extern "C" int paddle_flash_attention_bwd_dkv(
     return dkv_at<128>(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T, S,
                        H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                        v_sh, scale, causal, dtype, st);
+  if (D == wide::kD)
+    return wide::dkv(q, k, v, dout, lse, delta, kv_lens, dk, dv, B, T, S, H,
+                     q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                     scale, causal, dtype, st);
   return (int)cudaErrorInvalidValue;
 }

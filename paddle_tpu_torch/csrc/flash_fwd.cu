@@ -44,8 +44,8 @@
 // version: P is rounded to bf16 before that product (l sums the f32 P).
 //
 // Head widths. Both bodies are templates on D and are built for D = 64
-// and D = 128 (the wrapper zero-pads any other multiple of 8 up to 128 to
-// the next of them). At D = 128 the bf16 tiles are two 64-column TMA
+// and D = 128; D = 256 runs the bodies of flash_wide.cu (the wrapper
+// zero-pads any other width up to 256 to the next of the three). At D = 128 the bf16 tiles are two 64-column TMA
 // boxes each, Q.K^T takes 8 k steps of 16, and O is two m64n64
 // accumulators (one a 64-column half, 64 f32 registers a thread in all),
 // each P.V half its own wgmma; shared memory is Q plus two K/V stages,
@@ -64,6 +64,7 @@
 // stride must be 1, the base 16-byte aligned and the strides multiples
 // of 16 bytes (TMA in bf16, cp.async in f32; the wrapper checks).
 #include "common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 #include "tf32x3.cuh"
 
@@ -553,7 +554,8 @@ int launch(const void* q, const void* k, const void* v, const int* kv_lens,
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// q [B, T, H, D] and k/v [B, S, H, D] (D = 64 or 128) with element
+// q [B, T, H, D] and k/v [B, S, H, D] (D = 64, 128 or 256; flash_wide.cu
+// at 256) with element
 // strides (innermost stride 1); kv_lens [B] int32 in [1, S] or null;
 // o [B, T, H, D] contiguous in q's dtype; lse [B, T, H] contiguous f32. Returns the
 // launch's cudaError_t (0 on success).
@@ -574,5 +576,9 @@ extern "C" int paddle_flash_attention_fwd(
     return launch<128>(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st,
                        q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
                        causal, dtype, st);
+  if (D == wide::kD)
+    return wide::fwd(q, k, v, kv_lens, o, lse, B, T, S, H, q_sb, q_st, q_sh,
+                     k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, dtype,
+                     st);
   return (int)cudaErrorInvalidValue;
 }

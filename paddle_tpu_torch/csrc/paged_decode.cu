@@ -92,7 +92,7 @@ int launch_paged_q(const void* q, const int8_t* k_pool, const float* k_scale,
 }  // namespace
 }  // namespace paddle_tpu_torch
 
-// #6. q [B, H, D] (D a multiple of 8 up to 128) with element strides
+// #6. q [B, H, D] (D a multiple of 8 up to 256) with element strides
 // (innermost 1); k_pool/v_pool
 // [P, bs, H, D] contiguous and 16-byte aligned; tables [B, NB] int32
 // contiguous, every entry in [0, P); pos [B] int32 >= 0 (rows past NB*bs

@@ -33,15 +33,18 @@ o and dO) at a 16-byte-aligned base with strides of 16-byte multiples:
 the wrappers copy a view that breaks the rule into a contiguous buffer
 first (the ``copy16`` route).
 
-Head widths. #1-#3 are built for D = 64 and D = 128
-(``KERNEL_HEAD_DIMS``); the wrappers zero-pad q, k and v (and o, dO) of
-any other multiple of 8 up to 128 to the next of them and slice the
-outputs back (the ``pad64`` and ``pad128`` routes), which is exact: a zero
-column adds +0.0 to every score and the padded output columns are
-dropped; the scale is the real width's. #4-#7 read every multiple of 8 up
-to 128 natively, with no copy of a cache. Wider heads, or widths that are
-not multiples of 8, raise (ROADMAP B.1.4). ``ROUTES`` counts each call
-that took a route other than the kernel's own, by (kernel, route).
+Head widths. #1-#3 are built for D = 64, 128 and 256
+(``KERNEL_HEAD_DIMS``; at 256 the simple bodies of ``csrc/flash_wide.cu``);
+the wrappers zero-pad q, k and v (and o, dO) of any other width up to 256
+to the next of them and slice the outputs back (the ``pad64``,
+``pad128`` and ``pad256`` routes), which is exact: a zero column adds
++0.0 to every score and the padded output columns are dropped; the scale
+is the real width's. #4-#7 read every multiple of 8 up to 256 natively,
+with no copy of a cache; a width that is not a multiple of 8 is
+zero-padded to the next one (q, and the cache or pools the read takes:
+the ``pad8`` route, a copy a call). Wider heads raise (ROADMAP B.1.5).
+``ROUTES`` counts each call that took a route other than the kernel's
+own, by (kernel, route).
 
 The decode reads (#4 and #6, and #5 and #7 over int8) run one split
 body: each (sample, head) read is split across blocks when the card
@@ -71,11 +74,11 @@ from . import _build
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the attention bodies #1-#3 are compiled for; any other
-#: multiple of 8 up to MAX_HEAD_DIM is zero-padded to the next of them
-KERNEL_HEAD_DIMS = (64, 128)
+#: width up to MAX_HEAD_DIM is zero-padded to the next of them
+KERNEL_HEAD_DIMS = (64, 128, 256)
 #: the widest head every kernel takes (#4-#7 read each multiple of 8 up to
-#: it natively)
-MAX_HEAD_DIM = 128
+#: it natively, and pad the other widths to the next multiple of 8)
+MAX_HEAD_DIM = 256
 
 #: launches of every kernel of the port, by kernel (the LSTM and GRU
 #: wrappers of ops/rnn_kernels.py count here too)
@@ -94,8 +97,9 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
 #: the routes the wrappers took, by (kernel, route): the recurrences'
 #: "whole", "tiles" or "scan" (ops/rnn_kernels.py ``plan_route``; the
 #: counterpart of JAX's ``kernels.routes_total``), and the attention
-#: kernels' "pad64", "pad128" (a head width zero-padded to a built one)
-#: and "copy16" (a view copied to meet the 16-byte rule). A call counts
+#: kernels' "pad64", "pad128", "pad256" (a head width zero-padded to a
+#: built one), "pad8" (#4-#7: a width padded to a multiple of 8) and
+#: "copy16" (a view copied to meet the 16-byte rule). A call counts
 #: where its route is decided; a graph replays the counts its capture
 #: took, as LAUNCHES.
 ROUTES: Dict[Tuple[str, str], int] = {}
@@ -183,13 +187,14 @@ def _live(T: int, S: int, causal: bool, kv_lens: Optional[torch.Tensor],
 
 
 def _check_width(what: str, D: int) -> None:
-    """Raises on a head width no kernel takes: a multiple of 8 up to
-    MAX_HEAD_DIM."""
-    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+    """Raises on a head width no kernel takes: past MAX_HEAD_DIM (no model
+    of the repo or its catalogue has one; ROADMAP B.1.5)."""
+    if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{what}: head width {D} not taken by the kernels (multiples of "
-            f"8 up to {MAX_HEAD_DIM}: {KERNEL_HEAD_DIMS} natively, the rest "
-            "zero-padded to the next of them for #1-#3)")
+            f"{what}: head width {D} not taken by the kernels (widths 1 to "
+            f"{MAX_HEAD_DIM}: {KERNEL_HEAD_DIMS} natively for #1-#3, the "
+            "rest zero-padded to the next of them; wider heads are ROADMAP "
+            "B.1.5)")
 
 
 def _built_width(what: str, D: int) -> int:
@@ -250,7 +255,7 @@ def _kernel_operands(what: str, kernels: Tuple[str, ...], *ts):
     width the tensors as they are, with those that break the 16-byte rule
     copied into contiguous buffers (route "copy16"); at any other width
     every [..., D] operand zero-padded to the next built width ("pad64",
-    "pad128": fresh contiguous buffers). A route other than the kernel's
+    "pad128", "pad256": fresh contiguous buffers). A route other than the kernel's
     own is counted in ROUTES under each of ``kernels``."""
     D = ts[0].shape[-1]
     W = _built_width(what, D)
@@ -333,8 +338,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query i when j > i, top-left aligned at any S and T, as JAX's
     ``tril(ones(T, S))``), optional ``kv_lens`` [B] masking each sample's
     keys at or past its length -> (o [B,T,H,D] in q's dtype, lse [B,T,H]
-    f32). On the card D is any multiple of 8 up to 128 (module
-    docstring: the pad route).
+    f32). On the card D is any width up to 256 (module docstring: the pad
+    routes).
 
     A length is clamped to [1, S] on both routes: a sample with no key has
     no softmax support, so it attends key 0 (``flash_attention`` then
@@ -633,6 +638,9 @@ def _decode_query(what: str, q: torch.Tensor, pos: torch.Tensor):
         raise ValueError(f"{what}: q {tuple(q.shape)} is not [B, H, D]")
     B, H, D = q.shape
     _check_width(what, D)
+    if D % 8:
+        raise ValueError(f"{what}: head width {D} is not a multiple of 8 "
+                         "(the wrappers pad it: the pad8 route)")
     _check_float("q", q, q.dtype)
     if q.stride(-1) != 1:
         raise ValueError(f"{what}: q needs an innermost stride of 1")
@@ -799,6 +807,25 @@ def _scales(k_scale, v_scale) -> tuple:
     return () if k_scale is None else (k_scale, v_scale)
 
 
+def decode_by_route(q: torch.Tensor, kv: Tuple[torch.Tensor, ...], launch,
+                    kernel: str) -> torch.Tensor:
+    """#4-#7's wrapper route around ``launch(q, kv) -> o``: at a width that
+    is a multiple of 8 the operands as they are; at any other width q and
+    the cache (or pools) ``kv`` zero-padded to the next multiple of 8
+    (route "pad8", counted under ``kernel``) and o sliced back. Exact for
+    the reason the flash pad routes are; an int8 cache pads with code 0
+    and keeps its scales. The CPU tests pass the plain version as the
+    launch."""
+    D = q.shape[-1]
+    if D % 8 == 0:
+        return launch(q, kv)
+    pad = (0, -D % 8)
+    _count_route("pad8", kernel)
+    o = launch(torch.nn.functional.pad(q, pad),
+               tuple(torch.nn.functional.pad(t, pad) for t in kv))
+    return o[..., :D].contiguous()
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, *, scale: Optional[float] = None,
                      k_scale: Optional[torch.Tensor] = None,
@@ -820,7 +847,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route(route, q, k, v, pos, *extra) == "plain":
         return decode_attention_plain(q, k, v, pos, scale=scale_v,
                                       k_scale=k_scale, v_scale=v_scale)
-    return _decode_attention_kernel(q, k, v, pos, scale_v, k_scale, v_scale)
+    return decode_by_route(
+        q, (k, v), lambda q, kv: _decode_attention_kernel(
+            q, *kv, pos, scale_v, k_scale, v_scale),
+        "decode_attention_q" if k_scale is not None else "decode_attention")
 
 
 def _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos, scale,
@@ -903,5 +933,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                                             scale=scale_v, k_scale=k_scale,
                                             v_scale=v_scale)
-    return _paged_decode_attention_kernel(q, k_pool, v_pool, tables, pos,
-                                          scale_v, k_scale, v_scale)
+    return decode_by_route(
+        q, (k_pool, v_pool), lambda q, kv: _paged_decode_attention_kernel(
+            q, *kv, tables, pos, scale_v, k_scale, v_scale),
+        "paged_decode_attention_q" if k_scale is not None
+        else "paged_decode_attention")

@@ -498,12 +498,10 @@ def test_decode_kernels_refuse_what_they_do_not_take(cuda):
         ck.decode_attention(q, k.to(torch.bfloat16), v, pos)
     with pytest.raises(TypeError, match="dtype"):
         ck.decode_attention(q.half(), k.half(), v.half(), pos)
-    # widths past 128 or off the multiples of 8 (ROADMAP B.1.4)
-    with pytest.raises(ValueError, match="head width"):
-        ck.decode_attention(q[..., :36], k[..., :36], v[..., :36], pos)
-    wide = torch.randn(4, 96, 3, 136, device=cuda)
-    with pytest.raises(ValueError, match="head width"):
-        ck.decode_attention(torch.randn(4, 3, 136, device=cuda), wide, wide,
+    # widths past 256 (ROADMAP B.1.5)
+    wide = torch.randn(4, 96, 3, 264, device=cuda)
+    with pytest.raises(ValueError, match="B.1.5"):
+        ck.decode_attention(torch.randn(4, 3, 264, device=cuda), wide, wide,
                             pos)
     # a cache 8 bytes off a 16-byte boundary, and one with odd strides
     off = torch.empty(4 * 96 * 3 * 64 + 2, device=cuda)[2:].view(4, 96, 3,
@@ -615,10 +613,10 @@ def test_dense_decode_paths_on_card_match_plain_decode(cuda):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    # widths past 128 or off the multiples of 8 (ROADMAP B.1.4)
-    for D in (36, 136):
+    # widths past 256 (ROADMAP B.1.5)
+    for D in (264, 320):
         q = torch.randn(1, 8, 2, D, device=cuda)
-        with pytest.raises(ValueError, match="head width"):
+        with pytest.raises(ValueError, match="B.1.5"):
             ck.flash_attention_fwd(q, q, q)
     h = torch.randn(1, 8, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
@@ -1249,11 +1247,11 @@ def test_flash_fwd_f32_is_not_one_pass_tf32(cuda, causal):
 
 @pytest.mark.gpu
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(cuda):
-    # widths past 128 or off the multiples of 8 (ROADMAP B.1.4)
-    for D in (36, 136):
+    # widths past 256 (ROADMAP B.1.5)
+    for D in (264, 320):
         q = torch.randn(1, 8, 2, D, device=cuda)
         o, lse = ck.flash_attention_fwd(q, q, q, route="plain")
-        with pytest.raises(ValueError, match="head width"):
+        with pytest.raises(ValueError, match="B.1.5"):
             ck.flash_attention_bwd(q, q, q, o, lse, o)
     q = torch.randn(1, 8, 2, 64, device=cuda)
     o, lse = ck.flash_attention_fwd(q, q, q)
@@ -2945,3 +2943,259 @@ def test_host_embedding_on_card_is_bit_equal_to_a_card_table(cuda):
         dense[touched] -= (lr * g[touched].double()).float()
     assert torch.equal(torch.from_numpy(table.rows_host(np.arange(V))),
                        dense.cpu())
+
+
+# ---------------------------------------------------------------------------
+# head widths up to 256 (ROADMAP B.1.4): #1-#3's D = 256 bodies
+# (csrc/flash_wide.cu) and the pad routes, #4-#7 at four chunks a lane
+# ---------------------------------------------------------------------------
+
+_WIDE = (12, 136, 200, 256)
+
+
+def _wide_route(D):
+    return None if D in ck.KERNEL_HEAD_DIMS else \
+        f"pad{next(w for w in ck.KERNEL_HEAD_DIMS if w >= D)}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", _WIDE)
+def test_flash_kernels_at_wide_head_widths_on_card(cuda, dtype, D):
+    """#1, #2 and #3 at D in {12, 136, 200, 256} against the plain version
+    (causal and not, with kv_lens, a caller's scale off the multiples of
+    8): natively at 256, else by the counted pad route."""
+    gen = torch.Generator().manual_seed(D + 1)
+    B, T, H = 2, 150, 3
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda, dtype)
+    q, k, v, do = (rnd(B, T, H, D) for _ in range(4))
+    lens = torch.tensor([T, 77], device=cuda)
+    scale = None if D % 8 == 0 else 0.7 * D ** -0.5
+    route = _wide_route(D)
+    for causal in (False, True):
+        ck.reset_launch_counts()
+        o, lse = ck.flash_attention_fwd(q, k, v, causal=causal, kv_lens=lens,
+                                        scale=scale)
+        po, plse = ck.flash_attention_fwd(q, k, v, causal=causal,
+                                          kv_lens=lens, scale=scale,
+                                          route="plain")
+        assert o.shape == (B, T, H, D)
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+        else:
+            _bf16_tc_close(o, po)
+        torch.testing.assert_close(lse, plse, atol=1e-5, rtol=1e-4)
+        got = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=causal,
+                                     kv_lens=lens, scale=scale)
+        want = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=causal,
+                                      kv_lens=lens, scale=scale,
+                                      route="plain")
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            if dtype == torch.bfloat16:
+                _bf16_tc_close(g, w)
+            else:
+                _bwd_close(g, w, dtype)
+        assert {n: ck.LAUNCHES[n] for n in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")} == dict.fromkeys(
+            ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"), 1)
+        assert ck.ROUTES == ({} if route is None else {
+            ("flash_attention_fwd", route): 1,
+            ("flash_attention_bwd_dq", route): 1,
+            ("flash_attention_bwd_dkv", route): 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 200])
+@pytest.mark.parametrize("T,S", [(200, 136), (136, 200)])
+def test_wide_flash_causal_s_not_t_and_views_on_card(cuda, dtype, D, T, S):
+    """Causal at S != T with kv_lens, and q/k/v as views 2 elements past a
+    16-byte boundary (the copy16 route at 256, pad256 at 200), against
+    the plain version."""
+    gen = torch.Generator().manual_seed(T + S + D)
+    B, H = 2, 2
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda, dtype)
+    q, k, v, do = rnd(B, T, H, D), rnd(B, S, H, D), rnd(B, S, H, D), \
+        rnd(B, T, H, D)
+    lens = torch.tensor([S, S // 2 + 3], device=cuda)
+    n = B * T * H * D
+    flat = torch.randn(n + 2, generator=gen).to(cuda, dtype)
+    qv = flat[2:].view(B, T, H, D)
+    qv.copy_(q)
+    for qq in (q, qv):
+        o, lse = ck.flash_attention_fwd(qq, k, v, causal=True, kv_lens=lens)
+        po, plse = ck.flash_attention_fwd(q, k, v, causal=True,
+                                          kv_lens=lens, route="plain")
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+        else:
+            _bf16_tc_close(o, po)
+        got = ck.flash_attention_bwd(qq, k, v, po, plse, do, causal=True,
+                                     kv_lens=lens)
+        want = ck.flash_attention_bwd(q, k, v, po, plse, do, causal=True,
+                                      kv_lens=lens, route="plain")
+        for g, w in zip(got, want):
+            if dtype == torch.bfloat16:
+                _bf16_tc_close(g, w)
+            else:
+                _bwd_close(g, w, dtype)
+    ck.reset_launch_counts()
+    ck.flash_attention_fwd(qv, k, v, causal=True)
+    assert ck.ROUTES == {("flash_attention_fwd",
+                          _wide_route(D) or "copy16"): 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_is_bit_equal_run_to_run_on_card(cuda, dtype):
+    """#2 and #3 at D = 256 (one owner a sum, a fixed order, no atomics):
+    two runs on the same inputs give the same bits."""
+    gen = torch.Generator().manual_seed(256)
+    q, k, v, do = (torch.randn(2, 300, 3, 256, generator=gen).to(cuda, dtype)
+                   for _ in range(4))
+    lens = torch.tensor([300, 123], device=cuda)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=True, kv_lens=lens)
+    a = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                               kv_lens=lens)
+    b = ck.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                               kv_lens=lens)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DECODE_DTYPES)
+@pytest.mark.parametrize("D", _WIDE)
+def test_decode_kernels_at_wide_head_widths_on_card(cuda, dtype, D):
+    """#4-#7 at D in {12, 136, 200, 256}, every query and cache dtype,
+    against their plain versions: natively at the multiples of 8 (four
+    chunks a lane past 128), by the counted pad8 route at 12; the paged
+    read of a split count equal to the dense read of its gathered pages."""
+    gen = torch.Generator().manual_seed(D + 7)
+    qdt, kv = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    B, L, H, P, bs, NB = 4, 300, 3, 40, 16, 12
+    q = torch.randn(B, H, D, generator=gen).to(cuda, qdt)
+    pos = torch.tensor([299, 150, 0, 17], device=cuda, dtype=torch.int32)
+    k, v, kp, vp = (torch.randn(shape, generator=gen).to(cuda) for shape in
+                    ((B, L, H, D), (B, L, H, D), (P, bs, H, D),
+                     (P, bs, H, D)))
+    if kv == "int8":
+        (k, ks), (v, vs) = ck.quantize_kv(k), ck.quantize_kv(v)
+        (kp, kps), (vp, vps) = ck.quantize_kv(kp), ck.quantize_kv(vp)
+    else:
+        k, v, kp, vp = (t.to(qdt) for t in (k, v, kp, vp))
+        ks = vs = kps = vps = None
+    tables = torch.randint(1, P, (B, NB), generator=gen).to(cuda,
+                                                             torch.int32)
+    ck.reset_launch_counts()
+    o = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+    po = ck.decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
+                             route="plain")
+    pg = ck.paged_decode_attention(q, kp, vp, tables, pos, k_scale=kps,
+                                   v_scale=vps)
+    ppg = ck.paged_decode_attention(q, kp, vp, tables, pos, k_scale=kps,
+                                    v_scale=vps, route="plain")
+    torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(pg, ppg, atol=1e-5, rtol=1e-4)
+    q8 = "_q" if kv == "int8" else ""
+    assert ck.ROUTES == ({} if D % 8 == 0 else {
+        ("decode_attention" + q8, "pad8"): 1,
+        ("paged_decode_attention" + q8, "pad8"): 1})
+    if D % 8 == 0:
+        n = ck.decode_splits(B * H, NB * bs)[0]
+        dense = ck._decode_attention_kernel(
+            q, ck.gather_pages(kp, tables), ck.gather_pages(vp, tables), pos,
+            D ** -0.5, None if kps is None else ck.gather_pages(kps, tables),
+            None if vps is None else ck.gather_pages(vps, tables), n)
+        assert torch.equal(pg, dense)
+
+
+# ---------------------------------------------------------------------------
+# the fluid executor on the card: one CUDA graph a key, LRU eviction
+# ---------------------------------------------------------------------------
+
+def _fluid_lstm_program(fluid, vocab=500, embed=32, hidden=64):
+    layers = fluid.layers
+    fluid.reset_default_programs()
+    words = layers.data("words", shape=(-1,), dtype="int32")
+    lens = layers.data("lens", shape=(), dtype="int32")
+    label = layers.data("label", shape=(), dtype="int32")
+    emb = layers.embedding(words, (vocab, embed))
+    last = layers.sequence_last_step(layers.dynamic_lstm(emb, lens, hidden),
+                                     lens)
+    loss = layers.mean(layers.softmax_with_cross_entropy(
+        layers.fc(last, 2), label))
+    fluid.AdamOptimizer(1e-3).minimize(loss)
+    return loss
+
+
+@pytest.mark.gpu
+def test_fluid_executor_graph_equals_the_eager_run_on_card(cuda):
+    """A fluid LSTM program trained 4 runs on the card: the graphed runs
+    (one capture, then replays, #9 and #10 once a run) give the eager
+    route's losses and parameters bit for bit, and the scope keeps its
+    tensors (written in place)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.core import graphs
+    loss = _fluid_lstm_program(fluid)
+    main = fluid.default_main_program()
+    rs = np.random.RandomState(0)
+    feed = {"words": rs.randint(0, 500, (16, 20)).astype(np.int32),
+            "lens": rs.randint(5, 21, 16).astype(np.int32),
+            "label": rs.randint(0, 2, 16).astype(np.int32)}
+    runs = {}
+    for route in ("graphed", "eager"):
+        exe = fluid.Executor(device=cuda, scope=fluid.Scope())
+        exe.run(fluid.default_startup_program())
+        ck.reset_launch_counts()
+        graphs.reset_dispatch_counts()
+        if route == "eager":
+            with graphs.disabled():
+                losses = [exe.run(main, feed=feed, fetch_list=[loss])[0]
+                          for _ in range(4)]
+        else:
+            losses = [exe.run(main, feed=feed, fetch_list=[loss])[0]]
+            held = dict(exe.scope.vars)        # the cache's buffers now
+            losses += [exe.run(main, feed=feed, fetch_list=[loss])[0]
+                       for _ in range(3)]
+            counts = graphs.DISPATCHES["fluid.Executor"]
+            assert [n for n in counts.values()] == [
+                {"captures": 1, "replays": 3}]
+            assert all(exe.scope.get(n) is v for n, v in held.items())
+        assert ck.LAUNCHES["lstm_seq_train"] == 4
+        assert ck.LAUNCHES["lstm_seq_bwd"] == 4
+        runs[route] = (losses, {n: v.clone() for n, v in
+                                exe.scope.vars.items()})
+    np.testing.assert_array_equal(runs["graphed"][0], runs["eager"][0])
+    for n, v in runs["eager"][1].items():
+        assert torch.equal(runs["graphed"][1][n], v), n
+
+
+@pytest.mark.gpu
+def test_fluid_executor_lru_drops_evicted_graphs_on_card(cuda):
+    """An LRU of one key over two batch shapes: each eviction drops its
+    graph (one live graph), an evicted shape recaptures, and the results
+    equal an executor that keeps both keys."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.core import graphs
+    fluid.reset_default_programs()
+    x = fluid.layers.data("x", shape=(8,))
+    out = fluid.layers.fc(fluid.layers.fc(x, 16, act="relu"), 4)
+    main = fluid.default_main_program()
+    exes = [fluid.Executor(device=cuda, scope=fluid.Scope(),
+                           cache_capacity=c) for c in (1, 4)]
+    for exe in exes:
+        exe.run(fluid.default_startup_program())
+    graphs.reset_dispatch_counts()
+    rs = np.random.RandomState(1)
+    for bs in (4, 7, 4, 7):
+        xs = rs.randn(bs, 8).astype(np.float32)
+        a, b = (exe.run(main, feed={"x": xs}, fetch_list=[out])[0]
+                for exe in exes)
+        np.testing.assert_array_equal(a, b)
+    # the startup program's key, then each shape evicts the one before
+    assert exes[0].stats["cache_evictions"] == 4
+    assert len(exes[0].graphs._graphs) == 1
+    assert len(exes[1].graphs._graphs) == 2

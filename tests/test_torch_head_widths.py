@@ -1,15 +1,20 @@
-"""Head widths other than 64 in the port (ROADMAP B.1.3) against the JAX
-package, on the CPU.
+"""Head widths other than 64 in the port (ROADMAP B.1.3, B.1.4) against
+the JAX package, on the CPU.
 
-On the card #1-#3 are built for D = 64 and 128 and take any other
-multiple of 8 up to 128 by zero-padding to the next of them
+On the card #1-#3 are built for D = 64, 128 and 256 and take any other
+width up to 256 by zero-padding to the next of them
 (``cuda_kernels.flash_fwd_by_route`` / ``flash_bwd_by_route``, the
-``pad64``/``pad128`` routes); #4-#7 read every width natively. Here the
-same route runs around the plain versions (the CPU's launch): its output
-and gradients at D in {8, 32, 48, 80, 96, 128}, with the scale of the
-real width, equal JAX's Pallas forward and backward in interpret mode
-(atol 2e-5: f32 on both sides, summation order only, as
-tests/test_torch_flash_bwd.py). Causal attention at S < T and S > T
+``pad64``/``pad128``/``pad256`` routes); #4-#7 read every multiple of 8
+up to 256 natively and pad any other width to the next multiple of 8
+(``decode_by_route``, the ``pad8`` route). Here the same routes run
+around the plain versions (the CPU's launch): the flash route's output
+and gradients at D in {8, 12, 32, 48, 80, 96, 100, 128, 160, 256}, with
+the scale of the real width and with a scale of the caller's, equal JAX's
+Pallas forward and backward in interpret mode (atol 2e-5: f32 on both
+sides, summation order only, as tests/test_torch_flash_bwd.py), and the
+decode route's at D in {12, 100, 160, 256} equals JAX's
+``decode_attention`` and ``paged_decode_attention`` in interpret mode
+(atol 1e-5). Causal attention at S < T and S > T
 (top-left aligned, ``tril(ones(T, S))``) equals JAX's dense route, with
 its gradients; and ``TransformerLM``s with 32- and 128-wide heads give
 JAX's logits and greedy decode tokens. The kernels themselves are held
@@ -30,7 +35,10 @@ from paddle_tpu_torch.models import TransformerLM
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 ATOL = 2e-5
-WIDTHS = (8, 32, 48, 80, 96, 128)
+WIDTHS = (8, 12, 32, 48, 80, 96, 100, 128, 160, 256)
+#: the widths of B.1.4's checks: off the multiples of 8, between the built
+#: widths, and the widest built one
+WIDE = (12, 100, 160, 256)
 
 
 def _plain_fwd(q, k, v, causal, scale, kv_lens):
@@ -49,17 +57,22 @@ def _inputs(seed, T, S, D, B=2, H=2):
     return [rs.randn(B, n, H, D).astype(np.float32) for n in (T, S, S, T)]
 
 
+def _route_name(D):
+    return f"pad{next(w for w in ck.KERNEL_HEAD_DIMS if w >= D)}"
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", WIDTHS)
 def test_pad_route_matches_jax_forward_and_gradients(D, causal):
     """The route pads q, k, v (and o, dO) to the built width, runs the
     launch there and slices back: o, lse, dq, dk and dv equal JAX's at the
-    real width's scale, and the route is counted as the kernel would
-    count it."""
+    real width's scale (a scale of the caller's at widths off the
+    multiples of 8), and the route is counted as the kernel would count
+    it."""
     T = S = 40
     q, k, v, do = _inputs(D, T, S, D)
     lens = [40, 17]
-    scale = D ** -0.5
+    scale = D ** -0.5 if D % 8 == 0 else 0.7 * D ** -0.5
     jl = jnp.asarray(lens)
     o, lse = pk._fa_fwd_call(*(jnp.asarray(a) for a in (q, k, v)), causal,
                              scale, 16, 16, True, kv_lens=jl)
@@ -82,7 +95,7 @@ def test_pad_route_matches_jax_forward_and_gradients(D, causal):
         assert g.shape == (2, T, 2, D), name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
                                    rtol=0, err_msg=name)
-    route = f"pad{64 if D <= 64 else 128}"
+    route = _route_name(D)
     want_routes = {} if D in ck.KERNEL_HEAD_DIMS else {
         ("flash_attention_fwd", route): 1,
         ("flash_attention_bwd_dq", route): 1,
@@ -91,13 +104,75 @@ def test_pad_route_matches_jax_forward_and_gradients(D, causal):
 
 
 def test_widths_the_kernels_do_not_take_raise():
-    """Past 128, or off the multiples of 8, the route raises naming the
-    widths it takes (ROADMAP B.1.4); plain calls still compute."""
-    for D in (12, 136, 256):
+    """Past 256 the routes raise naming the widths they take and ROADMAP
+    B.1.5 (no model of the repo or its catalogue has such heads); plain
+    calls still compute."""
+    for D in (264, 512):
         x = torch.zeros(1, 4, 1, D)
-        with pytest.raises(ValueError, match="head width"):
+        with pytest.raises(ValueError, match="B.1.5"):
             ck.flash_fwd_by_route(x, x, x, False, 1.0, None, _plain_fwd)
+        with pytest.raises(ValueError, match="head width"):
+            ck._decode_query("decode_attention", x[:, 0], torch.zeros(1))
         assert ck.flash_attention(x, x, x).shape == x.shape
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("D", WIDE)
+def test_decode_route_matches_jax(D, kv):
+    """#4-#7's route at the B.1.4 widths around the plain versions: the
+    dense and the paged read equal JAX's decode_attention and
+    paged_decode_attention in interpret mode, and a width off the
+    multiples of 8 is counted as "pad8" under the kernel that would run."""
+    rs = np.random.RandomState(D)
+    B, L, H, P, bs, NB = 2, 24, 2, 7, 8, 3
+    q = rs.randn(B, H, D).astype(np.float32)
+    kc, vc = (rs.randn(B, L, H, D).astype(np.float32) for _ in range(2))
+    kp, vp = (rs.randn(P, bs, H, D).astype(np.float32) for _ in range(2))
+    tables = rs.randint(1, P, (B, NB)).astype(np.int32)
+    pos = np.array([L - 1, 9], np.int32)
+    scale = 0.25
+    tq, tpos = torch.from_numpy(q), torch.from_numpy(pos)
+
+    def cache(a):
+        if kv == "f32":
+            return (a,), ()
+        codes, sc = pk.quantize_kv(jnp.asarray(a))
+        return (np.array(codes), np.array(sc)), None
+
+    (kd, *ks), (vd, *vs) = cache(kc)[0], cache(vc)[0]
+    (kq, *kps), (vq, *vps) = cache(kp)[0], cache(vp)[0]
+    jsc = {} if kv == "f32" else {"k_scale": jnp.asarray(ks[0]),
+                                  "v_scale": jnp.asarray(vs[0])}
+    psc = {} if kv == "f32" else {"k_scale": jnp.asarray(kps[0]),
+                                  "v_scale": jnp.asarray(vps[0])}
+    want = pk.decode_attention(jnp.asarray(q), jnp.asarray(kd),
+                               jnp.asarray(vd), jnp.asarray(pos),
+                               scale=scale, interpret=True, route="kernel",
+                               **jsc)
+    pwant = pk.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables), jnp.asarray(pos), scale=scale, interpret=True,
+        route="kernel", **psc)
+    tsc = {k: torch.from_numpy(np.array(v)) for k, v in jsc.items()}
+    tpsc = {k: torch.from_numpy(np.array(v)) for k, v in psc.items()}
+    name = "decode_attention" + ("_q" if kv == "int8" else "")
+    ck.reset_launch_counts()
+    got = ck.decode_by_route(
+        tq, (torch.from_numpy(kd), torch.from_numpy(vd)),
+        lambda q, kv_: ck.decode_attention_plain(q, *kv_, tpos, scale=scale,
+                                                 **tsc), name)
+    pgot = ck.decode_by_route(
+        tq, (torch.from_numpy(kq), torch.from_numpy(vq)),
+        lambda q, kv_: ck.paged_decode_attention_plain(
+            q, *kv_, torch.from_numpy(tables), tpos, scale=scale, **tpsc),
+        "paged_" + name)
+    assert got.shape == pgot.shape == (B, H, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(pgot.numpy(), np.asarray(pwant), atol=1e-5,
+                               rtol=0)
+    assert ck.ROUTES == ({} if D % 8 == 0 else {
+        (name, "pad8"): 1, ("paged_" + name, "pad8"): 1})
 
 
 def test_views_that_break_the_16_byte_rule_are_copied():

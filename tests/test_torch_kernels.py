@@ -214,7 +214,12 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
             "paddle_tpu_torch/data/format.py",
             "paddle_tpu_torch/data/parsers.py",
             "paddle_tpu_torch/data/provider.py",
-            "paddle_tpu_torch/data/image.py"} <= rel
+            "paddle_tpu_torch/data/image.py",
+            "paddle_tpu_torch/cli.py", "paddle_tpu_torch/__main__.py",
+            "paddle_tpu_torch/analysis/diagnostics.py"} <= rel
+    assert {f"paddle_tpu_torch/fluid/{m}.py" for m in (
+        "__init__", "framework", "backward", "regularizer", "optimizer",
+        "nets", "layers", "registry", "executor", "io", "evaluator")} <= rel
     banned = {"jax", "jaxlib", "paddle_tpu"}
     bad = []
     for path in files:
@@ -249,5 +254,5 @@ def test_build_hash_tracks_sources_and_flags():
     assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu", "common.cuh",
             "lstm_seq.cu", "lstm_seq_bwd.cu", "lstm.cuh", "decode.cu",
             "decode_attn.cuh", "recur.cuh", "gru_seq.cu",
-            "gru_seq_bwd.cu"} <= names
+            "gru_seq_bwd.cu", "flash_wide.cu", "flash_wide.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
