@@ -306,6 +306,27 @@ Phases:
    cache hit rate, no graph capture inside the window, and an LRU of one
    key evicting and recapturing; (e) small While, Cond and StaticRNN
    programs equal to the same programs on the CPU.
+21. the v2 DSL — (a) the LSTM flagship (phase 5's widths) built with
+   ``paddle_tpu_torch.v2`` (``data``, ``embedding``,
+   ``networks.simple_lstm``, ``last_seq``, ``fc``,
+   ``classification_cost``; Adam 2e-3) and trained by ``SGD.train`` with
+   an event handler, 20 steps over phase 20's 4 batches: one #9 and one
+   #10 a step, a falling loss, the first step equal to the plain route's
+   (phase 20's ``fluid_step_check``), ms a step through ``SGD.train`` and
+   through ``exe.run`` graphed; (b) ``v2.infer`` on 2 held batches:
+   forward only through #8, logits equal to the plain route's, every
+   parameter bit-equal before and after; (c) a ``networks.
+   bidirectional_gru`` classifier at phase 20's GRU widths, 10 steps: #11
+   and #12 twice a step, the first step equal to plain, a falling loss;
+   (d) ``exe.run(verify=True)`` on (a)'s program: the pre-flight's
+   diagnostics by code and seconds, then ms a step with the pre-flight
+   memoized against ``verify=False``; (e) ``Parameters.to_tar`` on the
+   card byte-equal to the tar of the same values on the CPU.
+
+The bf16 serving checks of phases 18 and 19 (``greedy_within_ties``)
+print, for each burst, the largest gap between a chosen token's plain
+logit and the argmax's in bf16 ulps, and the run prints the largest of
+them beside the bound (NEAR_TIE_ULPS).
 
 Phases 3, 5, 7, 8, 10, 12 and 13 also run each path twice, on the eager
 route (``core.graphs.disabled()``: every body run directly) and through
@@ -6399,6 +6420,8 @@ WIDTH_ERRS: dict = {}
 # choice only where the two are within this many bf16 ulps of the largest
 # logit (a near-tie; see greedy_within_ties)
 NEAR_TIE_ULPS = 4
+#: what greedy_within_ties held, per checked burst, in call order
+NEAR_TIE_GAPS: list = []
 
 
 def greedy_within_ties(model, prompts, toks, kv, what, device) -> dict:
@@ -6440,8 +6463,10 @@ def greedy_within_ties(model, prompts, toks, kv, what, device) -> dict:
                     logits, cell = model.decode_step(
                         cell, torch.tensor([int(tok)], device=device),
                         route="plain")
-    return {"tokens": checked, "equal_to_argmax": equal,
+    held = {"tokens": checked, "equal_to_argmax": equal,
             "worst_gap_bf16_ulps": worst}
+    NEAR_TIE_GAPS.append(dict(held, burst=what))
+    return held
 
 
 def gpt_neo_phase(say, seed: int, device="cuda") -> dict:
@@ -7393,11 +7418,24 @@ def fluid_flagship(say, seed: int, device="cuda") -> dict:
             "bundle": {"launches": inf_launches, "max_abs_err": max(errs)}}
 
 
+def fluid_gru_batch(seed: int, device):
+    """(data [B, T] int32, lengths [B] int32 in T/2..T, labels [B]) at
+    FLUID_GRU's widths; a label is the parity of the last valid token."""
+    import numpy as np
+    import torch
+    g = FLUID_GRU
+    rs = np.random.RandomState(seed)
+    data = rs.randint(0, g["vocab"], (g["batch"], g["seq"])).astype(np.int32)
+    lens = rs.randint(g["seq"] // 2, g["seq"] + 1, g["batch"]).astype(
+        np.int32)
+    labels = data[np.arange(g["batch"]), lens - 1] % 2
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (data, lens, labels))
+
+
 def fluid_gru(say, seed: int, device="cuda") -> dict:
     """(c) A dynamic_gru program at the seq2seq bench's widths, 10 steps:
     #11 and #12 once a step, one f32 step equal to the plain route's."""
-    import numpy as np
-    import torch
     from paddle_tpu_torch import fluid
     g = FLUID_GRU
     fluid.reset_default_programs()
@@ -7407,14 +7445,8 @@ def fluid_gru(say, seed: int, device="cuda") -> dict:
     exe = fluid.Executor(device=device, scope=fluid.Scope())
     exe.run(start)
     start_vars = {n: v.detach().clone() for n, v in exe.scope.vars.items()}
-    rs = np.random.RandomState(seed + 31)
-    data = rs.randint(0, g["vocab"], (g["batch"], g["seq"])).astype(np.int32)
-    lens = rs.randint(g["seq"] // 2, g["seq"] + 1, g["batch"]).astype(
-        np.int32)
-    feed = {"words": torch.as_tensor(data, device=device),
-            "lens": torch.as_tensor(lens, device=device),
-            "label": torch.as_tensor(data[np.arange(g["batch"]), lens - 1]
-                                     % 2, device=device)}
+    data, lens, labels = fluid_gru_batch(seed + 31, device)
+    feed = {"words": data, "lens": lens, "label": labels}
     worst = fluid_step_check(say, "fluid dynamic_gru", main, start_vars,
                              feed, loss, device)
     outs, _, launches, disp = counted(lambda: [
@@ -7596,6 +7628,226 @@ def fluid_phase(say, seed: int, device="cuda") -> dict:
             "launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the v2 DSL over the fluid plane, and Executor.run(verify=True)
+# ---------------------------------------------------------------------------
+
+# (a) trains 20 SGD.train steps over phase 20's 4 batches; (c) 10 steps
+V2_STEPS, V2_GRU_STEPS = FLUID_STEPS, FLUID_GRU["steps"]
+
+
+def _v2_textcls(v2, vocab, embed, hidden, lr, cell):
+    """A v2 classifier: data(integer_value_sequence) -> embedding ->
+    networks.simple_lstm -> last_seq (or networks.bidirectional_gru) ->
+    fc 2 -> classification_cost, under Adam(lr). Returns (logits, cost,
+    optimizer)."""
+    L = v2.layer
+    words = L.data("words", v2.data_type.integer_value_sequence(vocab))
+    label = L.data("label", v2.data_type.integer_value(2))
+    emb = L.embedding(words, embed)
+    if cell == "lstm":
+        feat = L.last_seq(v2.networks.simple_lstm(emb, hidden))
+    else:
+        feat = v2.networks.bidirectional_gru(emb, hidden)
+    logits = L.fc(feat, 2)
+    return logits, L.classification_cost(logits, label), \
+        v2.optimizer.Adam(lr)
+
+
+def _v2_feed(batch):
+    data, lengths, labels = batch
+    return {"words": data, "words__len__": lengths, "label": labels}
+
+
+def _scope_copy(scope) -> dict:
+    return {n: v.detach().clone() for n, v in scope.vars.items()}
+
+
+def _v2_train(say, what, trainer, cost, batches, steps, want, device):
+    """``trainer``'s first step held to the plain route's (from the
+    scope as it is), then ``steps`` SGD.train steps over ``batches`` with
+    an event handler: the launches equal ``want``, one graph capture for
+    the key, the losses fall. Returns the figures."""
+    from paddle_tpu_torch import fluid
+    main = fluid.default_main_program()
+    step_check = fluid_step_check(say, what, main,
+                                  _scope_copy(trainer.exe.scope),
+                                  _v2_feed(batches[0]), cost.var, device)
+    events = []
+
+    def handler(e):
+        events.append((type(e).__name__, getattr(e, "cost", None)))
+
+    reader = lambda: (_v2_feed(batches[i % len(batches)])  # noqa: E731
+                      for i in range(steps))
+    _, wall, launches, disp = counted(lambda: trainer.train(
+        reader, event_handler=handler))
+    losses = [c for name, c in events if name == "EndIteration"]
+    mine = step_dispatches(disp, "fluid.run")
+    check(launches == want, f"{what}: launches {launches} != {want}")
+    check(mine == {"captures": 1, "replays": steps - 1},
+          f"{what}: graphs {mine}, want one capture for the key")
+    check([n for n, _ in events][:2] == ["BeginPass", "BeginIteration"]
+          and events[-1][0] == "EndPass" and len(losses) == steps,
+          f"{what}: events {[n for n, _ in events]}")
+    k = len(batches)
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    check(last < first, f"{what}: losses did not fall ({first} -> {last})")
+    return {"launches": launches, "graphs": mine, "step_check": step_check,
+            "losses_first_last": [losses[0], losses[-1]],
+            "loss_means_first_last": [first, last],
+            "train_ms_per_step": wall * 1e3 / steps}
+
+
+def v2_flagship(say, seed: int, device="cuda") -> dict:
+    """(a) The LSTM flagship built with the v2 DSL and trained by
+    SGD.train; (b) v2.infer on it, forward only; (d) exe.run(verify=True)
+    on its program; (e) Parameters.to_tar against the CPU's bytes."""
+    import collections
+    import io
+    import torch
+    from paddle_tpu_torch import analysis, fluid
+    from paddle_tpu_torch import v2 as paddle
+    from paddle_tpu_torch.fluid.registry import routed
+    cfg = TEXTCLS
+    fluid.reset_default_programs()
+    logits, cost, opt = _v2_textcls(paddle, cfg["vocab"], cfg["embed"],
+                                    cfg["hidden"], TEXTCLS_LR, "lstm")
+    trainer = paddle.SGD(cost, opt, device=device)
+    batches = textcls_batches(seed + 30, FLUID_NBUF + 2, device)
+    train, held = batches[:FLUID_NBUF], batches[FLUID_NBUF:]
+    out = _v2_train(say, "v2 LSTM flagship", trainer, cost, train,
+                    V2_STEPS, {"lstm_seq_train": V2_STEPS,
+                               "lstm_seq_bwd": V2_STEPS}, device)
+    main, exe = fluid.default_main_program(), trainer.exe
+
+    def exe_ms(verify, n=10):
+        for i in range(2):
+            exe.run(main, feed=_v2_feed(train[i]), fetch_list=[cost.var],
+                    return_numpy=False, verify=verify)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            exe.run(main, feed=_v2_feed(train[i % FLUID_NBUF]),
+                    fetch_list=[cost.var], return_numpy=False, verify=verify)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+    out["exe_ms_per_step_graphed"] = exe_ms(False)
+    say(f"v2 LSTM flagship ({TEXTCLS_BATCH} x {TEXTCLS_LEN}, embed "
+        f"{cfg['embed']}, simple_lstm {cfg['hidden']}, Adam): {V2_STEPS} "
+        f"SGD.train steps, losses {out['losses_first_last'][0]:.4f} -> "
+        f"{out['losses_first_last'][1]:.4f} (means of the first and last "
+        f"{FLUID_NBUF}: {out['loss_means_first_last'][0]:.4f} -> "
+        f"{out['loss_means_first_last'][1]:.4f}); launches "
+        f"{out['launches']}; graphs {out['graphs']}; ms a step through "
+        f"SGD.train {out['train_ms_per_step']:.3f} (the first step's "
+        f"capture included), through exe.run graphed "
+        f"{out['exe_ms_per_step_graphed']:.3f}")
+
+    # (b) infer: the program pruned to the logits, on the same executor
+    before = _scope_copy(exe.scope)
+    feeds = [{"words": b[0], "words__len__": b[1]} for b in held]
+    got, _, inf_launches, _ = counted(lambda: [
+        paddle.infer(logits, trainer, f) for f in feeds])
+    check(inf_launches == {"lstm_seq": len(held)},
+          f"v2 infer: launches {inf_launches}, want one #8 a call")
+    with routed("plain"):
+        want = [paddle.infer(logits, trainer, f) for f in feeds]
+    errs = [float(abs(a - b).max()) for a, b in zip(got, want)]
+    check(all(e <= F32_ATOL + F32_RTOL * float(abs(b).max())
+              for e, b in zip(errs, want)),
+          f"v2 infer: logits differ from plain by {errs}")
+    moved = [n for n, v in before.items()
+             if not torch.equal(v, exe.scope.get(n))]
+    check(not moved, f"v2 infer moved {moved}")
+    out["infer"] = {"launches": inf_launches, "max_abs_err": max(errs),
+                    "params_moved": len(moved)}
+    say(f"v2 infer on {len(held)} held batches: launches {inf_launches}, "
+        f"logits within {max(errs):.3e} of the plain route, "
+        f"{len(before)} scope tensors bit-equal before and after")
+
+    # (d) the pre-flight on the card (twice: the process's first shape
+    # inference on meta tensors pays PyTorch's one-time set-up), then the
+    # step with the pre-flight memoized
+    feed = _v2_feed(train[0])
+    pre_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        diags = analysis.check_or_raise(main, feed=feed,
+                                        fetch=[cost.var.name], donate=True)
+        pre_s.append(time.perf_counter() - t0)
+    codes = dict(collections.Counter(d.code for d in diags))
+    ms = {"verify": exe_ms(True), "no_verify": exe_ms(False)}
+    check(len(exe._verified) == 1, f"verify: memoized {exe._verified}")
+    out["verify"] = {"diagnostics": codes, "preflight_s": pre_s,
+                     "ms_per_step": ms}
+    say(f"exe.run(verify=True) on the v2 flagship: diagnostics by code "
+        f"{json.dumps(codes)} (no error); pre-flight {pre_s[0]:.3f} s, "
+        f"again {pre_s[1]:.3f} s; ms a step with the pre-flight memoized "
+        f"{ms['verify']:.3f} against {ms['no_verify']:.3f} with "
+        "verify=False")
+
+    # (e) Parameters.to_tar from the card against the CPU's
+    names = trainer.parameters.names()
+    card_tar, cpu_tar = io.BytesIO(), io.BytesIO()
+    trainer.parameters.to_tar(card_tar)
+    cpu_scope = fluid.Scope()
+    for n in names:
+        cpu_scope.set(n, exe.scope.get(n).detach().cpu())
+    paddle.Parameters(cpu_scope, main, device="cpu").to_tar(cpu_tar)
+    check(card_tar.getvalue() == cpu_tar.getvalue(),
+          "Parameters.to_tar: the card's tar differs from the CPU's")
+    out["tar_bytes"] = len(card_tar.getvalue())
+    say(f"Parameters.to_tar on the card: {len(names)} parameters, "
+        f"{out['tar_bytes']} bytes, byte-equal to the CPU's tar")
+    out["launches_all"] = dict(out["launches"])
+    for k, n in inf_launches.items():
+        out["launches_all"][k] = out["launches_all"].get(k, 0) + n
+    del trainer, exe
+    return out
+
+
+def v2_gru(say, seed: int, device="cuda") -> dict:
+    """(c) A networks.bidirectional_gru classifier at phase 20's GRU
+    widths: 10 SGD.train steps, #11 and #12 twice a step."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import v2 as paddle
+    g = FLUID_GRU
+    fluid.reset_default_programs()
+    _, cost, opt = _v2_textcls(paddle, g["vocab"], g["embed"], g["hidden"],
+                               S2S_LR, "gru")
+    trainer = paddle.SGD(cost, opt, device=device)
+    batch = fluid_gru_batch(seed + 31, device)
+    out = _v2_train(say, "v2 bidirectional_gru", trainer, cost, [batch],
+                    V2_GRU_STEPS, {"gru_seq": 2 * V2_GRU_STEPS,
+                                   "gru_seq_bwd": 2 * V2_GRU_STEPS}, device)
+    say(f"v2 bidirectional_gru (batch {g['batch']}, embed {g['embed']}, "
+        f"hidden {g['hidden']}, T {g['seq']}): {V2_GRU_STEPS} SGD.train "
+        f"steps, losses {out['losses_first_last'][0]:.4f} -> "
+        f"{out['losses_first_last'][1]:.4f}; launches {out['launches']}; "
+        f"graphs {out['graphs']}; ms a step {out['train_ms_per_step']:.3f}")
+    out["launches_all"] = out["launches"]
+    return out
+
+
+def v2_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 21: the v2 DSL, (a)-(e) (see each part)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flag = v2_flagship(say, seed, device)
+    gru = v2_gru(say, seed, device)
+    launches = {}
+    for part in (flag["launches_all"], gru["launches_all"]):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+    seconds = time.perf_counter() - t0
+    say(f"phase 21 seconds: {seconds:.1f}; launches {json.dumps(launches)}")
+    return {"flagship": flag, "gru": gru, "launches": launches,
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7738,10 +7990,21 @@ def main(argv=None) -> int:
     stamp("phase 19")
     fl = fluid_phase(say, args.seed)
     stamp("phase 20")
+    v2r = v2_phase(say, args.seed)
+    stamp("phase 21")
     for entry in lstm + gru:
         entry["launches_fluid"] = fl["launches"].get(entry["name"], 0)
         check(entry["launches_fluid"] > 0,
               f"fluid phase: {entry['name']} never launched")
+        entry["launches_v2"] = v2r["launches"].get(entry["name"], 0)
+        check(entry["launches_v2"] > 0,
+              f"v2 phase: {entry['name']} never launched")
+    gaps = [g["worst_gap_bf16_ulps"] for g in NEAR_TIE_GAPS]
+    check(bool(gaps), "no burst was held by greedy_within_ties")
+    say(f"near-tie gaps of the bf16 serving checks (bf16 ulps between each "
+        f"chosen token's plain logit and the argmax's, the largest a "
+        f"burst): {json.dumps(NEAR_TIE_GAPS)}; the largest {max(gaps):.3f} "
+        f"against the bound {NEAR_TIE_ULPS}")
     for entry in lstm:
         entry["launches_loop"] = loop["loop"]["launches"][entry["name"]]
         entry["launches_data"] = data["launches"][entry["name"]]
@@ -7772,6 +8035,8 @@ def main(argv=None) -> int:
                                   if k != "entries"}, "card": card}))
     print(json.dumps({"slice20": {k: v for k, v in s20.items()
                                   if k != "entries"}, "fluid": fl,
+                      "card": card}))
+    print(json.dumps({"v2": v2r, "near_tie_gaps": NEAR_TIE_GAPS,
                       "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru + s19["entries"] + s20["entries"],

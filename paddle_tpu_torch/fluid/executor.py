@@ -19,7 +19,15 @@ keeps the same tensors from run to run and no parameter is copied.
   sees the new value, the scope gets a new tensor); ``donate=False``
   keeps every old tensor as it was. Every update is written after all of
   the block's ops have run, so no op reads a value another op already
-  overwrote.
+  overwrote. That is why a ``verify=False`` run needs no L011 downgrade
+  (JAX drops the donation of a var the dataflow plane proves hazardous,
+  since XLA may reuse its buffer while a later op still reads it); with
+  ``verify=True`` and ``donate=True`` the pre-flight still refuses such a
+  program, as JAX's does.
+* **Verification.** ``run(verify=True)`` runs ``analysis.check_or_raise``
+  (the verifier, shape inference on meta tensors and the lints) once per
+  (program, version, fetch, donate, feed signature) and raises
+  ``ProgramVerificationError`` on an error diagnostic.
 * **Bucketing** through ``BucketSpec`` (``<name>@LEN`` fed alongside), and
   the L006 churn warning, as in JAX.
 * **The LRU** of ``cache_capacity`` keys: an eviction drops that key's
@@ -37,8 +45,7 @@ keeps the same tensors from run to run and no parameter is copied.
 
 Not here yet, each raising with its ROADMAP item: ``fuse=True`` or a set
 of groups (A.8, the tune plane; ``fuse=None`` and ``False`` run unfused,
-as JAX's do with no autotune cache), ``verify=True`` (A.6b, the analysis
-plane) and a mesh (A.7).
+as JAX's do with no autotune cache) and a mesh (A.7).
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ from ..core.graphs import GraphCache
 from ..core.place import require_device
 from ..data.feeder import BucketSpec
 from .framework import Block, Program
-from .registry import RANDOM_OPS, OpRegistry, kernel_route, running_on
+from .registry import (NARROW_DTYPES, RANDOM_OPS, OpRegistry, kernel_route,
+                       running_on)
 
 
 class Scope:
@@ -350,13 +358,13 @@ _CHURN_STREAK = 4
 #: default LRU capacity
 DEFAULT_CACHE_CAPACITY = 512
 
-_NP_CAST = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
+_NP_CAST = {np.dtype(k): np.dtype(v) for k, v in NARROW_DTYPES.items()}
 
 
 class Executor:
     """exe.run(program, feed=..., fetch_list=...) on the card (or on
-    ``device="cpu"``, as the tests run it). ``place`` is taken for JAX's
-    signature and not used."""
+    ``device="cpu"``, as the tests run it). A ``place`` (``CUDAPlace``,
+    ``CPUPlace``) picks the device when ``device`` is not given."""
 
     def __init__(self, place=None, scope: Optional[Scope] = None, *,
                  donate: bool = True,
@@ -375,7 +383,8 @@ class Executor:
                 "Executor(fuse=...): graph fusion over certified groups "
                 "waits for the tune plane (ROADMAP A.8); fuse=None and "
                 "fuse=False run unfused")
-        self.device = require_device(device)
+        self.device = require_device(device if device is not None
+                                     else place)
         self.scope = scope if scope is not None else global_scope()
         self.donate = donate
         if buckets is not None and not isinstance(buckets, BucketSpec):
@@ -391,6 +400,7 @@ class Executor:
         self._miss_streaks: Dict[Tuple, int] = {}
         self._seen_keys: set = set()
         self._churn_warned = False
+        self._verified: set = set()
         #: runs, cache hits/misses/evictions, and runs with no graph
         self.stats = dict.fromkeys(("runs", "cache_hits", "cache_misses",
                                     "cache_evictions", "eager_runs"), 0)
@@ -484,10 +494,6 @@ class Executor:
             use_cache: bool = True, verify: bool = False,
             return_numpy: bool = True,
             donate: Optional[bool] = None) -> List[Any]:
-        if verify:
-            raise NotImplementedError(
-                "Executor.run(verify=True): the static verifier waits for "
-                "the analysis plane (ROADMAP A.6b)")
         from .framework import default_main_program
         program = program or default_main_program()
         block = program.global_block()
@@ -502,6 +508,19 @@ class Executor:
                                           device=self.device)
             self._step += 1
         donate = self.donate if donate is None else donate
+        if verify:
+            # the static pre-flight, memoized per (program version, fetch,
+            # donate, feed signature) so a training loop pays it once
+            from .. import analysis
+            vkey = (program._serial, program.version, tuple(fetch_names),
+                    bool(donate),
+                    tuple((k, tuple(v.shape), str(v.dtype))
+                          for k, v in sorted(feed.items())))
+            if vkey not in self._verified:
+                analysis.check_or_raise(program, feed=feed,
+                                        fetch=fetch_names,
+                                        donate=bool(donate))
+                self._verified.add(vkey)
 
         persist_in = [name for name, v in block.vars.items()
                       if v.persistable and name not in feed

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import sys
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -231,19 +231,44 @@ class Program:
 
     # pruning (framework/prune.cc analog): keep only ops feeding the targets
     def prune(self, targets: Sequence[str]) -> "Program":
+        """The program cut to the global block's ops the targets need. An
+        op that runs sub-blocks (While, Cond, StaticRNN, beam search) reads
+        and writes what its sub-blocks do, and what its attrs name; the
+        sub-blocks are kept, so control flow survives the cut (JAX's prune
+        keeps the global block alone)."""
         block = self.global_block()
         needed = set(targets)
         keep: List[Operator] = []
         for op in reversed(block.ops):
-            if needed & set(op.output_vars()) or op.type in ("feed",):
+            reads, writes = self._op_io(op)
+            if needed & writes or op.type in ("feed",):
                 keep.append(op)
-                needed |= set(op.input_vars())
+                needed |= reads
         pruned = Program()
         nb = pruned.global_block()
         nb.vars = dict(block.vars)
         nb.ops = list(reversed(keep))
+        pruned.blocks.extend(self.blocks[1:])
         pruned._name_counter = self._name_counter
         return pruned
+
+    def _op_io(self, op: Operator, seen=()) -> Tuple[Set[str], Set[str]]:
+        """(names read, names written) by ``op``, its attrs and, through
+        its block attrs, every op of its sub-blocks."""
+        from ..analysis.verify import (BLOCK_ATTR_KEYS, _ATTR_DEFINE_KEYS,
+                                       _ATTR_READ_KEYS, _attr_names)
+        reads = set(op.input_vars()) | set(_attr_names(op, _ATTR_READ_KEYS))
+        writes = (set(op.output_vars())
+                  | set(_attr_names(op, _ATTR_DEFINE_KEYS)))
+        for key in BLOCK_ATTR_KEYS:
+            idx = op.attrs.get(key)
+            if isinstance(idx, int) and 0 < idx < len(self.blocks) \
+                    and idx not in seen:
+                for sub in self.blocks[idx].ops:
+                    r, w = self._op_io(sub, tuple(seen) + (idx,))
+                    reads |= r
+                    writes |= w
+        return reads, writes
 
 
 # -- default-program context (fluid framework.py:default_main_program) ---------

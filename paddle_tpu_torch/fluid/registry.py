@@ -22,7 +22,7 @@ own, not JAX's, and a block holding one runs without a CUDA graph
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -109,13 +109,22 @@ def _x(ins, key="X"):
     return ins[key][0]
 
 
+#: 64-bit types are computed in 32 bits, as JAX computes them: an op
+#: attr's dtype here, a feed in the executor
+NARROW_DTYPES = {"int64": "int32", "float64": "float32"}
+
+
 def _dtype(name) -> torch.dtype:
-    return getattr(torch, str(name))
+    name = str(name)
+    return getattr(torch, NARROW_DTYPES.get(name, name))
 
 
-def _generator(attrs, ins, device) -> torch.Generator:
+def _generator(attrs, ins, device) -> Optional[torch.Generator]:
     """The generator of a random op: its ``seed`` attr, and the run's step
-    where the op takes one (a fresh draw each run)."""
+    where the op takes one (a fresh draw each run). On ``meta`` (shape
+    inference) there is nothing to draw: None, and the step is not read."""
+    if torch.device(device).type == "meta":
+        return None
     seed = int(attrs.get("seed", 0))
     if "Step" in ins:
         seed = seed * 1000003 + int(ins["Step"][0])

@@ -65,6 +65,10 @@ class Linear(Module):
         return _apply(self.act, y)
 
 
+# gen-1 name
+Fc = Linear
+
+
 class Embedding(Module):
     def __init__(self, vocab_size: int, dim: int,
                  w_init: Optional[I.Initializer] = None):

@@ -1,6 +1,7 @@
 from . import checkpoint, evaluator, event, plot
-from .checkpoint import (latest_pass, load_checkpoint, save_checkpoint,
-                         verify_checkpoint)
+from .checkpoint import (COMPLETE_MANIFEST, from_tar, latest_pass,
+                         load_checkpoint, pass_dir, publish_members,
+                         save_checkpoint, to_tar, verify_checkpoint)
 from .evaluator import (AucEvaluator, ChunkEvaluator,
                         ClassificationErrorEvaluator, CTCErrorEvaluator,
                         DetectionMAPEvaluator, Evaluator,
@@ -16,4 +17,6 @@ __all__ = ["AucEvaluator", "CTCErrorEvaluator", "ChunkEvaluator",
            "PnpairEvaluator", "Ploter", "PrecisionRecallEvaluator",
            "SumEvaluator", "Trainer", "ValuePrinterEvaluator", "checkpoint",
            "evaluator", "event", "latest_pass", "load_checkpoint", "plot",
-           "save_checkpoint", "shared_forward", "verify_checkpoint"]
+           "save_checkpoint", "shared_forward", "verify_checkpoint",
+           "to_tar", "from_tar", "pass_dir", "publish_members",
+           "COMPLETE_MANIFEST"]

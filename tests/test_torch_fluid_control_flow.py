@@ -110,13 +110,20 @@ def test_conditional_block_both_branches():
 
 
 def test_sibling_branch_read_rejected_by_verifier():
-    """JAX's verifier rejects a read of a sibling branch's var (V001); the
-    port's verify=True is the analysis plane's, which raises naming
-    ROADMAP A.6b until it is ported."""
+    """Both verifiers reject a read of a sibling branch's var (V001, on
+    that var) before any op runs."""
+    from paddle_tpu.analysis import ProgramVerificationError as JError
+    from paddle_tpu_torch.analysis import ProgramVerificationError as TError
     p = Pair(lambda fl: _branches(fl, sibling_read=True), startup=False)
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        p.texe.run(p.tmain, feed={"x": np.float32(3.0)},
-                   fetch_list=[p.tout[0]], verify=True)
+    errs = []
+    for exe, prog, out, error in ((p.jexe, p.jmain, p.jout, JError),
+                                  (p.texe, p.tmain, p.tout, TError)):
+        with pytest.raises(error) as ei:
+            exe.run(prog, feed={"x": np.float32(3.0)},
+                    fetch_list=[out[0]], verify=True)
+        errs.append([(d.code, d.var) for d in ei.value.diagnostics
+                     if d.severity.name == "ERROR"])
+    assert errs[1] == errs[0] == [("V001", p.tout[1].name)]
 
 
 def test_sibling_branch_read_fails_cleanly_at_trace_time():

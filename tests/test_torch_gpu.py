@@ -3199,3 +3199,50 @@ def test_fluid_executor_lru_drops_evicted_graphs_on_card(cuda):
     assert exes[0].stats["cache_evictions"] == 4
     assert len(exes[0].graphs._graphs) == 1
     assert len(exes[1].graphs._graphs) == 2
+
+
+@pytest.mark.gpu
+def test_v2_flagship_first_step_equals_the_plain_route_on_card(cuda):
+    """The v2 LSTM text classifier (data -> embedding -> simple_lstm ->
+    last_seq -> fc -> classification_cost, Adam) trained one SGD.train
+    step on the card through #9/#10, against the same step with the
+    recurrence routed plain from the same scope: the cost within 1e-5,
+    every parameter within 1e-5, Adam's first moments within rtol 1e-4
+    plus 1e-5 of each tensor's largest (chip_smoke's fluid_step_check)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import v2 as paddle
+    from paddle_tpu_torch.fluid.registry import routed
+    fluid.reset_default_programs()
+    words = paddle.layer.data("words",
+                              paddle.data_type.integer_value_sequence(500))
+    label = paddle.layer.data("label", paddle.data_type.integer_value(2))
+    lstm = paddle.networks.simple_lstm(paddle.layer.embedding(words, 32), 64)
+    cost = paddle.layer.classification_cost(
+        paddle.layer.fc(paddle.layer.last_seq(lstm), 2), label)
+    trainer = paddle.SGD(cost, paddle.optimizer.Adam(2e-3), device=cuda)
+    start = {n: v.detach().clone() for n, v in trainer.exe.scope.vars.items()}
+    rs = np.random.RandomState(0)
+    data = rs.randint(0, 500, (16, 20)).astype(np.int32)
+    lens = rs.randint(5, 21, 16).astype(np.int32)
+    feed = {"words": data, "words__len__": lens,
+            "label": (data[np.arange(16), lens - 1] % 2).astype(np.int32)}
+    costs = []
+    ck.reset_launch_counts()
+    trainer.train(lambda: iter([feed]), event_handler=lambda e: costs.append(
+        e.cost) if type(e).__name__ == "EndIteration" else None)
+    assert ck.LAUNCHES["lstm_seq_train"] == 1
+    assert ck.LAUNCHES["lstm_seq_bwd"] == 1
+    exe = fluid.Executor(device=cuda, scope=fluid.Scope())
+    for n, v in start.items():
+        exe.scope.set(n, v.clone())
+    with routed("plain"):
+        plain, = exe.run(fluid.default_main_program(), feed=feed,
+                         fetch_list=[cost.var])
+    assert abs(costs[0] - float(plain)) <= 1e-5
+    for n in start:
+        a, b = trainer.exe.scope.get(n), exe.scope.get(n)
+        if n.endswith("@moment1"):
+            assert torch.allclose(a, b, rtol=1e-4,
+                                  atol=1e-5 * b.abs().max().item()), n
+        elif "@" not in n and a.is_floating_point():
+            assert (a - b).abs().max().item() <= 1e-5, n

@@ -220,6 +220,12 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     assert {f"paddle_tpu_torch/fluid/{m}.py" for m in (
         "__init__", "framework", "backward", "regularizer", "optimizer",
         "nets", "layers", "registry", "executor", "io", "evaluator")} <= rel
+    assert {f"paddle_tpu_torch/v2/{m}.py" for m in (
+        "__init__", "attr", "data_type", "evaluator", "inference", "layer",
+        "networks", "optimizer", "parameters", "topology", "trainer")} <= rel
+    assert {f"paddle_tpu_torch/analysis/{m}.py" for m in (
+        "__init__", "verify", "lints", "dataflow", "shape_infer",
+        "bench_schema")} <= rel
     banned = {"jax", "jaxlib", "paddle_tpu"}
     bad = []
     for path in files:
