@@ -323,6 +323,30 @@ Phases:
    memoized against ``verify=False``; (e) ``Parameters.to_tar`` on the
    card byte-equal to the tar of the same values on the CPU.
 
+22. the parallel plane (``paddle_tpu_torch.parallel``) on a world of 4
+   gloo ranks that all sit on cuda:0 (``torch.multiprocessing`` spawn, a
+   FileStore; the machine has one card and NCCL refuses two ranks on one
+   device; the parent builds the kernels, the ranks load them, rank 0
+   sends its comparisons back and the parent checks): first #1-#3
+   against plain at the ring's block shapes (diagonal, zigzag past,
+   zigzag future) in f32 and bf16; (a) ``ring_self_attention`` (zigzag
+   causal, contiguous causal, non-causal) and causal
+   ``ulysses_attention`` over seq = 4 at GPT-2 small's attention widths
+   (B 8, T 1024, 12 heads of 64), forward and backward in f32 and bf16,
+   each against one ``flash_attention`` call and against the plain
+   ring, the launches of #1-#3 per rank and call exact; (b) GPT-2 small
+   trained sequence-parallel (``shifted_loss(positions=,
+   seq_axis="seq")`` in ``shard_map``, T 1024, B 8): the f32 loss and
+   gradients against the single-rank ones, bf16 steps through
+   ``Trainer(mesh=)`` timed; (c) GPT-2 small data-parallel through
+   ``Trainer`` (data = 4; fsdp = 2 x tp = 2 with
+   ``benchmarks/sharded_gpt2.py``'s layout) and ``Zero1DataParallel``
+   (data = 4), one f32 step each against one single-rank step on the
+   global batch of 8, each rank's parameter and slot bytes, ms a step;
+   (d) JAX's test shapes of ``ExpertParallelMoE``, ``pipeline_1f1b`` and
+   the TP layers on the card; (e) (a)'s ring on a one-rank NCCL world.
+   Every collective's host staging (``collectives.STAGED``) is printed.
+
 The bf16 serving checks of phases 18 and 19 (``greedy_within_ties``)
 print, for each burst, the largest gap between a chosen token's plain
 logit and the argmax's in bf16 ulps, and the run prints the largest of
@@ -350,7 +374,9 @@ Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 13's), ``{"loop": {...}}`` (phase 14's), ``{"data": {...}}``
 (phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"slice18": {...}}``
 (phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"slice20": {...},
-"fluid": {...}}`` (phases 19 and 20), ``{"kernels": [...]}`` (with
+"fluid": {...}}`` (phases 19 and 20), ``{"world": {...}}`` (phase 22),
+``{"kernels": [...]}`` (with ``launches_world`` on #1-#3: phase 22's
+launches per rank and call, and
 ``launches_routes`` and ``launches_fluid`` on #8-#12, and #1-#7 again at
 D = 128 and D = 256),
 the card's name and power limit,
@@ -6424,6 +6450,23 @@ NEAR_TIE_ULPS = 4
 NEAR_TIE_GAPS: list = []
 
 
+def _tie_groups(prompts, toks, max_len: int) -> list:
+    """The requests of a burst in batches for greedy_within_ties: in
+    order, each batch as long as its longest prompt plus its longest
+    continuation fits the model's cache (max_len rows); mostly one batch."""
+    groups, cur, longest, most = [], [], 0, 0
+    for i, (p, t) in enumerate(zip(prompts, toks)):
+        lp, lt = max(longest, len(p)), max(most, len(t))
+        if cur and lp + lt > max_len:
+            groups.append(cur)
+            cur, lp, lt = [], len(p), len(t)
+        cur.append(i)
+        longest, most = lp, lt
+    if cur:
+        groups.append(cur)
+    return groups
+
+
 def greedy_within_ties(model, prompts, toks, kv, what, device) -> dict:
     """Hold bf16 serving tokens to the plain model's greedy choices. In
     bf16 an exact match with a solo decode is not a sound check: the
@@ -6436,35 +6479,58 @@ def greedy_within_ties(model, prompts, toks, kv, what, device) -> dict:
     back through the plain route (``prefill`` then ``decode_step``,
     ``route="plain"``, the request's own KV dtype): at every step the
     engine's token must be the plain logits' argmax, or within
-    NEAR_TIE_ULPS bf16 ulps of the largest logit of it. Returns the
-    tokens checked, those equal to the argmax and the largest gap in
-    ulps."""
+    NEAR_TIE_ULPS bf16 ulps of the largest logit of it. The requests of
+    a burst go through one batched cell (a ragged ``prefill`` with their
+    lengths, then one ``decode_step`` a token for all of them; a request
+    past its last token feeds token 0, which no other row reads) where
+    their lengths fit the cache (_tie_groups); each step's top logit,
+    chosen logit, ulp and argmax are computed on the card, and read back
+    once a batch. Returns the tokens checked, those equal to the argmax
+    and the largest gap in ulps."""
     import numpy as np
     import torch
     checked = equal = 0
     worst = 0.0
     with torch.no_grad():
-        for i, (p, t) in enumerate(zip(prompts, toks)):
-            ids = torch.as_tensor(np.asarray(p)[None].astype(np.int64),
-                                  device=device)
-            cell, logits = model.prefill(ids, kv_dtype=kv, route="plain")
-            for j, tok in enumerate(t):
-                row = logits[0].float()
-                top = row.max().item()
-                ulp = bf16_ulp(row.abs().max().item())
-                gap = (top - row[int(tok)].item()) / ulp
-                check(gap <= NEAR_TIE_ULPS, f"{what}: request {i} token {j} "
-                      f"= {tok} is {gap:.1f} bf16 ulps below the plain "
-                      f"model's greedy choice {int(row.argmax())}")
-                worst = max(worst, gap)
-                equal += int(tok) == int(row.argmax())
-                checked += 1
-                if j + 1 < len(t):
-                    logits, cell = model.decode_step(
-                        cell, torch.tensor([int(tok)], device=device),
-                        route="plain")
+        for idx in _tie_groups(prompts, toks, model.max_len):
+            lens = [len(prompts[i]) for i in idx]
+            ids = np.zeros((len(idx), max(lens)), np.int64)
+            want = np.zeros((len(idx), max(len(toks[i]) for i in idx)),
+                            np.int64)
+            for r, i in enumerate(idx):
+                ids[r, :lens[r]] = np.asarray(prompts[i])
+                want[r, :len(toks[i])] = np.asarray(toks[i], np.int64)
+            ragged = min(lens) != max(lens)
+            cell, logits = model.prefill(
+                torch.as_tensor(ids, device=device),
+                torch.as_tensor(lens, device=device) if ragged else None,
+                kv_dtype=kv, route="plain")
+            tok = torch.as_tensor(want, device=device)
+            gaps, argmaxes = [], []
+            for j in range(want.shape[1]):
+                row = logits.float()
+                big = row.abs().amax(-1)
+                ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+                chosen = row.gather(1, tok[:, j:j + 1])[:, 0]
+                gaps.append((row.amax(-1) - chosen) / ulp)
+                argmaxes.append(row.argmax(-1))
+                if j + 1 < want.shape[1]:
+                    logits, cell = model.decode_step(cell, tok[:, j],
+                                                     route="plain")
+            gaps = torch.stack(gaps, 1).cpu().numpy()         # one read
+            argmaxes = torch.stack(argmaxes, 1).cpu().numpy()
+            for r, i in enumerate(idx):
+                n = len(toks[i])
+                for j in range(n):
+                    check(gaps[r, j] <= NEAR_TIE_ULPS, f"{what}: request {i} "
+                          f"token {j} = {want[r, j]} is {gaps[r, j]:.1f} "
+                          f"bf16 ulps below the plain model's greedy choice "
+                          f"{argmaxes[r, j]}")
+                worst = max([worst] + gaps[r, :n].tolist())
+                equal += int((argmaxes[r, :n] == want[r, :n]).sum())
+                checked += n
     held = {"tokens": checked, "equal_to_argmax": equal,
-            "worst_gap_bf16_ulps": worst}
+            "worst_gap_bf16_ulps": float(worst)}
     NEAR_TIE_GAPS.append(dict(held, burst=what))
     return held
 
@@ -7848,6 +7914,811 @@ def v2_phase(say, seed: int, device="cuda") -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the parallel plane on a world of ranks on the card
+# ---------------------------------------------------------------------------
+
+# the world: 4 gloo ranks that all sit on cuda:0 (the machine has one card
+# and NCCL refuses two ranks on one device), spawned with a FileStore
+WORLD = 4
+WORLD_TIMEOUT_S = 420
+# (a): GPT-2 small's attention, 12 heads of 64, B = 8, T = 1024 global
+RING = dict(B=8, T=1024, H=12, D=64)
+# the ring in bf16 against one flash call: each step's partial output and
+# gradients are rounded to bf16 before the f32 merge or sum (JAX does the
+# same), on top of the tensor-core bodies' own rounding (bf16_tc_close's
+# one ulp): two bf16 ulps of the largest entry for o, four for dq/dk/dv
+# (each a sum of four rounded partials); rtol BF16_TC_RTOL
+RING_BF16_ULPS = {"o": 2, "grads": 4}
+# (b), (c): GPT-2 small (GPT2_SMALL), batch 8 of 1024 tokens, Adam 3e-4
+WORLD_BATCH, WORLD_LR = 8, 3e-4
+
+
+def _sync() -> None:
+    """Wait for the card (no-op in a CPU rehearsal)."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _close_entry(got, want, atol: float, rtol: float) -> dict:
+    """max |got - want| and whether allclose(atol, rtol) holds (the parent
+    checks ``ok``)."""
+    import torch
+    g, w = got.float(), want.float()
+    return {"err": (g - w).abs().max().item(), "atol": atol, "rtol": rtol,
+            "ok": bool(torch.allclose(g, w, atol=atol, rtol=rtol))}
+
+
+def _attn_close(got, want, dtype_name: str, kind: str) -> dict:
+    """The tolerance of a ring output (``kind`` "o") or gradient
+    ("grads") against one flash call or the plain ring: f32 as phases 2
+    and 6 (summation order only: o at F32_ATOL/F32_RTOL, gradients at
+    2e-5 of the largest magnitude and rtol 1e-4); bf16 RING_BF16_ULPS
+    bf16 ulps of the largest entry, rtol BF16_TC_RTOL."""
+    top = want.float().abs().max().item()
+    if dtype_name == "float32":
+        if kind == "o":
+            return _close_entry(got, want, F32_ATOL, F32_RTOL)
+        return _close_entry(got, want, 2e-5 * top, 1e-4)
+    out = _close_entry(got, want, RING_BF16_ULPS[kind] * bf16_ulp(top),
+                       BF16_TC_RTOL)
+    out["ulps"] = out["err"] / bf16_ulp(top)
+    return out
+
+
+def ring_block_checks(say, seed: int, device="cuda", ring=None) -> dict:
+    """#1, #2 and #3 against their plain versions at each block shape of
+    (a)'s ring (a rank's 256 of 1024 positions, 8 x 12 heads of 64): the
+    diagonal (causal, 256 x 256), a zigzag block from the past (256
+    queries against the first 128 keys, a strided view) and from the
+    future (the second 128 queries against 256 keys), the backward with
+    the outside delta and lse the ring passes. f32 at the f32 tolerances,
+    bf16 by bf16_tc_close."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ring = ring or RING
+    B, H, D = ring["B"], ring["H"], ring["D"]
+    t = ring["T"] // WORLD
+    c = t // 2
+    gen = torch.Generator().manual_seed(seed + 2201)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k, v, do = (torch.randn(B, t, H, D, generator=gen).to(device, dt)
+                       for _ in range(4))
+        for name, qq, kk, vv, dd, causal in (
+                ("diag", q, k, v, do, True),
+                ("past", q, k[:, :c], v[:, :c], do, False),
+                ("future", q[:, c:], k, v, do[:, c:], False)):
+            o, lse = ck.flash_attention_fwd(qq, kk, vv, causal=causal)
+            po, plse = ck.flash_attention_fwd(qq, kk, vv, causal=causal,
+                                              route="plain")
+            delta = torch.sum(dd.float() * po.float(), -1)
+            grads = ck.flash_attention_bwd(qq, kk, vv, po, plse, dd,
+                                           causal=causal, delta=delta)
+            plain = ck.flash_attention_bwd(qq, kk, vv, po, plse, dd,
+                                           causal=causal, delta=delta,
+                                           route="plain")
+            _sync()
+            errs = {}
+            if dname == "float32":
+                errs["o"] = fwd_f32_close(o, po, f"ring block {name} #1")
+                for n, a, b in zip(("dq", "dk", "dv"), grads, plain):
+                    errs[n] = bwd_close(a, b, f"ring block {name} {n}",
+                                        dname)
+            else:
+                errs["o"] = bf16_tc_close(o, po, f"ring block {name} #1")
+                for n, a, b in zip(("dq", "dk", "dv"), grads, plain):
+                    errs[n] = bf16_tc_close(a, b, f"ring block {name} {n}")
+            out[f"{name} {dname}"] = dict(
+                errs, shape=f"q {tuple(qq.shape)} k {tuple(kk.shape)}"
+                f"{' causal' if causal else ''}")
+    say(f"ring blocks, #1-#3 against plain (max abs errors): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _ring_inputs(seed: int, dt, device, ring):
+    import torch
+    gen = torch.Generator().manual_seed(seed + 2202)
+    shape = (ring["B"], ring["T"], ring["H"], ring["D"])
+    return [torch.randn(shape, generator=gen).to(device, dt)
+            for _ in range(4)]
+
+
+def _fwd_bwd(fn, q, k, v, g):
+    """(o, dq, dk, dv) of ``fn(q, k, v)`` with cotangent ``g``."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*leaves)
+    grads = torch.autograd.grad(o, leaves, grad_outputs=g)
+    return [o.detach()] + list(grads)
+
+
+def _counted_world(fn):
+    """fn() with LAUNCHES and STAGED at 0 before and read after, the wall
+    in ms: (out, launches of #1-#3, staged, ms)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.parallel import collectives as cc
+    _sync()
+    ck.reset_launch_counts()
+    cc.reset_staged()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (out, {n: ck.LAUNCHES[n] for n in ATTENTION_KERNELS},
+            {f"{op}/{be}": dict(v) for (op, be), v in cc.STAGED.items()}, ms)
+
+
+def _world_ring(rank: int, seed: int, cfg: dict) -> dict:
+    """(a) ring_self_attention (zigzag causal, contiguous causal,
+    non-causal) and ulysses_attention (causal) over seq = 4, forward and
+    backward, in f32 and bf16, each through the kernels and on the plain
+    route; rank 0 holds each against one flash_attention call on the
+    whole sequence and the kernels' ring against the plain ring."""
+    import torch
+    from paddle_tpu_torch import parallel as pp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    device = cfg["device"]
+    mesh = pp.make_mesh(seq=WORLD, device=device)
+    calls = {
+        "zigzag": lambda r: lambda q, k, v: pp.ring_self_attention(
+            mesh, q, k, v, causal=True, route=r),
+        "contiguous": lambda r: lambda q, k, v: pp.ring_self_attention(
+            mesh, q, k, v, causal=True, layout="contiguous", route=r),
+        "full": lambda r: lambda q, k, v: pp.ring_self_attention(
+            mesh, q, k, v, causal=False, route=r),
+        "ulysses": lambda r: lambda q, k, v: pp.ulysses_attention(
+            mesh, q, k, v, causal=True, route=r),
+    }
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k, v, g = _ring_inputs(seed, dt, device, cfg["ring"])
+        ref = {}
+        if rank == 0:
+            for causal in (True, False):
+                ref[causal] = _fwd_bwd(lambda a, b, c: ck.flash_attention(
+                    a, b, c, causal=causal), q, k, v, g)
+        for name, make in calls.items():
+            got, launches, staged, ms = _counted_world(
+                lambda: _fwd_bwd(make(None), q, k, v, g))
+            plain = _fwd_bwd(make("plain"), q, k, v, g)
+            entry = {"launches": launches, "staged": staged, "ms": ms}
+            if rank == 0:
+                want = ref[name != "full"]
+                entry["vs_flash"] = {n: _attn_close(a, b, dname, "o" if
+                                                    n == "o" else "grads")
+                                     for n, a, b in zip(("o", "dq", "dk",
+                                                         "dv"), got, want)}
+                entry["vs_plain"] = {n: _attn_close(a, b, dname, "o" if
+                                                    n == "o" else "grads")
+                                     for n, a, b in zip(("o", "dq", "dk",
+                                                         "dv"), got, plain)}
+            out[f"{name} {dname}"] = entry
+            del got, plain
+        del ref
+        _empty_cache(device)
+    return out
+
+
+def _empty_cache(device) -> None:
+    import torch
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _grad_compare(got: dict, want: dict, floor: float = 1e-6) -> dict:
+    """Each gradient against the reference's: relative L2 at most 1e-4,
+    plus ``floor`` times the largest gradient norm (a gradient at the
+    step's rounding floor, the tied embedding's far rows)."""
+    import torch
+    norm = torch.linalg.vector_norm
+    g_max = max(norm(w.float()).item() for w in want.values())
+    worst, bad = 0.0, []
+    for name, w in want.items():
+        err = norm(got[name].float() - w.float()).item()
+        ref = norm(w.float()).item()
+        if err > 1e-4 * ref + floor * g_max:
+            bad.append(f"{name}: {err:.3e} of {ref:.3e}")
+        worst = max(worst, err / max(ref, 1e-30))
+    return {"worst_rel_l2": worst, "ok": not bad, "bad": bad[:5],
+            "g_max": g_max}
+
+
+def _world_seq(rank: int, seed: int, cfg: dict) -> dict:
+    """(b) GPT-2 small trained sequence-parallel: ``shifted_loss(positions=,
+    seq_axis="seq")`` inside shard_map over seq = 4 at T = 1024 (256
+    positions a rank), its f32 loss and gradients against the single-rank
+    ``shifted_loss`` on the whole sequence (rank 0), then bf16 steps
+    (bf16 over f32 masters, Adam) through ``Trainer(mesh=)`` timed."""
+    import torch
+    from paddle_tpu_torch import parallel as pp
+    from paddle_tpu_torch.core.pytree import tree_from_items, tree_items
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.sharding import P
+    from paddle_tpu_torch.trainer import Trainer
+    device, lm, T = cfg["device"], cfg["lm"], cfg["ring"]["T"]
+    mesh = pp.make_mesh(seq=WORLD, device=device)
+    model = TransformerLM(**lm).init(seed, device=device)
+    gen = torch.Generator().manual_seed(seed + 2203)
+    ids = torch.randint(0, lm["vocab"], (cfg["batch"], T + 1),
+                        generator=gen)
+    ids = ids.to(device)
+    ids_in, targets = ids[:, :-1], ids[:, 1:]
+    pos = torch.arange(T, device=device).expand(ids_in.shape)
+    spec = P(None, "seq")
+
+    def seq_loss(dtype):
+        body = pp.shard_map(
+            lambda p, a, b, c: model.call(
+                cast_tree(p, dtype), a, b, positions=c, seq_axis="seq",
+                method="shifted_loss").float(),
+            mesh=mesh, in_specs=(P(), spec, spec, spec), out_specs=P())
+        return body
+
+    items = [(path, t.detach().requires_grad_(True))
+             for path, t in tree_items(model.tree())]
+    tree = tree_from_items(items)
+
+    def f32_run():
+        lv = seq_loss(torch.float32)(tree, ids_in, targets, pos)
+        return lv.detach(), torch.autograd.grad(lv, [t for _, t in items])
+    (lv, grads), launches, staged, ms = _counted_world(f32_run)
+    out = {"f32": {"loss": lv.item(), "launches": launches,
+                   "staged": staged, "ms": ms}}
+    if rank == 0:
+        ref = model.call(tree, ids_in, targets, method="shifted_loss")
+        rgrads = torch.autograd.grad(ref, [t for _, t in items])
+        names = ["/".join(p) for p, _ in items]
+        out["f32"]["ref_loss"] = ref.item()
+        out["f32"]["grads"] = _grad_compare(dict(zip(names, grads)),
+                                            dict(zip(names, rgrads)))
+        del ref, rgrads
+    del grads, tree, items
+    # bf16 steps through the trainer's data-parallel step over the seq
+    # mesh: no data axis, so each rank takes the whole batch and the
+    # shard_map inside the loss cuts its positions
+    tr = Trainer(lambda p, a, b, c: seq_loss(torch.bfloat16)(p, a, b, c),
+                 Adam(WORLD_LR), mesh=mesh)
+    params, opt_state = tr._dp.init(model.tree())
+    steps = []
+    for i in range(3):
+        (params, opt_state, loss), launches, staged, ms = _counted_world(
+            lambda: tr.step(params, opt_state, ids_in, targets, pos))
+        steps.append({"loss": loss.item(), "ms": ms, "launches": launches,
+                      "staged": staged})
+    out["bf16_steps"] = steps
+    del params, opt_state, tr, model
+    _empty_cache(device)
+    return out
+
+
+def _local_bytes(tree) -> int:
+    from paddle_tpu_torch.core.pytree import tree_items
+    from paddle_tpu_torch.parallel.sharding import local
+    return sum(local(leaf).nbytes for _, leaf in tree_items(tree))
+
+
+def _layout_bytes(tree) -> dict:
+    """This rank's bytes of a placed tree, beside the full bytes of the
+    leaves its layout shards and of those it leaves replicated."""
+    from paddle_tpu_torch.core.pytree import tree_items
+    from paddle_tpu_torch.parallel.sharding import P, local, spec_of
+    out = {"local": 0, "sharded_full": 0, "replicated": 0}
+    for _, leaf in tree_items(tree):
+        out["local"] += local(leaf).nbytes
+        full = leaf.numel() * leaf.element_size()
+        out["replicated" if (spec_of(leaf) or P()) == P()
+            else "sharded_full"] += full
+    return out
+
+
+def _adam_param_check(got: dict, want: dict, m_ref: dict, lr: float
+                      ) -> dict:
+    """Parameters after one Adam step against the reference's, bound as
+    transformer_step_check bounds them: 1e-5 plus what the first Adam
+    step lr*g/(|g|+eps) makes of a gradient difference of 1e-4 of the
+    entry and of its row's rms (the mean over ranks reassociates the
+    batch sum; where g is rounding noise the step divides it by eps)."""
+    import torch
+    eps, worst, bad = 1e-8, 0.0, []
+    for name, w in want.items():
+        g = m_ref[name].abs() / 0.1
+        rms = g.square().mean().sqrt()
+        if g.dim() > 1:
+            rms = torch.maximum(rms, g.square().mean(-1, keepdim=True).sqrt())
+        dg = 1e-4 * (g + rms)
+        allowed = 1e-5 + lr * dg * eps / (g + eps) ** 2
+        diff = (got[name] - w).abs()
+        if not bool((diff <= allowed).all()):
+            bad.append(f"{name}: {diff.max().item():.3e}")
+        worst = max(worst, diff.max().item())
+    return {"worst_param_diff": worst, "ok": not bad, "bad": bad[:5]}
+
+
+def _world_dp(rank: int, seed: int, cfg: dict) -> dict:
+    """(c) GPT-2 small trained data-parallel: one f32 step through
+    ``Trainer(mesh=make_mesh(data=4))``, through ``Trainer(mesh=
+    make_mesh(fsdp=2, tp=2), layout=SpecLayout(rules=[(r"pos_embed$",
+    P())]))`` (benchmarks/sharded_gpt2.py's layout) and through
+    ``Zero1DataParallel`` over data = 4, each against one single-rank
+    step on the global batch of 8 (rank 0): the loss, the gradients (as
+    Adam's first moment) and the parameters (Adam-aware); each rank's
+    parameter and slot bytes; two more steps timed."""
+    import torch
+    from paddle_tpu_torch import parallel as pp
+    from paddle_tpu_torch.core.pytree import tree_get, tree_items
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.sharding import P, tree_to_global
+    from paddle_tpu_torch.trainer import Trainer
+    device, lm = cfg["device"], cfg["lm"]
+    model = TransformerLM(**lm).init(seed, device=device)
+    gen = torch.Generator().manual_seed(seed + 2204)
+    ids = torch.randint(0, lm["vocab"], (cfg["batch"], cfg["ring"]["T"]),
+                        generator=gen).to(device)
+    loss = lm_loss(model, torch.float32)
+    out = {}
+    ref = None
+    if rank == 0:
+        # eager: a captured step's memory pool would stay with this rank
+        # while the three meshes' steps run
+        from paddle_tpu_torch.core import graphs
+        tr = Trainer(loss, Adam(WORLD_LR), device=device)
+        p0 = model.tree()
+        with graphs.disabled():
+            rp, rs, rl = tr.step(p0, tr.opt.init(p0), ids)
+        ref = ({"/".join(k): v.clone() for k, v in tree_items(rp)},
+               {"/".join(k): tree_get(rs["slots"], k)["m"].clone()
+                for k, _ in tree_items(rp)}, rl.item())
+        del tr, rp, rs
+        _empty_cache(device)
+    replicated = sum(t.nbytes for _, t in tree_items(model.tree()))
+    configs = (("data=4", pp.make_mesh(data=WORLD, device=device), None),
+               ("fsdp=2 x tp=2", pp.make_mesh(fsdp=2, tp=2, device=device),
+                pp.SpecLayout(rules=[(r"pos_embed$", P())])),
+               ("zero1 data=4", pp.make_mesh(data=WORLD, device=device),
+                "zero1"))
+    for name, mesh, layout in configs:
+        if layout == "zero1":
+            z = pp.Zero1DataParallel(loss, Adam(WORLD_LR), mesh=mesh)
+            state = z.init(model.tree())
+            batch = z.shard_batch((ids,))
+
+            def step():
+                nonlocal state
+                state, lv = z.step(state, *batch)
+                return lv
+            per_rank = {"slots": _layout_bytes(state.opt_state["slots"]),
+                        "master": _layout_bytes({"f": state.flat})}
+        else:
+            tr = Trainer(loss, Adam(WORLD_LR), mesh=mesh, layout=layout)
+            trees = list(tr._dp.init(model.tree()))
+
+            def step():
+                trees[0], trees[1], lv = tr.step(trees[0], trees[1], ids)
+                return lv
+        lv, launches, staged, ms = _counted_world(step)
+        entry = {"loss": lv.item(), "check_step_ms": ms,
+                 "launches": launches, "staged": staged}
+        if layout == "zero1":
+            full = z.params(state)
+            slots = None
+            entry["bytes"] = per_rank
+        else:
+            full = tree_to_global(trees[0])
+            slots = tree_to_global(trees[1])["slots"]
+            entry["bytes"] = {"params": _layout_bytes(trees[0]),
+                              "slots": _layout_bytes(trees[1]["slots"])}
+            if layout is not None:
+                entry["specs"] = {"/".join(k): list(pp.sharding.spec_of(v))
+                                  for k, v in tree_items(trees[0])
+                                  if pp.sharding.spec_of(v) != P()}
+        if rank == 0:
+            got = {"/".join(k): v for k, v in tree_items(full)}
+            want_p, want_m, want_l = ref
+            entry["ref_loss"] = want_l
+            entry["params"] = _adam_param_check(got, want_p, want_m,
+                                                WORLD_LR)
+            if slots is not None:
+                entry["grads"] = _grad_compare(
+                    {k: tree_get(slots, tuple(k.split("/")))["m"]
+                     for k in want_m}, want_m)
+        del full, slots
+        timed = []
+        for _ in range(2):
+            _, _, staged, ms = _counted_world(step)
+            timed.append({"ms": ms, "staged": staged})
+        entry["timed"] = timed
+        entry["replicated_bytes"] = replicated
+        out[name] = entry
+        # this mesh's trees go before the next one's are placed
+        del step
+        if layout == "zero1":
+            del z, state, batch
+        else:
+            del tr, trees
+        _empty_cache(device)
+    return out
+
+
+def _world_small(rank: int, seed: int, cfg: dict) -> dict:
+    """(d) JAX's test shapes on the card: ExpertParallelMoE (D 8, F 16, E
+    8, 64 tokens over expert = 4; k 1 and 2, no drops) against the dense
+    math routed per shard; pipeline_1f1b's loss and gradients (4 stages
+    of Linear(8, 8, tanh), 4 microbatches of 2) against the sequential
+    ones; the column -> row parallel MLP (16 -> 64 -> 8 on data = 2 x
+    model = 2) and the vocab-sharded embedding (64 x 16 on model = 4)
+    against the dense math. f32 at 2e-5 / 1e-4 (JAX's bounds)."""
+    import torch
+    from paddle_tpu_torch import parallel as pp
+    from paddle_tpu_torch.nn import Linear, Module
+    from paddle_tpu_torch.parallel.moe import moe_ffn_dense
+    from paddle_tpu_torch.parallel.sharding import P
+    device = cfg["device"]
+    gen = torch.Generator().manual_seed(seed + 2205)
+    out = {}
+    mesh = pp.make_mesh(expert=WORLD, device=device)
+    params = pp.init_moe_params(gen, 8, 16, 8, device=device)
+    x = torch.randn(64, 8, generator=gen).to(device)
+    for k in (1, 2):
+        moe = pp.ExpertParallelMoE(mesh, k=k, capacity=16)
+        y, _ = moe(moe.shard_params(params), moe.shard_tokens(x))
+        dense = torch.cat([moe_ffn_dense(params, x[s * 16:(s + 1) * 16],
+                                         k=k, capacity=16)[0]
+                           for s in range(WORLD)])
+        out[f"moe k={k}"] = _close_entry(y, dense, 2e-5, 2e-5)
+
+    pipe = pp.make_mesh(pipe=WORLD, device=device)
+    stage = pp.PipelineStage(lambda: Linear(8, 8, act="tanh"), n_stages=4)
+    stage.init(seed, device=device)
+    tree = stage.tree()
+    xb = torch.randn(8, 8, generator=gen).to(device)
+    yb = torch.randn(8, 8, generator=gen).to(device)
+
+    def stage_fn(p, mb):
+        return torch.tanh(mb @ p["w"] + p["b"])
+
+    def loss_fn(o, yy):
+        return torch.mean((o - yy) ** 2)
+    loss, grads = pp.pipeline_1f1b(stage_fn, loss_fn, pipe,
+                                   n_microbatches=4)(tree, xb, yb)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in tree.items()}
+    total = 0.0
+    for m in range(4):
+        h = xb[2 * m:2 * m + 2]
+        for s in range(4):
+            h = stage_fn({k: v[s] for k, v in leaves.items()}, h)
+        total = total + loss_fn(h, yb[2 * m:2 * m + 2])
+    total = total / 4
+    rg = torch.autograd.grad(total, list(leaves.values()))
+    out["1f1b loss"] = _close_entry(loss, total.detach(), 1e-6, 1e-5)
+    for (k, _), g in zip(leaves.items(), rg):
+        out[f"1f1b d{k}"] = _close_entry(grads[k], g, 1e-5, 1e-4)
+
+    class TPNet(Module):
+        def __init__(self):
+            super().__init__()
+            self.up = pp.ColumnParallelLinear(16, 64, act="relu")
+            self.down = pp.RowParallelLinear(64, 8)
+
+        def forward(self, x):
+            return self.down(self.up(x))
+    net = TPNet().init(seed, device=device)
+    xt = torch.randn(32, 16, generator=gen).to(device)
+    tp = pp.make_mesh(data=2, model=2, device=device)
+    sp = pp.ShardingRules(pp.tensor_parallel.collect_tp_rules(net)
+                          + [(r".*", P())]).apply(tp, net.tree())
+    with tp:
+        out["tp mlp"] = _close_entry(net.call(sp, xt), net(xt), 1e-5, 1e-5)
+    emb = pp.ShardedEmbedding(64, 16).init(seed, device=device)
+    m4 = pp.make_mesh(model=WORLD, device=device)
+    se = pp.ShardingRules(pp.tensor_parallel.collect_tp_rules(emb)).apply(
+        m4, emb.tree())
+    ids = torch.tensor([0, 5, 63, 17, 16, 48], device=device)
+    with m4:
+        out["sharded embedding"] = _close_entry(emb.call(se, ids),
+                                                emb.table[ids], 0.0, 0.0)
+    return out
+
+
+def _world_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
+                backend: str, cfg: dict) -> None:
+    """One rank of phase 22's world (spawned): the cases, its results
+    pickled for the parent; a failure records the traceback and exits
+    non-zero at once (the parent then stops the world)."""
+    import datetime
+    import pickle
+    import traceback
+    res = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, HERE)
+        if cfg["device"].startswith("cuda"):
+            torch.cuda.set_device(cfg["device"])
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+        if cfg["device"].startswith("cuda"):
+            from paddle_tpu_torch.ops import _build
+            _build.load()                  # built by the parent: loaded
+        t0 = time.perf_counter()
+        if world == 1:
+            res["nccl"] = _nccl_ring(seed, cfg)
+        else:
+            on_card = cfg["device"].startswith("cuda")
+            for name, fn in (("ring", _world_ring), ("seq", _world_seq),
+                             ("dp", _world_dp), ("small", _world_small)):
+                t1 = time.perf_counter()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                res[name] = fn(rank, seed, cfg)
+                res.setdefault("seconds", {})[name] = \
+                    time.perf_counter() - t1
+                if on_card:
+                    res.setdefault("peak_gib", {})[name] = round(
+                        torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+        res["world_s"] = time.perf_counter() - t0
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        res["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    if "error" in res:
+        os._exit(1)
+
+
+def _nccl_ring(seed: int, cfg: dict) -> dict:
+    """(e) (a)'s zigzag ring on a one-rank NCCL world (n = 1: the ring is
+    one diagonal step, flash_attention itself), f32 forward and backward
+    against one flash_attention call: the NCCL code path of the
+    collectives (the output's all-gather, the input's cotangent
+    all-reduce) runs."""
+    import torch
+    from paddle_tpu_torch import parallel as pp
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    device = cfg["device"]
+    mesh = pp.make_mesh(data=1, device=device)
+    q, k, v, g = _ring_inputs(seed, torch.float32, device, cfg["ring"])
+    got, launches, staged, ms = _counted_world(lambda: _fwd_bwd(
+        lambda a, b, c: pp.ring_self_attention(mesh, a, b, c,
+                                               seq_axis="data", causal=True),
+        q, k, v, g))
+    want = _fwd_bwd(lambda a, b, c: ck.flash_attention(a, b, c, causal=True),
+                    q, k, v, g)
+    return {"backend": mesh.backend, "launches": launches, "staged": staged,
+            "ms": ms,
+            "vs_flash": {n: _attn_close(a, b, "float32", "o" if n == "o"
+                                        else "grads")
+                         for n, a, b in zip(("o", "dq", "dk", "dv"), got,
+                                            want)}}
+
+
+def _spawn_world(world: int, seed: int, backend: str, cfg: dict) -> list:
+    """Run ``world`` ranks of _world_rank (torch.multiprocessing spawn, a
+    FileStore in a temp dir) within WORLD_TIMEOUT_S; a rank that fails
+    or a world past its limit fails the phase, and no rank is left
+    running. Returns each rank's results."""
+    import pickle
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_world_rank,
+                         args=(r, world, store, tmp, seed, backend, cfg))
+             for r in range(world)]
+    # the ranks share one card: growable segments keep each rank's cache
+    # from holding memory the others need (the ranks inherit this)
+    prior = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if prior is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prior
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.exitcode not in (None, 0)]
+            if failed:
+                break
+            check(time.monotonic() < deadline, f"phase 22: the {backend} "
+                  f"world outlived {WORLD_TIMEOUT_S} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    res, failed = [], []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            failed.append(f"rank {r}: no results (exit code "
+                          f"{procs[r].exitcode})")
+            continue
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+        if "error" in res[-1]:
+            failed.append(f"rank {r}:\n{res[-1]['error']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    # every failing rank, as a peer's failure shows on the others as a
+    # reset connection
+    check(not failed, f"phase 22: the {backend} world failed:\n"
+          + "\n".join(failed))
+    return res
+
+
+def _check_entries(what: str, entries: dict) -> None:
+    for name, e in entries.items():
+        check(e["ok"], f"{what} {name}: max abs {e['err']} (atol "
+              f"{e['atol']}, rtol {e['rtol']})")
+
+
+def world_phase(say, seed: int, device="cuda:0", ring=None, lm=None,
+                batch: int = WORLD_BATCH, nccl: str = "nccl") -> dict:
+    """Phase 22: the parallel plane on a world of 4 gloo ranks on
+    ``device`` (module docstring; (a)-(d)), then (e) a one-rank world over
+    ``nccl``. The parent built the kernels; the ranks load them. Returns
+    the launches of #1-#3 per rank and call, and the figures. ``ring``,
+    ``lm``, ``batch`` (default RING, GPT2_SMALL, WORLD_BATCH) and a CPU
+    ``device`` with ``nccl="gloo"`` make a small rehearsal on the CPU."""
+    t0 = time.perf_counter()
+    if device.startswith("cuda"):
+        # the ranks share the card with this process: hand back what the
+        # earlier phases' graphs and caches hold
+        import torch
+        _GRAPH_NODES.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"phase 22: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+            "allocated in the parent at its start")
+    cfg = {"device": device, "ring": ring or RING, "lm": lm or GPT2_SMALL,
+           "batch": batch}
+    # a CPU rehearsal runs the plain versions: nothing launches there
+    on_card = device.startswith("cuda")
+    blocks = ring_block_checks(say, seed, device, cfg["ring"])
+    ranks = _spawn_world(WORLD, seed, "gloo", cfg)
+    r0 = ranks[0]
+    figs = {"blocks": blocks, "seconds": ranks[0]["seconds"]}
+    # (a)
+    launches = {}
+    for name, e in r0["ring"].items():
+        _check_entries(f"phase 22 (a) {name} vs flash_attention",
+                       e["vs_flash"])
+        _check_entries(f"phase 22 (a) {name} vs the plain ring",
+                       e["vs_plain"])
+        call = name.split()[0]
+        for r, res in enumerate(ranks):
+            got = res["ring"][name]["launches"]
+            n = (1 if call == "ulysses" else
+                 r + 1 if call == "contiguous" else WORLD)
+            check(not on_card or got == {k: n for k in ATTENTION_KERNELS},
+                  f"phase 22 (a) {name} rank {r}: launches {got}, want {n} "
+                  "of each of #1-#3")
+            launches.setdefault(f"rank{r}", {})[name] = got
+    figs["ring"] = {name: {k: e[k] for k in ("vs_flash", "vs_plain", "ms",
+                                             "staged")}
+                    for name, e in r0["ring"].items()}
+    say(f"phase 22 (a) ring/Ulysses at {json.dumps(cfg['ring'])} over "
+        f"seq={WORLD}: {json.dumps(figs['ring'])}")
+    say(f"phase 22 (a) launches of #1-#3 per rank and call: "
+        f"{json.dumps(launches)} (the contiguous causal ring skips the "
+        "future blocks: rank r launches r + 1 of each)")
+    # (b)
+    seq = r0["seq"]
+    f32 = seq["f32"]
+    check(abs(f32["loss"] - f32["ref_loss"]) <= 1e-5 * abs(f32["ref_loss"]),
+          f"phase 22 (b) seq-parallel f32 loss {f32['loss']} != single-rank "
+          f"{f32['ref_loss']}")
+    check(f32["grads"]["ok"], f"phase 22 (b) seq-parallel gradients: "
+          f"{f32['grads']['bad']}")
+    for r, res in enumerate(ranks):
+        want = {k: cfg["lm"]["n_layers"] * (r + 1)
+                for k in ATTENTION_KERNELS}
+        check(not on_card or res["seq"]["f32"]["launches"] == want,
+              f"phase 22 (b) rank {r}: launches "
+              f"{res['seq']['f32']['launches']} != {want}")
+        launches[f"rank{r}"]["seq f32 step"] = res["seq"]["f32"]["launches"]
+        launches[f"rank{r}"]["seq bf16 step"] = \
+            res["seq"]["bf16_steps"][-1]["launches"]
+    steps = seq["bf16_steps"]
+    figs["seq"] = {"f32": {k: f32[k] for k in ("loss", "ref_loss", "ms",
+                                              "staged")},
+                   "f32_worst_grad_rel_l2": f32["grads"]["worst_rel_l2"],
+                   "bf16_ms_a_step": [s["ms"] for s in steps],
+                   "bf16_losses": [s["loss"] for s in steps],
+                   "bf16_staged_a_step": steps[-1]["staged"]}
+    say(f"phase 22 (b) GPT-2 small sequence-parallel over seq={WORLD}, T="
+        f"{cfg['ring']['T']}, B={batch}: {json.dumps(figs['seq'])}")
+    # (c)
+    figs["dp"] = {}
+    for name, e in r0["dp"].items():
+        check(abs(e["loss"] - e["ref_loss"]) <= 1e-6 * abs(e["ref_loss"]),
+              f"phase 22 (c) {name}: f32 loss {e['loss']} != single-rank "
+              f"{e['ref_loss']}")
+        check(e["params"]["ok"], f"phase 22 (c) {name}: parameters "
+              f"{e['params']['bad']}")
+        if "grads" in e:
+            check(e["grads"]["ok"], f"phase 22 (c) {name}: gradients "
+                  f"{e['grads']['bad']}")
+        for r, res in enumerate(ranks):
+            launches[f"rank{r}"][f"dp {name} step"] = \
+                res["dp"][name]["launches"]
+            check(not on_card or all(
+                n > 0 for n in res["dp"][name]["launches"].values()),
+                  f"phase 22 (c) {name} rank {r}: a kernel never launched")
+        figs["dp"][name] = {k: e[k] for k in ("loss", "ref_loss", "bytes",
+                                             "timed", "check_step_ms")}
+        figs["dp"][name].update(params=e["params"]["worst_param_diff"],
+                                grads=e.get("grads", {}).get("worst_rel_l2"))
+    # each rank stores a quarter of every leaf the layout shards over
+    # fsdp x tp and all of the leaves it leaves replicated (the vectors,
+    # pos_embed by the rule, and the token embedding, whose 50257 rows do
+    # not split four ways: SpecLayout.fit, as in JAX)
+    for name, e in r0["dp"].items():
+        for kind, b in e["bytes"].items():
+            check(b["local"] <= b["sharded_full"] / WORLD + b["replicated"],
+                  f"phase 22 (c) {name}: {kind} {b['local']} bytes a rank, "
+                  f"over a quarter of {b['sharded_full']} sharded + "
+                  f"{b['replicated']} replicated")
+    fsdp = r0["dp"]["fsdp=2 x tp=2"]["bytes"]["params"]
+    check(fsdp["sharded_full"] > 0.6 * fsdp["replicated"],
+          f"phase 22 (c) fsdp/tp: too little sharded ({fsdp})")
+    dp4 = r0["dp"]["data=4"]["bytes"]["slots"]
+    z1 = r0["dp"]["zero1 data=4"]["bytes"]["slots"]
+    check(z1["local"] <= dp4["local"] / WORLD * 1.01,
+          f"phase 22 (c) ZeRO-1: {z1['local']} slot bytes a rank, not a "
+          f"quarter of data-parallel's {dp4['local']}")
+    say(f"phase 22 (c) GPT-2 small data-parallel, one f32 step against the "
+        f"single-rank step on the global batch of 8, then two timed: "
+        f"{json.dumps(figs['dp'])}")
+    # (d)
+    _check_entries("phase 22 (d)", r0["small"])
+    figs["small"] = r0["small"]
+    say(f"phase 22 (d) MoE, 1F1B, TP on the card: {json.dumps(r0['small'])}")
+    # (e)
+    nccl_res = _spawn_world(1, seed, nccl, cfg)[0]["nccl"]
+    check(nccl_res["backend"] == nccl, f"phase 22 (e): backend "
+          f"{nccl_res['backend']}")
+    nccl = nccl_res
+    _check_entries("phase 22 (e) one-rank NCCL ring vs flash_attention",
+                   nccl["vs_flash"])
+    check(not on_card or nccl["launches"] == {k: 1 for k in
+                                              ATTENTION_KERNELS},
+          f"phase 22 (e) launches {nccl['launches']}")
+    launches["nccl rank0"] = {"zigzag float32": nccl["launches"]}
+    figs["nccl"] = nccl
+    say(f"phase 22 (e) one-rank NCCL world, the zigzag ring (n = 1): "
+        f"{json.dumps(nccl)}")
+    figs["launches"] = launches
+    figs["wall_s"] = time.perf_counter() - t0
+    figs["peak_gib"] = {f"rank{r}": res.get("peak_gib")
+                        for r, res in enumerate(ranks)}
+    say(f"phase 22: {figs['wall_s']:.1f} s (world {ranks[0]['world_s']:.1f}"
+        f" s; by part {json.dumps(ranks[0]['seconds'])}; peak GiB allocated "
+        f"by rank and part {json.dumps(figs['peak_gib'])})")
+    return figs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7992,6 +8863,15 @@ def main(argv=None) -> int:
     stamp("phase 20")
     v2r = v2_phase(say, args.seed)
     stamp("phase 21")
+    world = world_phase(say, args.seed)
+    stamp("phase 22")
+    for entry in [flash] + bwd:
+        entry["launches_world"] = {
+            rank: {call: n[entry["name"]] for call, n in calls.items()}
+            for rank, calls in world["launches"].items()}
+        check(all(all(v > 0 for v in per.values())
+                  for per in entry["launches_world"].values()),
+              f"phase 22: {entry['name']} not launched on every rank")
     for entry in lstm + gru:
         entry["launches_fluid"] = fl["launches"].get(entry["name"], 0)
         check(entry["launches_fluid"] > 0,
@@ -8038,6 +8918,8 @@ def main(argv=None) -> int:
                       "card": card}))
     print(json.dumps({"v2": v2r, "near_tie_gaps": NEAR_TIE_GAPS,
                       "card": card}))
+    print(json.dumps({"world": {k: v for k, v in world.items()
+                                if k != "launches"}, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru + s19["entries"] + s20["entries"],
                       "card": card}))

@@ -12,13 +12,14 @@ package builds nothing: the kernels are compiled at their first launch.
 
 JAX's ``enable_compile_cache`` and ``COMPILE_CACHE_ENV`` have no
 counterpart: the port compiles no XLA programs, and ``init`` refuses a
-``compile_cache_dir``. The ``parallel`` subpackage waits for ROADMAP A.7.
+``compile_cache_dir``. ``parallel`` is the mesh plane over
+``torch.distributed`` (one process a rank; ``parallel/__init__.py``).
 """
 
 __version__ = "0.1.0"
 
 from . import (analysis, core, data, faults, fluid, models, nn, obs, ops,
-               optimizer, trainer, utils, v2)
+               optimizer, parallel, trainer, utils, v2)
 from .core import (CPUPlace, CUDAPlace, Place, SeqBatch, default_device,
                    sequence_mask)
 from .trainer import Trainer
@@ -38,6 +39,6 @@ def init(compile_cache_dir: str = None, **flags):
 
 
 __all__ = ["analysis", "core", "data", "faults", "fluid", "nn", "obs", "ops",
-           "optimizer", "trainer", "utils", "models", "v2", "Trainer",
+           "optimizer", "parallel", "trainer", "utils", "models", "v2", "Trainer",
            "Place", "CUDAPlace", "CPUPlace", "SeqBatch", "sequence_mask",
            "init", "default_device", "__version__"]

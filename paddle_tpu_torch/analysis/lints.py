@@ -4,8 +4,8 @@
 Three lints need planes the port has not taken yet and raise naming
 ROADMAP A.8: :func:`lint_catalogue_drift` and :func:`lint_alert_rules`
 (the obs catalogue and alert rules) and :func:`lint_autotune_cache` (the
-tune plane). L004 checks axis names against the port's own copy of the
-mesh plane's canonical axis order (:data:`CANONICAL_ORDER`).
+tune plane). L004 checks axis names against the mesh plane's canonical
+axis order (``parallel.mesh.CANONICAL_ORDER``).
 
 Lints are advisory by default (WARNING/INFO); the CLI's ``--fail-on`` and
 :func:`lint_program`'s ``severity_overrides`` promote or demote them.  IDs:
@@ -28,7 +28,7 @@ Lints are advisory by default (WARNING/INFO); the CLI's ``--fail-on`` and
   than the tensor has dims — a mesh would reject or mis-partition it.
   An axis name outside the valid set is an ERROR when the
   caller pins ``mesh_axes`` explicitly, but only a WARNING against the
-  default :data:`CANONICAL_ORDER` (``make_mesh`` accepts custom
+  default ``parallel.mesh.CANONICAL_ORDER`` (``make_mesh`` accepts custom
   axis names, so an unknown name may be a real custom axis).  A malformed
   spec (non-string entries, a non-sequence) is reported, never raised on.
 - **L005 metric-naming** (warning): an observability metric name that
@@ -80,11 +80,6 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set
 
 from .diagnostics import Diagnostic, Severity
 from .verify import BLOCK_ATTR_KEYS, _ATTR_BIND_KEYS, _ATTR_READ_KEYS, _names
-
-#: the mesh plane's axis order (``paddle_tpu/parallel/mesh.py``), the
-#: valid sharding axis names when ``lint_program`` is given no
-#: ``mesh_axes``; the port's ``parallel/mesh.py`` takes it over (A.7)
-CANONICAL_ORDER = ("pipe", "data", "fsdp", "expert", "seq", "model", "tp")
 
 LINT_CATALOGUE = {
     "L001": ("dead-op", Severity.WARNING),
@@ -146,7 +141,7 @@ def lint_program(program, fetch: Iterable[str] = (),
     ``fetch`` — names the caller will fetch (liveness roots for L001/L002,
     donation exclusions for L011).  ``feed`` — names the caller feeds
     (donation exclusions).  ``mesh_axes`` — valid sharding axis names;
-    defaults to :data:`CANONICAL_ORDER`.  ``enable`` — subset of
+    defaults to ``parallel.mesh.CANONICAL_ORDER``.  ``enable`` — subset of
     lint IDs to run (default: all).  ``severity_overrides`` — e.g. promote
     ``{"L001": Severity.ERROR}`` to make dead ops hard failures.
     ``donate`` — the executor's donation switch: ``True`` makes L011 an
@@ -462,6 +457,7 @@ def lint_autotune_cache(path=None,
 def _lint_sharding(program, mesh_axes, emit):
     explicit = mesh_axes is not None
     if not explicit:
+        from ..parallel.mesh import CANONICAL_ORDER
         mesh_axes = CANONICAL_ORDER
     valid = set(mesh_axes)
     # make_mesh accepts axis names beyond CANONICAL_ORDER, so an unknown

@@ -27,7 +27,13 @@ taggers' ``embed``, ``w_{f,b}``/``u_{f,b}``/``bias_{f,b}``, ``fc`` and
 ``crf/{start,end,trans}``; ``DeepFM``'s ``w1``, ``v``, ``dense_w``,
 ``deep_{i}`` (attributes of those names, as JAX names a list of
 children) and ``deep_out``; ``ConvTextCls``'s ``conv_w``/``conv_b``; a
-``TransformerLM(tie_head=False)``'s ``head/w``. Conv weights are HWIO, as in
+``TransformerLM(tie_head=False)``'s ``head/w``. The parallel plane's
+trees load with no renaming too: ``ColumnParallelLinear`` and
+``RowParallelLinear`` hold ``w`` [in, out] and ``b``,
+``ShardedEmbedding`` ``table``, a ``PipelineStage`` its stage's leaves
+stacked on a leading [n_stages] axis (``{"w": [S, in, out], "b": [S,
+out]}`` for a ``Linear`` stage), and an MoE layer's dict (``gate_w``,
+``w1``, ``w2``; no module: ``tree_from_numpy``). Conv weights are HWIO, as in
 JAX. On the JAX side, ``jax.tree_util.tree_map(np.asarray,
 params)`` turns it into numpy arrays. The port stores ``Linear`` weights
 as [in, out], as JAX does, so nothing is transposed: the one layout

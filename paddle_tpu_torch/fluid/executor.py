@@ -45,7 +45,7 @@ keeps the same tensors from run to run and no parameter is copied.
 
 Not here yet, each raising with its ROADMAP item: ``fuse=True`` or a set
 of groups (A.8, the tune plane; ``fuse=None`` and ``False`` run unfused,
-as JAX's do with no autotune cache) and a mesh (A.7).
+as JAX's do with no autotune cache) and a mesh (A.7b).
 """
 
 from __future__ import annotations
@@ -376,8 +376,10 @@ class Executor:
                  device=None):
         if mesh is not None or layout is not None:
             raise NotImplementedError(
-                "Executor(mesh=..., layout=...): the sharded executor waits "
-                "for the mesh plane (ROADMAP A.7)")
+                "Executor(mesh=..., layout=...): the sharded executor (its "
+                "placement pass, cache key and fluid.io re-placement) is "
+                "ROADMAP A.7b; the mesh plane itself is paddle_tpu_torch."
+                "parallel")
         if fuse is not None and fuse is not False:
             raise NotImplementedError(
                 "Executor(fuse=...): graph fusion over certified groups "

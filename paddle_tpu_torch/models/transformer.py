@@ -15,8 +15,13 @@ step as one CUDA graph on the card (``core/graphs.py``).
 bias), which the training forward and every decode method use;
 ``remat=True`` recomputes each block's activations in the backward
 (:func:`_remat_block`, ``torch.utils.checkpoint``), as JAX wraps each
-block in ``jax.checkpoint``. Not ported: ``prefill_paged`` (the prefix
-cache) and sequence sharding (``positions``, ``seq_axis``). The model
+block in ``jax.checkpoint``. Sequence sharding: inside a ``parallel``
+``shard_map`` over a ``seq`` axis, ``forward``/``shifted_loss`` with
+``positions`` (each shard's global positions) and ``seq_axis`` run
+every block's attention through ``parallel.ring_attention`` (causal,
+the contiguous layout: each rank holds a contiguous block of the
+sequence) and sum the masked cross-entropy's numerator and denominator
+over the axis, as JAX's do. The model
 carries its own parameters (JAX passes a parameter tree beside it); they
 keep the JAX names and layouts so a JAX tree loads through
 ``paddle_tpu_torch.convert.params_from_numpy``.
@@ -29,6 +34,7 @@ the plain version for CPU ones; "plain": the plain version anywhere).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -49,13 +55,20 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """Masked mean of lse - gold over f32 logits [..., V]: the per-token
     cross-entropy of the JAX models, averaged over ``mask`` (all ones when
     None) with the denominator held at >= 1."""
+    num, den = _masked_nll(logits, targets, mask)
+    return num / torch.clamp(den, min=1.0)
+
+
+def _masked_nll(logits: torch.Tensor, targets: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
+    """(sum of mask * (lse - gold), sum of mask) over f32 logits."""
     l32 = logits.float()
     nll = torch.logsumexp(l32, dim=-1) - torch.gather(
         l32, -1, targets.long()[..., None])[..., 0]
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.to(nll.dtype)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll * mask), torch.sum(mask)
 
 
 class TransformerBlock(nn.Module):
@@ -77,7 +90,15 @@ class TransformerBlock(nn.Module):
         self.mlp_out = Linear(d_ff, d_model, w_init=normal(0.0, init_std))
 
     def attend(self, q, k, v, *, kv_lens: Optional[torch.Tensor] = None,
-               route: Optional[str] = None):
+               route: Optional[str] = None, seq_axis: Optional[str] = None):
+        if seq_axis is not None:
+            if kv_lens is not None:
+                raise NotImplementedError(
+                    "per-sample kv_lens masking is not plumbed through ring "
+                    "attention; pad variable-length batches before sequence "
+                    "sharding or run without seq_axis")
+            from ..parallel.ring_attention import ring_attention
+            return ring_attention(q, k, v, seq_axis, self.causal, route=route)
         return ck.flash_attention(q, k, v, causal=self.causal,
                                   kv_lens=kv_lens, route=route)
 
@@ -97,14 +118,15 @@ class TransformerBlock(nn.Module):
         return x + self.mlp_out(self.mlp_in(self.ln2(x)))
 
     def forward(self, x, *, kv_lens: Optional[torch.Tensor] = None,
-                route: Optional[str] = None):
+                route: Optional[str] = None, seq_axis: Optional[str] = None):
         q, k, v = self.heads(x)
         return self.finish(x, self.attend(q, k, v, kv_lens=kv_lens,
-                                          route=route))
+                                          route=route, seq_axis=seq_axis))
 
 
 def _remat_block(blk: TransformerBlock, x: torch.Tensor,
-                 route: Optional[str]) -> torch.Tensor:
+                 route: Optional[str],
+                 seq_axis: Optional[str] = None) -> torch.Tensor:
     """``blk(x)`` whose activations are recomputed in the backward
     (``jax.checkpoint`` of the block). The block's parameters go in as
     inputs and the recompute runs the block on those same tensors, not
@@ -118,10 +140,18 @@ def _remat_block(blk: TransformerBlock, x: torch.Tensor,
     block."""
     names = [n for n, _ in blk.named_parameters()]
     leaves = [p for _, p in blk.named_parameters()]
+    # the recompute runs in the backward, outside the shard_map that
+    # binds the seq axis: it re-enters that mesh
+    mesh = None
+    if seq_axis is not None:
+        from ..parallel.mesh import axis_mesh
+        mesh = axis_mesh(seq_axis)
 
     def run(x, *leaves):
-        return torch.func.functional_call(blk, dict(zip(names, leaves)),
-                                          (x,), {"route": route})
+        with mesh if mesh is not None else contextlib.nullcontext():
+            return torch.func.functional_call(
+                blk, dict(zip(names, leaves)), (x,),
+                {"route": route, "seq_axis": seq_axis})
 
     return checkpoint(run, x, *leaves, use_reentrant=False,
                       preserve_rng_state=False)
@@ -169,18 +199,26 @@ class TransformerLM(Module):
             return x @ self.embed.w.t().to(x.dtype)
         return x @ self.head.w.to(x.dtype)
 
-    def forward(self, ids: torch.Tensor, *,
+    def forward(self, ids: torch.Tensor, *, positions=None,
+                seq_axis: Optional[str] = None,
                 route: Optional[str] = None) -> torch.Tensor:
         """ids [B, T] -> logits [B, T, V]; differentiable (the training
-        forward), where the serving methods below run without autograd."""
+        forward), where the serving methods below run without autograd.
+
+        ``positions`` ([T] or [B, T]) overrides the default 0..T-1 — needed
+        under sequence sharding, where each shard's local block starts at
+        a non-zero global position; ``seq_axis`` runs the attention as a
+        ring over that axis (module docstring)."""
         T = ids.shape[1]
         x = self.embed(ids)
-        x = x + self.pos_embed[:T].to(x.dtype)
+        pos = (self.pos_embed[:T] if positions is None
+               else self.pos_embed[positions.long()])
+        x = x + pos.to(x.dtype)
         for blk in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                x = _remat_block(blk, x, route)
+                x = _remat_block(blk, x, route, seq_axis)
             else:
-                x = blk(x, route=route)
+                x = blk(x, route=route, seq_axis=seq_axis)
         return self._logits(self.ln_f(x))
 
     def shifted_loss(self, ids_in: torch.Tensor, targets: torch.Tensor, *,
@@ -188,13 +226,19 @@ class TransformerLM(Module):
                      seq_axis: Optional[str] = None,
                      route: Optional[str] = None) -> torch.Tensor:
         """Mean next-token CE over already-shifted (inputs, targets) pairs;
-        ``mask`` (targets' shape) weights positions. ``positions`` and
-        ``seq_axis`` belong to sequence sharding (ring attention), which
-        the port does not have yet: they raise."""
-        if positions is not None or seq_axis is not None:
-            raise ValueError("positions / seq_axis (sequence sharding over "
-                             "ring attention) are not ported")
-        return token_cross_entropy(self(ids_in, route=route), targets, mask)
+        ``mask`` (targets' shape) weights positions.
+
+        The sequence-parallel entry: shift GLOBALLY first (ids[:, :-1] /
+        ids[:, 1:]), then shard ids_in/targets/positions/mask over the
+        seq axis; the masked sum and the mask's sum are summed over
+        ``seq_axis``, so the mean is global."""
+        num, den = _masked_nll(self(ids_in, positions=positions,
+                                    seq_axis=seq_axis, route=route),
+                               targets, mask)
+        if seq_axis is not None:
+            from ..parallel.collectives import all_reduce
+            num, den = all_reduce(num, seq_axis), all_reduce(den, seq_axis)
+        return num / torch.clamp(den, min=1.0)
 
     def loss(self, ids: torch.Tensor, lengths: Optional[torch.Tensor] = None,
              *, seq_axis: Optional[str] = None,
@@ -202,9 +246,12 @@ class TransformerLM(Module):
         """Next-token CE of ids [B, T] over positions < length - 1 (all
         T - 1 without ``lengths``)."""
         if seq_axis is not None:
-            raise ValueError("loss() shifts ids itself, which is wrong per "
-                             "shard under sequence sharding; sequence "
-                             "sharding is not ported")
+            raise ValueError(
+                "loss() shifts ids internally, which is wrong per-shard "
+                "under sequence sharding (each shard would drop its last "
+                "token and misalign targets at shard boundaries); shift "
+                "globally and use shifted_loss(ids[:, :-1], ids[:, 1:], "
+                "positions=..., seq_axis=...) instead")
         targets = ids[:, 1:]
         mask = None
         if lengths is not None:

@@ -35,8 +35,17 @@ guard inside the step's graph reacts only to a loss that really is
 non-finite, so under ``skip`` a corrupted host cost counts a skip whose
 update was applied — JAX's behaviour, kept.
 
-Not ported here: ``mesh=``/``layout=`` (ROADMAP A.7, they raise) and the
-obs session plane (spans, goodput, the flight dump, roofline
+On a mesh (``mesh=``, or ``layout=`` under ``parallel.use_mesh``) the
+step is ``parallel.DataParallel``'s, as JAX's is: each rank takes its
+rows of the batch, the gradient is the mean over ``data``, and a
+``layout`` stores parameters and slots sharded. That step runs eagerly
+(a step over gloo cannot be captured in a CUDA graph; ROADMAP C.11);
+the non-finite guard reverts on the host to the trees before the step,
+as JAX's mesh path does; checkpoints hold the gathered global tensors
+(the same bytes as JAX's), written by the mesh's first rank, and a
+resume re-places them onto the current mesh.
+
+Not ported here: the obs session plane (spans, goodput, the flight dump, roofline
 instrumentation, the counters' session mirror, ``summary()``; ROADMAP
 A.8). The typed counters live on the trainer's own ``MetricsRegistry``
 as in JAX.
@@ -225,7 +234,12 @@ class Trainer:
       metrics: the ``MetricsRegistry`` of the counters
         (``trainer.steps_total``, ``examples_total``, ``nonfinite_total``,
         ``skipped_total``, ``preemptions_total``); a fresh one by default.
-      mesh, layout: not ported (ROADMAP A.7); passing one raises.
+      mesh: a ``parallel`` mesh -> the data-parallel step over its
+        ``data`` axis (module docstring); the step runs on the mesh's
+        device.
+      layout: a ``parallel.SpecLayout`` (or ``ShardingRules``): params and
+        optimizer slots stored sharded over the mesh (fsdp/tp); with no
+        ``mesh`` the enclosing ``parallel.use_mesh`` mesh, else ValueError.
     """
 
     def __init__(self, loss_fn: Callable, optimizer, *,
@@ -237,12 +251,17 @@ class Trainer:
                  on_nonfinite: Optional[str] = None,
                  prefetch_timeout: Optional[float] = None,
                  metrics: Optional[MetricsRegistry] = None):
-        if mesh is not None or layout is not None:
-            raise NotImplementedError("Trainer(mesh=, layout=) is not "
-                                      "ported (ROADMAP A.7)")
+        if layout is not None and mesh is None:
+            from ..parallel.mesh import current_mesh
+            mesh = current_mesh()
+            if mesh is None:
+                raise ValueError("Trainer(layout=...) needs mesh=... or an "
+                                 "enclosing parallel.use_mesh(...)")
+        self.mesh, self.layout = mesh, layout
         self.loss_fn = loss_fn
         self.opt = optimizer
-        self.device = require_device(device)
+        self.device = require_device(mesh.device if mesh is not None and
+                                     device is None else device)
         self.graphs = GraphCache("Trainer", self.device)
         self.outputs_fn = outputs_fn
         if evaluators is None:
@@ -269,6 +288,11 @@ class Trainer:
         # step: skip to go on from the last finite state, halt to
         # checkpoint it
         self._guard = on_nonfinite in ("skip", "halt")
+        self._dp = None
+        if mesh is not None:
+            from ..parallel.data_parallel import DataParallel
+            self._dp = DataParallel(loss_fn, optimizer, mesh=mesh,
+                                    param_rules=layout, aux_fn=outputs_fn)
         self.prefetch_timeout = prefetch_timeout
         self.stats = StatSet()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -289,7 +313,14 @@ class Trainer:
         back to the next step copies nothing, and that step writes them
         again (take a copy to keep one). Trees the trainer does not own
         (a model's ``tree()``, a fresh ``opt.init``) are copied in first
-        and never written."""
+        and never written.
+
+        On a mesh the step is ``DataParallel.step`` (module docstring):
+        ``params`` and ``opt_state`` are the placed trees ``DataParallel.
+        init`` made, the batch the global one, and new trees come back."""
+        if self._dp is not None:
+            return self._dp.step(params, opt_state,
+                                 *self._dp.shard_batch(batch))
         batch, gens = _split_generators(batch)
         return self.graphs.run(
             "step", self._step_body,
@@ -359,14 +390,32 @@ class Trainer:
             pass
         return prev
 
+    def _save(self, pass_id, params, opt_state, extra=None) -> None:
+        """A checkpoint of the trees; on a mesh every rank gathers the
+        global tensors and the mesh's first rank writes them."""
+        if self._dp is None:
+            save_checkpoint(self.output_dir, pass_id, params, opt_state,
+                            extra=extra)
+            return
+        from ..parallel import collectives
+        from ..parallel.sharding import tree_to_global
+        params, opt_state = tree_to_global(params), tree_to_global(opt_state)
+        if self.mesh.rank == int(self.mesh.devices.flat[0]):
+            save_checkpoint(self.output_dir, pass_id, params, opt_state,
+                            extra=extra)
+        # every rank leaves once the checkpoint is published (a resume on
+        # any rank reads it)
+        with self.mesh:
+            collectives.all_reduce(torch.zeros((), device=self.device),
+                                   self.mesh.axis_names)
+
     def _count(self, name: str, n: float = 1) -> None:
         self.metrics.counter(name).inc(n)
 
     def _checkpoint_preempted(self, pass_id, batch_id, params, opt_state):
         if self.output_dir:
-            save_checkpoint(self.output_dir, pass_id, params, opt_state,
-                            extra={"pass_complete": False,
-                                   "batch_id": batch_id})
+            self._save(pass_id, params, opt_state,
+                       extra={"pass_complete": False, "batch_id": batch_id})
             log.warning("preempted at pass %d batch %d: checkpoint saved; "
                         "resume re-runs this pass", pass_id, batch_id)
         else:
@@ -388,9 +437,9 @@ class Trainer:
         if self.on_nonfinite == "halt" and self.output_dir:
             # the trees hold the last finite state (the guard dropped the
             # update): durable first, then fail
-            save_checkpoint(self.output_dir, pass_id, params, opt_state,
-                            extra={"pass_complete": False,
-                                   "batch_id": batch_id, "halted": True})
+            self._save(pass_id, params, opt_state,
+                       extra={"pass_complete": False, "batch_id": batch_id,
+                              "halted": True})
             log.error("non-finite loss at pass %d batch %d: state "
                       "checkpointed before halting", pass_id, batch_id)
         raise FloatingPointError(
@@ -446,7 +495,9 @@ class Trainer:
                 skip_batches = st.get("batch_id", -1) + 1
                 log.info("resumed preempted pass %d at batch %d",
                          st["pass_id"], skip_batches)
-        if opt_state is None:
+        if self._dp is not None:
+            params, opt_state = self._dp.init(params, opt_state)
+        elif opt_state is None:
             opt_state = self.opt.init(params)
 
         prev_handlers = (self._install_preemption_handlers()
@@ -460,6 +511,8 @@ class Trainer:
                 batches = self._batches(reader, feeder, skip=first_batch)
                 for batch_id, batch in enumerate(batches, start=first_batch):
                     event_handler(EV.BeginIteration(pass_id, batch_id))
+                    # mesh path: the guard reverts on the host
+                    prev = (params, opt_state)
                     with self.stats.timer("TrainBatch"):
                         res = self.step(params, opt_state, *batch)
                     if self.outputs_fn is not None:
@@ -475,6 +528,8 @@ class Trainer:
                     if lead:
                         self._c_examples.inc(lead[0])
                     if self.nan_guard and not np.isfinite(cost_f):
+                        if self._guard and self._dp is not None:
+                            params, opt_state = prev
                         self._handle_nonfinite(cost_f, pass_id, batch_id,
                                                params, opt_state)
                         event_handler(EV.EndIteration(pass_id, batch_id,
@@ -511,8 +566,7 @@ class Trainer:
                 if self.output_dir and (
                         (pass_id - start_pass + 1) % checkpoint_every == 0
                         or pass_id == last_pass):
-                    save_checkpoint(self.output_dir, pass_id, params,
-                                    opt_state)
+                    self._save(pass_id, params, opt_state)
                 event_handler(EV.EndPass(pass_id, pass_result))
         finally:
             for sig, handler in prev_handlers.items():
@@ -522,8 +576,9 @@ class Trainer:
                     pass
         return self._copies(params, opt_state)
 
-    @staticmethod
-    def _copies(params, opt_state):
+    def _copies(self, params, opt_state):
+        if self._dp is not None:        # the mesh step's trees are new
+            return params, opt_state
         return tree_map(torch.clone, params), tree_map(torch.clone,
                                                        opt_state)
 
@@ -549,11 +604,18 @@ class Trainer:
         the card."""
         total, n = 0.0, 0
         self.evaluators.start()
+        if self._dp is not None:
+            # every rank the whole batch on the gathered parameters
+            from ..parallel.sharding import tree_to_global
+            params = tree_to_global(params)
         for batch in self._batches(reader, feeder):
             batch, gens = _split_generators(tuple(batch))
-            res = self.graphs.run("loss", self._loss_body,
-                                  {"params": params, "batch": batch},
-                                  static=gens)
+            if self._dp is not None:
+                res = self._loss_body(params, batch, **gens)
+            else:
+                res = self.graphs.run("loss", self._loss_body,
+                                      {"params": params, "batch": batch},
+                                      static=gens)
             cost, outs = res if self.outputs_fn is not None else (res, None)
             cost_f = float(cost)
             total += cost_f
@@ -583,6 +645,9 @@ class Trainer:
         on host copies of ``params`` and ``batch``: the loss runs on the
         CPU, so through the kernels' plain versions (the kernels take f32
         and bf16 only). True when analytic and numeric agree."""
+        if self._dp is not None:
+            from ..parallel.sharding import tree_to_global
+            params = tree_to_global(params)
         params64 = _host64(params)
         batch64 = _host64(tuple(batch))
         items = [(path, leaf.requires_grad_(True)) if
@@ -634,7 +699,10 @@ class Trainer:
         ``warmup``. ``profile_dir`` wraps the timed loop in
         ``torch.profiler`` and writes its Chrome trace there (where JAX
         writes an XLA trace)."""
-        opt_state = self.opt.init(params)
+        if self._dp is not None:
+            params, opt_state = self._dp.init(params)
+        else:
+            opt_state = self.opt.init(params)
         batches = list(self._batches(reader, feeder))
         if not batches:
             raise ValueError("empty reader")

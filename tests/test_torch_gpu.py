@@ -3246,3 +3246,58 @@ def test_v2_flagship_first_step_equals_the_plain_route_on_card(cuda):
                                   atol=1e-5 * b.abs().max().item()), n
         elif "@" not in n and a.is_floating_point():
             assert (a - b).abs().max().item() <= 1e-5, n
+
+
+# ---------------------------------------------------------------------------
+# the parallel plane: gloo ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_ring_attention_on_two_gloo_ranks_matches_flash_on_card(cuda,
+                                                                 tmp_path):
+    """The zigzag ring over seq = 2 gloo ranks that both sit on cuda:0,
+    forward and backward, equals one flash_attention call on the whole
+    sequence within the f32 bound (o at 1e-5 / 1e-4; gradients at 2e-5
+    of the largest magnitude, rtol 1e-4: summation order only), each
+    rank launching #1-#3 twice (two ring steps)."""
+    import torch_spmd
+    ranks = torch_spmd.run_world(tmp_path, [("ring", "torch_spmd:gpu_ring",
+                                             {})], world=2, timeout=300)
+    for r in range(2):
+        got = torch_spmd.result(ranks, "ring", r)
+        for i, (a, b) in enumerate(zip(got["ring"], got["flash"])):
+            atol = 1e-5 if i == 0 else 2e-5 * float(np.abs(b).max())
+            np.testing.assert_allclose(a, b, atol=atol, rtol=1e-4)
+        assert got["ring_launches"]["flash_attention_fwd"] == 2
+        assert got["ring_launches"]["flash_attention_bwd_dq"] == 2
+        assert got["ring_launches"]["flash_attention_bwd_dkv"] == 2
+
+
+@pytest.mark.gpu
+def test_staged_exactly_where_gloo_refuses_cuda_tensors_on_card(cuda,
+                                                                 tmp_path):
+    """collectives.STAGED counts a transport exactly when gloo refuses it
+    for CUDA tensors, tried raw in a world of its own (a refusal may abort
+    the ranks), and collectives.GLOO_CUDA_OPS lists the others."""
+    import torch_spmd
+
+    from paddle_tpu_torch.parallel import collectives as cc
+    taken = []
+    for op in ("broadcast", "all_gather", "all_to_all", "send_recv"):
+        try:
+            ranks = torch_spmd.run_world(
+                tmp_path / op, [(op, "torch_spmd:gpu_raw_op", {"op": op})],
+                world=2, timeout=120)
+            ok = all(r[op][0] == "ok" for r in ranks)
+        except AssertionError:          # a rank aborted
+            ok = False
+        if ok:
+            taken.append(op)
+    ranks = torch_spmd.run_world(tmp_path / "port",
+                                 [("staged", "torch_spmd:gpu_staged", {})],
+                                 world=2, timeout=120)
+    for r in range(2):
+        staged = torch_spmd.result(ranks, "staged", r)
+        assert staged == sorted({"broadcast", "all_gather", "all_to_all",
+                                 "send_recv"} - set(taken)), (staged, taken)
+    assert sorted(taken) == sorted(cc.GLOO_CUDA_OPS)

@@ -198,10 +198,12 @@ def test_flash_fwd_attends_key_zero_for_an_empty_sample():
 
 def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     """The port runs where JAX is absent: no module of paddle_tpu_torch, nor
-    chip_smoke.py or the card tools under tools/, may import jax or
-    anything from paddle_tpu."""
+    chip_smoke.py, the card tools under tools/ or the parallel tests'
+    rank-side helper tests/torch_spmd.py, may import jax or anything from
+    paddle_tpu."""
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+        + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd.py"] \
+        + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 10
     # the host runtime, the fault plane and the file formats among them
     rel = {str(f.relative_to(ROOT)) for f in files}
@@ -223,6 +225,10 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     assert {f"paddle_tpu_torch/v2/{m}.py" for m in (
         "__init__", "attr", "data_type", "evaluator", "inference", "layer",
         "networks", "optimizer", "parameters", "topology", "trainer")} <= rel
+    assert {f"paddle_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "compat", "collectives", "sharding",
+        "multihost", "ring_attention", "data_parallel", "tensor_parallel",
+        "pipeline", "moe")} | {"tests/torch_spmd.py"} <= rel
     assert {f"paddle_tpu_torch/analysis/{m}.py" for m in (
         "__init__", "verify", "lints", "dataflow", "shape_infer",
         "bench_schema")} <= rel

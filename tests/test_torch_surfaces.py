@@ -10,7 +10,6 @@ import pytest
 #: counterpart yet), with the reason
 RENAMED = {
     "": {"TPUPlace": "CUDAPlace",       # the card's place
-         "parallel": None,               # the mesh plane, ROADMAP A.7
          "enable_compile_cache": None,   # no XLA compile cache to point at
          "COMPILE_CACHE_ENV": None},     # (init refuses compile_cache_dir)
     ".core": {"TPUPlace": "CUDAPlace"},
@@ -21,6 +20,7 @@ RENAMED = {
     ".ops": {"pallas_kernels": "cuda_kernels"},
     ".analysis": {},
     ".v2": {},
+    ".parallel": {},
 }
 
 

@@ -347,8 +347,10 @@ def test_raise_policy_and_off():
     assert tr.on_nonfinite == "off"
     with pytest.raises(ValueError, match="on_nonfinite"):
         port_trainer(pm, on_nonfinite="ignore")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        port_trainer(pm, mesh=object())
+    # a layout with no mesh (and none in use_mesh scope) is JAX's error
+    from paddle_tpu_torch.parallel import SpecLayout
+    with pytest.raises(ValueError, match="needs mesh="):
+        port_trainer(pm, layout=SpecLayout())
 
 
 def test_checkpoint_cadence_and_signal_handlers(tmp_path):

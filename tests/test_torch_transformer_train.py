@@ -141,9 +141,11 @@ def test_lm_loss_refuses_sequence_sharding(lm):
     ids = torch.from_numpy(_ids(4))
     with pytest.raises(ValueError, match="sequence sharding"):
         model.loss(ids, seq_axis="seq")
-    with pytest.raises(ValueError, match="not ported"):
+    # explicit positions alone are JAX's default ones: the same loss
+    torch.testing.assert_close(
         model.shifted_loss(ids[:, :-1], ids[:, 1:],
-                           positions=torch.arange(20))
+                           positions=torch.arange(20)),
+        model.shifted_loss(ids[:, :-1], ids[:, 1:]), rtol=0, atol=0)
 
 
 def test_lm_forward_is_differentiable_and_serving_is_not(lm):
