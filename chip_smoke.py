@@ -344,8 +344,44 @@ Phases:
    (data = 4), one f32 step each against one single-rank step on the
    global batch of 8, each rank's parameter and slot bytes, ms a step;
    (d) JAX's test shapes of ``ExpertParallelMoE``, ``pipeline_1f1b`` and
-   the TP layers on the card; (e) (a)'s ring on a one-rank NCCL world.
+   the TP layers on the card; (e) (a)'s ring on a one-rank NCCL world;
+   (f) the fluid executor on a mesh (``Executor(mesh=, layout=)``):
+   phase 20's LSTM flagship program on data = 4, three ``exe.run``s each
+   equal to the single-rank run (the loss to 1e-4 relative, the first
+   run's gradient read from Adam's first moment to 1e-4 of the entry and
+   its row's rms, the parameters Adam-aware; one #9 and one #10 a run on
+   every rank), JAX's annotated program (tests/test_fluid_sharding.py)
+   with a replicated L2 term of the head's weight beside the mean loss
+   on data = 2 x fsdp = 2 with its parameters stored sharded (the first
+   forward equal, the bytes a rank as forecast, 3 SGD steps to rtol
+   1e-5), and
+   ``save_persistables`` there loaded onto fsdp = 4, re-placed.
    Every collective's host staging (``collectives.STAGED``) is printed.
+
+23. the obs session plane (``paddle_tpu_torch.obs``) — (a) phase 14's
+   loop (the flagship, bf16, feeder + prefetch + evaluators + test +
+   checkpoints) two passes under an ``ObsSession`` with a
+   ``FlightRecorder`` armed, against the same run with no session: the
+   costs and every parameter bit-equal, the ``trainer.*`` spans, the
+   goodput buckets and ``goodput.ratio``, the session's
+   ``kernels.routes_total`` equal to #8's and #9's launches (the counts a
+   graph's capture recorded, re-emitted on each replay), the wall a step
+   with and without the session; then a ``step.grad`` fault's flight
+   dump; (b) the roofline: the peak resolves to the H100 row, the FLOPs
+   counted on meta tensors for one GPT-2 step (phase 7's widths, B 8, T
+   1024) equal 6 N tokens within 2%, and ``roofline.mfu`` and
+   ``roofline.hbm_bw_util`` in (0, 1] after steps through ``Trainer``
+   under a session; (c) phase 3's GPT-2 small engine burst in bf16 and
+   int8 KV under a session with request timelines: each stitched
+   timeline's TTFT within 5% of the engine's own, the tokens equal to
+   the burst's with no session, ``ObsHttpServer``'s ``/metrics``,
+   ``/trace`` and ``/requests`` scraped once; (d) device timelines:
+   ``torch.profiler`` over 3 eager ``exe.run``s of phase 20's flagship
+   program read by ``obs.xplane.read_torch_trace``: #9's and #10's
+   kernels in ``op_totals`` attributed to the program's lstm op site, the
+   merged Chrome trace holding host spans and device lanes; then
+   ``python -m paddle_tpu_torch profile --decode 8,128,64``, whose report
+   names #1's and #4's kernels.
 
 The bf16 serving checks of phases 18 and 19 (``greedy_within_ties``)
 print, for each burst, the largest gap between a chosen token's plain
@@ -375,8 +411,9 @@ Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"slice18": {...}}``
 (phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"slice20": {...},
 "fluid": {...}}`` (phases 19 and 20), ``{"world": {...}}`` (phase 22),
-``{"kernels": [...]}`` (with ``launches_world`` on #1-#3: phase 22's
-launches per rank and call, and
+``{"obs": {...}}`` (phase 23), ``{"kernels": [...]}`` (with
+``launches_obs`` on #1, #4, #6-#10: phase 23's launches, ``launches_world``
+on #1-#3: phase 22's launches per rank and call, and
 ``launches_routes`` and ``launches_fluid`` on #8-#12, and #1-#7 again at
 D = 128 and D = 256),
 the card's name and power limit,
@@ -8459,7 +8496,8 @@ def _world_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
         else:
             on_card = cfg["device"].startswith("cuda")
             for name, fn in (("ring", _world_ring), ("seq", _world_seq),
-                             ("dp", _world_dp), ("small", _world_small)):
+                             ("dp", _world_dp), ("small", _world_small),
+                             ("fluid", _world_fluid)):
                 t1 = time.perf_counter()
                 if on_card:
                     torch.cuda.reset_peak_memory_stats()
@@ -8478,6 +8516,202 @@ def _world_rank(rank: int, world: int, store: str, out_dir: str, seed: int,
         pickle.dump(res, f)
     if "error" in res:
         os._exit(1)
+
+
+#: (f): the fluid flagship's three runs on data = 4
+FLUID_WORLD_RUNS = 3
+#: (f): JAX's annotated program's f32 parameter bytes a rank on data=2 x
+#: fsdp=2: the embedding [16, 8] split over fsdp (256 of 512 bytes), the
+#: tp-column fc [8, 16] replicated (no tp axis: 512), its bias (64), the
+#: head [16, 1] and its bias (64 + 4)
+FLUID_ANNOTATED_BYTES_A_RANK = 256 + 512 + 64 + 64 + 4
+
+
+def _fluid_adam_check(got: dict, want: dict, g: dict, lr: float,
+                      runs: int) -> dict:
+    """Parameters after ``runs`` Adam runs against the single-rank runs':
+    ``runs`` times _adam_param_check's one-step bound (1e-5 plus what an
+    Adam step lr*g/(|g|+eps) makes of a gradient difference of 1e-4 of
+    the entry and of its row's rms), with g the first run's gradient
+    (the reference's first moment / 0.1): each run's update adds at most
+    that much."""
+    import torch
+    eps, worst, bad = 1e-8, 0.0, []
+    for name, w in want.items():
+        gg = g[name].abs()
+        rms = gg.square().mean().sqrt()
+        if gg.dim() > 1:
+            rms = torch.maximum(rms, gg.square().mean(-1, keepdim=True)
+                                .sqrt())
+        dg = 1e-4 * (gg + rms)
+        allowed = runs * (1e-5 + lr * dg * eps / (gg + eps) ** 2)
+        diff = (got[name] - w).abs()
+        if not bool((diff <= allowed).all()):
+            bad.append(f"{name}: {diff.max().item():.3e}")
+        worst = max(worst, diff.max().item())
+    return {"worst_param_diff": worst, "ok": not bad, "bad": bad[:5]}
+
+
+def _world_fluid(rank: int, seed: int, cfg: dict) -> dict:
+    """(f) the fluid executor on a mesh (ROADMAP A.7b): phase 20's LSTM
+    flagship program on make_mesh(data=4), three exe.runs, each rank's
+    16 rows of the 64 through #9/#10, held to the single-rank run of the
+    same program (the loss to 1e-4 relative, the first run's gradient
+    from Adam's first moment, the parameters Adam-aware); JAX's annotated
+    program (embedding over fsdp, a tp-column fc) with 0.3 *
+    reduce_sum(square(head weight)) added to the mean loss, a parameter
+    path that skips the batch reduction, on data=2 x fsdp=2 with its
+    parameters stored sharded (the first forward equal to the single-rank
+    one, the bytes a rank, 3 SGD steps to rtol 1e-5); save_persistables
+    on that mesh and load_persistables onto fsdp=4, re-placed."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import parallel as pp
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.parallel.sharding import local, spec_of, to_global
+    device = cfg["device"]
+    out = {}
+    fluid.reset_default_programs()
+    t = TEXTCLS
+    logits, loss = _fluid_textcls(fluid, "lstm", t["vocab"], t["embed"],
+                                  t["hidden"], TEXTCLS_LR)
+    main, start = fluid.default_main_program(), \
+        fluid.default_startup_program()
+    exe0 = fluid.Executor(device=device, scope=fluid.Scope())
+    exe0.run(start)
+    start_vars = {n: v.detach().clone() for n, v in exe0.scope.vars.items()}
+    batches = textcls_batches(seed + 2230, FLUID_WORLD_RUNS, device)
+    params = [n for n, v in main.global_block().vars.items()
+              if v.persistable and v.trainable]
+    ref = fluid.Executor(device=device, scope=_fluid_scope(start_vars,
+                                                           device))
+    ref_loss, g1 = [], None
+    with graphs.disabled():
+        for i, b in enumerate(batches):
+            ref_loss.append(float(ref.run(main, feed=_fluid_feed(b),
+                                          fetch_list=[loss])[0]))
+            if i == 0:
+                g1 = {n: ref.scope.get(n + "@moment1").clone() / 0.1
+                      for n in params}
+    want = {n: ref.scope.get(n).clone() for n in params}
+    del ref
+    mesh = pp.make_mesh(data=WORLD, device=device)
+    exe = fluid.Executor(scope=_fluid_scope(start_vars, device), mesh=mesh,
+                         layout=pp.SpecLayout(roles=False))
+    _sync()
+    ck.reset_launch_counts()
+    got_loss, g1_mesh, ms = [], None, 0.0
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        got_loss.append(float(exe.run(main, feed=_fluid_feed(b),
+                                      fetch_list=[loss])[0]))
+        ms += (time.perf_counter() - t0) * 1e3 / FLUID_WORLD_RUNS
+        if i == 0:
+            g1_mesh = {n: to_global(exe.scope.get(n + "@moment1")) / 0.1
+                       for n in params}
+    launches = {k: n for k, n in ck.LAUNCHES.items() if n}
+    grad_bad = []
+    for n in params:
+        gg = g1[n].abs()
+        room = 1e-4 * (gg + gg.square().mean().sqrt())
+        diff = (g1_mesh[n] - g1[n]).abs()
+        if not bool((diff <= room).all()):
+            grad_bad.append(f"{n}: {diff.max().item():.3e}")
+    got = {n: to_global(exe.scope.get(n)) for n in params}
+    out["flagship"] = {
+        "losses": got_loss, "ref_losses": ref_loss,
+        "loss_ok": all(abs(a - b) <= 1e-4 * max(1.0, abs(b))
+                       for a, b in zip(got_loss, ref_loss)),
+        "grad_ok": not grad_bad, "grad_bad": grad_bad[:5],
+        "params": _fluid_adam_check(got, want, g1, TEXTCLS_LR,
+                                    FLUID_WORLD_RUNS),
+        "launches": launches, "ms_per_run": ms}
+    del exe, got, want
+    # JAX's annotated program on data=2 x fsdp=2
+    fluid.reset_default_programs()
+    ids = fluid.layers.data("ids", shape=(), dtype="int32",
+                            sharding=("data",))
+    y = fluid.layers.data("y", shape=(1,))
+    emb = fluid.layers.embedding(ids, (16, 8),
+                                 param_attr={"sharding": ("fsdp", None)})
+    h = fluid.layers.fc(emb, 16, act="relu",
+                        param_attr={"sharding": (None, "tp")})
+    diff = fluid.layers.elementwise_sub(fluid.layers.fc(h, 1), y)
+    persample = fluid.layers.elementwise_mul(diff, diff)
+    head = [v for n, v in fluid.default_main_program().global_block()
+            .vars.items() if v.persistable and n.startswith("fc_w")][-1]
+    aloss = fluid.layers.elementwise_add(
+        fluid.layers.mean(persample), fluid.layers.elementwise_mul(
+            fluid.layers.reduce_sum(fluid.layers.activation(head, "square")),
+            fluid.layers.fill_constant((), value=0.3)))
+    fluid.SGDOptimizer(0.05).minimize(aloss)
+    amain = fluid.default_main_program()
+    exe0 = fluid.Executor(device=device, scope=fluid.Scope())
+    exe0.run(fluid.default_startup_program())
+    avars = {n: v.detach().clone() for n, v in exe0.scope.vars.items()}
+    gen = torch.Generator().manual_seed(seed + 2231)
+    feed = {"ids": torch.randint(0, 16, (8,), generator=gen,
+                                 dtype=torch.int32).to(device),
+            "y": torch.randn(8, 1, generator=gen).to(device)}
+    rep = fluid.Executor(device=device, scope=_fluid_scope(avars, device))
+    mesh2 = pp.make_mesh(data=2, fsdp=2, device=device)
+    sh = fluid.Executor(scope=_fluid_scope(avars, device), mesh=mesh2,
+                        layout=pp.SpecLayout(roles=False))
+    with tempfile.TemporaryDirectory() as d:
+        # every rank writes its own copy's directory: the mesh's first
+        # rank writes the file, the others wait for it
+        saved = os.path.join(d, "p") if rank == 0 else None
+        saved = _share_dir(saved)
+        fluid.io.save_persistables(sh, saved, amain)
+        with graphs.disabled():
+            r_ps, r_l = rep.run(amain, feed=feed,
+                                fetch_list=[persample, aloss])
+        s_ps, s_l = sh.run(amain, feed=feed, fetch_list=[persample, aloss])
+        steps = []
+        for _ in range(3):
+            with graphs.disabled():
+                _, rl = rep.run(amain, feed=feed,
+                                fetch_list=[persample, aloss])
+            _, sl = sh.run(amain, feed=feed, fetch_list=[persample, aloss])
+            steps.append((float(sl), float(rl)))
+        names = [n for n, v in amain.global_block().vars.items()
+                 if v.persistable and v.trainable]
+        per_rank = sum(local(sh.scope.get(n)).numel() * 4 for n in names)
+        replicated = sum(sh.scope.get(n).numel() * 4 for n in names)
+        emb_name = next(n for n in names if "embedding" in n)
+        placed = (tuple(spec_of(sh.scope.get(emb_name))),
+                  tuple(local(sh.scope.get(emb_name)).shape))
+        m4 = pp.make_mesh(fsdp=WORLD, device=device)
+        ld = fluid.Executor(scope=fluid.Scope(), mesh=m4,
+                            layout=pp.SpecLayout(roles=False))
+        fluid.io.load_persistables(ld, saved, amain)
+        loaded = (tuple(spec_of(ld.scope.get(emb_name))),
+                  tuple(local(ld.scope.get(emb_name)).shape))
+        l_ps, = ld.run(amain, feed=feed, fetch_list=[persample],
+                       donate=False)
+    out["annotated"] = {
+        "first_equal": bool(torch.equal(torch.as_tensor(s_ps),
+                                        torch.as_tensor(r_ps))),
+        "first_loss": [float(s_l), float(r_l)],
+        "steps": steps,
+        "steps_ok": all(abs(a - b) <= 1e-5 * abs(b) + 1e-7
+                        for a, b in steps),
+        "per_rank_bytes": per_rank, "replicated_bytes": replicated,
+        "placed": placed, "loaded": loaded,
+        "restored_equal": bool(torch.equal(torch.as_tensor(l_ps),
+                                           torch.as_tensor(r_ps)))}
+    return out
+
+
+def _share_dir(path):
+    """Rank 0's directory name, the same on every rank of the world."""
+    import torch.distributed as dist
+    box = [path]
+    dist.broadcast_object_list(box, src=0)
+    os.makedirs(box[0], exist_ok=True)
+    return box[0]
 
 
 def _nccl_ring(seed: int, cfg: dict) -> dict:
@@ -8695,6 +8929,36 @@ def world_phase(say, seed: int, device="cuda:0", ring=None, lm=None,
     _check_entries("phase 22 (d)", r0["small"])
     figs["small"] = r0["small"]
     say(f"phase 22 (d) MoE, 1F1B, TP on the card: {json.dumps(r0['small'])}")
+    # (f) the fluid executor on the mesh
+    for r, res in enumerate(ranks):
+        fl = res["fluid"]["flagship"]
+        check(fl["loss_ok"], f"phase 22 (f) rank {r}: flagship losses "
+              f"{fl['losses']} != single-rank {fl['ref_losses']}")
+        check(fl["grad_ok"], f"phase 22 (f) rank {r}: flagship first "
+              f"gradient past 1e-4 of the single-rank one {fl['grad_bad']}")
+        check(fl["params"]["ok"], f"phase 22 (f) rank {r}: flagship "
+              f"parameters {fl['params']}")
+        check(not on_card or fl["launches"] == {
+            "lstm_seq_train": FLUID_WORLD_RUNS,
+            "lstm_seq_bwd": FLUID_WORLD_RUNS},
+              f"phase 22 (f) rank {r}: launches {fl['launches']}")
+        an = res["fluid"]["annotated"]
+        check(an["first_equal"], f"phase 22 (f) rank {r}: the sharded "
+              f"first forward differs from the single-rank one")
+        check(an["steps_ok"], f"phase 22 (f) rank {r}: 3 SGD steps "
+              f"{an['steps']} (sharded, single-rank) past rtol 1e-5")
+        check(an["per_rank_bytes"] == FLUID_ANNOTATED_BYTES_A_RANK,
+              f"phase 22 (f) rank {r}: {an['per_rank_bytes']} parameter "
+              f"bytes a rank, forecast {FLUID_ANNOTATED_BYTES_A_RANK}")
+        check(an["placed"] == (("fsdp",), (8, 8))
+              and an["loaded"] == (("fsdp",), (4, 8)),
+              f"phase 22 (f) rank {r}: placement {an['placed']} -> "
+              f"{an['loaded']}")
+        check(an["restored_equal"], f"phase 22 (f) rank {r}: the restored "
+              "program's forward differs")
+    figs["fluid"] = r0["fluid"]
+    say(f"phase 22 (f) the fluid executor on a mesh (A.7b): "
+        f"{json.dumps(r0['fluid'])}")
     # (e)
     nccl_res = _spawn_world(1, seed, nccl, cfg)[0]["nccl"]
     check(nccl_res["backend"] == nccl, f"phase 22 (e): backend "
@@ -8717,6 +8981,398 @@ def world_phase(say, seed: int, device="cuda:0", ring=None, lm=None,
         f" s; by part {json.dumps(ranks[0]['seconds'])}; peak GiB allocated "
         f"by rank and part {json.dumps(figs['peak_gib'])})")
     return figs
+
+# ---------------------------------------------------------------------------
+# phase 23: the obs session plane on the card
+# ---------------------------------------------------------------------------
+
+#: (a) two passes of phase 14's loop, a test pass of 2 batches after each
+OBS_PASSES = 2
+#: (b) GPT-2 steps under the session: enough for the roofline gauges'
+#: 0.25 s window to close at least twice
+OBS_LM_STEPS = 14
+#: (c) a stitched timeline's TTFT against the engine's own observation
+OBS_TTFT_RTOL = 0.05
+
+
+def _obs_counter(reg, name, **labels) -> float:
+    return sum(s["value"] for s in reg.collect()
+               if s["name"] == name and all(
+                   s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def obs_loop(say, seed: int, device: str) -> dict:
+    """(a) the flagship's loop with and without a session, each trainer
+    warmed first (its graphs captured; under the session for the
+    session's run, so that the captures record its counts), and a
+    flight dump on an injected fault."""
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import faults, obs
+    from paddle_tpu_torch.core.pytree import tree_items
+    from paddle_tpu_torch.models import LSTMTextCls
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    cfg = TEXTCLS
+    model = LSTMTextCls(cfg["vocab"], cfg["embed"], cfg["hidden"],
+                        cfg["classes"], pool="last").init(seed, device)
+    reader = loop_rows(seed + 2301, LOOP_BATCHES)
+    test_reader = loop_rows(seed + 2302, LOOP_TEST_BATCHES)
+    feeder = loop_feeder(device)
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="obs_loop_")
+    flight_path = os.path.join(tmp, "flight.jsonl")
+
+    def goodput(reg):
+        return {b: _obs_counter(reg, f"goodput.{b}_seconds_total",
+                                component="trainer")
+                for b in ("compile", "host_input", "device", "host_sync",
+                          "idle")}
+    try:
+        for mode in ("off", "on"):
+            tr = loop_trainer(model, torch.bfloat16, device,
+                              output_dir=os.path.join(tmp, mode))
+            costs = []
+
+            def on_event(e, costs=costs):
+                if type(e).__name__ == "EndIteration":
+                    costs.append(e.cost)
+
+            def warm():
+                tr.train(loop_rows(seed + 2303, 1), model.tree(),
+                         feeder=feeder, test_reader=loop_rows(seed + 2304, 1),
+                         handle_signals=False)
+
+            def run():
+                return tr.train(reader, model.tree(), num_passes=OBS_PASSES,
+                                feeder=feeder, test_reader=test_reader,
+                                event_handler=on_event,
+                                handle_signals=False)
+            if mode == "off":
+                warm()
+                (p, _), wall, launches, _ = counted(run)
+                res[mode] = (p, list(costs), wall, launches)
+                continue
+            reg = obs.MetricsRegistry()
+            session = obs.ObsSession(registry=reg)
+            with session.installed():
+                warm()
+                g0 = goodput(reg)
+                fused0 = _obs_counter(reg, "kernels.routes_total",
+                                      kernel="lstm_sequence_fused",
+                                      route="fused")
+                kb0 = _obs_counter(reg, "kernels.bytes_total",
+                                   kernel="lstm_sequence_fused")
+                rec = obs.FlightRecorder(session, flight_path).arm()
+                try:
+                    # counted() sets LAUNCHES and ROUTES to 0 first
+                    (p, _), wall, launches, _ = counted(run)
+                    routes = {k: n for k, n in ck.ROUTES.items() if n}
+                    g1 = goodput(reg)
+                    ratio = reg.gauge("goodput.ratio").get(
+                        component="trainer")
+                    # the counted run's own counts (the warm-up's out)
+                    fused = _obs_counter(reg, "kernels.routes_total",
+                                         kernel="lstm_sequence_fused",
+                                         route="fused") - fused0
+                    kb = _obs_counter(reg, "kernels.bytes_total",
+                                      kernel="lstm_sequence_fused") - kb0
+                    dump = session.dump()
+                    # a fault at the loss read: the flight ring hits disk
+                    # before the raise unwinds the loop
+                    plan = faults.FaultPlan().add("step.grad", "raise",
+                                                  nth=2)
+                    raised = False
+                    with plan.installed():
+                        try:
+                            tr.train(reader, model.tree(), feeder=feeder,
+                                     handle_signals=False)
+                        except faults.FaultError:
+                            raised = True
+                finally:
+                    rec.disarm()
+            res[mode] = (p, list(costs), wall, launches)
+        p_off, c_off, w_off, l_off = res["off"]
+        p_on, c_on, w_on, l_on = res["on"]
+        check(c_on == c_off, f"obs (a): costs under the session {c_on} != "
+              f"{c_off}")
+        want = dict(tree_items(p_off))
+        same = all(torch.equal(v, want[k]) for k, v in tree_items(p_on))
+        check(same, "obs (a): parameters under the session differ")
+        check(l_on == l_off, f"obs (a): launches {l_on} != {l_off}")
+        spans = {e["name"] for e in dump["events"] if e["kind"] == "span"}
+        need = {"trainer.pass", "trainer.step", "trainer.device_step",
+                "trainer.host_sync", "trainer.checkpoint"}
+        check(need <= spans, f"obs (a): spans {sorted(spans)}")
+        buckets = {b: g1[b] - g0[b] for b in g1}
+        check(all(v >= 0 for v in buckets.values()) and 0 < ratio <= 1,
+              f"obs (a): goodput {buckets}, ratio {ratio}")
+        want_fused = l_on.get("lstm_seq", 0) + l_on.get("lstm_seq_train", 0)
+        check(fused == want_fused and fused > 0,
+              f"obs (a): kernels.routes_total fused {fused} != #8 + #9 "
+              f"launches {want_fused}")
+        planned = sum(n for (name, kind), n in routes.items()
+                      if name in ("lstm_seq", "lstm_seq_train"))
+        check(planned == fused, f"obs (a): ROUTES {routes} against the "
+              f"session's {fused}")
+        check(kb > 0, "obs (a): no kernel bytes counted")
+        check(raised, "obs (a): the injected step.grad fault did not raise")
+        flight = obs.read_jsonl(flight_path)
+        check(flight["meta"].get("reason") == "fault:step.grad"
+              and any(e.get("name") == "trainer.step"
+                      for e in flight["events"]),
+              f"obs (a): flight dump {flight['meta']}")
+        steps = OBS_PASSES * LOOP_BATCHES
+        out = {"ms_per_step_off": w_off * 1e3 / steps,
+               "ms_per_step_on": w_on * 1e3 / steps,
+               "goodput_ratio": ratio, "goodput_s": buckets,
+               "routes_fused": fused, "kernel_bytes": kb,
+               "launches": l_on, "flight_events": len(flight["events"])}
+        say(f"obs (a) the flagship's loop (bf16, {steps} steps + tests + "
+            f"checkpoints, warmed) under a session: costs and parameters "
+            f"bit-equal to the run without; {json.dumps(out)}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def obs_roofline(say, seed: int, device: str) -> dict:
+    """(b) the peak row, the meta-tensor FLOPs of a GPT-2 step against
+    6 N tokens, and the derived gauges after steps under a session."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.obs import roofline
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.trainer import Trainer
+    name = torch.cuda.get_device_name(0)
+    peak = roofline.peak_flops_per_sec()
+    check(name in roofline.PEAK_TFLOPS and peak == 989e12
+          and roofline.peak_hbm_bytes_per_sec() == 3350e9,
+          f"obs (b): {name} resolves to peaks {peak}, "
+          f"{roofline.peak_hbm_bytes_per_sec()}")
+    cfg = GPT2_TRAIN
+    model = TransformerLM(**cfg).init(seed=seed, device=device)
+    rs = np.random.RandomState(seed + 2310)
+    ids = torch.as_tensor(rs.randint(0, cfg["vocab"], (LM_BATCH, LM_SEQ))
+                          .astype(np.int32), device=device)
+    tr = Trainer(lm_loss(model, torch.bfloat16), Adam(LM_LR), device=device)
+    reg = obs.MetricsRegistry()
+    roofline._reset_derivers()
+    with obs.ObsSession(registry=reg).installed():
+        # through train: its goodput ledger waits for the card in the
+        # device bucket, so each step's accounting follows its work; the
+        # first call captures the step and counts its cost
+        tr.train(lambda: iter([(ids,)] * 2), model.tree(),
+                 handle_signals=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, st = tr.train(lambda: iter([(ids,)] * OBS_LM_STEPS),
+                         model.tree(), handle_signals=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    (cost,) = tr.graphs.costs.values()
+    d, V, L = cfg["d_model"], cfg["vocab"], cfg["n_layers"]
+    n_params = 12 * L * d * d + V * d
+    tokens = LM_BATCH * (LM_SEQ - 1)
+    want = 6 * n_params * tokens
+    check(cost.flops is not None and abs(cost.flops / want - 1) <= 0.02,
+          f"obs (b): counted FLOPs {cost.flops} against 6 N tokens {want}")
+    mfu = reg.gauge("roofline.mfu").get()
+    bw = reg.gauge("roofline.hbm_bw_util").get()
+    check(0 < mfu <= 1 and 0 < bw <= 1,
+          f"obs (b): roofline.mfu {mfu}, hbm_bw_util {bw}")
+    out = {"device": name, "peak_tflops": peak / 1e12,
+           "step_flops": cost.flops, "six_n_tokens": want,
+           "step_bytes": cost.bytes, "mfu": mfu, "hbm_bw_util": bw,
+           "ms_per_step": wall * 1e3 / OBS_LM_STEPS,
+           "mfu_from_wall": cost.flops * OBS_LM_STEPS / wall / peak,
+           "dtype": "bfloat16 over f32 masters"}
+    say(f"obs (b) roofline over GPT-2 ({cfg['vocab']} x {L} x {d}, "
+        f"B {LM_BATCH} x T {LM_SEQ}): {json.dumps(out)}")
+    del tr, p, st, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_serving(say, seed: int, device: str) -> dict:
+    """(c) phase 3's burst under a session with request timelines, bf16
+    and int8 KV, against the same burst with no session; the HTTP view
+    scraped once."""
+    import urllib.request
+    import torch
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.obs.aggregate import ObsHttpServer
+    from paddle_tpu_torch.obs.requests import stitch
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+    model = TransformerLM(**GPT2_SMALL).init(seed=seed, device=device)
+    model.to(torch.bfloat16)
+    prompts = workload(seed, GPT2_SMALL["vocab"])
+    out, launches = {}, {}
+
+    def burst(kv, keyed):
+        eng = ServingEngine(model, device=device, kv_dtype=kv, **ENGINE)
+        try:
+            rids = [eng.submit(p, NEW_TOKENS,
+                               submit_key=f"{kv}-{i}" if keyed else None)
+                    for i, p in enumerate(prompts)]
+            eng.start()
+            while not all(eng.poll(r)[1] for r in rids):
+                time.sleep(0.002)
+        finally:
+            eng.stop()
+        check(eng.failed is None, f"obs (c): engine failed: {eng.failed}")
+        return ([eng.poll(r)[0] for r in rids],
+                [eng.timings(r)["t_first"] - eng.timings(r)["t_submit"]
+                 for r in rids])
+
+    for kv in (None, "int8"):
+        tag = kv or "bf16"
+        plain, _ = burst(kv, False)
+        reg = obs.MetricsRegistry()
+        with obs.ObsSession(registry=reg).installed() as s:
+            led = obs.ensure_request_ledger()
+            ck.reset_launch_counts()
+            toks, ttft = burst(kv, True)
+            launches[tag] = {k: n for k, n in ck.LAUNCHES.items() if n}
+            dump = s.dump()
+        check(toks == plain, f"obs (c) {tag}: tokens under the session "
+              "differ from the burst without")
+        errs = []
+        for i, t in enumerate(ttft):
+            st = stitch([led.get(f"{kv}-{i}")])
+            check(st is not None and st["done"],
+                  f"obs (c) {tag}: request {i} has no finished timeline")
+            errs.append(abs(st["ttft_s"] - t) / t)
+        check(max(errs) <= OBS_TTFT_RTOL, f"obs (c) {tag}: stitched TTFT "
+              f"off the engine's by {max(errs):.3f} (> {OBS_TTFT_RTOL})")
+        srv = ObsHttpServer(lambda d=dump: d).start()
+        host, port = srv.address
+        try:
+            got = {}
+            for path in ("/metrics", "/trace", "/requests"):
+                with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                            timeout=30) as r:
+                    got[path] = r.read().decode()
+        finally:
+            srv.stop()
+        check("paddle_tpu_serving_ttft_seconds" in got["/metrics"]
+              and json.loads(got["/trace"])["traceEvents"]
+              and len(json.loads(got["/requests"])["requests"])
+              == len(prompts), f"obs (c) {tag}: the HTTP view")
+        out[tag] = {"ttft_rel_err_max": max(errs),
+                    "ttft_ms_median": sorted(ttft)[len(ttft) // 2] * 1e3,
+                    "dispatches": _obs_counter(reg,
+                                               "decode.dispatches_total"),
+                    "tokens": _obs_counter(reg, "decode.tokens_total"),
+                    "kernel_bytes": _obs_counter(reg, "kernels.bytes_total"),
+                    "launches": launches[tag]}
+    say(f"obs (c) GPT-2 small engine bursts under a session (request "
+        f"timelines on): {json.dumps(out)}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_timelines(say, seed: int, device: str) -> dict:
+    """(d) torch.profiler over the fluid flagship's eager runs read by the
+    xplane reader, the merged trace, and ``profile --decode``."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import fluid, obs
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.obs import xplane
+    cfg = TEXTCLS
+    fluid.reset_default_programs()
+    logits, loss = _fluid_textcls(fluid, "lstm", cfg["vocab"], cfg["embed"],
+                                  cfg["hidden"], TEXTCLS_LR)
+    main = fluid.default_main_program()
+    exe = fluid.Executor(device=device, scope=fluid.Scope())
+    exe.run(fluid.default_startup_program())
+    batches = textcls_batches(seed + 2320, 3, device)
+    with graphs.disabled():
+        exe.run(main, feed=_fluid_feed(batches[0]), fetch_list=[loss])
+        torch.cuda.synchronize()
+        session = obs.ObsSession(registry=obs.MetricsRegistry())
+        with session.installed(), torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for b in batches:
+                exe.run(main, feed=_fluid_feed(b), fetch_list=[loss])
+            torch.cuda.synchronize()
+    space = xplane.read_torch_trace(prof)
+    rows = xplane.op_totals(space)
+    lstm_site = next(
+        f"block 0, op #{i} (lstm)"
+        for i, op in enumerate(main.global_block().ops)
+        if op.type == "lstm")
+    found = {}
+    for body in ("lstm_seq_kernel", "lstm_seq_bwd_kernel"):
+        hit = [r for r in rows if body in r["op"]
+               and (body != "lstm_seq_kernel" or "bwd" not in r["op"])]
+        # the profiler may drop a kernel record at the start of its
+        # window: the kernel must be there and every record of it at the
+        # lstm site (the count is printed)
+        check(hit and all(r["site"] == lstm_site for r in hit),
+              f"obs (d): {body} rows {hit} (want them at {lstm_site})")
+        found[body] = {"count": sum(r["count"] for r in hit),
+                       "self_ms": sum(r["self_ns"] for r in hit) / 1e6,
+                       "site": hit[0]["site"]}
+    report = xplane.top_ops_report(space, topk=12, steps=len(batches))
+    check(lstm_site in report, "obs (d): the report names no lstm site")
+    merged = obs.chrome_trace(obs.merge_dumps([
+        session.dump(), xplane.xplane_dump(space)]))
+    lanes = {e["args"]["name"] for e in merged["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    check("/device:GPU:0" in lanes and any(
+        e.get("name") == "fluid.run" for e in merged["traceEvents"]),
+        f"obs (d): merged lanes {lanes}")
+    print(report)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "profile",
+             "--decode", "8,128,64", "--trace-dir", d],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"obs (d): profile --decode exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        # the report cuts names at 44 characters: the trace it wrote
+        # holds them whole
+        rows = xplane.op_totals(
+            xplane.read_trace(os.path.join(d, "trace.json")))
+    ops = [row["op"] for row in rows]
+    has = {"#1": [o for o in ops if "flash_fwd" in o],
+           "#4": [o for o in ops if "decode_split" in o]}
+    records = {k: sum(row["count"] for row in rows if row["op"] in v)
+               for k, v in has.items()}
+    check(all(has.values()), f"obs (d): profile --decode's trace names "
+          f"{ {k: bool(v) for k, v in has.items()} }:\n{r.stdout[-3000:]}")
+    print("\n".join(ln for ln in r.stdout.splitlines()[:8]))
+    out = {"kernels": found, "lanes": sorted(lanes), "profile_cli_s": cli_s,
+           "profile_cli_kernels": {k: v[0][:120] for k, v in has.items()},
+           "profile_cli_records": records}
+    say(f"obs (d) device timelines of 3 eager exe.runs of the fluid "
+        f"flagship: {json.dumps(out)}")
+    return out
+
+
+def obs_phase(say, seed: int, device="cuda") -> dict:
+    """Phase 23 (module docstring): (a)-(d)."""
+    t0 = time.perf_counter()
+    out = {"loop": obs_loop(say, seed, device)}
+    out["roofline"] = obs_roofline(say, seed, device)
+    out["serving"] = obs_serving(say, seed, device)
+    out["timelines"] = obs_timelines(say, seed, device)
+    out["launches"] = {
+        "loop": out["loop"]["launches"],
+        **{f"serving {k}": v["launches"]
+           for k, v in out["serving"].items()}}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv=None) -> int:
@@ -8865,6 +9521,12 @@ def main(argv=None) -> int:
     stamp("phase 21")
     world = world_phase(say, args.seed)
     stamp("phase 22")
+    obs_res = obs_phase(say, args.seed)
+    stamp("phase 23")
+    for entry in [flash] + decode + [paged] + lstm:
+        entry["launches_obs"] = {
+            run: n.get(entry["name"], 0)
+            for run, n in obs_res["launches"].items()}
     for entry in [flash] + bwd:
         entry["launches_world"] = {
             rank: {call: n[entry["name"]] for call, n in calls.items()}
@@ -8920,6 +9582,7 @@ def main(argv=None) -> int:
                       "card": card}))
     print(json.dumps({"world": {k: v for k, v in world.items()
                                 if k != "launches"}, "card": card}))
+    print(json.dumps({"obs": obs_res, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru + s19["entries"] + s20["entries"],
                       "card": card}))

@@ -1,11 +1,12 @@
 """Configurable lint catalogue over Program IR — the port's copy of
 ``paddle_tpu/analysis/lints.py``.
 
-Three lints need planes the port has not taken yet and raise naming
-ROADMAP A.8: :func:`lint_catalogue_drift` and :func:`lint_alert_rules`
-(the obs catalogue and alert rules) and :func:`lint_autotune_cache` (the
-tune plane). L004 checks axis names against the mesh plane's canonical
-axis order (``parallel.mesh.CANONICAL_ORDER``).
+:func:`lint_catalogue_drift` (L007) runs over the port's tree against
+the port's catalogue, and :func:`lint_alert_rules` (L009) over
+``obs.alerts``; :func:`lint_autotune_cache` (L008) needs the tune plane
+the port has not taken yet and raises naming ROADMAP A.8. L004 checks
+axis names against the mesh plane's canonical axis order
+(``parallel.mesh.CANONICAL_ORDER``).
 
 Lints are advisory by default (WARNING/INFO); the CLI's ``--fail-on`` and
 :func:`lint_program`'s ``severity_overrides`` promote or demote them.  IDs:
@@ -430,21 +431,177 @@ def lint_metric_names(catalogue, severity: Severity = None,
 
 def _needs_a8(what: str):
     raise NotImplementedError(
-        f"{what} waits for the port's obs and tune planes (ROADMAP A.8)")
+        f"{what} waits for the port's tune plane (ROADMAP A.8)")
+
+
+#: metric name: the obs facade's emitters and the registry constructors
+_EMIT_ATTRS = frozenset(("count", "gauge_set", "observe",
+                         "counter", "gauge", "histogram"))
+
+
+def _metric_literals(tree):
+    """(literals, patterns) of metric names an AST emits: plain string
+    constants, plus regexes for f-string names (``f"goodput.{b}_total"``
+    -> ``goodput\\..*_total``) so dynamically-assembled families still
+    anchor their catalogue entries."""
+    import ast
+    import re as _re
+    literals: Set[str] = set()
+    patterns: List = []
+
+    def _collect(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            literals.add(node.value)
+        elif isinstance(node, ast.JoinedStr):
+            parts = []
+            for v in node.values:
+                if isinstance(v, ast.Constant):
+                    parts.append(_re.escape(str(v.value)))
+                else:
+                    parts.append(".*")
+            patterns.append(_re.compile("^" + "".join(parts) + "$"))
+
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        # `obs.count(...)`, `self._count(...)`, and the imported-alias
+        # forms `count(...)` / `_gauge_set(...)` all emit; leading
+        # underscores are the module-private alias convention
+        fname = (node.func.attr if isinstance(node.func, ast.Attribute)
+                 else node.func.id if isinstance(node.func, ast.Name)
+                 else "")
+        if fname.lstrip("_") in _EMIT_ATTRS and node.args:
+            _collect(node.args[0])
+        for kw in node.keywords:
+            if kw.arg == "metric":            # obs.span(..., metric=...)
+                _collect(kw.value)
+    return literals, patterns
 
 
 def lint_catalogue_drift(root=None, catalogue=None,
                          severity: Severity = None) -> List[Diagnostic]:
-    """L007: emit sites against the obs metric catalogue. The port has no
-    catalogue yet (``obs/catalogue.py``), so this raises naming A.8."""
-    _needs_a8("lint_catalogue_drift (L007, the obs metric catalogue)")
+    """L007: cross-check emit sites in the source tree against the metric
+    catalogue — both directions.
+
+    Walks every ``.py`` under ``root`` (default: the installed
+    ``paddle_tpu_torch`` package) collecting string-literal metric names passed
+    to the obs emitters (``count``/``gauge_set``/``observe``, the
+    registry's ``counter``/``gauge``/``histogram``, a span's ``metric=``
+    kwarg). A literal that *looks like* a metric name (matches the L005
+    shape — guards against ``str.count(...)`` false positives) but is
+    missing from the catalogue is flagged with its file; a catalogue
+    entry no site ever names (literally or via an f-string family) is
+    flagged as an orphan."""
+    import ast
+    import os
+
+    from ..obs.metrics import METRIC_NAME_RE
+    if catalogue is None:
+        from ..obs import CATALOGUE as catalogue
+    if root is None:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sev = severity if severity is not None else LINT_CATALOGUE["L007"][1]
+    diags: List[Diagnostic] = []
+    literals: Dict[str, str] = {}          # name -> first file emitting it
+    patterns: List = []
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for fn in sorted(filenames):
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            try:
+                with open(path, "r", encoding="utf-8") as f:
+                    tree = ast.parse(f.read(), filename=path)
+            except (OSError, SyntaxError):
+                continue                    # unreadable: not this lint's job
+            lits, pats = _metric_literals(tree)
+            rel = os.path.relpath(path, root)
+            for name in lits:
+                literals.setdefault(name, rel)
+            patterns.extend(pats)
+    for name in sorted(literals):
+        if not METRIC_NAME_RE.match(name):
+            continue                        # not a metric-shaped literal
+        if name not in catalogue:
+            diags.append(Diagnostic(
+                "L007", sev,
+                f"emit site passes metric '{name}' "
+                f"({literals[name]}) but obs/catalogue.py does not "
+                "declare it", var=name,
+                hint="add a CATALOGUE entry (kind, help[, labels]) — the "
+                     "catalogue is the metrics API surface"))
+    for name in sorted(catalogue):
+        if name in literals:
+            continue
+        if any(p.match(name) for p in patterns):
+            continue                        # an f-string family emits it
+        diags.append(Diagnostic(
+            "L007", sev,
+            f"catalogue entry '{name}' has no emit site in the tree "
+            "(orphan)", var=name,
+            hint="delete the entry, or wire the metric where it was "
+                 "meant to be observed"))
+    return diags
 
 
 def lint_alert_rules(rules=None, catalogue=None,
                      severity: Severity = None) -> List[Diagnostic]:
-    """L009: alert rules against the metric catalogue. The port has no
-    ``obs/alerts.py`` or catalogue yet, so this raises naming A.8."""
-    _needs_a8("lint_alert_rules (L009, obs alert rules)")
+    """L009: alert rules vs the metric catalogue — the alerting twin of
+    L005/L007.
+
+    Checks every rule (default: the shipped
+    :func:`paddle_tpu_torch.obs.alerts.default_rules` set, which is what a
+    master aggregator starts with) against the catalogue (default:
+    :data:`paddle_tpu_torch.obs.CATALOGUE`):
+
+    * the rule's ``metric`` must be a catalogued name — a rule naming a
+      typo'd or renamed metric never fires, silently;
+    * every label key the rule filters on must be declared by the
+      metric's catalogue entry (``worker`` is always legal: the merged
+      cluster view stamps it on every pushed series);
+    * ``burn_rate`` rules must target histograms (the math needs
+      cumulative buckets); ``threshold`` rules must target counters or
+      gauges (a histogram has no single value to compare).
+    """
+    if catalogue is None:
+        from ..obs import CATALOGUE as catalogue
+    if rules is None:
+        from ..obs.alerts import default_rules
+        rules = default_rules()
+    sev = severity if severity is not None else LINT_CATALOGUE["L009"][1]
+    diags: List[Diagnostic] = []
+
+    def emit(msg: str, rule, hint: str):
+        diags.append(Diagnostic("L009", sev, msg, var=rule.name, hint=hint))
+
+    for rule in rules:
+        spec = catalogue.get(rule.metric)
+        if spec is None:
+            emit(f"alert rule '{rule.name}' references metric "
+                 f"'{rule.metric}' which obs/catalogue.py does not "
+                 "declare — the rule can never fire", rule,
+                 "fix the metric name, or catalogue the new metric first")
+            continue
+        kind = spec[0] if isinstance(spec, (tuple, list)) else spec
+        declared = (tuple(spec[2]) if isinstance(spec, (tuple, list))
+                    and len(spec) > 2 else ())
+        for key in rule.labels:
+            if key != "worker" and key not in declared:
+                emit(f"alert rule '{rule.name}' filters on label "
+                     f"'{key}' which '{rule.metric}' does not declare "
+                     f"(declared: {list(declared) or 'none'})", rule,
+                     "filter only on declared label keys (or 'worker')")
+        if rule.kind == "burn_rate" and kind != "histogram":
+            emit(f"alert rule '{rule.name}' is burn_rate over "
+                 f"'{rule.metric}' ({kind}); burn-rate math needs a "
+                 "histogram's cumulative buckets", rule,
+                 "use a threshold rule, or target the _seconds histogram")
+        elif rule.kind == "threshold" and kind == "histogram":
+            emit(f"alert rule '{rule.name}' thresholds histogram "
+                 f"'{rule.metric}' which has no single value", rule,
+                 "use burn_rate with an slo_le bucket bound instead")
+    return diags
 
 
 def lint_autotune_cache(path=None,

@@ -55,9 +55,22 @@ key (the counterpart of JAX's ``decode.dispatches_total``), beside
 in Python when they are called, which a replay is not, so each graph
 records the ``LAUNCHES`` (and the recurrences' ``ROUTES``) its capture
 added (and takes them back out: a capture launches nothing) and every
-replay adds them again. A graph keeps
+replay adds them again. The same record holds the session's counter
+increments (``obs.recording`` around the capture, ``obs.replay_counts``
+on each replay) and the kernel bytes the capture's launch sites noted
+(``obs.roofline.collect_kernel_bytes``), so that a session's counters
+follow the launches. A graph keeps
 its cudaGraph_t (``keep_graph=True``) so that a check can count its
 kernel nodes against that record (:func:`captured`).
+
+Obs: a key's first call (its eager run and the capture) is the port's
+compile: it counts ``graphs.captures_total``, observes
+``graphs.capture_seconds`` and moves its seconds into the goodput
+ledger's ``compile`` bucket (:func:`note_capture`). A call with
+``cost=<label>`` also accounts its FLOPs and bytes into the
+roofline ledger: the key's cost is counted once on meta tensors
+(``obs.roofline.body_cost``, whose seconds the goodput ledger books as
+compile), and the call's kernel bytes added.
 
 Threads: caches of one process may run on several threads at once (the
 engines of a routed fleet, each on its scheduler thread, and a prefill
@@ -73,6 +86,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 import weakref
 from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional
 
@@ -100,6 +114,21 @@ _CAPTURE_LOCK = threading.RLock()
 
 def reset_dispatch_counts() -> None:
     DISPATCHES.clear()
+
+
+def note_capture(seconds: float, label: str = "") -> None:
+    """Report one key's first call (eager run + capture) to the installed
+    obs session: ``graphs.captures_total``, ``graphs.capture_seconds``, a
+    ``graphs.capture`` instant, and the seconds moved into the goodput
+    ledger's ``compile`` bucket (the ``jax.monitoring`` bridge's part in
+    JAX). A no-op with no session."""
+    from .. import obs
+    if not obs.is_active():
+        return
+    obs.count("graphs.captures_total")
+    obs.observe("graphs.capture_seconds", seconds)
+    obs.instant("graphs.capture", label=label, duration_secs=seconds)
+    obs.goodput.note_compile(seconds)
 
 
 def captured():
@@ -210,7 +239,7 @@ def _donated_ids(inputs: Dict[str, Any], donate: Iterable[str]) -> set:
 
 class _Graph:
     __slots__ = ("graph", "statics", "out_spec", "outs", "launches", "routes",
-                 "label", "generators")
+                 "label", "generators", "obs_counts", "kbytes")
 
     def outputs(self):
         """The output tree of a replay: donated static buffers as
@@ -230,6 +259,11 @@ class GraphCache:
     def __init__(self, owner: str, device):
         self.owner = owner
         self.device = resolve_device(device)
+        #: each accounted key's counted Cost (``run(..., cost=)``)
+        self.costs: Dict[Hashable, Any] = {}
+        #: modules whose weights the bodies read without taking them as
+        #: inputs (a model's): a cost count runs with them on meta too
+        self.cost_modules: List[Any] = []
         self._graphs: Dict[Hashable, _Graph] = {}
         self._buffers: Dict[Hashable, Any] = {}
         self._owned = weakref.WeakValueDictionary()   # id -> tensor
@@ -311,32 +345,72 @@ class GraphCache:
 
     def run(self, name: str, body: Callable, inputs: Dict[str, Any], *,
             static: Optional[Dict[str, Hashable]] = None,
-            donate: Iterable[str] = ()):
+            donate: Iterable[str] = (), cost: Optional[str] = None):
         """``body(**inputs, **static)`` through the graph of this signature.
 
         ``inputs`` are trees of tensors (and constants, which join the
         key); a tensor on another device (a host array's) is copied to the
         cache's. ``static`` holds hashable arguments that join the key
         (modes, bounds, a ``torch.Generator``); ``donate`` names the inputs
-        the body may write in place (it writes into no other input)."""
+        the body may write in place (it writes into no other input);
+        ``cost`` the roofline label to account this call under (None: no
+        accounting); the kernels' modeled bytes noted at their launch
+        sites join its account."""
         static = dict(static or {})
         key, spec, leaves = signature(name, inputs, static)
+        from .. import obs
+        if cost is not None and obs.is_active():
+            return self._accounted(key, name, body, inputs, static, donate,
+                                   spec, leaves, cost)
+        return self._run(key, name, body, inputs, static, donate, spec,
+                         leaves)
+
+    def _accounted(self, key, name, body, inputs, static, donate, spec,
+                   leaves, cost):
+        """A run under a session on a cache with ``cost``: the key's cost
+        (counted once) plus this call's kernel bytes into the roofline
+        ledger."""
+        from .. import obs
+        from ..obs import roofline
+        if key not in self.costs:
+            # the count is the counterpart of JAX's AOT lowering and cost
+            # analysis: its seconds go to the goodput ledger's compile
+            t0 = time.perf_counter()
+            self.costs[key] = roofline.body_cost(
+                body, inputs, static, where=cost,
+                modules=self.cost_modules)
+            obs.goodput.note_compile(time.perf_counter() - t0)
+        entry = self._graphs.get(key)
+        with roofline.collect_kernel_bytes() as col:
+            out = self._run(key, name, body, inputs, static, donate, spec,
+                            leaves)
+        kb = col.per_kernel
+        if entry is not None and not kb:
+            kb = entry.kbytes
+        roofline.account(self.costs[key], extra_bytes=sum(kb.values()))
+        return out
+
+    def _run(self, key, name, body, inputs, static, donate, spec, leaves):
         donated = _donated_ids(inputs, donate)
-        if self.device.type != "cuda" or _disabled:
+        if self.device.type != "cuda" or _disabled or any(
+                t.device.type == "meta" for t in leaves):
             args = []
             for t in leaves:
                 if id(t) in donated and not self._owns(t):
                     t = self._copy(t)
                     self._own(t)
-                elif t.device != self.device:
+                elif t.device != self.device and t.device.type != "meta":
                     t = t.to(self.device)
                 args.append(t)
             return body(**_unflatten(spec, iter(args)), **static)
         entry = self._graphs.get(key)
         if entry is None:
+            t0 = time.perf_counter()
             with _CAPTURE_LOCK:
-                return self._capture(key, label(name, inputs, static), body,
-                                     spec, leaves, static, donated)
+                out = self._capture(key, label(name, inputs, static), body,
+                                    spec, leaves, static, donated)
+            note_capture(time.perf_counter() - t0, self._graphs[key].label)
+            return out
         caller = torch.cuda.current_stream(self.device)
         with torch.no_grad():
             for x, s in zip(leaves, entry.statics):
@@ -345,6 +419,7 @@ class GraphCache:
         for k in entry.generators:
             self._generators[k].set_state(static[k].get_state())
         stream = self._stream
+        from .. import obs
         from ..ops.cuda_kernels import LAUNCHES, ROUTES
         with _CAPTURE_LOCK:
             stream.wait_stream(caller)
@@ -356,6 +431,7 @@ class GraphCache:
                 LAUNCHES[k] += n
             for k, n in entry.routes.items():
                 ROUTES[k] = ROUTES.get(k, 0) + n
+            obs.replay_counts(entry.obs_counts)
         for k in entry.generators:
             static[k].set_state(self._generators[k].get_state())
         return entry.outputs()
@@ -403,8 +479,11 @@ class GraphCache:
             drawn[k] = self._generators[k]
             graph.register_generator_state(drawn[k])
         before, routes_before = dict(LAUNCHES), dict(ROUTES)
-        with torch.cuda.graph(graph, pool=self._pool, stream=stream,
-                              capture_error_mode="thread_local"):
+        from .. import obs
+        from ..obs.roofline import collect_kernel_bytes
+        with obs.recording() as rec, collect_kernel_bytes() as col, \
+                torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                 capture_error_mode="thread_local"):
             gout = body(**args, **drawn)
         graph.instantiate()
         delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
@@ -417,6 +496,7 @@ class GraphCache:
         entry = _Graph()
         entry.graph, entry.statics, entry.launches = graph, statics, delta
         entry.routes = routes
+        entry.obs_counts, entry.kbytes = rec.events, col.per_kernel
         entry.label, entry.generators = name, gens
         glist: List[torch.Tensor] = []
         entry.out_spec = _flatten(gout, glist)

@@ -9,9 +9,10 @@ python/paddle/v2/master/client.py:15-80). Sample payloads are pickled tuples
 the CRC-checked chunk format of native/recordio.cc, so the same rows make
 the same files in both packages and each reads the other's.
 
-The idle-poll and task counters of the JAX module (``data.*``) wait for
-the obs session plane (ROADMAP A.8): a policy's ``observer`` stays what
-the caller gave, ``None`` by default.
+The idle polls and tasks count into an installed obs session as JAX's do
+(``data.retries_total``/``giveups_total``/``backoff_seconds_total``
+through ``obs.retry_observer("data")`` when the policy has no observer;
+``data.tasks_total``, ``data.task_failures_total``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import pickle
 from typing import Iterable, List, Optional
 
-from .. import faults
+from .. import faults, obs
 from ..utils.retry import RetryBudgetExceeded, RetryPolicy
 from .reader import Reader
 
@@ -106,6 +107,10 @@ def cloud_reader(master_client, *, poll_interval: float = 0.1,
                 deadline=max_idle_polls * poll_interval,
                 jitter=0.1, retryable=_Starved)
 
+        if policy.observer is None:
+            # idle-poll telemetry: data.retries_total / giveups / backoff
+            policy.observer = obs.retry_observer("data")
+
         def poll_once():
             task = master_client.get_task()
             if task is not None:
@@ -127,6 +132,7 @@ def cloud_reader(master_client, *, poll_interval: float = 0.1,
                     master_client.new_pass()
                 return
             task_id, path = task
+            obs.count("data.tasks_total")
             try:
                 faults.fire("reader.next")      # chaos: per-task failure
                 yield from chunk_reader([path])()
@@ -134,6 +140,7 @@ def cloud_reader(master_client, *, poll_interval: float = 0.1,
                 # the elastic contract (go/master re-dispatch): report the
                 # task failed and let the master hand it to a healthy
                 # consumer (or discard after failure_max strikes)
+                obs.count("data.task_failures_total")
                 master_client.task_failed(task_id)
                 continue
             master_client.task_finished(task_id)

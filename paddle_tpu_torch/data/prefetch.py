@@ -1,6 +1,6 @@
 """Double-buffered host->device prefetch — a copy of
-``paddle_tpu/data/prefetch.py`` (its ``data.prefetch_iters_total`` count
-waits for the obs session plane, ROADMAP A.8).
+``paddle_tpu/data/prefetch.py`` (with its ``data.prefetch_iters_total``
+count).
 
 The reference overlaps batch production with training via a dedicated thread and
 a two-slot queue (``DoubleBuffer``, gserver/dataproviders/DataProvider.h:249,
@@ -34,7 +34,11 @@ class DoubleBuffer:
         self.timeout = timeout
 
     def __iter__(self) -> Iterator[Any]:
+        from .. import obs
         from .reader import buffered, map_readers
+        # queue health (data.queue_depth / data.starved_total) is reported
+        # by the underlying buffered() consumer loop
+        obs.count("data.prefetch_iters_total")
         creator = self.batches
         if self.transform is not None:
             # transform runs on the worker thread, overlapping host conversion

@@ -2,10 +2,9 @@
 
 A *reader creator* is a zero-arg callable returning an iterable of samples —
 identical protocol to the reference (python/paddle/v2/reader/decorator.py:26-233,
-minibatch.py). Decorators compose creators; everything is lazy. The
-queue-health metrics of ``buffered`` (``data.queue_depth``,
-``data.starved_total``, ``data.timeouts_total``) wait for the obs session
-plane (ROADMAP A.8).
+minibatch.py). Decorators compose creators; everything is lazy.
+``buffered`` reports queue health to an installed obs session
+(``data.queue_depth``, ``data.starved_total``, ``data.timeouts_total``).
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import queue
 import random as _random
 import threading
 from typing import Any, Callable, Iterable, List
+
+from .. import obs
 
 Reader = Callable[[], Iterable[Any]]
 
@@ -104,10 +105,21 @@ def buffered(reader_creator: Reader, size: int,
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
+        warmed = False
         while True:
+            if obs.is_active() and warmed:
+                # consumer-side queue health: depth at consume and how
+                # often the producer was behind. The first get is skipped:
+                # an empty queue there is startup, not starvation
+                depth = q.qsize()
+                obs.gauge_set("data.queue_depth", depth)
+                if depth == 0:
+                    obs.count("data.starved_total")
+            warmed = True
             try:
                 s = q.get(timeout=timeout)
             except queue.Empty:
+                obs.count("data.timeouts_total")
                 raise TimeoutError(
                     f"prefetch watchdog: no batch within {timeout}s "
                     "(data source wedged?)") from None

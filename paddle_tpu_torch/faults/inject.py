@@ -68,6 +68,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .. import obs
+
 SITES = ("ckpt.write", "reader.next", "step.grad", "rpc.send", "rpc.recv",
          "mbr.heartbeat", "srv.ship", "srv.adopt", "route.submit")
 
@@ -183,6 +185,10 @@ class FaultPlan:
             due = [f for f in self.faults if f.site == site and f.matches(n)]
             for f in due:
                 self.fired.append((site, n, f.action))
+        # outside the plan lock (obs has its own): per-site injected-fault
+        # counters make a chaos run self-describing
+        for f in due:
+            obs.count("faults.injected_total", site=site, action=f.action)
         return n, due
 
     def fire(self, site: str):
@@ -193,6 +199,11 @@ class FaultPlan:
             if f.action == "delay":
                 self._sleep(f.delay_s)
             elif f.action == "raise":
+                # flight recorder (obs/flight.py): persist the span ring
+                # BEFORE the injected exception starts unwinding — even if
+                # a retry layer later swallows it and the process is then
+                # SIGKILLed, the chaos run's tail is already on disk
+                obs.flight_dump(f"fault:{site}")
                 raise self._make_exc(f, site)
         # truncate/corrupt rules at a fire-only site are authoring errors we
         # surface loudly instead of silently ignoring
@@ -209,6 +220,7 @@ class FaultPlan:
             if f.action == "delay":
                 self._sleep(f.delay_s)
             elif f.action == "raise":
+                obs.flight_dump(f"fault:{site}")
                 raise self._make_exc(f, site)
             elif f.action == "truncate":
                 cut = (f.truncate_to if f.truncate_to is not None
@@ -230,6 +242,7 @@ class FaultPlan:
             if f.action == "delay":
                 self._sleep(f.delay_s)
             elif f.action == "raise":
+                obs.flight_dump(f"fault:{site}")
                 raise self._make_exc(f, site)
             elif f.action == "corrupt":
                 value = (f.mutate(value) if f.mutate is not None

@@ -43,14 +43,32 @@ keeps the same tensors from run to run and no parameter is copied.
   (host initializers) and blocks with random ops (registry
   ``RANDOM_OPS``); ``Executor.stats["eager_runs"]`` counts such runs.
 
-Not here yet, each raising with its ROADMAP item: ``fuse=True`` or a set
-of groups (A.8, the tune plane; ``fuse=None`` and ``False`` run unfused,
-as JAX's do with no autotune cache) and a mesh (A.7b).
+* **Obs.** Under an installed obs session a run opens the ``fluid.run``
+  span and counts runs, cache hits and misses (labelled ``bucketed``),
+  evictions, the cache size and donated bytes, as JAX's does; the
+  ``verify=True`` pre-flight opens ``fluid.verify``; each graphed key's
+  cost is counted once on meta tensors and every run accounts it into
+  the roofline ledger (``obs/roofline.py``). While a ``torch.profiler``
+  run records, each op runs inside a ``record_function`` range named
+  ``b{B}_op{I}_{type}`` (JAX's ``jax.named_scope`` stamp), which
+  ``obs/xplane.py`` attributes the kernels to.
+* **A mesh** (``mesh=``, or the ambient ``parallel.use_mesh``, with
+  ``layout=`` a ``parallel.SpecLayout``): persistables are stored sharded
+  by the resolved layout and every run is eager, over
+  ``torch.distributed`` (``fluid/_mesh.py``); the mesh's signature and
+  the resolved specs join the cache key, and the placement pass emits
+  ``fluid.placed_bytes_total``, ``mesh.axis_size``,
+  ``mesh.axis_utilization`` and ``fluid.param_bytes_per_device``.
+
+Not here yet: ``fuse=True`` or a set of groups (ROADMAP A.8, the tune
+plane; ``fuse=None`` and ``False`` run unfused, as JAX's do with no
+autotune cache).
 """
 
 from __future__ import annotations
 
 import itertools
+import re
 import warnings
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -58,9 +76,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.graphs import GraphCache
 from ..core.place import require_device
+from . import _mesh
 from ..data.feeder import BucketSpec
+from ..obs.xplane import site_range
 from .framework import Block, Program
 from .registry import (NARROW_DTYPES, RANDOM_OPS, OpRegistry, kernel_route,
                        running_on)
@@ -103,6 +124,18 @@ def global_scope() -> Scope:
     return _global_scope
 
 
+_SCOPE_SAFE = re.compile(r"[^A-Za-z0-9_]")
+
+
+def _scope_tag(op, idx: int) -> str:
+    """The profiler stamp of one op site (JAX's ``jax.named_scope`` tag):
+    the machine-parseable twin of analysis.diagnostics.op_site ('block B,
+    op #I (type)'), which obs/xplane.py's ``site_of`` inverts."""
+    bidx = getattr(op.block, "idx", None)
+    b = bidx if bidx is not None else 0
+    return f"b{b}_op{idx}_{_SCOPE_SAFE.sub('_', op.type)}"
+
+
 def _run_ops(ops, env: Dict[str, Any], program: Program):
     """Run an op list of ``program`` over env (name -> tensor), in place.
 
@@ -114,6 +147,10 @@ def _run_ops(ops, env: Dict[str, Any], program: Program):
             if op.type == "autodiff_grad":
                 _run_autodiff(op, ops, env)
                 continue
+            if _mesh.CURRENT is not None and op.type in (
+                    "while", "conditional_block", "static_rnn",
+                    "beam_search_gen"):
+                raise _mesh._a7b(_site(op, idx), f"control flow ('{op.type}')")
             if op.type == "while":
                 _run_while(op, env, program)
                 continue
@@ -128,7 +165,15 @@ def _run_ops(ops, env: Dict[str, Any], program: Program):
                 continue
             compute = OpRegistry.get(op.type)
             ins = {k: [env[n] for n in vs] for k, vs in op.inputs.items()}
-            outs = compute(ins, op.attrs)
+            with site_range(_scope_tag(op, idx)):
+                mr = _mesh.CURRENT
+                if mr is None:
+                    outs = compute(ins, op.attrs)
+                else:
+                    outs, rows = mr.compute(op, _site(op, idx), compute, ins)
+                    for names in op.outputs.values():
+                        (mr.sharded.update if rows
+                         else mr.sharded.difference_update)(names)
             for k, names in op.outputs.items():
                 for n, v in zip(names, outs[k]):
                     env[n] = v
@@ -136,20 +181,25 @@ def _run_ops(ops, env: Dict[str, Any], program: Program):
             if getattr(e, "_op_ctx", False):
                 raise          # the innermost op already carries its site
             chain = " -> ".join(o.type for o in ops[max(0, idx - 4):idx + 1])
-            from ..analysis.diagnostics import block_paths, op_site
-            blk = getattr(op, "block", None)
-            bidx = getattr(blk, "idx", None)
-            path = None
-            prog = getattr(blk, "program", None)
-            if prog is not None and bidx is not None:
-                path = block_paths(prog).get(bidx)
-            site = op_site(bidx, idx, op.type, block_path=path)
+            site = _site(op, idx)
             e.add_note(f"{site} failed while running the Program "
                        f"(inputs={op.inputs}, outputs={op.outputs})\n"
                        f"  op chain: ...{chain}")
             e._op_ctx = True
             raise
     return env
+
+
+def _site(op, idx: int) -> str:
+    """The op's site as analysis/diagnostics.py cites it."""
+    from ..analysis.diagnostics import block_paths, op_site
+    blk = getattr(op, "block", None)
+    bidx = getattr(blk, "idx", None)
+    path = None
+    prog = getattr(blk, "program", None)
+    if prog is not None and bidx is not None:
+        path = block_paths(prog).get(bidx)
+    return op_site(bidx, idx, op.type, block_path=path)
 
 
 def _forward_with_autodiff(ops, env: Dict[str, Any], program: Program):
@@ -162,6 +212,8 @@ def _forward_with_autodiff(ops, env: Dict[str, Any], program: Program):
     leaves = {name: v.detach().requires_grad_(True)
               for name, v in given.items()}
     env.update(leaves)
+    if _mesh.CURRENT is not None:
+        _mesh.CURRENT.leaves = leaves
     with torch.enable_grad():
         _run_ops(ops[:n_fwd + 1], env, program)
     for k, v in env.items():
@@ -183,6 +235,10 @@ def _run_autodiff(op, ops, env):
             f"autodiff_grad: loss '{loss_name}' does not depend on the "
             "parameters through the ops before it")
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(leaf) if g is None else g
+             for leaf, g in zip(leaves, grads)]
+    if _mesh.CURRENT is not None:
+        grads = _mesh.CURRENT.finish(param_names, grads)
     for name, leaf, g in zip(param_names, leaves, grads):
         env[name + "@GRAD"] = torch.zeros_like(leaf) if g is None else g
 
@@ -374,17 +430,31 @@ class Executor:
                  fuse: Optional[Any] = None,
                  cache_capacity: int = DEFAULT_CACHE_CAPACITY,
                  device=None):
-        if mesh is not None or layout is not None:
-            raise NotImplementedError(
-                "Executor(mesh=..., layout=...): the sharded executor (its "
-                "placement pass, cache key and fluid.io re-placement) is "
-                "ROADMAP A.7b; the mesh plane itself is paddle_tpu_torch."
-                "parallel")
         if fuse is not None and fuse is not False:
             raise NotImplementedError(
                 "Executor(fuse=...): graph fusion over certified groups "
                 "waits for the tune plane (ROADMAP A.8); fuse=None and "
                 "fuse=False run unfused")
+        if mesh is None:
+            from ..parallel.mesh import current_mesh
+            mesh = current_mesh()
+        if layout is not None and mesh is None:
+            raise ValueError(
+                "Executor(layout=...) needs a mesh: pass mesh=... or "
+                "construct inside parallel.use_mesh(...)")
+        if mesh is not None and layout is None:
+            from ..parallel.sharding import SpecLayout
+            layout = SpecLayout()
+        self.mesh = mesh
+        self.layout = layout
+        # the rank assignment joins the cache key, as JAX's device ids do
+        self._mesh_sig = (tuple(mesh.shape.items()),
+                          tuple(int(d) for d in mesh.devices.flat)) \
+            if mesh is not None else None
+        self._mesh_stats_emitted = False
+        self._shard_memo: Dict[Tuple, Tuple] = {}
+        if mesh is not None and device is None and place is None:
+            device = mesh.device
         self.device = require_device(device if device is not None
                                      else place)
         self.scope = scope if scope is not None else global_scope()
@@ -496,6 +566,114 @@ class Executor:
             use_cache: bool = True, verify: bool = False,
             return_numpy: bool = True,
             donate: Optional[bool] = None) -> List[Any]:
+        with obs.span("fluid.run", metric="fluid.run_seconds"):
+            return self._run(program, feed, fetch_list, use_cache, verify,
+                             return_numpy, donate)
+
+    # -------------------------------------------------- sharding plane ----
+    def _annotation(self, block: Block, name: str):
+        """The variable's ``sharding`` annotation; optimizer accumulators
+        (``param@moment1``) inherit their base parameter's."""
+        v = block.vars.get(name)
+        ann = getattr(v, "sharding", None) if v is not None else None
+        if ann is None and "@" in name:
+            base = block.vars.get(name.split("@", 1)[0])
+            ann = getattr(base, "sharding", None) if base is not None \
+                else None
+        return ann
+
+    def _persist_sharding(self, block: Block, name: str, value):
+        return self.layout.resolve(self.mesh, name, tuple(value.shape),
+                                   self._annotation(block, name))
+
+    def _feed_sharding(self, block: Block, name: str, value):
+        """Feeds: annotation wins; a fed persistable resolves like a
+        parameter; plain data shards its batch dim over ``data``."""
+        from ..parallel.sharding import NamedSharding
+        shape = tuple(value.shape)
+        ann = self._annotation(block, name)
+        v = block.vars.get(name)
+        if ann is None and v is not None and v.persistable:
+            return self._persist_sharding(block, name, value)
+        if ann is not None:
+            return self.layout.resolve(self.mesh, name, shape, ann)
+        spec = type(self.layout).fit(self.mesh,
+                                     self.layout.batch_spec(len(shape)),
+                                     shape)
+        return NamedSharding(self.mesh, spec)
+
+    def _place_persistables(self, persist_in, spec_of) -> None:
+        """Place scope values whose live sharding differs from the
+        resolved layout (a startup program's or a restore's plain values,
+        or values placed for another mesh) onto the mesh."""
+        from ..parallel.sharding import device_put, spec_of as live_spec
+        placed = 0
+        for n in persist_in:
+            cur = self.scope.get(n)
+            target = spec_of[n]
+            if live_spec(cur) == target.spec and \
+                    cur.device_mesh is self.mesh.device_mesh:
+                continue
+            self.scope.set(n, device_put(cur, target))
+            placed += cur.numel() * cur.element_size()
+        if placed:
+            obs.count("fluid.placed_bytes_total", placed)
+            self._mesh_stats_emitted = False
+        if not self._mesh_stats_emitted and obs.is_active():
+            self._emit_mesh_stats(persist_in, spec_of)
+            self._mesh_stats_emitted = True
+
+    def _emit_mesh_stats(self, persist_in, spec_of) -> None:
+        """Per-axis utilization through the obs plane: how much of the
+        persistable footprint each mesh axis divides, and the bytes a
+        rank holds under the layout."""
+        total = per_device = 0
+        by_axis: Dict[str, int] = {a: 0 for a in self.mesh.shape}
+        for n in persist_in:
+            v = self.scope.get(n)
+            nbytes = v.numel() * v.element_size()
+            total += nbytes
+            ways = 1
+            for entry in spec_of[n].spec:
+                axes = ((entry,) if isinstance(entry, str)
+                        else tuple(entry or ()))
+                for a in axes:
+                    by_axis[a] += nbytes
+                    ways *= self.mesh.shape[a]
+            per_device += nbytes // ways
+        for a, size in self.mesh.shape.items():
+            obs.gauge_set("mesh.axis_size", size, axis=a)
+            obs.gauge_set("mesh.axis_utilization",
+                          (by_axis[a] / total) if total else 0.0, axis=a)
+        obs.gauge_set("fluid.param_bytes_per_device", per_device)
+        obs.gauge_set("fluid.param_bytes_global", total)
+
+    def _mesh_plan(self, program, block, feed, persist_in, written):
+        """(feed specs, persistable specs, the cache key's mesh part),
+        memoized per (program version, args signature)."""
+        skey = (program._serial, program.version, block.idx,
+                tuple(persist_in), tuple(written),
+                tuple((k, tuple(v.shape), str(v.dtype))
+                      for k, v in sorted(feed.items())))
+        memo = self._shard_memo.get(skey)
+        if memo is None:
+            feed_sh = {k: self._feed_sharding(block, k, v)
+                       for k, v in feed.items()}
+            spec_of = {n: self._persist_sharding(block, n,
+                                                 self.scope.get(n))
+                       for n in persist_in}
+            mesh_key = (self._mesh_sig,
+                        tuple(sorted((k, str(s.spec))
+                                     for k, s in feed_sh.items())),
+                        tuple((n, str(spec_of[n].spec))
+                              for n in persist_in))
+            if len(self._shard_memo) > 1024:
+                self._shard_memo.clear()
+            memo = self._shard_memo[skey] = (feed_sh, spec_of, mesh_key)
+        return memo
+
+    def _run(self, program, feed, fetch_list, use_cache, verify,
+             return_numpy=True, donate=None):
         from .framework import default_main_program
         program = program or default_main_program()
         block = program.global_block()
@@ -519,9 +697,10 @@ class Executor:
                     tuple((k, tuple(v.shape), str(v.dtype))
                           for k, v in sorted(feed.items())))
             if vkey not in self._verified:
-                analysis.check_or_raise(program, feed=feed,
-                                        fetch=fetch_names,
-                                        donate=bool(donate))
+                with obs.span("fluid.verify", metric="fluid.verify_seconds"):
+                    analysis.check_or_raise(program, feed=feed,
+                                            fetch=fetch_names,
+                                            donate=bool(donate))
                 self._verified.add(vkey)
 
         persist_in = [name for name, v in block.vars.items()
@@ -550,17 +729,25 @@ class Executor:
             v = self.scope.get(n)
             if not isinstance(v, torch.Tensor) or v.device != self.device:
                 self.scope.set(n, self._tensor(v))
+        mesh_key = plan = None
+        if self.mesh is not None:
+            plan = self._mesh_plan(program, block, feed, persist_in, written)
+            mesh_key = plan[2]
+            self._place_persistables(persist_in, plan[1])
 
         key = (program._serial, program.version, block.idx,
                tuple(fetch_names), tuple(state_in), tuple(kept_in),
-               bool(donate), kernel_route(),
+               bool(donate), kernel_route(), mesh_key,
                tuple((k, tuple(v.shape), v.dtype)
                      for k, v in sorted(feed.items())))
         entry = self._cache.get(key) if use_cache else None
         self.stats["runs"] += 1
+        obs.count("fluid.runs_total")
+        bflag = "true" if bucketed else "false"
         churn_key = (program._serial, block.idx, tuple(fetch_names))
         if entry is None:
             self.stats["cache_misses"] += 1
+            obs.count("fluid.cache_misses_total", bucketed=bflag)
             if use_cache and key not in self._seen_keys:
                 if len(self._seen_keys) > 4096:
                     self._seen_keys.clear()
@@ -578,14 +765,29 @@ class Executor:
                     _, old = self._cache.popitem(last=False)
                     self._drop(old)
                     self.stats["cache_evictions"] += 1
+                    obs.count("fluid.cache_evictions_total")
         else:
             self.stats["cache_hits"] += 1
+            obs.count("fluid.cache_hits_total", bucketed=bflag)
             self._miss_streaks[churn_key] = 0
             self._cache.move_to_end(key)
+        if use_cache:
+            obs.gauge_set("fluid.cache_size", len(self._cache))
 
         feed = {k: feed[k] for k in sorted(feed)}
         state = {n: self.scope.get(n) for n in state_in}
         kept = {n: self.scope.get(n) for n in kept_in}
+        if donate and obs.is_active():
+            donated = [state[n] for n in state_in if n in written_set
+                       and n not in fetch_set]
+            if donated:
+                obs.count("fluid.donated_bytes_total",
+                          sum(v.numel() * v.element_size() for v in donated))
+        if plan is not None:
+            self.stats["eager_runs"] += 1
+            return self._run_mesh(block, program, feed, state, kept,
+                                  fetch_names, written, plan, donate,
+                                  return_numpy)
         if entry.eager:
             self.stats["eager_runs"] += 1
             with running_on(self.device):
@@ -595,13 +797,78 @@ class Executor:
                 fetches, state_out, new = self.graphs.run(
                     "fluid.run", entry.body,
                     {"feed": feed, "state": state, "kept": kept},
-                    static={"key": entry.token}, donate=("state",))
+                    static={"key": entry.token}, donate=("state",),
+                    cost="fluid.run")
         for n, v in state_out.items():
             self.scope.set(n, v)
         for n, v in new.items():
             self.scope.set(n, v)
         if not use_cache:
             self._drop(entry)
+        if return_numpy:
+            return [v.detach().cpu().numpy() for v in fetches]
+        return list(fetches)
+
+    def _run_mesh(self, block, program, feed, state, kept, fetch_names,
+                  written, plan, donate, return_numpy):
+        """One run on the mesh (fluid/_mesh.py): the persistables gathered,
+        this rank's feed rows, the ops with the batch reductions and the
+        gradients summed across the batch axes, this rank's block of each
+        update kept, the fetches gathered."""
+        from ..parallel.sharding import (NamedSharding, P, cut, from_local,
+                                         local, spec_of as live_spec,
+                                         to_global)
+        feed_sh, spec_of, _ = plan
+        axes: Tuple[str, ...] = ()
+        env: Dict[str, Any] = {}
+        rows: set = set()
+        for k, v in feed.items():
+            ax = _mesh.batch_axes(feed_sh[k].spec)
+            if ax:
+                if axes and ax != axes:
+                    raise NotImplementedError(
+                        f"feeds split over different batch axes ({axes} "
+                        f"and {ax} for '{k}'): the mesh executor takes one "
+                        "batch split (ROADMAP A.7b)")
+                axes = ax
+                v = cut(v, self.mesh, P(feed_sh[k].spec[0]))
+                rows.add(k)
+            env[k] = v
+        persist = dict(kept)
+        persist.update(state)
+        olds = {n: v for n, v in persist.items()}
+        env.update({n: to_global(v) for n, v in persist.items()})
+        prev = _mesh.CURRENT
+        _mesh.CURRENT = run = _mesh.MeshRun(self.mesh, axes, rows)
+        try:
+            with running_on(self.device), torch.no_grad():
+                ops = block.ops
+                if any(op.type == "autodiff_grad" for op in ops):
+                    _forward_with_autodiff(ops, env, program)
+                else:
+                    _run_ops(ops, env, program)
+        finally:
+            _mesh.CURRENT = prev
+        fetches = [run.gather_rows(env[n]) if n in run.sharded else env[n]
+                   for n in fetch_names]
+        for n in written:
+            if n not in env:
+                continue
+            new = env[n]
+            if n in run.sharded:
+                new = run.gather_rows(new)
+            old = olds.get(n)
+            sh = spec_of.get(n)
+            if sh is None:
+                self.scope.set(n, new)      # placed by the next run
+                continue
+            block_ = cut(new, self.mesh, sh.spec)
+            if donate and n in state and live_spec(old) == sh.spec \
+                    and local(old).shape == block_.shape:
+                local(old).copy_(block_)    # in place: the donated block
+            else:
+                self.scope.set(n, from_local(block_.clone(), self.mesh,
+                                             sh.spec, new.shape))
         if return_numpy:
             return [v.detach().cpu().numpy() for v in fetches]
         return list(fetches)

@@ -3,7 +3,10 @@
 persistables go through the port's ``trainer/checkpoint.py`` tar (the
 CRC-checked format JAX's ``to_tar`` writes) and the bundle's program is
 JAX's ``model.json``, so a bundle either package writes loads in the
-other."""
+other. On a mesh executor the persistables are gathered to their global
+values before they are written (the file is the one a single device
+writes, written by the mesh's first rank), and a restore re-places them
+onto the executor's *current* mesh by its layout."""
 
 from __future__ import annotations
 
@@ -21,27 +24,55 @@ def _persistable_names(program: Program):
             if v.persistable]
 
 
+def _global(v):
+    """A scope value as a plain tensor: a DTensor's global value."""
+    from ..parallel.sharding import to_global
+    return to_global(v)
+
+
 def save_persistables(executor: Executor, dirname: str,
                       main_program: Optional[Program] = None):
     program = main_program or default_main_program()
     scope = executor.scope
     os.makedirs(dirname, exist_ok=True)
-    tree = {n: scope.get(n) for n in _persistable_names(program)
+    tree = {n: _global(scope.get(n)) for n in _persistable_names(program)
             if scope.has(n)}
-    with open(os.path.join(dirname, "persistables.tar"), "wb") as f:
-        to_tar(f, tree)
+    mesh = executor.mesh
+    if mesh is None or mesh.rank == int(mesh.devices.flat[0]):
+        with open(os.path.join(dirname, "persistables.tar"), "wb") as f:
+            to_tar(f, tree)
+    if mesh is not None:
+        # every rank leaves once the mesh's first rank has written the
+        # file (a load on any rank reads it)
+        import torch
+        from ..parallel import collectives
+        with mesh:
+            collectives.all_reduce(torch.zeros((), device=mesh.device),
+                                   mesh.axis_names)
 
 
-def _restore(executor: Executor, tree) -> None:
-    """Place loaded arrays into the scope, on the executor's device."""
+def _restore(executor: Executor, tree, program: Optional[Program] = None
+             ) -> None:
+    """Place loaded arrays into the scope, on the executor's device —
+    sharded per the executor's layout when it has a mesh (a restore
+    re-places onto the CURRENT mesh: specs re-resolve against it, so a
+    file saved on one mesh shape loads onto another)."""
+    block = program.global_block() if program is not None else None
     for name, arr in tree.items():
-        executor.scope.set(name, arr)
+        if executor.mesh is not None and block is not None \
+                and name in block.vars:
+            from ..parallel.sharding import device_put
+            executor.scope.set(name, device_put(
+                arr, executor._persist_sharding(block, name, arr)))
+        else:
+            executor.scope.set(name, arr)
 
 
 def load_persistables(executor: Executor, dirname: str,
                       main_program: Optional[Program] = None):
     with open(os.path.join(dirname, "persistables.tar"), "rb") as f:
-        _restore(executor, from_tar(f, device=executor.device))
+        _restore(executor, from_tar(f, device=executor.device),
+                 main_program or default_main_program())
 
 
 # -- merged inference model ----------------------------------------------------
@@ -64,7 +95,7 @@ def export_inference_model(dirname: str, feed_names, fetch_vars,
     with open(os.path.join(dirname, "model.json"), "w") as f:
         json.dump(meta, f)
     scope = executor.scope
-    tree = {n: scope.get(n)
+    tree = {n: _global(scope.get(n))
             for n, v in pruned.global_block().vars.items()
             if v.persistable and scope.has(n)}
     with open(os.path.join(dirname, "params.tar"), "wb") as f:

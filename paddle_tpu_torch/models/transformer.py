@@ -43,6 +43,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..nn import Embedding, LayerNorm, Linear, Module
 from ..nn.initializer import normal
 from ..ops import cuda_kernels as ck
@@ -658,17 +659,24 @@ class TransformerLM(Module):
         cur, tok = graphs.run("prefill", self._prefill_body,
                               {"cell": cell, "prompt": prompt},
                               static=dict(kv_dtype=kv_dtype, **draw),
-                              donate=("cell",))
+                              donate=("cell",), cost="decode.prefill")
+        obs.count("decode.dispatches_total", route="prefill")
         toks = [tok]
         for j in range(1, steps):
             pos = T0 + j                       # max live position + 1
             cache_len = None if bucket is None else min(
                 -(-pos // bucket) * bucket, self.max_len)
+            # the cache read's modeled bytes (kernels.bytes_total and the
+            # step's roofline account) are noted where #4/#5 launch
+            # (ops/cuda_kernels.decode_attention), once a layer, and each
+            # replay re-emits them
             cur, tok = graphs.run(
                 "decode", self._decode_body, {"cell": cell, "cur": cur},
                 static=dict(cache_len=cache_len, kv_dtype=kv_dtype, **draw),
-                donate=("cell", "cur"))
+                donate=("cell", "cur"), cost="decode.step")
             toks.append(tok)
+            obs.count("decode.dispatches_total", route="step")
+        obs.count("decode.tokens_total", B * steps, route="fused")
         return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
 
     @torch.no_grad()

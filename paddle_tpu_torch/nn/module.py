@@ -100,6 +100,7 @@ class Module(nn.Module):
         dev = next(self.parameters()).device
         if self._graphs is None or self._graphs.device != dev:
             self._graphs = GraphCache(type(self).__name__, dev)
+            self._graphs.cost_modules = [self]
         self._graphs.watch(self.parameters())
         return self._graphs
 

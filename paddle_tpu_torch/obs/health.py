@@ -8,8 +8,7 @@ see a straggler forming, and no SLO burn rate existed to alert on. The
 Ascend field study (PAPERS.md) is blunt that accelerator fleets die
 without *continuous* utilization telemetry and per-worker health
 attribution. This module is that plane's storage + derivation half
-(JAX's ``obs/alerts.py`` is the rules half; the port has not taken it
-yet, ROADMAP A.8):
+(``obs/alerts.py`` is the rules half):
 
 * :class:`TimeSeriesStore` — a bounded ring of timestamped samples per
   ``worker|metric|labels`` series. Memory is bounded twice (``max_points``

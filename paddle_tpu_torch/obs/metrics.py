@@ -1,7 +1,6 @@
 """Typed metrics: Counter / Gauge / Histogram behind a registry — a copy of
-``paddle_tpu/obs/metrics.py``. The port has the registry only: the obs
-session plane that mirrors it (spans, sessions, exporters, the ``L005``
-lint) waits for ROADMAP A.8.
+``paddle_tpu/obs/metrics.py``, the registry an ``ObsSession`` records
+into.
 
 The reference's only numeric observability is the ``StatSet`` timer table
 (paddle/utils/Stat.h) — unlabeled, untyped, print-only. This module is the

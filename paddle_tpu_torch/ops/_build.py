@@ -11,7 +11,8 @@ header is compiled, so a build takes seconds. The link names no
 The library lands in ``paddle_tpu_torch/_build/<hash>/`` (listed in
 ``.gitignore``), keyed by a hash of the sources and flags: the first call
 after a change builds, later calls load. The build runs at first use,
-never at import, so the package imports where there is no ``nvcc``.
+never at import, so the package imports where there is no ``nvcc``. The
+first load's seconds go to an open goodput ledger's ``compile`` bucket.
 """
 
 from __future__ import annotations
@@ -111,8 +112,13 @@ def load() -> Build:
     global _loaded
     with _lock:
         if _loaded is None:
+            import time
+            t0 = time.perf_counter()
             build = native_build.build_and_load(
                 BUILD_ROOT / source_hash(), LIB_NAME, _compile)
+            # a first-use build is compile time to an open goodput ledger
+            from paddle_tpu_torch.obs import goodput
+            goodput.note_compile(time.perf_counter() - t0)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(build.lib, name)
                 fn.argtypes = argtypes

@@ -70,6 +70,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from ..obs.xplane import current_stamp, site_range
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,6 +118,29 @@ def reset_launch_counts() -> None:
     ROUTES.clear()
 
 
+def _opaque(plain):
+    """A kernel's plain version that a roofline cost count does not see
+    (``obs.roofline.opaque``): the kernel counts as zero FLOPs and bytes
+    there, as a Pallas custom call does in XLA's analysis, and its wrapper
+    adds the registered byte model instead."""
+    import functools
+
+    @functools.wraps(plain)
+    def run(*args, **kwargs):
+        from ..obs.roofline import opaque
+        with opaque():
+            return plain(*args, **kwargs)
+    return run
+
+
+def _count_kernel_route(kernel: str, route: str) -> None:
+    """``kernels.routes_total`` for a decode read, in JAX's labels
+    ("kernel", or "dense" where the plain version runs)."""
+    from .. import obs
+    obs.count("kernels.routes_total", kernel=kernel,
+              route="dense" if route == "plain" else route)
+
+
 def _route(route: Optional[str], *tensors: torch.Tensor) -> str:
     """"kernel" for CUDA tensors, "plain" for CPU tensors or when asked."""
     if route not in (None, "plain"):
@@ -154,6 +178,7 @@ def _raise_on(err: int, what: str) -> None:
 # flash attention forward (replaces _fa_fwd_kernel)
 # ---------------------------------------------------------------------------
 
+@_opaque
 def flash_attention_fwd_plain(q, k, v, *, causal: bool, scale: float,
                               kv_lens: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -358,6 +383,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # flash attention backward (replaces _fa_bwd_dq_kernel, _fa_bwd_dkv_kernel)
 # ---------------------------------------------------------------------------
 
+@_opaque
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool,
                               scale: float,
                               kv_lens: Optional[torch.Tensor] = None,
@@ -529,10 +555,16 @@ class _FlashAttention(torch.autograd.Function):
                                      kv_lens=kv_lens, route=route)
         ctx.save_for_backward(q, k, v, o, lse, kv_lens)
         ctx.causal, ctx.scale, ctx.route = causal, scale, route
+        ctx.stamp = current_stamp()
         return o
 
     @staticmethod
     def backward(ctx, do):
+        with site_range(ctx.stamp):
+            return _FlashAttention._backward(ctx, do)
+
+    @staticmethod
+    def _backward(ctx, do):
         q, k, v, o, lse, kv_lens = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal, scale=ctx.scale,
@@ -584,6 +616,7 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+@_opaque
 def decode_attention_plain(q, k, v, pos, *, scale: float,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None
@@ -615,6 +648,7 @@ def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return g.reshape((B, NB * pool.shape[1]) + tuple(pool.shape[2:]))
 
 
+@_opaque
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos, *,
                                  scale: float,
                                  k_scale: Optional[torch.Tensor] = None,
@@ -844,9 +878,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits the read into :func:`decode_splits`'s chunks."""
     scale_v = scale if scale is not None else q.shape[-1] ** -0.5
     extra = _scales(k_scale, v_scale)
-    if _route(route, q, k, v, pos, *extra) == "plain":
+    taken = _route(route, q, k, v, pos, *extra)
+    _count_kernel_route("decode_attention", taken)
+    if taken == "plain":
         return decode_attention_plain(q, k, v, pos, scale=scale_v,
                                       k_scale=k_scale, v_scale=v_scale)
+    from .. import obs
+    if obs.is_active():
+        obs.roofline.note_kernel_bytes(
+            "decode_attention", obs.roofline.kernel_cost(
+                "decode_attention", batch=q.shape[0], read=k.shape[1],
+                n_heads=q.shape[1], d_head=q.shape[2],
+                kv_dtype="int8" if k_scale is not None else None,
+                itemsize=k.element_size()))
     return decode_by_route(
         q, (k, v), lambda q, kv: _decode_attention_kernel(
             q, *kv, pos, scale_v, k_scale, v_scale),
@@ -929,7 +973,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     over ``gather_pages`` of the same pools bit for bit."""
     scale_v = scale if scale is not None else q.shape[-1] ** -0.5
     extra = _scales(k_scale, v_scale)
-    if _route(route, q, k_pool, v_pool, tables, pos, *extra) == "plain":
+    taken = _route(route, q, k_pool, v_pool, tables, pos, *extra)
+    _count_kernel_route("paged_decode_attention", taken)
+    if taken == "plain":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                                             scale=scale_v, k_scale=k_scale,
                                             v_scale=v_scale)
@@ -938,3 +984,59 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             q, *kv, tables, pos, scale_v, k_scale, v_scale),
         "paged_decode_attention_q" if k_scale is not None
         else "paged_decode_attention")
+
+
+# ---------------------------------------------------------------------------
+# Roofline cost models — the kernels are opaque to the meta-tensor cost count
+# (obs/roofline.py), as Pallas custom calls are to XLA's: each registers the
+# analytic HBM bytes of one launch with the obs cost ledger, JAX's models
+# (ops/pallas_kernels.py:1386-1450 of the JAX package) copied, so the two
+# packages' gauges follow one method. ops/rnn_kernels.py registers the
+# recurrences'.
+# ---------------------------------------------------------------------------
+
+def _decode_attention_bytes(*, batch, read, n_heads, d_head, layers=1,
+                            kv_dtype=None, itemsize=2, steps=1):
+    """HBM bytes of ``steps`` decode_attention launches: k+v live cache
+    rows stream once per step (int8 rows read 1 byte/element plus one f32
+    scale per (row, head))."""
+    row = n_heads * (d_head + 4 if kv_dtype == "int8"
+                     else d_head * itemsize)
+    return 2.0 * batch * read * row * layers * steps
+
+
+def _paged_decode_attention_bytes(*, batch, pages, page_block, n_heads,
+                                  d_head, layers=1, kv_dtype=None,
+                                  itemsize=2, steps=1):
+    """HBM bytes of ``steps`` paged reads: each sample streams its
+    ``pages`` live pages (``page_block`` rows each) once per step."""
+    return _decode_attention_bytes(batch=batch, read=pages * page_block,
+                                   n_heads=n_heads, d_head=d_head,
+                                   layers=layers, kv_dtype=kv_dtype,
+                                   itemsize=itemsize, steps=steps)
+
+
+def _paged_prefill_attention_bytes(*, batch, pages, page_block, n_heads,
+                                   d_head, layers=1, kv_dtype=None,
+                                   itemsize=2):
+    """HBM bytes of one prefix-hit admission: each sample's read view
+    gathers its ``pages`` table-named pages once per layer (the paged
+    decode read's shape at steps=1)."""
+    return _paged_decode_attention_bytes(batch=batch, pages=pages,
+                                         page_block=page_block,
+                                         n_heads=n_heads, d_head=d_head,
+                                         layers=layers, kv_dtype=kv_dtype,
+                                         itemsize=itemsize, steps=1)
+
+
+def _register_cost_models():
+    from ..obs import roofline
+    roofline.register_kernel_cost("decode_attention",
+                                  _decode_attention_bytes)
+    roofline.register_kernel_cost("paged_decode_attention",
+                                  _paged_decode_attention_bytes)
+    roofline.register_kernel_cost("paged_prefill_attention",
+                                  _paged_prefill_attention_bytes)
+
+
+_register_cost_models()

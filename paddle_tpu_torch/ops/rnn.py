@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.lod import sequence_mask
+from ..obs.xplane import current_stamp, site_range
 from .rnn_kernels import (count_route, gru_sequence_fused,
                           gru_sequence_fused_bwd, lstm_sequence_fused,
                           lstm_sequence_fused_bwd, route_for)
@@ -146,10 +147,16 @@ class _LSTMFused(torch.autograd.Function):
             route=route, plan=plans[0])
         ctx.save_for_backward(x, lens, w, u, b, h0, c0, xw, out, c_seq)
         ctx.forget_bias, ctx.route, ctx.bwd = forget_bias, route, plans[1]
+        ctx.stamp = current_stamp()
         return out, h_t, c_t
 
     @staticmethod
     def backward(ctx, g_out, g_ht, g_ct):
+        with site_range(ctx.stamp):
+            return _LSTMFused._backward(ctx, g_out, g_ht, g_ct)
+
+    @staticmethod
+    def _backward(ctx, g_out, g_ht, g_ct):
         x, lens, w, u, b, h0, c0, xw, out, c_seq = ctx.saved_tensors
         if ctx.bwd is not None and ctx.bwd.kind == "scan":
             count_route("lstm_seq_bwd", "scan")
@@ -199,6 +206,23 @@ def _plans(fwd_name: str, bwd_name: str, xk, H, route, training):
     return fwd, bwd
 
 
+def _note_route(kernel: str, fwd, B: int, T: int, H: int, x) -> None:
+    """``kernels.routes_total`` for a fused call (JAX's labels: "fused"
+    where the kernel runs, "scan" where the plain recurrence does) and,
+    on the kernel route, the launch's modeled bytes through the one
+    registered model (``kernels.bytes_total``)."""
+    from .. import obs
+    if not obs.is_active():
+        return
+    fused = fwd is not None and fwd.kind != "scan"
+    obs.count("kernels.routes_total", kernel=kernel,
+              route="fused" if fused else "scan")
+    if fused:
+        obs.roofline.note_kernel_bytes(kernel, obs.roofline.kernel_cost(
+            kernel, batch=B, seq_len=T, hidden=H,
+            itemsize=x.element_size()))
+
+
 def lstm(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
          u: torch.Tensor, b: Optional[torch.Tensor] = None,
          h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None,
@@ -217,6 +241,7 @@ def lstm(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
     training = _training(x, w, u, *(t for t in (b, h0, c0) if t is not None))
     fwd, bwd = _plans("lstm_seq_train" if training else "lstm_seq",
                       "lstm_seq_bwd", x, H, route, training)
+    _note_route("lstm_sequence_fused", fwd, B, T, H, x)
     if fwd is not None and fwd.kind == "scan":
         count_route("lstm_seq_train" if training else "lstm_seq", "scan")
         if training:
@@ -268,10 +293,16 @@ class _GRUFused(torch.autograd.Function):
                                       plan=plans[0])
         ctx.save_for_backward(x, lens, w, u, b, h0, xw, out)
         ctx.route, ctx.bwd = route, plans[1]
+        ctx.stamp = current_stamp()
         return out, h_t
 
     @staticmethod
     def backward(ctx, g_out, g_ht):
+        with site_range(ctx.stamp):
+            return _GRUFused._backward(ctx, g_out, g_ht)
+
+    @staticmethod
+    def _backward(ctx, g_out, g_ht):
         x, lens, w, u, b, h0, xw, out = ctx.saved_tensors
         if ctx.bwd is not None and ctx.bwd.kind == "scan":
             count_route("gru_seq_bwd", "scan")
@@ -313,6 +344,8 @@ def gru(x: torch.Tensor, lengths: Optional[torch.Tensor], w: torch.Tensor,
         x, w, u, *(t for t in (b, h0) if t is not None))
     fwd, bwd = (_plans("gru_seq", "gru_seq_bwd", x, H, route, training)
                 if fused else (None, None))
+    if fused:
+        _note_route("gru_sequence_fused", fwd, B, T, H, x)
     if fwd is not None and fwd.kind == "scan":
         count_route("gru_seq", "scan")
         if training:

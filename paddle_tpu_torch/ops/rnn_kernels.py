@@ -69,6 +69,7 @@ import torch
 
 from . import _build
 from .cuda_kernels import (LAUNCHES, ROUTES, _DTYPE_CODE, _check_float,
+                           _opaque,
                            _raise_on, _route, _stream)
 
 #: the kernels give each block a multiple of this many hidden units: H
@@ -428,6 +429,7 @@ def _defaults(xw, lengths, u, b, h0, c0):
 # forward (replaces _lstm_seq_kernel and _lstm_seq_train_kernel)
 # ---------------------------------------------------------------------------
 
+@_opaque
 def lstm_sequence_fused_plain(xw, lengths, u, b, h0, c0, *,
                               forget_bias: float, save_cell: bool):
     """The op order of ``_lstm_seq_kernel`` / ``_lstm_seq_train_kernel``
@@ -590,6 +592,7 @@ def lstm_sequence_fused(xw: torch.Tensor, lengths: torch.Tensor,
 # backward (replaces _lstm_seq_bwd_kernel)
 # ---------------------------------------------------------------------------
 
+@_opaque
 def lstm_sequence_fused_bwd_plain(xw, lengths, u, b, h0, c0, out_seq, c_seq,
                                   g_out, g_ht, g_ct, *, forget_bias: float):
     """The op order of ``_lstm_seq_bwd_kernel``: gates recomputed from xw
@@ -748,6 +751,7 @@ def _gru_gates(xw_t, h, u32, H):
     return z, r, rh, c
 
 
+@_opaque
 def gru_sequence_fused_plain(xw, lengths, u, h0):
     """The op order of ``_gru_seq_kernel`` over [B, T, 3H] tensors (the
     bias already added to xw): (out [B, T, H], hT [B, H]) in xw's dtype,
@@ -860,6 +864,7 @@ def gru_sequence_fused(xw: torch.Tensor, lengths: torch.Tensor,
 # GRU backward (replaces _gru_seq_bwd_kernel)
 # ---------------------------------------------------------------------------
 
+@_opaque
 def gru_sequence_fused_bwd_plain(xw, lengths, u, h0, out_seq, g_out, g_ht):
     """The op order of ``_gru_seq_bwd_kernel``: gates recomputed from xw
     and h_{t-1} = the saved masked output (h0 at t = 0) in f32, the
@@ -974,3 +979,30 @@ def gru_sequence_fused_bwd(xw, lengths, u, h0, out_seq, g_out, g_ht, *,
 
     du = _tiled_bwd(rt, [xw, lengths, h0, out_seq, g_out, g_ht], outs, run)
     return outs + (du,)
+
+
+# the recurrences' roofline byte model (JAX's ``_lstm_sequence_fused_bytes``,
+# registered for lstm_sequence_fused and, with three gates,
+# gru_sequence_fused): opaque to the meta-tensor cost count, as a Pallas
+# custom call is to XLA's
+
+def _lstm_sequence_fused_bytes(*, batch, seq_len, hidden, itemsize=4,
+                               gates=4):
+    """HBM bytes of one fused-RNN forward launch: the [B, T, G*H] gate
+    input streams in once, [B, T, H] outputs stream out, the recurrent
+    [H, G*H] weights load once."""
+    return float(itemsize) * (batch * seq_len * hidden * gates      # xw in
+                              + batch * seq_len * hidden            # out
+                              + hidden * hidden * gates)            # U
+
+
+def _register_cost_models():
+    from ..obs import roofline
+    roofline.register_kernel_cost("lstm_sequence_fused",
+                                  _lstm_sequence_fused_bytes)
+    roofline.register_kernel_cost(
+        "gru_sequence_fused",
+        functools.partial(_lstm_sequence_fused_bytes, gates=3))
+
+
+_register_cost_models()

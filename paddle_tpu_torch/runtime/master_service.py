@@ -6,11 +6,11 @@ The frames are JAX's byte for byte (a 4-byte little-endian length, then
 JSON), so a client of either package talks to a server of the other.
 Left out until their modules are ported (ROADMAP A.8): master election
 and fenced snapshots (JAX's ``lease=``, ``snapshot_path=`` and
-``snapshot_store=``, over ``runtime/lease.py`` and ``runtime/coord.py``),
-and the obs calls (the ``master.*`` and ``rpc.*`` counters, the
-``master.dispatch`` and ``rpc.call`` spans, the retry observer and the
-wire trace context). The server's ``ClusterAggregator`` is the port's
-(``obs/aggregate.py``).
+``snapshot_store=``, over ``runtime/lease.py`` and ``runtime/coord.py``).
+The obs calls are JAX's: the ``master.*`` and ``rpc.*`` counters, the
+``master.dispatch`` span parented on the client's ``rpc.call`` span
+through the wire trace context, and the retry observer. The server's
+``ClusterAggregator`` is the port's (``obs/aggregate.py``).
 
 Like JAX's, it re-provides the reference's distributed data-dispatch
 plane:
@@ -39,7 +39,7 @@ import threading
 import time
 from typing import List, Optional, Tuple
 
-from .. import faults
+from .. import faults, obs
 from ..utils.retry import RetryBudgetExceeded, RetryPolicy
 from .master import TaskMaster
 
@@ -274,6 +274,26 @@ class MasterServer:
             return self._srv_h is not None and self._lib is not None
 
     def _dispatch(self, req):
+        op = str(req.get("op"))
+        label = op if op in self._known_ops else "unknown"
+        obs.count("master.requests_total", type=label)
+        # server-side span parented on the client's rpc.call via the wire
+        # context — the cross-process edge the merged Chrome trace stitches
+        try:
+            with obs.server_span("master.dispatch", req.get("trace"), op=op):
+                resp = self._dispatch_op(req)
+        except Exception:
+            # a malformed request (missing field, bad type) is exactly
+            # what the error counter exists to surface
+            obs.count("master.request_errors_total", type=label)
+            raise
+        # key on the error field, not ok alone: new_pass answers
+        # {"ok": false} with no error when the pass simply isn't finished
+        if resp.get("error") is not None:
+            obs.count("master.request_errors_total", type=label)
+        return resp
+
+    def _dispatch_op(self, req):
         op = req.get("op")
         ext = self._ext_ops.get(op)
         if ext is not None:
@@ -286,15 +306,19 @@ class MasterServer:
             return {"ok": True, "workers": self.aggregator.workers(),
                     "samples": self.aggregator.merged_samples()}
         if op == "obs_health":
-            # the derived per-worker health and the committed actions;
-            # JAX's alerts and request timelines wait for obs/alerts.py
-            # and obs/requests.py (ROADMAP A.8)
+            # the fleet health plane's read surface: derived per-worker
+            # health, live alerts, and the bounded transition log
+            # (obs/health.py, obs/alerts.py)
             agg = self.aggregator
             agg.maybe_evaluate()
             return {"ok": True, "health": agg.health_snapshot(),
-                    "active": [], "events": [],
+                    "active": agg.alerts.active(),
+                    "events": agg.alerts.recent_events(),
                     "actions": agg.recent_actions(),
-                    "requests": [], "exemplars": []}
+                    # raw request-timeline legs + slow exemplars (obs/
+                    # requests.py): obs trace / obs serve stitch them
+                    "requests": agg.requests.export_legs(),
+                    "exemplars": agg.requests.exemplars()}
         if op == "set_dataset":
             self.master.set_dataset(req["payloads"])
             return {"ok": True}
@@ -348,6 +372,11 @@ class _RpcClient:
         self.policy = retry_policy or RetryPolicy(
             max_attempts=retries, base_delay=retry_delay, multiplier=2.0,
             max_delay=2.0, jitter=0.25)
+        if retry_policy is None:
+            # retry telemetry (rpc.retries_total / giveups / backoff) — a
+            # no-op callable until an ObsSession is installed; a caller's
+            # policy is never mutated
+            self.policy.observer = obs.retry_observer("rpc")
         self._sock: Optional[socket.socket] = None
         self._lock = threading.Lock()
         #: last membership epoch seen in ANY reply (None until one carries
@@ -423,7 +452,21 @@ class _RpcClient:
         return resp
 
     def _call(self, req):
-        with self._lock:
+        # span + latency histogram cover the whole call incl. retries —
+        # what the caller experienced, not one socket round trip
+        with self._lock, \
+                obs.span("rpc.call", metric="rpc.call_seconds",
+                         metric_labels={"rpc": self._rpc_name},
+                         rpc=self._rpc_name, op=req.get("op")) as sp:
+            obs.count("rpc.calls_total", rpc=self._rpc_name,
+                      op=str(req.get("op")))
+            # distributed tracing: stamp this span's identity into the
+            # envelope so the server parents its dispatch span on it. None
+            # when no session is installed — the wire bytes then stay
+            # identical to an un-instrumented client's (obs/context.py)
+            ctx = obs.wire_context(sp)
+            if ctx is not None:
+                req = dict(req, trace=ctx)
             try:
                 return self.policy.call(
                     self._call_once, req,
@@ -512,8 +555,7 @@ class MasterClient(_RpcClient):
         derived health, "active": firing alerts, "events": recent alert
         transitions, "actions": committed autoscale actions, "requests":
         raw request-timeline legs, "exemplars": the slowest-K stitched
-        timelines}``; a port server answers the alert and request fields
-        empty (ROADMAP A.8)."""
+        timelines}``."""
         r = self._call({"op": "obs_health"})
         if not r.get("ok"):
             raise ConnectionError(

@@ -1,11 +1,9 @@
 """Cluster membership — heartbeat-leased worker registration on the master.
 
-A copy of ``paddle_tpu/runtime/membership.py`` over the port's master
-server (``runtime/master_service.py``). The obs counters and gauges of
-JAX's copy (``cluster.*``) are left out until the port has the session
-plane (ROADMAP A.8); the history series the autoscale hook records are
-kept.
 
+A copy of ``paddle_tpu/runtime/membership.py`` over the port's master
+server (``runtime/master_service.py``), with its ``cluster.*`` counters
+and gauges.
 The reference registers trainers/pservers in etcd (go/pserver/etcd_client.go
 slot registration under a TTL lease; doc/design/cluster_train/README.md
 "trainers are stateless consumers") but its master still assumed a FIXED
@@ -56,7 +54,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from .. import faults
+from .. import faults, obs
 from ..utils.logging import get_logger
 from ..utils.retry import RetryPolicy
 from .master_service import (CODE_STALE_EPOCH, CODE_STALE_MEMBER,
@@ -206,6 +204,9 @@ class MembershipService:
                                             caps, now)
             self._bump_locked()
             epoch = self.epoch
+        obs.count("cluster.joins_total")
+        if replaced:
+            obs.count("cluster.leaves_total", reason="replaced")
         log.info("member %s joined (token %d) -> epoch %d%s", worker, token,
                  epoch, " [replaced live incarnation]" if replaced else "")
         self._notify(joined=[worker], left=[worker] if replaced else [],
@@ -228,6 +229,7 @@ class MembershipService:
                             f"{m.token} (a newer incarnation joined)",
                             epoch=self.epoch)
             m.deadline = self._clock() + self.ttl
+        obs.count("cluster.heartbeats_total")
         # feed the fleet health plane: heartbeat ARRIVAL times are the
         # jitter detector's raw signal (obs/health.py)
         h = self._fleet_health()
@@ -247,6 +249,7 @@ class MembershipService:
             del self._members[worker]
             self._bump_locked()
         self._forget_worker(worker)
+        obs.count("cluster.leaves_total", reason="graceful")
         log.info("member %s left gracefully -> epoch %d", worker, self.epoch)
         self._notify(joined=[], left=[worker], reason="leave")
         return None
@@ -263,6 +266,7 @@ class MembershipService:
                 self._bump_locked()
         for w in dead:
             self._forget_worker(w)
+            obs.count("cluster.leaves_total", reason="evicted")
             log.warning("member %s missed its heartbeat window (ttl %.1fs): "
                         "evicted -> epoch %d", w, self.ttl, self.epoch)
         if dead:
@@ -292,12 +296,15 @@ class MembershipService:
             cur = self.epoch
         if req_epoch is None or int(req_epoch) == cur:
             return None
+        obs.count("cluster.stale_rpcs_total", code=CODE_STALE_EPOCH)
         return _err(CODE_STALE_EPOCH,
                     f"request epoch {req_epoch} != current {cur} "
                     "(membership changed; resync and retry)", epoch=cur)
 
     def _bump_locked(self) -> None:
         self.epoch += 1
+        obs.gauge_set("cluster.epoch", float(self.epoch))
+        obs.gauge_set("cluster.members", float(len(self._members)))
 
     def _notify(self, **kw) -> None:
         view = self.view()
@@ -335,6 +342,9 @@ class MembershipService:
         err = self.heartbeat(str(req.get("worker", "")),
                              req.get("member_token"))
         if err is not None:
+            for code in (CODE_UNKNOWN_MEMBER, CODE_STALE_MEMBER):
+                if err.get("code") == code:
+                    obs.count("cluster.stale_rpcs_total", code=code)
             return err
         with self._lock:
             return {"ok": True, "epoch": self.epoch}
@@ -406,9 +416,11 @@ class MembershipService:
             registered = self._actor
             epoch = self.epoch
         if registered is None or registered[0] != actor:
+            obs.count("cluster.stale_rpcs_total", code=CODE_UNKNOWN_MEMBER)
             return _err(CODE_UNKNOWN_MEMBER,
                         f"actor {actor!r} is not registered", epoch=epoch)
         if registered[1] != token:
+            obs.count("cluster.stale_rpcs_total", code=CODE_STALE_MEMBER)
             return _err(CODE_STALE_MEMBER,
                         f"actor {actor!r} token {token} superseded by a "
                         f"newer registration", epoch=epoch)
@@ -529,15 +541,18 @@ def autoscale_recommendation(*, members: int, todo: int, pending: int,
 def _record_autoscale(history, out: Dict[str, Any], now) -> list:
     """Record this evaluation's inputs + tentative signal into the
     master-side history series; returns the signal points (incl. this
-    one, oldest first)."""
+    one, oldest first). Emits the matching gauges so the flap debugging
+    series is visible in every export."""
     from ..obs.health import MASTER_WORKER
     signal = _SIGNAL[out["action"]]
     bpw = out.get("backlog_per_worker")
     if bpw is not None:
         history.record_value(MASTER_WORKER, "cluster.backlog_per_worker",
                              float(bpw), ts=now)
+        obs.gauge_set("cluster.backlog_per_worker", float(bpw))
     history.record_value(MASTER_WORKER, "cluster.autoscale_signal",
                          signal, ts=now)
+    obs.gauge_set("cluster.autoscale_signal", signal)
     return history.points(MASTER_WORKER, "cluster.autoscale_signal",
                           now=now)
 

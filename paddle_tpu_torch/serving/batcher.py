@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.graphs import GraphCache
 from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
@@ -247,6 +248,8 @@ class ContinuousBatcher:
             cell, cur, block = self.graphs.run(
                 "segment", self._segment_body, {"cell": cell, "cur": cur},
                 static={"cache_len": cache_len}, donate=("cell", "cur"))
+            # one dispatch serves `segment` tokens across every live slot
+            obs.count("decode.dispatches_total", route="serve_segment")
             block = block.cpu().numpy()
             self.segments_total += 1
             self.segments_by_len[cache_len] = \
@@ -257,6 +260,7 @@ class ContinuousBatcher:
                     continue
                 take, done, _ = clip_emission(block[i], s.left, s.req.eos_id)
                 s.out.extend(int(t) for t in take)
+                obs.count("decode.tokens_total", len(take), route="serve")
                 s.left -= len(take)
                 if done:
                     results[s.req.rid] = np.asarray(s.out, np.int32)
@@ -347,6 +351,7 @@ class SpeculativeDecoder:
         dev = self.model.device
         ids = torch.from_numpy(prompt).to(dev)
         cell, last = self.model.prefill(ids)
+        obs.count("decode.dispatches_total", route="spec_prefill")
         cur = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
         dcell, _ = (self.draft.prefill(ids, kv_dtype=self.draft_kv_dtype)
                     if self.draft_kv_dtype is not None
@@ -365,6 +370,12 @@ class SpeculativeDecoder:
                  "pos": torch.from_numpy(pos.astype(np.int32)),
                  "cur": torch.from_numpy(cur)},
                 donate=("cell", "dcell"))
+            # the round's graph holds JAX's k draft dispatches and its
+            # verify: counted under JAX's routes, so the counts agree
+            if self.k > 1:
+                obs.count("decode.dispatches_total", self.k,
+                          route="spec_draft")
+            obs.count("decode.dispatches_total", route="spec_verify")
             out = out.cpu().numpy()
             t_np, props_np = out[:, :self.k], out[:, self.k:]
             next_cur = cur.copy()
@@ -381,6 +392,9 @@ class SpeculativeDecoder:
                 accepted += m
             cur = next_cur
             rounds += 1
+        obs.count("decode.spec_proposed_total", proposed)
+        obs.count("decode.spec_accepted_total", accepted)
+        obs.count("decode.tokens_total", B * steps, route="spec")
         out = np.asarray([e[:steps] for e in emitted], np.int32)
         return out, {"rounds": rounds, "proposed": proposed,
                      "accepted": accepted,

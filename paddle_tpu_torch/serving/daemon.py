@@ -3,11 +3,12 @@ counterpart of ``paddle_tpu/serving/daemon.py``: the same ops, the same
 JSON frames and the same structured refusals, so a client of either
 package drives a daemon of the other.
 
-Left out until the port has the obs session plane (ROADMAP A.8): the
-telemetry push of the engine's registry into the master-side aggregator,
-the engine's SLO alert rules, request timelines (``srv_requests``
-answers an empty list, as JAX's does with the obs plane off), and the
-obs counters and spans of JAX's copy.
+With an obs session installed, the engine's registry and request
+timelines are pushed into the master-side aggregator every
+``obs_interval_s`` (worker label ``serving``), the engine's SLO alert
+rules join the aggregator's, ``srv_requests`` answers the process's
+recent request timelines, and the handlers open JAX's server spans
+(``srv_ship``, ``srv_adopt``) and count its ``serving.*`` refusals.
 
 The daemon is a :class:`~paddle_tpu_torch.runtime.master_service.MasterServer`
 whose control plane grew three ops (``register_op`` — they ride the
@@ -25,7 +26,10 @@ their payloads):
 * ``srv_cancel {rid}`` -> frees the request's slot and pages at the next
   segment boundary.
 
-``srv_stats`` rides along for load visibility.
+``srv_stats`` rides along for load visibility, and the engine's metric
+registry is pushed into the master-side ClusterAggregator (worker label
+``serving``) so ``obs_stats`` / ``python -m paddle_tpu_torch obs serve --master``
+expose the TTFT/TPOT histograms exactly like any worker's metrics.
 
 Disaggregation (docs/design/serving.md "Disaggregation & routing") adds
 two more ops plus a second daemon flavor:
@@ -56,7 +60,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .. import faults
+from .. import faults, obs
 from ..runtime.master_service import MasterServer, _RpcClient
 from ..runtime.membership import HeartbeatKeeper, MembershipClient
 from ..utils.retry import RetryPolicy
@@ -132,6 +136,19 @@ class _RouterMember:
         return handler
 
 
+def _export_requests(req) -> list:
+    """Wire body of the ``srv_requests`` op: this process's recent
+    request timelines (empty when the obs plane is off)."""
+    led = obs.request_ledger()
+    if led is None:
+        return []
+    try:
+        n = int(req.get("n", 128))
+    except (TypeError, ValueError):
+        n = 128
+    return led.export(n=max(1, min(n, 1024)))
+
+
 class ServingDaemon(_RouterMember):
     """Long-lived serving process: engine + RPC surface + telemetry push.
 
@@ -143,7 +160,7 @@ class ServingDaemon(_RouterMember):
     (in-process tests)."""
 
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, *, obs_interval_s: float = 1.0):
         self.engine = engine
         self.server = MasterServer(host, port)
         for op, fn in (("srv_submit", self._srv_submit),
@@ -154,7 +171,17 @@ class ServingDaemon(_RouterMember):
                        ("srv_ship_pages", self._srv_ship_pages),
                        ("srv_adopt_pages", self._srv_adopt_pages)):
             self.server.register_op(op, self._stamped(fn))
+        # the engine's SLO burn-rate defaults join the aggregator's rule
+        # set, so the daemon's own TTFT/TPOT pushes are alertable at the
+        # engine's configured targets (obs serve /alerts, obs_health)
+        self.server.aggregator.alerts.add_rules(self.engine.alert_rules())
+        # per-request timeline capture is always-on whenever the obs
+        # plane is (no-op otherwise): engine phases key on submit_key
+        obs.ensure_request_ledger()
+        self._obs_interval = obs_interval_s
+        self._stop = threading.Event()
         self._draining = threading.Event()
+        self._obs_thread: Optional[threading.Thread] = None
         # submit idempotency: srv_submit rides the transport's at-least-
         # once retry, so a lost REPLY must not duplicate the admission —
         # replays of a client's submit_key return the original rid
@@ -171,6 +198,9 @@ class ServingDaemon(_RouterMember):
     def start(self) -> "ServingDaemon":
         self.engine.start()
         self.server.start()
+        self._obs_thread = threading.Thread(target=self._push_obs,
+                                            daemon=True, name="serving-obs")
+        self._obs_thread.start()
         return self
 
     def stop(self, drain_s: float = 0.0) -> None:
@@ -203,9 +233,35 @@ class ServingDaemon(_RouterMember):
                         and self.server.active_connections() == 0:
                     break
                 time.sleep(0.05)
+        self._stop.set()
         self._leave_router()
+        if self._obs_thread is not None:
+            self._obs_thread.join(timeout=5.0)
+            self._obs_thread = None
         self.server.stop()
         self.engine.stop()
+
+    # -- telemetry ---------------------------------------------------------
+    def _push_obs(self) -> None:
+        """Push the installed session's registry into the in-process
+        aggregator under worker="serving" — the same snapshots a remote
+        worker would obs_push, without a loopback RPC."""
+        from ..obs.aggregate import wire_safe_samples
+        while not self._stop.wait(self._obs_interval):
+            s = obs.session()
+            if s is None:
+                continue
+            try:
+                self.server.aggregator.push(
+                    "serving", wire_safe_samples(s.registry.collect()))
+                led = obs.request_ledger()
+                if led is not None:
+                    # same loopback: request timelines join the local
+                    # aggregator's store for obs_health / /requests
+                    self.server.aggregator.push_requests(
+                        "serving", led.export(n=256))
+            except Exception:
+                pass    # telemetry must never take the daemon down
 
     # -- op handlers (RPC fallback threads) --------------------------------
     def _srv_submit(self, req):
@@ -232,6 +288,8 @@ class ServingDaemon(_RouterMember):
                 err = prefix_resubmission_error(req.get("prefix_len"),
                                                 seen.get("_prefix_len"))
                 if err is not None:
+                    obs.count("serving.rejected_total",
+                              reason="replay_prefix")
                     return {"ok": False, "error": err,
                             "code": "invalid_argument"}
                 return {k: v for k, v in seen.items()
@@ -253,6 +311,7 @@ class ServingDaemon(_RouterMember):
     def _refuse_draining(self):
         # shutdown gate: new work is refused structured (clients back
         # off / fail over) so the drain window can actually drain
+        obs.count("serving.rejected_total", reason="draining")
         return {"ok": False, "error": "overloaded: daemon is draining "
                 "for shutdown", "code": "overloaded",
                 "retry_after_s": 2.0}
@@ -264,12 +323,14 @@ class ServingDaemon(_RouterMember):
             eos = req.get("eos_id")
             timeout = req.get("timeout_s")
             prefix = req.get("prefix_len")
+            skey = req.get("submit_key")
             rid = self.engine.submit(
                 prompt, max_new, eos_id=None if eos is None else int(eos),
                 timeout_s=None if timeout is None else float(timeout),
                 tenant=str(req.get("tenant", "default")),
                 slo=str(req.get("slo", "interactive")),
-                prefix_len=None if prefix is None else int(prefix))
+                prefix_len=None if prefix is None else int(prefix),
+                submit_key=None if skey is None else str(skey))
         except Overloaded as e:
             return {"ok": False, "error": f"overloaded: {e}",
                     "code": "overloaded", "retry_after_s": e.retry_after_s}
@@ -310,9 +371,10 @@ class ServingDaemon(_RouterMember):
         return {"ok": True, **stats}
 
     def _srv_requests(self, req):
-        # recent request timelines: none without the obs plane's request
-        # ledger (ROADMAP A.8), as JAX's daemon answers with it off
-        return {"ok": True, "requests": []}
+        # the router's scrape pump pulls recent request timelines here so
+        # a kill -9'd worker's phases survive on the router's store —
+        # re-route stitching depends on it (obs/requests.py)
+        return {"ok": True, "requests": _export_requests(req)}
 
     # -- disaggregation receive side (KV-page adoption) --------------------
     def _srv_ship_pages(self, req):
@@ -324,7 +386,8 @@ class ServingDaemon(_RouterMember):
                     "error": "srv_ship_pages needs xid, seq, total, "
                     "data, crc"}
         try:
-            with self._ship_lock:
+            with obs.server_span("srv_ship", req.get("trace"), xid=xid,
+                                 seq=seq), self._ship_lock:
                 asm = self._ships.get(xid)
                 if asm is None:
                     asm = _ship.ChunkAssembler(total)
@@ -334,12 +397,15 @@ class ServingDaemon(_RouterMember):
                         # sender died mid-ship or will see data_loss on
                         # adopt and re-ship
                         self._ships.popitem(last=False)
+                        obs.count("serving.adopt_refused_total",
+                                  reason="evicted")
             asm.add(seq, req.get("data", ""), req.get("crc", -1))
         except _ship.ShipError as e:
             # a damaged chunk poisons the whole shipment: drop the
             # reassembly so a retry starts clean instead of mixing eras
             with self._ship_lock:
                 self._ships.pop(xid, None)
+            obs.count("serving.adopt_refused_total", reason="chunk")
             return {"ok": False, "code": "data_loss", "error": str(e)}
         return {"ok": True}
 
@@ -350,7 +416,8 @@ class ServingDaemon(_RouterMember):
         if key is None:
             if self._draining.is_set():
                 return self._refuse_draining()
-            return self._do_adopt(req, xid)
+            with obs.server_span("srv_adopt", req.get("trace"), xid=xid):
+                return self._do_adopt(req, xid)
         with self._submit_lock:
             # same idempotency ladder as srv_submit: a replay (lost reply,
             # OR a second prefill worker re-shipping after the first died
@@ -364,7 +431,11 @@ class ServingDaemon(_RouterMember):
                         if not k.startswith("_")}
             if self._draining.is_set():
                 return self._refuse_draining()
-            resp = self._do_adopt(req, xid)
+            # the named server-side endpoint of the ship→adopt hop: the
+            # merged Chrome trace draws its flow arrow into this span
+            with obs.server_span("srv_adopt", req.get("trace"), xid=xid,
+                                 key=str(key)):
+                resp = self._do_adopt(req, xid)
             if resp.get("ok"):
                 self._submit_seen[str(key)] = dict(resp, _prefix_len=None)
                 while len(self._submit_seen) > 4096:
@@ -375,6 +446,7 @@ class ServingDaemon(_RouterMember):
         with self._ship_lock:
             asm = self._ships.get(xid)
         if asm is None:
+            obs.count("serving.adopt_refused_total", reason="no_chunks")
             return {"ok": False, "code": "data_loss",
                     "error": f"adopt {xid!r}: no shipped chunks held here "
                     "(lost, expired, or a different worker received them)"}
@@ -386,11 +458,13 @@ class ServingDaemon(_RouterMember):
         except _ship.ShipError as e:
             with self._ship_lock:
                 self._ships.pop(xid, None)
+            obs.count("serving.adopt_refused_total", reason="data_loss")
             return {"ok": False, "code": "data_loss", "error": str(e)}
         if int(manifest.get("page_block", -1)) != pool.bs or \
                 str(manifest.get("kv_dtype") or "") != (pool.kv_dtype or ""):
             with self._ship_lock:
                 self._ships.pop(xid, None)
+            obs.count("serving.adopt_refused_total", reason="geometry")
             return {"ok": False, "code": "invalid_argument",
                     "error": f"shipment geometry (page_block="
                     f"{manifest.get('page_block')}, kv_dtype="
@@ -400,6 +474,7 @@ class ServingDaemon(_RouterMember):
                     "be built alike"}
         eos = req.get("eos_id")
         timeout = req.get("timeout_s")
+        skey = req.get("submit_key")
         try:
             rid = self.engine.submit_prefilled(
                 int(manifest["plen"]), int(manifest["first"]), arrays,
@@ -407,7 +482,8 @@ class ServingDaemon(_RouterMember):
                 eos_id=None if eos is None else int(eos),
                 timeout_s=None if timeout is None else float(timeout),
                 tenant=str(req.get("tenant", "default")),
-                slo=str(req.get("slo", "interactive")))
+                slo=str(req.get("slo", "interactive")),
+                submit_key=None if skey is None else str(skey))
         except Overloaded as e:
             # keep the reassembled chunks: the sender's backoff retry
             # re-adopts without re-shipping the payload
@@ -448,6 +524,7 @@ class PrefillDaemon(_RouterMember):
                        ("srv_stats", self._srv_stats),
                        ("srv_requests", self._srv_requests)):
             self.server.register_op(op, self._stamped(fn))
+        obs.ensure_request_ledger()
         self._pool_lock = threading.Lock()
         self._busy: set = set()
         self._submit_lock = threading.Lock()
@@ -488,7 +565,7 @@ class PrefillDaemon(_RouterMember):
                 "rpc_conns": self.server.active_connections()}
 
     def _srv_requests(self, req):
-        return {"ok": True, "requests": []}
+        return {"ok": True, "requests": _export_requests(req)}
 
     def _srv_prefill(self, req):
         key = req.get("submit_key")
@@ -500,6 +577,8 @@ class PrefillDaemon(_RouterMember):
                 err = prefix_resubmission_error(req.get("prefix_len"),
                                                 seen.get("_prefix_len"))
                 if err is not None:
+                    obs.count("serving.rejected_total",
+                              reason="replay_prefix")
                     return {"ok": False, "error": err,
                             "code": "invalid_argument"}
                 return {k: v for k, v in seen.items()
@@ -531,6 +610,7 @@ class PrefillDaemon(_RouterMember):
                     str(req.get("tenant", "default")),
                     str(req.get("slo", "interactive")),
                     None if prefix is None else int(prefix))
+        t_pf = time.monotonic()
         try:
             with self._pool_lock:
                 self.pool.validate(r)
@@ -542,6 +622,7 @@ class PrefillDaemon(_RouterMember):
                         if s not in self._busy]
                 if not free or not self.pool.evict_for(plan.need_pages, 0,
                                                        protect=[plan]):
+                    obs.count("serving.rejected_total", reason="prefill")
                     return {"ok": False, "code": "overloaded",
                             "error": "overloaded: prefill pool cannot "
                             "hold the prompt right now",
@@ -560,6 +641,11 @@ class PrefillDaemon(_RouterMember):
         except (ValueError, TypeError) as e:
             return {"ok": False, "error": str(e),
                     "code": "invalid_argument"}
+        # explicit dur (this worker measured the sub-interval itself): on
+        # a shared in-process ledger a telescoped gap would mis-bill the
+        # router's forward hop to the prefill phase
+        obs.req_phase(key, "prefill", dur=time.monotonic() - t_pf,
+                      plen=int(prompt.size), hit=bool(plan.offset > 0))
         # ship + adopt OUTSIDE the pool lock: the wire hop must not
         # serialize other admissions
         client = self._decode_client(decode_host, decode_port)
@@ -573,15 +659,25 @@ class PrefillDaemon(_RouterMember):
             adopt_req["timeout_s"] = float(req["timeout_s"])
         if key is not None:
             adopt_req["submit_key"] = key
+        t_ship = time.monotonic()
         try:
-            for _seq, _total, frame in _ship.iter_chunks(payload):
-                rc = client._call(dict(frame, op="srv_ship_pages", xid=xid))
-                if not rc.get("ok"):
-                    return {"ok": False,
-                            "code": rc.get("code", "data_loss"),
-                            "error": f"decode worker refused chunk "
-                            f"{_seq}/{_total}: {rc.get('error')}"}
-            ra = client._call(adopt_req)
+            # the client-side endpoint of the ship→adopt hop: chunk and
+            # adopt RPCs nest under this span, so the merged Chrome trace
+            # reads prefill lane → flow arrow → decode lane
+            with obs.span("serving.ship", xid=xid,
+                          bytes=len(payload), key=key or ""):
+                for _seq, _total, frame in _ship.iter_chunks(payload):
+                    rc = client._call(dict(frame, op="srv_ship_pages",
+                                           xid=xid))
+                    if not rc.get("ok"):
+                        return {"ok": False,
+                                "code": rc.get("code", "data_loss"),
+                                "error": f"decode worker refused chunk "
+                                f"{_seq}/{_total}: {rc.get('error')}"}
+                obs.req_phase(key, "ship",
+                              dur=time.monotonic() - t_ship,
+                              bytes=len(payload))
+                ra = client._call(adopt_req)
         except ConnectionError as e:
             return {"ok": False, "code": "unavailable",
                     "error": f"decode worker {decode_host}:{decode_port} "

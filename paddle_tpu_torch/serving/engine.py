@@ -20,8 +20,11 @@ admission (a prompt prefilled on another worker, ``serving/ship.py``),
 which the scheduler adopts into the pool in place of a prefill; the RPC
 surface over the engine is ``serving/daemon.py``.
 
-Not ported yet (see ROADMAP.md A.8): request timelines (``submit_key``),
-``alert_rules`` and the obs metrics.
+Obs, as in JAX: ``serving.*`` and ``decode.tokens_total`` series, the
+``serving.prefill``/``serving.segment`` spans, the scheduler thread's
+goodput ledger (``component="serving"``), per-request phase timelines on
+the obs request ledger keyed by ``submit_key`` (``obs/requests.py``), and
+``alert_rules`` (the burn-rate SLO rules at this engine's targets).
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..core.place import DeviceLike
+from ..obs.goodput import maybe_bucket
 from .batcher import SLO_CLASSES, Request, clip_emission
 from .paged import DEFAULT_PROMPT_BUCKETS, PagePool
 
@@ -53,7 +58,7 @@ class _Rec:
     __slots__ = ("rid", "prompt", "eos_id", "left", "deadline", "t_submit",
                  "t_first", "t_done", "tokens", "done", "reason", "slot",
                  "skip", "cancelled", "collected", "tenant", "slo",
-                 "prefix_len", "ship")
+                 "prefix_len", "ship", "key")
 
     def __init__(self, rid, prompt, left, eos_id, deadline, t_submit,
                  tenant="default", slo="interactive", prefix_len=None):
@@ -72,6 +77,9 @@ class _Rec:
         #: a shipped admission's payload (disaggregation): dict with plen,
         #: first, arrays, need — consumed (and dropped) at adoption
         self.ship = None
+        #: the fabric-wide submit_key this request's timeline records
+        #: under (obs/requests.py); None = no timeline (embedded use)
+        self.key: Optional[str] = None
 
 
 class ServingEngine:
@@ -88,7 +96,9 @@ class ServingEngine:
                  default_timeout_s: Optional[float] = None,
                  prefix_cache: bool = False,
                  class_weights: Optional[Dict[str, float]] = None,
-                 max_tenants: int = 32, device: DeviceLike = None,
+                 max_tenants: int = 32,
+                 slo_ttft_s: float = 1.0, slo_tpot_s: float = 0.25,
+                 slo_budget: float = 0.1, device: DeviceLike = None,
                  clock=time.monotonic):
         self.pool = PagePool(model, slots=slots, segment=segment,
                              page_block=page_block, pages=pages,
@@ -111,6 +121,17 @@ class ServingEngine:
                 raise ValueError(
                     f"class_weights[{c!r}] must be > 0, got {w!r}")
         self.max_tenants = max_tenants
+        # SLO targets the default burn-rate alert rules are derived from
+        # (obs/alerts.py serving_slo_rules; the daemon registers them on
+        # the master aggregator's alert engine)
+        if slo_ttft_s <= 0 or slo_tpot_s <= 0:
+            raise ValueError("slo_ttft_s / slo_tpot_s must be > 0")
+        if not (0.0 < slo_budget < 1.0):
+            raise ValueError(
+                f"slo_budget must be in (0, 1), got {slo_budget!r}")
+        self.slo_ttft_s = float(slo_ttft_s)
+        self.slo_tpot_s = float(slo_tpot_s)
+        self.slo_budget = float(slo_budget)
         self._tenants = set()
         self._clock = clock
         self._lock = threading.Lock()
@@ -124,6 +145,10 @@ class ServingEngine:
         self._stop = False
         self._failed: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
+        # goodput ledger for the scheduler thread (None when the obs
+        # plane is off): opened by _run, so in-process tests driving
+        # step() directly stay ledger-free and deterministic
+        self._gp = None
 
     # -- client surface (any thread) ---------------------------------------
     def _queue_len_locked(self) -> int:
@@ -132,12 +157,15 @@ class ServingEngine:
     def submit(self, prompt, max_new: int, *, eos_id: Optional[int] = None,
                timeout_s: Optional[float] = None, tenant: str = "default",
                slo: str = "interactive",
-               prefix_len: Optional[int] = None) -> int:
+               prefix_len: Optional[int] = None,
+               submit_key: Optional[str] = None) -> int:
         """Queue one request; returns its rid. Raises ValueError for a
         malformed or unservable request and :class:`Overloaded` when the
         queue cap is reached. ``prefix_len`` declares how many leading
         prompt tokens are a shared prefix worth caching (the prefix cache
-        inserts no more; matching is always by content)."""
+        inserts no more; matching is always by content); ``submit_key``
+        keys this request's phase timeline on the obs request ledger
+        (None = record nothing)."""
         r = Request(-1, np.asarray(prompt), int(max_new), eos_id,
                     tenant=str(tenant), slo=str(slo), prefix_len=prefix_len)
         self.pool.validate(r)                  # mutates r.prompt to int32
@@ -156,6 +184,7 @@ class ServingEngine:
                     f"request: tenant {r.tenant!r} would exceed this "
                     f"engine's {self.max_tenants}-tenant label budget")
             if self._queue_len_locked() >= self.queue_cap:
+                obs.count("serving.rejected_total", reason="overloaded")
                 raise Overloaded(
                     f"queue full ({self.queue_cap} waiting); retry later")
             self._tenants.add(r.tenant)
@@ -163,16 +192,21 @@ class ServingEngine:
             self._next_rid += 1
             rec = _Rec(rid, r.prompt, left, eos_id, deadline, now,
                        tenant=r.tenant, slo=r.slo, prefix_len=r.prefix_len)
+            rec.key = submit_key
             self._recs[rid] = rec
             self._queues[r.slo].append(rec)
+            obs.gauge_set("serving.queue_depth", self._queue_len_locked())
             self._wake.notify_all()
+        obs.req_phase(submit_key, "admitted", tenant=str(tenant),
+                      slo=str(slo))
         return rid
 
     def submit_prefilled(self, plen: int, first: int, arrays, *,
                          max_new: int, eos_id: Optional[int] = None,
                          timeout_s: Optional[float] = None,
                          tenant: str = "default",
-                         slo: str = "interactive") -> int:
+                         slo: str = "interactive",
+                         submit_key: Optional[str] = None) -> int:
         """Queue a shipped admission (disaggregation): the prompt was
         prefilled on another worker and arrives as ``arrays`` — the slot's
         page rows for every pool array (``serving/ship.py`` ``unpack``
@@ -205,6 +239,7 @@ class ServingEngine:
                     f"request: tenant {r.tenant!r} would exceed this "
                     f"engine's {self.max_tenants}-tenant label budget")
             if self._queue_len_locked() >= self.queue_cap:
+                obs.count("serving.rejected_total", reason="overloaded")
                 raise Overloaded(
                     f"queue full ({self.queue_cap} waiting); retry later")
             self._tenants.add(r.tenant)
@@ -214,9 +249,13 @@ class ServingEngine:
                        tenant=r.tenant, slo=r.slo)
             rec.ship = {"plen": plen, "first": int(first),
                         "arrays": arrays, "need": need}
+            rec.key = submit_key
             self._recs[rid] = rec
             self._queues[r.slo].append(rec)
+            obs.gauge_set("serving.queue_depth", self._queue_len_locked())
             self._wake.notify_all()
+        obs.req_phase(submit_key, "admitted", tenant=str(tenant),
+                      slo=str(slo), shipped=True)
         return rid
 
     def poll(self, rid: int, cursor: int = 0):
@@ -300,6 +339,15 @@ class ServingEngine:
             self._thread.join(timeout=30.0)
             self._thread = None
 
+    def alert_rules(self):
+        """The engine's SLO alert defaults: multi-window burn-rate rules
+        over ``serving.ttft_seconds`` / ``serving.tpot_seconds`` at THIS
+        engine's configured targets — what the daemon registers on the
+        master aggregator's alert engine."""
+        from ..obs.alerts import serving_slo_rules
+        return serving_slo_rules(self.slo_ttft_s, self.slo_tpot_s,
+                                 self.slo_budget)
+
     @property
     def failed(self) -> Optional[str]:
         """The error that stopped the scheduler, or None."""
@@ -307,18 +355,28 @@ class ServingEngine:
             return self._failed
 
     def _run(self) -> None:
-        while True:
-            with self._lock:
-                while (not self._stop and not self._live
-                       and self._queue_len_locked() == 0):
-                    self._wake.wait(timeout=1.0)
-                if self._stop:
+        # goodput window over the scheduler's whole life: device work is
+        # the prefill/segment dispatches, the admission-wait below is
+        # idle, and goodput.ratio says what fraction of the wall time the
+        # card was decoding — the serving twin of the trainer's ledger
+        self._gp = obs.goodput.open_ledger("serving")
+        try:
+            while True:
+                with self._lock:
+                    while (not self._stop and not self._live
+                           and self._queue_len_locked() == 0):
+                        self._wake.wait(timeout=1.0)
+                    if self._stop:
+                        return
+                try:
+                    self.step()
+                except Exception as e:  # a dead scheduler must not look
+                    self._fail_all(e)   # alive
                     return
-            try:
-                self.step()
-            except Exception as e:  # a dead scheduler must not look alive
-                self._fail_all(e)
-                return
+        finally:
+            gp, self._gp = self._gp, None
+            if gp is not None:
+                gp.close()
 
     def _fail_all(self, exc: BaseException) -> None:
         """A dispatch raised: finalize every outstanding request with
@@ -333,6 +391,7 @@ class ServingEngine:
                 queue.clear()
             for rec in list(self._live.values()):
                 self._release_locked(rec, "error")
+            self._set_gauges_locked()
 
     # -- the scheduler (scheduler thread only) -----------------------------
     def step(self) -> None:
@@ -358,6 +417,7 @@ class ServingEngine:
                                      and now >= rec.deadline):
                     self._release_locked(
                         rec, "cancelled" if rec.cancelled else "timeout")
+            self._set_gauges_locked()
 
     def admit_prefill(self) -> int:
         """Phase 1: assign free slots to queued requests by weighted-fair
@@ -368,7 +428,7 @@ class ServingEngine:
         prefill for prefix-cache hits; shipped admissions are adopted in
         its place), and emit each admission's first token (TTFT stops
         here). Returns the number admitted."""
-        with self._lock:
+        with maybe_bucket(self._gp, "host_input"), self._lock:
             group, adopts, members, pending = [], [], [], 0
             free_slots = [s for s in range(self.pool.n_slots)
                           if s not in self._live]
@@ -404,6 +464,9 @@ class ServingEngine:
                     self._live[slot] = rec
                     adopts.append((slot, rec))
                     members.append(rec)
+                    if rec.key is not None:
+                        # queue wait of a shipped admission ends here
+                        obs.req_phase(rec.key, "scheduled", slot=slot)
                     continue
                 plan = self.pool.plan_admission(
                     rec.prompt, rec.left, tenant=rec.tenant,
@@ -421,30 +484,47 @@ class ServingEngine:
                 self._live[slot] = rec
                 group.append((slot, plan))
                 members.append(rec)
+                if rec.key is not None:
+                    obs.req_phase(rec.key, "queued", slot=slot)
         if not group and not adopts:
             return 0
-        first = self.pool.admit(group)          # device work, lock released
-        for slot, rec in adopts:                # ditto: scheduler thread
-            s = rec.ship
-            self.pool.adopt_slot(slot, s["plen"], s["first"], s["arrays"],
-                                 s["need"])
-            first[slot] = s["first"]
-            rec.ship = None                     # payload consumed
+        adopted = {rec.rid for _, rec in adopts}
+        with obs.span("serving.prefill", batch=len(group) + len(adopts)), \
+                maybe_bucket(self._gp, "device"):
+            first = self.pool.admit(group)      # device work, lock released
+            for slot, rec in adopts:            # ditto: scheduler thread
+                s = rec.ship
+                self.pool.adopt_slot(slot, s["plen"], s["first"],
+                                     s["arrays"], s["need"])
+                first[slot] = s["first"]
+                rec.ship = None                 # payload consumed
         now = self._clock()
-        with self._lock:
+        with maybe_bucket(self._gp, "host_sync"), self._lock:
             for rec in members:
                 # a cancel landing during the prefill only sets the flag;
                 # the next _reap honours it
                 rec.t_first = now
+                obs.observe("serving.ttft_seconds", now - rec.t_submit,
+                            tenant=rec.tenant)
+                if rec.key is not None:
+                    # telescoped dur: device prefill (or local adoption)
+                    # wall since the queued/scheduled record above
+                    obs.req_phase(rec.key,
+                                  "adopt" if rec.rid in adopted
+                                  else "prefill")
+                    obs.req_phase(rec.key, "first_token",
+                                  ttft_s=round(now - rec.t_submit, 6))
                 tok = first[rec.slot]
                 if rec.eos_id is not None and tok == rec.eos_id:
                     self._release_locked(rec, "eos")
                     continue
                 rec.tokens.append(tok)
+                obs.count("decode.tokens_total", route="serve")
                 rec.left -= 1
                 rec.skip = 1        # the next segment re-emits this token
                 if rec.left <= 0:
                     self._release_locked(rec, "length")
+            self._set_gauges_locked()
         return len(group) + len(adopts)
 
     def decode_segment(self) -> None:
@@ -454,8 +534,10 @@ class ServingEngine:
             live = sorted(self._live)
         if not live:
             return
-        block = self.pool.run_segment(live)     # device work, lock released
-        with self._lock:
+        with obs.span("serving.segment", live=len(live)), \
+                maybe_bucket(self._gp, "device"):
+            block = self.pool.run_segment(live)  # device work, lock released
+        with maybe_bucket(self._gp, "host_sync"), self._lock:
             for slot in live:
                 rec = self._live.get(slot)
                 if rec is None or rec.done:
@@ -465,9 +547,14 @@ class ServingEngine:
                 take, done, reason = clip_emission(usable, rec.left,
                                                    rec.eos_id)
                 rec.tokens.extend(int(t) for t in take)
+                obs.count("decode.tokens_total", len(take), route="serve")
+                if rec.key is not None and len(take):
+                    # consecutive segments fold into one ledger record
+                    obs.req_phase(rec.key, "decode", n=len(take))
                 rec.left -= len(take)
                 if done:
                     self._release_locked(rec, reason)
+            self._set_gauges_locked()
 
     # -- internals (call with _lock held) ----------------------------------
     def _release_locked(self, rec: _Rec, reason: str) -> None:
@@ -479,6 +566,18 @@ class ServingEngine:
     def _finalize_locked(self, rec: _Rec, reason: str) -> None:
         rec.done, rec.reason = True, reason
         rec.t_done = self._clock()
+        obs.count("serving.requests_total", outcome=reason,
+                  tenant=rec.tenant)
+        if rec.key is not None:
+            obs.req_phase(rec.key,
+                          "cancel" if reason == "cancelled" else "done",
+                          reason=reason, tokens=len(rec.tokens))
+        if rec.t_first is not None and len(rec.tokens) > 1:
+            # time-per-output-token over the tokens after the first (TTFT
+            # owns the first) — the SLO pair dashboards alert on
+            obs.observe("serving.tpot_seconds",
+                        (rec.t_done - rec.t_first)
+                        / (len(rec.tokens) - 1), tenant=rec.tenant)
         self._done_order.append(rec.rid)
         # bound the finished-record memory without dropping results nobody
         # has read: purge collected records first, uncollected ones only
@@ -494,3 +593,17 @@ class ServingEngine:
                 victim = self._done_order[0]
             self._done_order.remove(victim)
             self._recs.pop(victim, None)
+
+    def _set_gauges_locked(self) -> None:
+        pool = self.pool
+        obs.gauge_set("serving.queue_depth", self._queue_len_locked())
+        obs.gauge_set("serving.slots_live", len(self._live))
+        obs.gauge_set("serving.pages_used", pool.pages_used)
+        obs.gauge_set("serving.pages_reserved", pool.reserved)
+        used = pool.pages_used * pool.bs
+        obs.gauge_set("serving.page_occupancy",
+                      pool.live_tokens(list(self._live)) / used
+                      if used else 0.0)
+        if pool.index is not None:
+            obs.gauge_set("serving.prefix_pages_shared",
+                          pool.index.live_pages())

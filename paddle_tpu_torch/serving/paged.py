@@ -60,6 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.graphs import GraphCache
 from ..core.lod import bucket_length
 from ..core.place import DeviceLike, resolve_device
@@ -143,10 +144,13 @@ class PagePool:
                         device=self.device)
         # the pools are the graphs' carried state (donated to every one)
         self.graphs = GraphCache("PagePool", self.device)
+        self.graphs.cost_modules = [model] if isinstance(
+            model, torch.nn.Module) else []
         self.pools = self.graphs.buffer("pools", lambda: pools)
         # the bytes of one cache row of one layer's k or v: an int8 row
         # carries one f32 scale per head (JAX's _decode_attention_bytes)
         itemsize = torch.empty((), dtype=dt).element_size()
+        self._H, self._Dh, self._itemsize = H, Dh, itemsize
         self._row_bytes = H * (Dh + 4 if kv_dtype == "int8"
                                else Dh * itemsize)
         # one (k + v) page of every layer: the prefix index's reuse credit
@@ -227,6 +231,7 @@ class PagePool:
             if not freed:
                 return False
             self.free.extend(freed)
+            obs.count("serving.prefix_evictions_total", len(freed))
 
     def clear_prefix_cache(self) -> int:
         """Drop every unpinned prefix-cache entry back to the free list;
@@ -344,8 +349,12 @@ class PagePool:
         with self.graphs.ordered():
             arrays = {nm: arr[pages] for nm, arr in self.pools.items()}
         arrays = {nm: a.cpu() for nm, a in arrays.items()}
-        return ship.pack(arrays, plen=plen, first=first, page_block=self.bs,
-                         kv_dtype=self.kv_dtype)
+        manifest, payload = ship.pack(arrays, plen=plen, first=first,
+                                      page_block=self.bs,
+                                      kv_dtype=self.kv_dtype)
+        obs.count("serving.ship_pages_total", npg)
+        obs.count("serving.ship_bytes_total", len(payload))
+        return manifest, payload
 
     def check_shipment(self, plen: int,
                        arrays: Dict[str, torch.Tensor]) -> None:
@@ -403,6 +412,7 @@ class PagePool:
         self.pos[slot] = plen
         self.cur[slot] = int(first)
         self.prompt_tokens_total += plen
+        obs.count("serving.adopted_total")
 
     # -- the two scheduler-visible operations ------------------------------
     def admit(self, group: List[Tuple[int, _AdmitPlan]]) -> Dict[int, int]:
@@ -428,6 +438,12 @@ class PagePool:
                 self.slot_shared[slot] = list(plan.match.nodes)
                 for j, node in enumerate(plan.match.nodes):
                     self.tables[slot, j] = node.page
+                if plan.offset:
+                    obs.count("serving.prefix_hits_total",
+                              tenant=plan.tenant)
+                else:
+                    obs.count("serving.prefix_misses_total",
+                              tenant=plan.tenant)
             else:
                 self.slot_shared[slot] = []
             self._ensure(slot, plan.plen)
@@ -480,7 +496,8 @@ class PagePool:
             "admit", self._admit_body,
             {"pools": self.pools, "prompts": torch.from_numpy(prompts),
              "lens": torch.from_numpy(lens),
-             "pages": torch.from_numpy(pages)}, donate=("pools",))
+             "pages": torch.from_numpy(pages)}, donate=("pools",),
+            cost="serving.admit")
         self.admissions_total += 1
         self.admissions_by_bucket[tpad] = \
             self.admissions_by_bucket.get(tpad, 0) + 1
@@ -518,8 +535,18 @@ class PagePool:
              "tables": torch.from_numpy(np.ascontiguousarray(
                  self.tables[:, :nbr]).astype(np.int64)),
              "copy_src": torch.from_numpy(src),
-             "copy_dst": torch.from_numpy(dst)}, donate=("pools",))
+             "copy_dst": torch.from_numpy(dst)}, donate=("pools",),
+            cost="serving.admit_prefix")
         self.hit_admissions_total += 1
+        # modeled HBM bytes of the gathered prefix read (the hit path's
+        # bytes term), through the one registered model
+        read = obs.roofline.kernel_cost(
+            "paged_prefill_attention", batch=self.n_slots, pages=nbr,
+            page_block=self.bs, n_heads=self._H, d_head=self._Dh,
+            layers=len(self.model.blocks), kv_dtype=self.kv_dtype,
+            itemsize=self._itemsize) or 0.0
+        obs.count("kernels.bytes_total", read,
+                  kernel="paged_prefill_attention")
         return first.cpu().numpy()
 
     @torch.no_grad()
@@ -613,7 +640,18 @@ class PagePool:
              "tables": torch.from_numpy(np.ascontiguousarray(
                  self.tables[:, :nb])),
              "pos": torch.from_numpy(pos),
-             "cur": torch.from_numpy(self.cur)}, donate=("pools",))
+             "cur": torch.from_numpy(self.cur)}, donate=("pools",),
+            cost="serving.segment")
+        obs.count("decode.dispatches_total", route="serve_segment")
+        # modeled cache-read bytes through the one registered model
+        # (ops/cuda_kernels._paged_decode_attention_bytes)
+        read = obs.roofline.kernel_cost(
+            "paged_decode_attention", batch=self.n_slots, pages=nb,
+            page_block=self.bs, n_heads=self._H, d_head=self._Dh,
+            layers=len(self.model.blocks), kv_dtype=self.kv_dtype,
+            itemsize=self._itemsize, steps=self.segment) or 0.0
+        obs.count("kernels.bytes_total", read,
+                  kernel="paged_decode_attention")
         out = out.cpu().numpy()
         block = out[:, :-1]
         self.segments_total += 1
@@ -719,6 +757,7 @@ class PagedBatcher:
                 take, done, _ = clip_emission(block[i], int(left[i]),
                                               r.eos_id)
                 outs[i].extend(int(t) for t in take)
+                obs.count("decode.tokens_total", len(take), route="serve")
                 left[i] -= len(take)
                 if done:
                     results[r.rid] = np.asarray(outs[i], np.int32)

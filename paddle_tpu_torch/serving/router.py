@@ -1,15 +1,10 @@
 """The serving router — placement over disaggregated workers; the
 counterpart of ``paddle_tpu/serving/router.py`` over the port's daemons,
-membership and aggregator.
+membership and aggregator, with JAX's obs calls: the scrape of the
+workers' request timelines (``srv_requests``) and the router's own into
+the aggregator, and the ``router.*`` counters and gauges.
 
-Left out until the port has the obs session plane (ROADMAP A.8): the
-scrape of the workers' request timelines (``srv_requests``) and the
-router's own, and the obs counters and gauges of JAX's copy
-(``router.*``). Placement reads only what the pump itself writes into
-the aggregator's history (``serving.queue_depth``,
-``serving.slots_live``), as in JAX.
-
-One router fronts a fleet of serving workers
+One router (``python -m paddle_tpu_torch route``) fronts a fleet of serving workers
 (:class:`~.daemon.ServingDaemon` decode engines and optional
 :class:`~.daemon.PrefillDaemon` prefill workers). It is model-free: it
 owns a :class:`~..runtime.membership.MembershipService` the workers join
@@ -64,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .. import faults
+from .. import faults, obs
 from ..obs.health import ewma
 from ..runtime.master_service import MasterServer
 from ..runtime.membership import MembershipService
@@ -135,6 +130,10 @@ class ServingRouter:
                        ("route_cancel", self._route_cancel),
                        ("route_stats", self._route_stats)):
             self.server.register_op(op, self._stamped(fn))
+        # per-request timelines: the router records its own phases AND
+        # aggregates every worker's (scrape pump + RequestStore) so a
+        # re-routed request stitches across workers (obs/requests.py)
+        obs.ensure_request_ledger()
         self._scrape_interval = scrape_interval_s
         self._max_reroutes = max_reroutes
         self._lock = threading.Lock()
@@ -244,8 +243,10 @@ class ServingRouter:
 
     def _scrape_once(self) -> None:
         hist = self.server.aggregator.history
+        n_role = {"decode": 0, "prefill": 0}
         for role in ("decode", "prefill"):
             for worker, host, port in self._members(role):
+                n_role[role] += 1
                 try:
                     st = self._worker_client(worker, host,
                                              port).serving_stats()
@@ -255,6 +256,24 @@ class ServingRouter:
                                   float(st.get("queue_depth", 0)))
                 hist.record_value(worker, "serving.slots_live",
                                   float(st.get("slots_live", 0)))
+                try:
+                    # timelines ride the same pump: pulled continuously,
+                    # so a kill -9'd worker's phases survive here
+                    rq = self._worker_client(worker, host,
+                                             port).serving_requests()
+                except Exception:
+                    rq = None
+                if rq:
+                    self.server.aggregator.push_requests(worker, rq)
+        led = obs.request_ledger()
+        if led is not None:
+            self.server.aggregator.push_requests("router",
+                                                 led.export(n=256))
+        with self._lock:
+            inflight = sum(1 for r in self._recs.values() if not r.done)
+        obs.gauge_set("router.inflight", inflight)
+        obs.gauge_set("router.workers", n_role["decode"], role="decode")
+        obs.gauge_set("router.workers", n_role["prefill"], role="prefill")
 
     def _score(self, worker: str) -> float:
         """A worker's load score: EWMA over its windowed queue-depth and
@@ -357,6 +376,7 @@ class ServingRouter:
             last = ConnectionError(str(r.get("error", "prefill failed")))
         # every prefill worker down or refusing: decode-side prefill
         # still serves the request (degraded but correct)
+        obs.count("router.reroutes_total", reason="prefill_fallback")
         return self._worker_client(decode_worker, decode_host,
                                    decode_port).submit(
             prompt, max_new, eos_id=eos_id, timeout_s=timeout_s,
@@ -376,6 +396,8 @@ class ServingRouter:
                 err = prefix_resubmission_error(req.get("prefix_len"),
                                                 rec.prefix_len)
                 if err is not None:
+                    obs.count("router.requests_total",
+                              outcome="invalid_argument")
                     return {"ok": False, "error": err,
                             "code": "invalid_argument"}
                 return {"ok": True, "rid": rec.rid}
@@ -384,6 +406,7 @@ class ServingRouter:
                                 np.int32).reshape(-1)
             max_new = int(req.get("max_new", 0))
         except (TypeError, ValueError):
+            obs.count("router.requests_total", outcome="invalid_argument")
             return {"ok": False, "code": "invalid_argument",
                     "error": "route_submit needs prompt + max_new"}
         eos = req.get("eos_id")
@@ -394,16 +417,20 @@ class ServingRouter:
                   tenant=str(req.get("tenant", "default")),
                   slo=str(req.get("slo", "interactive")),
                   prefix_len=None if prefix is None else int(prefix))
+        obs.req_phase(key, "admitted", via="router")
         try:
             worker, remote_rid = self._place(
                 prompt, max_new, submit_key=key, **kw)
         except Overloaded as e:
+            obs.count("router.requests_total", outcome="overloaded")
             return {"ok": False, "error": f"overloaded: {e}",
                     "code": "overloaded", "retry_after_s": e.retry_after_s}
         except ValueError as e:
+            obs.count("router.requests_total", outcome="invalid_argument")
             return {"ok": False, "error": str(e),
                     "code": "invalid_argument"}
         except ConnectionError as e:
+            obs.count("router.requests_total", outcome="unavailable")
             return {"ok": False, "error": str(e), "code": "unavailable"}
         with self._lock:
             # a concurrent identical-key submit may have won the insert
@@ -421,6 +448,10 @@ class ServingRouter:
             if key is not None:
                 self._by_key[str(key)] = rec.rid
             self._prune_done_locked()
+        obs.count("router.requests_total", outcome="ok")
+        # a point record (explicit zero dur): the forward wall it spans
+        # is attributed by the WORKERS' phase records, not double-billed
+        obs.req_phase(key, "route", dur=0.0, worker=str(worker))
         return {"ok": True, "rid": rec.rid}
 
     def _prune_done_locked(self) -> None:
@@ -528,6 +559,7 @@ class ServingRouter:
                 rec.done, rec.reason = True, "error"
             return False
         rec.reroutes += 1
+        obs.count("router.reroutes_total", reason=why)
         key = (None if rec.key is None
                else f"{rec.key}#r{rec.reroutes}")
         try:
@@ -545,6 +577,10 @@ class ServingRouter:
         with self._lock:
             rec.worker, rec.remote_rid = worker, remote_rid
             rec.remote_cursor = 0
+        # recorded under the BASE key: the new leg's own phases live
+        # under the derived {key}#r{n} timeline the workers record
+        obs.req_phase(rec.key, "reroute", dur=0.0, why=why,
+                      to=str(worker), n=rec.reroutes)
         return True
 
     def _route_cancel(self, req):

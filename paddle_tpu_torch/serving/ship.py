@@ -32,9 +32,9 @@ both directions unchanged.
 Chaos: the ``srv.ship`` fault site filters every raw chunk on the send
 edge AFTER its CRC was stamped — an injected corrupt/truncate produces
 exactly the damage the receiver-side CRC exists to catch, and the refusal
-path (not silent adoption) is what tests/test_torch_ship.py pins. The
-obs counters of JAX's copy (``serving.ship_chunks_total``,
-``serving.ship_chunk_bytes_total``) are left out (ROADMAP A.8).
+path (not silent adoption) is what tests/test_torch_ship.py pins. Each
+chunk counts into ``serving.ship_chunks_total`` and
+``serving.ship_chunk_bytes_total``, as in JAX.
 
 Bit-exactness is the whole point: the decode worker's pool rows after
 adoption are byte-identical to the prefill worker's, so wire-greedy tokens
@@ -51,7 +51,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 
 #: raw bytes per shipped chunk. Base64 inflates by 4/3 and the JSON frame
 #: adds envelope overhead, so 4 MiB raw stays far under the 64 MiB frame
@@ -174,6 +174,10 @@ def iter_chunks(payload: bytes,
         raw = payload[seq * chunk_bytes:(seq + 1) * chunk_bytes]
         crc = zlib.crc32(raw) & 0xFFFFFFFF
         raw = faults.filter_bytes("srv.ship", raw)
+        # send-edge wire accounting: what the ship phase's duration in
+        # the request timeline is spent on (obs/requests.py)
+        obs.count("serving.ship_chunks_total")
+        obs.count("serving.ship_chunk_bytes_total", len(raw))
         yield seq, total, {"seq": seq, "total": total,
                            "data": base64.b64encode(raw).decode("ascii"),
                            "crc": crc}

@@ -25,8 +25,9 @@ as a raw ``|V2`` void array, not as bf16 (ROADMAP C.2).
 Loads put the leaves on ``device`` (default: the card). Every member
 passes the ``ckpt.write`` fault hook after its CRC is taken, as in JAX,
 so an injected torn or corrupt write is what manifest verification
-catches. The ``ckpt.*`` spans and counters of the JAX module wait for the
-obs session plane (ROADMAP A.8).
+catches. The ``ckpt.*`` spans and counters are JAX's (``ckpt.publish``,
+``ckpt.member``, ``ckpt.fsync``, ``ckpt.rename``; ``ckpt.saves_total``,
+``ckpt.bytes_total``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from ..core.place import DeviceLike, require_device
 from ..core.pytree import flatten_path_tree, tree_spec, unflatten_path_tree
 from ..utils.logging import get_logger
@@ -153,19 +154,22 @@ def pass_dir(output_dir: str, pass_id: int) -> str:
 
 
 def _fsync_file(f) -> None:
-    f.flush()
-    os.fsync(f.fileno())
+    with obs.span("ckpt.fsync", metric="ckpt.fsync_seconds"):
+        f.flush()
+        os.fsync(f.fileno())
 
 
 def _fsync_dir(path: str) -> None:
     """Durability of a rename/create requires fsyncing the containing dir;
-    best-effort on filesystems that refuse directory fds."""
+    best-effort on filesystems that refuse directory fds. Timed under the
+    same ``ckpt.fsync`` span/histogram as file fsyncs."""
     try:
         fd = os.open(path, os.O_RDONLY)
     except OSError:
         return
     try:
-        os.fsync(fd)
+        with obs.span("ckpt.fsync", metric="ckpt.fsync_seconds", dir=True):
+            os.fsync(fd)
     except OSError:
         pass
     finally:
@@ -181,9 +185,12 @@ def _write_member(d: str, name: str, payload: bytes) -> Dict[str, int]:
     """
     entry = {"crc32": zlib.crc32(payload) & 0xFFFFFFFF, "size": len(payload)}
     written = faults.filter_bytes("ckpt.write", payload)
-    with open(os.path.join(d, name), "wb") as f:
-        f.write(written)
-        _fsync_file(f)
+    with obs.span("ckpt.member", metric="ckpt.write_seconds", member=name,
+                  bytes=len(written)):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(written)
+            _fsync_file(f)
+    obs.count("ckpt.bytes_total", len(written))
     return entry
 
 
@@ -248,8 +255,15 @@ def publish_members(output_dir: str, pass_id: int,
     rename leaves only a ``.tmp`` dir :func:`latest_pass` ignores; a crash
     inside the re-publish swap is healed by :func:`_recover_torn_swap`.
     ``members`` is consumed lazily — one payload in host memory at a time.
-
     """
+    with obs.span("ckpt.publish", pass_id=pass_id):
+        d = _publish_members(output_dir, pass_id, members)
+    obs.count("ckpt.saves_total")
+    return d
+
+
+def _publish_members(output_dir: str, pass_id: int,
+                     members: Iterable[Tuple[str, bytes]]) -> str:
     _recover_torn_swap(output_dir)
     d = pass_dir(output_dir, pass_id)
     tmp = d + ".tmp"
@@ -266,18 +280,19 @@ def publish_members(output_dir: str, pass_id: int,
     _fsync_dir(tmp)
 
     try:
-        if os.path.exists(d):
-            # re-saving a pass (e.g. completing one previously
-            # preempted): move the old dir aside so the rename stays
-            # atomic, then drop it
-            old = d + ".old"
-            if os.path.exists(old):
-                shutil.rmtree(old)
-            os.rename(d, old)
-            os.rename(tmp, d)
-            shutil.rmtree(old, ignore_errors=True)
-        else:
-            os.rename(tmp, d)
+        with obs.span("ckpt.rename", metric="ckpt.rename_seconds"):
+            if os.path.exists(d):
+                # re-saving a pass (e.g. completing one previously
+                # preempted): move the old dir aside so the rename stays
+                # atomic, then drop it
+                old = d + ".old"
+                if os.path.exists(old):
+                    shutil.rmtree(old)
+                os.rename(d, old)
+                os.rename(tmp, d)
+                shutil.rmtree(old, ignore_errors=True)
+            else:
+                os.rename(tmp, d)
     except FileNotFoundError:
         # a concurrent discovery scan's torn-swap recovery can publish our
         # .tmp itself; depending on the interleaving our bytes sit at the

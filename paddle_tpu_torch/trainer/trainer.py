@@ -45,10 +45,16 @@ as JAX's mesh path does; checkpoints hold the gathered global tensors
 (the same bytes as JAX's), written by the mesh's first rank, and a
 resume re-places them onto the current mesh.
 
-Not ported here: the obs session plane (spans, goodput, the flight dump, roofline
-instrumentation, the counters' session mirror, ``summary()``; ROADMAP
-A.8). The typed counters live on the trainer's own ``MetricsRegistry``
-as in JAX.
+Obs, as in JAX: the typed counters live on the trainer's own
+``MetricsRegistry`` and are mirrored into an installed session; a call
+of ``train`` opens a goodput ledger (host_input / device / host_sync
+buckets; the device bucket waits for the card) and the
+``trainer.pass``, ``trainer.step``, ``trainer.device_step``,
+``trainer.host_sync`` and ``trainer.checkpoint`` spans; the graphed
+step's cost is counted once a signature on meta tensors and accounted
+every step into the roofline ledger (``trainer.step``); a preemption
+dumps the armed flight recorder first. ``summary()`` renders the
+counters and the ``StatSet`` rows through ``obs.summary``.
 """
 
 from __future__ import annotations
@@ -66,12 +72,13 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from ..core.graphs import GraphCache
 from ..core.place import DeviceLike, require_device
 from ..core.pytree import tree_from_items, tree_items, tree_map
 from ..data.prefetch import DoubleBuffer
 from ..nn.module import apply_stat_updates_
+from ..obs.goodput import maybe_bucket
 from ..obs.metrics import MetricsRegistry
 from ..utils.logging import get_logger
 from ..utils.stats import StatSet
@@ -84,6 +91,20 @@ log = get_logger(__name__)
 _NONFINITE_POLICIES = ("raise", "skip", "halt", "off")
 
 _shared = threading.local()
+
+
+def _timed_input(batches, gp):
+    """Yield from ``batches`` timing each pull into the goodput ledger's
+    ``host_input`` bucket — the reader/feeder wait as the training loop
+    experiences it (prefetch overlap shows up as near-zero pulls)."""
+    it = iter(batches)
+    while True:
+        with gp.bucket("host_input"):
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+        yield batch
 
 
 @contextlib.contextmanager
@@ -325,7 +346,8 @@ class Trainer:
         return self.graphs.run(
             "step", self._step_body,
             {"params": params, "opt_state": opt_state, "batch": batch},
-            static=gens, donate=("params", "opt_state"))
+            static=gens, donate=("params", "opt_state"),
+            cost="trainer.step")
 
     def _step_body(self, params, opt_state, batch, **gens):
         """The step program: value and gradient of the loss with respect to
@@ -409,13 +431,31 @@ class Trainer:
             collectives.all_reduce(torch.zeros((), device=self.device),
                                    self.mesh.axis_names)
 
+    def _mirror(self, name: str, n: float = 1) -> None:
+        """Mirror a count into the installed obs session — unless the
+        session shares this trainer's registry, where mirroring would
+        double-count."""
+        s = obs.session()
+        if s is not None and s.registry is not self.metrics:
+            s.registry.counter(name).inc(n)
+
     def _count(self, name: str, n: float = 1) -> None:
+        """Robustness counter: the trainer's own registry is the always-on
+        source of truth (train_stats view); the session gets a mirror so
+        exports include it."""
         self.metrics.counter(name).inc(n)
+        self._mirror(name, n)
 
     def _checkpoint_preempted(self, pass_id, batch_id, params, opt_state):
+        # the flight ring first (no-op unless armed): if the checkpoint
+        # write itself dies, the post-mortem still shows the final batches
+        obs.flight_dump("preemption")
         if self.output_dir:
-            self._save(pass_id, params, opt_state,
-                       extra={"pass_complete": False, "batch_id": batch_id})
+            with obs.span("trainer.checkpoint", pass_id=pass_id,
+                          reason="preemption"):
+                self._save(pass_id, params, opt_state,
+                           extra={"pass_complete": False,
+                                  "batch_id": batch_id})
             log.warning("preempted at pass %d batch %d: checkpoint saved; "
                         "resume re-runs this pass", pass_id, batch_id)
         else:
@@ -437,9 +477,11 @@ class Trainer:
         if self.on_nonfinite == "halt" and self.output_dir:
             # the trees hold the last finite state (the guard dropped the
             # update): durable first, then fail
-            self._save(pass_id, params, opt_state,
-                       extra={"pass_complete": False, "batch_id": batch_id,
-                              "halted": True})
+            with obs.span("trainer.checkpoint", pass_id=pass_id,
+                          reason="halt"):
+                self._save(pass_id, params, opt_state,
+                           extra={"pass_complete": False,
+                                  "batch_id": batch_id, "halted": True})
             log.error("non-finite loss at pass %d batch %d: state "
                       "checkpointed before halting", pass_id, batch_id)
         raise FloatingPointError(
@@ -502,31 +544,56 @@ class Trainer:
 
         prev_handlers = (self._install_preemption_handlers()
                          if handle_signals else {})
+        # goodput ledger (None when the obs plane is off): splits this
+        # call's wall time into compile / host_input / device / host_sync
+        # / idle — goodput.*_seconds_total + the goodput.ratio gauge
+        gp = obs.goodput.open_ledger("trainer")
         try:
             last_pass = start_pass + num_passes - 1
             for pass_id in range(start_pass, start_pass + num_passes):
+              # pass-scoped trace span: reader pulls, checkpoint saves and
+              # every step nest under it on this thread
+              with obs.span("trainer.pass", pass_id=pass_id):
                 event_handler(EV.BeginPass(pass_id))
                 self.evaluators.start()
                 first_batch = skip_batches if pass_id == start_pass else 0
                 batches = self._batches(reader, feeder, skip=first_batch)
+                if gp is not None:
+                    batches = _timed_input(batches, gp)
                 for batch_id, batch in enumerate(batches, start=first_batch):
                     event_handler(EV.BeginIteration(pass_id, batch_id))
                     # mesh path: the guard reverts on the host
                     prev = (params, opt_state)
-                    with self.stats.timer("TrainBatch"):
-                        res = self.step(params, opt_state, *batch)
-                    if self.outputs_fn is not None:
-                        params, opt_state, cost, outs = res
-                    else:
-                        params, opt_state, cost = res
-                        outs = None
-                    cost_f = faults.filter_value("step.grad", float(cost))
+                    with obs.span("trainer.step",
+                                  metric="trainer.step_seconds"):
+                        with self.stats.timer("TrainBatch"), \
+                                obs.span("trainer.device_step"), \
+                                maybe_bucket(gp, "device"):
+                            res = self.step(params, opt_state, *batch)
+                            if gp is not None and \
+                                    self.device.type == "cuda":
+                                # the step's device time surfaces at the
+                                # first host wait: put that wait here,
+                                # not in the loss read below
+                                torch.cuda.synchronize(self.device)
+                        if self.outputs_fn is not None:
+                            params, opt_state, cost, outs = res
+                        else:
+                            params, opt_state, cost = res
+                            outs = None
+                        with obs.span("trainer.host_sync",
+                                      metric="trainer.sync_seconds"), \
+                                maybe_bucket(gp, "host_sync"):
+                            cost_f = faults.filter_value("step.grad",
+                                                         float(cost))
                     self._c_steps.inc()
+                    self._mirror("trainer.steps_total")
                     lead = (getattr(batch[0], "shape", None)
                             if isinstance(batch, (tuple, list)) and batch
                             else None)
                     if lead:
                         self._c_examples.inc(lead[0])
+                        self._mirror("trainer.examples_total", lead[0])
                     if self.nan_guard and not np.isfinite(cost_f):
                         if self._guard and self._dp is not None:
                             params, opt_state = prev
@@ -566,9 +633,13 @@ class Trainer:
                 if self.output_dir and (
                         (pass_id - start_pass + 1) % checkpoint_every == 0
                         or pass_id == last_pass):
-                    self._save(pass_id, params, opt_state)
+                    with obs.span("trainer.checkpoint", pass_id=pass_id,
+                                  reason="pass_end"):
+                        self._save(pass_id, params, opt_state)
                 event_handler(EV.EndPass(pass_id, pass_result))
         finally:
+            if gp is not None:
+                gp.close()
             for sig, handler in prev_handlers.items():
                 try:
                     signal.signal(sig, handler)
@@ -594,6 +665,14 @@ class Trainer:
         return iter(DoubleBuffer(reader, depth=self.prefetch,
                                  transform=feeder,
                                  timeout=self.prefetch_timeout))
+
+    # ---------------------------------------------------------------- summary
+    def summary(self) -> str:
+        """Operator-facing report: the trainer's typed counters plus
+        immutable :class:`~paddle_tpu_torch.utils.stats.StatSnapshot` rows
+        — ``obs.summary`` subsumes the old ``StatSet.report()`` table."""
+        return obs.summary({"metrics": self.metrics.collect()},
+                           stats=self.stats.items().values())
 
     # ------------------------------------------------------------------- test
     def test(self, reader: Callable[[], Iterable], params: Mapping, *,

@@ -53,8 +53,9 @@ class RetryPolicy:
         ``"attempt"`` (kw: attempt, delay, error) before each backoff
         sleep, ``"giveup"`` (kw: attempts, error) when the budget is
         spent, ``"success"`` (kw: attempts) on a retried call that then
-        succeeded. The callback is plain data out; the port has no
-        obs session plane to subscribe it yet.
+        succeeded. This is how the observability plane subscribes
+        (``paddle_tpu_torch.obs.retry_observer``) without this module
+        importing ``obs`` — the callback is plain data out.
     """
 
     def __init__(self, *, max_attempts: Optional[int] = 5,

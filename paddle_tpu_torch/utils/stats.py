@@ -3,9 +3,10 @@
 Analog of the reference's ``StatSet`` / ``REGISTER_TIMER*`` machinery
 (paddle/utils/Stat.h:63-242), used along the whole train path
 (TrainerInternal.cpp:94-152, NeuralNetwork.cpp:260). Python-side timers cover the host
-loop. A copy of ``paddle_tpu/utils/stats.py`` without the profiler span that
-its ``timer`` opens (``utils/profiler`` waits for ROADMAP A.8); device time
-comes from ``torch.profiler``.
+loop. A copy of ``paddle_tpu/utils/stats.py``: while a
+``utils/profiler`` trace is active a timer also opens
+``profiler.annotate`` (a ``torch.profiler`` range and the obs span of its
+name).
 """
 
 from __future__ import annotations
@@ -71,11 +72,18 @@ class StatSet:
 
     @contextmanager
     def timer(self, name: str):
+        from contextlib import nullcontext
+
+        from . import profiler
+        # named range on the device trace (REGISTER_TIMER_INFO analog)
+        span = profiler.annotate(name) if profiler.is_active() \
+            else nullcontext()
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0)
+        with span:
+            try:
+                yield
+            finally:
+                self.add(name, time.perf_counter() - t0)
 
     def reset(self):
         with self._lock:

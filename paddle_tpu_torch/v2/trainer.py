@@ -3,8 +3,8 @@ counterpart of ``paddle_tpu/v2/trainer.py``.
 
 Same event-driven reader loop as the reference's SGD.train, executing the
 fluid Program the v2 layers emitted on one fluid ``Executor`` (one CUDA
-graph a feed signature on the card). The goodput ledger of JAX's loop
-waits for the obs plane (ROADMAP A.8).
+graph a feed signature on the card), with JAX's goodput ledger
+(``component="v2_sgd"``) under an installed obs session.
 """
 
 from __future__ import annotations
@@ -80,28 +80,43 @@ class SGD:
         feeder = (_V2Feeder(feeding, self.exe.device) if feeding
                   else None)
         fetches = [self.cost.var] + [e.var for e in self.extra]
-        for pass_id in range(num_passes):
-            event_handler(EV.BeginPass(pass_id))
-            it = iter(reader())
-            batch_id = 0
-            while True:
-                try:
-                    rows = next(it)
-                except StopIteration:
-                    break
-                # BeginIteration between the reader pull and the feed
-                # conversion — exactly where the plain for-loop fired it
-                event_handler(EV.BeginIteration(pass_id, batch_id))
-                feed = feeder(rows) if feeder else rows
-                outs = self.exe.run(feed=feed, fetch_list=fetches)
-                metrics = {e.var.name: float(np.asarray(o).mean())
-                           for e, o in zip(self.extra, outs[1:])}
-                cost = float(outs[0])
-                event_handler(EV.EndIteration(pass_id, batch_id,
-                                              cost, None, metrics))
-                self._maybe_param_stats(batch_id)
-                batch_id += 1
-            event_handler(EV.EndPass(pass_id))
+        # goodput ledger (None when the obs plane is off): reader pulls +
+        # feeding are host_input, exe.run (a synchronous fetch) is device,
+        # result reads host_sync; capture seconds steal themselves out
+        # through core/graphs.py's hook — obs/goodput.py owns the math
+        from .. import obs
+        from ..obs.goodput import maybe_bucket
+        gp = obs.goodput.open_ledger("v2_sgd")
+        try:
+            for pass_id in range(num_passes):
+                event_handler(EV.BeginPass(pass_id))
+                it = iter(reader())
+                batch_id = 0
+                while True:
+                    with maybe_bucket(gp, "host_input"):
+                        try:
+                            rows = next(it)
+                        except StopIteration:
+                            break
+                    # BeginIteration between the reader pull and the feed
+                    # conversion — exactly where the plain for-loop fired it
+                    event_handler(EV.BeginIteration(pass_id, batch_id))
+                    with maybe_bucket(gp, "host_input"):
+                        feed = feeder(rows) if feeder else rows
+                    with maybe_bucket(gp, "device"):
+                        outs = self.exe.run(feed=feed, fetch_list=fetches)
+                    with maybe_bucket(gp, "host_sync"):
+                        metrics = {e.var.name: float(np.asarray(o).mean())
+                                   for e, o in zip(self.extra, outs[1:])}
+                        cost = float(outs[0])
+                    event_handler(EV.EndIteration(pass_id, batch_id,
+                                                  cost, None, metrics))
+                    self._maybe_param_stats(batch_id)
+                    batch_id += 1
+                event_handler(EV.EndPass(pass_id))
+        finally:
+            if gp is not None:
+                gp.close()
 
     def _maybe_param_stats(self, batch_id: int):
         """--show_parameter_stats_period analog (TrainerInternal.cpp:80-87)

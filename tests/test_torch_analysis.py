@@ -633,8 +633,13 @@ def test_the_public_surface_equals_jax():
 @pytest.mark.parametrize("lint", ["lint_catalogue_drift", "lint_alert_rules",
                                   "lint_autotune_cache"])
 def test_obs_and_tune_lints_raise_naming_a8(lint):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        getattr(TA, lint)()
+    """The tune lint (L008) raises naming A.8; the obs lints run since the
+    port has the session plane: clean over the port's tree and rules."""
+    if lint == "lint_autotune_cache":
+        with pytest.raises(NotImplementedError, match="A.8"):
+            getattr(TA, lint)()
+    else:
+        assert getattr(TA, lint)() == []
 
 
 def test_metric_name_lint_equals_jax():

@@ -3301,3 +3301,92 @@ def test_staged_exactly_where_gloo_refuses_cuda_tensors_on_card(cuda,
         assert staged == sorted({"broadcast", "all_gather", "all_to_all",
                                  "send_recv"} - set(taken)), (staged, taken)
     assert sorted(taken) == sorted(cc.GLOO_CUDA_OPS)
+
+
+@pytest.mark.gpu
+def test_h100_peak_row_resolves_on_card(cuda, monkeypatch):
+    """On the H100 the roofline's peaks resolve to its data-sheet row
+    (989 TFLOP/s dense bf16, 3350 GB/s), not None."""
+    from paddle_tpu_torch.obs import roofline
+    monkeypatch.delenv("PADDLE_TPU_PEAK_TFLOPS", raising=False)
+    monkeypatch.delenv("PADDLE_TPU_PEAK_HBM_GBPS", raising=False)
+    name = torch.cuda.get_device_name(0)
+    if name not in roofline.PEAK_TFLOPS:
+        pytest.skip(f"{name} has no peak row (the table holds the H100)")
+    assert roofline.peak_flops_per_sec() == 989e12
+    assert roofline.peak_hbm_bytes_per_sec() == 3350e9
+
+
+@pytest.mark.gpu
+def test_graph_replays_reemit_session_counts_on_card(cuda):
+    """A graphed body's counts fire at capture only: the capture records
+    them and every replay adds them again, so the session's counter
+    follows the calls, as LAUNCHES does."""
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.core.graphs import GraphCache
+    cache = GraphCache("test.replay", cuda)
+
+    def body(x):
+        obs.count("decode.dispatches_total", route="step")
+        return x @ x
+
+    r = obs.MetricsRegistry()
+    x = torch.ones(64, 64, device=cuda)
+    with obs.ObsSession(registry=r).installed():
+        for _ in range(5):
+            cache.run("b", body, {"x": x}, cost="test.body")
+        torch.cuda.synchronize()
+    assert r.counter("decode.dispatches_total").get(route="step") == 5
+    assert r.counter("graphs.captures_total").get() == 1
+    assert r.counter("fluid.device_flops_total").get() == 5 * 2 * 64 ** 3
+
+
+@pytest.mark.gpu
+def test_profiler_reader_sees_a_port_kernel_on_card(cuda):
+    """torch.profiler over #4's launches: the reader's device plane holds
+    the kernel by name. The profiler may drop the record of its window's
+    first kernel, so the window opens with a warm-up launch and the
+    reader must keep at least the three launches after it."""
+    from paddle_tpu_torch.obs import xplane
+    q = torch.randn(2, 4, 64, device=cuda)
+    k = torch.randn(2, 128, 4, 64, device=cuda)
+    pos = torch.full((2,), 100, dtype=torch.int32, device=cuda)
+    ck.decode_attention(q, k, k, pos)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            ck.decode_attention(q, k, k, pos)
+        torch.cuda.synchronize()
+    space = xplane.read_torch_trace(prof)
+    assert space["planes"][0]["name"] == "/device:GPU:0"
+    rows = xplane.op_totals(space)
+    assert any("decode" in r["op"] and 3 <= r["count"] <= 4
+               for r in rows), rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_decode_kernel_bytes_noted_at_launch_and_reemitted_on_card(cuda,
+                                                                   kv):
+    """generate_fused under a session: the cache read's modeled bytes are
+    noted where #4/#5 launch, once a layer, and each replay re-emits
+    them, so kernels.bytes_total is the registered model summed over the
+    decode steps' reads (bucket 64, then 128 rows), and the roofline's
+    device bytes hold them."""
+    from paddle_tpu_torch import obs
+    model = _graph_lm(cuda)
+    ids = torch.as_tensor(np.random.RandomState(5).randint(0, 101, (3, 40)),
+                          device=cuda)
+    r = obs.MetricsRegistry()
+    with obs.ObsSession(registry=r).installed():
+        model.generate_fused(ids, 40, bucket=64, kv_dtype=kv)
+        torch.cuda.synchronize()
+    want = sum(obs.roofline.kernel_cost(
+        "decode_attention", batch=3, read=min(-(-(40 + j) // 64) * 64, 256),
+        n_heads=2, d_head=64, layers=2, kv_dtype=kv, itemsize=4)
+        for j in range(1, 40))
+    got = r.counter("kernels.bytes_total").get(kernel="decode_attention")
+    assert got == pytest.approx(want)
+    assert r.counter("fluid.device_bytes_total").get() >= want

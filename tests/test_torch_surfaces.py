@@ -16,7 +16,8 @@ RENAMED = {
     ".nn": {},
     ".trainer": {"ElasticMaster": None,  # the elastic plane, ROADMAP A.8
                  "ElasticWorker": None},
-    ".utils": {"Registry": None},        # utils/registry.py, ROADMAP A.8
+    ".utils": {},
+    ".obs": {},
     ".ops": {"pallas_kernels": "cuda_kernels"},
     ".analysis": {},
     ".v2": {},
