@@ -89,7 +89,7 @@ Phases:
    decode paths' B 2 and 8, each L and NB (with ``--split-sweep`` #4 and
    #5 also at B 1 and 32: the sweep decode_splits' thresholds come from);
 10. dense decode — GPT-2 small (random weights from the seed):
-   ``generate_fused`` of 8 prompts of 200 tokens, 100 new, bucket 256, in
+   ``generate_fused`` of 8 prompts of 232 tokens, 32 new, bucket 256, in
    f32 and at ``kv_dtype="int8"``, equal to the same loop on the plain
    route; ``ContinuousBatcher`` and ``ServingEngine`` at int8 over the
    phase-3 traffic, equal to each request's solo int8 plain decode;
@@ -252,7 +252,7 @@ Phases:
    gathered pages; each kernel at D = 128 timed beside its plain version,
    SDPA where one call computes the same and its bound (the kernels
    line's D = 128 entries); (b) a TransformerLM at EleutherAI/
-   gpt-neo-1.3B's widths (hidden 2048, 16 heads of 128, 24 layers, vocab
+   gpt-neo-1.3B's widths (hidden 2048, 16 heads of 128, 8 of its 24 layers, vocab
    50257, 2048 positions; random weights; global attention in every
    layer): one f32 training step at 2 x 1024 tokens through #1-#3 against
    the plain route (transformer_step_check's bounds, the step written
@@ -261,10 +261,10 @@ Phases:
    through #4 and #5, each equal to its solo plain-attention decode;
    (c) the wire plane over GPT-2 small in bf16 (benchmarks/
    serving_daemon.py's and serving_router.py's layout): a
-   ``ServingDaemon`` of 16 slots answering 48 requests over localhost,
+   ``ServingDaemon`` of 16 slots answering 24 requests over localhost,
    the in-process engine on the same traffic, and a ``ServingRouter``
    over one ``PrefillDaemon`` and two decode daemons of 8 slots answering
-   32 requests at bf16 and int8 KV; 8 requests of each run equal to the
+   16 requests at bf16 and int8 KV; 8 requests of each run equal to the
    solo plain decode, client-side TTFT and TPOT p50/p95 and tokens/s;
    shipped rows byte-equal to the prefill pool's; a decode worker
    stopped with no drain mid-stream re-routed with no token lost or
@@ -383,6 +383,29 @@ Phases:
    ``python -m paddle_tpu_torch profile --decode 8,128,64``, whose report
    names #1's and #4's kernels.
 
+24. the elastic and tune planes and the C inference API — (a)
+   ``ElasticMaster`` (4 shards a step) and two ``ElasticWorker`` threads
+   on the card train the LSTM flagship (vocab 30000, embed 128, H 256,
+   B 64, T 100, f32, Adam) 4 steps over the master RPC plane, every
+   step's parameters bit-equal to the sequential reference on the card
+   (tests/torch_elastic_net.py: the same graphed shard gradients, the
+   shard-ordered host reduce, the graphed Adam update), #9 and #10 in
+   each worker's graph; (b) the same pass with a third worker, a
+   subprocess (tests/torch_elastic_worker.py) SIGKILLed while it holds a
+   shard: evicted, its shard re-bucketed, the pass bit-equal to (a)'s;
+   (c) ``tune.run_tune(profile="bench", reps=3)`` over all five plan
+   spaces into a temporary cache, each family's winner printed beside
+   the heuristic (#4-#12 launched); with the cache installed, a GPT-2
+   small f32 ``ServingEngine`` left to the consults serves the heuristic
+   engine's greedy tokens, the flagship LSTM under the tuned row tiles
+   and under a forced 16-row tile equals ``plan_route``'s (the forward
+   bit for bit, the gradients to TILE_GRAD_TOL), a decode read at the
+   tuned split count equals the heuristic count's, and ``plan_source()``
+   says "tuned"; (d) the C inference API built from
+   ``csrc/capi_inference.cc``: ``pti_forward`` on the fluid flagship's
+   exported bundle bit-equal to ``Executor.run`` of the bundle, #8
+   launched.
+
 The bf16 serving checks of phases 18 and 19 (``greedy_within_ties``)
 print, for each burst, the largest gap between a chosen token's plain
 logit and the argmax's in bf16 ulps, and the run prints the largest of
@@ -411,11 +434,14 @@ Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 15's), ``{"zoo": {...}}`` (phase 16's), ``{"slice18": {...}}``
 (phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"slice20": {...},
 "fluid": {...}}`` (phases 19 and 20), ``{"world": {...}}`` (phase 22),
-``{"obs": {...}}`` (phase 23), ``{"kernels": [...]}`` (with
+``{"obs": {...}}`` (phase 23), ``{"phase24": {...}}``,
+``{"kernels": [...]}`` (with
 ``launches_obs`` on #1, #4, #6-#10: phase 23's launches, ``launches_world``
-on #1-#3: phase 22's launches per rank and call, and
-``launches_routes`` and ``launches_fluid`` on #8-#12, and #1-#7 again at
-D = 128 and D = 256),
+on #1-#3: phase 22's launches per rank and call,
+``launches_routes`` and ``launches_fluid`` on #8-#12,
+``launches_elastic`` on #9 and #10 and ``launches_tune`` on #4-#12:
+phase 24's, ``launches_capi`` on #8, and #1-#7 again at D = 128 and
+D = 256),
 the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -3081,15 +3107,17 @@ def split_sweep(say, gen, cpu_gen, batches, device="cuda"):
 # phase 10: dense decode at GPT-2-small width
 # ---------------------------------------------------------------------------
 
-# generate_fused: 8 prompts of 200, 64 new tokens (the reads cross the
-# 256-row bucket into 512 rows); the speculative decoders 2 x 32 tokens.
+# generate_fused: 8 prompts of 232, 32 new tokens (the reads cross the
+# 256-row bucket into 512 rows); the speculative decoders 2 x 16 tokens.
 # Phase 10 was the smoke's longest phase (353 s of a 965 s run): it
-# generates 64 tokens a prompt (was 100) and 32 a speculative run (was
-# 48), and profiles only the graphed route of each path (the graphed
-# profile is the path's figure; the eager one was more than half of it)
+# generates 32 tokens a prompt (was 100, then 64 after prompts of 200
+# until phase 24 took the smoke past 1050 s) and 16 a speculative run
+# (was 48, then 32), and profiles only the graphed route of each path
+# (the graphed profile is the path's figure; the eager one was more than
+# half of it)
 GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW, GEN_BUCKET, GEN_TOP_K = \
-    8, 200, 64, 256, 40
-SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW, SPEC_K = 2, 100, 32, 4
+    8, 232, 32, 256, 40
+SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW, SPEC_K = 2, 100, 16, 4
 # the routes phase 10 profiles
 DECODE_PROFILED = ("graphed",)
 
@@ -6159,8 +6187,10 @@ def slice18_phase(say, seed: int, device="cuda") -> dict:
 # (head width 128), num_layers 24, vocab_size 50257,
 # max_position_embeddings 2048, intermediate 4 x 2048. TransformerLM's
 # global attention runs in every layer, where GPT-Neo alternates it with
-# a 256-token local window. Weights random from the seed.
-GPT_NEO = dict(vocab=50257, d_model=2048, n_heads=16, n_layers=24,
+# a 256-token local window. Weights random from the seed. Depth cut to 8
+# of the 24 layers since phase 24 took the smoke past 1050 s of its 1200
+# (the widths, and so every kernel shape, are the model's).
+GPT_NEO = dict(vocab=50257, d_model=2048, n_heads=16, n_layers=8,
                d_ff=8192, max_len=2048)
 NEO_TRAIN_B, NEO_TRAIN_T, NEO_LR = 2, 1024, 3e-4
 # the head widths phase 18 holds every kernel at: 8 and 32 (the repo's
@@ -6175,8 +6205,10 @@ NEO_DECODE_B, NEO_DECODE_L, NEO_DECODE_MAX, NEO_DECODE_NB = 8, 512, 640, 8
 # tokens, page_block 64, cache_bucket 512, one prompt bucket of 256
 WIRE_POOL = dict(segment=32, page_block=64, cache_bucket=512,
                  prompt_buckets=(256,))
-WIRE_DAEMON_SLOTS, WIRE_DAEMON_REQUESTS = 16, 48
-WIRE_ROUTER_SLOTS, WIRE_ROUTER_REQUESTS, WIRE_PREFILL_SLOTS = 8, 32, 4
+# (48 daemon and 32 router requests until phase 24 took the smoke past
+# 1050 s of its 1200: cut to 24 + 16)
+WIRE_DAEMON_SLOTS, WIRE_DAEMON_REQUESTS = 16, 24
+WIRE_ROUTER_SLOTS, WIRE_ROUTER_REQUESTS, WIRE_PREFILL_SLOTS = 8, 16, 4
 WIRE_CHECKED = 8            # requests of each run held to the solo decode
 
 
@@ -6874,10 +6906,10 @@ def _fleet(model, kv, device, router_ttl=2.0):
 
 def wire_phase(say, seed: int, device="cuda", config=GPT2_SMALL) -> dict:
     """(c) The wire plane over GPT-2 small (phase 10's model) in bf16:
-    one ServingDaemon (16 slots) answering 48 requests over localhost,
+    one ServingDaemon (16 slots) answering 24 requests over localhost,
     the same traffic through the in-process engine for scale, and a
     ServingRouter over one PrefillDaemon and two decode daemons (8 slots
-    each) answering 32 requests at bf16 and int8 KV; 8 requests of each
+    each) answering 16 requests at bf16 and int8 KV; 8 requests of each
     run held to the solo plain decode (in bf16 up to near-ties:
     greedy_within_ties); shipped rows byte-equal to the prefill pool's.
     Then the same fleet in f32, where the solo check is exact: 8 requests
@@ -9375,6 +9407,477 @@ def obs_phase(say, seed: int, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the elastic plane and the tune plane on the card, and the C
+# inference API
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS, ELASTIC_SHARDS = 4, 4
+#: kernels the tune sweep launches (#4-#12)
+TUNE_KERNELS = ("decode_attention", "decode_attention_q",
+                "paged_decode_attention", "paged_decode_attention_q",
+                "lstm_seq", "lstm_seq_train", "lstm_seq_bwd", "gru_seq",
+                "gru_seq_bwd")
+#: the tiled LSTM backward against the untiled one: each tile's dU partial
+#: is summed in tile order (tests/test_torch_tune.py states 2e-5, absolute
+#: and relative, on the CPU; here the absolute part scales with the
+#: tensor's largest magnitude)
+TILE_GRAD_TOL = 2e-5
+#: the sweep's profile (tune/spaces.py PROFILES: the flagship shapes)
+TUNE_PROFILE = "bench"
+#: the tuned engine's traffic: the first prompts of the serving workload
+TUNE_REQUESTS, TUNE_TOKENS = 4, 16
+
+
+def _tests_on_path() -> None:
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
+def _host_tree(tree) -> dict:
+    from paddle_tpu_torch.core.pytree import tree_items
+    return {"/".join(p): v.detach().cpu().clone() for p, v in
+            tree_items(tree)}
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _graph_launches(worker) -> dict:
+    """The kernel launches each captured graph of an elastic worker holds
+    (recorded at its capture)."""
+    out: dict = {}
+    for g in worker.graphs._graphs.values():
+        for k, n in g.launches.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _elastic_master(loss_fn, make_opt, device, on_step, **kw):
+    from paddle_tpu_torch.trainer.elastic import ElasticMaster
+    em = ElasticMaster(loss_fn, make_opt(), shards_per_step=ELASTIC_SHARDS,
+                       device=device, **kw)
+    em.on_step = lambda p, s, l: on_step(s, em._params, l)
+    return em.start()
+
+
+def _thread_workers(em, n, seed, device, prefix):
+    import threading
+    from torch_elastic_net import flagship
+    from paddle_tpu_torch.trainer.elastic import ElasticWorker
+    stop = threading.Event()
+    pairs = []
+    for i in range(n):
+        # a module of its own: functional_call swaps its parameters
+        w = ElasticWorker(flagship(steps=0, seed=seed)[0], em.address,
+                          worker=f"{prefix}{i}", device=device)
+        t = threading.Thread(target=w.run, kwargs={"stop": stop},
+                             daemon=True)
+        t.start()
+        pairs.append((w, t))
+    return stop, pairs
+
+
+def elastic_phase(say, seed: int, device="cuda") -> dict:
+    """(a) ElasticMaster (4 shards a step) and two ElasticWorker threads on
+    one card train the LSTM flagship at full width (f32, Adam) for
+    ELASTIC_STEPS steps: each step's parameters bit-equal to the
+    sequential reference on the card (the same graphed shard gradients,
+    the shard-ordered reduce, one graphed Adam update), #9 and #10 in
+    each worker's graph; (b) the same pass with a third worker, a
+    subprocess (tests/torch_elastic_worker.py) SIGKILLed while it holds a
+    shard: eviction re-buckets its shard and the pass equals (a)'s."""
+    import signal
+    import threading
+    import torch
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    _tests_on_path()
+    from torch_elastic_net import flagship, sequential_reference
+    loss_fn, make_params, make_opt, batches = flagship(steps=ELASTIC_STEPS,
+                                                      seed=seed)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    ref = []
+    sequential_reference(loss_fn, make_params(dev), make_opt, batches,
+                         shards=ELASTIC_SHARDS, device=dev,
+                         on_step=lambda s, p, l: ref.append(
+                             (_host_tree(p), l)))
+    t_ref = time.perf_counter() - t0
+
+    got = []
+    em = _elastic_master(loss_fn, make_opt, dev,
+                         lambda s, p, l: got.append((_host_tree(p), l)),
+                         min_workers=2, ttl=10.0, task_timeout_s=120.0)
+    stop, pairs = _thread_workers(em, 2, seed, dev, "smoke-w")
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        em.fit(batches, make_params(dev), progress_timeout=120.0)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        t_fit = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for _, t in pairs:
+            t.join(timeout=30)
+        em.stop()
+    check(len(got) == len(ref) == ELASTIC_STEPS,
+          f"elastic: {len(got)} steps applied, want {ELASTIC_STEPS}")
+    for s, ((gp, gl), (rp, rl)) in enumerate(zip(got, ref)):
+        check(_trees_equal(gp, rp), f"elastic step {s}: the parameters "
+              "differ from the sequential reference's")
+        check(gl == rl, f"elastic step {s}: loss {gl} != reference {rl}")
+    per_worker = {}
+    for w, _ in pairs:
+        gl = _graph_launches(w)
+        per_worker[w.worker] = {"shards": w.shards_contributed,
+                                "graph_launches": gl}
+        check(w.shards_contributed > 0
+              and gl.get("lstm_seq_train", 0) > 0
+              and gl.get("lstm_seq_bwd", 0) > 0,
+              f"elastic worker {w.worker}: {per_worker[w.worker]}")
+    check(launches["lstm_seq_train"] > 0 and launches["lstm_seq_bwd"] > 0,
+          f"elastic: #9/#10 launches {launches}")
+    say(f"elastic (a): {ELASTIC_STEPS} steps of the LSTM flagship (vocab "
+        f"30000, embed 128, H 256, B 64 in {ELASTIC_SHARDS} shards, T 100, "
+        f"f32, Adam) by 2 thread workers, every step's parameters bit-equal "
+        f"to the sequential reference; losses {[l for _, l in got]}; "
+        f"workers {json.dumps(per_worker)}; launches {launches}; fit "
+        f"{t_fit:.2f} s, reference {t_ref:.2f} s (host-clock smoke "
+        "figures, not a benchmark)")
+
+    # (b) a subprocess worker killed mid-pass
+    reg = obs.MetricsRegistry()
+    kill = {"killed": False, "epoch": None}
+    final = {}
+    with obs.ObsSession(registry=reg).installed():
+        em = _elastic_master(loss_fn, make_opt, dev,
+                             lambda s, p, l: final.update(params=p, loss=l),
+                             min_workers=3, ttl=1.5, task_timeout_s=300.0)
+        host, port = em.address
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "tests",
+                                          "torch_elastic_worker.py"),
+             host, str(port), "smoke-kw", "300", "--workload", "flagship",
+             "--device", str(dev)],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        stop, pairs = _thread_workers(em, 2, seed, dev, "smoke-s")
+
+        def killer():
+            deadline = time.monotonic() + 240.0
+            while time.monotonic() < deadline and proc.poll() is None:
+                with em._mu:
+                    holding = "smoke-kw" in em._assigned.values()
+                    step = em._step
+                if step >= 1 and holding:
+                    kill["epoch"] = em.membership.epoch
+                    os.kill(proc.pid, signal.SIGKILL)
+                    kill["killed"] = True
+                    return
+                time.sleep(0.001)
+
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        t0 = time.perf_counter()
+        try:
+            params, _, loss = em.fit(batches, make_params(dev),
+                                     progress_timeout=240.0)
+            kt.join(timeout=10)
+            t_kill = time.perf_counter() - t0
+            survivors = len(em.membership.members())
+            epoch = em.membership.epoch
+        finally:
+            stop.set()
+            for _, t in pairs:
+                t.join(timeout=30)
+            if proc.poll() is None:
+                proc.kill()
+            out = proc.communicate(timeout=60)[0].decode(errors="replace")
+            em.stop()
+    check(kill["killed"], f"elastic (b): the subprocess worker was never "
+          f"killed holding a shard; its output: {out[-2000:]}")
+    check(epoch > kill["epoch"] and survivors == 2,
+          f"elastic (b): epoch {kill['epoch']} -> {epoch}, {survivors} "
+          "survivors")
+    rebucket = reg.counter("cluster.rebucket_tasks_total").get()
+    evicted = reg.counter("cluster.leaves_total").get(reason="evicted")
+    check(rebucket >= 1 and evicted >= 1,
+          f"elastic (b): rebucketed {rebucket}, evicted {evicted}")
+    check(_trees_equal(_host_tree(params), got[-1][0])
+          and loss == got[-1][1],
+          "elastic (b): the pass with a killed worker differs from (a)'s")
+    say(f"elastic (b): a subprocess worker SIGKILLed holding a shard at "
+        f"epoch {kill['epoch']}; evicted {evicted:.0f}, re-bucketed "
+        f"{rebucket:.0f} shard(s), {survivors} survivors, the pass bit-equal "
+        f"to (a)'s ({t_kill:.2f} s, subprocess start included)")
+    return {"launches": launches, "workers": per_worker,
+            "losses": [l for _, l in got], "fit_s": t_fit,
+            "killed": {"epoch": kill["epoch"], "rebucketed": rebucket,
+                       "evicted": evicted, "seconds": t_kill}}
+
+
+def _serve_tokens(eng, prompts, n: int) -> list:
+    """Greedy tokens of ``prompts`` through a stopped ServingEngine, every
+    prompt queued before the scheduler starts."""
+    try:
+        rids = [eng.submit(p, n) for p in prompts]
+        eng.start()
+        while not all(eng.poll(r)[1] for r in rids):
+            time.sleep(0.002)
+    finally:
+        eng.stop()
+    check(eng.failed is None, f"engine failed: {eng.failed}")
+    return [eng.poll(r)[0] for r in rids]
+
+
+def _tiled_lstm_check(say, what, tune, cache, device, seed) -> dict:
+    """The fused LSTM at the flagship's shape (B 64, T 100, H 256, f32)
+    with ``cache`` installed against the heuristic route (no cache): the
+    outputs bit for bit, the gradients to TILE_GRAD_TOL."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import rnn as R
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    rs = np.random.RandomState(seed)
+    B, T, D, H = 64, 100, 128, 256
+    x = rs.randn(B, T, D).astype(np.float32) * 0.3
+    w = rs.randn(D, 4 * H).astype(np.float32) * 0.05
+    u = rs.randn(H, 4 * H).astype(np.float32) * 0.05
+    b = rs.randn(4 * H).astype(np.float32) * 0.05
+    lens = torch.tensor(rs.randint(30, T + 1, B).astype(np.int32),
+                        device=device)
+    g = torch.tensor(rs.randn(B, T, H).astype(np.float32), device=device)
+
+    def run():
+        args = [torch.tensor(a, device=device, requires_grad=True)
+                for a in (x, w, u, b)]
+        out, st = R.lstm(args[0], lens, *args[1:])
+        loss = (out * g).sum() + st.h.sum() + st.c.sum()
+        grads = torch.autograd.grad(loss, args)
+        torch.cuda.synchronize()
+        return [out.detach(), st.h.detach(), st.c.detach()], grads
+
+    tune.set_cache(cache)
+    xw = torch.zeros(B, T, 4 * H, device=device)
+    routes = {n: rk.route_for(n, xw, H) for n in ("lstm_seq_train",
+                                                  "lstm_seq_bwd")}
+    got = run()
+    tune.set_cache(None)
+    want = run()
+    for a, bb in zip(got[0], want[0]):
+        check(torch.equal(a, bb), f"{what}: the forward differs from the "
+              "heuristic route's")
+    worst = 0.0
+    for a, bb in zip(got[1], want[1]):
+        scale = bb.abs().max().item()
+        err = (a - bb).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        torch.testing.assert_close(a, bb, rtol=TILE_GRAD_TOL,
+                                   atol=TILE_GRAD_TOL * scale)
+    res = {n: (r.kind, [t for _, t in r.tiles]) for n, r in routes.items()}
+    say(f"{what}: routes {res}; forward bit-equal to the heuristic route's, "
+        f"gradients within {TILE_GRAD_TOL} (the largest error {worst:.2e} "
+        "of its tensor's largest magnitude)")
+    return {"routes": res, "grad_rel_err": worst}
+
+
+def tune_phase(say, seed: int, device="cuda") -> dict:
+    """(c) ``tune.run_tune(profile="bench", reps=3)`` over all five spaces
+    on the card into a temporary cache, each family's winner printed
+    beside the heuristic; with the cache installed: a GPT-2-small f32
+    ServingEngine with page_block, cache_bucket and prompt buckets left to
+    the consults serves the greedy tokens of the heuristic engine; the
+    flagship LSTM under the tuned row tiles (and under a forced 16-row
+    tile) equals plan_route's; a decode read at the tuned split count
+    equals the heuristic count's; plan_source() says "tuned"."""
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.models import TransformerLM
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.batcher import DEFAULT_PROMPT_BUCKETS
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "autotune.json")
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = tune.run_tune(profile=TUNE_PROFILE, reps=3, cache_path=path,
+                            device=device)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = launches
+        rows = []
+        for r in rep["results"]:
+            row = {k: r.get(k) for k in ("space", "kernel", "family", "plan",
+                                         "tuned_ms", "heuristic_plan",
+                                         "heuristic_ms", "speedup", "note")}
+            if r["space"] == "decode_route":
+                row["sweep"] = [{k: v for k, v in x.items() if k != "sweep"}
+                                for x in r["sweep"]]
+            rows.append(row)
+            say(f"tune {json.dumps(row)}")
+        out["results"] = rows
+        check({r["space"] for r in rows} == set(tune.SPACE_NAMES),
+              f"tune: spaces swept {sorted({r['space'] for r in rows})}")
+        check(rep["backend"] == "device"
+              and rep["device_kind"] == torch.cuda.get_device_name(0),
+              f"tune: backend {rep['backend']}, kind {rep['device_kind']}")
+        check(all(launches[k] > 0 for k in TUNE_KERNELS),
+              f"tune: a kernel of #4-#12 never launched: {launches}")
+        say(f"tune sweep: {out['seconds']:.1f} s; launches {launches}")
+        cache = tune.load_cache(path)
+        tune.set_cache(cache)
+        try:
+            check(tune.plan_source() == "tuned", "plan_source() is not "
+                  "'tuned' with the sweep's cache installed")
+            # a GPT-2-small engine left to the consults
+            model = TransformerLM(**GPT2_SMALL).init(seed=seed,
+                                                     device=device)
+            prompts = workload(seed, GPT2_SMALL["vocab"])[:TUNE_REQUESTS]
+            tuned = ServingEngine(model, device=device, slots=8, segment=32)
+            pool = tuned.pool
+            out["engine"] = {"page_block": pool.bs,
+                             "cache_bucket": pool.cache_bucket,
+                             "prompt_buckets": list(pool.prompt_buckets)}
+            toks = _serve_tokens(tuned, prompts, TUNE_TOKENS)
+            heur = ServingEngine(model, device=device,
+                                 prompt_buckets=DEFAULT_PROMPT_BUCKETS,
+                                 **ENGINE)
+            want = _serve_tokens(heur, prompts, TUNE_TOKENS)
+            check(toks == want, "tuned engine: greedy tokens differ from "
+                  "the heuristic engine's")
+            say(f"tuned GPT-2-small f32 engine {json.dumps(out['engine'])}: "
+                f"{TUNE_REQUESTS} requests x {TUNE_TOKENS} greedy tokens "
+                "equal to the heuristic engine's (page_block 64, "
+                "cache_bucket 256, prompt buckets 32-512)")
+            del tuned, heur, pool, model
+            gc.collect()
+            out["lstm_tuned"] = _tiled_lstm_check(
+                say, "flagship LSTM under the tuned row tiles", tune, cache,
+                device, seed)
+            forced = tune.AutotuneCache()
+            fam = tune.fused_family(gates=4, T=100, H=256, batch=64)
+            for k in ("lstm_seq_train", "lstm_seq_bwd"):
+                forced.put("fused_rnn", k, torch.cuda.get_device_name(0),
+                           fam, 16, tune.space_hash("fused_rnn"))
+            out["lstm_tile16"] = _tiled_lstm_check(
+                say, "flagship LSTM under a forced 16-row tile", tune,
+                forced, device, seed)
+            tune.set_cache(cache)
+            # a decode read at the tuned split count
+            B, Hh, Dh, L = 8, 12, 64, 512
+            n = tune._decode_splits(B * Hh, L)
+            h = ck.decode_splits(B * Hh, L, ck.default_split_count(B * Hh,
+                                                                   L))[0]
+            check(n is not None and ck.decode_splits(B * Hh, L)[0]
+                  == ck.decode_splits(B * Hh, L, n)[0],
+                  f"decode: the tuned count {n} is not consulted")
+            rs = np.random.RandomState(seed)
+            q, k, v = (torch.tensor(rs.randn(*s).astype(np.float32),
+                                    device=device)
+                       for s in ((B, Hh, Dh), (B, L, Hh, Dh), (B, L, Hh, Dh)))
+            pos = torch.full((B,), L - 1, dtype=torch.int32, device=device)
+            o_t = ck._decode_attention_kernel(q, k, v, pos, Dh ** -0.5,
+                                              None, None, n)
+            o_h = ck._decode_attention_kernel(q, k, v, pos, Dh ** -0.5,
+                                              None, None, h)
+            err = (o_t - o_h).abs().max().item()
+            torch.testing.assert_close(o_t, o_h, rtol=1e-5, atol=1e-6)
+            out["decode"] = {"L": L, "tuned_splits": n,
+                             "heuristic_splits": h, "max_abs_err": err}
+            say(f"decode read (B 8, 12 heads of 64, L 512): tuned split "
+                f"count {n} against the heuristic {h}: max |diff| {err:.2e}")
+        finally:
+            tune.set_cache(None)
+    return out
+
+
+def capi_phase(say, seed: int, device="cuda") -> dict:
+    """(d) The C inference API built from csrc/capi_inference.cc; pti_create
+    on the fluid LSTM flagship's exported bundle (vocab 30000, embed 128,
+    H 256) and pti_forward on a batch of 64 x 100: the output bit-equal to
+    InferenceHost(...).run (Executor.run of the same bundle), #8
+    launched."""
+    import ctypes
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid as tfluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.runtime.capi_host import InferenceHost
+    from paddle_tpu_torch.runtime.lib import load_capi
+    build = load_capi()
+    say(f"C inference API: {build.seconds:.1f} s "
+        f"({'built' if build.built else 'cached'} with g++) -> "
+        f"{build.path.name}")
+    lib = build.lib
+    cfg = TEXTCLS
+    tfluid.reset_default_programs()
+    logits, _ = _fluid_textcls(tfluid, "lstm", cfg["vocab"], cfg["embed"],
+                               cfg["hidden"], TEXTCLS_LR)
+    exe = tfluid.Executor(scope=tfluid.Scope(), device=device)
+    exe.run(tfluid.default_startup_program())
+    rs = np.random.RandomState(seed)
+    words = rs.randint(0, cfg["vocab"], (TEXTCLS_BATCH, TEXTCLS_LEN)
+                       ).astype(np.int32)
+    lens = rs.randint(TEXTCLS_MIN_LEN, TEXTCLS_LEN + 1,
+                      TEXTCLS_BATCH).astype(np.int32)
+    with tempfile.TemporaryDirectory() as d:
+        bundle = os.path.join(d, "textcls")
+        tfluid.io.export_inference_model(bundle, ["words", "lens"],
+                                         [logits], exe)
+        want = InferenceHost(bundle, device=device).run([words, lens])
+        ck.reset_launch_counts()
+        h = lib.pti_create(bundle.encode())
+        check(bool(h), f"pti_create: {lib.pti_last_error().decode()}")
+        try:
+            arrs = [np.ascontiguousarray(words), np.ascontiguousarray(lens)]
+            inputs = (ctypes.c_void_p * 2)(*[a.ctypes.data for a in arrs])
+            shapes = (ctypes.c_longlong * 3)(*words.shape, *lens.shape)
+            ndims = (ctypes.c_int * 2)(2, 1)
+            dtypes = (ctypes.c_int * 2)(1, 1)
+            buf = np.zeros(4096, np.float32)
+            oshape = (ctypes.c_longlong * 8)()
+            ondim = ctypes.c_int(0)
+            rc = lib.pti_forward(
+                h, inputs, shapes, ndims, dtypes, 2, 0,
+                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                buf.size, oshape, ctypes.byref(ondim))
+            torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+        finally:
+            lib.pti_destroy(h)
+    check(rc >= 0, f"pti_forward: {lib.pti_last_error().decode()}")
+    got = buf[:rc].reshape(tuple(oshape[i] for i in range(ondim.value)))
+    check(got.shape == want.shape and got.tobytes() == want.tobytes(),
+          f"C API forward {got.shape} differs from Executor.run's "
+          f"{want.shape}")
+    check(launches["lstm_seq"] > 0, f"C API: #8 not launched: {launches}")
+    say(f"C inference API: pti_forward on the flagship bundle (B "
+        f"{TEXTCLS_BATCH}, T {TEXTCLS_LEN}) bit-equal to Executor.run; "
+        f"launches {launches}")
+    return {"launches": launches, "out_shape": list(got.shape),
+            "build_s": build.seconds}
+
+
+def elastic_tune_phase(say, seed: int, device="cuda:0") -> dict:
+    """Phase 24: (a)-(b) elastic_phase, (c) tune_phase, (d) capi_phase."""
+    t0 = time.perf_counter()
+    res = {"elastic": elastic_phase(say, seed, device)}
+    res["tune"] = tune_phase(say, seed, device)
+    res["capi"] = capi_phase(say, seed, device)
+    res["seconds"] = time.perf_counter() - t0
+    say(f"phase 24: {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9523,6 +10026,22 @@ def main(argv=None) -> int:
     stamp("phase 22")
     obs_res = obs_phase(say, args.seed)
     stamp("phase 23")
+    p24 = elastic_tune_phase(say, args.seed)
+    stamp("phase 24")
+    elastic_l = p24["elastic"]["launches"]
+    tune_l = p24["tune"]["launches"]
+    for entry in [paged] + decode + lstm + gru:
+        name = entry["name"]
+        if name in ("lstm_seq_train", "lstm_seq_bwd"):
+            entry["launches_elastic"] = elastic_l[name]
+            check(elastic_l[name] > 0, f"phase 24: {name} never launched "
+                  "by the elastic workers")
+        if name in TUNE_KERNELS:
+            entry["launches_tune"] = tune_l[name]
+            check(tune_l[name] > 0,
+                  f"phase 24: {name} never launched by the tune sweep")
+        if name == "lstm_seq":
+            entry["launches_capi"] = p24["capi"]["launches"][name]
     for entry in [flash] + decode + [paged] + lstm:
         entry["launches_obs"] = {
             run: n.get(entry["name"], 0)
@@ -9583,6 +10102,7 @@ def main(argv=None) -> int:
     print(json.dumps({"world": {k: v for k, v in world.items()
                                 if k != "launches"}, "card": card}))
     print(json.dumps({"obs": obs_res, "card": card}))
+    print(json.dumps({"phase24": p24, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru + s19["entries"] + s20["entries"],
                       "card": card}))

@@ -16,8 +16,8 @@ runs. This subpackage rejects malformed programs with precise
 
 Entry points: ``analyze_program`` (everything, returns diagnostics) and
 ``check_or_raise`` (the ``Executor.run(verify=True)`` pre-flight). The
-``lint`` CLI subcommand waits for ROADMAP A.8, as does the lint over the
-tune plane (L008).
+``lint`` CLI subcommand waits for ROADMAP A.8c; the lint over the tune
+plane's cache (L008) is :func:`lint_autotune_cache`.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 
 :func:`lint_catalogue_drift` (L007) runs over the port's tree against
 the port's catalogue, and :func:`lint_alert_rules` (L009) over
-``obs.alerts``; :func:`lint_autotune_cache` (L008) needs the tune plane
-the port has not taken yet and raises naming ROADMAP A.8. L004 checks
+``obs.alerts``, and :func:`lint_autotune_cache` (L008) over the port's
+autotune cache and plan spaces (``tune/``). L004 checks
 axis names against the mesh plane's canonical axis order
 (``parallel.mesh.CANONICAL_ORDER``).
 
@@ -429,11 +429,6 @@ def lint_metric_names(catalogue, severity: Severity = None,
     return diags
 
 
-def _needs_a8(what: str):
-    raise NotImplementedError(
-        f"{what} waits for the port's tune plane (ROADMAP A.8)")
-
-
 #: metric name: the obs facade's emitters and the registry constructors
 _EMIT_ATTRS = frozenset(("count", "gauge_set", "observe",
                          "counter", "gauge", "histogram"))
@@ -606,9 +601,137 @@ def lint_alert_rules(rules=None, catalogue=None,
 
 def lint_autotune_cache(path=None,
                         severity: Severity = None) -> List[Diagnostic]:
-    """L008: the autotune cache against the current plan spaces. The port
-    has no ``tune/`` plane yet, so this raises naming A.8."""
-    _needs_a8("lint_autotune_cache (L008, the tune plane)")
+    """L008: the autotune cache vs the CURRENT plan spaces — staleness.
+
+    An autotune entry is only as good as the candidate set that produced
+    it: when a plan space changes (``paddle_tpu.tune.spaces.SPACE_DEFS``),
+    previously tuned winners may no longer exist, or better candidates may
+    have appeared. Stale entries are IGNORED at consult time (the
+    heuristics silently own those decisions again), so the lint is what
+    makes the degradation visible: it flags a schema-version mismatch
+    (whole file ignored), entries whose ``space_hash`` differs from the
+    current space's hash, and entries naming unknown spaces. Fix: re-run
+    ``paddle_tpu tune``. ``path=None`` resolves the port's own cache
+    (``$PADDLE_TPU_TORCH_AUTOTUNE_CACHE`` /
+    ``~/.paddle_tpu_torch/autotune.json``); a missing file is clean
+    (nothing tuned, nothing stale). The diagnostics are JAX's, word for
+    word, over the port's plan spaces (tune/spaces.py)."""
+    import json
+    import os
+
+    from ..tune import cache as _tcache
+    from ..tune import spaces as _tspaces
+    sev = severity if severity is not None else LINT_CATALOGUE["L008"][1]
+    diags: List[Diagnostic] = []
+    path = path or _tcache.default_cache_path()
+    if not os.path.exists(path):
+        return diags
+
+    def emit(msg: str, hint: str, **kw):
+        diags.append(Diagnostic("L008", sev, msg, hint=hint, **kw))
+
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError) as e:
+        emit(f"autotune cache {path} is unreadable ({e}); every consult "
+             "falls back to heuristics",
+             "delete the file or re-run `paddle_tpu tune`")
+        return diags
+    version = data.get("schema_version") if isinstance(data, dict) else None
+    if version != _tcache.SCHEMA_VERSION:
+        emit(f"autotune cache {path} has schema_version {version!r} "
+             f"(supported: {_tcache.SCHEMA_VERSION}); the whole file is "
+             "ignored at consult time",
+             "re-run `paddle_tpu tune` to rewrite it")
+        return diags
+    entries = data.get("entries") or {}
+    for key, entry in sorted(entries.items()):
+        if not isinstance(entry, dict):
+            emit(f"autotune entry {key!r} is not an object",
+                 "re-run `paddle_tpu tune`", var=key)
+            continue
+        space = entry.get("space")
+        if space not in _tspaces.SPACE_DEFS:
+            emit(f"autotune entry {key!r} names unknown plan space "
+                 f"{space!r} (known: {list(_tspaces.SPACE_NAMES)}); "
+                 "ignored at consult time",
+                 "the space was removed/renamed — re-run `paddle_tpu "
+                 "tune` to drop it", var=key)
+            continue
+        current = _tspaces.space_hash(space)
+        if entry.get("space_hash") != current:
+            emit(f"autotune entry {key!r} was tuned under plan-space hash "
+                 f"{entry.get('space_hash')!r} but the current "
+                 f"{space!r} space hashes {current!r}; the entry is "
+                 "STALE and ignored at consult time (heuristic applies)",
+                 "re-run `paddle_tpu tune` to re-measure under the new "
+                 "candidate set", var=key)
+            continue
+        if space == "fusion":
+            _lint_fusion_entry(key, entry, emit)
+        elif space == "bucket_grid":
+            _lint_bucket_grid_entry(key, entry, emit)
+    return diags
+
+
+def _lint_fusion_entry(key, entry, emit):
+    """Per-entry L008 checks specific to the ``fusion`` space: the plan
+    must be the binary verdict, the dependence certificate must be
+    present, and the family's program/group signature components must
+    re-derive from the persisted certificate — a hand-edited or wrongly
+    merged cache whose proof no longer matches its key is refused at
+    consult time (``cert_invalid``), and this is what makes it visible."""
+    from ..tune import fusion as _tfusion
+    plan = entry.get("plan")
+    if not isinstance(plan, dict) or not isinstance(plan.get("fuse"), bool):
+        emit(f"fusion entry {key!r} has plan {plan!r} (expected "
+             "{'fuse': true|false}); ignored at consult time",
+             "re-run `paddle_tpu tune fusion`", var=key)
+        return
+    cert = entry.get("certificate")
+    if not isinstance(cert, dict):
+        emit(f"fusion entry {key!r} carries no dependence certificate; "
+             "the consult cannot re-validate it against the current "
+             "program and refuses it (cert_invalid)",
+             "re-run `paddle_tpu tune fusion`", var=key)
+        return
+    family = str(entry.get("family") or "")
+    parts = family.split(":")
+    if len(parts) != 3:
+        emit(f"fusion entry {key!r} family {family!r} is not "
+             "'program_sig:shape_family:group_sig'",
+             "re-run `paddle_tpu tune fusion`", var=key)
+        return
+    derived = _tfusion.group_signature(cert)
+    if derived != parts[2]:
+        emit(f"fusion entry {key!r}: group signature {parts[2]!r} in the "
+             f"family key does not re-derive from the persisted "
+             f"certificate (derived {derived!r}); the key and the proof "
+             "disagree — ignored at consult time",
+             "the cache was hand-edited or wrongly merged; re-run "
+             "`paddle_tpu tune fusion`", var=key)
+    prog_sig = entry.get("program_signature")
+    if prog_sig is not None and prog_sig != parts[0]:
+        emit(f"fusion entry {key!r}: program_signature {prog_sig!r} "
+             f"disagrees with the family key's {parts[0]!r}",
+             "re-run `paddle_tpu tune fusion`", var=key)
+
+
+def _lint_bucket_grid_entry(key, entry, emit):
+    """Per-entry L008 checks for ``bucket_grid``: the plan's grid must be
+    strictly ascending unique positive ints (the same legality the
+    consult enforces — an illegal grid silently falls back)."""
+    plan = entry.get("plan")
+    buckets = plan.get("buckets") if isinstance(plan, dict) else None
+    if (not isinstance(buckets, (list, tuple)) or not buckets
+            or not all(isinstance(b, int) and not isinstance(b, bool)
+                       and b >= 1 for b in buckets)
+            or list(buckets) != sorted(set(buckets))):
+        emit(f"bucket_grid entry {key!r} has plan {plan!r} (expected "
+             "{'buckets': [ascending unique positive ints]}); ignored "
+             "at consult time",
+             "re-run `paddle_tpu tune bucket_grid`", var=key)
 
 
 def _lint_sharding(program, mesh_axes, emit):

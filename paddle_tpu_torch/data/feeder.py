@@ -69,9 +69,10 @@ def pad_to_bucket(arr, axis: int, buckets: Sequence[int] = ()):
 class BucketSpec:
     """Per-feed shape-bucketing policy: ``spec`` maps a feed name to its
     bucket boundaries (``{"words": (32, 64, 128)}``, or ``{"words":
-    {"axis": 2, "buckets": (8, 16)}}``). ``"tuned"`` takes the serving
-    default grid (32, 64, 128, 256, 512): the measured ``bucket_grid`` of
-    the autotuner waits for ``tune`` (ROADMAP A.8)."""
+    {"axis": 2, "buckets": (8, 16)}}``). ``"tuned"`` takes the measured
+    ``bucket_grid`` winner (``tune.bucket_grid("prompt")``, validated by
+    the consult), else the serving default grid (32, 64, 128, 256,
+    512)."""
 
     def __init__(self, spec: Dict[str, Any]):
         self.spec: Dict[str, Tuple[Optional[int], Tuple[int, ...]]] = {}
@@ -83,7 +84,9 @@ class BucketSpec:
             else:
                 buckets = v
             if buckets == "tuned":
-                buckets = (32, 64, 128, 256, 512)
+                from .. import tune
+                buckets = (tune.bucket_grid("prompt")
+                           or (32, 64, 128, 256, 512))
             self.spec[name] = (axis, tuple(sorted(int(b) for b in buckets)))
 
     def names(self):

@@ -24,12 +24,15 @@ site                      where it fires in the port
                           (serving/daemon.py)
 ``route.submit``          per placement attempt of the router
                           (serving/router.py)
+``lease.renew``           per lease renewal (runtime/lease.py, runtime/coord.py)
+``actor.spawn``           per worker spawn the fleet actor commits
+                          (cluster/actor.py)
+``actor.drain``           per graceful drain the fleet actor commits
 ========================  =====================================================
 
-:data:`SITES` holds these and no more: JAX's other sites
-(``lease.renew``, ``actor.spawn``, ``actor.drain``) belong to modules the
-port has not taken yet, and :meth:`FaultPlan.add` refuses a rule for
-one, so that a plan never waits on a site that cannot fire.
+:data:`SITES` holds JAX's sites, every one of which fires in the port;
+:meth:`FaultPlan.add` refuses any other name, so that a plan never waits
+on a site that cannot fire.
 
 ``step.grad`` caveat: the hook filters the HOST-observed loss value after
 the step ran — it drives the detection/raise/halt machinery, but it
@@ -70,8 +73,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .. import obs
 
-SITES = ("ckpt.write", "reader.next", "step.grad", "rpc.send", "rpc.recv",
-         "mbr.heartbeat", "srv.ship", "srv.adopt", "route.submit")
+SITES = ("ckpt.write", "rpc.send", "rpc.recv", "lease.renew",
+         "reader.next", "step.grad", "mbr.heartbeat", "srv.ship",
+         "srv.adopt", "route.submit", "actor.spawn", "actor.drain")
 
 #: process-global active plan; None = harness disabled (the fast path)
 _PLAN: Optional["FaultPlan"] = None

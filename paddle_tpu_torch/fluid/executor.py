@@ -60,9 +60,18 @@ keeps the same tensors from run to run and no parameter is copied.
   ``fluid.placed_bytes_total``, ``mesh.axis_size``,
   ``mesh.axis_utilization`` and ``fluid.param_bytes_per_device``.
 
-Not here yet: ``fuse=True`` or a set of groups (ROADMAP A.8, the tune
-plane; ``fuse=None`` and ``False`` run unfused, as JAX's do with no
-autotune cache).
+* **Fusion** (``fuse=``, tune/fusion.py), as in JAX: ``None`` consults
+  the autotune cache's ``fusion`` space and activates only measured
+  winners (no entry for this device: unfused, at no analysis cost),
+  ``False`` runs unfused, ``True`` fuses every schedulable certified
+  group and a set of first-op indices exactly those groups. A fused
+  region runs its member ops together at the first member's slot, in
+  their order, under one ``record_function`` range
+  ``b{B}_op{first}_fused_<kind>``, inside the block's CUDA graph: the
+  same ops in the same order, so fused and unfused runs are bit-equal.
+  The plan joins the cache key and is memoized per (program version,
+  fetch, feed shapes, mode, cache), so ``fluid.fused_regions_total`` and
+  ``fluid.fusion_rejected_total`` count plan decisions, not runs.
 """
 
 from __future__ import annotations
@@ -136,14 +145,72 @@ def _scope_tag(op, idx: int) -> str:
     return f"b{b}_op{idx}_{_SCOPE_SAFE.sub('_', op.type)}"
 
 
-def _run_ops(ops, env: Dict[str, Any], program: Program):
-    """Run an op list of ``program`` over env (name -> tensor), in place.
+class _FusedRegion:
+    """One activated fusion group, ready to run: the member ops in
+    ascending (topological) order, the certificate's boundary vars and
+    the one site tag the whole region runs under."""
+
+    __slots__ = ("start", "ops", "inputs", "outputs", "tag")
+
+    def __init__(self, group, block: Block):
+        self.start = group.op_idxs[0]
+        self.ops = [(i, block.ops[i]) for i in group.op_idxs]
+        self.inputs = tuple(group.inputs)
+        self.outputs = tuple(group.outputs)
+        self.tag = (f"b{group.block_idx}_op{self.start}_fused_"
+                    f"{_SCOPE_SAFE.sub('_', group.kind)}")
+
+
+def _compute(op, idx: int, compute, ins):
+    """One op's compute: directly, or through the mesh run's dispatch."""
+    mr = _mesh.CURRENT
+    if mr is None:
+        return compute(ins, op.attrs)
+    outs, rows = mr.compute(op, _site(op, idx), compute, ins)
+    for names in op.outputs.values():
+        (mr.sharded.update if rows else mr.sharded.difference_update)(names)
+    return outs
+
+
+def _run_fused_region(region: _FusedRegion, env: Dict[str, Any]) -> None:
+    """Run one certified group as a single region: every member under one
+    site range, intermediates in a region-local env (the single-consumer
+    certificate guarantees nothing outside reads them), only the
+    certificate's outputs exported."""
+    sub: Dict[str, Any] = {n: env[n] for n in region.inputs if n in env}
+    with site_range(region.tag):
+        for idx, op in region.ops:
+            compute = OpRegistry.get(op.type)
+            ins = {k: [sub[n] if n in sub else env[n] for n in vs]
+                   for k, vs in op.inputs.items()}
+            outs = _compute(op, idx, compute, ins)
+            for k, names in op.outputs.items():
+                for n, v in zip(names, outs[k]):
+                    sub[n] = v
+    for n in region.outputs:
+        if n in sub:
+            env[n] = sub[n]
+
+
+def _run_ops(ops, env: Dict[str, Any], program: Program,
+             fused: Optional[Dict[int, _FusedRegion]] = None,
+             first: int = 0):
+    """Run an op list of ``program`` over env (name -> tensor), in place;
+    ``first`` is the block index of ``ops[0]``.
+
+    ``fused`` (global-block runs only) maps member op indices to their
+    activated :class:`_FusedRegion`: the region runs at its first
+    member's slot, the later members are skipped.
 
     A failing op re-raises with the op's site ("block B, op #I (type)",
     as analysis/diagnostics.py cites it), its io names and the chain of
     ops leading up to it."""
-    for idx, op in enumerate(ops):
+    for idx, op in enumerate(ops, first):
         try:
+            if fused is not None and idx in fused:
+                if idx == fused[idx].start:
+                    _run_fused_region(fused[idx], env)
+                continue
             if op.type == "autodiff_grad":
                 _run_autodiff(op, ops, env)
                 continue
@@ -166,21 +233,15 @@ def _run_ops(ops, env: Dict[str, Any], program: Program):
             compute = OpRegistry.get(op.type)
             ins = {k: [env[n] for n in vs] for k, vs in op.inputs.items()}
             with site_range(_scope_tag(op, idx)):
-                mr = _mesh.CURRENT
-                if mr is None:
-                    outs = compute(ins, op.attrs)
-                else:
-                    outs, rows = mr.compute(op, _site(op, idx), compute, ins)
-                    for names in op.outputs.values():
-                        (mr.sharded.update if rows
-                         else mr.sharded.difference_update)(names)
+                outs = _compute(op, idx, compute, ins)
             for k, names in op.outputs.items():
                 for n, v in zip(names, outs[k]):
                     env[n] = v
         except Exception as e:
             if getattr(e, "_op_ctx", False):
                 raise          # the innermost op already carries its site
-            chain = " -> ".join(o.type for o in ops[max(0, idx - 4):idx + 1])
+            at = idx - first
+            chain = " -> ".join(o.type for o in ops[max(0, at - 4):at + 1])
             site = _site(op, idx)
             e.add_note(f"{site} failed while running the Program "
                        f"(inputs={op.inputs}, outputs={op.outputs})\n"
@@ -202,7 +263,8 @@ def _site(op, idx: int) -> str:
     return op_site(bidx, idx, op.type, block_path=path)
 
 
-def _forward_with_autodiff(ops, env: Dict[str, Any], program: Program):
+def _forward_with_autodiff(ops, env: Dict[str, Any], program: Program,
+                           fused: Optional[Dict[int, _FusedRegion]] = None):
     """Run a block whose op list holds an ``autodiff_grad``: the ops before
     it under autograd with the op's parameters as leaves, then the op (the
     gradients of that one forward), then the rest without autograd."""
@@ -215,14 +277,14 @@ def _forward_with_autodiff(ops, env: Dict[str, Any], program: Program):
     if _mesh.CURRENT is not None:
         _mesh.CURRENT.leaves = leaves
     with torch.enable_grad():
-        _run_ops(ops[:n_fwd + 1], env, program)
+        _run_ops(ops[:n_fwd + 1], env, program, fused)
     for k, v in env.items():
         if isinstance(v, torch.Tensor) and v.requires_grad:
             env[k] = v.detach()
     for name, leaf in leaves.items():
         if env[name].data_ptr() == leaf.data_ptr():
             env[name] = given[name]      # not rewritten by the forward
-    _run_ops(ops[n_fwd + 1:], env, program)
+    _run_ops(ops[n_fwd + 1:], env, program, fused, n_fwd + 1)
 
 
 def _run_autodiff(op, ops, env):
@@ -399,12 +461,13 @@ def _runs_eagerly(program: Program, block: Block) -> bool:
 
 class _Entry:
     """One key of the executor's LRU: the block's body over (feed, state,
-    kept) and the token its CUDA graph is keyed by."""
+    kept), the token its CUDA graph is keyed by, and its fused regions."""
 
-    __slots__ = ("body", "token", "eager")
+    __slots__ = ("body", "token", "eager", "fused")
 
-    def __init__(self, body, token: int, eager: bool):
+    def __init__(self, body, token: int, eager: bool, fused=None):
         self.body, self.token, self.eager = body, token, eager
+        self.fused = fused
 
 
 #: consecutive cache misses before the executor warns that the workload is
@@ -430,11 +493,8 @@ class Executor:
                  fuse: Optional[Any] = None,
                  cache_capacity: int = DEFAULT_CACHE_CAPACITY,
                  device=None):
-        if fuse is not None and fuse is not False:
-            raise NotImplementedError(
-                "Executor(fuse=...): graph fusion over certified groups "
-                "waits for the tune plane (ROADMAP A.8); fuse=None and "
-                "fuse=False run unfused")
+        self.fuse = fuse
+        self._fusion_memo: Dict[Tuple, Any] = {}
         if mesh is None:
             from ..parallel.mesh import current_mesh
             mesh = current_mesh()
@@ -735,9 +795,11 @@ class Executor:
             mesh_key = plan[2]
             self._place_persistables(persist_in, plan[1])
 
+        fusion_plan = self._fusion_plan(program, block, feed, fetch_names)
         key = (program._serial, program.version, block.idx,
                tuple(fetch_names), tuple(state_in), tuple(kept_in),
                bool(donate), kernel_route(), mesh_key,
+               fusion_plan.key() if fusion_plan is not None else None,
                tuple((k, tuple(v.shape), v.dtype)
                      for k, v in sorted(feed.items())))
         entry = self._cache.get(key) if use_cache else None
@@ -758,7 +820,7 @@ class Executor:
                 self._miss_streaks[churn_key] = streak
                 self._maybe_warn_churn(streak)
             entry = self._build(program, block, state_in, kept_in,
-                                fetch_names, written)
+                                fetch_names, written, fusion_plan)
             if use_cache:
                 self._cache[key] = entry
                 while len(self._cache) > self.cache_capacity:
@@ -787,7 +849,7 @@ class Executor:
             self.stats["eager_runs"] += 1
             return self._run_mesh(block, program, feed, state, kept,
                                   fetch_names, written, plan, donate,
-                                  return_numpy)
+                                  return_numpy, entry.fused)
         if entry.eager:
             self.stats["eager_runs"] += 1
             with running_on(self.device):
@@ -810,7 +872,7 @@ class Executor:
         return list(fetches)
 
     def _run_mesh(self, block, program, feed, state, kept, fetch_names,
-                  written, plan, donate, return_numpy):
+                  written, plan, donate, return_numpy, fused=None):
         """One run on the mesh (fluid/_mesh.py): the persistables gathered,
         this rank's feed rows, the ops with the batch reductions and the
         gradients summed across the batch axes, this rank's block of each
@@ -844,9 +906,9 @@ class Executor:
             with running_on(self.device), torch.no_grad():
                 ops = block.ops
                 if any(op.type == "autodiff_grad" for op in ops):
-                    _forward_with_autodiff(ops, env, program)
+                    _forward_with_autodiff(ops, env, program, fused)
                 else:
-                    _run_ops(ops, env, program)
+                    _run_ops(ops, env, program, fused)
         finally:
             _mesh.CURRENT = prev
         fetches = [run.gather_rows(env[n]) if n in run.sharded else env[n]
@@ -880,12 +942,20 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _build(self, program: Program, block: Block, state_in, kept_in,
-               fetch_names, written) -> _Entry:
-        """The body of one key: the block's ops over the feeds and the
-        persistables, then every written persistable back — in place into
-        its state tensor (donated), or as a new tensor (kept, or one with
-        no value before the run)."""
+               fetch_names, written, fusion_plan=None) -> _Entry:
+        """The body of one key: the block's ops (with the plan's fused
+        regions) over the feeds and the persistables, then every written
+        persistable back — in place into its state tensor (donated), or as
+        a new tensor (kept, or one with no value before the run)."""
         has_autodiff = any(op.type == "autodiff_grad" for op in block.ops)
+        fused: Optional[Dict[int, _FusedRegion]] = None
+        if fusion_plan is not None and not any(
+                op.type == "fill_init" for op in block.ops):
+            fused = {}
+            for g in fusion_plan.groups:
+                region = _FusedRegion(g, block)
+                for i in g.op_idxs:
+                    fused[i] = region
         written_state = [n for n in written if n in set(state_in)]
         written_new = [n for n in written if n not in set(state_in)]
 
@@ -897,9 +967,9 @@ class Executor:
             inputs = {id(v) for v in env.values()}
             with torch.no_grad():
                 if has_autodiff:
-                    _forward_with_autodiff(block.ops, env, program)
+                    _forward_with_autodiff(block.ops, env, program, fused)
                 else:
-                    _run_ops(block.ops, env, program)
+                    _run_ops(block.ops, env, program, fused)
                 fetches = [env[n].clone() if id(env[n]) in inputs
                            else env[n] for n in fetch_names]
                 # every new value is taken before any state is written
@@ -914,4 +984,36 @@ class Executor:
             return fetches, state, new
 
         return _Entry(body, next(self._tokens),
-                      _runs_eagerly(program, block))
+                      _runs_eagerly(program, block), fused)
+
+    def _fusion_plan(self, program, block, feed, fetch_names):
+        """The (memoized) fusion decision for this run's key, as JAX's:
+        with ``fuse=None`` and no ``fusion`` entry for this device in the
+        active cache, nothing is analysed; plans memoize per (program
+        version, fetch, mode, cache identity, feed shapes)."""
+        if self.fuse is False or block.idx != 0:
+            return None
+        from ..tune import fusion as _fusion
+        if self.fuse is None and not _fusion.cache_has_fusion_entries():
+            return None
+        mode = (True if self.fuse is True else
+                tuple(sorted(self.fuse)) if self.fuse is not None else None)
+        ctoken = None
+        if self.fuse is None:
+            # consults must not survive a cache swap: the active cache's
+            # identity and entry count ride the memo key
+            from ..tune.cache import get_cache
+            c = get_cache()
+            ctoken = (id(c), len(c.entries) if c is not None else 0)
+        fkey = (program._serial, program.version, tuple(fetch_names), mode,
+                ctoken, tuple((k, tuple(v.shape))
+                              for k, v in sorted(feed.items())))
+        plan = self._fusion_memo.get(fkey)
+        if plan is None:
+            plan = _fusion.plan_for(
+                program, {k: tuple(v.shape) for k, v in feed.items()},
+                fetch=fetch_names, feed=list(feed), force=self.fuse)
+            if len(self._fusion_memo) > 256:
+                self._fusion_memo.clear()
+            self._fusion_memo[fkey] = plan
+        return plan if plan.groups else None

@@ -569,25 +569,14 @@ SPANS: Dict[str, str] = {
 }
 
 
-#: JAX's entries whose emitters live in modules the port has not taken yet
-#: (ROADMAP A.8), by the module that emits them. They are held out of
-#: CATALOGUE and SPANS so that L007 (analysis/lints.py) holds the port's
-#: tree to exactly what it emits; each returns when its module is ported.
-WAITING_MODULES: Dict[str, Tuple[str, ...]] = {
-    "trainer/elastic.py": ("cluster.rebucket_tasks_total",
-                           "cluster.resyncs_total", "cluster.shard_seconds"),
-    "cluster/actor.py": ("cluster.actor_failures_total",),
-    "runtime/coord.py": ("coord.requests_total",
-                         "coord.request_errors_total", "coord.dispatch"),
-    "runtime/lease.py": ("lease.renews_total", "lease.renew_failures_total"),
-    "tune/fusion.py": ("fluid.fused_regions_total",
-                       "fluid.fusion_rejected_total"),
-    "tune/driver.py": ("tune.measurements_total",
-                       "tune.ledger_seeded_families_total"),
-}
+#: JAX's entries whose emitters live in modules the port has not taken,
+#: by the module that emits them: none since the tune and elastic planes
+#: came across. An entry here is held out of CATALOGUE and SPANS, so that
+#: L007 (analysis/lints.py) holds the port's tree to exactly what it emits.
+WAITING_MODULES: Dict[str, Tuple[str, ...]] = {}
 
-#: name -> the entry JAX's catalogue gives it (a metric's tuple or a
-#: span's help), for every name of :data:`WAITING_MODULES`
+#: name -> the entry JAX's catalogue gives it, for every name of
+#: :data:`WAITING_MODULES`
 WAITING: Dict[str, object] = {
     name: (CATALOGUE.pop(name) if name in CATALOGUE else SPANS.pop(name))
     for names in WAITING_MODULES.values() for name in names}

@@ -733,6 +733,13 @@ _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _RETIRED_TICKETS: list = []
 
 
+def default_split_count(bh: int, L: int) -> int:
+    """The split count :func:`decode_splits` asks for with no tuned entry
+    (before rounding): enough blocks to reach ``DECODE_TARGET_BLOCKS``,
+    each chunk at least ``DECODE_MIN_CHUNK`` rows."""
+    return min(-(-DECODE_TARGET_BLOCKS // bh), L // DECODE_MIN_CHUNK)
+
+
 def decode_splits(bh: int, L: int, splits: Optional[int] = None
                   ) -> Tuple[int, int]:
     """(splits, chunk) of a decode read (#4-#7) of ``L`` rows (a paged
@@ -740,13 +747,17 @@ def decode_splits(bh: int, L: int, splits: Optional[int] = None
     chunks of ``chunk`` rows tile [0, L), the last one not empty. One split where ``bh``
     blocks already fill the card or the read is short; more while the
     grid has fewer than ``DECODE_TARGET_BLOCKS`` blocks, each chunk at
-    least ``DECODE_MIN_CHUNK`` rows. ``splits`` asks for a count instead
-    (then rounded as below). A chunk is a whole number of the walk's
-    16-row steps."""
+    least ``DECODE_MIN_CHUNK`` rows, unless the autotune cache holds a
+    measured count for this (bh, L) (``tune``'s ``decode_route`` space).
+    ``splits`` asks for a count instead (then rounded as below). A chunk
+    is a whole number of the walk's 16-row steps."""
     if L < 1 or bh < 1:
         raise ValueError(f"decode_splits: bh {bh} and L {L} must be >= 1")
     if splits is None:
-        splits = min(-(-DECODE_TARGET_BLOCKS // bh), L // DECODE_MIN_CHUNK)
+        from ..tune import _decode_splits
+        splits = _decode_splits(bh, L)
+    if splits is None:
+        splits = default_split_count(bh, L)
     splits = max(1, min(int(splits), L))
     if splits == 1:
         return 1, L

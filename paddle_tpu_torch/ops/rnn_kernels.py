@@ -226,6 +226,9 @@ def _card_plan(kind: str, name: str, xw: torch.Tensor, B: int,
 KERNEL_KINDS = {"lstm_seq": "lstm", "lstm_seq_train": "lstm",
                 "lstm_seq_bwd": "lstm_bwd", "gru_seq": "gru",
                 "gru_seq_bwd": "gru_bwd"}
+#: the gates of each kernel's cell (the shape family's ``g``)
+_GATES = {"lstm_seq": 4, "lstm_seq_train": 4, "lstm_seq_bwd": 4,
+          "gru_seq": 3, "gru_seq_bwd": 3}
 #: the backwards' fixed partitions (csrc/lstm.cuh, csrc/gru_seq_bwd.cu):
 #: hidden units and batch rows a block of 256 threads, and the blocks an
 #: SM their launch bounds leave room for (#10: 128 registers a thread,
@@ -306,14 +309,7 @@ def plan_route(name: str, B: int, H: int, dtype: torch.dtype = torch.float32,
     the widest ``block_b``), the last tile holding the rest; else
     "scan". A pure function of its arguments: nothing is tried on the
     card."""
-    kind = KERNEL_KINDS[name]
-    if kind in _FORWARD_KINDS:
-        plan_of = lambda b: forward_plan(kind, b, H, sms, smem_optin)
-        fits = lambda b: plan_of(b) is not None
-    else:
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        plan_of = lambda b: None
-        fits = lambda b: _bwd_fits(kind, b, H, itemsize, sms, smem_optin)
+    fits, plan_of = _residency(name, H, dtype, sms, smem_optin)
     if B <= 0 or fits(B):
         return Route("whole", ((0, B),), (plan_of(B),))
     lo, hi = 0, B                       # fits(lo) (or lo = 0), not fits(hi)
@@ -323,6 +319,40 @@ def plan_route(name: str, B: int, H: int, dtype: torch.dtype = torch.float32,
     if lo == 0:
         return Route("scan", (), ())
     tiles = tuple((r, min(lo, B - r)) for r in range(0, B, lo))
+    return Route("tiles", tiles, tuple(plan_of(n) for _, n in tiles))
+
+
+def _residency(name: str, H: int, dtype: torch.dtype, sms: int,
+               smem_optin: int):
+    """(fits, plan_of) of kernel ``name``: whether a grid over b rows is
+    resident at once, and the forward plan of b rows (None for a
+    backward)."""
+    kind = KERNEL_KINDS[name]
+    if kind in _FORWARD_KINDS:
+        plan_of = lambda b: forward_plan(kind, b, H, sms, smem_optin)
+        return (lambda b: plan_of(b) is not None), plan_of
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return ((lambda b: _bwd_fits(kind, b, H, itemsize, sms, smem_optin)),
+            (lambda b: None))
+
+
+@functools.lru_cache(maxsize=4096)
+def tile_route(name: str, B: int, H: int, tile: int,
+               dtype: torch.dtype = torch.float32, sms: int = H100[0],
+               smem_optin: int = H100[1]) -> Optional[Route]:
+    """The route of kernel ``name`` over B rows in row tiles of ``tile``
+    rows ("whole" when ``tile`` >= B), or None where a tile's grid is not
+    resident at once: the legality check of a tuned row tile
+    (``tune.fused_plan``), which :func:`plan_route`'s own choice passes
+    by construction."""
+    fits, plan_of = _residency(name, H, dtype, sms, smem_optin)
+    if B <= 0 or tile < 1:
+        return None
+    if tile >= B:
+        return Route("whole", ((0, B),), (plan_of(B),)) if fits(B) else None
+    if not fits(tile):
+        return None
+    tiles = tuple((r, min(tile, B - r)) for r in range(0, B, tile))
     return Route("tiles", tiles, tuple(plan_of(n) for _, n in tiles))
 
 
@@ -358,13 +388,21 @@ def route_for(name: str, xw: torch.Tensor, H: int,
               route: Optional[str] = None) -> Optional[Route]:
     """The planner's route for a call of ``name`` on xw's rows, or None
     for an unplanned call (``route="plain"``, or the CPU with no forced
-    limits)."""
+    limits): a row tile the autotune cache holds for this shape family
+    (``tune.fused_plan``, re-checked for residency on these limits), else
+    :func:`plan_route`'s."""
     if route == "plain":
         return None
     lim = limits_for(xw.device)
     if lim is None:
         return None
-    return plan_route(name, xw.shape[0], H, xw.dtype, *lim)
+    from .. import tune
+    B, T = xw.shape[0], (xw.shape[1] if xw.dim() > 2 else 1)
+    tuned = tune.fused_plan(name, T=T, H=H, gates=_GATES[name], batch=B,
+                            dtype=xw.dtype, limits=lim)
+    if tuned is not None:
+        return tuned
+    return plan_route(name, B, H, xw.dtype, *lim)
 
 
 def count_route(name: str, kind: str) -> None:

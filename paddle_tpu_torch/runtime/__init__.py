@@ -13,22 +13,34 @@ sources into ``paddle_tpu_torch/_build/``.
   native RPC plane (JAX's frames)
 * :mod:`membership` — ``MembershipService``, ``MembershipClient`` and
   ``HeartbeatKeeper``: heartbeat-leased, epoch-numbered membership
-
-The arena, leases and the coordination service wait for ROADMAP A.8.
+* :mod:`lease` — ``FileLease``/``LeaseKeeper``: master election over
+  shared storage with fencing tokens; ``FencedFile`` snapshots
+* :mod:`coord` — ``CoordServer``, ``NetworkLease``,
+  ``NetworkFencedStore``: the same over TCP (``python -m
+  paddle_tpu_torch.runtime.coord``)
+* :mod:`arena` — ``HostArena``, the host buddy allocator
+* :mod:`capi_host` — the Python side of the C inference API
+  (``lib.load_capi()`` builds the library)
 """
 
+from .arena import HostArena
+from .coord import CoordServer, NetworkFencedStore, NetworkLease
 from .host_embedding import (HostEmbedBatch, HostEmbeddingTable,
                              HostEmbedPrefetcher)
+from .lease import FileLease, LeaseKeeper
 from .lib import load_library, native_available
 from .master import TaskMaster
 from .master_service import MasterClient, MasterServer, StaleMemberError
 from .membership import (HeartbeatKeeper, MembershipClient,
-                         MembershipService)
+                         MembershipService, autoscale_recommendation)
 from .optimizer import HostOptimizer
 from .recordio import RecordReader, RecordWriter
 
 __all__ = ["load_library", "native_available", "TaskMaster",
-           "RecordReader", "RecordWriter", "HostOptimizer",
-           "HostEmbedBatch", "HostEmbeddingTable", "HostEmbedPrefetcher",
-           "MasterServer", "MasterClient", "StaleMemberError",
-           "MembershipService", "MembershipClient", "HeartbeatKeeper"]
+           "FileLease", "LeaseKeeper",
+           "CoordServer", "NetworkLease", "NetworkFencedStore",
+           "MembershipService", "MembershipClient", "HeartbeatKeeper",
+           "StaleMemberError", "autoscale_recommendation",
+           "HostEmbeddingTable", "HostEmbedBatch", "HostEmbedPrefetcher",
+           "RecordReader", "RecordWriter", "HostArena", "HostOptimizer",
+           "MasterServer", "MasterClient"]

@@ -17,12 +17,19 @@ under ``native/``, and ``native/``'s own library is never loaded: the
 JAX package builds that file with ``make`` at the same time as the
 port's tests run, and the machine with the card has no JAX to build it.
 A failed build raises :class:`HostCompileError` with the compiler's log.
+
+:func:`load_capi` builds the C inference API the same way: the port's
+copy of ``native/capi_inference.cc`` (``csrc/capi_inference.cc``, which
+drives ``paddle_tpu_torch.runtime.capi_host``) compiled with ``g++``
+against the running Python's headers, linked to its ``libpython`` where
+there is one, into ``_build/capi-<hash>/libpaddle_tpu_torch_capi.so``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import shutil
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Optional
@@ -53,6 +60,70 @@ class HostCompileError(RuntimeError):
 
 _lock = threading.Lock()
 _loaded: Optional[Build] = None
+_capi: Optional[Build] = None
+
+#: the C inference API's source and library
+CAPI_SOURCE = _PKG / "csrc" / "capi_inference.cc"
+CAPI_LIB_NAME = "libpaddle_tpu_torch_capi.so"
+
+
+def _python_flags():
+    """(compile flags, link flags) of the running Python: its headers, and
+    its shared ``libpython`` where the installation has one (a C program
+    that embeds the API links it; a process that already runs Python
+    provides its symbols)."""
+    include = sysconfig.get_paths()["include"]
+    cflags = [*CXXFLAGS, f"-I{include}"]
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ldlib = sysconfig.get_config_var("LDLIBRARY") or ""
+    link = []
+    if ldlib.endswith(".so") and (Path(libdir) / ldlib).is_file():
+        name = ldlib[len("lib"):-len(".so")]
+        # the link names its flags before the objects: --no-as-needed
+        # keeps libpython, which nothing before it references yet
+        link = [f"-L{libdir}", "-Wl,--no-as-needed", f"-l{name}",
+                f"-Wl,-rpath,{libdir}"]
+    return cflags, link
+
+
+def load_capi() -> Build:
+    """Build (once per source hash) and load the C inference API library;
+    its entry points get their ctypes signatures. ``pti_create`` imports
+    ``paddle_tpu_torch.runtime.capi_host`` in the embedded interpreter."""
+    global _capi
+    with _lock:
+        if _capi is None:
+            cflags, link = _python_flags()
+            tag = native_build.source_hash(cflags + link, [CAPI_SOURCE])
+
+            def compile_(out_dir: Path) -> str:
+                cxx = shutil.which("g++")
+                if cxx is None:
+                    raise HostCompileError("g++ not found: the C inference "
+                                           "API is built with g++")
+                return native_build.compile_library(
+                    cxx, cflags, [CAPI_SOURCE], out_dir, CAPI_LIB_NAME,
+                    link, HostCompileError)
+
+            build = native_build.build_and_load(
+                BUILD_ROOT / f"capi-{tag}", CAPI_LIB_NAME, compile_)
+            _configure_capi(build.lib)
+            _capi = build
+        return _capi
+
+
+def _configure_capi(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    lib.pti_create.restype = c.c_void_p
+    lib.pti_create.argtypes = [c.c_char_p]
+    lib.pti_forward.restype = c.c_int
+    lib.pti_forward.argtypes = [
+        c.c_void_p, c.POINTER(c.c_void_p), c.POINTER(c.c_longlong),
+        c.POINTER(c.c_int), c.POINTER(c.c_int), c.c_int, c.c_int,
+        c.POINTER(c.c_float), c.c_longlong, c.POINTER(c.c_longlong),
+        c.POINTER(c.c_int)]
+    lib.pti_destroy.argtypes = [c.c_void_p]
+    lib.pti_last_error.restype = c.c_char_p
 
 
 def source_hash() -> str:

@@ -4,10 +4,10 @@ host library (``runtime/lib.py``).
 
 The frames are JAX's byte for byte (a 4-byte little-endian length, then
 JSON), so a client of either package talks to a server of the other.
-Left out until their modules are ported (ROADMAP A.8): master election
-and fenced snapshots (JAX's ``lease=``, ``snapshot_path=`` and
-``snapshot_store=``, over ``runtime/lease.py`` and ``runtime/coord.py``).
-The obs calls are JAX's: the ``master.*`` and ``rpc.*`` counters, the
+Master election and fenced snapshots are JAX's: ``lease=`` (a
+``runtime/lease.py`` ``FileLease`` or a ``runtime/coord.py``
+``NetworkLease``), ``snapshot_path=`` and ``snapshot_store=``. The obs
+calls are JAX's: the ``master.*`` and ``rpc.*`` counters, the
 ``master.dispatch`` span parented on the client's ``rpc.call`` span
 through the wire trace context, and the retry observer. The server's
 ``ClusterAggregator`` is the port's (``obs/aggregate.py``).
@@ -20,7 +20,8 @@ plane:
   native/task_master.cc) over a length-prefixed JSON protocol — the framing
   discipline AND the native socket plane of ProtoServer
   (pserver/ProtoServer.h:36: length-framed messages over raw sockets).
-  Python keeps the control plane.
+  Python keeps the control plane (lease election, fencing, snapshots) and
+  pushes the fencing flag down to the native dispatch.
 * auto-reconnecting client (go/connection/conn.go) -> :class:`MasterClient`.
 * periodic timeout tick + snapshot (service.go:198-200, :166-227) -> the
   server's housekeeping thread.
@@ -127,7 +128,7 @@ def _recv_exact(sock, n) -> Optional[bytes]:
 
 
 class MasterServer:
-    """Serve a TaskMaster over TCP with timeout housekeeping.
+    """Serve a TaskMaster over TCP with timeout housekeeping + snapshots.
 
     The accept/dispatch loop is native (``native/master_server.cc``,
     compiled into the port's host library): it serves the task-queue ops
@@ -135,21 +136,67 @@ class MasterServer:
     unknown-op fallback, where the ops registered with
     :meth:`register_op` (the serving daemon's ``srv_*``, membership's
     ``mbr_*``) are served.
+
+    Pass a :class:`~paddle_tpu_torch.runtime.lease.FileLease` (or a
+    ``coord.NetworkLease``) to run under master election: the server renews
+    the lease while alive and shuts itself down if the lease is lost
+    (split-brain guard) — the etcd-session semantics of
+    go/master/etcd_client.go. ``snapshot_path`` (a file) or
+    ``snapshot_store`` (a ``coord.NetworkFencedStore``) holds the task
+    queues' fenced snapshot: restored before serving, written each tick,
+    refused once a newer master has claimed it.
     """
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
                  timeout_s: float = 60.0, failure_max: int = 3,
-                 tick_interval: float = 1.0):
+                 snapshot_path: Optional[str] = None,
+                 snapshot_store=None,
+                 tick_interval: float = 1.0, lease=None):
         self.master = TaskMaster(timeout_s=timeout_s, failure_max=failure_max)
+        if snapshot_store is not None and snapshot_path:
+            raise ValueError("pass snapshot_path (shared/local file) OR "
+                             "snapshot_store (network blob), not both")
+        if snapshot_store is not None:
+            # network snapshot home (coord.NetworkFencedStore): a successor
+            # on ANY host fetches before serving — no shared filesystem
+            import os
+            import tempfile
+            fd, tmp = tempfile.mkstemp(prefix="mastersnap.")
+            os.close(fd)
+            try:
+                if snapshot_store.fetch_to(tmp):
+                    self.master.restore(tmp)
+            finally:
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+            self._fence = snapshot_store
+        elif snapshot_path:
+            import os
+            if os.path.exists(snapshot_path):
+                # corruption (CRC/parse failure) must surface loudly — only a
+                # genuinely absent snapshot means "fresh start"
+                self.master.restore(snapshot_path)
+            from .lease import FencedFile
+            self._fence = FencedFile(snapshot_path)
+        else:
+            self._fence = None
+        self.snapshot_path = snapshot_path
         self._tick_interval = tick_interval
-        # no lease: this server is never fenced out (JAX's fencing token
-        # stays None, so its fenced checks always pass)
-        self.fence_token = None
+        self.lease = lease
+        self._keeper = None
+        self.fence_token = None   # set from the lease at start()
+        self._deposed = False
+        self._fence_checked_at = float("-inf")
+        self.lease_lost = threading.Event()
         self._host, self._port = host, port
         self._srv_h = None        # native server handle (master_server.cc)
         self._lib = None          # set (before handle publication) in start()
-        # guards every read/swap of _srv_h: the native handle must never be
-        # ptms_stop'd twice
+        # guards every read/swap of _srv_h: stop() can race a housekeeping
+        # tick (or a second stop() from LeaseKeeper.on_lost), and the
+        # native handle must never be ptms_stop'd twice or fenced after
+        # free — both are a native crash, precisely during failover
         self._srv_lock = threading.Lock()
         self.address: Tuple[str, int] = (host, port)
         self._threads: List[threading.Thread] = []
@@ -161,23 +208,64 @@ class MasterServer:
         self._fallback_cb = None  # keepalive for the ctypes callback
         # control-plane extension ops (the serving daemon's srv_submit /
         # srv_poll / srv_cancel ride here): served through the native
-        # unknown-op fallback. Registered BEFORE start() so no request can
-        # observe a half-wired op table.
+        # unknown-op fallback exactly like obs_push — the C++ data plane
+        # never learns their payloads. Registered BEFORE start() so no
+        # request can observe a half-wired op table.
         self._ext_ops = {}
         self._known_ops = set(self._KNOWN_OPS)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
+        if self.lease is not None:
+            from .lease import LeaseKeeper
+            # try_acquire (not held_by_me) even when the lease already names
+            # us: it refreshes the TTL and recovers the fencing token after
+            # a same-owner restart
+            if not self.lease.try_acquire():
+                raise RuntimeError(
+                    f"lease {self.lease.path} held by {self.lease.holder()}")
+            self.fence_token = self.lease.token
+            if self._fence is not None and \
+                    not self._fence.claim(self.fence_token):
+                self.lease.release()   # don't wedge standby takeover
+                fence_loc = getattr(self._fence, "fence_path",
+                                    getattr(self._fence, "key", "?"))
+                raise RuntimeError(
+                    "snapshot fence already claimed by a newer master "
+                    f"(our token {self.fence_token} < recorded "
+                    f"{self._fence._recorded()}); if the lease epoch state "
+                    f"was lost, clear the fence record at {fence_loc} or "
+                    "seed the lease epoch past the recorded value")
+            self._keeper = LeaseKeeper(self.lease, on_lost=self._on_lease_lost)
+            self._keeper.start()
+        # the accept/dispatch loop is NATIVE (master_server.cc, the
+        # ProtoServer-analog): it serves the ptm_* data plane directly;
+        # Python retains the control plane and pushes the fenced flag down
         import ctypes
 
         from .lib import PTMS_FALLBACK_FN, load_library
-        lib = load_library()
+        try:
+            lib = load_library()
+        except BaseException:
+            if self._keeper is not None:
+                self._keeper.stop(release=True)
+                self._keeper = None
+            raise
         out_port = ctypes.c_int(0)
         h = lib.ptms_start(self.master._h, self._host.encode(), self._port,
                            ctypes.byref(out_port))
         if not h:
+            if self._keeper is not None:
+                self._keeper.stop(release=True)
+                self._keeper = None
             raise OSError(f"ptms_start failed to bind "
                           f"{self._host}:{self._port}")
+        # _lib must be live BEFORE the handle is published: the keeper
+        # thread is already running, and an _on_lease_lost -> stop() that
+        # observes the handle must be able to ptms_stop it. A stop() that
+        # ran to COMPLETION before publication saw _srv_h=None and stopped
+        # nothing — publishing now would leave a deposed master's native
+        # listener serving forever, so detect it and stop the handle here.
         self._lib = lib
         with self._srv_lock:
             if self._stop.is_set():
@@ -186,14 +274,14 @@ class MasterServer:
             else:
                 self._srv_h = h
         if h is None:
-            raise RuntimeError("master stopped during start-up (stop() "
-                               "called before the server handle was "
-                               "published)")
+            raise RuntimeError(
+                "master stopped during start-up (lease lost or stop() "
+                "called before the server handle was published)")
         self.address = (self._host, out_port.value)
-
         # ops the native dispatch does not know fall back into Python's
         # _dispatch: the C++ handler hands us the raw frame, we reply via
         # ptms_reply. The CFUNCTYPE object must outlive the server.
+
         def _fallback(buf, n, reply):
             try:
                 req = json.loads(ctypes.string_at(buf, n).decode())
@@ -209,35 +297,110 @@ class MasterServer:
             lib.ptms_reply(reply, data, len(data))
 
         self._fallback_cb = PTMS_FALLBACK_FN(_fallback)
+        # initial fencing state computed OUTSIDE the lock (filesystem read);
+        # the native calls re-read the handle under it — a stop() racing
+        # start() (lease lost mid-bring-up) may already have freed `h`, and
+        # these must then be skipped, not crash on a dead handle
+        fenced0 = 1 if self._fenced_out() else 0
         with self._srv_lock:
             if self._srv_h is not None:
                 lib.ptms_set_fallback(self._srv_h, self._fallback_cb)
-                lib.ptms_set_fenced(self._srv_h, 0)
+                # push the fencing state before any request can mutate
+                lib.ptms_set_fenced(self._srv_h, fenced0)
         hk = threading.Thread(target=self._housekeeping, daemon=True)
         hk.start()
         self._threads = [hk]
         return self
 
-    def stop(self):
+    def _on_lease_lost(self):
+        # another master was elected: stop serving immediately (split-brain
+        # guard); task state survives in the CRC-checked snapshot
+        self.lease_lost.set()
+        self.stop(release_lease=False)
+
+    def stop(self, release_lease: bool = True):
         self._stop.set()
-        # native stop severs the listener AND every live connection. The
-        # handle swap happens under the lock, ptms_stop outside it: it
-        # drains the handler threads, and a handler that takes _srv_lock
+        if self._keeper is not None:
+            self._keeper.stop(release=release_lease)
+            self._keeper = None
+        # native stop severs the listener AND every live connection — a
+        # deposed master must not keep answering connected clients. The
+        # handle SWAP happens under the lock (a concurrent stop() or
+        # housekeeping tick can never double-free or fence a freed
+        # handle), but ptms_stop itself runs OUTSIDE it: it drains the
+        # handler threads, and a handler that takes _srv_lock
         # (active_connections via srv_stats) would otherwise deadlock the
-        # shutdown
+        # shutdown. After the swap `h` is privately owned — no other path
+        # can reach it.
         with self._srv_lock:
             h, self._srv_h = self._srv_h, None
         if h:
             self._lib.ptms_stop(h)
 
+    def try_snapshot(self) -> bool:
+        """Fenced snapshot write: refused (False) once a newer master has
+        claimed the snapshot — a deposed master that wakes after its TTL
+        cannot clobber the new generation's state."""
+        if self._fence is None:
+            return False
+        try:
+            ok = self._fence.write(
+                self.fence_token, lambda p: self.master.snapshot(p))
+        except IOError:
+            return False
+        if not ok:
+            self._deposed = True   # refusal is authoritative — don't wait
+        return ok
+
     def _housekeeping(self):
         while not self._stop.wait(self._tick_interval):
             self.master.tick()
+            if self._fence is not None and not self.try_snapshot() \
+                    and self._fenced_out():
+                # a newer master owns the snapshot: we are deposed
+                self._on_lease_lost()
+                return
+            # keep the native server's fencing flag current (the C++
+            # dispatch consults only this flag — same staleness bound as
+            # the old per-request cached check, one tick/renewal window).
+            # _fenced_out() runs OUTSIDE the lock (it can hit the
+            # filesystem); only the handle read + native call are guarded
+            fenced = 1 if self._fenced_out() else 0
+            with self._srv_lock:
+                if self._srv_h is not None:
+                    self._lib.ptms_set_fenced(self._srv_h, fenced)
 
     def _fenced_out(self) -> bool:
-        """Deposed-master check: never, without a lease (membership's op
-        handlers ask it as JAX's do)."""
-        return False
+        """Deposed-master check. Deposition is permanent, so a positive
+        result is cached; negative results are re-checked at most once per
+        tick_interval to keep filesystem reads off the RPC hot path."""
+        if self.fence_token is None:
+            return False
+        if self._deposed or self.lease_lost.is_set():
+            return True
+        # staleness bound = the lease renewal cadence: a takeover is
+        # reflected here no later than it would be noticed by the keeper
+        window = (self.lease.ttl / 3.0 if self.lease is not None
+                  else self._tick_interval)
+        now = time.monotonic()
+        if now - self._fence_checked_at < window:
+            return False
+        self._fence_checked_at = now
+        # a transient coord-server outage must not crash housekeeping or a
+        # handler thread: reads fail OPEN (not deposed — writes still fail
+        # CLOSED via try_snapshot, so a deposed master can't publish while
+        # the question is unanswerable) and the next window re-asks
+        try:
+            deposed = (self._fence is not None and
+                       self._fence._recorded() > self.fence_token)
+            if not deposed and self.lease is not None:
+                cur = self.lease.current_token()
+                deposed = cur is not None and cur > self.fence_token
+        except (OSError, ConnectionError):
+            return False
+        if deposed:
+            self._deposed = True
+        return deposed
 
     _MUTATING_OPS = frozenset(
         {"set_dataset", "get_task", "task_finished", "task_failed",
@@ -295,6 +458,9 @@ class MasterServer:
 
     def _dispatch_op(self, req):
         op = req.get("op")
+        if op in self._MUTATING_OPS and self._fenced_out():
+            return {"ok": False,
+                    "error": f"fenced: stale master token {self.fence_token}"}
         ext = self._ext_ops.get(op)
         if ext is not None:
             return ext(req)

@@ -89,9 +89,10 @@ class ServingEngine:
     model's weights; ``kv_dtype="int8"`` holds it quantized (PagePool)."""
 
     def __init__(self, model, *, slots: int = 8, segment: int = 32,
-                 page_block: int = 64, pages: Optional[int] = None,
-                 cache_bucket: int = 256,
-                 prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 page_block: Optional[int] = None,
+                 pages: Optional[int] = None,
+                 cache_bucket: Optional[int] = None,
+                 prompt_buckets: Optional[Sequence[int]] = None,
                  kv_dtype: Optional[str] = None, queue_cap: int = 64,
                  default_timeout_s: Optional[float] = None,
                  prefix_cache: bool = False,

@@ -48,9 +48,12 @@ pages for shipping (``serving/ship.py``) and :meth:`PagePool.adopt_slot`
 lands a shipment in another pool byte for byte; both order their gather
 and scatter with the pool's graphs.
 
-The ``tune`` consults of the JAX pool are not ported: page_block 64,
-cache_bucket 256 and prompt buckets (32, 64, 128, 256, 512) are the
-heuristic defaults the JAX pool falls back to.
+Left as None, ``page_block``, ``cache_bucket`` and ``prompt_buckets``
+consult the autotune cache as JAX's pool does (``tune.bucket_grid`` and
+``tune.page_block``, each winner validated against this pool's grid),
+else take the heuristic defaults: page_block 64, cache_bucket 256 and
+prompt buckets (32, 64, 128, 256, 512). Page size and buckets change the
+read geometry and the captured shapes only, never the tokens.
 """
 
 from __future__ import annotations
@@ -91,18 +94,41 @@ class _AdmitPlan:
         self.offset = match.shared_len if match is not None else 0
 
 
+def resolve_grid(max_len: int, page_block: Optional[int],
+                 cache_bucket: Optional[int],
+                 prompt_buckets: Optional[Sequence[int]]):
+    """(page_block, cache_bucket, prompt_buckets) with each None consulted
+    as JAX's pool consults it: the tuned bucket grids first (the cache
+    bucket divisible by an explicit page_block), then the tuned page
+    block validated against the resolved grid, each falling back to the
+    heuristic default."""
+    from .. import tune
+    if cache_bucket is None:
+        grid = tune.bucket_grid("cache", max_len=max_len, divisor=page_block)
+        cache_bucket = grid[-1] if grid else 256
+    if prompt_buckets is None:
+        prompt_buckets = (tune.bucket_grid("prompt", max_len=max_len)
+                          or DEFAULT_PROMPT_BUCKETS)
+    if page_block is None:
+        page_block = tune.page_block(max_len, cache_bucket) or 64
+    return page_block, cache_bucket, prompt_buckets
+
+
 class PagePool:
     """Device page pools + host page accounting + the admission, prefix-hit
     admission and segment dispatches."""
 
     def __init__(self, model, *, slots: int, segment: int = 32,
-                 page_block: int = 64, pages: Optional[int] = None,
-                 cache_bucket: int = 256,
-                 prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 page_block: Optional[int] = None,
+                 pages: Optional[int] = None,
+                 cache_bucket: Optional[int] = None,
+                 prompt_buckets: Optional[Sequence[int]] = None,
                  kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False, prefix_half_life: int = 64,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        page_block, cache_bucket, prompt_buckets = resolve_grid(
+            model.max_len, page_block, cache_bucket, prompt_buckets)
         if model.device != self.device:
             raise ValueError(f"the model's weights are on {model.device} but "
                              f"the pool is for {self.device}; move the model "
@@ -694,9 +720,10 @@ class PagedBatcher:
     across requests (:class:`PagePool`)."""
 
     def __init__(self, model, *, slots: int = 8, segment: int = 32,
-                 page_block: int = 64, pages: Optional[int] = None,
-                 cache_bucket: int = 256,
-                 prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
+                 page_block: Optional[int] = None,
+                 pages: Optional[int] = None,
+                 cache_bucket: Optional[int] = None,
+                 prompt_buckets: Optional[Sequence[int]] = None,
                  schedule: str = "longest_first",
                  kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False,

@@ -1,4 +1,5 @@
 from . import checkpoint, evaluator, event, plot
+from .elastic import ElasticMaster, ElasticWorker
 from .checkpoint import (COMPLETE_MANIFEST, from_tar, latest_pass,
                          load_checkpoint, pass_dir, publish_members,
                          save_checkpoint, to_tar, verify_checkpoint)
@@ -19,4 +20,4 @@ __all__ = ["AucEvaluator", "CTCErrorEvaluator", "ChunkEvaluator",
            "evaluator", "event", "latest_pass", "load_checkpoint", "plot",
            "save_checkpoint", "shared_forward", "verify_checkpoint",
            "to_tar", "from_tar", "pass_dir", "publish_members",
-           "COMPLETE_MANIFEST"]
+           "COMPLETE_MANIFEST", "ElasticMaster", "ElasticWorker"]

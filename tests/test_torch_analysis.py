@@ -632,14 +632,32 @@ def test_the_public_surface_equals_jax():
 
 @pytest.mark.parametrize("lint", ["lint_catalogue_drift", "lint_alert_rules",
                                   "lint_autotune_cache"])
-def test_obs_and_tune_lints_raise_naming_a8(lint):
-    """The tune lint (L008) raises naming A.8; the obs lints run since the
-    port has the session plane: clean over the port's tree and rules."""
-    if lint == "lint_autotune_cache":
-        with pytest.raises(NotImplementedError, match="A.8"):
-            getattr(TA, lint)()
-    else:
+def test_obs_and_tune_lints_raise_naming_a8(lint, tmp_path, monkeypatch):
+    """Every lint of the obs and tune planes runs (none raises naming A.8
+    any more): the obs lints clean over the port's tree and rules, and
+    L008 over the port's cache (its own file: clean while there is none)
+    with JAX's diagnostics, finding for finding, on a stale entry."""
+    if lint != "lint_autotune_cache":
         assert getattr(TA, lint)() == []
+        return
+    from paddle_tpu import tune as jtune
+    from paddle_tpu_torch import tune as ttune
+    monkeypatch.setenv(ttune.CACHE_ENV, str(tmp_path / "none.json"))
+    assert TA.lint_autotune_cache() == []
+
+    def stale(pkg, name):
+        c = pkg.AutotuneCache()
+        c.put("page_block", "paged_decode_attention", "cpu", "default",
+              {"page_block": 32}, "0ld")
+        return c.save(str(tmp_path / name))
+
+    got = TA.lint_autotune_cache(stale(ttune, "t.json"))
+    want = JA.lint_autotune_cache(stale(jtune, "j.json"))
+    assert len(got) == len(want) == 1
+    norm = lambda d, pkg, name: (  # noqa: E731
+        d.code, d.severity.name, d.var, d.hint,
+        d.message.replace(pkg.space_hash("page_block"), "H"))
+    assert norm(got[0], ttune, "t") == norm(want[0], jtune, "j")
 
 
 def test_metric_name_lint_equals_jax():

@@ -107,22 +107,75 @@ def test_plans_of_the_two_packages_are_separate():
             assert JF.filter_bytes("ckpt.write", b"abc") == b"abc"
     assert jplan.hits == {"ckpt.write": 1}
     assert pplan.hits == {"ckpt.write": 1}
-    assert set(PF.SITES) < set(JF.SITES)
+    assert set(PF.SITES) == set(JF.SITES)
 
 
-#: JAX's sites whose modules the port has not taken (runtime/lease.py,
-#: cluster/actor.py: ROADMAP A.8)
+#: the sites of runtime/lease.py and cluster/actor.py, which the port's
+#: plan refused until those modules came across
 _UNPORTED_SITES = ("actor.drain", "actor.spawn", "lease.renew")
+
+
+def _fire_plane_site(site, plan):
+    """Drive the port's code that fires ``site`` (a lease renewal, a
+    fleet actor's spawn or drain) once with ``plan`` installed; returns
+    what the caller sees."""
+    import tempfile
+
+    from paddle_tpu_torch.cluster import (FleetActor, HookSpawnBackend,
+                                          Population)
+    from paddle_tpu_torch.runtime import FileLease
+    if site == "lease.renew":
+        with tempfile.TemporaryDirectory() as d:
+            lease = FileLease(d + "/l.lease", owner="a", ttl=5.0)
+            assert lease.try_acquire()
+            with plan.installed():
+                with pytest.raises(PF.FaultError):
+                    lease.renew()
+            return lease.renew()
+    members = {"w0": 1, "w1": 2}
+    pop = Population(
+        "serve", backend=HookSpawnBackend(
+            lambda w, p: members.setdefault(w, 9),
+            drain_fn=lambda h: members.pop(h.worker, None)),
+        probe=lambda: {"members": [{"worker": w, "token": t}
+                                   for w, t in sorted(members.items())],
+                       "recommendation": None, "alerts": [],
+                       "busy": False},
+        target=3 if site == "actor.spawn" else 1, min_workers=1)
+    actor = FleetActor([pop], cooldown_s=0.0, max_churn=1,
+                       clock=lambda: 0.0)
+    with plan.installed():
+        return actor.step()
 
 
 @pytest.mark.parametrize("site", _UNPORTED_SITES)
 def test_the_port_refuses_a_site_it_does_not_fire(site):
-    """A site of a module the port has not taken is refused by the port's
-    plan (JAX's accepts it): a rule for it could never fire."""
-    assert set(JF.SITES) - set(PF.SITES) == set(_UNPORTED_SITES)
+    """The port's plan now takes every site of JAX's (its modules have
+    come across), and a rule at ``site`` fires where the port's module
+    fires it: the lease renewal raises, the actor's spawn or drain is
+    journaled as failed (spawn) or skipped (drain) and counted, as in
+    JAX."""
+    from paddle_tpu_torch import obs as tobs
+    assert set(JF.SITES) == set(PF.SITES)
     JF.FaultPlan().add(site, "raise")
-    with pytest.raises(ValueError, match="unknown injection site"):
-        PF.FaultPlan().add(site, "raise")
+    plan = PF.FaultPlan(seed=2).add(site, "raise", nth=1)
+    reg = tobs.MetricsRegistry()
+    with tobs.ObsSession(registry=reg).installed():
+        got = _fire_plane_site(site, plan)
+    assert plan.fired and plan.fired[0][0] == site
+    assert reg.counter("faults.injected_total").get(
+        site=site, action="raise") == 1
+    if site == "lease.renew":
+        assert got is True           # the next renewal goes through
+        assert reg.counter("lease.renews_total").get() == 2
+    elif site == "actor.spawn":
+        assert [e["action"] for e in got] == ["spawn_failed"]
+        assert reg.counter("cluster.actor_failures_total").get(
+            action="spawn") == 1
+    else:
+        assert got == []
+        assert reg.counter("cluster.actor_failures_total").get(
+            action="drain") == 1
 
 
 def _fire_wire_site(site):

@@ -6,8 +6,8 @@ with losses at atol/rtol 1e-5, the first step's gradients to 1e-5 of each
 tensor's largest plus 1e-7 (the f32 rounding of the O(1/B) terms a
 gradient that cancels to near zero sums) and parameters within the adaptive-step bound of
 torch_fluid_common; inference bundles and persistables written by each
-package byte-equal and loaded by the other; and the executor options that
-wait for other planes raise naming their ROADMAP item. On the card the
+package byte-equal and loaded by the other; fused runs; and the executor
+options that wait for other planes raise naming their ROADMAP item. On the card the
 ``lstm`` and ``gru`` ops run kernels #8-#12 (chip_smoke.py, the fluid
 phase); here their plain versions."""
 
@@ -114,7 +114,10 @@ def test_scope_from_numpy_keeps_names_and_dtypes():
                                      ({"fuse": {0, 2}}, "A.8"),
                                      ({"mesh": object()}, "A.7")])
 def test_options_that_wait_for_other_planes_raise(kw, item):
-    """fuse waits for the tune plane (A.8). The mesh executor is in since
+    """fuse has come with the tune plane (A.8b): the LSTM program trained
+    3 Adam steps with every certified group forced (``True``) or the
+    groups at the ops given, the losses equal to JAX's unfused run and
+    the port's unfused run bit for bit. The mesh executor is in since
     A.7b (held in tests/test_torch_fluid_sharding.py): what stays refused
     is a layout with no mesh to lay it on, as JAX refuses it."""
     if item == "A.7":
@@ -122,8 +125,34 @@ def test_options_that_wait_for_other_planes_raise(kw, item):
         with pytest.raises(ValueError, match="needs a mesh"):
             tfluid.Executor(device="cpu", layout=SpecLayout())
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tfluid.Executor(device="cpu", **kw)
+    import torch
+    from paddle_tpu.tune import fusion as JF
+    from paddle_tpu_torch.tune import fusion as TF
+    p = Pair(_textcls("lstm"))
+    fetch = [p.tout[1].name]
+    groups = TF._certified(p.tmain, list(_feed()), fetch)
+    assert groups
+    assert [tuple(g.op_idxs) for g in groups] == [
+        tuple(g.op_idxs) for g in JF._certified(p.jmain, list(_feed()),
+                                                fetch)]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = {}
+        for fuse in (False, kw["fuse"]):
+            exe = tfluid.Executor(device="cpu", fuse=fuse,
+                                  scope=scope_from_numpy(p.jax_vars(),
+                                                         "cpu"))
+            runs[fuse is False] = [
+                host(exe.run(p.tmain, feed=_feed(i), fetch_list=fetch)[0])
+                for i in range(3)]
+    finally:
+        torch.set_num_threads(n)
+    want = [np.asarray(p.jexe.run(p.jmain, feed=_feed(i),
+                                  fetch_list=fetch)[0]) for i in range(3)]
+    for got, base, w in zip(runs[False], runs[True], want):
+        assert got.tobytes() == base.tobytes()
+        np.testing.assert_allclose(got, w, atol=1e-5, rtol=1e-5)
 
 
 def test_verify_waits_for_the_analysis_plane():

@@ -3390,3 +3390,153 @@ def test_decode_kernel_bytes_noted_at_launch_and_reemitted_on_card(cuda,
     got = r.counter("kernels.bytes_total").get(kernel="decode_attention")
     assert got == pytest.approx(want)
     assert r.counter("fluid.device_bytes_total").get() >= want
+
+
+# ---------------------------------------------------------------------------
+# the elastic plane, the tune plane and the C inference API on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_elastic_fit_equals_sequential_on_card(cuda):
+    """ElasticMaster and two ElasticWorker threads on one card train a
+    small LSTM text classifier (tests/torch_elastic_net.py) 3 steps: the
+    parameters bit-equal to the sequential reference on the card (the
+    same graphed shard gradients, the shard-ordered reduce, the graphed
+    Adam update), #9 and #10 launched in each worker's graph."""
+    import threading
+    from torch_elastic_net import flagship, sequential_reference
+    from paddle_tpu_torch.core.pytree import tree_items
+    from paddle_tpu_torch.trainer.elastic import ElasticMaster, ElasticWorker
+    cfg = dict(vocab=500, embed=32, hidden=64, batch=16, seq_len=20,
+               min_len=5)
+    loss_fn, make_params, make_opt, batches = flagship(steps=3, **cfg)
+    ref, ref_loss = sequential_reference(loss_fn, make_params(cuda),
+                                         make_opt, batches, device=cuda)
+    em = ElasticMaster(loss_fn, make_opt(), shards_per_step=4,
+                       min_workers=2, device=cuda).start()
+    stop = threading.Event()
+    workers = [ElasticWorker(flagship(steps=0, **cfg)[0], em.address,
+                             worker=f"gw{i}", device=cuda) for i in range(2)]
+    threads = [threading.Thread(target=w.run, kwargs={"stop": stop},
+                                daemon=True) for w in workers]
+    for t in threads:
+        t.start()
+    try:
+        params, _, loss = em.fit(batches, make_params(cuda),
+                                 progress_timeout=120.0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        em.stop()
+    assert loss == ref_loss
+    for (pa, a), (pb, b) in zip(tree_items(params), tree_items(ref)):
+        assert pa == pb and torch.equal(a, b), pa
+    for w in workers:
+        held = {}
+        for g in w.graphs._graphs.values():
+            for k, n in g.launches.items():
+                held[k] = held.get(k, 0) + n
+        assert w.shards_contributed > 0
+        assert held.get("lstm_seq_train", 0) > 0
+        assert held.get("lstm_seq_bwd", 0) > 0
+
+
+@pytest.mark.gpu
+def test_tuned_engine_tokens_equal_untuned_on_card(cuda):
+    """A ServingEngine left to the autotune consults (page_block,
+    cache_bucket and prompt buckets from a cache, and a split count for
+    its paged reads) serves the untuned engine's greedy tokens."""
+    from paddle_tpu_torch import tune
+    model = TransformerLM(97, d_model=64, n_heads=4, n_layers=2,
+                          max_len=256).init(seed=0, device=cuda)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 97, n).astype(np.int32) for n in (5, 40, 77)]
+    kind = torch.cuda.get_device_name(0)
+    cache = tune.AutotuneCache()
+    cache.put("page_block", "paged_decode_attention", kind, "default",
+              {"page_block": 16}, tune.space_hash("page_block"))
+    cache.put("bucket_grid", "prefill_dispatch", kind, "prompt",
+              {"buckets": [64, 128]}, tune.space_hash("bucket_grid"))
+    cache.put("bucket_grid", "prefill_dispatch", kind, "cache",
+              {"buckets": [64, 128]}, tune.space_hash("bucket_grid"))
+    cache.put("decode_route", "decode_attention", kind, "default",
+              {"kernel_min_len": 1,
+               "splits": {f"{4 * 4}x{n}": 2 for n in (64, 128, 256)}},
+              tune.space_hash("decode_route"))
+
+    def serve(eng):
+        rids = [eng.submit(p, 12) for p in prompts]
+        eng.start()
+        try:
+            while not all(eng.poll(r)[1] for r in rids):
+                pass
+        finally:
+            eng.stop()
+        return [eng.poll(r)[0] for r in rids]
+
+    want = serve(ServingEngine(model, slots=4, page_block=64,
+                               cache_bucket=256,
+                               prompt_buckets=(32, 64, 128, 256),
+                               device=cuda))
+    tune.set_cache(cache)
+    try:
+        eng = ServingEngine(model, slots=4, device=cuda)
+        assert (eng.pool.bs, eng.pool.cache_bucket,
+                tuple(eng.pool.prompt_buckets)) == (16, 128, (64, 128))
+        assert ck.decode_splits(16, 128) == (2, 64)
+        before = ck.LAUNCHES["paged_decode_attention"]
+        got = serve(eng)
+        assert ck.LAUNCHES["paged_decode_attention"] > before
+    finally:
+        tune.reset()
+    assert got == want
+
+
+@pytest.mark.gpu
+def test_capi_forward_on_card(cuda, tmp_path, monkeypatch):
+    """The C inference API (the port's library, built here) on a fluid LSTM
+    bundle exported on the card: pti_forward equals InferenceHost.run of
+    the same bundle bit for bit, and #8 launches."""
+    import ctypes
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.runtime.capi_host import DEVICE_ENV, InferenceHost
+    from paddle_tpu_torch.runtime.lib import load_capi
+    monkeypatch.delenv(DEVICE_ENV, raising=False)       # the card
+    layers = fluid.layers
+    fluid.reset_default_programs()
+    words = layers.data("words", shape=(-1,), dtype="int32")
+    lens = layers.data("lens", shape=(), dtype="int32")
+    emb = layers.embedding(words, (500, 32))
+    last = layers.sequence_last_step(layers.dynamic_lstm(emb, lens, 64),
+                                     lens)
+    logits = layers.fc(last, 2)
+    exe = fluid.Executor(device=cuda, scope=fluid.Scope())
+    exe.run(fluid.default_startup_program())
+    d = str(tmp_path / "bundle")
+    fluid.io.export_inference_model(d, ["words", "lens"], [logits], exe)
+    rs = np.random.RandomState(0)
+    w = rs.randint(0, 500, (16, 20)).astype(np.int32)
+    n = rs.randint(5, 21, 16).astype(np.int32)
+    want = InferenceHost(d, device=cuda).run([w, n])
+    lib = load_capi().lib
+    before = ck.LAUNCHES["lstm_seq"]
+    h = lib.pti_create(d.encode())
+    assert h, lib.pti_last_error().decode()
+    try:
+        inputs = (ctypes.c_void_p * 2)(w.ctypes.data, n.ctypes.data)
+        shapes = (ctypes.c_longlong * 3)(16, 20, 16)
+        ndims = (ctypes.c_int * 2)(2, 1)
+        dtypes = (ctypes.c_int * 2)(1, 1)
+        out = np.zeros(64, np.float32)
+        oshape = (ctypes.c_longlong * 8)()
+        ondim = ctypes.c_int(0)
+        rc = lib.pti_forward(
+            h, inputs, shapes, ndims, dtypes, 2, 0,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.size,
+            oshape, ctypes.byref(ondim))
+        assert rc == 32, lib.pti_last_error().decode()
+    finally:
+        lib.pti_destroy(h)
+    assert ck.LAUNCHES["lstm_seq"] > before
+    assert out[:rc].reshape(16, 2).tobytes() == want.tobytes()

@@ -198,11 +198,13 @@ def test_flash_fwd_attends_key_zero_for_an_empty_sample():
 
 def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     """The port runs where JAX is absent: no module of paddle_tpu_torch, nor
-    chip_smoke.py, the card tools under tools/ or the parallel tests'
-    rank-side helper tests/torch_spmd.py, may import jax or anything from
+    chip_smoke.py, the card tools under tools/ or the tests' torch-side
+    helpers (tests/torch_spmd.py, tests/torch_elastic_net.py,
+    tests/torch_elastic_worker.py), may import jax or anything from
     paddle_tpu."""
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd.py"] \
+        + sorted((ROOT / "tests").glob("torch_elastic_*.py")) \
         + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 10
     # the host runtime, the fault plane and the file formats among them
@@ -232,6 +234,14 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     assert {f"paddle_tpu_torch/analysis/{m}.py" for m in (
         "__init__", "verify", "lints", "dataflow", "shape_infer",
         "bench_schema")} <= rel
+    assert {f"paddle_tpu_torch/tune/{m}.py" for m in (
+        "__init__", "cache", "driver", "fusion", "spaces")} <= rel
+    assert {f"paddle_tpu_torch/cluster/{m}.py" for m in (
+        "__init__", "actor", "scheduler", "spawn")} <= rel
+    assert {f"paddle_tpu_torch/runtime/{m}.py" for m in (
+        "arena", "capi_host", "coord", "lease")} | {
+        "paddle_tpu_torch/trainer/elastic.py", "tests/torch_elastic_net.py",
+        "tests/torch_elastic_worker.py"} <= rel
     banned = {"jax", "jaxlib", "paddle_tpu"}
     bad = []
     for path in files:

@@ -553,7 +553,9 @@ def test_catalogue_drift_is_clean_and_flags_both_ways(tmp_path):
 
 def test_catalogue_is_jaxs_less_the_waiting_modules_with_the_rename():
     """The port's catalogue is JAX's, names and entries, but the compile
-    counter's rename and the entries of the modules still to port."""
+    counter's rename: no module is left to port, so nothing waits."""
+    assert tobs.catalogue.WAITING_MODULES == {}
+    assert tobs.catalogue.WAITING == {}
     want = dict(jobs.CATALOGUE)
     for n in ("jax.compiles_total", "jax.compile_seconds"):
         del want[n]

@@ -14,8 +14,10 @@ RENAMED = {
          "COMPILE_CACHE_ENV": None},     # (init refuses compile_cache_dir)
     ".core": {"TPUPlace": "CUDAPlace"},
     ".nn": {},
-    ".trainer": {"ElasticMaster": None,  # the elastic plane, ROADMAP A.8
-                 "ElasticWorker": None},
+    ".trainer": {},
+    ".tune": {},
+    ".cluster": {},
+    ".runtime": {},
     ".utils": {},
     ".obs": {},
     ".ops": {"pallas_kernels": "cuda_kernels"},
