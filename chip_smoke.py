@@ -406,6 +406,24 @@ Phases:
    exported bundle bit-equal to ``Executor.run`` of the bundle, #8
    launched.
 
+25. the command line's config subcommands (``paddle_tpu_torch/cli.py``)
+   on the flagship written as a config (``CLI_CONFIG``: phase 21's v2
+   network at vocab 30000, embed 128, H 256, B 64, T 100, f32, Adam; 8
+   seeded batches), through ``cli.main`` in this process with the
+   launches counted (``launches_cli``): (a) ``train --save_dir``, #9 and
+   #10 once a step, the losses bit-equal to ``v2.SGD.train``'s and the
+   pass's ``params.tar`` byte-equal to its parameters; (b) ``test
+   --init_model_path`` equal to ``SGD.test`` on the loaded tar and within
+   the f32 tolerance of the plain route; (c) ``merge_model``, the bundle
+   run by ``fluid.io.load_inference_model`` + ``Executor.run`` on two
+   held batches (#8 once a batch) bit-equal to ``v2.infer``; (d) ``python
+   -m paddle_tpu_torch time --iters 10`` as a process of its own; (e)
+   ``profile --config`` (#9's and #10's kernels at the lstm op's site),
+   then ``tune --from-ledger`` over its trace naming ``fused_rnn``; (f)
+   ``checkgrad`` on examples/quick_start_sentiment.py rewritten for the
+   port, its verdict printed as it is and every mismatch held to the
+   loss's f32 resolution (CHECKGRAD_DIFF_ULPS); (g) ``tune --check``.
+
 The bf16 serving checks of phases 18 and 19 (``greedy_within_ties``)
 print, for each burst, the largest gap between a chosen token's plain
 logit and the argmax's in bf16 ulps, and the run prints the largest of
@@ -435,13 +453,14 @@ Prints ``{"graph_paths": [...]}`` (those figures), ``{"image": {...}}``
 (phase 17's), ``{"slice19": {...}}`` (phase 18's), ``{"slice20": {...},
 "fluid": {...}}`` (phases 19 and 20), ``{"world": {...}}`` (phase 22),
 ``{"obs": {...}}`` (phase 23), ``{"phase24": {...}}``,
+``{"phase25": {...}}``,
 ``{"kernels": [...]}`` (with
 ``launches_obs`` on #1, #4, #6-#10: phase 23's launches, ``launches_world``
 on #1-#3: phase 22's launches per rank and call,
 ``launches_routes`` and ``launches_fluid`` on #8-#12,
 ``launches_elastic`` on #9 and #10 and ``launches_tune`` on #4-#12:
-phase 24's, ``launches_capi`` on #8, and #1-#7 again at D = 128 and
-D = 256),
+phase 24's, ``launches_capi`` on #8, ``launches_cli`` on #1-#12:
+phase 25's, and #1-#7 again at D = 128 and D = 256),
 the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, with no
@@ -9878,6 +9897,393 @@ def elastic_tune_phase(say, seed: int, device="cuda:0") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the command line's config subcommands on the card
+# ---------------------------------------------------------------------------
+
+#: the flagship as a config of ``python -m paddle_tpu_torch`` (built as
+#: phase 21's _v2_textcls builds it); its readers yield feed dicts of
+#: textcls_batches (T exactly 100: a v2 feeder would pad the rows to the
+#: length bucket 128), so it declares no ``feeding``
+CLI_CONFIG = '''\
+"""The LSTM text classifier at the flagship's width as a config of the
+port's command line (chip_smoke.py phase 25)."""
+import sys
+sys.path.insert(0, {here!r})
+from chip_smoke import _v2_textcls, textcls_batches
+from paddle_tpu_torch import v2 as paddle
+
+logits, cost, optimizer = _v2_textcls(paddle, {vocab}, {embed}, {hidden},
+                                      {lr}, "lstm")
+outputs = [logits]
+
+
+def _feeds(seed, n):
+    return [{{"words": d, "words__len__": lens, "label": y}}
+            for d, lens, y in textcls_batches(seed, n, {device!r},
+                                              batch={batch}, seq_len={seq},
+                                              vocab={vocab})]
+
+
+def train_reader():
+    return iter(_feeds({seed}, {n_train}))
+
+
+def test_reader():
+    return iter(_feeds({seed} + 1, 2))
+'''
+CLI_TRAIN_BATCHES = 8
+
+
+def _launches_now() -> dict:
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return {k: n for k, n in ck.LAUNCHES.items() if n}
+
+
+def _cli(argv, counts: dict, what: str):
+    """``cli.main(argv)`` in this process with the kernel launches counted
+    (set to 0 just before, read just after, added into ``counts[what]``):
+    (rc, stdout, seconds). The output is printed too."""
+    import contextlib
+    import io
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    _sync()
+    ck.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    _sync()
+    seconds = time.perf_counter() - t0
+    got = _launches_now()
+    mine = counts.setdefault(what, {})
+    for k, n in got.items():
+        mine[k] = mine.get(k, 0) + n
+    out = buf.getvalue()
+    print("\n".join(f"  | {ln}" for ln in out.splitlines()[-12:]))
+    return rc, out, seconds
+
+
+def _cfg_trainer(path: str, device, tar=None):
+    """The config at ``path`` and its trainer (``cli._make_trainer``),
+    with the parameters of ``tar`` when given."""
+    from paddle_tpu_torch import cli
+    cfg = cli._load_config(path)
+    trainer = cli._make_trainer(cfg, device)
+    if tar is not None:
+        with open(tar, "rb") as f:
+            trainer.parameters.from_tar(f)
+    return cfg, trainer
+
+
+def _cli_train(say, cfg_path, save, device, counts) -> dict:
+    """(a) ``train --num_passes 1 --save_dir D --log_period 1``: the pass
+    directory and the bundle written, #9 and #10 once a step, the losses
+    and the parameters bit-equal to ``v2.SGD.train`` of the same config."""
+    import io
+    from paddle_tpu_torch.v2 import trainer as v2t
+    real, seen = v2t.SGD.train, []
+
+    def spy(self, reader, **kw):
+        handler = kw.get("event_handler")
+
+        def h(e):
+            if type(e).__name__ == "EndIteration":
+                seen.append(e.cost)
+            handler(e)
+        kw["event_handler"] = h
+        return real(self, reader, **kw)
+    v2t.SGD.train = spy
+    try:
+        rc, out, sec = _cli(["train", "--config", cfg_path, "--num_passes",
+                             "1", "--save_dir", save, "--log_period", "1",
+                             "--device", str(device)], counts, "train")
+    finally:
+        v2t.SGD.train = real
+    n = CLI_TRAIN_BATCHES
+    check(rc == 0, f"cli train exited {rc}")
+    for p in ("pass-00000/params.tar", "pass-00000/state.json",
+              "inference/model.json", "inference/params.tar"):
+        check(os.path.exists(os.path.join(save, p)), f"cli train: no {p}")
+    check(len(seen) == n and out.count("cost ") == n + 1,
+          f"cli train: {len(seen)} losses, want {n}:\n{out}")
+    if device.type == "cuda":
+        want = {"lstm_seq_train": n, "lstm_seq_bwd": n}
+        check(counts["train"] == want,
+              f"cli train: launches {counts['train']} != {want}")
+    cfg, ref = _cfg_trainer(cfg_path, device)
+    ref_losses = []
+    ref.train(cfg["train_reader"], num_passes=1, feeding=cfg.get("feeding"),
+              event_handler=lambda e: ref_losses.append(e.cost) if type(
+                  e).__name__ == "EndIteration" else None)
+    check(seen == ref_losses, f"cli train: losses {seen} != SGD.train's "
+          f"{ref_losses}")
+    buf = io.BytesIO()
+    ref.parameters.to_tar(buf)
+    with open(os.path.join(save, "pass-00000", "params.tar"), "rb") as f:
+        check(f.read() == buf.getvalue(),
+              "cli train: params.tar differs from SGD.train's parameters")
+    say(f"phase 25 (a) train: {n} steps in {sec:.2f} s, losses "
+        f"{seen[0]:.6f} -> {seen[-1]:.6f} bit-equal to v2.SGD.train's, "
+        f"params.tar byte-equal; launches {counts['train']}")
+    return {"seconds": sec, "losses": seen, "launches": counts["train"]}
+
+
+def _cli_test(say, cfg_path, tar, device, counts) -> dict:
+    """(b) ``test --init_model_path``: the cost ``SGD.test`` gives on the
+    loaded parameters, and within the f32 tolerance of the plain
+    route's."""
+    import json as _json
+    from paddle_tpu_torch.fluid.registry import routed
+    rc, out, sec = _cli(["test", "--config", cfg_path, "--init_model_path",
+                         tar, "--device", str(device)], counts, "test")
+    check(rc == 0, f"cli test exited {rc}")
+    got = _json.loads(out.strip().splitlines()[-1])["cost"]
+    cfg, ref = _cfg_trainer(cfg_path, device, tar)
+    want = ref.test(cfg["test_reader"]).cost
+    check(got == want, f"cli test: cost {got} != SGD.test's {want}")
+    with routed("plain"):
+        cfg, plain_t = _cfg_trainer(cfg_path, device, tar)
+        plain = plain_t.test(cfg["test_reader"]).cost
+    err = abs(got - plain)
+    check(err <= F32_ATOL + F32_RTOL * abs(plain),
+          f"cli test: cost {got} vs the plain route's {plain}")
+    say(f"phase 25 (b) test: cost {got:.6f} equal to SGD.test's on the "
+        f"loaded tar, {err:.3e} from the plain route's; launches "
+        f"{counts['test']} (the test program is the training program, as "
+        "in JAX: #9 and #10 run, each batch also an Adam step)")
+    return {"cost": got, "plain_cost": plain, "abs_err": err,
+            "launches": counts["test"], "seconds": sec}
+
+
+def _cli_merge(say, cfg_path, tar, bundle, device, counts, seed,
+               dims) -> dict:
+    """(c) ``merge_model``: the bundle loaded by ``fluid.io`` runs #8 on two
+    held batches, its logits bit-equal to ``v2.infer`` on the trainer with
+    the tar's parameters."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import v2 as paddle
+    rc, out, sec = _cli(["merge_model", "--config", cfg_path, "--model_path",
+                         tar, "--output_dir", bundle, "--device",
+                         str(device)], counts, "merge_model")
+    check(rc == 0 and "merged model written" in out,
+          f"cli merge_model exited {rc}")
+    cfg, trainer = _cfg_trainer(cfg_path, device, tar)
+    held = [{"words": x, "words__len__": n} for x, n, _ in
+            textcls_batches(seed + 2502, 2, device, batch=dims["batch"],
+                            seq_len=dims["seq"], vocab=dims["vocab"])]
+    want = [paddle.infer(cfg["outputs"][0], trainer, f) for f in held]
+    exe = fluid.Executor(scope=fluid.Scope(), device=device)
+    prog, feeds, fetches = fluid.io.load_inference_model(bundle, exe)
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    _sync()
+    ck.reset_launch_counts()
+    got = [exe.run(prog, feed=f, fetch_list=fetches)[0] for f in held]
+    _sync()
+    bundle_launches = _launches_now()
+    mine = counts.setdefault("merge_model", {})
+    for k, n in bundle_launches.items():
+        mine[k] = mine.get(k, 0) + n
+    import numpy as np
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "cli merge_model: the bundle's logits differ from v2.infer's "
+          f"by {max(float(abs(a - b).max()) for a, b in zip(got, want))}")
+    if device.type == "cuda":
+        check(bundle_launches == {"lstm_seq": len(held)},
+              f"cli merge_model: the bundle's runs launched "
+              f"{bundle_launches}, want one #8 a batch")
+    say(f"phase 25 (c) merge_model: bundle {sorted(os.listdir(bundle))}, "
+        f"feeds {feeds}, fetches {fetches}; {len(held)} held batches "
+        f"through fluid.io.load_inference_model + Executor.run launched "
+        f"{bundle_launches}, logits bit-equal to v2.infer's")
+    return {"launches_bundle": bundle_launches, "seconds": sec,
+            "files": sorted(os.listdir(bundle))}
+
+
+def _cli_time(say, cfg_path, device) -> dict:
+    """(d) ``python -m paddle_tpu_torch time --iters 10`` as a process of
+    its own (the module entry point on the card)."""
+    import json as _json
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", "time",
+                        "--config", cfg_path, "--iters", "10", "--device",
+                        str(device)], cwd=HERE, capture_output=True,
+                       text=True, timeout=240)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"cli time exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    ms = _json.loads(r.stdout.strip().splitlines()[-1])["ms_per_batch"]
+    check(ms > 0, f"cli time: ms_per_batch {ms}")
+    say(f"phase 25 (d) python -m paddle_tpu_torch time --iters 10: "
+        f"ms_per_batch {ms} (process wall {wall:.1f} s)")
+    return {"ms_per_batch": ms, "process_s": wall}
+
+
+def _cli_profile(say, cfg_path, trace_dir, device, counts) -> dict:
+    """(e) ``profile --config --steps 3 --warmup 2``: #9's and #10's
+    kernels under the program's lstm site; then ``tune --from-ledger``
+    over the trace it wrote names ``fused_rnn`` among the seeded
+    spaces."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.obs import xplane
+    rc, out, sec = _cli(["profile", "--config", cfg_path, "--steps", "3",
+                         "--warmup", "2", "--trace-dir", trace_dir,
+                         "--device", str(device)], counts, "profile")
+    check(rc == 0, f"cli profile exited {rc}")
+    site = next(f"block 0, op #{i} (lstm)" for i, op in enumerate(
+        fluid.default_main_program().global_block().ops)
+        if op.type == "lstm")
+    check(site in out and "traced the eager route" in out,
+          f"cli profile: the report names no {site}:\n{out}")
+    trace = os.path.join(trace_dir, "trace.json")
+    rows = xplane.op_totals(xplane.read_trace(trace))
+    found = {}
+    if device.type == "cuda":
+        for body in ("lstm_seq_kernel", "lstm_seq_bwd_kernel"):
+            hit = [r for r in rows if body in r["op"]
+                   and (body != "lstm_seq_kernel" or "bwd" not in r["op"])]
+            check(hit and all(r["site"] == site for r in hit),
+                  f"cli profile: {body} rows {hit} (want them at {site})")
+            found[body] = {"count": sum(r["count"] for r in hit),
+                           "self_ms": sum(r["self_ns"] for r in hit) / 1e6}
+        check(counts["profile"].get("lstm_seq_train") == 5
+              and counts["profile"].get("lstm_seq_bwd") == 5,
+              f"cli profile: launches {counts['profile']} (want 5 steps)")
+    rc, out2, sec2 = _cli(["tune", "--from-ledger", trace, "--dry-run",
+                           "--profile", "smoke", "--device", str(device)],
+                          counts, "tune --from-ledger")
+    head = out2.splitlines()[0] if out2 else ""
+    check(rc == 0 and "fused_rnn" in head.split("implicate spaces")[-1],
+          f"tune --from-ledger: {head!r} (rc {rc})")
+    say(f"phase 25 (e) profile --config: {site} holds {json.dumps(found)} "
+        f"in {sec:.2f} s; tune --from-ledger over its trace: {head}")
+    return {"site": site, "kernels": found, "seconds": sec,
+            "ledger": head, "ledger_seconds": sec2,
+            "launches_ledger_sweep": counts["tune --from-ledger"]}
+
+
+def _cli_checkgrad(say, tmp, device, counts) -> dict:
+    """(f) ``checkgrad`` on examples/quick_start_sentiment.py rewritten for
+    the port (embed 32, simple_lstm 32, B 32), f32 through #9/#10.
+
+    JAX's sampled entries, eps 5e-3 and rtol 5e-2: an entry whose
+    gradient is below what a central difference of the f32 loss resolves
+    (one ulp of the loss over 2 eps) can fail there, in both packages
+    (JAX's own run of this config fails on the CPU). Its verdict is
+    printed as it is, never relaxed; the phase holds every mismatching
+    entry to that resolution (CHECKGRAD_DIFF_ULPS ulps of the loss over 2
+    eps) and fails on any larger disagreement."""
+    import re
+    import numpy as np
+    _tests_on_path()
+    from torch_configs import rewrite
+    cfg_path = rewrite("examples/quick_start_sentiment.py", tmp)
+    rc, out, sec = _cli(["checkgrad", "--config", cfg_path, "--device",
+                         str(device)], counts, "checkgrad")
+    m = re.search(r"checkgrad (PASS|FAIL) \((\d+) params, worst rel err "
+                  r"([-\d.e+]+)\)", out)
+    check(m is not None and rc == (0 if m.group(1) == "PASS" else 1),
+          f"cli checkgrad: rc {rc}, output:\n{out}")
+    mism = [{"entry": e, "numeric": float(a), "analytic": float(b),
+             "rel": float(r)} for e, a, b, r in re.findall(
+        r"MISMATCH (\S+): numeric (\S+) analytic (\S+) rel (\S+)", out)]
+    # the loss at the sampled point: the cost program once
+    from paddle_tpu_torch import fluid
+    cfg, trainer = _cfg_trainer(cfg_path, device)
+    from paddle_tpu_torch.v2.trainer import _V2Feeder
+    feed = dict(_V2Feeder(cfg["feeding"], trainer.exe.device)(
+        next(iter(cfg["train_reader"]()))), __step__=0)
+    name = cfg["cost"].var.name
+    loss = float(trainer.exe.run(fluid.default_main_program().prune([name]),
+                                 feed=feed, fetch_list=[name])[0])
+    eps = 5e-3
+    step = float(np.spacing(np.float32(abs(loss)))) / (2 * eps)
+    for e in mism:
+        e["diff_over_resolution"] = abs(e["numeric"] - e["analytic"]) / step
+    check(all(e["diff_over_resolution"] <= CHECKGRAD_DIFF_ULPS
+              for e in mism),
+          f"cli checkgrad: a mismatch beyond the loss's f32 resolution "
+          f"({step:.3e} a unit): {mism}")
+    if device.type == "cuda":
+        check(counts["checkgrad"].get("lstm_seq_train", 0) > 0
+              and counts["checkgrad"].get("lstm_seq_bwd", 0) > 0,
+              f"cli checkgrad: launches {counts['checkgrad']}")
+    say(f"phase 25 (f) checkgrad on quick_start (embed 32, lstm 32, B 32): "
+        f"{m.group(1)}, {m.group(2)} params, worst rel err {m.group(3)}; "
+        f"loss {loss:.7f}, one f32 ulp of it over 2 eps = {step:.3e}; "
+        f"mismatches {json.dumps(mism)}; launches {counts['checkgrad']}")
+    return {"verdict": m.group(1), "worst_rel_err": float(m.group(3)),
+            "mismatches": mism, "loss": loss, "resolution": step,
+            "seconds": sec, "launches": counts["checkgrad"]}
+
+
+#: a checkgrad entry whose numeric and analytic gradients differ by at
+#: most this many f32 ulps of the loss over 2 eps is below what the
+#: central difference resolves (each of its two evaluations rounds the
+#: loss, a mean over the batch, by an ulp or so)
+CHECKGRAD_DIFF_ULPS = 4
+
+
+def _cli_tune_check(say, cache, device, counts) -> dict:
+    """(g) ``tune --check --cache <tmp>``: the smoke sweep on the card,
+    reloaded and consulted through the port's consults."""
+    rc, out, sec = _cli(["tune", "--check", "--cache", cache, "--device",
+                         str(device)], counts, "tune --check")
+    check(rc == 0 and "--check OK" in out, f"cli tune --check exited {rc}")
+    say(f"phase 25 (g) tune --check: {out.strip().splitlines()[-1]} in "
+        f"{sec:.2f} s; launches {counts['tune --check']}")
+    return {"seconds": sec, "launches": counts["tune --check"],
+            "line": out.strip().splitlines()[-1]}
+
+
+def cli_phase(say, seed: int, device="cuda", dims=None) -> dict:
+    """Phase 25: the command line's config subcommands, (a)-(g) (module
+    docstring), in this process but (d). ``dims`` (vocab, embed, hidden,
+    batch, seq) shrinks the flagship for a rehearsal on the CPU."""
+    import tempfile
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    device = torch.device(device)
+    d = dict(dict(vocab=TEXTCLS["vocab"], embed=TEXTCLS["embed"],
+                  hidden=TEXTCLS["hidden"], batch=TEXTCLS_BATCH,
+                  seq=TEXTCLS_LEN), **(dims or {}))
+    t0 = time.perf_counter()
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="phase25_") as tmp:
+        cfg_path = os.path.join(tmp, "flagship_cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(CLI_CONFIG.format(here=HERE, lr=TEXTCLS_LR,
+                                      device=str(device), seed=seed + 2500,
+                                      n_train=CLI_TRAIN_BATCHES, **d))
+        save = os.path.join(tmp, "out")
+        tar = os.path.join(save, "pass-00000", "params.tar")
+        out = {"train": _cli_train(say, cfg_path, save, device, counts)}
+        out["test"] = _cli_test(say, cfg_path, tar, device, counts)
+        out["merge_model"] = _cli_merge(say, cfg_path, tar,
+                                        os.path.join(tmp, "bundle"), device,
+                                        counts, seed, d)
+        out["time"] = _cli_time(say, cfg_path, device)
+        out["profile"] = _cli_profile(say, cfg_path,
+                                      os.path.join(tmp, "trace"), device,
+                                      counts)
+        out["checkgrad"] = _cli_checkgrad(say, tmp, device, counts)
+        out["tune_check"] = _cli_tune_check(
+            say, os.path.join(tmp, "autotune.json"), device, counts)
+    launches: dict = {}
+    for per in counts.values():
+        for k, n in per.items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches_by_command"] = counts
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 25 seconds: {out['seconds']:.1f}; launches "
+        f"{json.dumps(launches)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10028,6 +10434,13 @@ def main(argv=None) -> int:
     stamp("phase 23")
     p24 = elastic_tune_phase(say, args.seed)
     stamp("phase 24")
+    p25 = cli_phase(say, args.seed)
+    stamp("phase 25")
+    for entry in [flash] + bwd + [paged] + decode + lstm + gru:
+        entry["launches_cli"] = p25["launches"].get(entry["name"], 0)
+    for entry in lstm:
+        check(entry["launches_cli"] > 0,
+              f"phase 25: {entry['name']} never launched by the CLI")
     elastic_l = p24["elastic"]["launches"]
     tune_l = p24["tune"]["launches"]
     for entry in [paged] + decode + lstm + gru:
@@ -10103,6 +10516,7 @@ def main(argv=None) -> int:
                                 if k != "launches"}, "card": card}))
     print(json.dumps({"obs": obs_res, "card": card}))
     print(json.dumps({"phase24": p24, "card": card}))
+    print(json.dumps({"phase25": p25, "card": card}))
     print(json.dumps({"kernels": [flash] + bwd + [paged] + decode + lstm
                       + gru + s19["entries"] + s20["entries"],
                       "card": card}))

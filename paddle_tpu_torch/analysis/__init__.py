@@ -16,8 +16,9 @@ runs. This subpackage rejects malformed programs with precise
 
 Entry points: ``analyze_program`` (everything, returns diagnostics) and
 ``check_or_raise`` (the ``Executor.run(verify=True)`` pre-flight). The
-``lint`` CLI subcommand waits for ROADMAP A.8c; the lint over the tune
-plane's cache (L008) is :func:`lint_autotune_cache`.
+``lint`` CLI subcommand (``python -m paddle_tpu_torch lint``) runs them
+over a config's programs, with the lint over the tune plane's cache
+(L008, :func:`lint_autotune_cache`), which also runs standalone.
 """
 
 from __future__ import annotations

@@ -145,14 +145,14 @@ def test_route_fleet_tokens_equal_jax_generate_cached(weights):
 
 def test_version_and_refusals(capsys):
     """``version`` answers; a prefill worker with no router is refused with
-    exit 2 before any model is built; and the parser offers the port's
-    subcommands only."""
+    exit 2 before any model is built; and ``train --compile_cache`` (JAX's
+    XLA compilation cache) is refused with exit 2 before the config
+    runs."""
     from paddle_tpu_torch import cli
     assert cli.main(["version"]) == 0
     assert "paddle_tpu_torch" in capsys.readouterr().out
     assert cli.main(["serve", *SERVE, "--role", "prefill"]) == 2
     assert "requires --router" in capsys.readouterr().err
-    with pytest.raises(SystemExit) as ei:
-        cli.main(["train", "--config", "x.py"])
-    assert ei.value.code == 2
-    assert "invalid choice" in capsys.readouterr().err
+    assert cli.main(["train", "--config", "x.py", "--compile_cache",
+                     "cc", "--device", "cpu"]) == 2
+    assert "compiles no XLA programs" in capsys.readouterr().err

@@ -2,8 +2,8 @@
 ``FleetScheduler``, the spawn seam) over the port's membership, health
 and elastic planes — the cases of tests/test_fleet_actor.py but the
 ``benchmarks.fleet_autoscale`` run (the port's benchmark comes in a PR of
-its own) and the ``cluster autoscale`` CLI cases (the port's CLI
-subcommands are ROADMAP A.8c).
+its own) and the ``cluster autoscale`` CLI cases, which
+tests/test_torch_cli_cluster.py holds.
 
 The fake-clock cases hold the port to JAX's contract assertion for
 assertion; :func:`test_actor_journal_equals_jax` drives one scripted

@@ -3540,3 +3540,83 @@ def test_capi_forward_on_card(cuda, tmp_path, monkeypatch):
         lib.pti_destroy(h)
     assert ck.LAUNCHES["lstm_seq"] > before
     assert out[:rc].reshape(16, 2).tobytes() == want.tobytes()
+
+
+# -- the command line's config subcommands on the card ------------------------
+
+@pytest.mark.gpu
+def test_cli_train_then_test_on_card(cuda, tmp_path, capsys):
+    """``train`` then ``test --init_model_path`` on the card (the default
+    ``--device``) over examples/quick_start_sentiment.py rewritten for the
+    port: the loss falls, #9 and #10 run, and the tested cost is below
+    the first training cost."""
+    import json
+    import re
+
+    from paddle_tpu_torch import cli
+    from torch_configs import rewrite
+    cfg = rewrite("examples/quick_start_sentiment.py", tmp_path)
+    save = str(tmp_path / "out")
+    ck.reset_launch_counts()
+    assert cli.main(["train", "--config", cfg, "--num_passes", "2",
+                     "--save_dir", save, "--log_period", "1"]) == 0
+    out = capsys.readouterr().out
+    costs = [float(m) for m in re.findall(r"batch \d+ cost ([-\d.]+)", out)]
+    assert len(costs) == 16 and costs[-1] < costs[0], out
+    assert ck.LAUNCHES["lstm_seq_train"] == 16
+    assert ck.LAUNCHES["lstm_seq_bwd"] == 16
+    assert cli.main(["test", "--config", cfg, "--init_model_path",
+                     f"{save}/pass-00001/params.tar"]) == 0
+    cost = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "cost"]
+    assert np.isfinite(cost) and cost < costs[0]
+
+
+@pytest.mark.gpu
+def test_cli_merge_model_bundle_equals_v2_infer_on_card(cuda, tmp_path,
+                                                        capsys):
+    """``merge_model``'s bundle, loaded by ``fluid.io`` and run on the card,
+    gives ``v2.infer``'s logits bit for bit (#8 once a call)."""
+    from paddle_tpu_torch import cli, fluid
+    from paddle_tpu_torch import v2 as paddle
+    from paddle_tpu_torch.v2.trainer import _V2Feeder
+    from torch_configs import rewrite
+    cfg_path = rewrite("examples/quick_start_sentiment.py", tmp_path)
+    save, bundle = str(tmp_path / "out"), str(tmp_path / "bundle")
+    assert cli.main(["train", "--config", cfg_path, "--save_dir",
+                     save]) == 0
+    tar = f"{save}/pass-00000/params.tar"
+    assert cli.main(["merge_model", "--config", cfg_path, "--model_path",
+                     tar, "--output_dir", bundle]) == 0
+    capsys.readouterr()
+    cfg = cli._load_config(cfg_path)
+    trainer = cli._make_trainer(cfg, "cuda")
+    with open(tar, "rb") as f:
+        trainer.parameters.from_tar(f)
+    rows = next(iter(cfg["test_reader"]()))
+    want = paddle.infer(cfg["outputs"][0], trainer, rows,
+                        feeding=cfg["feeding"])
+    exe = fluid.Executor(scope=fluid.Scope(), device="cuda")
+    prog, feeds, fetches = fluid.io.load_inference_model(bundle, exe)
+    assert feeds == ["words", "label"]
+    feed = _V2Feeder(cfg["feeding"], exe.device)(rows)
+    ck.reset_launch_counts()
+    got, = exe.run(prog, feed={k: v for k, v in feed.items()
+                               if k.startswith("words")},
+                   fetch_list=fetches)
+    assert ck.LAUNCHES["lstm_seq"] == 1
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cli_tune_check_on_card(cuda, tmp_path, capsys):
+    """``tune --check`` on the card: the smoke sweep times the kernels, and
+    the written cache reloads and resolves through the port's consults."""
+    from paddle_tpu_torch import cli
+    ck.reset_launch_counts()
+    assert cli.main(["tune", "--check", "--cache",
+                     str(tmp_path / "autotune.json")]) == 0
+    assert "--check OK" in capsys.readouterr().out
+    for name in ("lstm_seq", "lstm_seq_train", "lstm_seq_bwd",
+                 "decode_attention", "paged_decode_attention"):
+        assert ck.LAUNCHES[name] > 0, name

@@ -200,11 +200,14 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     """The port runs where JAX is absent: no module of paddle_tpu_torch, nor
     chip_smoke.py, the card tools under tools/ or the tests' torch-side
     helpers (tests/torch_spmd.py, tests/torch_elastic_net.py,
-    tests/torch_elastic_worker.py), may import jax or anything from
-    paddle_tpu."""
+    tests/torch_elastic_worker.py, tests/torch_configs.py and the
+    cluster_train workers tests/torch_cluster*.py), may import jax or
+    anything from paddle_tpu."""
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd.py"] \
+        + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_spmd.py",
+           ROOT / "tests" / "torch_configs.py"] \
         + sorted((ROOT / "tests").glob("torch_elastic_*.py")) \
+        + sorted((ROOT / "tests").glob("torch_cluster*.py")) \
         + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 10
     # the host runtime, the fault plane and the file formats among them
@@ -242,6 +245,9 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "arena", "capi_host", "coord", "lease")} | {
         "paddle_tpu_torch/trainer/elastic.py", "tests/torch_elastic_net.py",
         "tests/torch_elastic_worker.py"} <= rel
+    assert {"tests/torch_configs.py", "tests/torch_cluster.py"} | {
+        f"tests/torch_cluster_{k}_script.py"
+        for k in ("train", "restart", "death")} <= rel
     banned = {"jax", "jaxlib", "paddle_tpu"}
     bad = []
     for path in files:

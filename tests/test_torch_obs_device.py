@@ -188,4 +188,9 @@ def test_profile_decode_runs_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "self ms/step" in out and "trace:" in out
     assert os.path.exists(tmp_path / "trace.json")
-    assert cli.main(["profile", "--config", "x.py"]) == 2
+    # no workload is a usage error; a config of the JAX package is refused
+    assert cli.main(["profile", "--device", "cpu"]) == 2
+    assert cli.main(["profile", "--config",
+                     os.path.join(os.path.dirname(os.path.dirname(
+                         os.path.abspath(__file__))), "examples",
+                         "fit_a_line.py"), "--device", "cpu"]) == 2
